@@ -1,0 +1,26 @@
+"""PyTorch/CUDA port of the beholder_tpu accelerator path.
+
+The JAX package ``beholder_tpu`` stays the reference; this package is its
+counterpart for an NVIDIA Hopper card (H100, ``sm_90a``). It keeps the
+reference's module layout and names so a reader finds each counterpart:
+
+- :mod:`beholder_tpu_torch.ops.quant` — KV page quantizers (int8, fp8/E8M0);
+- :mod:`beholder_tpu_torch.ops.attention` — ``full_attention``;
+- :mod:`beholder_tpu_torch.ops.paged_attention` — ``paged_decode_attention``,
+  a hand-written CUDA kernel (``csrc/paged_decode.cu``) with its plain
+  PyTorch version beside it;
+- :mod:`beholder_tpu_torch.models.sequence` — ``TelemetrySequenceModel``;
+- :mod:`beholder_tpu_torch.models.bridge` — loads the reference's flax
+  params into the port's modules;
+- :mod:`beholder_tpu_torch.models.decode` — the dense forecast oracle;
+- :mod:`beholder_tpu_torch.models.serving` — the paged pool and the
+  ``ContinuousBatcher``.
+
+The package imports ``torch`` and numpy only: never ``jax`` and never a
+module of ``beholder_tpu``. Entry points run on the card unless the caller
+passes ``device="cpu"`` (see :func:`beholder_tpu_torch.device.resolve_device`).
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,358 @@
+"""Telemetry sequence model: the port of the reference's ``models/sequence.py``.
+
+A small causal transformer over telemetry streams: per-step features are
+(progress delta, one-hot status), predictions are next-step deltas. The
+arithmetic follows the flax modules it mirrors:
+
+- ``Dense(dtype=bf16)`` projections (q/k/v, proj, up, down) promote input,
+  weight and bias to bf16 and return bf16 (:func:`_dense_bf16`);
+- ``embed`` and ``head`` compute in the promoted type, f32 (:func:`_dense_f32`);
+- LayerNorm uses flax's defaults: epsilon 1e-6 and the fast variance
+  ``E[x^2] - E[x]^2`` computed in f32;
+- gelu is the tanh approximation, op by op in bf16 (:func:`_gelu_tanh`);
+- the residual stream stays f32.
+
+Only the full-attention forward, ``return_kv`` (prefill), the dense-cache
+decode step and the paged decode tick (:class:`PagedInfo`) are ported. The
+chunked paged branch, group-parallel forwards, flash/ring/ulysses attention,
+MoE, sequence sharding and remat raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch import nn
+
+from beholder_tpu_torch.device import resolve_device
+from beholder_tpu_torch.ops import NUM_STATUSES
+from beholder_tpu_torch.ops.attention import full_attention
+from beholder_tpu_torch.ops.paged_attention import (
+    PagedInfo,
+    QuantizedPool,
+    paged_decode_attention,
+)
+from beholder_tpu_torch.ops.quant import pool_quantize
+
+FEATURES = 1 + NUM_STATUSES
+
+
+def index_put_dropping_(
+    dst: torch.Tensor,
+    indices: tuple[torch.Tensor, ...],
+    values: torch.Tensor,
+    valid: torch.Tensor,
+) -> torch.Tensor:
+    """In place ``dst[indices][i] = values[i]`` where ``valid[i]``, other
+    entries dropped: the counterpart of JAX's ``.at[...].set(mode="drop")``
+    without a host synchronisation and without growing ``dst``. The valid
+    targets must be distinct. A dropped entry repeats the first valid
+    entry's write (same place, same value); when none is valid, every
+    entry writes back what its (clamped) place already holds. Either way
+    duplicates carry equal values, so the result is well defined."""
+    # a 1-element index tensor, never a 0-d one: indexing with a 0-d
+    # tensor reads it back to the host
+    first = torch.argmax(valid.to(torch.int32)).reshape(1)
+    any_valid = valid.index_select(0, first)
+    idx = []
+    for dim, ix in enumerate(indices):
+        ix = ix.to(torch.int64).clamp(0, dst.shape[dim] - 1)
+        idx.append(torch.where(valid, ix, torch.where(any_valid, ix.index_select(0, first), ix)))
+    idx = tuple(idx)
+    shape = (-1,) + (1,) * (values.ndim - 1)
+    values = values.to(dst.dtype)
+    fallback = torch.where(
+        any_valid.view(shape), values.index_select(0, first), dst[idx]
+    )
+    dst.index_put_(idx, torch.where(valid.view(shape), values, fallback))
+    return dst
+
+
+def _pool_write_column(pool, info: PagedInfo, col: torch.Tensor):
+    """Write each slot's new (Hkv, Dh) kv column into its write page at its
+    write offset, in place (the pool is updated, not copied); inactive
+    slots (``write_pages == N``) drop. Quantized pools quantize the column
+    per (head, token) on the way in."""
+    values = pool.values if isinstance(pool, QuantizedPool) else pool
+    valid = info.write_pages < values.shape[0]
+    idx = (info.write_pages, info.write_offsets)
+    if isinstance(pool, QuantizedPool):
+        q, scale = pool_quantize(col, axis=-1, values_dtype=pool.values.dtype)
+        # tokens-minor pools: index (page, offset) on a (N, page, ...) view
+        index_put_dropping_(pool.values.permute(0, 3, 1, 2), idx, q, valid)
+        index_put_dropping_(pool.scales.permute(0, 2, 1), idx, scale, valid)
+        return pool
+    index_put_dropping_(pool.permute(0, 3, 1, 2), idx, col, valid)
+    return pool
+
+
+def _dense_bf16(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """flax ``Dense(dtype=bf16)``: the product rounds to bf16, then the
+    bf16 bias is added (another bf16 rounding), as XLA does it."""
+    y = torch.matmul(x.to(torch.bfloat16), lin.weight.to(torch.bfloat16).t())
+    return y + lin.bias.to(torch.bfloat16)
+
+
+def _dense_f32(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """flax ``Dense`` computing in f32 (``embed``, ``head``)."""
+    return torch.matmul(x.float(), lin.weight.float().t()) + lin.bias.float()
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu`` (the tanh approximation) op by op in x's dtype,
+    with its constants rounded to that dtype, as XLA runs it on a bf16
+    input: bitwise the reference. ``F.gelu(approximate="tanh")`` rounds
+    once at the end instead and lands up to a bf16 ULP away, which the
+    rest of the forward then carries."""
+    c, a = _gelu_constants(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
+
+
+@functools.lru_cache(maxsize=None)
+def _gelu_constants(dtype: torch.dtype) -> tuple[float, float]:
+    """sqrt(2/pi) and 0.044715 rounded to ``dtype``, as jax.nn.gelu
+    embeds them."""
+    return (
+        torch.tensor(0.7978845608028654, dtype=dtype).item(),
+        torch.tensor(0.044715, dtype=dtype).item(),
+    )
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm()``: epsilon 1e-6, fast variance, f32 math."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.eps = 1e-6
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mu = x.mean(dim=-1, keepdim=True)
+        mu2 = (x * x).mean(dim=-1, keepdim=True)
+        var = torch.clamp(mu2 - mu * mu, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (x - mu) * mul + self.bias.float()
+
+
+def _dense_attention(q, k_cache, v_cache, index, window, t):
+    """The dense-cache decode attention of the reference's ``Block``
+    (``sequence.py:313-369``): bf16 score product, divided by an f32
+    ``sqrt(dh)``, masked by position, f32 softmax, bf16 weights for PV."""
+    b, h, _, dh = q.shape
+    hkv = k_cache.shape[1]
+    g = h // hkv
+    qg = q.to(k_cache.dtype).reshape(b, hkv, g, t, dh)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_cache)
+    scores = scores.float() / torch.sqrt(torch.tensor(float(dh)))
+    positions = torch.arange(k_cache.shape[2], device=q.device)
+    steps = torch.arange(t, device=q.device)
+    if index.ndim == 1:
+        pos_q = index[:, None] + steps                               # (B, t)
+        live = positions[None, None, :] <= pos_q[:, :, None]
+        if window is not None:
+            live = live & (positions[None, None, :] > pos_q[:, :, None] - window)
+        live = live[:, None, None, :, :]
+    else:
+        pos_q = index + steps
+        live = positions[None, :] <= pos_q[:, None]
+        if window is not None:
+            live = live & (positions[None, :] > pos_q[:, None] - window)
+        live = live[None, None, None, :, :]
+    scores = torch.where(live, scores, -1e30)
+    weights = torch.softmax(scores, dim=-1)
+    att = torch.einsum("bhgqk,bhkd->bhgqd", weights.to(q.dtype), v_cache)
+    return att.reshape(b, h, t, dh)
+
+
+def _write_dense_cache(cache: torch.Tensor, new: torch.Tensor, index):
+    """Write (B, Hkv, t, Dh) columns into a dense (B, Hkv, L, Dh) cache in
+    place: at ``index`` for a scalar index, at ``index[b]`` per row for a
+    vector index (positions past L drop)."""
+    b, _, t, _ = new.shape
+    new = new.to(cache.dtype)
+    steps = torch.arange(t, device=cache.device)
+    if index.ndim == 0:
+        cache.index_copy_(2, index.to(torch.int64) + steps, new)
+        return cache
+    rows = torch.arange(b, device=cache.device)[:, None].expand(b, t)
+    pos = index.to(torch.int64)[:, None] + steps                     # (B, t)
+    index_put_dropping_(
+        cache.permute(0, 2, 1, 3),
+        (rows.reshape(-1), pos.reshape(-1)),
+        new.permute(0, 2, 1, 3).reshape(b * t, *new.shape[1:2], new.shape[3]),
+        pos.reshape(-1) < cache.shape[2],
+    )
+    return cache
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block: attention (full, dense-cache decode or
+    paged decode tick) and a gelu MLP."""
+
+    def __init__(
+        self,
+        dim: int,
+        heads: int,
+        *,
+        kv_heads: int | None = None,
+        window: int | None = None,
+        attention: str = "full",
+        device=None,
+    ):
+        super().__init__()
+        if attention != "full":
+            raise NotImplementedError(f"attention={attention!r} is not ported yet")
+        hkv = kv_heads or heads
+        if heads % hkv:
+            raise ValueError(f"heads {heads} not a multiple of kv_heads {hkv}")
+        self.dim, self.heads, self.kv_heads, self.window = dim, heads, hkv, window
+        dh = dim // heads
+        self.ln0 = LayerNorm(dim, device=device)
+        self.q_proj = nn.Linear(dim, dim, device=device)
+        self.k_proj = nn.Linear(dim, hkv * dh, device=device)
+        self.v_proj = nn.Linear(dim, hkv * dh, device=device)
+        self.proj = nn.Linear(dim, dim, device=device)
+        self.ln1 = LayerNorm(dim, device=device)
+        self.up = nn.Linear(dim, 4 * dim, device=device)
+        self.down = nn.Linear(4 * dim, dim, device=device)
+
+    def forward(self, x: torch.Tensor, cache=None, return_kv: bool = False, group=None):
+        """Full forward, or with ``cache=(k, v, index)`` one cached step:
+        ``index`` a :class:`PagedInfo` (paged decode tick, t == 1) or an
+        integer tensor (dense cache: scalar, or one position per row).
+        Caches and pools are updated in place and returned."""
+        if group is not None:
+            raise NotImplementedError("group-parallel forwards are not ported yet")
+        b, t, d = x.shape
+        h, hkv = self.heads, self.kv_heads
+        dh = d // h
+        y = self.ln0(x)
+        q = _dense_bf16(y, self.q_proj).reshape(b, t, h, dh).transpose(1, 2)
+        k = _dense_bf16(y, self.k_proj).reshape(b, t, hkv, dh).transpose(1, 2)
+        v = _dense_bf16(y, self.v_proj).reshape(b, t, hkv, dh).transpose(1, 2)
+        if cache is not None:
+            k_cache, v_cache, index = cache
+            if isinstance(index, PagedInfo):
+                if t != 1:
+                    raise ValueError(f"the paged decode tick takes t == 1, got {t}")
+                q_col, k_col, v_col = q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :]
+                k_cache = _pool_write_column(k_cache, index, k_col)
+                v_cache = _pool_write_column(v_cache, index, v_col)
+                quant = isinstance(k_cache, QuantizedPool)
+                att = paged_decode_attention(
+                    q_col.contiguous(),
+                    k_cache.values if quant else k_cache,
+                    v_cache.values if quant else v_cache,
+                    index.page_table,
+                    index.lens,
+                    window=self.window,
+                    k_scale=k_cache.scales if quant else None,
+                    v_scale=v_cache.scales if quant else None,
+                )[:, :, None, :]                                    # (S, H, 1, Dh)
+            elif isinstance(index, torch.Tensor) and not index.is_floating_point():
+                if index.ndim > 1:
+                    raise ValueError(f"cache index must be 0-d or 1-d, got {index.ndim}-d")
+                k_cache = _write_dense_cache(k_cache, k, index)
+                v_cache = _write_dense_cache(v_cache, v, index)
+                att = _dense_attention(q, k_cache, v_cache, index, self.window, t)
+            else:
+                raise NotImplementedError(
+                    f"cache index {type(index).__name__} is not ported yet"
+                )
+            kv_out = (k_cache, v_cache)
+        else:
+            kv_out = (k, v)
+            att = full_attention(q, k, v, causal=True, window=self.window)
+        att = att.transpose(1, 2).reshape(b, t, d)
+        x = x + _dense_bf16(att, self.proj).to(x.dtype)
+        y = self.ln1(x)
+        y = _gelu_tanh(_dense_bf16(y, self.up))
+        x = x + _dense_bf16(y, self.down).to(x.dtype)
+        if cache is not None or return_kv:
+            return x, kv_out
+        return x
+
+
+class TelemetrySequenceModel(nn.Module):
+    """Causal next-delta predictor over telemetry streams."""
+
+    def __init__(
+        self,
+        dim: int = 128,
+        heads: int = 4,
+        layers: int = 2,
+        *,
+        kv_heads: int | None = None,
+        window: int | None = None,
+        attention: str = "full",
+        ffn: str = "dense",
+        remat: bool = False,
+        seq_shard: bool = False,
+        device=None,
+    ):
+        super().__init__()
+        if ffn != "dense":
+            raise NotImplementedError(f"ffn={ffn!r} is not ported yet")
+        if remat or seq_shard:
+            raise NotImplementedError("remat and seq_shard are not ported yet")
+        device = resolve_device(device)
+        self.dim, self.heads, self.layers = dim, heads, layers
+        self.kv_heads, self.window = kv_heads, window
+        self.embed = nn.Linear(FEATURES, dim, device=device)
+        self.blocks = nn.ModuleList(
+            Block(dim, heads, kv_heads=kv_heads, window=window,
+                  attention=attention, device=device)
+            for _ in range(layers)
+        )
+        self.ln = LayerNorm(dim, device=device)
+        self.head = nn.Linear(dim, 1, device=device)
+        self.requires_grad_(False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.weight.device
+
+    def forward(self, feats: torch.Tensor, cache=None, return_kv: bool = False, group=None):
+        """(B, T, FEATURES) -> (B, T) predicted next delta per position.
+        With ``cache=(keys, values, index)`` (per-layer sequences) one cached
+        step; with ``return_kv`` the per-layer (k, v) come back too."""
+        if group is not None:
+            raise NotImplementedError("group-parallel forwards are not ported yet")
+        x = _dense_f32(feats, self.embed)
+        kvs = []
+        for i, block in enumerate(self.blocks):
+            if cache is not None:
+                x, kv = block(x, cache=(cache[0][i], cache[1][i], cache[2]))
+                kvs.append(kv)
+            elif return_kv:
+                x, kv = block(x, return_kv=True)
+                kvs.append(kv)
+            else:
+                x = block(x)
+        preds = _dense_f32(self.ln(x), self.head)[..., 0]
+        if cache is not None or return_kv:
+            return preds, kvs
+        return preds
+
+
+def one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hot of integer ``x`` over ``n`` classes. Unlike
+    ``F.one_hot`` it never checks its input's range, so it never reads
+    the device from the host."""
+    return (x.to(torch.int64)[..., None] == torch.arange(n, device=x.device)).float()
+
+
+def stream_features(
+    progress: torch.Tensor, statuses: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T+1) progress / statuses -> (B, T, F) feats, (B, T) targets:
+    feature t is (delta_t, one-hot status_t), target t is delta_{t+1} (the
+    last target is a zero pad)."""
+    deltas = torch.diff(progress.float(), dim=-1)
+    oh = one_hot(statuses[:, 1:], NUM_STATUSES)
+    feats = torch.cat([deltas[..., None], oh], dim=-1)
+    targets = torch.cat([deltas[:, 1:], torch.zeros_like(deltas[:, :1])], dim=-1)
+    return feats, targets

@@ -1,0 +1,7 @@
+"""Tensor ops of the port: quantizers, attention, the paged decode kernel."""
+
+#: telemetry status count (copied from the reference's ``ops/aggregate.py``;
+#: the port imports nothing from the JAX package)
+NUM_STATUSES = 6
+
+__all__ = ["NUM_STATUSES"]
