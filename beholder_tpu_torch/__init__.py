@@ -6,15 +6,23 @@ reference's module layout and names so a reader finds each counterpart:
 
 - :mod:`beholder_tpu_torch.ops.quant` — KV page quantizers (int8, fp8/E8M0);
 - :mod:`beholder_tpu_torch.ops.attention` — ``full_attention``;
-- :mod:`beholder_tpu_torch.ops.paged_attention` — ``paged_decode_attention``,
-  a hand-written CUDA kernel (``csrc/paged_decode.cu``) with its plain
+- :mod:`beholder_tpu_torch.ops.paged_attention` — ``paged_decode_attention``
+  and ``paged_chunk_attention``, hand-written CUDA kernels
+  (``csrc/paged_decode.cu``, ``csrc/paged_chunk.cu``), each with its plain
   PyTorch version beside it;
+- :mod:`beholder_tpu_torch.cache.prefix` — the automatic prefix cache (a
+  radix index over page hashes, host side);
 - :mod:`beholder_tpu_torch.models.sequence` — ``TelemetrySequenceModel``;
 - :mod:`beholder_tpu_torch.models.bridge` — loads the reference's flax
   params into the port's modules;
 - :mod:`beholder_tpu_torch.models.decode` — the dense forecast oracle;
 - :mod:`beholder_tpu_torch.models.serving` — the paged pool and the
-  ``ContinuousBatcher``.
+  ``ContinuousBatcher``: cold, fused-wave and prefix-hit admission, forks
+  and what-if forecasts.
+
+Not ported yet: speculative decoding, the intake queue, metrics, tracing,
+the flight recorder, deadlines, autotune, training, the cluster and group
+engines, and the flash-attention and aggregate kernels.
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

@@ -12,10 +12,14 @@ arithmetic follows the flax modules it mirrors:
 - gelu is the tanh approximation, op by op in bf16 (:func:`_gelu_tanh`);
 - the residual stream stays f32.
 
-Only the full-attention forward, ``return_kv`` (prefill), the dense-cache
-decode step and the paged decode tick (:class:`PagedInfo`) are ported. The
-chunked paged branch, group-parallel forwards, flash/ring/ulysses attention,
-MoE, sequence sharding and remat raise ``NotImplementedError``.
+Ported: the full-attention forward, ``return_kv`` (prefill), the
+dense-cache step (scalar or per-row index, ``t >= 1``), the paged decode
+tick (:class:`PagedInfo`) and the fused chunk forward over the paged pools
+(:class:`ChunkPagedInfo`, prefix-hit and fused-wave admission). The dense
+branches and the chunk kernel's plain version share one op sequence
+(:func:`~beholder_tpu_torch.ops.attention.attend`). Group-parallel
+forwards, flash/ring/ulysses attention, MoE, sequence sharding and remat
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ from torch import nn
 
 from beholder_tpu_torch.device import resolve_device
 from beholder_tpu_torch.ops import NUM_STATUSES
-from beholder_tpu_torch.ops.attention import full_attention
+from beholder_tpu_torch.ops.attention import attend, full_attention
 from beholder_tpu_torch.ops.paged_attention import (
+    ChunkPagedInfo,
     PagedInfo,
     QuantizedPool,
+    paged_chunk_attention,
     paged_decode_attention,
 )
 from beholder_tpu_torch.ops.quant import pool_quantize
@@ -138,15 +144,11 @@ class LayerNorm(nn.Module):
 
 
 def _dense_attention(q, k_cache, v_cache, index, window, t):
-    """The dense-cache decode attention of the reference's ``Block``
-    (``sequence.py:313-369``): bf16 score product, divided by an f32
-    ``sqrt(dh)``, masked by position, f32 softmax, bf16 weights for PV."""
-    b, h, _, dh = q.shape
-    hkv = k_cache.shape[1]
-    g = h // hkv
-    qg = q.to(k_cache.dtype).reshape(b, hkv, g, t, dh)
-    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_cache)
-    scores = scores.float() / torch.sqrt(torch.tensor(float(dh)))
+    """The dense-cache attention of the reference's ``Block``
+    (``sequence.py:313-369``): query ``j`` of row ``b`` sits at ``index +
+    j`` (a scalar index) or ``index[b] + j`` (one per row) and sees cache
+    positions up to itself, within ``window``; the op sequence is
+    :func:`attend`'s."""
     positions = torch.arange(k_cache.shape[2], device=q.device)
     steps = torch.arange(t, device=q.device)
     if index.ndim == 1:
@@ -161,10 +163,7 @@ def _dense_attention(q, k_cache, v_cache, index, window, t):
         if window is not None:
             live = live & (positions[None, :] > pos_q[:, None] - window)
         live = live[None, None, None, :, :]
-    scores = torch.where(live, scores, -1e30)
-    weights = torch.softmax(scores, dim=-1)
-    att = torch.einsum("bhgqk,bhkd->bhgqd", weights.to(q.dtype), v_cache)
-    return att.reshape(b, h, t, dh)
+    return attend(q, k_cache, v_cache, live)
 
 
 def _write_dense_cache(cache: torch.Tensor, new: torch.Tensor, index):
@@ -189,8 +188,8 @@ def _write_dense_cache(cache: torch.Tensor, new: torch.Tensor, index):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: attention (full, dense-cache decode or
-    paged decode tick) and a gelu MLP."""
+    """Pre-LN transformer block: attention (full, dense-cache step, paged
+    decode tick or paged chunk) and a gelu MLP."""
 
     def __init__(
         self,
@@ -221,9 +220,11 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, cache=None, return_kv: bool = False, group=None):
         """Full forward, or with ``cache=(k, v, index)`` one cached step:
-        ``index`` a :class:`PagedInfo` (paged decode tick, t == 1) or an
-        integer tensor (dense cache: scalar, or one position per row).
-        Caches and pools are updated in place and returned."""
+        ``index`` a :class:`PagedInfo` (paged decode tick, t == 1), a
+        :class:`ChunkPagedInfo` (paged chunk, t >= 1: the chunk's own (k, v)
+        come back and the pools are not written) or an integer tensor
+        (dense cache: scalar, or one position per row). Dense caches and
+        the tick's pools are updated in place and returned."""
         if group is not None:
             raise NotImplementedError("group-parallel forwards are not ported yet")
         b, t, d = x.shape
@@ -252,6 +253,24 @@ class Block(nn.Module):
                     k_scale=k_cache.scales if quant else None,
                     v_scale=v_cache.scales if quant else None,
                 )[:, :, None, :]                                    # (S, H, 1, Dh)
+            elif isinstance(index, ChunkPagedInfo):
+                # the t >= 1 chunk attends its slot's pages in place plus its
+                # own kv (the kernel's overlay); nothing is written to the
+                # pools here: the caller writes the columns it keeps
+                quant = isinstance(k_cache, QuantizedPool)
+                att = paged_chunk_attention(
+                    q.contiguous(), k.contiguous(), v.contiguous(),
+                    k_cache.values if quant else k_cache,
+                    v_cache.values if quant else v_cache,
+                    index.page_table,
+                    index.lens,
+                    ctx_len=index.ctx_len,
+                    live_pages=index.live_pages,
+                    window=self.window,
+                    k_scale=k_cache.scales if quant else None,
+                    v_scale=v_cache.scales if quant else None,
+                )                                                   # (S, H, t, Dh)
+                k_cache, v_cache = k, v      # the chunk's own kv columns
             elif isinstance(index, torch.Tensor) and not index.is_floating_point():
                 if index.ndim > 1:
                     raise ValueError(f"cache index must be 0-d or 1-d, got {index.ndim}-d")

@@ -22,13 +22,20 @@ How the reference's JAX idioms map here:
 Host rules kept from the reference: page headroom and retirement are host
 arithmetic over request lengths, features are built in numpy and copied up
 asynchronously, and nothing is read back from the card in the middle of a
-run. :meth:`ContinuousBatcher.run` reads one packed buffer at its end;
+run. :meth:`ContinuousBatcher.run` reads one packed buffer at its end, plus
+one page-table readback per admission round when it keeps a prefix cache;
 :meth:`ContinuousBatcher.run_waves` with ``device_results=True`` reads
 nothing.
 
-Not ported yet: fused chunk admission (``fused=True``), prefix caching,
-forks and ``run_what_if``, speculative decoding, metrics, tracing, the
-flight recorder, deadlines and the intake queue.
+Ported: cold admission (dense prefill, or ``fused=True`` through the paged
+chunk kernel of ``csrc/paged_chunk.cu``), prefix-hit admission
+(:func:`paged_admit_with_prefix`, dense or fused) with the automatic prefix
+cache (:class:`beholder_tpu_torch.cache.PrefixCache`: lookup, pinning,
+eviction under pool pressure), forks (:func:`paged_fork`,
+:func:`fork_wave`, :meth:`ContinuousBatcher.run_what_if`), and the batcher's
+``run`` / ``run_waves``. Not ported yet: speculative decoding, the intake
+queue (``submit``/``run_pending``), metrics, tracing, the flight recorder,
+deadlines, autotune and group-parallel serving.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch.nn.functional as F
 
 from beholder_tpu_torch.device import resolve_device, to_device
 from beholder_tpu_torch.ops import NUM_STATUSES
-from beholder_tpu_torch.ops.paged_attention import PagedInfo, QuantizedPool
+from beholder_tpu_torch.ops.paged_attention import ChunkPagedInfo, PagedInfo, QuantizedPool
 from beholder_tpu_torch.ops.quant import E8M0_BIAS, pool_quantize, pool_scales_f32
 
 from .sequence import TelemetrySequenceModel, index_put_dropping_, one_hot
@@ -149,6 +156,23 @@ def _scatter_small(old: torch.Tensor, idx: torch.Tensor, vals, valid: torch.Tens
     return torch.where(sel, vals[src], old)
 
 
+def _one_hot_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of ``0..n-1`` occurs in ``ids`` (int32): the
+    counterpart of ``.at[ids].add(1, mode="drop")``; ids outside the range
+    count nowhere."""
+    rows = torch.arange(n, device=ids.device)
+    return (ids.to(torch.int64)[:, None] == rows[None, :]).sum(dim=0, dtype=torch.int32)
+
+
+def _on_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``x`` (a Python number or a tensor) as a 1-element tensor on
+    ``device``. A number is filled in on the device: ``torch.as_tensor`` would
+    copy it up from pageable memory, which synchronises."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype).reshape(1)
+    return torch.full((1,), x, dtype=dtype, device=device)
+
+
 def _pop_pages(state: PagedKVState, need: torch.Tensor):
     """Vectorized masked stack pop: needer i (with ``need[i]``) gets page
     ``free_stack[free_top - 1 - rank_i]``; popped pages start at refcount
@@ -172,8 +196,8 @@ def _unref_pages(
     vectorized compaction (no dedup needed when slots shared a page)."""
     num_pages, _ = _pool_geometry(state)
     ids = torch.arange(num_pages, device=state.page_ref.device)
-    hits = (held_flat.to(torch.int64)[:, None] == ids[None, :]) & alive_flat[:, None]
-    ref = state.page_ref - hits.sum(dim=0, dtype=torch.int32)
+    held = torch.where(alive_flat, held_flat.to(torch.int64), num_pages)
+    ref = state.page_ref - _one_hot_counts(held, num_pages)
     newly_free = (ref <= 0) & (state.page_ref > 0)
     rank = torch.cumsum(newly_free.to(torch.int32), 0, dtype=torch.int32) - 1
     dest = state.free_top + rank
@@ -278,13 +302,17 @@ def paged_admit_batch(
     prefix_lens: torch.Tensor,
     fused: bool = False,
 ):
-    """Admit a wave of requests with one dense prefill: ``feats_padded``
-    (n, T_max, F) with a page-multiple T_max, ``slot_ids``/``prefix_lens``
+    """Admit a wave of requests with one prefill: ``feats_padded`` (n,
+    T_max, F) with a page-multiple T_max, ``slot_ids``/``prefix_lens``
     (n,). A request with ``prefix_lens[i] == 0`` is skipped. Allocates
     ceil(len/page) pages per request and writes the prefix kv into them.
+
+    ``fused=False`` runs the dense prefill (``return_kv``); ``fused=True``
+    runs the same forward through the paged chunk kernel with an empty
+    context (lens 0, width T_max: the dense branch's width), so each chunk
+    attends itself causally and no dense per-wave context is built. Both
+    return the chunk's own kv columns, written below the same way.
     Returns ((n,) last predictions, state)."""
-    if fused:
-        raise NotImplementedError("fused (chunk-kernel) admission is not ported yet")
     num_pages, page = _pool_geometry(state)
     slots, max_pages = state.page_table.shape
     n, t_max, _ = feats_padded.shape
@@ -293,7 +321,15 @@ def paged_admit_batch(
     p_max = t_max // page
     dev = feats_padded.device
 
-    preds, kvs = model(feats_padded, return_kv=True)
+    if fused:
+        info = ChunkPagedInfo(
+            torch.zeros((n, 1), dtype=torch.int32, device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev),
+            t_max,
+        )
+        preds, kvs = model(feats_padded, cache=(state.k_pools, state.v_pools, info))
+    else:
+        preds, kvs = model(feats_padded, return_kv=True)
     prefix_lens = prefix_lens.to(torch.int32)
     last_pred = preds[
         torch.arange(n, device=dev), (prefix_lens - 1).clamp(0, t_max - 1).to(torch.int64)
@@ -353,11 +389,144 @@ def paged_admit(
     dev = feats_padded.device
     preds, state = paged_admit_batch(
         model, state,
-        torch.as_tensor(slot, dtype=torch.int32, device=dev).reshape(1),
+        _on_device(slot, torch.int32, dev),
         feats_padded,
-        torch.as_tensor(prefix_len, dtype=torch.int32, device=dev).reshape(1),
+        _on_device(prefix_len, torch.int32, dev),
     )
     return preds[0], state
+
+
+def paged_admit_with_prefix(
+    model: TelemetrySequenceModel,
+    state: PagedKVState,
+    slot,
+    suffix_feats: torch.Tensor,
+    suffix_len,
+    cached_pages: torch.Tensor,
+    fused: bool = False,
+):
+    """Admit one request whose first ``len(cached_pages) * page`` tokens are
+    already in the pool (a prefix-cache hit): prefill only the suffix.
+
+    ``suffix_feats`` is the (1, S_max, F) page-multiple-padded feature tail,
+    ``suffix_len`` how many of its rows are real (>= 1), ``cached_pages``
+    the (P_hit,) chain of pool pages holding the prefix, root-first.
+
+    ``fused=False`` (the oracle) gathers the hit pages into a dense (1, Hkv,
+    T_hit + S_max, Dh) bf16 context (dequantized under quantized pools) and
+    runs the suffix through the scalar-index dense-cache forward;
+    ``fused=True`` attends the cached pages in place through the paged
+    chunk kernel at the same width. Either way the suffix kv goes into
+    freshly popped pages as :func:`paged_admit_batch` writes them, and the
+    slot takes one reference on every adopted page (the cache's own
+    reference keeps it resident after the slot retires).
+    Returns ((,) last prediction, state)."""
+    num_pages, page = _pool_geometry(state)
+    slots, max_pages = state.page_table.shape
+    _, s_max, _ = suffix_feats.shape
+    if s_max % page:
+        raise ValueError(f"padded suffix {s_max} not a page multiple ({page})")
+    dev = suffix_feats.device
+    cached_pages = cached_pages.to(torch.int32)
+    p_hit = cached_pages.shape[0]
+    t_hit = p_hit * page
+    p_sfx = s_max // page
+    suffix_len = _on_device(suffix_len, torch.int32, dev).reshape(())
+
+    if fused:
+        info = ChunkPagedInfo(
+            cached_pages[None, :],
+            torch.full((1,), t_hit, dtype=torch.int32, device=dev),
+            t_hit + s_max,
+        )
+        preds, kvs = model(suffix_feats, cache=(state.k_pools, state.v_pools, info))
+    else:
+        ids = cached_pages.to(torch.int64)
+
+        def ctx_cache(pool):
+            if isinstance(pool, QuantizedPool):
+                g = (
+                    pool.values[ids].float()
+                    * pool_scales_f32(pool.scales[ids])[:, :, None, :]
+                ).to(torch.bfloat16)
+            else:
+                g = pool[ids].to(torch.bfloat16)              # (P, Hkv, Dh, page)
+            hkv, dh = g.shape[1], g.shape[2]
+            buf = torch.zeros((1, hkv, t_hit + s_max, dh), dtype=torch.bfloat16, device=dev)
+            buf[0, :, :t_hit] = g.permute(1, 0, 3, 2).reshape(hkv, t_hit, dh)
+            return buf
+
+        preds, kvs = model(
+            suffix_feats,
+            cache=(
+                tuple(ctx_cache(p) for p in state.k_pools),
+                tuple(ctx_cache(p) for p in state.v_pools),
+                torch.tensor(t_hit, dtype=torch.int64, device=dev),
+            ),
+        )
+    last = (suffix_len - 1).clamp(0, s_max - 1).to(torch.int64).reshape(1)
+    last_pred = preds[0].index_select(0, last).reshape(())
+
+    n_sfx_pages = (suffix_len + page - 1) // page
+    chunk_alive = torch.arange(p_sfx, device=dev) < n_sfx_pages
+    pages, new_top, ref, failed = _pop_pages(state, chunk_alive)
+    failed = failed | (p_hit + n_sfx_pages > max_pages)
+    drop = torch.where(chunk_alive, pages, num_pages)
+
+    def chunks(a):
+        # the suffix's (Hkv, S_max, Dh) columns -> (p_sfx, Hkv, Dh, page):
+        # the fused path returns exactly those, the dense path its whole
+        # updated context
+        a = a[0] if fused else a[0, :, t_hit:]
+        hkv, _, dh = a.shape
+        return a.transpose(1, 2).reshape(hkv, dh, p_sfx, page).permute(2, 0, 1, 3)
+
+    k_pools = tuple(
+        _write_chunks(pool, drop, chunks(k)) for pool, (k, _) in zip(state.k_pools, kvs)
+    )
+    v_pools = tuple(
+        _write_chunks(pool, drop, chunks(v)) for pool, (_, v) in zip(state.v_pools, kvs)
+    )
+    # adopted pages: one more reference each, for this slot
+    ref = ref + _one_hot_counts(cached_pages, num_pages)
+
+    row = torch.cat([
+        cached_pages,
+        torch.where(chunk_alive, pages, 0),
+        torch.zeros((max(0, max_pages - p_hit - p_sfx),), dtype=torch.int32, device=dev),
+    ])[:max_pages]
+    sid = _on_device(slot, torch.int64, dev).clamp(0, slots - 1)
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    return last_pred, state._replace(
+        k_pools=k_pools,
+        v_pools=v_pools,
+        page_table=_scatter_small(state.page_table, sid, row[None], one),
+        seq_lens=_scatter_small(state.seq_lens, sid, (t_hit + suffix_len).reshape(1), one),
+        active=_scatter_small(state.active, sid, True, one),
+        free_top=new_top,
+        page_ref=ref,
+        alloc_failed=failed,
+    )
+
+
+def cache_ref_pages(
+    state: PagedKVState, page_ids: torch.Tensor, alive: torch.Tensor
+) -> PagedKVState:
+    """Take the prefix cache's one reference on each freshly indexed page
+    (``page_ids`` where ``alive``): slot release then leaves the page
+    resident at refcount >= 1, a cold cached page."""
+    num_pages, _ = _pool_geometry(state)
+    ids = torch.where(alive, page_ids.to(torch.int64), num_pages)
+    return state._replace(page_ref=state.page_ref + _one_hot_counts(ids, num_pages))
+
+
+def cache_unref_pages(
+    state: PagedKVState, page_ids: torch.Tensor, alive: torch.Tensor
+) -> PagedKVState:
+    """Drop the cache's reference on evicted pages. A page still shared
+    with a live or forked slot stays off the free stack (the allocator's
+    unref pushes only pages whose count reaches zero)."""
+    return _unref_pages(state, page_ids, alive)
 
 
 def paged_release_many(state: PagedKVState, slot_ids: torch.Tensor) -> PagedKVState:
@@ -382,7 +551,62 @@ def paged_release(state: PagedKVState, slot) -> PagedKVState:
     """Retire ``slot``: drop one reference from each of its pages."""
     dev = state.seq_lens.device
     return paged_release_many(
-        state, torch.as_tensor(slot, dtype=torch.int32, device=dev).reshape(1)
+        state, _on_device(slot, torch.int32, dev)
+    )
+
+
+def paged_fork(state: PagedKVState, src, dst_slots: torch.Tensor) -> PagedKVState:
+    """Fork slot ``src``'s sequence into each slot of ``dst_slots``
+    (distinct, not containing ``src``). Every full page of the source is
+    shared by reference (+1 per fork): a slot only writes at its own
+    length, past every full page. A partial tail page will take the forks'
+    writes, so each fork gets its own copy of it, in a freshly popped page.
+    Destinations become active at the source's length. The pools are
+    updated in place; the source tail page is read (copied out) before any
+    destination page is written."""
+    num_pages, page = _pool_geometry(state)
+    _, max_pages = state.page_table.shape
+    dev = state.seq_lens.device
+    dst = dst_slots.to(torch.int64)
+    k = dst.shape[0]
+    if k == 0:
+        return state
+    src_i = _on_device(src, torch.int64, dev)
+    length = state.seq_lens.index_select(0, src_i)                   # (1,)
+    n_full = length // page
+    src_row = state.page_table.index_select(0, src_i)[0]            # (max_pages,)
+    cols = torch.arange(max_pages, device=dev)
+
+    # the full prefix pages: one more reference per fork
+    share_alive = cols < n_full
+    shared = torch.where(share_alive, src_row.to(torch.int64), num_pages)
+    state = state._replace(page_ref=state.page_ref + k * _one_hot_counts(shared, num_pages))
+
+    # one fresh page per fork for the tail copy (none when there is no tail)
+    need = ((length % page) != 0).expand(k)
+    pages, new_top, ref, failed = _pop_pages(state, need)
+    tail_col = n_full.clamp(0, max_pages - 1)                        # (1,)
+    src_tail = src_row.index_select(0, tail_col).to(torch.int64).clamp(0, num_pages - 1)
+    dest = torch.where(need, pages, num_pages)
+
+    def copy_tail(pool):
+        for part in ((pool.values, pool.scales) if isinstance(pool, QuantizedPool) else (pool,)):
+            src_page = part.index_select(0, src_tail)  # a copy, read first
+            index_put_dropping_(part, (dest,), src_page.expand(k, *part.shape[1:]), need)
+        return pool
+
+    rows = torch.where(share_alive, src_row, 0)[None, :].expand(k, max_pages)
+    rows = torch.where((cols[None, :] == tail_col) & need[:, None], pages[:, None], rows)
+    every = torch.ones((k,), dtype=torch.bool, device=dev)
+    return state._replace(
+        k_pools=tuple(copy_tail(p) for p in state.k_pools),
+        v_pools=tuple(copy_tail(p) for p in state.v_pools),
+        page_table=_scatter_small(state.page_table, dst, rows, every),
+        seq_lens=_scatter_small(state.seq_lens, dst, length.expand(k), every),
+        active=_scatter_small(state.active, dst, True, every),
+        free_top=new_top,
+        page_ref=ref,
+        alloc_failed=failed,
     )
 
 
@@ -449,6 +673,33 @@ def serve_wave(
     return deltas[:n], state
 
 
+def fork_wave(
+    model: TelemetrySequenceModel,
+    state: PagedKVState,
+    feats_padded: torch.Tensor,
+    prefix_len,
+    branch_statuses: torch.Tensor,
+    n_ticks: int,
+):
+    """What-if forecasting: prefill one telemetry prefix once (slot 0),
+    :func:`paged_fork` it into ``k - 1`` more slots, pin each slot's status
+    one-hot to its own branch (``branch_statuses`` (k,)), roll all branches
+    ``n_ticks`` ticks, release. Returns ((k, n_ticks + 1) deltas, state)."""
+    k = branch_statuses.shape[0]
+    if feats_padded.shape[0] != 1:
+        raise ValueError(f"fork_wave takes ONE prefix, got {feats_padded.shape[0]}")
+    dev = feats_padded.device
+    preds, state = paged_admit_batch(
+        model, state, torch.zeros((1,), dtype=torch.int32, device=dev), feats_padded,
+        _on_device(prefix_len, torch.int32, dev),
+    )
+    state = paged_fork(state, 0, torch.arange(1, k, dtype=torch.int32, device=dev))
+    deltas, state = _roll_and_release(
+        model, state, preds[0].expand(k), branch_statuses, k, n_ticks
+    )
+    return deltas[:k], state
+
+
 class _RunCarry(NamedTuple):
     """Device-resident feedback state of :meth:`ContinuousBatcher.run`."""
 
@@ -467,6 +718,26 @@ def _admit_many_carry(
     return state, carry._replace(
         last_pred=carry.last_pred.index_put(sid, preds.float()),
         status_oh=carry.status_oh.index_put(sid, one_hot(last_statuses, NUM_STATUSES)),
+    )
+
+
+def _admit_cached_carry(
+    model, state, carry: _RunCarry, slot, suffix_feats, suffix_len, cached_pages,
+    last_status, fused: bool = False,
+):
+    """Admit one prefix-cache hit (:func:`paged_admit_with_prefix`) and
+    record its prediction and status one-hot in the device carry: the warm
+    twin of :func:`_admit_many_carry`. ``fused`` routes the suffix forward
+    through the paged chunk kernel."""
+    pred, state = paged_admit_with_prefix(
+        model, state, slot, suffix_feats, suffix_len, cached_pages, fused=fused
+    )
+    sid = (slot.to(torch.int64).reshape(1),)
+    return state, carry._replace(
+        last_pred=carry.last_pred.index_put(sid, pred.float().reshape(1)),
+        status_oh=carry.status_oh.index_put(
+            sid, one_hot(last_status.reshape(1), NUM_STATUSES)
+        ),
     )
 
 
@@ -516,7 +787,17 @@ class ContinuousBatcher:
     :func:`beholder_tpu_torch.models.bridge.load_flax_params`); it is moved
     to ``device``, which ``None`` resolves to the CUDA card (raising when
     there is none). ``ticks`` counts decode ticks run, so a caller can hold
-    the kernel's launch count against ``layers * ticks``.
+    the kernel's launch count against ``layers * ticks``;
+    ``admission_rounds`` counts the rounds of :meth:`run` that admitted
+    requests (with a prefix cache, each reads the page table back once).
+
+    ``prefix_cache`` (a :class:`beholder_tpu_torch.cache.PrefixCache` with
+    the same page size) turns on automatic prefix caching in :meth:`run`:
+    each admit looks up its longest cached page chain and prefills only
+    the rest (:func:`paged_admit_with_prefix`), through the paged chunk
+    kernel when ``fused_verify`` is set. ``fused_wave`` admits each
+    :meth:`run_waves` wave through the chunk kernel instead of the dense
+    prefill. Served forecasts are the same either way.
     """
 
     _ALLOCATOR_TRIPPED = (
@@ -534,8 +815,16 @@ class ContinuousBatcher:
         max_prefix: int = 64,
         max_pages_per_seq: int = 32,
         cache_dtype=torch.bfloat16,
+        prefix_cache=None,
+        fused_verify: bool = False,
+        fused_wave: bool = False,
         device=None,
     ):
+        if prefix_cache is not None and prefix_cache.page_size != page_size:
+            raise ValueError(
+                f"prefix_cache page_size {prefix_cache.page_size} != "
+                f"batcher page_size {page_size}"
+            )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.page_size = page_size
@@ -548,7 +837,17 @@ class ContinuousBatcher:
             cache_dtype=cache_dtype,
         )
         self.ticks = 0
+        self.admission_rounds = 0
         self._poisoned = False
+        self.prefix_cache = prefix_cache
+        #: prefix-hit admissions attend the cached pages in place through
+        #: the paged chunk kernel instead of a dense context
+        self.fused_verify = bool(fused_verify)
+        #: run_waves admits each wave through the paged chunk kernel
+        self.fused_wave = bool(fused_wave)
+        #: hash chain each live slot holds in the prefix cache; released
+        #: at retirement
+        self._slot_chain: list[list[bytes]] = [[] for _ in range(slots)]
 
     # -- shared helpers -------------------------------------------------
 
@@ -576,6 +875,43 @@ class ContinuousBatcher:
     def _up(self, arr) -> torch.Tensor:
         return to_device(np.asarray(arr), self.device)
 
+    def _page_id_batch(self, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """(ids, alive) padded to the pool width, for the cache's device
+        ref/unref."""
+        ids = np.zeros(self.num_pages, np.int32)
+        alive = np.zeros(self.num_pages, bool)
+        ids[: len(pages)] = pages
+        alive[: len(pages)] = True
+        return self._up(ids), self._up(alive)
+
+    def _evict_cached(self, n_pages: int) -> int:
+        """Reclaim up to ``n_pages`` cold cached pages (LRU leaf-first):
+        the index forgets them, then one vectorized unref drops the cache's
+        device reference. A page still shared with a live slot survives."""
+        pages = self.prefix_cache.evict(n_pages)
+        if not pages:
+            return 0
+        self.state = cache_unref_pages(self.state, *self._page_id_batch(pages))
+        return len(pages)
+
+    def _index_admitted(self, admitted: list[tuple[int, list[bytes], int]]):
+        """Index one admission round's freshly prefilled full pages: one
+        page-table readback (the host must learn where prefill landed),
+        then insert and pin each slot's chain and take the cache's one
+        device reference on every newly indexed page."""
+        idx = self._up(np.asarray([slot for slot, _, _ in admitted], np.int64))
+        rows = self.state.page_table[idx].cpu().numpy()
+        fresh_pages: list[int] = []
+        for (slot, hashes, n_full), row in zip(admitted, rows):
+            chain = hashes[:n_full]
+            pinned = len(self._slot_chain[slot])  # hit pages, pinned at claim
+            new_ids, _ = self.prefix_cache.insert(chain, [int(p) for p in row[:n_full]])
+            fresh_pages.extend(new_ids)
+            self.prefix_cache.acquire(chain[pinned:])
+            self._slot_chain[slot] = chain
+        if fresh_pages:
+            self.state = cache_ref_pages(self.state, *self._page_id_batch(fresh_pages))
+
     def _check_not_poisoned(self):
         if self._poisoned:
             raise RuntimeError(
@@ -596,9 +932,14 @@ class ContinuousBatcher:
     def _claim_admissions(self, queue, results, req_of, free_pages, commit):
         """One admission round: claim every (free slot, queued request)
         pair that fits under the page headroom, in queue order. Zero-
-        horizon requests resolve at once. Returns (slot, rid, feats, t)
-        tuples; raises when nothing is active and the head request can
-        never fit."""
+        horizon requests resolve at once. With a prefix cache, each claim's
+        hit chain is looked up and pinned before any pressure eviction this
+        round (eviction must never take pages a claim is about to adopt),
+        cold cached pages are evicted when the pool is short, pins are
+        released on deferral, and hits/misses count once per admission.
+        Returns (slot, rid, feats, t, hit_pages, hashes) tuples; raises
+        when nothing is active and the head request can never fit."""
+        cache = self.prefix_cache
         batch = []
         for slot in range(self.slots):
             if not queue or req_of[slot] is not None:
@@ -610,9 +951,22 @@ class ContinuousBatcher:
                 continue
             self._check_servable(req)
             feats_np, t = self._prep_np(req)
+            hit_pages: list[int] = []
+            hashes: list[bytes] = []
+            pinned: list[bytes] = []
+            if cache is not None:
+                hashes = cache.hashes(feats_np)
+                hit_pages = cache.lookup(hashes, (t - 1) // self.page_size, record=False)
+                pinned = hashes[: len(hit_pages)]
+                cache.acquire(pinned)
             need = self._need_pages(req)
             free = free_pages()
+            if need > free and cache is not None:
+                # pool pressure: surrender cold cached pages before deferring
+                free += self._evict_cached(need - free)
             if need > free:
+                if cache is not None:
+                    cache.release(pinned)  # not admitted this round
                 if not any(r is not None for r in req_of):
                     raise RuntimeError(
                         "page pool exhausted: request needs "
@@ -621,7 +975,10 @@ class ContinuousBatcher:
                     )
                 break  # defer until an active request retires
             queue.pop(0)
-            batch.append((slot, rid, feats_np, t))
+            if cache is not None:
+                self._slot_chain[slot] = pinned
+                cache.record_admit(hit_pages)
+            batch.append((slot, rid, feats_np, t, hit_pages, hashes))
             req_of[slot] = rid
             commit(slot, rid, req, need)
         return batch
@@ -660,8 +1017,12 @@ class ContinuousBatcher:
 
         def free_pages() -> int:
             # held pages cancel between free_top and committed growth, so
-            # the worst cases alone give the headroom: no device read
-            return self.num_pages - int(total_need.sum())
+            # the worst cases alone give the headroom: no device read. Cold
+            # cached pages are reserved too (a page both adopted and cached
+            # counts in the slot's need, never in the cold set, so this only
+            # ever understates what is free)
+            cold = self.prefix_cache.cold_page_count if self.prefix_cache else 0
+            return self.num_pages - int(total_need.sum()) - cold
 
         def retire_many(done: list[int]):
             idx = self._up(np.asarray(done, np.int32))
@@ -677,6 +1038,11 @@ class ContinuousBatcher:
                 req_of[s] = None
                 total_need[s] = 0
                 written[s] = 0
+                if self.prefix_cache is not None and self._slot_chain[s]:
+                    # the slot's references are gone; the cache's own keeps
+                    # its prefix pages resident as cold entries
+                    self.prefix_cache.release(self._slot_chain[s])
+                    self._slot_chain[s] = []
 
         def commit(slot, rid, req, need):
             remaining[slot] = req.horizon
@@ -686,16 +1052,42 @@ class ContinuousBatcher:
         while queue or any(r is not None for r in req_of):
             batch = self._claim_admissions(queue, results, req_of, free_pages, commit)
             if batch:
-                t_pad = -(-max(t for *_, t in batch) // self.page_size) * self.page_size
-                self.state, carry = _admit_many_carry(
-                    self.model, self.state, carry,
-                    self._up(np.asarray([s for s, *_ in batch], np.int32)),
-                    self._up(np.stack([self._pad_to(f, t_pad) for _, _, f, _ in batch])),
-                    self._up(np.asarray([t for *_, t in batch], np.int32)),
-                    self._up(np.asarray(
-                        [int(requests[r].statuses[-1]) for _, r, _, _ in batch], np.int64
-                    )),
-                )
+                self.admission_rounds += 1
+                page = self.page_size
+                cold = [b for b in batch if not b[4]]
+                warm = [b for b in batch if b[4]]
+                if cold:
+                    # cold admits: one batched prefill
+                    t_pad = -(-max(b[3] for b in cold) // page) * page
+                    self.state, carry = _admit_many_carry(
+                        self.model, self.state, carry,
+                        self._up(np.asarray([b[0] for b in cold], np.int32)),
+                        self._up(np.stack([self._pad_to(b[2], t_pad) for b in cold])),
+                        self._up(np.asarray([b[3] for b in cold], np.int32)),
+                        self._up(np.asarray(
+                            [int(requests[b[1]].statuses[-1]) for b in cold], np.int64
+                        )),
+                    )
+                for slot, rid, feats_np, t, hit_pages, _ in warm:
+                    # warm admits: adopt the cached pages, prefill the
+                    # suffix only (one forward per hit: hit shapes vary)
+                    t_hit = len(hit_pages) * page
+                    s_len = t - t_hit
+                    s_pad = -(-s_len // page) * page
+                    self.state, carry = _admit_cached_carry(
+                        self.model, self.state, carry,
+                        self._up(np.asarray([slot], np.int64)),
+                        self._up(self._pad_to(feats_np[t_hit:], s_pad)[None]),
+                        self._up(np.asarray(s_len, np.int32)),
+                        self._up(np.asarray(hit_pages, np.int32)),
+                        self._up(np.asarray([int(requests[rid].statuses[-1])], np.int64)),
+                        fused=self.fused_verify,
+                    )
+                if self.prefix_cache is not None:
+                    self.prefix_cache.prefilled(
+                        sum(b[3] - len(b[4]) * page for b in batch)
+                    )
+                    self._index_admitted([(b[0], b[5], b[3] // page) for b in batch])
                 done = [b[0] for b in batch if remaining[b[0]] == 1]
                 if done:
                     retire_many(done)  # the admit predictions were the forecasts
@@ -812,7 +1204,7 @@ class ContinuousBatcher:
             horizons = tuple(req.horizon for _, req in wave) if device_results else None
             deltas, self.state = serve_wave(
                 self.model, self.state, self._up(feats), self._up(lens),
-                self._up(stats), horizon - 1, horizons,
+                self._up(stats), horizon - 1, horizons, fused=self.fused_wave,
             )
             self.ticks += horizon - 1
             batches.append((wave, deltas))
@@ -838,3 +1230,67 @@ class ContinuousBatcher:
             for i, (rid, req) in enumerate(wave):
                 results[rid] = np.asarray(arr[i, : req.horizon], np.float32)
         return results
+
+    # -- what-if path: one prefix, many hypothetical futures -------------
+
+    def run_what_if(
+        self,
+        progress: np.ndarray,
+        statuses: np.ndarray,
+        branch_statuses: list[int],
+        horizon: int,
+    ) -> np.ndarray:
+        """Forecast one observed telemetry stream under ``k`` hypothetical
+        status branches: the prefix is prefilled once, its full pages
+        shared across branches (:func:`paged_fork`), and all branches roll
+        together (:func:`fork_wave`). One packed readback. Returns (k,
+        horizon) forecast deltas."""
+        k = len(branch_statuses)
+        if not 1 <= k <= self.slots:
+            raise ValueError(f"branches {k} must be in [1, slots={self.slots}]")
+        if horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {horizon}")
+        bad = [s for s in branch_statuses if not 0 <= int(s) < NUM_STATUSES]
+        if bad:
+            # an out-of-range status would one-hot to an all-zeros row
+            raise ValueError(f"branch statuses {bad} out of range [0, {NUM_STATUSES})")
+        self._check_not_poisoned()
+        req = Request(np.asarray(progress), np.asarray(statuses), horizon)
+        feats_np, t = self._prep_np(req)
+        if t == 0:
+            raise ValueError(
+                "prefix must contain at least one observed delta "
+                "(progress needs >= 2 samples)"
+            )
+        n_ticks = horizon - 1
+        end_pages = -(-(t + n_ticks) // self.page_size)
+        shared = t // self.page_size
+        need = shared + k * (end_pages - shared)
+        if end_pages > self.max_pages_per_seq or need > self.num_pages:
+            raise RuntimeError(
+                f"page pool exhausted: {k} branches of a {t}-token prefix at "
+                f"horizon {horizon} need {need} pages (pool {self.num_pages}, "
+                f"per-seq cap {self.max_pages_per_seq})"
+            )
+        t_pad = -(-t // self.page_size) * self.page_size
+        try:
+            with torch.no_grad():
+                deltas, self.state = fork_wave(
+                    self.model, self.state,
+                    self._up(self._pad_to(feats_np, t_pad)[None]),
+                    self._up(np.asarray(t, np.int32)),
+                    self._up(np.asarray(branch_statuses, np.int64)),
+                    n_ticks,
+                )
+                self.ticks += n_ticks
+                packed = torch.cat([
+                    self.state.alloc_failed.float()[None], deltas.float().reshape(-1),
+                ])
+                got = packed.cpu().numpy()
+        except BaseException:
+            self._poisoned = True
+            raise
+        if got[0]:
+            self._poisoned = True
+            raise RuntimeError(self._ALLOCATOR_TRIPPED)
+        return got[1:].reshape(k, n_ticks + 1)[:, :horizon].astype(np.float32)

@@ -1,4 +1,5 @@
-"""Tensor ops of the port: quantizers, attention, the paged decode kernel."""
+"""Tensor ops of the port: quantizers, attention, the paged decode and
+chunk kernels."""
 
 #: telemetry status count (copied from the reference's ``ops/aggregate.py``;
 #: the port imports nothing from the JAX package)

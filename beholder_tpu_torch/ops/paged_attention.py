@@ -1,14 +1,23 @@
-"""Paged-KV decode attention: a CUDA kernel for Hopper and its plain version.
+"""Paged-KV attention: two CUDA kernels for Hopper and their plain versions.
 
-Counterpart of the reference's ``ops/paged_attention.py``. Each slot's
-single query attends its own pages read in place from a ``(N, Hkv, Dh,
-page)`` pool (tokens minor, the reference's layout) through the page table.
-On a CUDA tensor :func:`paged_decode_attention` launches the hand-written
-kernel in ``csrc/paged_decode.cu`` (see the note at its top: what it
-replaces, what bounds it, how its design answers that) or raises; it never
-falls back. On a CPU tensor it runs :func:`paged_decode_reference`, the
-plain PyTorch version, which walks the pages with the same online-softmax
-recurrence and the same dtype mix.
+Counterpart of the reference's ``ops/paged_attention.py``. Pools are
+``(N, Hkv, Dh, page)`` (tokens minor, the reference's layout), read in
+place through a page table.
+
+- :func:`paged_decode_attention`: each slot's single query attends its own
+  pages (the decode tick). Kernel ``csrc/paged_decode.cu``, plain version
+  :func:`paged_decode_reference` (the TPU kernel's online softmax and dtype
+  mix).
+- :func:`paged_chunk_attention`: each slot's W-token chunk attends its
+  committed pages plus the chunk's own k/v (prefix-hit and fused-wave
+  admission). Kernel ``csrc/paged_chunk.cu``, plain version
+  :func:`paged_chunk_reference` (the dense path's op sequence over the
+  assembled context, :func:`~beholder_tpu_torch.ops.attention.attend`).
+
+On a CUDA tensor each wrapper launches its hand-written kernel (see the
+note at the top of each source: what it replaces, what bounds it, how its
+design answers that) or raises; it never falls back. On a CPU tensor it
+runs the plain version.
 """
 
 from __future__ import annotations
@@ -18,7 +27,9 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
+from .attention import attend
 from .quant import pool_scales_f32
 
 _NEG_INF = -1e30
@@ -43,6 +54,30 @@ class PagedInfo(NamedTuple):
     lens: torch.Tensor           # (S,) int32
     write_pages: torch.Tensor    # (S,) int32
     write_offsets: torch.Tensor  # (S,) int32
+
+
+class ChunkPagedInfo(NamedTuple):
+    """Cache index marking a fused chunk-attention forward (``Block``
+    dispatches on it as on :class:`PagedInfo`): the ``t >= 1`` chunk
+    attends its slot's pool pages in place through
+    :func:`paged_chunk_attention`, and the block returns the chunk's own
+    (k, v) projections instead of an updated cache, so the caller writes
+    exactly the chunk's columns into the pool. No pool write happens in
+    the forward.
+
+    - ``page_table``: (S, P) pool page ids; only pages holding positions
+      ``< lens[s]`` are read.
+    - ``lens``: (S,) — row ``j`` of slot ``s``'s chunk sits at position
+      ``lens[s] + j`` and attends positions ``<= lens[s] + j``.
+    - ``ctx_len``: attention width, the dense path's buffer width:
+      ``P*page + t`` for prefix-hit admission, ``t_max`` for a fused wave.
+    - ``live_pages``: optional bound on the table columns read (None = all).
+    """
+
+    page_table: torch.Tensor
+    lens: torch.Tensor
+    ctx_len: int
+    live_pages: int | None = None
 
 
 def pool_dtype_family(pool_values: torch.Tensor, *, quantized: bool) -> str:
@@ -148,22 +183,23 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale):
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream, raise on a launch error."""
-    slots, h, dh = q.shape
-    n, hkv, _, page = k_pool.shape
-    dev = q.device
+def _kernel_mode(bf16_inputs: dict, k_pool, v_pool, page_table, lens, k_scale,
+                 v_scale, kernel: str) -> int:
+    """Check what a paged kernel takes (bf16 activations, one pool dtype
+    with its scale dtype, int32 table and lengths, one slot count, every
+    tensor contiguous on the activations' device) and return the pool's
+    mode: 0 bf16, 1 int8, 2 fp8."""
     mode = _MODES.get(k_pool.dtype)
     if mode is None:
-        raise TypeError(f"no paged decode kernel for {k_pool.dtype} pools")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the kernel takes bf16 q, got {q.dtype}")
+        raise TypeError(f"no {kernel} kernel for {k_pool.dtype} pools")
+    for name, t in bf16_inputs.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the kernel takes bf16 {name}, got {t.dtype}")
     if v_pool.dtype != k_pool.dtype:
         raise TypeError(f"pool dtypes differ: {k_pool.dtype} vs {v_pool.dtype}")
     if (mode == 0) != (k_scale is None):
         raise TypeError("int8/fp8 pools need scales and bf16 pools take none")
-    tensors = [q, k_pool, v_pool, page_table, lens]
+    tensors = [*bf16_inputs.values(), k_pool, v_pool, page_table, lens]
     if k_scale is not None:
         want = _SCALE_DTYPES[k_pool.dtype]
         if k_scale.dtype != want or v_scale.dtype != want:
@@ -171,16 +207,29 @@ def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale):
         tensors += [k_scale, v_scale]
     if page_table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("page_table and lens must be int32")
+    slots = tensors[0].shape[0]
     if lens.shape != (slots,) or page_table.shape[0] != slots:
         raise ValueError(
             f"page_table {tuple(page_table.shape)} / lens {tuple(lens.shape)} "
             f"do not match {slots} slots"
         )
+    dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
+    return mode
+
+
+def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale):
+    """Check what the kernel takes, allocate the output, launch on the
+    current stream, raise on a launch error."""
+    slots, h, dh = q.shape
+    n, hkv, _, page = k_pool.shape
+    dev = q.device
+    mode = _kernel_mode({"q": q}, k_pool, v_pool, page_table, lens, k_scale, v_scale,
+                        "paged decode")
     lib = _kernel_lib()
     if lib.paged_decode_smem_bytes(h, hkv, dh) == 0:
         raise ValueError(
@@ -200,6 +249,28 @@ def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale):
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {err}")
     paged_decode_attention.launches += 1
     return out
+
+
+def _check_pools(h, dh, k_pool, v_pool, k_scale, v_scale, window) -> None:
+    """The reference's checks of the pools, scales and window against
+    ``h`` query heads of width ``dh``, shared by both paged entry points."""
+    n, hkv, dh_p, page = k_pool.shape
+    if dh_p != dh:
+        raise ValueError(f"head_dim mismatch: q {dh} vs pool {dh_p}")
+    if h % hkv:
+        raise ValueError(f"q heads {h} must be a multiple of kv heads {hkv}")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(
+            f"pool shape mismatch: {tuple(k_pool.shape)} vs {tuple(v_pool.shape)}"
+        )
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
+    if k_scale is not None and tuple(k_scale.shape) != (n, hkv, page):
+        raise ValueError(
+            f"scales must be {(n, hkv, page)}, got {tuple(k_scale.shape)}"
+        )
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
 
 
 def paged_decode_attention(
@@ -231,24 +302,8 @@ def paged_decode_attention(
     to :func:`paged_decode_reference`."""
     if q.ndim != 3:
         raise ValueError(f"q must be (slots, heads, head_dim), got {tuple(q.shape)}")
-    slots, h, dh = q.shape
-    n, hkv, dh_p, page = k_pool.shape
-    if dh_p != dh:
-        raise ValueError(f"head_dim mismatch: q {dh} vs pool {dh_p}")
-    if h % hkv:
-        raise ValueError(f"q heads {h} must be a multiple of kv heads {hkv}")
-    if k_pool.shape != v_pool.shape:
-        raise ValueError(
-            f"pool shape mismatch: {tuple(k_pool.shape)} vs {tuple(v_pool.shape)}"
-        )
-    if (k_scale is None) != (v_scale is None):
-        raise ValueError("k_scale and v_scale must be given together")
-    if k_scale is not None and tuple(k_scale.shape) != (n, hkv, page):
-        raise ValueError(
-            f"scales must be {(n, hkv, page)}, got {tuple(k_scale.shape)}"
-        )
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
+    _, h, dh = q.shape
+    _check_pools(h, dh, k_pool, v_pool, k_scale, v_scale, window)
     if q.is_cuda:
         return _launch(
             q, k_pool, v_pool, page_table.to(torch.int32), lens.to(torch.int32),
@@ -262,3 +317,203 @@ def paged_decode_attention(
 
 #: kernel launches since the count was last set to 0
 paged_decode_attention.launches = 0
+
+
+# -- paged chunk attention (prefix-hit and fused-wave admission) -------------
+
+
+def paged_chunk_reference(
+    q: torch.Tensor,
+    k_chunk: torch.Tensor,
+    v_chunk: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    lens: torch.Tensor,
+    *,
+    ctx_len: int,
+    live_pages: int,
+    window: int | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the chunk kernel, the counterpart of the
+    reference's ``_chunk_reference`` / ``_chunk_block_math``:
+
+    1. assemble each slot's context as bf16: the first ``live_pages`` table
+       columns gathered (quantized pages dequantized as ``f32 * scale`` and
+       rounded to bf16), zeros out to ``ctx_len``;
+    2. overlay the chunk's own k/v at positions ``lens[s] + j`` (positions
+       at or past ``ctx_len`` drop);
+    3. attend with the dense path's op sequence (:func:`attend`), row ``j``
+       masked causally at ``lens[s] + j`` and by ``window``.
+
+    Positions past a slot's committed length hold stale pool bytes or
+    zeros, but every such lane is masked (or overlaid) before the softmax,
+    so the kernel, which never reads them, computes the same function."""
+    slots, h, w, dh = q.shape
+    n, hkv, _, page = k_pool.shape
+    dev = q.device
+    table = page_table[:, :live_pages].to(torch.int64).clamp(0, n - 1)
+
+    def assemble(pool, scales):
+        g = pool[table]                                     # (S, P', Hkv, Dh, page)
+        if scales is not None:
+            g = (g.float() * pool_scales_f32(scales[table])[:, :, :, None, :]).to(
+                torch.bfloat16
+            )
+        else:
+            g = g.to(torch.bfloat16)
+        g = g.permute(0, 2, 1, 4, 3).reshape(slots, hkv, live_pages * page, dh)
+        # w spare columns past ctx_len take the overlay's dropped writes
+        return F.pad(g, (0, 0, 0, ctx_len - live_pages * page + w))
+
+    lens = lens.to(torch.int64)
+    pos_w = lens[:, None] + torch.arange(w, device=dev)              # (S, W)
+    rows = torch.arange(slots, device=dev)[:, None].expand(slots, w)
+    spare = ctx_len + torch.arange(w, device=dev)[None, :].expand(slots, w)
+    at = torch.where(pos_w < ctx_len, pos_w, spare).clamp(min=0)
+
+    def overlay(ctx, chunk):
+        ctx[rows, :, at, :] = chunk.transpose(1, 2).to(ctx.dtype)
+        return ctx[:, :, :ctx_len]
+
+    k_all = overlay(assemble(k_pool, k_scale), k_chunk)
+    v_all = overlay(assemble(v_pool, v_scale), v_chunk)
+    positions = torch.arange(ctx_len, device=dev)
+    live = positions[None, None, :] <= pos_w[:, :, None]             # (S, W, L)
+    if window is not None:
+        live = live & (positions[None, None, :] > pos_w[:, :, None] - window)
+    return attend(q, k_all, v_all, live[:, None, None])
+
+
+#: the head dim the chunk kernel is compiled for (the served model's)
+_CHUNK_HEAD_DIM = 64
+_chunk_lib = None
+
+
+def _chunk_kernel_lib() -> ctypes.CDLL:
+    global _chunk_lib
+    if _chunk_lib is None:
+        from beholder_tpu_torch import csrc
+
+        lib = csrc.load("paged_chunk")
+        lib.paged_chunk_launch.argtypes = (
+            [ctypes.c_void_p] * 10
+            + [ctypes.c_int] * 12
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.paged_chunk_launch.restype = ctypes.c_int
+        _chunk_lib = lib
+    return _chunk_lib
+
+
+def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len,
+                  live_pages, window, k_scale, v_scale):
+    """Check what the chunk kernel takes, allocate the output, launch on
+    the current stream, raise on a launch error."""
+    slots, h, w, dh = q.shape
+    n, hkv, _, page = k_pool.shape
+    dev = q.device
+    if dh != _CHUNK_HEAD_DIM:
+        raise ValueError(f"the chunk kernel takes head_dim {_CHUNK_HEAD_DIM}, got {dh}")
+    mode = _kernel_mode({"q": q, "k_chunk": k_chunk, "v_chunk": v_chunk}, k_pool, v_pool,
+                        page_table, lens, k_scale, v_scale, "paged chunk")
+    lib = _chunk_kernel_lib()
+    out = torch.empty_like(q)
+    err = lib.paged_chunk_launch(
+        q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
+        page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        slots, h, hkv, w, dh, page, n, page_table.shape[1], live_pages, ctx_len,
+        0 if window is None else window, mode,
+        # the plain version divides by this f32 value: the kernel divides
+        # by the same bits
+        torch.sqrt(torch.tensor(float(dh))).item(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"paged_chunk kernel launch failed: CUDA error {err}")
+    paged_chunk_attention.launches += 1
+    return out
+
+
+def paged_chunk_attention(
+    q: torch.Tensor,
+    k_chunk: torch.Tensor,
+    v_chunk: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    lens: torch.Tensor,
+    *,
+    ctx_len: int | None = None,
+    live_pages: int | None = None,
+    window: int | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    group: int = 1,
+) -> torch.Tensor:
+    """Chunk attention against the paged pools, in place.
+
+    - ``q``: (S, H, W, Dh); row ``j`` of slot ``s`` sits at position
+      ``lens[s] + j`` and attends positions ``<= lens[s] + j`` (minus those
+      at or before ``lens[s] + j - window``);
+    - ``k_chunk``/``v_chunk``: (S, Hkv, W, Dh), the chunk's own kv (not in
+      the pool: the kernel overlays it);
+    - ``k_pool``/``v_pool``/``k_scale``/``v_scale``: the pools, as
+      :func:`paged_decode_attention` takes them;
+    - ``page_table``: (S, P); ``lens``: (S,) committed tokens per slot;
+    - ``ctx_len``: attention width (default ``P * page``; prefix-hit
+      admission passes ``P * page + W``);
+    - ``live_pages``: bound on the table columns read (default all).
+
+    Returns (S, H, W, Dh) bf16. CUDA tensors go to the kernel (each launch
+    adds one to ``paged_chunk_attention.launches``); CPU tensors to
+    :func:`paged_chunk_reference`. Group-parallel layouts (``group > 1``)
+    are not ported."""
+    if q.ndim != 4:
+        raise ValueError(
+            f"q must be (slots, heads, width, head_dim), got {tuple(q.shape)}"
+        )
+    slots, h, w, dh = q.shape
+    _check_pools(h, dh, k_pool, v_pool, k_scale, v_scale, window)
+    _, hkv, _, page = k_pool.shape
+    for name, chunk in (("k_chunk", k_chunk), ("v_chunk", v_chunk)):
+        if tuple(chunk.shape) != (slots, hkv, w, dh):
+            raise ValueError(
+                f"{name} must be {(slots, hkv, w, dh)}, got {tuple(chunk.shape)}"
+            )
+    max_pages = page_table.shape[1]
+    if ctx_len is None:
+        ctx_len = max_pages * page
+    if ctx_len < max_pages * page:
+        raise ValueError(
+            f"ctx_len {ctx_len} cannot be narrower than the table span "
+            f"{max_pages * page}"
+        )
+    if live_pages is None:
+        live_pages = max_pages
+    if not 0 <= live_pages <= max_pages:
+        raise ValueError(f"live_pages {live_pages} must be in [0, {max_pages}]")
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    if group > 1:
+        raise NotImplementedError("group-parallel chunk attention is not ported yet")
+    if q.is_cuda:
+        return _chunk_launch(
+            q, k_chunk, v_chunk, k_pool, v_pool, page_table.to(torch.int32),
+            lens.to(torch.int32), int(ctx_len), int(live_pages), window,
+            k_scale, v_scale,
+        )
+    return paged_chunk_reference(
+        q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens,
+        ctx_len=int(ctx_len), live_pages=int(live_pages), window=window,
+        k_scale=k_scale, v_scale=v_scale,
+    )
+
+
+#: kernel launches since the count was last set to 0
+paged_chunk_attention.launches = 0

@@ -6,16 +6,23 @@ CUDA card, ``nvcc`` (it builds the port's kernels from ``csrc/`` at first
 use) and nothing of JAX. Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every kernel of the serving path, one ``nvcc`` per source;
+2. build: every kernel of the serving path, one ``nvcc`` per source, all
+   started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the serving path's shapes, with the tolerance stated; times
    (CUDA events, median) of the kernel, the plain version and one PyTorch
-   library call computing the same function, beside the bound;
+   library call computing the same function, beside the bound. The paged
+   decode kernel at the headline and long-context shapes; the paged chunk
+   kernel at the fused-wave, warm-prefix and long-context shapes;
 4. main path: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
-   layers=4)`` with random bf16 weights from a numpy seed, served through
-   ``ContinuousBatcher.run_waves`` and ``ContinuousBatcher.run`` over bf16,
-   int8 and fp8 pools; launch counts, pages home, forecasts against the
-   dense ``forecast_deltas`` oracle, tokens/s, synchronising calls;
+   layers=4)`` with random bf16 weights from a numpy seed, over bf16, int8
+   and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
+   ``ContinuousBatcher.run`` (cold admission), ``run_waves`` with
+   ``fused_wave=True``, ``run`` with a ``PrefixCache`` and
+   ``fused_verify=True`` (a cold pass, then a warm pass), and one
+   ``run_what_if``; per path: launch counts of both kernels (set to 0 just
+   before, read just after), pages home, forecasts against the dense
+   ``forecast_deltas`` oracle, tokens/s, synchronising calls;
 5. output: a ``kernels`` JSON line, then the ``ok`` line last.
 
 ``--profile`` adds a
@@ -39,7 +46,8 @@ import numpy as np
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 flop/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-CONVERTING = 2  # TelemetryStatusEntry.CONVERTING
+#: TelemetryStatusEntry values (QUEUED 0, UPLOADING 3)
+QUEUED, CONVERTING, DEPLOYED, ERRORED = 0, 2, 4, 5
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's boost clock
 TIMED_RUNS = 3
 #: kernel vs plain version: both round the output to bf16, sum in f32 in
@@ -48,6 +56,23 @@ TIMED_RUNS = 3
 #: score difference can also flip the score's bf16 rounding. Outputs are
 #: O(0.1-1), where a bf16 ULP is <= 2**-8.
 KERNEL_TOL = 1e-2
+#: chunk kernel vs plain version, per element: |kernel - plain| <=
+#: CHUNK_RTOL * |plain| + CHUNK_ATOL_RMS * rms, where rms is the plain
+#: output row's RMS over the head dim. Both round the output to bf16: one
+#: ULP, <= 2**-7 |plain|, is the rtol term. Before that rounding they differ
+#: by how they round the weights: the kernel rounds each unnormalised
+#: online-softmax weight to bf16, the plain version the normalised one, a
+#: relative 2**-9 each, at random; scores summed in another order can also
+#: flip one score's bf16 rounding. That moves a row by a small fraction of
+#: its own size, so the atol term scales with the row: an output row is
+#: ~1 where a row sees a few keys and ~0.03 where it sees 3,600 (long
+#: shape), and a fixed atol would hide a wrong kernel at the long shape.
+#: The limit is ~3x the largest excess over the rtol term that the kernel
+#: showed at any shape: 0.0128 of its row's RMS, long shape, bf16, no
+#: window (NVIDIA H100 80GB HBM3, 700 W; PERF.md). At the long shape that
+#: is ~1.1e-3 absolute, against rows of RMS ~0.028.
+CHUNK_RTOL = 2**-7
+CHUNK_ATOL_RMS = 0.04
 #: first two forecast steps vs the dense oracle, per pool type: the bands of
 #: tests/test_serving.py (bf16 :161-163, int8 :349-351, fp8 :391-393)
 FORECAST_BAND = {"bf16": (3e-2, 1.5e-2), "int8": (5e-2, 5e-2), "fp8": (8e-2, 8e-2)}
@@ -199,6 +224,153 @@ def kernel_phase(torch, flush) -> list[dict]:
     return cases
 
 
+def chunk_kernel_phase(torch, flush) -> list[dict]:
+    """The paged chunk kernel against its plain version at the main path's
+    shapes (and a long-context one), for every pool family, window off and
+    200."""
+    from beholder_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention,
+        paged_chunk_reference,
+    )
+    from beholder_tpu_torch.ops.quant import pool_quantize, pool_scales_f32
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    H, Hkv, Dh = 8, 2, 64
+    shapes = {
+        # a fused wave: 8 requests of 256 tokens, an empty paged context,
+        # ctx_len = t_max as the fused admission passes it
+        "wave": dict(S=8, W=256, page=128, N=32, P=1, lens=[0] * 8, ctx_len=256),
+        # a warm prefix admit: one 128-token suffix over one cached page
+        "warm": dict(S=1, W=128, page=128, N=32, P=1, lens=[128]),
+        # long context: 512-token pages, 8 per slot, a 128-token chunk
+        "long": dict(S=8, W=128, page=512, N=64, P=8,
+                     lens=[3584, 3600, 3620, 3640, 3660, 3680, 3700, 3711]),
+        # off the main path: spec verify's width (ctx_len = P*page, the
+        # chunk's tail dropped past it) and lengths past live_pages (zeros)
+        "edge": dict(S=4, W=64, page=128, N=32, P=3, lens=[0, 200, 300, 360],
+                     ctx_len=384, live_pages=2),
+    }
+    cases = []
+    for shape, c in shapes.items():
+        rng = np.random.default_rng(11)
+        S, W, page, N, P = (c[k] for k in ("S", "W", "page", "N", "P"))
+        ctx_len = c.get("ctx_len", P * page + W)
+        live_pages = c.get("live_pages", P)
+        lens_np = np.asarray(c["lens"], np.int32)
+
+        def normal(*shape_):
+            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev)
+
+        q = normal(S, H, W, Dh).bfloat16()
+        kc = normal(S, Hkv, W, Dh).bfloat16()
+        vc = normal(S, Hkv, W, Dh).bfloat16()
+        k_f, v_f = normal(N, Hkv, Dh, page), normal(N, Hkv, Dh, page)
+        table = torch.from_numpy(
+            rng.permutation(N)[: S * P].reshape(S, P).astype(np.int32)).to(dev)
+        lens = torch.from_numpy(lens_np).to(dev)
+        for family in ("bf16", "int8", "fp8"):
+            if family == "bf16":
+                kp, vp, ks, vs = k_f.bfloat16(), v_f.bfloat16(), None, None
+                elem, scale_elem = 2, 0
+            else:
+                dt = torch.int8 if family == "int8" else torch.float8_e4m3fn
+                kp, ks = pool_quantize(k_f, axis=-2, values_dtype=dt)
+                vp, vs = pool_quantize(v_f, axis=-2, values_dtype=dt)
+                elem, scale_elem = 1, ks.element_size()
+            for window in (None, 200):
+                args = (q, kc, vc, kp, vp, table, lens)
+                kw = dict(ctx_len=ctx_len, live_pages=live_pages, window=window,
+                          k_scale=ks, v_scale=vs)
+                out_k = paged_chunk_attention(*args, **kw)
+                out_p = paged_chunk_reference(*args, **kw)
+                torch.cuda.synchronize()
+                where = f"chunk {shape}/{family}/window={window}"
+                check(bool(torch.isfinite(out_k.float()).all()), f"{where}: non-finite")
+                plain = out_p.float()
+                diff = (out_k.float() - plain).abs()
+                err = float(diff.max())
+                excess = diff - CHUNK_RTOL * plain.abs()
+                row_rms = plain.square().mean(-1, keepdim=True).sqrt()
+                # the excess over the rtol term in units of its row's RMS
+                reading = float((excess / row_rms.clamp_min(1e-30)).max())
+                check(reading <= CHUNK_ATOL_RMS,
+                      f"{where}: max abs err {err}, excess over {CHUNK_RTOL}|plain| "
+                      f"{reading} x row RMS > {CHUNK_ATOL_RMS}")
+                # library yardstick: SDPA on the pre-assembled dense context
+                # (committed pages dequantized, the chunk overlaid, heads
+                # expanded) with the per-row causal mask; assembly excluded
+                def dense(pool, scales, chunk):
+                    vals = pool.float() if scales is None else (
+                        pool.float() * pool_scales_f32(scales)[:, :, None, :])
+                    g = vals.bfloat16()[table[:, :live_pages].long()].permute(0, 2, 1, 4, 3)
+                    g = g.reshape(S, Hkv, live_pages * page, Dh)
+                    pad = ctx_len - live_pages * page + W
+                    g = torch.cat([g, torch.zeros(S, Hkv, pad, Dh, dtype=g.dtype, device=dev)], 2)
+                    for s_ in range(S):
+                        n = int(lens_np[s_])
+                        g[s_, :, n : n + W] = chunk[s_]
+                    return g[:, :, :ctx_len].repeat_interleave(H // Hkv, dim=1)
+
+                kd, vd = dense(kp, ks, kc), dense(vp, vs, vc)
+                pos = torch.arange(ctx_len, device=dev)
+                pos_w = lens[:, None].long() + torch.arange(W, device=dev)
+                mask = pos[None, None, :] <= pos_w[:, :, None]
+                if window is not None:
+                    mask = mask & (pos[None, None, :] > pos_w[:, :, None] - window)
+                mask = mask[:, None]
+                ms = time_ms(torch, lambda: paged_chunk_attention(*args, **kw), flush)
+                plain_ms = time_ms(torch, lambda: paged_chunk_reference(*args, **kw), flush)
+                lib_ms = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask),
+                    flush,
+                )
+                # the bound counts what this data needs: each row j sees
+                # positions max(0, lens+j-window+1)..lens+j; the context
+                # read is the committed positions some row can see
+                ctx_tokens = sum(  # pages read: committed, live, in some row's window
+                    max(0, min(n, live_pages * page)
+                        - (0 if window is None else max(0, n - window + 1)))
+                    for n in lens_np.tolist()
+                )
+                visible = sum(
+                    min(n + j + 1, ctx_len)
+                    - (0 if window is None else max(0, n + j - window + 1))
+                    for n in lens_np.tolist() for j in range(W)
+                )
+                nbytes = (
+                    2 * q.numel() * 2                              # q in, out
+                    + 2 * kc.numel() * 2                           # chunk k, v
+                    + ctx_tokens * Hkv * 2 * (Dh * elem + scale_elem)
+                    + table.numel() * 4 + lens.numel() * 4
+                )
+                flops = 4 * H * Dh * visible                       # QK and PV
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / BF16_FLOPS * 1e3
+                case = dict(
+                    shape=shape, pool=family, window=window, max_abs_err=err,
+                    max_excess=float(excess.max()), excess_per_row_rms=reading,
+                    plain_rms=float(plain.square().mean().sqrt()),
+                    tolerance=dict(rtol=CHUNK_RTOL, atol_row_rms=CHUNK_ATOL_RMS),
+                    ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bytes=nbytes, flops=flops,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                )
+                cases.append(case)
+                print(
+                    f"kernel paged_chunk {shape:5s} {family:4s} window={window!s:5s} "
+                    f"err={err:.3e} excess={case['max_excess']:.3e} "
+                    f"excess/row_rms={reading:.3e} (tol {CHUNK_RTOL:.5f}|plain| + "
+                    f"{CHUNK_ATOL_RMS} row_rms) plain_rms={case['plain_rms']:.3e} "
+                    f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                    f"bound_ms={case['bound_ms']:.5f} ({case['bound_by']}) "
+                    f"bytes={nbytes} flops={flops}",
+                    flush=True,
+                )
+    return cases
+
+
 def make_requests(rng, Request, prefixes, horizons):
     return [
         Request(
@@ -230,19 +402,82 @@ def count_syncs(torch, fn):
     return result, len(syncs)
 
 
+#: the headline pool: 32 pages of 128 tokens, 8 slots, 4 pages per sequence
+SERVE = dict(num_pages=32, page_size=128, slots=8, max_prefix=256, max_pages_per_seq=4)
+#: the horizons of ``run``'s 12 requests (more requests than slots)
+RUN_HORIZONS = [128, 96, 64, 32, 128, 80, 48, 16, 128, 100, 60, 20]
+
+
+def counted(torch, fn):
+    """Run ``fn`` with both kernels' launch counts set to 0 just before and
+    read just after, counting its synchronising calls. Returns (result,
+    syncs, decode launches, chunk launches)."""
+    from beholder_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention,
+        paged_decode_attention,
+    )
+
+    torch.cuda.synchronize()
+    paged_decode_attention.launches = 0
+    paged_chunk_attention.launches = 0
+    result, syncs = count_syncs(torch, fn)
+    decode, chunk = paged_decode_attention.launches, paged_chunk_attention.launches
+    torch.cuda.synchronize()
+    return result, syncs, decode, chunk
+
+
+def timed(torch, fn, runs: int = TIMED_RUNS) -> list[float]:
+    """Host seconds of ``runs`` calls, each ended by a synchronise."""
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def check_served(torch, where, b, reqs, results, want, band) -> float:
+    """Pages home, no flag, no slot left active, each forecast finite and of
+    its horizon, its first two steps inside ``band`` of the dense oracle.
+    Returns the largest first-two-step error."""
+    rtol, atol = band
+    check(not bool(b.state.alloc_failed), f"{where}: alloc_failed")
+    check(not bool(b.state.active.any()), f"{where}: slots left active")
+    worst = 0.0
+    for i, (req, w) in enumerate(zip(reqs, want)):
+        got = results[i]
+        got = got.cpu().numpy() if torch.is_tensor(got) else got
+        check(got.shape == (req.horizon,), f"{where}: request {i} shape {got.shape}")
+        check(bool(np.isfinite(got).all()), f"{where}: request {i} not finite")
+        ok = np.abs(got[:2] - w) <= atol + rtol * np.abs(w)
+        check(bool(ok.all()), f"{where}: request {i} first steps {got[:2]} vs oracle {w}")
+        worst = max(worst, float(np.abs(got[:2] - w).max()))
+    return worst
+
+
 def main_path(torch, profile: bool = False) -> dict:
+    from beholder_tpu_torch.cache import PrefixCache
     from beholder_tpu_torch.models import TelemetrySequenceModel, forecast_deltas
     from beholder_tpu_torch.models.bridge import init_params, load_flax_params
     from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
-    from beholder_tpu_torch.ops.paged_attention import paged_decode_attention
 
     layers = 4
     model = TelemetrySequenceModel(dim=512, heads=8, kv_heads=2, layers=layers)
     load_flax_params(model, init_params(model, seed=0, bf16_matrices=True))
     rng = np.random.default_rng(0)
     wave_reqs = make_requests(rng, Request, [256] * 8, [128] * 8)
-    run_horizons = [128, 96, 64, 32, 128, 80, 48, 16, 128, 100, 60, 20]
-    run_reqs = make_requests(rng, Request, [256] * 12, run_horizons)
+    run_reqs = make_requests(rng, Request, [256] * 12, RUN_HORIZONS)
+    # the prefix-cache traffic: run's horizons, every request sharing its
+    # first 129 progress samples (page 0 of its features) and statuses
+    prefix_reqs = make_requests(rng, Request, [256] * 12, RUN_HORIZONS)
+    shared = prefix_reqs[0].progress[:129]
+    prefix_reqs = [
+        Request(np.concatenate([shared, r.progress[129:] - r.progress[128] + shared[-1]]),
+                r.statuses, r.horizon)
+        for r in prefix_reqs
+    ]
 
     # the dense oracle's first two steps, once per request
     def oracle(req):
@@ -255,89 +490,210 @@ def main_path(torch, profile: bool = False) -> dict:
 
     want_wave = [oracle(r) for r in wave_reqs]
     want_run = [oracle(r) for r in run_reqs]
+    want_prefix = [oracle(r) for r in prefix_reqs]
     # what the sync counter reports around nothing (torch's own first use)
     _, baseline = count_syncs(torch, lambda: None)
     print(f"sync_calls around an empty call: {baseline}", flush=True)
     report = {}
     for family in ("bf16", "int8", "fp8"):
-        rtol, atol = FORECAST_BAND[family]
-        for mode, reqs, want in (("run_waves", wave_reqs, want_wave),
-                                 ("run", run_reqs, want_run)):
-            b = ContinuousBatcher(
-                model, num_pages=32, page_size=128, slots=8, max_prefix=256,
-                max_pages_per_seq=4, cache_dtype=family,
-            )
+        band = FORECAST_BAND[family]
+        dense_waves = None
+        for mode in ("run_waves", "run", "fused_waves"):
+            where = f"{family}/{mode}"
+            reqs, want = (run_reqs, want_run) if mode == "run" else (wave_reqs, want_wave)
+            b = ContinuousBatcher(model, **SERVE, cache_dtype=family,
+                                  fused_wave=mode == "fused_waves")
 
             def serve():
-                if mode == "run_waves":
-                    return b.run_waves(reqs, device_results=True)
-                return b.run(reqs)
+                if mode == "run":
+                    return b.run(reqs)
+                return b.run_waves(reqs, device_results=True)
 
             # a warm-up run takes the process's one-time set-up (cuBLAS
             # handles, pinned-memory pools) out of the counted run
             serve()
-            # counted run: launches and synchronising calls of this path only
-            torch.cuda.synchronize()
-            paged_decode_attention.launches = 0
             ticks0 = b.ticks
-            results, syncs = count_syncs(torch, serve)
-            launches = paged_decode_attention.launches
-            torch.cuda.synchronize()
+            results, syncs, launches, chunk = counted(torch, serve)
             ticks = b.ticks - ticks0
-            check(launches > 0, f"{family}/{mode}: the paged kernel never launched")
+            # waves of up to `slots` requests; this traffic fits one pool
+            waves = 0 if mode == "run" else -(-len(reqs) // b.slots)
+            check(launches > 0, f"{where}: the paged kernel never launched")
             check(launches == layers * ticks,
-                  f"{family}/{mode}: {launches} kernel launches for "
-                  f"{ticks} ticks x {layers} layers")
+                  f"{where}: {launches} kernel launches for {ticks} ticks x {layers} layers")
+            want_chunk = layers * waves if mode == "fused_waves" else 0
+            check(chunk == want_chunk,
+                  f"{where}: {chunk} chunk kernel launches, expected {want_chunk}")
             check(int(b.state.free_top) == b.num_pages,
-                  f"{family}/{mode}: free_top {int(b.state.free_top)} != {b.num_pages}")
-            check(not bool(b.state.alloc_failed), f"{family}/{mode}: alloc_failed")
-            check(not bool(b.state.active.any()), f"{family}/{mode}: slots left active")
-            worst = 0.0
-            for i, (req, w) in enumerate(zip(reqs, want)):
-                got = results[i]
-                got = got.cpu().numpy() if torch.is_tensor(got) else got
-                check(got.shape == (req.horizon,),
-                      f"{family}/{mode}: request {i} shape {got.shape}")
-                check(bool(np.isfinite(got).all()), f"{family}/{mode}: request {i} not finite")
-                ok = np.abs(got[:2] - w) <= atol + rtol * np.abs(w)
-                check(bool(ok.all()),
-                      f"{family}/{mode}: request {i} first steps {got[:2]} vs oracle {w}")
-                worst = max(worst, float(np.abs(got[:2] - w).max()))
-            # timed runs (warm): the median of three, and their range, since
-            # the host-bound tick moves with the host's load
-            runs = []
-            for _ in range(TIMED_RUNS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                serve()
-                torch.cuda.synchronize()
-                runs.append(time.perf_counter() - t0)
+                  f"{where}: free_top {int(b.state.free_top)} != {b.num_pages}")
+            worst = check_served(torch, where, b, reqs, results, want, band)
+            got = np.stack([r.cpu().numpy() for r in results]) if mode != "run" else None
+            if mode == "run_waves":
+                dense_waves = got
+            vs_dense = (float(np.abs(got - dense_waves).max())
+                        if mode == "fused_waves" else None)
+            runs = timed(torch, serve)
             seconds = statistics.median(runs)
             tokens = sum(r.horizon for r in reqs)
-            report[f"{family}/{mode}"] = dict(
-                launches=launches, ticks=ticks, syncs=syncs, seconds=seconds,
-                tokens=tokens, tokens_per_s=tokens / seconds,
+            report[where] = dict(
+                launches=launches, chunk_launches=chunk, ticks=ticks, waves=waves,
+                syncs=syncs, seconds=seconds, tokens=tokens,
+                tokens_per_s=tokens / seconds,
                 tokens_per_s_range=(tokens / max(runs), tokens / min(runs)),
-                first_steps_max_err=worst, band=(rtol, atol),
+                first_steps_max_err=worst, band=band, max_diff_vs_dense_waves=vs_dense,
             )
             print(
-                f"serve {family:4s} {mode:9s} requests={len(reqs)} tokens={tokens} "
+                f"serve {family:4s} {mode:11s} requests={len(reqs)} tokens={tokens} "
                 f"seconds={seconds:.4f} tokens/s={tokens / seconds:.1f} "
                 f"(range {tokens / max(runs):.1f}-{tokens / min(runs):.1f} "
-                f"over {TIMED_RUNS} runs) ticks={ticks} "
-                f"kernel_launches={launches} sync_calls={syncs} "
-                f"first2_max_err={worst:.3e} (band rtol {rtol}, atol {atol}) pages_home=yes",
+                f"over {TIMED_RUNS} runs) ticks={ticks} waves={waves} "
+                f"kernel_launches={launches} chunk_launches={chunk} sync_calls={syncs} "
+                f"first2_max_err={worst:.3e} (band rtol {band[0]}, atol {band[1]})"
+                + ("" if vs_dense is None else f" max_diff_vs_dense_waves={vs_dense:.3e}")
+                + " pages_home=yes",
                 flush=True,
             )
+        report.update(prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers,
+                                  family, prefix_reqs, want_prefix, band))
         if profile and family == "bf16":
-            b = ContinuousBatcher(
-                model, num_pages=32, page_size=128, slots=8, max_prefix=256,
-                max_pages_per_seq=4,
-            )
+            b = ContinuousBatcher(model, **SERVE)
             report["profile"] = profile_waves(
                 torch, b, wave_reqs, report["bf16/run_waves"]["seconds"]
             )
+    report.update(what_if_path(torch, ContinuousBatcher, model, layers, Request))
     return report
+
+
+def prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, family, reqs,
+                want, band) -> dict:
+    """``run`` with a prefix cache and ``fused_verify=True``: a cold pass,
+    then a warm pass on the same batcher, each counted; then a full
+    eviction; then timed cold and warm passes on fresh batchers."""
+
+    def make():
+        return ContinuousBatcher(model, **SERVE, cache_dtype=family,
+                                 prefix_cache=PrefixCache(SERVE["page_size"]),
+                                 fused_verify=True)
+
+    # a throwaway pass takes one-time set-up out of the counted cold pass
+    make().run(reqs)
+    b = make()
+    cache = b.prefix_cache
+    out = {}
+    for pass_ in ("cold", "warm"):
+        where = f"{family}/prefix_{pass_}"
+        hits0, ticks0, rounds0 = cache.hits, b.ticks, b.admission_rounds
+        results, syncs, launches, chunk = counted(torch, lambda: b.run(reqs))
+        hits, ticks = cache.hits - hits0, b.ticks - ticks0
+        n_rounds = b.admission_rounds - rounds0
+        check(syncs == 1 + n_rounds,
+              f"{where}: {syncs} synchronising calls for {n_rounds} admission rounds "
+              "(1 readback at the end, 1 page-table readback per round)")
+        check(launches == layers * ticks,
+              f"{where}: {launches} kernel launches for {ticks} ticks x {layers} layers")
+        check(chunk == layers * hits,
+              f"{where}: {chunk} chunk kernel launches for {hits} warm admits x {layers} layers")
+        if pass_ == "warm":
+            check(hits == len(reqs), f"{where}: {hits} hits for {len(reqs)} requests")
+        check(int(b.state.free_top) == b.num_pages - cache.page_count,
+              f"{where}: free_top {int(b.state.free_top)} != {b.num_pages} - "
+              f"{cache.page_count} cached pages")
+        worst = check_served(torch, where, b, reqs, results, want, band)
+        out[where] = dict(launches=launches, chunk_launches=chunk, ticks=ticks,
+                          warm_admits=hits, rounds=n_rounds, syncs=syncs,
+                          cached_pages=cache.page_count, first_steps_max_err=worst,
+                          band=band)
+    check(cache.hits > 0, f"{family}/prefix: no prefix hit")
+    b._evict_cached(cache.page_count)
+    check(cache.page_count == 0 and int(b.state.free_top) == b.num_pages,
+          f"{family}/prefix: free_top {int(b.state.free_top)} after a full eviction")
+    check(int(b.state.page_ref.sum()) == 0, f"{family}/prefix: references left")
+    # timed passes: each fresh batcher serves a cold pass, then a warm one
+    cold_s, warm_s = [], []
+    for _ in range(TIMED_RUNS):
+        fresh = make()
+        cold_s += timed(torch, lambda: fresh.run(reqs), runs=1)
+        warm_s += timed(torch, lambda: fresh.run(reqs), runs=1)
+    tokens = sum(r.horizon for r in reqs)
+    for pass_, runs in (("cold", cold_s), ("warm", warm_s)):
+        where = f"{family}/prefix_{pass_}"
+        seconds = statistics.median(runs)
+        out[where].update(seconds=seconds, tokens=tokens, tokens_per_s=tokens / seconds,
+                          tokens_per_s_range=(tokens / max(runs), tokens / min(runs)))
+        r = out[where]
+        print(
+            f"serve {family:4s} prefix_{pass_:5s} requests={len(reqs)} tokens={tokens} "
+            f"seconds={seconds:.4f} tokens/s={tokens / seconds:.1f} "
+            f"(range {tokens / max(runs):.1f}-{tokens / min(runs):.1f} over {TIMED_RUNS} "
+            f"runs) ticks={r['ticks']} warm_admits={r['warm_admits']} "
+            f"admission_rounds={r['rounds']} kernel_launches={r['launches']} "
+            f"chunk_launches={r['chunk_launches']} sync_calls={r['syncs']} "
+            f"cached_pages={r['cached_pages']} first2_max_err={r['first_steps_max_err']:.3e} "
+            f"(band rtol {band[0]}, atol {band[1]}) pages_home_after_eviction=yes",
+            flush=True,
+        )
+    return out
+
+
+def what_if_path(torch, ContinuousBatcher, model, layers, Request) -> dict:
+    """One ``run_what_if`` with 4 branches (bf16 pool) against four
+    independent admissions of the same prefix, one per branch status
+    (``serve_wave``), and its observed-status branch against ``run``."""
+    from beholder_tpu_torch.models.serving import serve_wave
+
+    rng = np.random.default_rng(5)
+    # 200 steps: one full shared page and a tail page each fork copies
+    (req,) = make_requests(rng, Request, [200], [128])
+    branches = [CONVERTING, DEPLOYED, ERRORED, QUEUED]
+    horizon = req.horizon
+    band = FORECAST_BAND["bf16"]
+    b = ContinuousBatcher(model, **SERVE)
+
+    def what_if():
+        return b.run_what_if(req.progress, req.statuses, branches, horizon)
+
+    what_if()
+    got, syncs, launches, chunk = counted(torch, what_if)
+    check(got.shape == (len(branches), horizon), f"what_if: shape {got.shape}")
+    check(bool(np.isfinite(got).all()), "what_if: not finite")
+    check(launches == layers * (horizon - 1),
+          f"what_if: {launches} kernel launches for {horizon - 1} ticks x {layers} layers")
+    check(chunk == 0, f"what_if: {chunk} chunk kernel launches")
+    check(int(b.state.free_top) == b.num_pages, "what_if: pages not home")
+
+    ind = ContinuousBatcher(model, **SERVE)
+    feats, t = ind._prep_np(req)
+    t_pad = -(-t // ind.page_size) * ind.page_size
+    with torch.no_grad():
+        want, ind.state = serve_wave(
+            model, ind.state,
+            ind._up(np.stack([ind._pad_to(feats, t_pad)] * len(branches))),
+            ind._up(np.full(len(branches), t, np.int32)),
+            ind._up(np.asarray(branches, np.int64)), horizon - 1,
+        )
+    want = want.cpu().numpy()
+    rtol, atol = band
+    ok = np.abs(got - want) <= atol + rtol * np.abs(want)
+    check(bool(ok.all()), "what_if: branches outside the band of independent admissions")
+    vs_independent = float(np.abs(got - want).max())
+    (alone,) = ContinuousBatcher(model, **SERVE).run([req])
+    check(bool((np.abs(got[0] - alone) <= atol + rtol * np.abs(alone)).all()),
+          "what_if: the observed-status branch is outside the band of run()")
+    runs = timed(torch, what_if)
+    seconds = statistics.median(runs)
+    tokens = len(branches) * horizon
+    print(
+        f"serve bf16 what_if branches={len(branches)} horizon={horizon} tokens={tokens} "
+        f"seconds={seconds:.4f} tokens/s={tokens / seconds:.1f} kernel_launches={launches} "
+        f"sync_calls={syncs} max_diff_vs_independent={vs_independent:.3e} "
+        f"max_diff_branch0_vs_run={float(np.abs(got[0] - alone).max()):.3e} "
+        f"(band rtol {rtol}, atol {atol}) pages_home=yes",
+        flush=True,
+    )
+    return {"bf16/what_if": dict(
+        launches=launches, chunk_launches=chunk, ticks=horizon - 1, syncs=syncs,
+        seconds=seconds, tokens=tokens, tokens_per_s=tokens / seconds,
+        max_diff_vs_independent=vs_independent, band=band,
+    )}
 
 
 def profile_waves(torch, b, reqs, wall_s: float) -> dict:
@@ -401,16 +757,18 @@ def main() -> None:
           f"allow_tf32=False allow_bf16_reduced_precision_reduction=False", flush=True)
 
     t0 = time.perf_counter()
-    csrc.build("paged_decode")
+    csrc.build("paged_decode", "paged_chunk")
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in csrc.build_log.items():
         print(f"build {name}: {log['seconds']:.2f} s\n{log['ptxas']}", flush=True)
 
     flush = torch.empty(64 * 2**20 // 4, device="cuda")
     cases = kernel_phase(torch, flush)
-    record = {"card": card, "kernel_cases": cases}
+    chunk_cases = chunk_kernel_phase(torch, flush)
+    record = {"card": card, "kernel_cases": cases, "chunk_kernel_cases": chunk_cases}
     serving = main_path(torch, profile=args.profile)
     record["serving"] = serving
+    paths = [v for k, v in serving.items() if k != "profile"]
 
     head = next(c for c in cases
                 if c["shape"] == "headline" and c["pool"] == "bf16" and c["window"] is None)
@@ -419,7 +777,7 @@ def main() -> None:
         "route": "cuda",
         "source": "beholder_tpu_torch/csrc/paged_decode.cu",
         "replaces": "beholder_tpu/ops/paged_attention.py:154",
-        "launches": sum(v["launches"] for k, v in serving.items() if k != "profile"),
+        "launches": sum(v["launches"] for v in paths),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -427,6 +785,21 @@ def main() -> None:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
     }]
+    wave = next(c for c in chunk_cases
+                if c["shape"] == "wave" and c["pool"] == "bf16" and c["window"] is None)
+    kernels.append({
+        "name": "paged_chunk_attention",
+        "route": "cuda",
+        "source": "beholder_tpu_torch/csrc/paged_chunk.cu",
+        "replaces": "beholder_tpu/ops/paged_attention.py:567",
+        "launches": sum(v["chunk_launches"] for v in paths),
+        "max_abs_err": max(c["max_abs_err"] for c in chunk_cases),
+        "ms": wave["ms"],
+        "plain_ms": wave["plain_ms"],
+        "bound_ms": wave["bound_ms"],
+        "bound_by": wave["bound_by"],
+        "library_ms": wave["library_ms"],
+    })
     record["kernels"] = kernels
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

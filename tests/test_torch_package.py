@@ -19,12 +19,15 @@ PORT_MODULES = [
     "beholder_tpu_torch.ops.quant",
     "beholder_tpu_torch.ops.attention",
     "beholder_tpu_torch.ops.paged_attention",
+    "beholder_tpu_torch.cache",
+    "beholder_tpu_torch.cache.prefix",
     "beholder_tpu_torch.models",
     "beholder_tpu_torch.models.sequence",
     "beholder_tpu_torch.models.bridge",
     "beholder_tpu_torch.models.decode",
     "beholder_tpu_torch.models.serving",
     "chip_smoke",
+    "serve_ab",
 ]
 
 _PROBE = """
@@ -53,12 +56,13 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 def test_port_sources_name_no_jax_import():
     """A textual check beside the runtime one: no port source (nor
-    ``chip_smoke.py``) has an import line for JAX, flax, optax or the JAX
-    package."""
+    ``chip_smoke.py`` and ``serve_ab.py``) has an import line for JAX, flax,
+    optax or the JAX package."""
     banned = ("import jax", "from jax", "import flax", "from flax",
               "import optax", "from optax", "import beholder_tpu\n",
               "from beholder_tpu ", "from beholder_tpu.", "import beholder_tpu.")
-    files = sorted((ROOT / "beholder_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "beholder_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "serve_ab.py"]
     assert len(files) >= 12
     for path in files:
         for line in path.read_text().splitlines():
