@@ -1,9 +1,10 @@
 """Build helper for the port's CUDA kernels.
 
-Each ``<name>.cu`` beside this file is compiled by ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface and loaded with ``ctypes``.
-The build happens at first use, into ``_build/`` beside this file (listed in
-``.gitignore``), keyed by a hash of the source and the flags, so a checkout
+Each ``<name>.cu`` beside this file (with the ``*.cuh`` headers it
+includes) is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
+a plain C interface and loaded with ``ctypes``. The build happens at first
+use, into ``_build/`` beside this file (listed in ``.gitignore``), keyed by
+a hash of the sources and the flags, so a checkout
 that holds only the sources builds what it needs. Nothing here runs when the
 package is imported.
 """
@@ -52,8 +53,11 @@ def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(f"no kernel source {src}")
+    # the shared headers count too: a kernel that includes one is rebuilt
+    # when it changes
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,16 +1,22 @@
-"""Weight bridge: the reference's flax params into the port's modules.
+"""Weight bridge: the reference's flax params (and optax Adam state) into
+the port's modules.
 
 The reference's params are a nested dict (as ``jax.tree.map(np.asarray,
-params)`` gives them, with or without the outer ``{"params": ...}``):
-``embed``, ``block_{i}/{LayerNorm_0, q_proj, k_proj, v_proj, proj,
-LayerNorm_1, up, down}``, a top-level ``LayerNorm_0`` and ``head``. A Dense
-``kernel (in, out)`` becomes ``weight (out, in)``; a LayerNorm ``scale``
-becomes ``weight``. bf16 leaves stay bf16.
+params)`` gives them, with or without the outer ``{"params": ...}``). For
+``TelemetrySequenceModel``: ``embed``, ``block_{i}/{LayerNorm_0, q_proj,
+k_proj, v_proj, proj, LayerNorm_1, up, down}``, a top-level ``LayerNorm_0``
+and ``head``; for ``ProgressAnomalyModel``: ``in_proj``, ``mid_proj``,
+``out_proj``. A Dense ``kernel (in, out)`` becomes ``weight (out, in)``; a
+LayerNorm ``scale`` becomes ``weight``. bf16 leaves stay bf16.
 
-:func:`init_params` makes such a tree from a numpy seed without JAX (flax's
-initialisers in spirit: lecun-normal kernels, zero biases, unit LayerNorm
-scales), so a run on the card can build the model at full width from
-random weights.
+:func:`flax_named` maps such a tree (params, or gradients, or Adam moments
+of the same structure) to the port's parameter names; :func:`load_optax_adam`
+carries an optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) into the
+port's ``torch.optim.Adam``, so a step from a mid-training JAX state can be
+compared. :func:`init_params` makes a tree from a numpy seed without JAX
+(flax's initialisers in spirit: lecun-normal kernels, zero biases, unit
+LayerNorm scales), so a run on the card can build a model at full width
+from random weights.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .anomaly import ProgressAnomalyModel
 from .sequence import FEATURES, TelemetrySequenceModel
+from .train import TrainState
 
 _BLOCK_DENSE = ("q_proj", "k_proj", "v_proj", "proj", "up", "down")
 
@@ -41,48 +49,92 @@ def _set(param: torch.nn.Parameter, value: torch.Tensor) -> None:
     param.data = value.to(param.device)
 
 
-def _load_dense(lin: torch.nn.Linear, tree: dict) -> None:
-    _set(lin.weight, _tensor(tree["kernel"]).t().contiguous())
-    _set(lin.bias, _tensor(tree["bias"]))
+def _dense(prefix: str, tree: dict) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _tensor(tree["kernel"]).t().contiguous(),
+            f"{prefix}.bias": _tensor(tree["bias"])}
 
 
-def _load_norm(norm, tree: dict) -> None:
-    _set(norm.weight, _tensor(tree["scale"]))
-    _set(norm.bias, _tensor(tree["bias"]))
+def _norm(prefix: str, tree: dict) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _tensor(tree["scale"]), f"{prefix}.bias": _tensor(tree["bias"])}
 
 
-def load_flax_params(model: TelemetrySequenceModel, params: dict) -> TelemetrySequenceModel:
+def flax_named(model, params: dict) -> dict[str, torch.Tensor]:
+    """A flax-shaped tree for ``model`` (a ``TelemetrySequenceModel`` or a
+    ``ProgressAnomalyModel``) as ``{port parameter name: tensor}``, on the
+    CPU. Works for any tree of the params' structure: gradients, Adam
+    moments."""
+    tree = params.get("params", params)
+    if isinstance(model, ProgressAnomalyModel):
+        out = {}
+        for name in ("in_proj", "mid_proj", "out_proj"):
+            out.update(_dense(name, tree[name]))
+        return out
+    out = _dense("embed", tree["embed"])
+    for i in range(len(model.blocks)):
+        sub = tree[f"block_{i}"]
+        out.update(_norm(f"blocks.{i}.ln0", sub["LayerNorm_0"]))
+        out.update(_norm(f"blocks.{i}.ln1", sub["LayerNorm_1"]))
+        for name in _BLOCK_DENSE:
+            out.update(_dense(f"blocks.{i}.{name}", sub[name]))
+    out.update(_norm("ln", tree["LayerNorm_0"]))
+    out.update(_dense("head", tree["head"]))
+    return out
+
+
+def load_flax_params(model, params: dict):
     """Copy a flax param tree into ``model`` (on the model's device), in
     place; returns the model."""
-    tree = params.get("params", params)
-    _load_dense(model.embed, tree["embed"])
-    for i, block in enumerate(model.blocks):
-        sub = tree[f"block_{i}"]
-        _load_norm(block.ln0, sub["LayerNorm_0"])
-        _load_norm(block.ln1, sub["LayerNorm_1"])
-        for name in _BLOCK_DENSE:
-            _load_dense(getattr(block, name), sub[name])
-    _load_norm(model.ln, tree["LayerNorm_0"])
-    _load_dense(model.head, tree["head"])
+    named = flax_named(model, params)
+    for name, param in model.named_parameters():
+        _set(param, named[name])
     return model
+
+
+def load_optax_adam(state: TrainState, opt_state) -> TrainState:
+    """Set ``state.optimizer``'s Adam moments and step count from an optax
+    ``adam`` state, in place: the ``ScaleByAdamState`` itself or the chain
+    tuple ``optax.adam`` makes, as numpy arrays. ``count`` becomes the
+    step of every parameter, ``mu``/``nu`` its ``exp_avg``/``exp_avg_sq``
+    (both in f32, like the params)."""
+    parts = (opt_state,) if hasattr(opt_state, "mu") else tuple(opt_state)
+    adam_state = next(p for p in parts if hasattr(p, "mu"))
+    mu = flax_named(state.model, adam_state.mu)
+    nu = flax_named(state.model, adam_state.nu)
+    step = torch.tensor(float(np.asarray(adam_state.count)), dtype=torch.float32)
+    for name, param in state.model.named_parameters():
+        state.optimizer.state[param] = {
+            "step": step.clone(),
+            "exp_avg": mu[name].to(param.device, param.dtype).clone(),
+            "exp_avg_sq": nu[name].to(param.device, param.dtype).clone(),
+        }
+    return state._replace(step=int(np.asarray(adam_state.count)))
 
 
 def init_params(
     model: TelemetrySequenceModel, seed: int, *, bf16_matrices: bool = False
 ) -> dict:
-    """A flax-shaped param tree of numpy arrays for ``model``, from a
-    numpy seed. ``bf16_matrices`` stores every leaf with ndim >= 2 as bf16
+    """A flax-shaped param tree of numpy arrays for ``model`` (a
+    ``TelemetrySequenceModel`` or a ``ProgressAnomalyModel``), from a numpy
+    seed. ``bf16_matrices`` stores every leaf with ndim >= 2 as bf16
     (returned as torch tensors, since numpy has no bf16), as the serving
     benchmark casts its params."""
     rng = np.random.default_rng(seed)
-    d, hkv = model.dim, model.kv_heads or model.heads
-    dh = d // model.heads
 
     def dense(fan_in, fan_out):
         kernel = rng.normal(0.0, 1.0 / np.sqrt(fan_in), (fan_in, fan_out)).astype(np.float32)
         if bf16_matrices:
             kernel = torch.from_numpy(kernel).to(torch.bfloat16)
         return {"kernel": kernel, "bias": np.zeros(fan_out, np.float32)}
+
+    if isinstance(model, ProgressAnomalyModel):
+        hidden = model.mid_proj.in_features
+        return {"params": {
+            "in_proj": dense(model.in_proj.in_features, hidden),
+            "mid_proj": dense(hidden, hidden),
+            "out_proj": dense(hidden, 1),
+        }}
+    d, hkv = model.dim, model.kv_heads or model.heads
+    dh = d // model.heads
 
     def norm():
         return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}

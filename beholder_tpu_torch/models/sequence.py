@@ -12,14 +12,21 @@ arithmetic follows the flax modules it mirrors:
 - gelu is the tanh approximation, op by op in bf16 (:func:`_gelu_tanh`);
 - the residual stream stays f32.
 
-Ported: the full-attention forward, ``return_kv`` (prefill), the
-dense-cache step (scalar or per-row index, ``t >= 1``), the paged decode
-tick (:class:`PagedInfo`) and the fused chunk forward over the paged pools
-(:class:`ChunkPagedInfo`, prefix-hit and fused-wave admission). The dense
-branches and the chunk kernel's plain version share one op sequence
-(:func:`~beholder_tpu_torch.ops.attention.attend`). Group-parallel
-forwards, flash/ring/ulysses attention, MoE, sequence sharding and remat
-raise ``NotImplementedError``.
+Ported: the full-attention forward, ``attention="flash"`` (the flash
+kernels, forward and backward, :mod:`beholder_tpu_torch.ops.flash_attention`),
+``return_kv`` (prefill), the dense-cache step (scalar or per-row index,
+``t >= 1``), the paged decode tick (:class:`PagedInfo`) and the fused chunk
+forward over the paged pools (:class:`ChunkPagedInfo`, prefix-hit and
+fused-wave admission). The dense branches and the chunk kernel's plain
+version share one op sequence
+(:func:`~beholder_tpu_torch.ops.attention.attend`). Training:
+:func:`seq_loss`, :func:`init_seq_state` and :func:`seq_train_step`, with
+``remat=True`` recomputing each block in the backward
+(``torch.utils.checkpoint``). Group-parallel forwards, ring/ulysses
+attention, MoE and sequence sharding raise ``NotImplementedError``.
+
+The model is built with gradients off, so the serving paths record no
+autograd graph; :func:`init_seq_state` turns them on for training.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from beholder_tpu_torch.device import resolve_device
 from beholder_tpu_torch.ops import NUM_STATUSES
 from beholder_tpu_torch.ops.attention import attend, full_attention
+from beholder_tpu_torch.ops.flash_attention import flash_attention
 from beholder_tpu_torch.ops.paged_attention import (
     ChunkPagedInfo,
     PagedInfo,
@@ -40,6 +49,8 @@ from beholder_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
 )
 from beholder_tpu_torch.ops.quant import pool_quantize
+
+from .train import TrainState, apply_gradients, init_state
 
 FEATURES = 1 + NUM_STATUSES
 
@@ -188,8 +199,10 @@ def _write_dense_cache(cache: torch.Tensor, new: torch.Tensor, index):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: attention (full, dense-cache step, paged
-    decode tick or paged chunk) and a gelu MLP."""
+    """Pre-LN transformer block: attention (full or flash, dense-cache step,
+    paged decode tick or paged chunk) and a gelu MLP. ``attention`` picks
+    the cache-less path's backend, as in the reference; cached steps run
+    their own attention whatever it is."""
 
     def __init__(
         self,
@@ -202,12 +215,13 @@ class Block(nn.Module):
         device=None,
     ):
         super().__init__()
-        if attention != "full":
+        if attention not in ("full", "flash"):
             raise NotImplementedError(f"attention={attention!r} is not ported yet")
         hkv = kv_heads or heads
         if heads % hkv:
             raise ValueError(f"heads {heads} not a multiple of kv_heads {hkv}")
         self.dim, self.heads, self.kv_heads, self.window = dim, heads, hkv, window
+        self.attention = attention
         dh = dim // heads
         self.ln0 = LayerNorm(dim, device=device)
         self.q_proj = nn.Linear(dim, dim, device=device)
@@ -284,7 +298,8 @@ class Block(nn.Module):
             kv_out = (k_cache, v_cache)
         else:
             kv_out = (k, v)
-            att = full_attention(q, k, v, causal=True, window=self.window)
+            attend_fn = flash_attention if self.attention == "flash" else full_attention
+            att = attend_fn(q, k, v, causal=True, window=self.window)
         att = att.transpose(1, 2).reshape(b, t, d)
         x = x + _dense_bf16(att, self.proj).to(x.dtype)
         y = self.ln1(x)
@@ -315,10 +330,11 @@ class TelemetrySequenceModel(nn.Module):
         super().__init__()
         if ffn != "dense":
             raise NotImplementedError(f"ffn={ffn!r} is not ported yet")
-        if remat or seq_shard:
-            raise NotImplementedError("remat and seq_shard are not ported yet")
+        if seq_shard:
+            raise NotImplementedError("seq_shard is not ported yet")
         device = resolve_device(device)
         self.dim, self.heads, self.layers = dim, heads, layers
+        self.remat = remat
         self.kv_heads, self.window = kv_heads, window
         self.embed = nn.Linear(FEATURES, dim, device=device)
         self.blocks = nn.ModuleList(
@@ -341,9 +357,15 @@ class TelemetrySequenceModel(nn.Module):
         if group is not None:
             raise NotImplementedError("group-parallel forwards are not ported yet")
         x = _dense_f32(feats, self.embed)
+        # remat only pays in the training backward: each block's activations
+        # are dropped after the forward and recomputed when its gradient is
+        # taken (the reference's nn.remat(Block), off the decode paths)
+        remat = self.remat and cache is None and not return_kv and torch.is_grad_enabled()
         kvs = []
         for i, block in enumerate(self.blocks):
-            if cache is not None:
+            if remat:
+                x = checkpoint(block, x, use_reentrant=False)
+            elif cache is not None:
                 x, kv = block(x, cache=(cache[0][i], cache[1][i], cache[2]))
                 kvs.append(kv)
             elif return_kv:
@@ -375,3 +397,41 @@ def stream_features(
     feats = torch.cat([deltas[..., None], oh], dim=-1)
     targets = torch.cat([deltas[:, 1:], torch.zeros_like(deltas[:, :1])], dim=-1)
     return feats, targets
+
+
+def seq_loss(model: TelemetrySequenceModel, feats: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+    """Masked mean squared error of the next-delta predictions; the last
+    position's target is padding. (MoE router terms do not arise: MoE is
+    not ported.)"""
+    err = (model(feats) - targets) ** 2
+    mask = torch.ones_like(err)
+    mask[:, -1] = 0.0
+    return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def init_seq_state(
+    seed: int,
+    model: TelemetrySequenceModel | None = None,
+    learning_rate: float = 1e-3,
+    *,
+    device=None,
+) -> TrainState:
+    """A training state for ``model`` (default ``TelemetrySequenceModel()``
+    on ``device``): f32 params from a numpy seed
+    (:func:`~beholder_tpu_torch.models.bridge.init_params`), gradients on,
+    Adam at step 0. The reference's ``seq_len`` only shaped flax's init and
+    has no counterpart."""
+    from .bridge import init_params, load_flax_params
+
+    model = model or TelemetrySequenceModel(device=device)
+    load_flax_params(model, init_params(model, seed))
+    return init_state(model, learning_rate)
+
+
+def seq_train_step(
+    state: TrainState, feats: torch.Tensor, targets: torch.Tensor
+) -> tuple[TrainState, torch.Tensor]:
+    """One Adam step on :func:`seq_loss`; returns the new state and the
+    loss (a 0-d tensor on the device)."""
+    return apply_gradients(state, lambda m: seq_loss(m, feats, targets))

@@ -1,0 +1,412 @@
+"""Flash attention, forward and backward: three CUDA kernels for Hopper and
+their plain versions.
+
+Counterpart of the reference's ``ops/flash_attention.py``. The public
+:func:`flash_attention` takes ``(..., H, T, d)`` q and ``(..., Hkv, T, d)``
+k/v like the reference and is differentiable through :class:`FlashAttention`
+(the reference's custom VJP ``_flash``), which saves ``q, k, v, o, lse``
+and nothing of size T x T.
+
+Per kernel, a wrapper with a ``launches`` count, over flattened
+``(B*H, T, Dh)`` q and ``(B*Hkv, T, Dh)`` k/v (GQA: q head ``bh`` reads kv
+head ``bh // G``):
+
+- :func:`flash_forward` -> ``(o, lse)``: kernel ``csrc/flash_fwd.cu``,
+  plain version :func:`flash_forward_reference`;
+- :func:`flash_backward_dq` -> ``dq``: kernel ``flash_dq_kernel`` in
+  ``csrc/flash_bwd.cu``, plain version :func:`flash_dq_reference`;
+- :func:`flash_backward_dkv` -> ``(dk, dv)`` at kv-head shape, summed over
+  the GQA group: kernel ``flash_dkv_kernel`` in ``csrc/flash_bwd.cu``,
+  plain version :func:`flash_dkv_reference`.
+
+On a CUDA tensor each wrapper launches its kernel (bf16, head dim 64) or
+raises; it never falls back. On a CPU tensor it runs the plain version.
+The plain versions compute the same function densely (the (T, T) scores
+exist there) with the reference's dtype mix:
+
+- the forward folds ``1/sqrt(d)`` into q and rounds it back to q's dtype
+  before the score product; the backward multiplies the f32 score instead;
+- products take input-dtype operands with f32 accumulation;
+- p is cast to v's dtype before PV, to do's before dv; ds to k's dtype
+  before dq and to q's before dk;
+- masking uses -1e30, and p is zeroed where the score is masked, so a row
+  with no live key gives ``o = 0`` and ``lse = -1e30``.
+
+The kernels run the softmax online over 64-key tiles, the plain forward
+over the whole row: their bf16 weights round differently. dk/dv are summed
+over the group in f32 and rounded once (the reference rounds per-q-head
+partials to k's dtype and sums those). Ring block-pair mode
+(``flash_block_attend`` / ``flash_block_backward``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+_NEG_INF = -1e30
+#: the head dim the kernels are compiled for (the served model's)
+_KERNEL_HEAD_DIM = 64
+
+
+def _live(t: int, causal: bool, window: int | None, segment_ids, bhkv: int,
+          device) -> torch.Tensor | None:
+    """Boolean mask broadcasting against grouped scores ``(BHkv, G, T, T)``,
+    or None when every pair is live."""
+    rows = torch.arange(t, device=device)[:, None]
+    cols = torch.arange(t, device=device)[None, :]
+    live = None
+    if causal:
+        live = rows >= cols
+    if window is not None:
+        live = live & (rows - cols < window)
+    if segment_ids is not None:
+        # batch-lead ids (B, T) -> one row per kv head
+        seg = segment_ids.repeat_interleave(bhkv // segment_ids.shape[0], dim=0)
+        same = seg[:, None, :, None] == seg[:, None, None, :]          # (BHkv,1,T,T)
+        live = same if live is None else live & same
+    return live
+
+
+def _grouped(x: torch.Tensor, bhkv: int) -> torch.Tensor:
+    """(BH, T, d) -> f32 (BHkv, G, T, d)."""
+    return x.float().reshape(bhkv, -1, *x.shape[1:])
+
+
+def _probabilities(q, k, lse, causal, window, segment_ids):
+    """The backward's p = exp(s - lse) from the saved logsumexp, with s the
+    unscaled-q score times ``1/sqrt(d)`` in f32, masked to -1e30 and p
+    zeroed there: (BHkv, G, T, T) f32."""
+    bhkv, t, d = k.shape
+    scale = 1.0 / math.sqrt(d)
+    s = torch.matmul(_grouped(q, bhkv), k.float()[:, None].transpose(-1, -2)) * scale
+    live = _live(t, causal, window, segment_ids, bhkv, q.device)
+    if live is not None:
+        s = torch.where(live, s, _NEG_INF)
+    p = torch.exp(s - lse.reshape(bhkv, -1, t, 1))
+    return torch.where(s <= _NEG_INF / 2, 0.0, p)
+
+
+def flash_forward_reference(q, k, v, *, causal=False, window=None, segment_ids=None):
+    """The plain PyTorch version of the forward kernel: ``(o, lse)`` for
+    ``(BH, T, d)`` q and ``(BHkv, T, d)`` k/v; o in q's dtype, lse f32
+    ``(BH, T)``."""
+    bh, t, d = q.shape
+    bhkv = k.shape[0]
+    scale = 1.0 / math.sqrt(d)
+    qs = (q.float() * scale).to(q.dtype)
+    s = torch.matmul(_grouped(qs, bhkv), k.float()[:, None].transpose(-1, -2))
+    live = _live(t, causal, window, segment_ids, bhkv, q.device)
+    if live is not None:
+        s = torch.where(live, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(s <= _NEG_INF / 2, 0.0, p)
+    l = p.sum(dim=-1)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float()[:, None])
+    safe_l = torch.clamp(l, min=1e-37)
+    o = (acc / safe_l[..., None]).to(q.dtype).reshape(bh, t, d)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(safe_l), _NEG_INF)
+    return o, lse.reshape(bh, t)
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, *, causal=False, window=None,
+                       segment_ids=None):
+    """The plain PyTorch version of the dq kernel: ``dq`` in q's dtype."""
+    bhkv, t, d = k.shape
+    p = _probabilities(q, k, lse, causal, window, segment_ids)
+    dp = torch.matmul(_grouped(do, bhkv), v.float()[:, None].transpose(-1, -2))
+    ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * (1.0 / math.sqrt(d))
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()[:, None])
+    return dq.to(q.dtype).reshape(q.shape)
+
+
+def flash_dkv_reference(q, k, v, do, lse, delta, *, causal=False, window=None,
+                        segment_ids=None):
+    """The plain PyTorch version of the dk/dv kernel: ``(dk, dv)`` at
+    kv-head shape in k's and v's dtypes, each summed over the GQA group in
+    f32."""
+    bhkv, t, d = k.shape
+    p = _probabilities(q, k, lse, causal, window, segment_ids)
+    dp = torch.matmul(_grouped(do, bhkv), v.float()[:, None].transpose(-1, -2))
+    ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * (1.0 / math.sqrt(d))
+
+    def group_sum(w, x):
+        # sum over the group's query heads and rows: (BHkv, T, G*T) @ (BHkv, G*T, d)
+        w = w.permute(0, 3, 1, 2).reshape(bhkv, t, -1)
+        return torch.matmul(w, _grouped(x, bhkv).reshape(bhkv, -1, d))
+
+    dv = group_sum(p.to(do.dtype).float(), do).to(v.dtype)
+    dk = group_sum(ds.to(q.dtype).float(), q).to(k.dtype)
+    return dk, dv
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``rowsum(do * o)`` in f32, ``(BH, T)``: plain torch on either device,
+    as the reference computes it in XLA."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_backward_reference(q, k, v, o, lse, do, *, causal=False, window=None,
+                             segment_ids=None):
+    """Plain ``(dq, dk, dv)`` from the saved ``o`` and ``lse``."""
+    delta = flash_delta(o, do)
+    kw = dict(causal=causal, window=window, segment_ids=segment_ids)
+    dk, dv = flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    return flash_dq_reference(q, k, v, do, lse, delta, **kw), dk, dv
+
+
+# -- the kernels --------------------------------------------------------------
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    """``flash_fwd`` or ``flash_bwd``, built at first use."""
+    if name not in _libs:
+        from beholder_tpu_torch import csrc
+
+        lib = csrc.load(name)
+        tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        if name == "flash_fwd":
+            lib.flash_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + tail
+            lib.flash_fwd_launch.restype = ctypes.c_int
+        else:
+            lib.flash_dq_launch.argtypes = [ctypes.c_void_p] * 8 + tail
+            lib.flash_dq_launch.restype = ctypes.c_int
+            lib.flash_dkv_launch.argtypes = [ctypes.c_void_p] * 9 + tail
+            lib.flash_dkv_launch.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _check_kernel_inputs(kernel: str, bf16: dict, f32: dict, segment_ids) -> None:
+    """What the kernels take: bf16 q/k/v/do of head dim 64, f32 lse and
+    delta, int32 segment ids, all contiguous on one device, 16-byte aligned."""
+    dev = bf16["q"].device
+    tensors = {**bf16, **f32}
+    if segment_ids is not None:
+        if segment_ids.dtype != torch.int32:
+            raise TypeError(f"the {kernel} kernel takes int32 segment ids")
+        tensors["segment_ids"] = segment_ids
+    for name, t in bf16.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the {kernel} kernel takes bf16 {name}, got {t.dtype}")
+    for name, t in f32.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"the {kernel} kernel takes f32 {name}, got {t.dtype}")
+    if bf16["q"].shape[-1] != _KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"the {kernel} kernel takes head_dim {_KERNEL_HEAD_DIM}, "
+            f"got {bf16['q'].shape[-1]}"
+        )
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}; {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"the {kernel} kernel takes contiguous tensors ({name})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"the {kernel} kernel takes 16-byte aligned tensors ({name})")
+
+
+def _on_card(q: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor
+    (the plain version runs); any other device raises."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(
+            f"flash attention runs on CUDA tensors (the kernels) or CPU tensors "
+            f"(the plain versions), got {q.device}"
+        )
+    return q.is_cuda
+
+
+def _common_args(q, k, segment_ids, causal, window):
+    """The launch's trailing scalars: BH, BHkv, T, Dh, H, causal, window,
+    scale (the f32 value the plain versions multiply by), stream."""
+    bh, t, d = q.shape
+    heads = bh // segment_ids.shape[0] if segment_ids is not None else bh
+    return (
+        bh, k.shape[0], t, d, heads, int(causal), 0 if window is None else int(window),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
+def _check_flat(q, k, v, segment_ids, window, causal) -> None:
+    """Shape checks of the flattened operands, shared by the wrappers."""
+    if q.ndim != 3 or k.ndim != 3:
+        raise ValueError(f"q and k/v must be (rows, T, d), got {tuple(q.shape)}, {tuple(k.shape)}")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} vs {tuple(v.shape)}")
+    if q.shape[1:] != k.shape[1:] or q.shape[0] % k.shape[0]:
+        raise ValueError(
+            f"GQA shapes must differ only in rows, with q rows a multiple of kv rows; "
+            f"got {tuple(q.shape)} vs {tuple(k.shape)}"
+        )
+    if window is not None and (not causal or window < 1):
+        raise ValueError(f"window needs causal=True and window >= 1, got {window}")
+    if segment_ids is not None:
+        if segment_ids.ndim != 2 or segment_ids.shape[1] != q.shape[1] or (
+            k.shape[0] % segment_ids.shape[0]
+        ):
+            raise ValueError(
+                f"segment_ids must be (B, T) with B dividing the kv rows, "
+                f"got {tuple(segment_ids.shape)}"
+            )
+
+
+def flash_forward(q, k, v, *, causal=False, window=None, segment_ids=None):
+    """``(o, lse)`` of flattened ``(BH, T, d)`` q over ``(BHkv, T, d)`` k/v.
+    CUDA tensors launch ``csrc/flash_fwd.cu`` (each launch adds one to
+    ``flash_forward.launches``); CPU tensors run
+    :func:`flash_forward_reference`."""
+    _check_flat(q, k, v, segment_ids, window, causal)
+    if not _on_card(q):
+        return flash_forward_reference(
+            q, k, v, causal=causal, window=window, segment_ids=segment_ids
+        )
+    _check_kernel_inputs("flash forward", {"q": q, "k": k, "v": v}, {}, segment_ids)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    err = _kernel_lib("flash_fwd").flash_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        segment_ids.data_ptr() if segment_ids is not None else None,
+        o.data_ptr(), lse.data_ptr(), *_common_args(q, k, segment_ids, causal, window),
+    )
+    _raise_on(err, "flash forward")
+    flash_forward.launches += 1
+    return o, lse
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, *, causal=False, window=None,
+                      segment_ids=None):
+    """``dq`` from the saved ``lse`` and ``delta = rowsum(do * o)``. CUDA
+    tensors launch the dq kernel of ``csrc/flash_bwd.cu`` (each launch adds
+    one to ``flash_backward_dq.launches``); CPU tensors run
+    :func:`flash_dq_reference`."""
+    _check_flat(q, k, v, segment_ids, window, causal)
+    kw = dict(causal=causal, window=window, segment_ids=segment_ids)
+    if not _on_card(q):
+        return flash_dq_reference(q, k, v, do, lse, delta, **kw)
+    _check_kernel_inputs("flash dq", {"q": q, "k": k, "v": v, "do": do},
+                         {"lse": lse, "delta": delta}, segment_ids)
+    dq = torch.empty_like(q)
+    err = _kernel_lib("flash_bwd").flash_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), segment_ids.data_ptr() if segment_ids is not None else None,
+        dq.data_ptr(), *_common_args(q, k, segment_ids, causal, window),
+    )
+    _raise_on(err, "flash dq")
+    flash_backward_dq.launches += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
+                       segment_ids=None):
+    """``(dk, dv)`` at kv-head shape, each summed over the GQA group. CUDA
+    tensors launch the dk/dv kernel of ``csrc/flash_bwd.cu`` (each launch
+    adds one to ``flash_backward_dkv.launches``); CPU tensors run
+    :func:`flash_dkv_reference`."""
+    _check_flat(q, k, v, segment_ids, window, causal)
+    kw = dict(causal=causal, window=window, segment_ids=segment_ids)
+    if not _on_card(q):
+        return flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    _check_kernel_inputs("flash dk/dv", {"q": q, "k": k, "v": v, "do": do},
+                         {"lse": lse, "delta": delta}, segment_ids)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _kernel_lib("flash_bwd").flash_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), segment_ids.data_ptr() if segment_ids is not None else None,
+        dk.data_ptr(), dv.data_ptr(), *_common_args(q, k, segment_ids, causal, window),
+    )
+    _raise_on(err, "flash dk/dv")
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+#: kernel launches since each count was last set to 0
+flash_forward.launches = 0
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's custom VJP ``_flash``: the forward kernel, then the
+    dq and dk/dv kernels from the saved ``q, k, v, o, lse`` (nothing of size
+    T x T is saved). Operands are flattened ``(BH, T, d)`` / ``(BHkv, T,
+    d)``; ``segment_ids`` ``(B, T)`` integers or None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal, window):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_forward(q, k, v, causal=causal, window=window,
+                               segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, segment_ids = ctx.saved_tensors
+        do = do.contiguous()
+        kw = dict(causal=ctx.causal, window=ctx.window, segment_ids=segment_ids)
+        delta = flash_delta(o, do)
+        dq = flash_backward_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    window: int | None = None,
+    segment_ids: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Memory-efficient attention, ``(..., T, d) -> (..., T, d)``, with the
+    reference's checks: GQA k/v may carry fewer heads on dim -3 (q heads a
+    multiple of kv heads, every other dim equal); ``window`` (requires
+    ``causal``, ``>= 1``) keeps the previous ``window`` positions of each
+    row; ``segment_ids`` (batch-shaped ``q.shape[:-3] + (T,)``, integers)
+    masks attention across segments. Differentiable in q, k and v."""
+    shape = q.shape
+    t, d = shape[-2], shape[-1]
+    if k.shape != q.shape:
+        if (
+            q.ndim < 3
+            or k.shape[:-3] != q.shape[:-3]
+            or k.shape[-2:] != q.shape[-2:]
+            or q.shape[-3] % k.shape[-3]
+        ):
+            raise ValueError(
+                f"GQA shapes must differ only in heads (-3 dim), with q heads a "
+                f"multiple of kv heads; got {tuple(q.shape)} vs {tuple(k.shape)}"
+            )
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} vs {tuple(v.shape)}")
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+    seg = None
+    if segment_ids is not None:
+        want = (*shape[:-3], t) if q.ndim >= 3 else (t,)
+        if tuple(segment_ids.shape) != want:
+            raise ValueError(
+                f"segment_ids must be batch-shaped {want} (no head dim); "
+                f"got {tuple(segment_ids.shape)}"
+            )
+        if segment_ids.is_floating_point():
+            raise TypeError("segment_ids must be integers")
+        seg = segment_ids.reshape(-1, t).to(torch.int32).contiguous()
+    q3 = q.reshape(-1, t, d)
+    k3, v3 = (a.reshape(-1, t, d) for a in (k, v))
+    return FlashAttention.apply(q3, k3, v3, seg, causal, window).reshape(shape)

@@ -6,15 +6,18 @@ CUDA card, ``nvcc`` (it builds the port's kernels from ``csrc/`` at first
 use) and nothing of JAX. Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every kernel of the serving path, one ``nvcc`` per source, all
-   started together;
+2. build: every kernel of the serving and training paths, one ``nvcc`` per
+   source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the serving path's shapes, with the tolerance stated; times
-   (CUDA events, median) of the kernel, the plain version and one PyTorch
+   card, at its path's shapes, with the tolerance stated; times (CUDA
+   events, median) of the kernel, the plain version and one PyTorch
    library call computing the same function, beside the bound. The paged
    decode kernel at the headline and long-context shapes; the paged chunk
-   kernel at the fused-wave, warm-prefix and long-context shapes;
-4. main path: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
+   kernel at the fused-wave, warm-prefix and long-context shapes; the flash
+   forward, dq and dk/dv kernels at the training shape (B=4, H=8, Hkv=2,
+   T=4096, Dh=64, bf16), causal, with a 512 window, non-causal, with
+   segment ids and at T=4000;
+4. serving: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
    layers=4)`` with random bf16 weights from a numpy seed, over bf16, int8
    and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
    ``ContinuousBatcher.run`` (cold admission), ``run_waves`` with
@@ -23,11 +26,18 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    ``run_what_if``; per path: launch counts of both kernels (set to 0 just
    before, read just after), pages home, forecasts against the dense
    ``forecast_deltas`` oracle, tokens/s, synchronising calls;
-5. output: a ``kernels`` JSON line, then the ``ok`` line last.
+5. training: the same model with ``attention="flash"`` and f32 params from
+   a numpy seed, ``init_seq_state`` then 20 ``seq_train_step``s on 4
+   streams of 4096 events (flash launches counted, losses finite and
+   falling, step ms, tokens/s, one profiled step); checkpoint save, restore
+   and one step, bitwise against the uninterrupted run; step-1 gradients
+   against ``attention="full"``; ``remat=True`` (gradients bitwise, forward
+   launches doubled) and ``window=512`` for 3 steps each; then
+   ``ProgressAnomalyModel`` at ``entry()``'s shape and 20 ``train_step``s;
+6. output: a ``kernels`` JSON line, then the ``ok`` line last.
 
-``--profile`` adds a
-``torch.profiler`` breakdown of one bf16 ``run_waves``. The full record goes
-to ``chiprun_out/chip_smoke.json``.
+``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``.
+The full record goes to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -371,6 +381,192 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
     return cases
 
 
+#: flash kernels vs their plain versions, per output, in units of the plain
+#: output row's RMS over the head dim: max |kernel - plain| / row RMS. The
+#: forward kernel runs the softmax online over 64-key tiles and rounds each
+#: unnormalised weight to bf16, the plain forward the whole row's: o read up
+#: to 0.033 over the five cases (NVIDIA H100 80GB HBM3, 700 W; PERF.md), and
+#: its limit is ~3x that; a forward that drops one 64-key tile must read
+#: above 3x the limit (checked on the training case). The backward kernels
+#: round p and ds as their plain versions do and read 0 (bitwise) in all five
+#: cases (7.5e-4 at a 200-token probe shape): their limit, 0.01, is ~2.5
+#: bf16 ULPs at the row's RMS. lse (f32, ~8-10 at T=4096) read up to 1.9e-6,
+#: two f32 ULPs (non-causal): limit 6e-6.
+FLASH_TOL_RMS = {"o": 0.09, "dq": 0.01, "dk": 0.01, "dv": 0.01}
+FLASH_LSE_ATOL = 6e-6
+#: the training shape of the flash kernels: B streams of T events, 8 heads
+#: over 2 kv heads, head dim 64 (dim 512 / 8 heads)
+FLASH_SHAPE = dict(B=4, H=8, Hkv=2, T=4096, Dh=64)
+FLASH_CASES = {
+    "train": dict(causal=True),
+    "window512": dict(causal=True, window=512),
+    "noncausal": dict(causal=False),
+    "segments": dict(causal=True, segments=4),
+    "t4000": dict(causal=True, T=4000),
+}
+
+
+def flash_pairs(T: int, causal: bool, window, seg) -> int:
+    """(query, key) pairs one head attends: what this data needs."""
+    if seg is not None:
+        i = np.arange(T)
+        n = 0
+        for row in seg:
+            same = row[:, None] == row[None, :]
+            if causal:
+                same &= i[:, None] >= i[None, :]
+            n += int(same.sum())
+        return n // len(seg)
+    if not causal:
+        return T * T
+    seen = np.arange(1, T + 1)
+    return int(np.minimum(seen, window).sum() if window else seen.sum())
+
+
+def row_reading(got, want) -> float:
+    """max |got - want| over the plain output row's RMS (head dim last)."""
+    want = want.float()
+    rms = want.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((got.float() - want).abs() / rms).max())
+
+
+def flash_kernel_phase(torch, flush) -> list[dict]:
+    """The three flash kernels against their plain versions at the training
+    shape, causal, with a window, non-causal, with segment ids and at an
+    unaligned T; times of each kernel, its plain version and SDPA (forward,
+    and its backward for dq and dk/dv), beside the bound."""
+    from beholder_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    cases = []
+    for name, c in FLASH_CASES.items():
+        shape = {**FLASH_SHAPE, **{k: v for k, v in c.items() if k in FLASH_SHAPE}}
+        B, H, Hkv, T, Dh = (shape[k] for k in ("B", "H", "Hkv", "T", "Dh"))
+        causal, window = c["causal"], c.get("window")
+        rng = np.random.default_rng(13)
+
+        def normal(*shape_):
+            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev).bfloat16()
+
+        q, k, v, do = normal(B * H, T, Dh), normal(B * Hkv, T, Dh), normal(B * Hkv, T, Dh), \
+            normal(B * H, T, Dh)
+        seg_np = None
+        if "segments" in c:
+            seg_np = np.sort(rng.integers(0, c["segments"], (B, T)), axis=-1).astype(np.int32)
+        seg = None if seg_np is None else torch.from_numpy(seg_np).to(dev)
+        kw = dict(causal=causal, window=window, segment_ids=seg)
+        o, lse = fa.flash_forward(q, k, v, **kw)
+        o_p, lse_p = fa.flash_forward_reference(q, k, v, **kw)
+        # the backward kernels and their plain versions from the same
+        # (plain) forward outputs
+        delta = fa.flash_delta(o_p, do)
+        bwd = (q, k, v, do, lse_p, delta)
+        dq = fa.flash_backward_dq(*bwd, **kw)
+        dk, dv = fa.flash_backward_dkv(*bwd, **kw)
+        dq_p = fa.flash_dq_reference(*bwd, **kw)
+        dk_p, dv_p = fa.flash_dkv_reference(*bwd, **kw)
+        torch.cuda.synchronize()
+        where = f"flash {name}"
+        for t_name, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
+            check(bool(torch.isfinite(t).all()), f"{where}: {t_name} not finite")
+        readings = {"o": row_reading(o, o_p), "dq": row_reading(dq, dq_p),
+                    "dk": row_reading(dk, dk_p), "dv": row_reading(dv, dv_p)}
+        lse_err = float((lse - lse_p).abs().max())
+        errs = {"o": float((o.float() - o_p.float()).abs().max()),
+                "dq": float((dq.float() - dq_p.float()).abs().max()),
+                "dk": float((dk.float() - dk_p.float()).abs().max()),
+                "dv": float((dv.float() - dv_p.float()).abs().max()), "lse": lse_err}
+        for out_name, reading in readings.items():
+            check(reading <= FLASH_TOL_RMS[out_name],
+                  f"{where}: {out_name} reading {reading} x row RMS > {FLASH_TOL_RMS[out_name]}")
+        check(lse_err <= FLASH_LSE_ATOL, f"{where}: lse err {lse_err} > {FLASH_LSE_ATOL}")
+        dropped = None
+        if name == "train":
+            # a plain forward that drops one 64-key tile must read above the limit
+            keep = torch.ones(T, dtype=torch.bool, device=dev)
+            keep[T // 2:T // 2 + 64] = False
+            s = torch.matmul((q.float() / 8.0).bfloat16().float().reshape(B * Hkv, -1, T, Dh),
+                             k.float()[:, None].transpose(-1, -2))
+            live = torch.ones(T, T, dtype=torch.bool, device=dev).tril() & keep[None, :]
+            w = torch.softmax(torch.where(live, s, -1e30), dim=-1)
+            o_drop = torch.matmul(w.bfloat16().float(), v.float()[:, None]).reshape(o_p.shape)
+            del s, w
+            dropped = row_reading(o_drop, o_p)
+            check(dropped > 3 * FLASH_TOL_RMS["o"],
+                  f"{where}: a forward without one kv tile reads {dropped}, inside the limit")
+
+        # library yardsticks: SDPA on (B, H, T, Dh) views, never called by the port
+        q4, k4, v4, do4 = (t.reshape(B, -1, T, Dh) for t in (q, k, v, do))
+        mask = None
+        if window is not None or seg is not None:
+            i = torch.arange(T, device=dev)
+            mask = (i[:, None] >= i[None, :]) if causal else torch.ones(T, T, dtype=torch.bool, device=dev)
+            if window is not None:
+                mask = mask & (i[:, None] - i[None, :] < window)
+            mask = mask[None, None]
+            if seg is not None:
+                mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
+
+        def sdpa(q4=q4, k4=k4, v4=v4):
+            if mask is None:
+                return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, enable_gqa=True)
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+
+        leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+        lib_out = sdpa(*leaves)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib_out, leaves, do4, retain_graph=True)
+
+        times = {
+            "fwd": (time_ms(torch, lambda: fa.flash_forward(q, k, v, **kw), flush),
+                    time_ms(torch, lambda: fa.flash_forward_reference(q, k, v, **kw), flush, reps=10),
+                    time_ms(torch, sdpa, flush)),
+            "dq": (time_ms(torch, lambda: fa.flash_backward_dq(*bwd, **kw), flush),
+                   time_ms(torch, lambda: fa.flash_dq_reference(*bwd, **kw), flush, reps=10),
+                   time_ms(torch, sdpa_bwd, flush)),
+            "dkv": (time_ms(torch, lambda: fa.flash_backward_dkv(*bwd, **kw), flush),
+                    time_ms(torch, lambda: fa.flash_dkv_reference(*bwd, **kw), flush, reps=10),
+                    time_ms(torch, sdpa_bwd, flush)),
+        }
+        del lib_out, leaves
+        pairs = flash_pairs(T, causal, window, seg_np)
+        e = 2  # bf16 bytes
+        qb, kb = B * H * T * Dh * e, B * Hkv * T * Dh * e
+        rowb = B * H * T * 4  # one f32 per query row (lse, delta)
+        segb = 0 if seg is None else B * T * 4
+        work = {  # (bytes: each input read once, each output written once; flops)
+            "fwd": (qb + 2 * kb + qb + rowb + segb, 4 * B * H * Dh * pairs),
+            "dq": (qb + 2 * kb + qb + 2 * rowb + qb + segb, 6 * B * H * Dh * pairs),
+            "dkv": (qb + 2 * kb + qb + 2 * rowb + 2 * kb + segb, 8 * B * H * Dh * pairs),
+        }
+        case = dict(case=name, B=B, H=H, Hkv=Hkv, T=T, Dh=Dh, causal=causal, window=window,
+                    segments=c.get("segments"), pairs_per_head=pairs, readings=readings,
+                    lse_err=lse_err, max_abs_err=errs, dropped_tile_reading=dropped,
+                    tolerance=dict(row_rms=FLASH_TOL_RMS, lse_atol=FLASH_LSE_ATOL))
+        for kern, (ms, plain_ms, lib_ms) in times.items():
+            nbytes, flops = work[kern]
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+            case[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                              flops=flops, bound_ms=max(t_bytes, t_ops),
+                              bound_by="bytes" if t_bytes >= t_ops else "operations")
+        cases.append(case)
+        print(
+            f"kernel flash {name:9s} T={T} readings(x row RMS) o={readings['o']:.3e} "
+            f"dq={readings['dq']:.3e} dk={readings['dk']:.3e} dv={readings['dv']:.3e} "
+            f"(limits {FLASH_TOL_RMS}) lse_err={lse_err:.3e} (limit {FLASH_LSE_ATOL})"
+            + ("" if dropped is None else f" dropped_tile_o_reading={dropped:.3e}"),
+            flush=True,
+        )
+        for kern in ("fwd", "dq", "dkv"):
+            r = case[kern]
+            print(f"  {kern:3s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']}) flops={r['flops']} bytes={r['bytes']}", flush=True)
+    return cases
+
+
 def make_requests(rng, Request, prefixes, horizons):
     return [
         Request(
@@ -696,6 +892,276 @@ def what_if_path(torch, ContinuousBatcher, model, layers, Request) -> dict:
     )}
 
 
+def dev_us(e) -> float:
+    """A profiler row's own device time, in microseconds."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def device_rows(events) -> list:
+    """The profiler's device rows (kernels, copies, fills). An operator's
+    row repeats the device time of the kernels it launched, so only these
+    rows add up to the time the device was busy."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA]
+
+
+#: the training path: the headline model with flash attention, B streams of
+#: T progress events per step, and the checks' step counts
+TRAIN_MODEL = dict(dim=512, heads=8, kv_heads=2, layers=4, attention="flash")
+TRAIN_B, TRAIN_T, TRAIN_STEPS, SIDE_STEPS = 4, 4096, 20, 3
+#: flash step-1 gradients against attention="full":
+#: tests/test_sequence_model.py:131 (rtol 5e-2, atol 5e-2)
+GRAD_BAND = (5e-2, 5e-2)
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+
+
+def flash_counts(fa) -> tuple[int, int, int]:
+    return fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches
+
+
+def counted_flash(torch, fa, fn):
+    """Run ``fn`` with the three flash launch counts set to 0 just before
+    and read just after. Returns (result, (forward, dq, dk/dv))."""
+    torch.cuda.synchronize()
+    fa.flash_forward.launches = fa.flash_backward_dq.launches = 0
+    fa.flash_backward_dkv.launches = 0
+    result = fn()
+    counts = flash_counts(fa)
+    torch.cuda.synchronize()
+    return result, counts
+
+
+def train_streams(torch, seed: int, batch: int, t: int):
+    """(feats, targets) on the card for ``batch`` encode jobs of ``t``
+    progress events each (steady progress with noise, CONVERTING)."""
+    from beholder_tpu_torch.models import stream_features
+
+    rng = np.random.default_rng(seed)
+    progress = np.cumsum(1.0 + rng.normal(0, 0.05, (batch, t + 1)), axis=-1)
+    statuses = np.full((batch, t + 1), CONVERTING)
+    return stream_features(torch.from_numpy(progress).cuda(), torch.from_numpy(statuses).cuda())
+
+
+def step_grads(torch, model, feats, targets) -> dict:
+    """One forward and backward of ``seq_loss``: the gradients by name."""
+    from beholder_tpu_torch.models import seq_loss
+
+    model.zero_grad(set_to_none=True)
+    seq_loss(model, feats, targets).backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def train_path(torch, flash_cases: list[dict]) -> dict:
+    """The training main path: init_seq_state, then TRAIN_STEPS seq_train_steps
+    of the headline model with flash attention (counted, timed per step with
+    CUDA events, one profiled step); flash step-1 gradients against
+    attention="full"; remat and a window for SIDE_STEPS steps; checkpoint
+    save, restore and one more step, bitwise against the uninterrupted run."""
+    from beholder_tpu_torch.models import (
+        TelemetrySequenceModel, init_seq_state, restore_state, save_state, seq_train_step,
+    )
+    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
+    from beholder_tpu_torch.ops import flash_attention as fa
+
+    layers = TRAIN_MODEL["layers"]
+    feats, targets = train_streams(torch, 0, TRAIN_B, TRAIN_T)
+    tokens = TRAIN_B * TRAIN_T
+    report = {}
+
+    # 1. the main run: init and TRAIN_STEPS steps, every launch counted
+    state = init_seq_state(0, TelemetrySequenceModel(**TRAIN_MODEL))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    events = []
+
+    def run():
+        nonlocal state
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss = seq_train_step(state, feats, targets)
+            end.record()
+            events.append((start, end))
+            losses.append(loss)
+        return torch.stack(losses).cpu().numpy()
+
+    t0 = time.perf_counter()
+    losses, launches = counted_flash(torch, fa, run)
+    wall = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    steady_ms = statistics.median(step_ms[1:])
+    check(bool(np.isfinite(losses).all()), f"train: losses not finite {losses}")
+    check(losses[-1] < 0.7 * losses[0],
+          f"train: last loss {losses[-1]} not below 0.7 x the first {losses[0]}")
+    want = (layers * TRAIN_STEPS,) * 3
+    check(launches == want, f"train: flash launches (fwd, dq, dkv) {launches}, expected {want}")
+    dims = " ".join(f"{k}={v}" for k, v in TRAIN_MODEL.items())
+    print(f"train {dims} params={n_params} "
+          f"B={TRAIN_B} T={TRAIN_T} steps={TRAIN_STEPS} loss {losses[0]:.4e} -> {losses[-1]:.4e} "
+          f"launches(fwd,dq,dkv)={launches} step_ms median(2..)={steady_ms:.2f} "
+          f"first={step_ms[0]:.2f} tokens/s={tokens / steady_ms * 1e3:.1f} wall_s={wall:.2f}",
+          flush=True)
+    # the kernels' share of a step, from the kernel phase's times at this shape
+    train_case = next(c for c in flash_cases if c["case"] == "train")
+    kernel_ms = layers * sum(train_case[k]["ms"] for k in ("fwd", "dq", "dkv"))
+    report["train"] = dict(
+        params=n_params, batch=TRAIN_B, T=TRAIN_T, steps=TRAIN_STEPS, losses=losses.tolist(),
+        launches=dict(zip(("fwd", "dq", "dkv"), launches)), step_ms=step_ms,
+        step_ms_median=steady_ms, tokens_per_step=tokens, tokens_per_s=tokens / steady_ms * 1e3,
+        flash_ms_per_step_from_kernel_phase=kernel_ms,
+        flash_share_from_kernel_phase=kernel_ms / steady_ms,
+    )
+    prof, (state, _) = profile_step(torch, lambda: seq_train_step(state, feats, targets),
+                                    steady_ms)
+    report["train"].update(prof)
+
+    # 2. checkpoint: save, step; restore into a fresh state, step: bitwise
+    ckpt = OUT / "train_state.pt"  # ~132 MB at full width: removed right after
+    OUT.mkdir(exist_ok=True)
+    try:
+        save_state(ckpt, state)
+        state, loss_a = seq_train_step(state, feats, targets)
+        restored = restore_state(ckpt, init_seq_state(1, TelemetrySequenceModel(**TRAIN_MODEL)))
+    finally:
+        ckpt.unlink(missing_ok=True)
+    check(restored.step == state.step - 1, f"checkpoint: step {restored.step}")
+    restored, loss_b = seq_train_step(restored, feats, targets)
+    same = torch.equal(loss_a, loss_b) and all(
+        torch.equal(a, b) for a, b in zip(state.model.parameters(), restored.model.parameters()))
+    check(same, "checkpoint: the resumed step is not bitwise the uninterrupted one")
+    report["checkpoint"] = dict(step=restored.step, bitwise=same)
+    print(f"train checkpoint save/restore at step {restored.step - 1}, one more step: "
+          f"bitwise=yes", flush=True)
+    del state, restored
+
+    # 3. step-1 gradients, flash against full attention, B=1
+    f1, t1 = train_streams(torch, 1, 1, TRAIN_T)
+    params = init_params(TelemetrySequenceModel(**TRAIN_MODEL), 2)
+    models = {}
+    for attention in ("flash", "full"):
+        m = TelemetrySequenceModel(**{**TRAIN_MODEL, "attention": attention})
+        load_flax_params(m, params)
+        models[attention] = m.requires_grad_(True)
+    g_flash = step_grads(torch, models["flash"], f1, t1)
+    g_full = step_grads(torch, models["full"], f1, t1)
+    rtol, atol = GRAD_BAND
+    worst = max(float(((g_flash[n] - g_full[n]).abs() - rtol * g_full[n].abs()).max())
+                for n in g_full)
+    check(worst <= atol, f"grads: flash vs full excess {worst} over rtol {rtol} > atol {atol}")
+    print(f"train grads B=1 T={TRAIN_T}: flash vs full max excess over {rtol}|full| = "
+          f"{worst:.3e} (atol {atol})", flush=True)
+    report["grads_vs_full"] = dict(max_excess=worst, band=GRAD_BAND)
+    del models
+
+    # 4. remat: step-1 gradients bitwise no-remat's, forward launches doubled
+    plain = TelemetrySequenceModel(**TRAIN_MODEL)
+    remat = TelemetrySequenceModel(**TRAIN_MODEL, remat=True)
+    for m in (plain, remat):
+        load_flax_params(m, params)
+        m.requires_grad_(True)
+    g_plain = step_grads(torch, plain, feats, targets)
+    g_remat, remat_launches = counted_flash(torch, fa, lambda: step_grads(torch, remat, feats, targets))
+    same = all(torch.equal(g_plain[n], g_remat[n]) for n in g_plain)
+    check(same, "remat: step-1 gradients differ from no-remat")
+    check(remat_launches == (2 * layers, layers, layers),
+          f"remat: launches {remat_launches} for one step, expected {(2 * layers, layers, layers)}")
+    del plain, g_plain, g_remat
+    report.update(side_run(torch, fa, "remat", remat, feats, targets, (2 * layers, layers, layers)))
+    del remat
+    windowed = TelemetrySequenceModel(**TRAIN_MODEL, window=512)
+    load_flax_params(windowed, params)
+    report.update(side_run(torch, fa, "window512", windowed, feats, targets,
+                           (layers, layers, layers)))
+    return report
+
+
+def side_run(torch, fa, name, model, feats, targets, per_step) -> dict:
+    """SIDE_STEPS steps of ``model`` (gradients on, fresh Adam): finite
+    losses and ``per_step`` flash launches (fwd, dq, dk/dv) per step."""
+    from beholder_tpu_torch.models import seq_train_step
+    from beholder_tpu_torch.models.train import init_state
+
+    state = init_state(model)
+
+    def run():
+        nonlocal state
+        losses = []
+        for _ in range(SIDE_STEPS):
+            state, loss = seq_train_step(state, feats, targets)
+            losses.append(loss)
+        return torch.stack(losses).cpu().numpy()
+
+    t0 = time.perf_counter()
+    losses, launches = counted_flash(torch, fa, run)
+    seconds = time.perf_counter() - t0
+    want = tuple(SIDE_STEPS * n for n in per_step)
+    check(bool(np.isfinite(losses).all()), f"{name}: losses not finite {losses}")
+    check(launches == want, f"{name}: flash launches {launches}, expected {want}")
+    print(f"train {name}: {SIDE_STEPS} steps losses {losses.tolist()} launches(fwd,dq,dkv)="
+          f"{launches} step_ms(host, mean)={seconds / SIDE_STEPS * 1e3:.2f}", flush=True)
+    return {name: dict(losses=losses.tolist(), launches=launches,
+                       step_ms_host_mean=seconds / SIDE_STEPS * 1e3)}
+
+
+def profile_step(torch, step, step_ms: float):
+    """torch.profiler over one training step: device time by kernel, the
+    flash kernels' share of it, and the device's busy share of the
+    unprofiled step time ``step_ms``. Returns (that record, the step's
+    result)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = step()
+        torch.cuda.synchronize()
+
+    events = device_rows(prof.key_averages())
+    device_ms = sum(dev_us(e) for e in events) / 1e3
+    flash_ms = sum(dev_us(e) for e in events
+                   if any(k in e.key for k in FLASH_KERNEL_NAMES)) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    out = dict(profiled_device_ms=device_ms, profiled_flash_ms=flash_ms,
+               flash_share=flash_ms / device_ms if device_ms else None,
+               device_busy_share=device_ms / step_ms if device_ms else None,
+               top_device=[(e.key, e.count, dev_us(e) / 1e3) for e in top])
+    print(f"profile train step: device_ms={device_ms:.2f} flash_ms={flash_ms:.2f} "
+          f"flash_share={out['flash_share']} busy_share={out['device_busy_share']} "
+          f"(of the unprofiled {step_ms:.2f} ms step)", flush=True)
+    for key, count, ms in out["top_device"]:
+        print(f"  device {ms:9.3f} ms  x{count:<6d} {key[:90]}", flush=True)
+    return out, result
+
+
+def anomaly_path(torch) -> dict:
+    """``ProgressAnomalyModel`` at ``entry()``'s shape: a forward over 256
+    windows of 16 x 7 features, then 20 ``train_step``s on 256 windows of
+    one job; losses finite and falling."""
+    from beholder_tpu_torch.models import anomaly
+
+    state = anomaly.init_train_state(0)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(0, 1, (256, anomaly.WINDOW * anomaly.FEATURES))
+                         .astype(np.float32)).cuda()
+    with torch.no_grad():
+        pred = state.model(x)
+    check(pred.shape == (256,) and bool(torch.isfinite(pred).all()), "anomaly: forward")
+    progress = torch.from_numpy(np.cumsum(1.0 + rng.normal(0, 0.05, 256 + anomaly.WINDOW + 1)))
+    windows, targets = anomaly.make_windows(progress.cuda(), torch.full((progress.shape[0],),
+                                            CONVERTING, device="cuda"))
+    check(windows.shape == (256, anomaly.WINDOW * anomaly.FEATURES), f"anomaly: {windows.shape}")
+    losses = []
+    for _ in range(20):
+        state, loss = anomaly.train_step(state, windows, targets)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()), f"anomaly: losses not finite {losses}")
+    check(losses[-1] < losses[0], f"anomaly: loss did not fall {losses[0]} -> {losses[-1]}")
+    print(f"anomaly forward (256, 112) -> (256,); 20 train_steps loss {losses[0]:.4e} -> "
+          f"{losses[-1]:.4e}", flush=True)
+    return dict(losses=losses.tolist())
+
+
 def profile_waves(torch, b, reqs, wall_s: float) -> dict:
     """torch.profiler over one warm ``run_waves``: device time by kernel,
     host time by op, and the device's busy share of the unprofiled wall
@@ -708,12 +1174,10 @@ def profile_waves(torch, b, reqs, wall_s: float) -> dict:
         b.run_waves(reqs, device_results=True)
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
     events = prof.key_averages()
-    device_ms = sum(dev_us(e) for e in events) / 1e3
-    kernels = sorted(events, key=dev_us, reverse=True)[:8]
+    kernel_rows = device_rows(events)
+    device_ms = sum(dev_us(e) for e in kernel_rows) / 1e3
+    kernels = sorted(kernel_rows, key=dev_us, reverse=True)[:8]
     host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     out = dict(
         wall_ms=wall_s * 1e3, device_ms=device_ms,
@@ -757,7 +1221,7 @@ def main() -> None:
           f"allow_tf32=False allow_bf16_reduced_precision_reduction=False", flush=True)
 
     t0 = time.perf_counter()
-    csrc.build("paged_decode", "paged_chunk")
+    csrc.build("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd")
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in csrc.build_log.items():
         print(f"build {name}: {log['seconds']:.2f} s\n{log['ptxas']}", flush=True)
@@ -765,10 +1229,15 @@ def main() -> None:
     flush = torch.empty(64 * 2**20 // 4, device="cuda")
     cases = kernel_phase(torch, flush)
     chunk_cases = chunk_kernel_phase(torch, flush)
-    record = {"card": card, "kernel_cases": cases, "chunk_kernel_cases": chunk_cases}
+    flash_cases = flash_kernel_phase(torch, flush)
+    record = {"card": card, "kernel_cases": cases, "chunk_kernel_cases": chunk_cases,
+              "flash_kernel_cases": flash_cases}
     serving = main_path(torch, profile=args.profile)
     record["serving"] = serving
     paths = [v for k, v in serving.items() if k != "profile"]
+    training = train_path(torch, flash_cases)
+    training["anomaly"] = anomaly_path(torch)
+    record["training"] = training
 
     head = next(c for c in cases
                 if c["shape"] == "headline" and c["pool"] == "bf16" and c["window"] is None)
@@ -800,6 +1269,26 @@ def main() -> None:
         "bound_by": wave["bound_by"],
         "library_ms": wave["library_ms"],
     })
+    train_case = next(c for c in flash_cases if c["case"] == "train")
+    for key, name, replaces, source in (
+        ("fwd", "flash_forward", "beholder_tpu/ops/flash_attention.py:227", "flash_fwd.cu"),
+        ("dq", "flash_backward_dq", "beholder_tpu/ops/flash_attention.py:558", "flash_bwd.cu"),
+        ("dkv", "flash_backward_dkv", "beholder_tpu/ops/flash_attention.py:635", "flash_bwd.cu"),
+    ):
+        outs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"beholder_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": training["train"]["launches"][key],
+            "max_abs_err": max(c["max_abs_err"][o] for c in flash_cases for o in outs),
+            "ms": train_case[key]["ms"],
+            "plain_ms": train_case[key]["plain_ms"],
+            "bound_ms": train_case[key]["bound_ms"],
+            "bound_by": train_case[key]["bound_by"],
+            "library_ms": train_case[key]["library_ms"],
+        })
     record["kernels"] = kernels
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,0 +1,163 @@
+"""The port's flash attention (forward, gradients, checks) against the JAX
+package's ``flash_attention``, whose Pallas kernels run in interpret mode
+on the CPU.
+
+Inputs are made from a numpy seed and handed to both. On CPU tensors the
+port runs its plain versions (the CUDA kernels run only on the card, where
+``chip_smoke.py`` holds them against these plain versions). Tolerances,
+with their reasons:
+
+- f32: the reference's own bands, ``tests/test_flash_attention.py:33``
+  (forward: rtol 1e-4, atol 1e-5) and ``:54`` (gradients: rtol 1e-3,
+  atol 1e-4). Both sides sum f32 products in other orders; the plain
+  forward runs its softmax over the whole row, the kernel online by tiles.
+- bf16: ``rtol = atol / max|ref| = 2**-6``, a few bf16 ULPs (a ULP is
+  2**-8 to 2**-7 of a value). p is rounded to bf16 before PV after a
+  whole-row max here and after a running max in the reference, which moves
+  single weights by a ULP; the port sums dk/dv over the GQA group in f32
+  and rounds once, where the reference rounds each query head's partial to
+  bf16 first, so a dk/dv entry can differ by a ULP of the largest partial.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from beholder_tpu.ops.flash_attention import flash_attention as jax_flash
+from beholder_tpu_torch.ops import flash_attention as fa
+from beholder_tpu_torch.ops.flash_attention import flash_attention
+
+CASES = {
+    # unaligned T (the reference pads it to 256), GQA group 2
+    "causal-gqa-t200": dict(b=1, h=4, hkv=2, t=200, d=16, causal=True),
+    "noncausal-mqa": dict(b=2, h=4, hkv=1, t=64, d=16, causal=False),
+    "window16-mqa-d64": dict(b=1, h=4, hkv=1, t=200, d=64, causal=True, window=16),
+    "window100-gqa": dict(b=1, h=4, hkv=2, t=200, d=16, causal=True, window=100),
+    "segments-causal-gqa": dict(b=2, h=4, hkv=2, t=130, d=16, causal=True, seg=True),
+    "segments-noncausal": dict(b=2, h=4, hkv=4, t=64, d=16, causal=False, seg=True),
+}
+BANDS = {"f32": ((1e-4, 1e-5), (1e-3, 1e-4)), "bf16": ((2**-6, 2**-6), (2**-6, 2**-6))}
+
+
+def _inputs(seed, b, h, hkv, t, d, seg=False, **_):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, t, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, t, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, t, d)).astype(np.float32)
+    do = rng.normal(size=(b, h, t, d)).astype(np.float32)
+    ids = np.sort(rng.integers(0, 3, size=(b, t)), axis=-1).astype(np.int32) if seg else None
+    return q, k, v, do, ids
+
+
+def _close(got, want, band, name, scaled):
+    rtol, atol = band
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.detach().float().numpy()
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    if scaled:
+        atol = atol * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_flash_forward_and_gradients_match_jax(case, dtype):
+    c = CASES[case]
+    q, k, v, do, ids = _inputs(3, **c)
+    causal, window = c["causal"], c.get("window")
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jseg = None if ids is None else jnp.asarray(ids)
+    want_o, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, causal=causal, window=window, segment_ids=jseg),
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+    )
+    want_grads = vjp(jnp.asarray(do).astype(jdt))
+
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v))
+    tseg = None if ids is None else torch.from_numpy(ids)
+    out = flash_attention(tq, tk, tv, causal=causal, window=window, segment_ids=tseg)
+    out.backward(torch.from_numpy(do).to(tdt))
+    fwd_band, grad_band = BANDS[dtype]
+    scaled = dtype == "bf16"
+    assert out.dtype == tdt
+    _close(out, want_o, fwd_band, "o", scaled)
+    # dk/dv come back at kv-head shape (checked inside _close)
+    for name, t, want in zip(("dq", "dk", "dv"), (tq, tk, tv), want_grads):
+        assert t.grad.dtype == tdt
+        _close(t.grad, want, grad_band, name, scaled)
+
+
+def test_window_one_attends_each_row_to_itself():
+    """``window=1``: every row sees only its own key, so o = v and lse is
+    that one score (the kernel's band bounds, in the plain version)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 8, 16)).astype(np.float32)) for _ in range(3))
+    o, lse = fa.flash_forward(q, k, v, causal=True, window=1)
+    torch.testing.assert_close(o, v, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse, (q * 0.25 * k).sum(-1), rtol=1e-6, atol=1e-6)
+
+
+def test_flash_backward_saves_nothing_of_size_t_by_t():
+    """The port's counterpart of ``test_flash_never_materializes_scores``:
+    the autograd Function saves q, k, v, o and lse (and the segment ids),
+    and no tensor whose trailing dims are (T, T)."""
+    t = 96
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(1, 4, t, 16)).astype(np.float32)).requires_grad_()
+    k, v = (torch.from_numpy(rng.normal(size=(1, 2, t, 16)).astype(np.float32)).requires_grad_()
+            for _ in range(2))
+    seg = torch.from_numpy(np.repeat([[0, 1]], t // 2, axis=1).astype(np.int32))
+    saved = []
+
+    def pack(x):
+        saved.append(tuple(x.shape))
+        return x
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        out = flash_attention(q, k, v, causal=True, segment_ids=seg)
+    out.sum().backward()
+    assert saved, "the Function saved nothing"
+    assert not [s for s in saved if len(s) >= 2 and s[-2:] == (t, t)], saved
+    assert sorted(saved) == sorted([(4, t, 16), (2, t, 16), (2, t, 16), (4, t, 16), (4, t),
+                                    (1, t)]), saved
+
+
+@pytest.mark.parametrize(
+    "kwargs, err",
+    [
+        (dict(window=4), "window requires causal"),
+        (dict(causal=True, window=0), "window must be >= 1"),
+        (dict(causal=True, segment_ids=torch.zeros(2, 4, 8, dtype=torch.int32)), "batch-shaped"),
+        (dict(causal=True, k=torch.zeros(2, 3, 8, 16)), "GQA shapes"),
+        (dict(causal=True, v=torch.zeros(2, 2, 8, 8)), "k/v shape mismatch"),
+    ],
+)
+def test_flash_validates_like_the_reference(kwargs, err):
+    q = torch.zeros(2, 4, 8, 16)
+    k = kwargs.pop("k", torch.zeros(2, 2, 8, 16))
+    v = kwargs.pop("v", torch.zeros(2, 2, 8, 16))
+    with pytest.raises(ValueError, match=err):
+        flash_attention(q, k, v, **kwargs)
+
+
+def test_cpu_wrappers_run_the_plain_versions_and_count_no_launch():
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.normal(size=(4, 40, 64)).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.normal(size=(2, 40, 64)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    do = torch.from_numpy(rng.normal(size=(4, 40, 64)).astype(np.float32)).bfloat16()
+    before = (fa.flash_forward.launches, fa.flash_backward_dq.launches,
+              fa.flash_backward_dkv.launches)
+    o, lse = fa.flash_forward(q, k, v, causal=True)
+    want_o, want_lse = fa.flash_forward_reference(q, k, v, causal=True)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, causal=True)
+    want = fa.flash_backward_reference(q, k, v, o, lse, do, causal=True)
+    for got, w in zip((dq, dk, dv), want):
+        assert torch.equal(got, w)
+    assert (fa.flash_forward.launches, fa.flash_backward_dq.launches,
+            fa.flash_backward_dkv.launches) == before

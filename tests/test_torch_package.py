@@ -6,6 +6,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from beholder_tpu_torch import csrc
 
@@ -19,6 +20,7 @@ PORT_MODULES = [
     "beholder_tpu_torch.ops.quant",
     "beholder_tpu_torch.ops.attention",
     "beholder_tpu_torch.ops.paged_attention",
+    "beholder_tpu_torch.ops.flash_attention",
     "beholder_tpu_torch.cache",
     "beholder_tpu_torch.cache.prefix",
     "beholder_tpu_torch.models",
@@ -26,6 +28,9 @@ PORT_MODULES = [
     "beholder_tpu_torch.models.bridge",
     "beholder_tpu_torch.models.decode",
     "beholder_tpu_torch.models.serving",
+    "beholder_tpu_torch.models.train",
+    "beholder_tpu_torch.models.anomaly",
+    "beholder_tpu_torch.models.checkpoint",
     "chip_smoke",
     "serve_ab",
 ]
@@ -79,5 +84,31 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(csrc, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         csrc.build("paged_decode")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        csrc.build("flash_fwd", "flash_bwd")
     with pytest.raises(FileNotFoundError):
         csrc.build("no_such_kernel")
+
+
+def test_flash_wrappers_never_fall_back():
+    """The flash wrappers run the plain version only for CPU tensors: a
+    tensor elsewhere than the CPU or the card raises, and so does asking
+    for the card where there is none."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel, init_seq_state
+    from beholder_tpu_torch.ops import flash_attention as fa
+
+    q, k = torch.zeros(4, 8, 64, device="meta"), torch.zeros(2, 8, 64, device="meta")
+    lse = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_forward(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_backward_dq(q, k, k, q, lse, lse, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_backward_dkv(q, k, k, q, lse, lse, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention(q[None], k[None], k[None], causal=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TelemetrySequenceModel(attention="flash")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_seq_state(0)
