@@ -14,6 +14,14 @@ reference's module layout and names so a reader finds each counterpart:
   ``torch.autograd.Function`` over three hand-written CUDA kernels (forward
   in ``csrc/flash_fwd.cu``, dq and dk/dv in ``csrc/flash_bwd.cu``), each
   with its plain PyTorch version beside it;
+- :mod:`beholder_tpu_torch.ops.aggregate` — ``status_counts``,
+  ``aggregate_telemetry`` and ``ewma``; on CUDA tensors
+  ``aggregate_telemetry`` runs a hand-written CUDA kernel
+  (``csrc/aggregate.cu``, wrapper in
+  :mod:`beholder_tpu_torch.ops.fused_aggregate`), on CPU tensors its plain
+  PyTorch version;
+- :mod:`beholder_tpu_torch.analytics` — ``AnalyticsSink``, which buffers
+  progress observations and aggregates each full batch on the card;
 - :mod:`beholder_tpu_torch.cache.prefix` — the automatic prefix cache (a
   radix index over page hashes, host side);
 - :mod:`beholder_tpu_torch.models.sequence` — ``TelemetrySequenceModel``
@@ -32,10 +40,9 @@ reference's module layout and names so a reader finds each counterpart:
   and what-if forecasts.
 
 Not ported yet: speculative decoding, the intake queue, metrics, tracing,
-the flight recorder, deadlines, autotune, the analytics sink and the
-aggregate kernels, MoE, ring/Ulysses attention and the flash block-pair
-(ring) entry points, the parallel stack, and the cluster and group
-engines.
+the flight recorder, deadlines, autotune, MoE, ring/Ulysses attention and
+the flash block-pair (ring) entry points, the parallel stack, and the
+cluster and group engines.
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

@@ -6,8 +6,8 @@ CUDA card, ``nvcc`` (it builds the port's kernels from ``csrc/`` at first
 use) and nothing of JAX. Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every kernel of the serving and training paths, one ``nvcc`` per
-   source, all started together;
+2. build: every kernel of the serving, training and analytics paths, one
+   ``nvcc`` per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at its path's shapes, with the tolerance stated; times (CUDA
    events, median) of the kernel, the plain version and one PyTorch
@@ -34,7 +34,17 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    against ``attention="full"``; ``remat=True`` (gradients bitwise, forward
    launches doubled) and ``window=512`` for 3 steps each; then
    ``ProgressAnomalyModel`` at ``entry()``'s shape and 20 ``train_step``s;
-6. output: a ``kernels`` JSON line, then the ``ok`` line last.
+6. analytics: the aggregation kernel against its plain version (counts,
+   max and min bitwise, the mean within rtol 1e-5) and a float64 numpy
+   oracle at the sink's flush (4,096 events), 1,000,000 and 8,388,608
+   events, a ragged batch with out-of-range statuses, a skewed one, f32
+   progress and misaligned inputs; repeat launches bitwise; a negative
+   control; times beside the bound and a four-call PyTorch yardstick. Then
+   ``AnalyticsSink(flush_every=4096, async_flush=True)`` takes 2**20
+   observations through ``record()``: launches == flushes (counted), every
+   logged summary against the oracle; a synchronous flush makes one
+   synchronising call;
+7. output: a ``kernels`` JSON line, then the ``ok`` line last.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``.
 The full record goes to ``chiprun_out/chip_smoke.json``.
@@ -44,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -1195,6 +1206,317 @@ def profile_waves(torch, b, reqs, wall_s: float) -> dict:
     return out
 
 
+#: aggregation kernel against its plain version: counts, max and min bitwise;
+#: the mean within the reference's band (tests/test_pallas_aggregate.py:19),
+#: since the two sum progress in different orders
+AGG_MEAN_RTOL = 1e-5
+#: the aggregation kernel's shapes: the sink's flush (beholder_tpu/service.py:514),
+#: bench.py's batch (bench.py:729), the 8M-event batch of
+#: beholder_tpu/ops/pallas_aggregate.py:3; ragged with 1 % of statuses out of
+#: range, one status absent and a misaligned start; 90 % of events in one
+#: status; f32 progress; and status and progress misaligned differently (no
+#: 16-byte loads). Statuses in [0, 6) and progress int32 in [0, 100] as
+#: bench.py:729-732 makes them.
+AGG_CASES = {
+    "flush": dict(n=4096),
+    "bench": dict(n=1_000_000),
+    "large": dict(n=8_388_608),
+    "ragged": dict(n=8_388_611, out_of_range=0.01, absent=4, offset=1),
+    "skewed": dict(n=8_388_608, skew=0.9),
+    "bench_f32": dict(n=1_000_000, f32=True),
+    "unaligned": dict(n=1_000_003, offset=1, progress_offset=2),
+}
+#: the sink path: the service's default flush (beholder_tpu/service.py:514)
+#: and 2**20 observations, 256 flushes
+SINK_FLUSH_EVERY, SINK_EVENTS = 4096, 2**20
+SINK_SKEW = [0.02, 0.02, 0.9, 0.02, 0.02, 0.02]  # 90 % CONVERTING
+#: H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS = 67e12
+
+
+def agg_inputs(torch, c: dict, seed: int):
+    """(statuses, progress) on the card for one AGG_CASES entry, and their
+    numpy copies."""
+    rng = np.random.default_rng(seed)
+    n = c["n"]
+    if "skew" in c:
+        rest = (1 - c["skew"]) / 5
+        st = rng.choice(6, size=n, p=[rest, rest, c["skew"], rest, rest, rest])
+    else:
+        st = rng.integers(0, 6, size=n)
+    if "absent" in c:
+        st[st == c["absent"]] = (c["absent"] + 1) % 6
+    if "out_of_range" in c:
+        bad = rng.random(n) < c["out_of_range"]
+        st[bad] = rng.choice([-1, 6, 100], size=int(bad.sum()))
+    st = st.astype(np.int32)
+    pr = (rng.uniform(0, 100, size=n).astype(np.float32) if c.get("f32")
+          else rng.integers(0, 101, size=n).astype(np.int32))
+
+    def on_card(a, offset):  # a slice starting `offset` elements into its buffer
+        buf = torch.zeros(n + offset, dtype=torch.from_numpy(a[:1]).dtype, device="cuda")
+        buf[offset:] = torch.from_numpy(a).cuda()
+        return buf[offset:]
+
+    off = c.get("offset", 0)
+    return on_card(st, off), on_card(pr, c.get("progress_offset", off)), st, pr
+
+
+def agg_oracle(st: np.ndarray, pr: np.ndarray) -> dict:
+    """count, mean, max and min per status in float64 numpy."""
+    out = {k: np.zeros(6) for k in ("count", "mean_progress", "max_progress", "min_progress")}
+    for s in range(6):
+        sel = pr[st == s].astype(np.float64)
+        if sel.size:
+            out["count"][s] = sel.size
+            out["mean_progress"][s] = sel.sum() / sel.size
+            out["max_progress"][s], out["min_progress"][s] = sel.max(), sel.min()
+    return out
+
+
+def agg_agrees(got: dict, want: dict) -> tuple[bool, dict]:
+    """The kernel's outputs against the plain version's: counts, max and
+    min bitwise, the mean within AGG_MEAN_RTOL. Returns (agrees, the
+    largest absolute difference per output)."""
+    same = all(got[k].equal(want[k]) for k in ("count", "max_progress", "min_progress"))
+    mean_ok = bool(((got["mean_progress"] - want["mean_progress"]).abs()
+                    <= AGG_MEAN_RTOL * want["mean_progress"].abs()).all())
+    diffs = {k: float((got[k].double() - want[k].double()).abs().max()) for k in got}
+    return same and mean_ok, diffs
+
+
+def aggregate_kernel_phase(torch, flush) -> list[dict]:
+    """The aggregation kernel against its plain version (and a float64
+    numpy oracle) at AGG_CASES, repeat launches bitwise, a negative control
+    (the batch without its last event must fail the check), and times of
+    the kernel, the plain version and a four-call PyTorch yardstick beside
+    the bound."""
+    from beholder_tpu_torch.ops import aggregate_telemetry, aggregate_telemetry_reference
+
+    cases = []
+    for i, (name, c) in enumerate(AGG_CASES.items()):
+        st, pr, st_np, pr_np = agg_inputs(torch, c, seed=i)
+        n = c["n"]
+        got = aggregate_telemetry(st, pr)
+        plain = aggregate_telemetry_reference(st, pr)
+        again = [aggregate_telemetry(st, pr) for _ in range(3)]
+        torch.cuda.synchronize()
+        where = f"aggregate {name}"
+        for k, v in got.items():
+            check(bool(torch.isfinite(v.float()).all()), f"{where}: {k} not finite")
+        agrees, diffs = agg_agrees(got, plain)
+        check(agrees, f"{where}: kernel against plain version {diffs} "
+                      f"(counts, max, min bitwise; mean rtol {AGG_MEAN_RTOL})")
+        check(all(a[k].equal(got[k]) for a in again for k in got),
+              f"{where}: repeat launches differ")
+        oracle = agg_oracle(st_np, pr_np)
+        vs_oracle = {k: float(np.abs(got[k].double().cpu().numpy() - oracle[k]).max())
+                     for k in oracle}
+        plain_vs_oracle = {k: float(np.abs(plain[k].double().cpu().numpy() - oracle[k]).max())
+                           for k in oracle}
+        check(vs_oracle["count"] == 0, f"{where}: counts {got['count'].tolist()} vs oracle")
+        control = None
+        if name == "bench":
+            dropped = aggregate_telemetry(st[:-1], pr[:-1])
+            control, _ = agg_agrees(dropped, plain)
+            check(not control, f"{where}: the batch without its last event passes the check")
+        ms = time_ms(torch, lambda: aggregate_telemetry(st, pr), flush)
+        own = profile_device(torch, lambda: aggregate_telemetry(st, pr), flush)
+        plain_ms = time_ms(torch, lambda: aggregate_telemetry_reference(st, pr), flush, reps=10)
+        lib_ms = None
+        if "out_of_range" not in c:  # index_add_ asserts on an index outside [0, 6)
+            idx, pf = st.long(), pr.float()
+            ones = torch.ones(n, dtype=torch.int32, device="cuda")
+
+            def library():
+                dev = st.device
+                torch.zeros(6, dtype=torch.int32, device=dev).index_add_(0, idx, ones)
+                torch.zeros(6, device=dev).index_add_(0, idx, pf)
+                torch.full((6,), -1e9, device=dev).scatter_reduce_(0, idx, pf, "amax")
+                torch.full((6,), 1e9, device=dev).scatter_reduce_(0, idx, pf, "amin")
+
+            lib_ms = time_ms(torch, library, flush, reps=10)
+            del idx, pf, ones
+        nbytes = n * (st.element_size() + pr.element_size()) + 4 * 6 * 4
+        ops = 4 * n  # count, sum, max and min: one update each per event
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        case = dict(case=name, n=n, progress=str(pr.dtype), offset=c.get("offset", 0),
+                    max_abs_err=max(diffs.values()), diffs_vs_plain=diffs,
+                    vs_oracle=vs_oracle, plain_vs_oracle=plain_vs_oracle,
+                    negative_control_passes=control, tolerance=dict(mean_rtol=AGG_MEAN_RTOL),
+                    ms=ms, device_us_per_call=own, plain_ms=plain_ms, library_ms=lib_ms,
+                    library="4 calls",
+                    bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    counts=got["count"].tolist())
+        cases.append(case)
+        print(
+            f"kernel aggregate {name:9s} n={n} progress={case['progress']} "
+            f"vs_plain={diffs} (counts/max/min bitwise, mean rtol {AGG_MEAN_RTOL}) "
+            f"vs_f64_oracle={vs_oracle} plain_vs_f64_oracle={plain_vs_oracle} "
+            f"repeat_bitwise=yes"
+            + ("" if control is None else " negative_control(last event dropped)=fails_check")
+            + f" ms={ms:.5f} (profiler, us per call: {own}) plain_ms={plain_ms:.4f} "
+            f"library_ms(4 calls)="
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={case['bound_ms']:.6f} "
+            f"({case['bound_by']}) counts={case['counts']}",
+            flush=True,
+        )
+        del st, pr, got, plain, again
+    return cases
+
+
+def profile_device(torch, fn, flush, calls: int = 5) -> dict:
+    """Device microseconds per call of ``fn`` by profiler row (kernels,
+    memsets, copies), over ``calls`` calls after one warm call, with the L2
+    cache flushed before each (the flush's own row left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    # the aggregation path launches no fill: the fill rows are the flush's
+    return {e.key[:60]: round(dev_us(e) / calls, 3)
+            for e in device_rows(prof.key_averages()) if "FillFunctor" not in e.key}
+
+
+def sink_summary(st: np.ndarray, pr: np.ndarray) -> dict:
+    """The sink's summary of one batch, from numpy: the reference's f32
+    mean (the f64 sum of at most 4096 values <= 100 is exact in f32)."""
+    from beholder_tpu_torch.ops import STATUS_NAMES
+
+    out = {}
+    for s, name in enumerate(STATUS_NAMES):
+        sel = pr[st == s]
+        if sel.size:
+            mean = np.float32(sel.sum(dtype=np.float64)) / np.float32(sel.size)
+            out[name.lower()] = {"count": int(sel.size), "mean_progress": round(float(mean), 2),
+                                 "max_progress": float(sel.max())}
+    return out
+
+
+class _Summaries(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.summaries, self.warnings = [], []
+
+    def emit(self, record):
+        if record.levelno >= logging.WARNING:
+            self.warnings.append(record.getMessage())
+        else:
+            self.summaries.append(record.fields["aggregate"])
+
+
+def sink_logger(name: str):
+    log = logging.getLogger(f"chip_smoke.{name}")
+    log.handlers.clear()
+    handler = _Summaries()
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    return log, handler
+
+
+def sink_path(torch) -> dict:
+    """The analytics main path: ``AnalyticsSink(flush_every=4096,
+    async_flush=True)`` on the card takes SINK_EVENTS skewed observations
+    through ``record()``, then ``flush()`` and ``drain()``, with the
+    kernel's launch count set to 0 just before and read just after; every
+    logged summary against the numpy oracle. Then a synchronous sink:
+    synchronising calls of one flush, and flush latency."""
+    from beholder_tpu_torch.analytics import AnalyticsSink
+    from beholder_tpu_torch.ops import aggregate_telemetry_fused
+
+    rng = np.random.default_rng(17)
+    st = rng.choice(6, size=SINK_EVENTS, p=SINK_SKEW).astype(np.int32)
+    pr = rng.integers(0, 101, size=SINK_EVENTS).astype(np.int32)
+    events = list(zip(st.tolist(), pr.tolist()))
+    flushes = SINK_EVENTS // SINK_FLUSH_EVERY
+    want = [sink_summary(st[i * SINK_FLUSH_EVERY:(i + 1) * SINK_FLUSH_EVERY],
+                         pr[i * SINK_FLUSH_EVERY:(i + 1) * SINK_FLUSH_EVERY])
+            for i in range(flushes)]
+
+    # a warm-up sink takes the process's one-time set-up (the kernel's
+    # library, pinned-memory pools) out of the counted run
+    warm = AnalyticsSink(flush_every=SINK_FLUSH_EVERY, logger=sink_logger("warm")[0],
+                         async_flush=True)
+    for s, p in events[:2 * SINK_FLUSH_EVERY]:
+        warm.record(s, p)
+    warm.drain()
+
+    log, got = sink_logger("sink")
+    sink = AnalyticsSink(flush_every=SINK_FLUSH_EVERY, logger=log, async_flush=True)
+    torch.cuda.synchronize()
+    aggregate_telemetry_fused.launches = 0
+    t0 = time.perf_counter()
+    for s, p in events:
+        sink.record(s, p)
+    t_recorded = time.perf_counter()
+    sink.flush()
+    sink.drain()
+    seconds = time.perf_counter() - t0
+    launches = aggregate_telemetry_fused.launches
+    torch.cuda.synchronize()
+    check(not got.warnings, f"sink: the worker logged {got.warnings[:3]}")
+    check(launches == flushes, f"sink: {launches} kernel launches for {flushes} flushes")
+    check(len(got.summaries) == flushes, f"sink: {len(got.summaries)} summaries logged")
+    for i, (g, w) in enumerate(zip(got.summaries, want)):
+        check(g == w, f"sink: flush {i} logged {g}, the oracle says {w}")
+
+    # synchronous flushes: the one that record() triggers at the threshold;
+    # the sync counter's own first use reports once per process
+    count_syncs(torch, lambda: None)
+    slog, _ = sink_logger("sync")
+    sync = AnalyticsSink(flush_every=SINK_FLUSH_EVERY, logger=slog)
+    latencies, syncs = [], None
+    for rep in range(22):
+        batch = events[rep * SINK_FLUSH_EVERY:(rep + 1) * SINK_FLUSH_EVERY]
+        for s, p in batch[:-1]:
+            check(sync.record(s, p) is None, "sync sink: flushed early")
+        if rep == 1:  # after one warm flush
+            summary, syncs = count_syncs(torch, lambda: sync.record(*batch[-1]))
+        else:
+            t = time.perf_counter()
+            summary = sync.record(*batch[-1])
+            latencies.append(time.perf_counter() - t)
+        check(summary == want[rep], f"sync sink: flush {rep} returned {summary}")
+    check(syncs == 1, f"sync sink: one flush made {syncs} synchronising calls, expected 1")
+    flush_ms = statistics.median(latencies[1:]) * 1e3
+    # the device's share of one synchronous flush (torch.profiler)
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = events[-SINK_FLUSH_EVERY:]
+    for s, p in batch[:-1]:
+        sync.record(s, p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sync.record(*batch[-1])
+    rows = device_rows(prof.key_averages())
+    flush_device_us = {e.key[:60]: round(dev_us(e), 3) for e in rows}
+    device_us = sum(dev_us(e) for e in rows)
+    out = dict(events=SINK_EVENTS, flush_every=SINK_FLUSH_EVERY, flushes=flushes,
+               launches=launches, seconds=seconds, record_seconds=t_recorded - t0,
+               observations_per_s=SINK_EVENTS / seconds, summaries_match_oracle=True,
+               sync_flush_syncs=syncs, sync_flush_ms_median=flush_ms,
+               sync_flush_device_us=flush_device_us,
+               sync_flush_device_share=device_us / 1e3 / flush_ms,
+               sync_flush_ms_range=(min(latencies[1:]) * 1e3, max(latencies[1:]) * 1e3))
+    print(f"analytics sink async flush_every={SINK_FLUSH_EVERY} observations={SINK_EVENTS} "
+          f"flushes={flushes} kernel_launches={launches} summaries_match_oracle=yes "
+          f"seconds={seconds:.4f} (record loop {out['record_seconds']:.4f}) "
+          f"observations/s={out['observations_per_s']:.1f} (host clock); sync flush: "
+          f"sync_calls={syncs} flush_ms median={flush_ms:.4f} "
+          f"(range {out['sync_flush_ms_range'][0]:.4f}-{out['sync_flush_ms_range'][1]:.4f}, "
+          f"{len(latencies) - 1} flushes, host clock); one profiled flush: device "
+          f"{device_us:.3f} us ({flush_device_us}), device share of the median flush "
+          f"{out['sync_flush_device_share']:.4f}", flush=True)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1221,7 +1543,7 @@ def main() -> None:
           f"allow_tf32=False allow_bf16_reduced_precision_reduction=False", flush=True)
 
     t0 = time.perf_counter()
-    csrc.build("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd")
+    csrc.build("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd", "aggregate")
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in csrc.build_log.items():
         print(f"build {name}: {log['seconds']:.2f} s\n{log['ptxas']}", flush=True)
@@ -1238,6 +1560,9 @@ def main() -> None:
     training = train_path(torch, flash_cases)
     training["anomaly"] = anomaly_path(torch)
     record["training"] = training
+    agg_cases = aggregate_kernel_phase(torch, flush)
+    record["aggregate_kernel_cases"] = agg_cases
+    record["analytics"] = sink_path(torch)
 
     head = next(c for c in cases
                 if c["shape"] == "headline" and c["pool"] == "bf16" and c["window"] is None)
@@ -1289,6 +1614,20 @@ def main() -> None:
             "bound_by": train_case[key]["bound_by"],
             "library_ms": train_case[key]["library_ms"],
         })
+    flush_case = next(c for c in agg_cases if c["case"] == "flush")
+    kernels.append({
+        "name": "aggregate_telemetry",
+        "route": "cuda",
+        "source": "beholder_tpu_torch/csrc/aggregate.cu",
+        "replaces": "beholder_tpu/ops/pallas_aggregate.py:54",
+        "launches": record["analytics"]["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in agg_cases),
+        "ms": flush_case["ms"],
+        "plain_ms": flush_case["plain_ms"],
+        "bound_ms": flush_case["bound_ms"],
+        "bound_by": flush_case["bound_by"],
+        "library_ms": flush_case["library_ms"],
+    })
     record["kernels"] = kernels
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

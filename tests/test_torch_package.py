@@ -21,6 +21,9 @@ PORT_MODULES = [
     "beholder_tpu_torch.ops.attention",
     "beholder_tpu_torch.ops.paged_attention",
     "beholder_tpu_torch.ops.flash_attention",
+    "beholder_tpu_torch.ops.aggregate",
+    "beholder_tpu_torch.ops.fused_aggregate",
+    "beholder_tpu_torch.analytics",
     "beholder_tpu_torch.cache",
     "beholder_tpu_torch.cache.prefix",
     "beholder_tpu_torch.models",
