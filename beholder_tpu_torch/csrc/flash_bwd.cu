@@ -11,21 +11,45 @@
 // T=4096, Dh=64, causal), dq runs three products (scores, dp = do v^T, dq =
 // ds k), 103 GFLOP or 0.104 ms at the bf16 tensor-core rate; dk/dv four
 // (scores, dp, dv = p^T do, dk = ds^T q), 137 GFLOP or 0.139 ms. The bytes
-// (q, k, v, o, do, lse, delta, and the gradients) are below 0.02 ms. The
-// products here are f32 FMA loops over shared memory (flash_common.cuh), so
-// the f32 rate (67 TFLOP/s) is their own ceiling; mma.sync and then
-// wgmma/TMA are the next steps.
+// (q, k, v, o, do, lse, delta, and the gradients) are below 0.02 ms.
 //
-// What the design does about it:
-// - dq: one block per (batch*head, 64-row q tile); q, do, lse and delta stay
-//   resident while the live 64-key tiles stream (the forward's band).
-// - dk/dv: one block per (batch*kv head, 64-key tile); k and v stay resident
-//   while the live q tiles of each of the GQA group's G query heads stream,
-//   and dk/dv accumulate over the whole group in f32 registers. The TPU
-//   version writes per-q-head partials in k's dtype and sums them in XLA;
-//   this kernel needs neither that transient nor atomics, and rounds once.
-// - Tiles are live only: the causal diagonal and the window bound each loop,
-//   and the per-element mask runs only where it can bite.
+// Route: every product is mma.sync.aligned.m16n8k16 with bf16 operands and
+// f32 accumulators (flash_mma.cuh), operands read by ldmatrix from bf16
+// shared memory, ldmatrix.trans for those read transposed. No wgmma, no
+// TMA. What bounds the kernels now is not the tensor cores: each warp reads
+// every streamed tile through ldmatrix once per product (shared-memory
+// bandwidth), and the exp, mask and ds arithmetic between the products runs
+// on the ordinary f32 units, 32 elements a thread a tile.
+//
+// The design:
+// - One warpgroup (4 warps, 128 threads) per block; each warp owns 16 rows
+//   of a 64-row resident tile.
+// - dq: one block per (batch*head, 64-row q tile); the grid runs every
+//   head's longest tile (the last under causal) first. The q and do
+//   fragments stay in registers, lse and delta of the warp's rows too; the
+//   live 64-key tiles of k and v stream through.
+// - dk/dv: one block per (batch*kv head, 64-key tile); the grid runs every
+//   head's key tile 0 (the most rows under causal) first. The k and v
+//   fragments stay in registers; the live q tiles of each of the GQA
+//   group's G query heads stream through with q, do, lse, delta and
+//   segment ids. Keys are the M dimension: s^T =
+//   k q^T and dp^T = v do^T, then dv += p^T do and dk += ds^T q.
+// - p and ds never touch shared memory: the f32 accumulator fragments of
+//   s and dp become, rounded to bf16, the A fragments of the next product
+//   (flash_mma.cuh to_a). That conversion is where p and ds are rounded.
+// - Streamed tiles are bf16 in shared memory, rows padded to 144 bytes
+//   (ldmatrix without bank conflicts), double-buffered: cp.async brings
+//   tile j+1 while tile j computes. About 37 KB a block, so registers set
+//   the occupancy: dq is held to 168 registers a thread (3 blocks an SM),
+//   dk/dv, which keeps two more accumulators, to 255 (2 blocks an SM).
+// - Tiles are live only: the causal diagonal and the window bound each
+//   loop, and the per-element mask runs only where it can bite.
+// - No atomics and no float sum whose order depends on scheduling: each
+//   block owns its output rows, dq sums its key tiles in order, and dk/dv
+//   sum the whole GQA group in registers, query head by query head, and
+//   round once. Two launches on the same inputs give the same bits, which
+//   a bitwise checkpoint resume needs. (The TPU version writes per-q-head
+//   partials in k's dtype and sums them in XLA.)
 //
 // The arithmetic follows the TPU kernels: s = (q k^T) * scale in f32 with q
 // unscaled; masked to -1e30; p = exp(s - lse), zeroed where the score is
@@ -36,94 +60,131 @@
 // delta = rowsum(do * o) in f32 comes in precomputed (plain torch, as the
 // reference computes it in XLA).
 
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr size_t kDqSmemBytes = sizeof(float) * 6 * kTileFloats + sizeof(int) * 2 * kTile;
-constexpr size_t kDkvSmemBytes =
-    sizeof(float) * (8 * kTileFloats + 2 * kTile) + sizeof(int) * 2 * kTile;
-static_assert(kDqSmemBytes <= 227 * 1024, "shared memory over the per-block limit");
-static_assert(kDkvSmemBytes <= 227 * 1024, "shared memory over the per-block limit");
+// two stages of two bf16 tiles, then segment ids (dq: the resident rows'
+// and two stages of keys'; dk/dv: two stages of rows' and the resident
+// keys'), then (dk/dv) two stages of lse and delta
+constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * kSmemTile;
+constexpr size_t kDqSmemBytes = 4 * kTileBytes + sizeof(int) * 3 * kTile;
+constexpr size_t kDkvSmemBytes = 4 * kTileBytes + sizeof(int) * 3 * kTile +
+                                 sizeof(float) * 4 * kTile;
+// at most 48 KB a block: 4 blocks fit an SM's shared memory, so registers,
+// not shared memory, set the occupancy
+static_assert(kDkvSmemBytes <= 48 * 1024 && kDqSmemBytes <= 48 * 1024,
+              "shared memory would limit the occupancy");
 
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(
+// The one score element a thread holds at acc[n][e] of its warp's 16 x 64
+// tile: its row (e < 2: g, else g + 8) and column (8n + 2t + e % 2).
+__device__ __forceinline__ int frag_row(int e) {
+  return ((threadIdx.x & 31) >> 2) + ((e >> 1) << 3);
+}
+__device__ __forceinline__ int frag_col(int n, int e) {
+  return n * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+__global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int32_t* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int T, int G,
     int H, int causal, int window, float scale) {
   const int n_tiles = (T + kTile - 1) / kTile;
-  const int r0 = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * kTile;
-  const int bh = blockIdx.y;
-  const int rg = threadIdx.x >> 4;
-  const int cg = threadIdx.x & 15;
+  const int r0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int bh = blockIdx.x;
+  const int w0 = (threadIdx.x >> 5) * 16;  // this warp's rows in the tile
   const int r_last = min(r0 + kTile, T) - 1;
+  const bool has_seg = seg != nullptr;
 
-  extern __shared__ float smem[];
-  float* qT = smem;                  // (d, row)
-  float* doT = qT + kTileFloats;     // (d, row)
-  float* kT = doT + kTileFloats;     // (d, key)
-  float* vT = kT + kTileFloats;      // (d, key)
-  float* kR = vT + kTileFloats;      // (key, d)
-  float* dsT = kR + kTileFloats;     // (key, row): ds rounded to bf16
-  int* qseg = reinterpret_cast<int*>(dsT + kTileFloats);
-  int* kseg = qseg + kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2] (key, d)
+  __nv_bfloat16* vs = ks + 2 * kSmemTile;                       // [2] (key, d)
+  int* qseg = reinterpret_cast<int*>(vs + 2 * kSmemTile);       // (row,)
+  int* kseg = qseg + kTile;                                     // [2] (key,)
 
   const size_t q_off = static_cast<size_t>(bh) * T * kDh;
   const size_t kv_off = static_cast<size_t>(bh / G) * T * kDh;
-  const int b = bh / H;
-  stage(qT, nullptr, q + q_off, r0, T, 0.f);
-  stage(doT, nullptr, dout + q_off, r0, T, 0.f);
-  if (seg != nullptr) stage_seg(qseg, seg, b, r0, T);
-  float lse_r[8], delta_r[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = r0 + rg * 8 + i;
-    lse_r[i] = row < T ? lse[static_cast<size_t>(bh) * T + row] : kPadLse;
-    delta_r[i] = row < T ? delta[static_cast<size_t>(bh) * T + row] : 0.f;
+  const int32_t* seg_b = has_seg ? seg + static_cast<size_t>(bh / H) * T : nullptr;
+  const int j_lo = window > 0 ? max(0, r0 - window + 1) / kTile : 0;
+  const int j_hi = causal ? r_last / kTile : n_tiles - 1;
+
+  // q and do pass through the second stage's slots; the first key tile
+  // goes to the first stage
+  load_tile_async(ks + kSmemTile, q + q_off, r0, T);
+  load_tile_async(vs + kSmemTile, dout + q_off, r0, T);
+  load_tile_async(ks, k + kv_off, j_lo * kTile, T);
+  load_tile_async(vs, v + kv_off, j_lo * kTile, T);
+  if (has_seg) {
+    load_vec_async(qseg, seg_b, r0, T, -1, 0);
+    load_vec_async(kseg, seg_b, j_lo * kTile, T, -1, kTile);
   }
+  cp_async_commit();
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + w0 + frag_row(2 * h);
+    lse_r[h] = row < T ? lse[static_cast<size_t>(bh) * T + row] : kPadLse;
+    delta_r[h] = row < T ? delta[static_cast<size_t>(bh) * T + row] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[4][4], doa[4][4];
+  load_a(qa, ks + kSmemTile, w0);
+  load_a(doa, vs + kSmemTile, w0);
+  __syncthreads();  // the second stage is free
 
   float acc[8][4];
   zero(acc);
-  const int j_lo = window > 0 ? max(0, r0 - window + 1) / kTile : 0;
-  const int j_hi = causal ? r_last / kTile : n_tiles - 1;
   for (int j = j_lo; j <= j_hi; ++j) {
+    const int st = (j - j_lo) & 1;
+    if (j < j_hi) {
+      const int nx = st ^ 1;
+      load_tile_async(ks + nx * kSmemTile, k + kv_off, (j + 1) * kTile, T);
+      load_tile_async(vs + nx * kSmemTile, v + kv_off, (j + 1) * kTile, T);
+      if (has_seg) load_vec_async(kseg + nx * kTile, seg_b, (j + 1) * kTile, T, -1, 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + st * kSmemTile;
     const int c0 = j * kTile;
-    __syncthreads();
-    stage(kT, kR, k + kv_off, c0, T, 0.f);
-    stage(vT, nullptr, v + kv_off, c0, T, 0.f);
-    if (seg != nullptr) stage_seg(kseg, seg, b, c0, T);
-    __syncthreads();
 
     float s[8][4], dp[8][4];
     zero(s);
     zero(dp);
-    outer_acc(s, qT, kT, rg, cg);
-    outer_acc(dp, doT, vT, rg, cg);
-    const bool masked = needs_mask(r0, c0, T, causal, window, seg != nullptr);
+    mma_abt(s, qa, kt);                    // q k^T
+    mma_abt(dp, doa, vs + st * kSmemTile);  // do v^T
+    const bool masked = needs_mask(r0, c0, T, causal, window, has_seg);
+    const int* kseg_t = kseg + st * kTile;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[i][c] * scale;
-        if (masked && !live(r0 + rg * 8 + i, c0 + cg * 4 + c, T, causal, window,
-                            seg != nullptr ? qseg : nullptr, kseg, rg * 8 + i, cg * 4 + c)) {
+      for (int e = 0; e < 4; ++e) {
+        const int ri = w0 + frag_row(e), ci = frag_col(n, e);
+        float x = s[n][e] * scale;
+        if (masked && !live(r0 + ri, c0 + ci, T, causal, window, has_seg ? qseg : nullptr,
+                            kseg_t, ri, ci)) {
           x = kNegInf;
         }
-        float p = expf(x - lse_r[i]);
+        float p = expf(x - lse_r[e >> 1]);
         if (x <= kNegInf * 0.5f) p = 0.f;
-        s[i][c] = p * (dp[i][c] - delta_r[i]) * scale;  // ds
+        s[n][e] = p * (dp[n][e] - delta_r[e >> 1]) * scale;  // ds
       }
-    store_t_bf16(dsT, s, rg, cg);
-    __syncthreads();
-    outer_acc(acc, dsT, kR, rg, cg);
+    uint32_t dsa[4][4];
+    to_a(dsa, s);        // ds rounded to bf16
+    mma_ab(acc, dsa, kt);  // dq += ds k
+    __syncthreads();     // this stage's readers are done before it refills
   }
-  write_rows(dq + q_off, acc, r0, T, rg, cg);
+  store_acc(dq + q_off, acc, r0 + w0, T);
 }
 
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
+__global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -131,84 +192,109 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
     __nv_bfloat16* __restrict__ dv, int T, int G, int Hkv, int causal, int window,
     float scale) {
   const int n_tiles = (T + kTile - 1) / kTile;
-  const int c0 = blockIdx.x * kTile;  // tile 0 sees the most rows under causal
-  const int bhkv = blockIdx.y;
-  const int rg = threadIdx.x >> 4;    // this thread's keys rg*8 + i
-  const int cg = threadIdx.x & 15;    // its rows (scores) and dims (dk, dv) cg*4 + c
+  const int c0 = blockIdx.y * kTile;  // tile 0 sees the most rows under causal
+  const int bhkv = blockIdx.x;
+  const int w0 = (threadIdx.x >> 5) * 16;  // this warp's keys in the tile
   const int c_last = min(c0 + kTile, T) - 1;
+  const bool has_seg = seg != nullptr;
 
-  extern __shared__ float smem[];
-  float* kT = smem;                  // (d, key), resident
-  float* vT = kT + kTileFloats;      // (d, key), resident
-  float* qT = vT + kTileFloats;      // (d, row)
-  float* qR = qT + kTileFloats;      // (row, d)
-  float* doT = qR + kTileFloats;     // (d, row)
-  float* doR = doT + kTileFloats;    // (row, d)
-  float* pR = doR + kTileFloats;     // (row, key): p rounded to bf16
-  float* dsR = pR + kTileFloats;     // (row, key): ds rounded to bf16
-  float* lse_s = dsR + kTileFloats;  // (row,)
-  float* delta_s = lse_s + kTile;    // (row,)
-  int* qseg = reinterpret_cast<int*>(delta_s + kTile);
-  int* kseg = qseg + kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2] (row, d)
+  __nv_bfloat16* dos = qs + 2 * kSmemTile;                      // [2] (row, d)
+  int* qseg = reinterpret_cast<int*>(dos + 2 * kSmemTile);      // [2] (row,)
+  int* kseg = qseg + 2 * kTile;                                 // (key,)
+  float* lse_s = reinterpret_cast<float*>(kseg + kTile);        // [2] (row,)
+  float* delta_s = lse_s + 2 * kTile;                           // [2] (row,)
 
   const size_t kv_off = static_cast<size_t>(bhkv) * T * kDh;
-  const int b = bhkv / Hkv;
-  stage(kT, nullptr, k + kv_off, c0, T, 0.f);
-  stage(vT, nullptr, v + kv_off, c0, T, 0.f);
-  if (seg != nullptr) stage_seg(kseg, seg, b, c0, T);
+  const int32_t* seg_b = has_seg ? seg + static_cast<size_t>(bhkv / Hkv) * T : nullptr;
+  const int i_lo = causal ? c0 / kTile : 0;
+  const int i_hi = window > 0 ? min(n_tiles - 1, (c_last + window - 1) / kTile) : n_tiles - 1;
+  const int n_rows = i_hi - i_lo + 1;  // live row tiles per query head
+  const int n_steps = G * n_rows;
+
+  // step i of the stream: query head bhkv * G + i / n_rows, row tile
+  // i_lo + i % n_rows, into stage st
+  auto load_step = [&](int i, int st) {
+    const int bh = bhkv * G + i / n_rows;
+    const int r0 = (i_lo + i % n_rows) * kTile;
+    const size_t q_off = static_cast<size_t>(bh) * T * kDh;
+    load_tile_async(qs + st * kSmemTile, q + q_off, r0, T);
+    load_tile_async(dos + st * kSmemTile, dout + q_off, r0, T);
+    load_vec_async(lse_s + st * kTile, lse + static_cast<size_t>(bh) * T, r0, T, kPadLse, 0);
+    load_vec_async(delta_s + st * kTile, delta + static_cast<size_t>(bh) * T, r0, T, 0.f, kTile);
+    if (has_seg) load_vec_async(qseg + st * kTile, seg_b, r0, T, -1, 0);
+  };
+
+  // k and v pass through the second stage's slots; step 0 goes to the first
+  load_tile_async(qs + kSmemTile, k + kv_off, c0, T);
+  load_tile_async(dos + kSmemTile, v + kv_off, c0, T);
+  if (has_seg) load_vec_async(kseg, seg_b, c0, T, -1, kTile);
+  load_step(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t ka[4][4], va[4][4];
+  load_a(ka, qs + kSmemTile, w0);
+  load_a(va, dos + kSmemTile, w0);
+  __syncthreads();  // the second stage is free
 
   float dk_acc[8][4], dv_acc[8][4];
   zero(dk_acc);
   zero(dv_acc);
-  const int i_lo = causal ? c0 / kTile : 0;
-  const int i_hi = window > 0 ? min(n_tiles - 1, (c_last + window - 1) / kTile) : n_tiles - 1;
-  for (int g = 0; g < G; ++g) {
-    const int bh = bhkv * G + g;
-    const size_t q_off = static_cast<size_t>(bh) * T * kDh;
-    for (int it = i_lo; it <= i_hi; ++it) {
-      const int r0 = it * kTile;
-      __syncthreads();
-      stage(qT, qR, q + q_off, r0, T, 0.f);
-      stage(doT, doR, dout + q_off, r0, T, 0.f);
-      for (int r = threadIdx.x; r < kTile; r += kThreads) {
-        const int row = r0 + r;
-        lse_s[r] = row < T ? lse[static_cast<size_t>(bh) * T + row] : kPadLse;
-        delta_s[r] = row < T ? delta[static_cast<size_t>(bh) * T + row] : 0.f;
-      }
-      if (seg != nullptr) stage_seg(qseg, seg, b, r0, T);
-      __syncthreads();
-
-      // transposed scores: keys rg*8 + i by rows cg*4 + c
-      float s[8][4], dp[8][4];
-      zero(s);
-      zero(dp);
-      outer_acc(s, kT, qT, rg, cg);
-      outer_acc(dp, vT, doT, rg, cg);
-      const bool masked = needs_mask(r0, c0, T, causal, window, seg != nullptr);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int ri = cg * 4 + c;
-          float x = s[i][c] * scale;
-          if (masked && !live(r0 + ri, c0 + rg * 8 + i, T, causal, window,
-                              seg != nullptr ? qseg : nullptr, kseg, ri, rg * 8 + i)) {
-            x = kNegInf;
-          }
-          float p = expf(x - lse_s[ri]);
-          if (x <= kNegInf * 0.5f) p = 0.f;
-          s[i][c] = p;
-          dp[i][c] = p * (dp[i][c] - delta_s[ri]) * scale;  // ds
-        }
-      store_t_bf16(pR, s, rg, cg);
-      store_t_bf16(dsR, dp, rg, cg);
-      __syncthreads();
-      outer_acc(dv_acc, pR, doR, rg, cg);
-      outer_acc(dk_acc, dsR, qR, rg, cg);
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_steps) {
+      load_step(i + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const __nv_bfloat16* qt = qs + st * kSmemTile;
+    const __nv_bfloat16* dot = dos + st * kSmemTile;
+    const float* lse_t = lse_s + st * kTile;
+    const float* delta_t = delta_s + st * kTile;
+    const int r0 = (i_lo + i % n_rows) * kTile;
+
+    // transposed scores: the warp's 16 keys by the tile's 64 rows
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+    mma_abt(s, ka, qt);    // k q^T
+    mma_abt(dp, va, dot);  // v do^T
+    const bool masked = needs_mask(r0, c0, T, causal, window, has_seg);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ki = w0 + frag_row(e), ri = frag_col(n, e);
+        float x = s[n][e] * scale;
+        if (masked && !live(r0 + ri, c0 + ki, T, causal, window,
+                            has_seg ? qseg + st * kTile : nullptr, kseg, ri, ki)) {
+          x = kNegInf;
+        }
+        float p = expf(x - lse_t[ri]);
+        if (x <= kNegInf * 0.5f) p = 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - delta_t[ri]) * scale;  // ds
+      }
+    uint32_t fa[4][4];
+    to_a(fa, s);              // p rounded to bf16
+    mma_ab(dv_acc, fa, dot);  // dv += p^T do
+    to_a(fa, dp);             // ds rounded to bf16
+    mma_ab(dk_acc, fa, qt);   // dk += ds^T q
+    __syncthreads();          // this stage's readers are done before it refills
   }
-  write_rows(dk + kv_off, dk_acc, c0, T, rg, cg);
-  write_rows(dv + kv_off, dv_acc, c0, T, rg, cg);
+  store_acc(dk + kv_off, dk_acc, c0 + w0, T);
+  store_acc(dv + kv_off, dv_acc, c0 + w0, T);
+}
+
+// Dh 64 only; the tiles of T on the grid's y dimension (at most 65,535).
+bool shape_ok(int BH, int BHkv, int T, int Dh, int H) {
+  return Dh == kDh && BHkv >= 1 && BH % BHkv == 0 && T >= 1 && H >= 1 && BH % H == 0 &&
+         (T + kTile - 1) / kTile <= 65535;
 }
 
 }  // namespace
@@ -223,14 +309,12 @@ int flash_dq_launch(const void* q, const void* k, const void* v, const void* dou
                     const void* lse, const void* delta, const void* seg, void* dq,
                     int BH, int BHkv, int T, int Dh, int H, int causal, int window,
                     float scale, void* stream) {
-  if (Dh != kDh || BHkv < 1 || BH % BHkv || T < 1 || H < 1 || BH % H) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!shape_ok(BH, BHkv, T, Dh, H)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kDqSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kTile - 1) / kTile, BH);
+  const dim3 grid(BH, (T + kTile - 1) / kTile);  // every head's heaviest tile first
   flash_dq_kernel<<<grid, kThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
@@ -246,16 +330,14 @@ int flash_dkv_launch(const void* q, const void* k, const void* v, const void* do
                      const void* lse, const void* delta, const void* seg, void* dk,
                      void* dv, int BH, int BHkv, int T, int Dh, int H, int causal,
                      int window, float scale, void* stream) {
-  if (Dh != kDh || BHkv < 1 || BH % BHkv || T < 1 || H < 1 || BH % H) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!shape_ok(BH, BHkv, T, Dh, H)) return static_cast<int>(cudaErrorInvalidValue);
   const int G = BH / BHkv;
   if (H % G) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kDkvSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kTile - 1) / kTile, BHkv);
+  const dim3 grid(BHkv, (T + kTile - 1) / kTile);  // every head's heaviest tile first
   flash_dkv_kernel<<<grid, kThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
@@ -263,6 +345,26 @@ int flash_dkv_launch(const void* q, const void* k, const void* v, const void* do
       static_cast<const int32_t*>(seg), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), T, G, H / G, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What each kernel takes on this card: out[0] registers a thread, out[1]
+// local (spilled) bytes a thread, out[2] dynamic shared memory a block,
+// out[3] resident blocks an SM. which: 0 dq, 1 dk/dv.
+int flash_bwd_resources(int which, int* out) {
+  cudaFuncAttributes attr;
+  const void* fn = which == 0 ? reinterpret_cast<const void*>(flash_dq_kernel)
+                              : reinterpret_cast<const void*>(flash_dkv_kernel);
+  const size_t smem = which == 0 ? kDqSmemBytes : kDkvSmemBytes;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  return 0;
 }
 
 }  // extern "C"

@@ -1,4 +1,7 @@
-// Shared pieces of the flash attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash attention kernels: the tile constants and the
+// mask (needs_mask, live) serve flash_fwd.cu and flash_bwd.cu; the rest is
+// the forward's f32 product path (the backward's tensor-core pieces are in
+// flash_mma.cuh).
 //
 // Every operand tile is (64 rows x 64 head dims), staged from bf16 global
 // memory into f32 shared memory, either row-major (tile[row * kLd + d]) or

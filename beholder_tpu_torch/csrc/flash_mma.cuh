@@ -1,0 +1,192 @@
+// Tensor-core pieces of the flash backward kernels (flash_bwd.cu).
+//
+// Operand tiles are kTile rows of kDh bf16 values in shared memory, each row
+// padded to kSmemLd = 72 values (144 bytes): the eight 16-byte rows that one
+// ldmatrix phase reads start 4 banks apart, so they hit 32 distinct banks.
+// Tiles arrive by cp.async (16 bytes a thread a copy, rows past T
+// zero-filled) and are double-buffered by the kernels.
+//
+// Products run on mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. Each
+// warp owns 16 rows of a (16 x 64) accumulator, held as acc[n][0..3] for
+// the 8 column tiles n of 8 columns: with g = lane / 4 and t = lane % 4,
+// acc[n][0..1] sit at row g, columns 8n + 2t, 8n + 2t + 1, and acc[n][2..3]
+// at row g + 8, the same columns. Two adjacent column tiles of an
+// accumulator, rounded to bf16 pairs, are exactly the A fragment of the
+// next product's 16-wide step of its sum index (to_a), so p and ds go from
+// one product into the next in registers.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace flash {
+
+constexpr int kSmemLd = kDh + 8;             // padded bf16 row of a staged tile
+constexpr int kSmemTile = kTile * kSmemLd;   // bf16 values per staged tile
+
+static_assert(kDh == 64 && kTile == 64, "fragments assume 64 x 64 tiles");
+static_assert(kThreads == 128, "one warpgroup: 4 warps of 16 rows");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src
+// is then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + kTile) of a (T, kDh) bf16 matrix into a padded shared
+// tile; rows at or past T read as zeros. Eight consecutive threads copy one
+// 128-byte row.
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* __restrict__ src,
+                                                int r0, int T) {
+#pragma unroll
+  for (int i = 0; i < kTile * kDh / 8 / kThreads; ++i) {
+    const int idx = static_cast<int>(threadIdx.x) + i * kThreads;
+    const int row = idx >> 3;
+    const int col = (idx & 7) * 8;
+    const bool valid = r0 + row < T;
+    cp_async16(dst + row * kSmemLd + col,
+               src + (valid ? static_cast<size_t>(r0 + row) * kDh + col : 0), valid);
+  }
+}
+
+// kTile 4-byte values src[r0 + r] into dst[r] (threads lane0 .. lane0 + 63,
+// one each); a row at or past T gets `fill`, stored directly.
+template <typename V>
+__device__ __forceinline__ void load_vec_async(V* dst, const V* __restrict__ src, int r0,
+                                               int T, V fill, int lane0) {
+  const int r = static_cast<int>(threadIdx.x) - lane0;
+  if (r < 0 || r >= kTile) return;
+  if (r0 + r < T) {
+    cp_async4(dst + r, src + r0 + r);
+  } else {
+    dst[r] = fill;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) * b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragments of rows [row0, row0 + 16) of a shared tile, all kDh columns:
+// a[kk] is the 16-wide step kk of the sum index.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const __nv_bfloat16* tile,
+                                       int row0) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;  // which 8 x 8 matrix this lane addresses
+  const __nv_bfloat16* p = tile + (row0 + ((m & 1) << 3) + (lane & 7)) * kSmemLd + ((m >> 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], p + kk * 16);
+}
+
+// acc (16 x 64) += A (16 x 64) * B^T, B a shared tile whose 64 rows are
+// acc's columns and whose 64 columns are the sum index (B read as is).
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4],
+                                        const __nv_bfloat16* b) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+  const __nv_bfloat16* p = b + (((m >> 1) << 3) + (lane & 7)) * kSmemLd + ((m & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, p + n * 8 * kSmemLd + kk * 16);
+      mma_bf16(acc[n], a[kk], r[0], r[1]);
+      mma_bf16(acc[n + 1], a[kk], r[2], r[3]);
+    }
+}
+
+// acc (16 x 64) += A (16 x 64) * B, B a shared tile whose 64 rows are the
+// sum index and whose 64 columns are acc's columns (B read transposed).
+__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const uint32_t (&a)[4][4],
+                                       const __nv_bfloat16* b) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+  const __nv_bfloat16* p = b + (((m & 1) << 3) + (lane & 7)) * kSmemLd + ((m >> 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, p + kk * 16 * kSmemLd + n * 8);
+      mma_bf16(acc[n], a[kk], r[0], r[1]);
+      mma_bf16(acc[n + 1], a[kk], r[2], r[3]);
+    }
+}
+
+// An f32 accumulator (16 x 64) as the bf16 A fragments of a product over
+// its 64 columns, each value rounded to nearest even.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// Write a warp's accumulator, rows row0 + 0..15 (those < T), to a (T, kDh)
+// bf16 matrix, one bf16 pair a store.
+__device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
+                                          const float (&c)[8][4], int row0, int T) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + (lane >> 2) + 8 * h;
+    if (row >= T) continue;
+    uint32_t* out = reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * kDh + 2 * (lane & 3));
+#pragma unroll
+    for (int n = 0; n < 8; ++n) out[n * 4] = pack_bf16(c[n][2 * h], c[n][2 * h + 1]);
+  }
+}
+
+}  // namespace flash

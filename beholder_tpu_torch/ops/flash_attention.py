@@ -32,11 +32,17 @@ exist there) with the reference's dtype mix:
 - masking uses -1e30, and p is zeroed where the score is masked, so a row
   with no live key gives ``o = 0`` and ``lse = -1e30``.
 
-The kernels run the softmax online over 64-key tiles, the plain forward
-over the whole row: their bf16 weights round differently. dk/dv are summed
-over the group in f32 and rounded once (the reference rounds per-q-head
-partials to k's dtype and sums those). Ring block-pair mode
-(``flash_block_attend`` / ``flash_block_backward``) is not ported yet.
+The forward kernel runs the softmax online over 64-key tiles, the plain
+forward over the whole row: their bf16 weights round differently. The
+backward kernels run every product on the tensor cores (``mma.sync``, bf16
+operands, f32 sums; p and ds pass from one product to the next in
+registers, rounded to bf16 where the plain versions round them), so they
+sum in another order than the plain versions' f32 products and an output's
+bf16 rounding can differ by one ULP. They use no atomics: two launches on
+the same inputs give the same bits. dk/dv are summed over the group in f32
+and rounded once (the reference rounds per-q-head partials to k's dtype
+and sums those). Ring block-pair mode (``flash_block_attend`` /
+``flash_block_backward``) is not ported yet.
 """
 
 from __future__ import annotations

@@ -16,7 +16,12 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    kernel at the fused-wave, warm-prefix and long-context shapes; the flash
    forward, dq and dk/dv kernels at the training shape (B=4, H=8, Hkv=2,
    T=4096, Dh=64, bf16), causal, with a 512 window, non-causal, with
-   segment ids and at T=4000;
+   segment ids and at T=4000, and at two small edge shapes (a GQA group of
+   8 at T=200, a group of 1 with segment ids at T=130); the backward
+   kernels' registers, spills, shared memory and blocks per SM, their
+   bits equal over two launches, and negative controls (a forward, dq and
+   dk/dv without one key tile, a dk/dv without one query tile or one query
+   head of the group, gradients scaled by 1 + 2**-8: each must fail);
 4. serving: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
    layers=4)`` with random bf16 weights from a numpy seed, over bf16, int8
    and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
@@ -116,6 +121,30 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def backward_resources() -> dict:
+    """What the two flash backward kernels take on this card: registers and
+    local (spilled) bytes a thread, dynamic shared memory a block, resident
+    blocks an SM (cudaFuncGetAttributes and the occupancy calculator).
+    Fails on any local memory."""
+    import ctypes
+
+    from beholder_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._kernel_lib("flash_bwd")
+    lib.flash_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.flash_bwd_resources.restype = ctypes.c_int
+    out = {}
+    for which, name in enumerate(("flash_dq_kernel", "flash_dkv_kernel")):
+        vals = (ctypes.c_int * 4)()
+        err = lib.flash_bwd_resources(which, vals)
+        check(err == 0, f"{name}: resource query failed, CUDA error {err}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), vals))
+        check(out[name]["local_bytes"] == 0,
+              f"{name}: {out[name]['local_bytes']} bytes of local memory a thread (spills)")
+        print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in out[name].items()), flush=True)
+    return out
 
 
 def time_ms(torch, fn, flush, reps: int = 25, warm: int = 3) -> float:
@@ -393,18 +422,33 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
 
 
 #: flash kernels vs their plain versions, per output, in units of the plain
-#: output row's RMS over the head dim: max |kernel - plain| / row RMS. The
-#: forward kernel runs the softmax online over 64-key tiles and rounds each
-#: unnormalised weight to bf16, the plain forward the whole row's: o read up
-#: to 0.033 over the five cases (NVIDIA H100 80GB HBM3, 700 W; PERF.md), and
-#: its limit is ~3x that; a forward that drops one 64-key tile must read
-#: above 3x the limit (checked on the training case). The backward kernels
-#: round p and ds as their plain versions do and read 0 (bitwise) in all five
-#: cases (7.5e-4 at a 200-token probe shape): their limit, 0.01, is ~2.5
-#: bf16 ULPs at the row's RMS. lse (f32, ~8-10 at T=4096) read up to 1.9e-6,
-#: two f32 ULPs (non-causal): limit 6e-6.
+#: output row's RMS over the head dim. The forward (row_reading): max
+#: |kernel - plain| / row RMS. The forward kernel runs the softmax online
+#: over 64-key tiles and rounds each unnormalised weight to bf16, the plain
+#: forward the whole row's: o read up to 0.033 over the five cases (NVIDIA
+#: H100 80GB HBM3, 700 W; PERF.md), and its limit is ~3x that; a forward
+#: that drops one 64-key tile must read above 3x the limit (checked on the
+#: training case). The backward (grad_readings) is held two ways. Its
+#: reading is the same, beyond exactly one bf16 spacing at each plain value
+#: (bf16_spacing), over a row RMS floored at 2**-8 of the whole output's
+#: RMS: the tensor-core kernels sum in another order than the plain f32
+#: products, so an output's bf16 rounding flips now and then, by one
+#: spacing; and a row whose gradient cancels to ~0 (a query row that sees
+#: one key: dp == delta) is rounding noise on both sides. Beyond that, p and
+#: ds rounding where the plain versions round them, the limit 0.01 is ~2.5
+#: bf16 spacings at the row's RMS. Its share is the share of the elements at
+#: least that floor in size whose bits differ from the plain's at all: the
+#: kernels' flips reach 1.05% (non-causal dk, the longest sums; NVIDIA H100
+#: 80GB HBM3, 700 W; PERF.md) and the limit is ~3x that, so a fault of under
+#: one spacing that moves every element (a scale of 1 + 2**-8 differs in 99%)
+#: fails there. At the training shape, a dq without one 64-key tile, a dk/dv
+#: without one 64-key tile, without one 64-row query tile or without one
+#: query head of the GQA group must read above 3x the limit, and gradients
+#: scaled by 1 + 2**-8 must differ in above 3x the share. lse (f32, ~8-10 at
+#: T=4096) read up to 1.9e-6, two f32 ULPs (non-causal): limit 6e-6.
 FLASH_TOL_RMS = {"o": 0.09, "dq": 0.01, "dk": 0.01, "dv": 0.01}
 FLASH_LSE_ATOL = 6e-6
+FLASH_GRAD_SHARE = 0.03
 #: the training shape of the flash kernels: B streams of T events, 8 heads
 #: over 2 kv heads, head dim 64 (dim 512 / 8 heads)
 FLASH_SHAPE = dict(B=4, H=8, Hkv=2, T=4096, Dh=64)
@@ -414,6 +458,10 @@ FLASH_CASES = {
     "noncausal": dict(causal=False),
     "segments": dict(causal=True, segments=4),
     "t4000": dict(causal=True, T=4000),
+    # edges of the backward's tiling: a GQA group of 8 over one partial
+    # tile, and a group of 1 with segment ids over a 2-row last tile
+    "mqa-t200": dict(causal=True, B=1, H=8, Hkv=1, T=200),
+    "g1-seg-t130": dict(causal=True, B=2, H=2, Hkv=2, T=130, segments=3),
 }
 
 
@@ -441,11 +489,87 @@ def row_reading(got, want) -> float:
     return float(((got.float() - want).abs() / rms).max())
 
 
+def bf16_spacing(x):
+    """The distance from each value of ``x`` to the next bf16 up in
+    magnitude (0 at 0)."""
+    _, e = x.frexp()
+    return (x != 0) * (e - 8).exp2()
+
+
+def grad_readings(got, want) -> tuple[float, float]:
+    """A gradient against its plain version: (reading, share). reading:
+    max (|got - want| - one bf16 spacing at want) over the plain row's RMS
+    (head dim last), floored at 2**-8 of the whole output's RMS. share: of
+    the elements at least that floor in size, the share whose bits differ."""
+    want, got = want.float(), got.float()
+    floor = max(float(want.square().mean().sqrt()) * 2**-8, 1e-30)
+    rms = want.square().mean(-1, keepdim=True).sqrt().clamp_min(floor)
+    diff = (got - want).abs()
+    reading = float(((diff - bf16_spacing(want)).clamp_min(0) / rms).max())
+    big = want.abs() >= floor
+    return reading, float((diff[big] != 0).float().mean())
+
+
+def plain_backward_without(torch, fa, q, k, v, do, lse, delta, *, keys=None, queries=None,
+                           **kw):
+    """The plain dq, dk and dv with a part of their sums left out, as a
+    backward kernel that skipped a streamed step would give: ``keys`` (T,)
+    masks the keys summed into dq, ``queries`` (G, T) the GQA group's query
+    heads and rows summed into dk/dv (None: all)."""
+    bhkv, t, d = k.shape
+    p = fa._probabilities(q, k, lse, kw["causal"], kw["window"], kw["segment_ids"])
+    dp = torch.matmul(fa._grouped(do, bhkv), v.float()[:, None].transpose(-1, -2))
+    ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * (1.0 / d ** 0.5)
+    del dp
+    dsk = ds if keys is None else ds * keys
+    dq = torch.matmul(dsk.to(k.dtype).float(), k.float()[:, None]).to(q.dtype).reshape(q.shape)
+    del dsk
+    if queries is not None:
+        p, ds = p * queries[..., None], ds * queries[..., None]
+
+    def group_sum(w, x):  # as flash_dkv_reference sums over the group
+        w = w.permute(0, 3, 1, 2).reshape(bhkv, t, -1)
+        return torch.matmul(w, fa._grouped(x, bhkv).reshape(bhkv, -1, d))
+
+    dv = group_sum(p.to(do.dtype).float(), do).to(v.dtype)
+    del p
+    dk = group_sum(ds.to(q.dtype).float(), q).to(k.dtype)
+    return dq, dk, dv
+
+
+def backward_controls(torch, fa, bwd, plain, lo: int, **kw) -> dict:
+    """Faulty backwards against the plain (dq, dk, dv): (reading, share) of
+    each. Without the 64 keys from ``lo`` (dq, dk, dv); without the 64
+    query rows from ``lo`` and without the group's first query head (dk,
+    dv: the dk/dv kernel's streamed steps); and scaled by 1 + 2**-8, a
+    fault under one bf16 spacing (dq, dk, dv)."""
+    q, k = bwd[:2]
+    G, T = q.shape[0] // k.shape[0], k.shape[1]
+    keys = torch.ones(T, device=q.device)
+    keys[lo:lo + 64] = 0
+    rows = torch.ones(G, T, device=q.device)
+    rows[:, lo:lo + 64] = 0
+    head = torch.ones(G, T, device=q.device)
+    head[0] = 0
+    dq, dk, dv = plain_backward_without(torch, fa, *bwd, keys=keys, **kw)
+    dk[:, lo:lo + 64] = 0  # the kernel's key tile: dk/dv rows never written
+    dv[:, lo:lo + 64] = 0
+    faults = {"key_tile": (dq, dk, dv),
+              "query_tile": (None, *plain_backward_without(torch, fa, *bwd, queries=rows, **kw)[1:]),
+              "group_head": (None, *plain_backward_without(torch, fa, *bwd, queries=head, **kw)[1:]),
+              "scale_1+2^-8": tuple((w.float() * (1 + 2**-8)).to(w.dtype) for w in plain)}
+    return {f"{name}:{g}": grad_readings(got, want)
+            for name, grads in faults.items()
+            for g, got, want in zip(("dq", "dk", "dv"), grads, plain) if got is not None}
+
+
 def flash_kernel_phase(torch, flush) -> list[dict]:
     """The three flash kernels against their plain versions at the training
     shape, causal, with a window, non-causal, with segment ids and at an
-    unaligned T; times of each kernel, its plain version and SDPA (forward,
-    and its backward for dq and dk/dv), beside the bound."""
+    unaligned T, and at the two edge shapes; the backward's bits equal over
+    two launches; at the training shape faulty plain versions fail their
+    limits (backward_controls); times of each kernel, its plain version and
+    SDPA (forward, and its backward for dq and dk/dv), beside the bound."""
     from beholder_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -475,14 +599,22 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
         bwd = (q, k, v, do, lse_p, delta)
         dq = fa.flash_backward_dq(*bwd, **kw)
         dk, dv = fa.flash_backward_dkv(*bwd, **kw)
+        # a second launch on the same inputs: no atomics, no order left to
+        # the scheduler, so the same bits
+        repeat = (fa.flash_backward_dq(*bwd, **kw), *fa.flash_backward_dkv(*bwd, **kw))
         dq_p = fa.flash_dq_reference(*bwd, **kw)
         dk_p, dv_p = fa.flash_dkv_reference(*bwd, **kw)
         torch.cuda.synchronize()
         where = f"flash {name}"
         for t_name, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
             check(bool(torch.isfinite(t).all()), f"{where}: {t_name} not finite")
-        readings = {"o": row_reading(o, o_p), "dq": row_reading(dq, dq_p),
-                    "dk": row_reading(dk, dk_p), "dv": row_reading(dv, dv_p)}
+        for t_name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), repeat):
+            check(torch.equal(a, b), f"{where}: a repeat launch changed {t_name}")
+        del repeat
+        grads = {g: grad_readings(got, want)
+                 for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), (dq_p, dk_p, dv_p))}
+        readings = {"o": row_reading(o, o_p), **{g: r for g, (r, _) in grads.items()}}
+        shares = {g: sh for g, (_, sh) in grads.items()}
         lse_err = float((lse - lse_p).abs().max())
         errs = {"o": float((o.float() - o_p.float()).abs().max()),
                 "dq": float((dq.float() - dq_p.float()).abs().max()),
@@ -491,8 +623,11 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
         for out_name, reading in readings.items():
             check(reading <= FLASH_TOL_RMS[out_name],
                   f"{where}: {out_name} reading {reading} x row RMS > {FLASH_TOL_RMS[out_name]}")
+        for g, share in shares.items():
+            check(share <= FLASH_GRAD_SHARE,
+                  f"{where}: {g} differs from the plain bits in a share {share} > {FLASH_GRAD_SHARE}")
         check(lse_err <= FLASH_LSE_ATOL, f"{where}: lse err {lse_err} > {FLASH_LSE_ATOL}")
-        dropped = None
+        controls = None
         if name == "train":
             # a plain forward that drops one 64-key tile must read above the limit
             keep = torch.ones(T, dtype=torch.bool, device=dev)
@@ -503,9 +638,21 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
             w = torch.softmax(torch.where(live, s, -1e30), dim=-1)
             o_drop = torch.matmul(w.bfloat16().float(), v.float()[:, None]).reshape(o_p.shape)
             del s, w
-            dropped = row_reading(o_drop, o_p)
-            check(dropped > 3 * FLASH_TOL_RMS["o"],
-                  f"{where}: a forward without one kv tile reads {dropped}, inside the limit")
+            o_drop = row_reading(o_drop, o_p)
+            check(o_drop > 3 * FLASH_TOL_RMS["o"],
+                  f"{where}: an o without one kv tile reads {o_drop}, inside 3x the limit")
+            # and plain backwards with a part of their sums left out, or a
+            # small uniform fault
+            controls = {"key_tile:o": (o_drop, None),
+                        **backward_controls(torch, fa, bwd, (dq_p, dk_p, dv_p), T // 2, **kw)}
+            for c_name, (reading, share) in controls.items():
+                g = c_name.split(":")[1]
+                if c_name.startswith("scale"):
+                    check(share > 3 * FLASH_GRAD_SHARE,
+                          f"{where}: {c_name} differs in a share {share}, inside 3x the limit")
+                else:
+                    check(reading > 3 * FLASH_TOL_RMS[g],
+                          f"{where}: {c_name} reads {reading}, inside 3x the limit")
 
         # library yardsticks: SDPA on (B, H, T, Dh) views, never called by the port
         q4, k4, v4, do4 = (t.reshape(B, -1, T, Dh) for t in (q, k, v, do))
@@ -554,8 +701,10 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
         }
         case = dict(case=name, B=B, H=H, Hkv=Hkv, T=T, Dh=Dh, causal=causal, window=window,
                     segments=c.get("segments"), pairs_per_head=pairs, readings=readings,
-                    lse_err=lse_err, max_abs_err=errs, dropped_tile_reading=dropped,
-                    tolerance=dict(row_rms=FLASH_TOL_RMS, lse_atol=FLASH_LSE_ATOL))
+                    grad_shares=shares, lse_err=lse_err, max_abs_err=errs,
+                    controls=controls,
+                    tolerance=dict(row_rms=FLASH_TOL_RMS, grad_share=FLASH_GRAD_SHARE,
+                                   lse_atol=FLASH_LSE_ATOL))
         for kern, (ms, plain_ms, lib_ms) in times.items():
             nbytes, flops = work[kern]
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
@@ -566,8 +715,11 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
         print(
             f"kernel flash {name:9s} T={T} readings(x row RMS) o={readings['o']:.3e} "
             f"dq={readings['dq']:.3e} dk={readings['dk']:.3e} dv={readings['dv']:.3e} "
-            f"(limits {FLASH_TOL_RMS}) lse_err={lse_err:.3e} (limit {FLASH_LSE_ATOL})"
-            + ("" if dropped is None else f" dropped_tile_o_reading={dropped:.3e}"),
+            f"(limits {FLASH_TOL_RMS}) shares dq={shares['dq']:.3e} dk={shares['dk']:.3e} "
+            f"dv={shares['dv']:.3e} (limit {FLASH_GRAD_SHARE}) "
+            f"lse_err={lse_err:.3e} (limit {FLASH_LSE_ATOL})"
+            + ("" if controls is None else " controls(reading,share) "
+               + " ".join(f"{n}={r:.3e},{sh}" for n, (r, sh) in controls.items())),
             flush=True,
         )
         for kern in ("fwd", "dq", "dkv"):
@@ -1023,8 +1175,7 @@ def train_path(torch, flash_cases: list[dict]) -> dict:
         flash_ms_per_step_from_kernel_phase=kernel_ms,
         flash_share_from_kernel_phase=kernel_ms / steady_ms,
     )
-    prof, (state, _) = profile_step(torch, lambda: seq_train_step(state, feats, targets),
-                                    steady_ms)
+    prof, (state, _) = profile_step(torch, lambda: seq_train_step(state, feats, targets))
     report["train"].update(prof)
 
     # 2. checkpoint: save, step; restore into a fresh state, step: bitwise
@@ -1115,17 +1266,19 @@ def side_run(torch, fa, name, model, feats, targets, per_step) -> dict:
                        step_ms_host_mean=seconds / SIDE_STEPS * 1e3)}
 
 
-def profile_step(torch, step, step_ms: float):
+def profile_step(torch, step):
     """torch.profiler over one training step: device time by kernel, the
-    flash kernels' share of it, and the device's busy share of the
-    unprofiled step time ``step_ms``. Returns (that record, the step's
-    result)."""
+    flash kernels' share of it, and the device's busy share of that
+    profiled step's wall time (both numbers from the one step). Returns
+    (that record, the step's result)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         result = step()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
     events = device_rows(prof.key_averages())
     device_ms = sum(dev_us(e) for e in events) / 1e3
@@ -1133,12 +1286,13 @@ def profile_step(torch, step, step_ms: float):
                    if any(k in e.key for k in FLASH_KERNEL_NAMES)) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:8]
     out = dict(profiled_device_ms=device_ms, profiled_flash_ms=flash_ms,
+               profiled_step_ms=wall_ms,
                flash_share=flash_ms / device_ms if device_ms else None,
-               device_busy_share=device_ms / step_ms if device_ms else None,
+               device_busy_share=device_ms / wall_ms if device_ms else None,
                top_device=[(e.key, e.count, dev_us(e) / 1e3) for e in top])
     print(f"profile train step: device_ms={device_ms:.2f} flash_ms={flash_ms:.2f} "
           f"flash_share={out['flash_share']} busy_share={out['device_busy_share']} "
-          f"(of the unprofiled {step_ms:.2f} ms step)", flush=True)
+          f"(of the profiled step's {wall_ms:.2f} ms)", flush=True)
     for key, count, ms in out["top_device"]:
         print(f"  device {ms:9.3f} ms  x{count:<6d} {key[:90]}", flush=True)
     return out, result
@@ -1545,15 +1699,18 @@ def main() -> None:
     t0 = time.perf_counter()
     csrc.build("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd", "aggregate")
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    builds = {}
     for name, log in csrc.build_log.items():
+        builds[name] = log
         print(f"build {name}: {log['seconds']:.2f} s\n{log['ptxas']}", flush=True)
+    builds["flash_bwd_resources"] = backward_resources()
 
     flush = torch.empty(64 * 2**20 // 4, device="cuda")
     cases = kernel_phase(torch, flush)
     chunk_cases = chunk_kernel_phase(torch, flush)
     flash_cases = flash_kernel_phase(torch, flush)
-    record = {"card": card, "kernel_cases": cases, "chunk_kernel_cases": chunk_cases,
-              "flash_kernel_cases": flash_cases}
+    record = {"card": card, "build": builds, "kernel_cases": cases,
+              "chunk_kernel_cases": chunk_cases, "flash_kernel_cases": flash_cases}
     serving = main_path(torch, profile=args.profile)
     record["serving"] = serving
     paths = [v for k, v in serving.items() if k != "profile"]

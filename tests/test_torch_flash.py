@@ -161,3 +161,75 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_no_launch():
         assert torch.equal(got, w)
     assert (fa.flash_forward.launches, fa.flash_backward_dq.launches,
             fa.flash_backward_dkv.launches) == before
+
+
+def _backward_case(seed, b=1, h=4, hkv=2, t=256, d=64):
+    """bf16 flattened operands, the plain forward's lse and delta, and the
+    full plain gradients: the inputs ``chip_smoke.py`` holds the backward
+    kernels against, at a small shape."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+
+    q, k, v, do = normal(b * h, t, d), normal(b * hkv, t, d), normal(b * hkv, t, d), \
+        normal(b * h, t, d)
+    kw = dict(causal=True, window=None, segment_ids=None)
+    o, lse = fa.flash_forward_reference(q, k, v, **kw)
+    bwd = (q, k, v, do, lse, fa.flash_delta(o, do))
+    full = (fa.flash_dq_reference(*bwd, **kw), *fa.flash_dkv_reference(*bwd, **kw))
+    return bwd, kw, full
+
+
+@pytest.mark.parametrize("fault", ["key_tile", "query_tile", "group_head", "scale_1+2^-8"])
+def test_backward_limits_catch_a_faulty_backward(fault):
+    """``chip_smoke.py``'s limits for the backward kernels have teeth (B=1,
+    H=4, Hkv=2, T=256, Dh=64, bf16, causal): a plain dq and dk/dv without
+    one 64-key tile, a dk/dv without one 64-row query tile or without one
+    query head of the GQA group read above 3x the reading's limit against
+    the full plain versions; gradients scaled by 1 + 2**-8, a fault under
+    one bf16 spacing, differ in above 3x the share's limit."""
+    import chip_smoke
+
+    bwd, kw, full = _backward_case(5)
+    for want in full:
+        assert chip_smoke.grad_readings(want, want) == (0.0, 0.0)
+    controls = chip_smoke.backward_controls(torch, fa, bwd, full, bwd[0].shape[1] // 2, **kw)
+    picked = {n: r for n, r in controls.items() if n.split(":")[0] == fault}
+    assert len(picked) == (3 if fault in ("key_tile", "scale_1+2^-8") else 2), picked
+    for name, (reading, share) in picked.items():
+        if fault.startswith("scale"):
+            assert share > 3 * chip_smoke.FLASH_GRAD_SHARE, (name, share)
+        else:
+            assert reading > 3 * chip_smoke.FLASH_TOL_RMS[name.split(":")[1]], (name, reading)
+
+
+def test_backward_reading_forgives_one_bf16_spacing_at_a_few_values():
+    """The reading forgives exactly one bf16 spacing at each plain value (a
+    tensor-core sum in another order flips an output's rounding now and
+    then), and the share only a few such flips: one value in 500 one
+    spacing off reads 0 inside the share; the value largest against its
+    row's (floored) RMS two spacings off fails the reading; every value one spacing
+    off fails the share."""
+    import chip_smoke
+
+    _, _, full = _backward_case(6)
+    for name, want in zip(("dq", "dk", "dv"), full):
+        bits = want.view(torch.int16).flatten()
+
+        def stepped(n, where):  # n bf16 steps away from 0 at the flat indices
+            out = bits.clone()
+            out[where] += n
+            return out.view(torch.bfloat16).reshape(want.shape)
+
+        w = want.float()
+        floor = w.square().mean().sqrt() * 2**-8  # the reading's floor under a row's RMS
+        ratio = (w.abs() / w.square().mean(-1, keepdim=True).sqrt().clamp_min(floor)).flatten()
+        few = torch.arange(0, bits.numel(), 500)
+        few = few[bits[few] != 0]
+        reading, share = chip_smoke.grad_readings(stepped(1, few), want)
+        assert reading == 0 and 0 < share <= chip_smoke.FLASH_GRAD_SHARE, (name, share)
+        reading, _ = chip_smoke.grad_readings(stepped(2, ratio.argmax()), want)
+        assert reading > chip_smoke.FLASH_TOL_RMS[name], (name, reading)
+        _, share = chip_smoke.grad_readings(stepped(1, (bits != 0).nonzero()[:, 0]), want)
+        assert share > 3 * chip_smoke.FLASH_GRAD_SHARE, (name, share)
