@@ -5,7 +5,9 @@ counterpart for an NVIDIA Hopper card (H100, ``sm_90a``). It keeps the
 reference's module layout and names so a reader finds each counterpart:
 
 - :mod:`beholder_tpu_torch.ops.quant` — KV page quantizers (int8, fp8/E8M0);
-- :mod:`beholder_tpu_torch.ops.attention` — ``full_attention``;
+- :mod:`beholder_tpu_torch.ops.attention` — ``full_attention`` and
+  ``ring_attention`` (context parallelism over a mesh's ``sp`` axis, on the
+  flash kernels' block-pair mode);
 - :mod:`beholder_tpu_torch.ops.paged_attention` — ``paged_decode_attention``
   and ``paged_chunk_attention``, hand-written CUDA kernels
   (``csrc/paged_decode.cu``, ``csrc/paged_chunk.cu``), each with its plain
@@ -13,7 +15,9 @@ reference's module layout and names so a reader finds each counterpart:
 - :mod:`beholder_tpu_torch.ops.flash_attention` — ``flash_attention``, a
   ``torch.autograd.Function`` over three hand-written CUDA kernels (forward
   in ``csrc/flash_fwd.cu``, dq and dk/dv in ``csrc/flash_bwd.cu``), each
-  with its plain PyTorch version beside it;
+  with its plain PyTorch version beside it, and the block-pair entry points
+  ``flash_block_attend`` / ``flash_block_backward`` that ring attention
+  runs on;
 - :mod:`beholder_tpu_torch.ops.aggregate` — ``status_counts``,
   ``aggregate_telemetry`` and ``ewma``; on CUDA tensors
   ``aggregate_telemetry`` runs a hand-written CUDA kernel
@@ -24,8 +28,10 @@ reference's module layout and names so a reader finds each counterpart:
   progress observations and aggregates each full batch on the card;
 - :mod:`beholder_tpu_torch.cache.prefix` — the automatic prefix cache (a
   radix index over page hashes, host side);
+- :mod:`beholder_tpu_torch.parallel` — ``Mesh``, the ordered devices of
+  the ``sp`` axis (one card may repeat);
 - :mod:`beholder_tpu_torch.models.sequence` — ``TelemetrySequenceModel``
-  (full or flash attention, remat) and its training step;
+  (full, flash or ring attention, remat) and its training step;
 - :mod:`beholder_tpu_torch.models.anomaly` — ``ProgressAnomalyModel`` and
   its training step;
 - :mod:`beholder_tpu_torch.models.train` — the shared ``TrainState`` and
@@ -40,9 +46,9 @@ reference's module layout and names so a reader finds each counterpart:
   and what-if forecasts.
 
 Not ported yet: speculative decoding, the intake queue, metrics, tracing,
-the flight recorder, deadlines, autotune, MoE, ring/Ulysses attention and
-the flash block-pair (ring) entry points, the parallel stack, and the
-cluster and group engines.
+the flight recorder, deadlines, autotune, MoE, Ulysses attention, the
+rest of the parallel stack (``dp``/``tp`` axes, a multi-process ring,
+sequence sharding), and the cluster and group engines.
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

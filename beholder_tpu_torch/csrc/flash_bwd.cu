@@ -44,6 +44,19 @@
 //   dk/dv, which keeps two more accumulators, to 255 (2 blocks an SM).
 // - Tiles are live only: the causal diagonal and the window bound each
 //   loop, and the per-element mask runs only where it can bite.
+// - Head dims 8, 16, 32 and 64, one instantiation each (flash_mma.cuh Dims):
+//   the two products that sum over the head dim (scores, dp) take it in
+//   16-wide mma steps, D = 8 zero-padded to 16 in shared memory by
+//   cp.async; the products whose output is head-dim wide (dq, dk, dv) take
+//   n8 column tiles, so their accumulators shrink with D.
+// - Ring block-pair mode (the TPU kernels' pallas_calls with qoff/kvoff, as
+//   flash_block_backward launches them): the C entries take q_offset and
+//   kv_offset, the masks shift the diagonal by delta = q_offset - kv_offset
+//   (flash_common.cuh), and each block works out its live tiles from the
+//   shifted diagonal. A block with none writes zeros. Under a fully live
+//   off-axis pair every dk/dv block streams the same number of tiles, so the
+//   heaviest-first order has nothing to balance. The lse is the ring's
+//   global one, so a row dead in this pair recomputes p = 0.
 // - No atomics and no float sum whose order depends on scheduling: each
 //   block owns its output rows, dq sums its key tiles in order, and dk/dv
 //   sum the whole GQA group in registers, query head by query head, and
@@ -69,13 +82,16 @@ using namespace flash;
 // two stages of two bf16 tiles, then segment ids (dq: the resident rows'
 // and two stages of keys'; dk/dv: two stages of rows' and the resident
 // keys'), then (dk/dv) two stages of lse and delta
-constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * kSmemTile;
-constexpr size_t kDqSmemBytes = 4 * kTileBytes + sizeof(int) * 3 * kTile;
-constexpr size_t kDkvSmemBytes = 4 * kTileBytes + sizeof(int) * 3 * kTile +
+template <int D>
+constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * Dims<D>::kElems;
+template <int D>
+constexpr size_t kDqSmemBytes = 4 * kTileBytes<D> + sizeof(int) * 3 * kTile;
+template <int D>
+constexpr size_t kDkvSmemBytes = 4 * kTileBytes<D> + sizeof(int) * 3 * kTile +
                                  sizeof(float) * 4 * kTile;
 // at most 48 KB a block: 4 blocks fit an SM's shared memory, so registers,
 // not shared memory, set the occupancy
-static_assert(kDkvSmemBytes <= 48 * 1024 && kDqSmemBytes <= 48 * 1024,
+static_assert(kDkvSmemBytes<64> <= 48 * 1024 && kDqSmemBytes<64> <= 48 * 1024,
               "shared memory would limit the occupancy");
 
 // The one score element a thread holds at acc[n][e] of its warp's 16 x 64
@@ -87,12 +103,14 @@ __device__ __forceinline__ int frag_col(int n, int e) {
   return n * 8 + 2 * (threadIdx.x & 3) + (e & 1);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int32_t* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int T, int G,
-    int H, int causal, int window, float scale) {
+    int H, int causal, int window, int shift, float scale) {
+  using Dm = Dims<D>;
   const int n_tiles = (T + kTile - 1) / kTile;
   const int r0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * kTile;
   const int bh = blockIdx.x;
@@ -102,22 +120,25 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2] (key, d)
-  __nv_bfloat16* vs = ks + 2 * kSmemTile;                       // [2] (key, d)
-  int* qseg = reinterpret_cast<int*>(vs + 2 * kSmemTile);       // (row,)
+  __nv_bfloat16* vs = ks + 2 * Dm::kElems;                      // [2] (key, d)
+  int* qseg = reinterpret_cast<int*>(vs + 2 * Dm::kElems);      // (row,)
   int* kseg = qseg + kTile;                                     // [2] (key,)
 
-  const size_t q_off = static_cast<size_t>(bh) * T * kDh;
-  const size_t kv_off = static_cast<size_t>(bh / G) * T * kDh;
+  const size_t q_off = static_cast<size_t>(bh) * T * D;
+  const size_t kv_off = static_cast<size_t>(bh / G) * T * D;
   const int32_t* seg_b = has_seg ? seg + static_cast<size_t>(bh / H) * T : nullptr;
-  const int j_lo = window > 0 ? max(0, r0 - window + 1) / kTile : 0;
-  const int j_hi = causal ? r_last / kTile : n_tiles - 1;
+  // an empty range (j_lo > j_hi): a dead block pair, no key is live for
+  // these rows; the loop does not run and their dq is written as zeros
+  const Tiles tiles = key_tiles(r0, r_last, n_tiles, causal, window, shift);
+  const int j_lo = tiles.lo, j_hi = tiles.hi;
+  const int r0d = r0 + shift;  // the resident tile's first row, shifted
 
   // q and do pass through the second stage's slots; the first key tile
   // goes to the first stage
-  load_tile_async(ks + kSmemTile, q + q_off, r0, T);
-  load_tile_async(vs + kSmemTile, dout + q_off, r0, T);
-  load_tile_async(ks, k + kv_off, j_lo * kTile, T);
-  load_tile_async(vs, v + kv_off, j_lo * kTile, T);
+  load_tile_async<D>(ks + Dm::kElems, q + q_off, r0, T);
+  load_tile_async<D>(vs + Dm::kElems, dout + q_off, r0, T);
+  load_tile_async<D>(ks, k + kv_off, j_lo * kTile, T);
+  load_tile_async<D>(vs, v + kv_off, j_lo * kTile, T);
   if (has_seg) {
     load_vec_async(qseg, seg_b, r0, T, -1, 0);
     load_vec_async(kseg, seg_b, j_lo * kTile, T, -1, kTile);
@@ -132,19 +153,20 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
   }
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[4][4], doa[4][4];
-  load_a(qa, ks + kSmemTile, w0);
-  load_a(doa, vs + kSmemTile, w0);
+  uint32_t qa[Dm::kSteps][4], doa[Dm::kSteps][4];
+  load_a<D>(qa, ks + Dm::kElems, w0);
+  load_a<D>(doa, vs + Dm::kElems, w0);
   __syncthreads();  // the second stage is free
 
-  float acc[8][4];
-  zero(acc);
+  float acc[Dm::kN][4];
+#pragma unroll
+  for (int n = 0; n < Dm::kN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   for (int j = j_lo; j <= j_hi; ++j) {
     const int st = (j - j_lo) & 1;
     if (j < j_hi) {
       const int nx = st ^ 1;
-      load_tile_async(ks + nx * kSmemTile, k + kv_off, (j + 1) * kTile, T);
-      load_tile_async(vs + nx * kSmemTile, v + kv_off, (j + 1) * kTile, T);
+      load_tile_async<D>(ks + nx * Dm::kElems, k + kv_off, (j + 1) * kTile, T);
+      load_tile_async<D>(vs + nx * Dm::kElems, v + kv_off, (j + 1) * kTile, T);
       if (has_seg) load_vec_async(kseg + nx * kTile, seg_b, (j + 1) * kTile, T, -1, 0);
       cp_async_commit();
       cp_async_wait<1>();
@@ -152,15 +174,15 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* kt = ks + st * kSmemTile;
+    const __nv_bfloat16* kt = ks + st * Dm::kElems;
     const int c0 = j * kTile;
 
     float s[8][4], dp[8][4];
     zero(s);
     zero(dp);
-    mma_abt(s, qa, kt);                    // q k^T
-    mma_abt(dp, doa, vs + st * kSmemTile);  // do v^T
-    const bool masked = needs_mask(r0, c0, T, causal, window, has_seg);
+    mma_abt<D>(s, qa, kt);                      // q k^T
+    mma_abt<D>(dp, doa, vs + st * Dm::kElems);  // do v^T
+    const bool masked = needs_mask(r0d, c0, T, causal, window, has_seg);
     const int* kseg_t = kseg + st * kTile;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -168,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
       for (int e = 0; e < 4; ++e) {
         const int ri = w0 + frag_row(e), ci = frag_col(n, e);
         float x = s[n][e] * scale;
-        if (masked && !live(r0 + ri, c0 + ci, T, causal, window, has_seg ? qseg : nullptr,
+        if (masked && !live(r0d + ri, c0 + ci, T, causal, window, has_seg ? qseg : nullptr,
                             kseg_t, ri, ci)) {
           x = kNegInf;
         }
@@ -177,20 +199,22 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
         s[n][e] = p * (dp[n][e] - delta_r[e >> 1]) * scale;  // ds
       }
     uint32_t dsa[4][4];
-    to_a(dsa, s);        // ds rounded to bf16
-    mma_ab(acc, dsa, kt);  // dq += ds k
-    __syncthreads();     // this stage's readers are done before it refills
+    to_a(dsa, s);             // ds rounded to bf16
+    mma_ab<D>(acc, dsa, kt);  // dq += ds k
+    __syncthreads();          // this stage's readers are done before it refills
   }
-  store_acc(dq + q_off, acc, r0 + w0, T);
+  store_acc<D>(dq + q_off, acc, r0 + w0, T);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int32_t* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, int T, int G, int Hkv, int causal, int window,
-    float scale) {
+    int shift, float scale) {
+  using Dm = Dims<D>;
   const int n_tiles = (T + kTile - 1) / kTile;
   const int c0 = blockIdx.y * kTile;  // tile 0 sees the most rows under causal
   const int bhkv = blockIdx.x;
@@ -200,48 +224,55 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2] (row, d)
-  __nv_bfloat16* dos = qs + 2 * kSmemTile;                      // [2] (row, d)
-  int* qseg = reinterpret_cast<int*>(dos + 2 * kSmemTile);      // [2] (row,)
+  __nv_bfloat16* dos = qs + 2 * Dm::kElems;                     // [2] (row, d)
+  int* qseg = reinterpret_cast<int*>(dos + 2 * Dm::kElems);     // [2] (row,)
   int* kseg = qseg + 2 * kTile;                                 // (key,)
   float* lse_s = reinterpret_cast<float*>(kseg + kTile);        // [2] (row,)
   float* delta_s = lse_s + 2 * kTile;                           // [2] (row,)
 
-  const size_t kv_off = static_cast<size_t>(bhkv) * T * kDh;
+  const size_t kv_off = static_cast<size_t>(bhkv) * T * D;
   const int32_t* seg_b = has_seg ? seg + static_cast<size_t>(bhkv / Hkv) * T : nullptr;
-  const int i_lo = causal ? c0 / kTile : 0;
-  const int i_hi = window > 0 ? min(n_tiles - 1, (c_last + window - 1) / kTile) : n_tiles - 1;
-  const int n_rows = i_hi - i_lo + 1;  // live row tiles per query head
+  const Tiles tiles = query_tiles(c0, c_last, n_tiles, causal, window, shift);
+  const int i_lo = tiles.lo;
+  const int n_rows = tiles.hi - i_lo + 1;  // live row tiles per query head
   const int n_steps = G * n_rows;
+  if (n_rows <= 0) {  // a dead block pair: no query row sees these keys
+    store_zeros<D>(dk + kv_off, c0 + w0, T);
+    store_zeros<D>(dv + kv_off, c0 + w0, T);
+    return;
+  }
 
   // step i of the stream: query head bhkv * G + i / n_rows, row tile
   // i_lo + i % n_rows, into stage st
   auto load_step = [&](int i, int st) {
     const int bh = bhkv * G + i / n_rows;
     const int r0 = (i_lo + i % n_rows) * kTile;
-    const size_t q_off = static_cast<size_t>(bh) * T * kDh;
-    load_tile_async(qs + st * kSmemTile, q + q_off, r0, T);
-    load_tile_async(dos + st * kSmemTile, dout + q_off, r0, T);
+    const size_t q_off = static_cast<size_t>(bh) * T * D;
+    load_tile_async<D>(qs + st * Dm::kElems, q + q_off, r0, T);
+    load_tile_async<D>(dos + st * Dm::kElems, dout + q_off, r0, T);
     load_vec_async(lse_s + st * kTile, lse + static_cast<size_t>(bh) * T, r0, T, kPadLse, 0);
     load_vec_async(delta_s + st * kTile, delta + static_cast<size_t>(bh) * T, r0, T, 0.f, kTile);
     if (has_seg) load_vec_async(qseg + st * kTile, seg_b, r0, T, -1, 0);
   };
 
   // k and v pass through the second stage's slots; step 0 goes to the first
-  load_tile_async(qs + kSmemTile, k + kv_off, c0, T);
-  load_tile_async(dos + kSmemTile, v + kv_off, c0, T);
+  load_tile_async<D>(qs + Dm::kElems, k + kv_off, c0, T);
+  load_tile_async<D>(dos + Dm::kElems, v + kv_off, c0, T);
   if (has_seg) load_vec_async(kseg, seg_b, c0, T, -1, kTile);
   load_step(0, 0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_a(ka, qs + kSmemTile, w0);
-  load_a(va, dos + kSmemTile, w0);
+  uint32_t ka[Dm::kSteps][4], va[Dm::kSteps][4];
+  load_a<D>(ka, qs + Dm::kElems, w0);
+  load_a<D>(va, dos + Dm::kElems, w0);
   __syncthreads();  // the second stage is free
 
-  float dk_acc[8][4], dv_acc[8][4];
-  zero(dk_acc);
-  zero(dv_acc);
+  float dk_acc[Dm::kN][4], dv_acc[Dm::kN][4];
+#pragma unroll
+  for (int n = 0; n < Dm::kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
   for (int i = 0; i < n_steps; ++i) {
     const int st = i & 1;
     if (i + 1 < n_steps) {
@@ -252,26 +283,26 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* qt = qs + st * kSmemTile;
-    const __nv_bfloat16* dot = dos + st * kSmemTile;
+    const __nv_bfloat16* qt = qs + st * Dm::kElems;
+    const __nv_bfloat16* dot = dos + st * Dm::kElems;
     const float* lse_t = lse_s + st * kTile;
     const float* delta_t = delta_s + st * kTile;
-    const int r0 = (i_lo + i % n_rows) * kTile;
+    const int r0d = (i_lo + i % n_rows) * kTile + shift;  // the row tile, shifted
 
     // transposed scores: the warp's 16 keys by the tile's 64 rows
     float s[8][4], dp[8][4];
     zero(s);
     zero(dp);
-    mma_abt(s, ka, qt);    // k q^T
-    mma_abt(dp, va, dot);  // v do^T
-    const bool masked = needs_mask(r0, c0, T, causal, window, has_seg);
+    mma_abt<D>(s, ka, qt);    // k q^T
+    mma_abt<D>(dp, va, dot);  // v do^T
+    const bool masked = needs_mask(r0d, c0, T, causal, window, has_seg);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ki = w0 + frag_row(e), ri = frag_col(n, e);
         float x = s[n][e] * scale;
-        if (masked && !live(r0 + ri, c0 + ki, T, causal, window,
+        if (masked && !live(r0d + ri, c0 + ki, T, causal, window,
                             has_seg ? qseg + st * kTile : nullptr, kseg, ri, ki)) {
           x = kNegInf;
         }
@@ -281,80 +312,81 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
         dp[n][e] = p * (dp[n][e] - delta_t[ri]) * scale;  // ds
       }
     uint32_t fa[4][4];
-    to_a(fa, s);              // p rounded to bf16
-    mma_ab(dv_acc, fa, dot);  // dv += p^T do
-    to_a(fa, dp);             // ds rounded to bf16
-    mma_ab(dk_acc, fa, qt);   // dk += ds^T q
-    __syncthreads();          // this stage's readers are done before it refills
+    to_a(fa, s);                 // p rounded to bf16
+    mma_ab<D>(dv_acc, fa, dot);  // dv += p^T do
+    to_a(fa, dp);                // ds rounded to bf16
+    mma_ab<D>(dk_acc, fa, qt);   // dk += ds^T q
+    __syncthreads();             // this stage's readers are done before it refills
   }
-  store_acc(dk + kv_off, dk_acc, c0 + w0, T);
-  store_acc(dv + kv_off, dv_acc, c0 + w0, T);
+  store_acc<D>(dk + kv_off, dk_acc, c0 + w0, T);
+  store_acc<D>(dv + kv_off, dv_acc, c0 + w0, T);
 }
 
-// Dh 64 only; the tiles of T on the grid's y dimension (at most 65,535).
-bool shape_ok(int BH, int BHkv, int T, int Dh, int H) {
-  return Dh == kDh && BHkv >= 1 && BH % BHkv == 0 && T >= 1 && H >= 1 && BH % H == 0 &&
+// the tiles of T on the grid's y dimension (at most 65,535)
+bool shape_ok(int BH, int BHkv, int T, int H) {
+  return BHkv >= 1 && BH % BHkv == 0 && T >= 1 && H >= 1 && BH % H == 0 &&
          (T + kTile - 1) / kTile <= 65535;
 }
 
-}  // namespace
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta, *seg;
+  void *dq, *dk, *dv;
+  int BH, BHkv, T, H, causal, window, shift;
+  float scale;
+  cudaStream_t stream;
+};
 
-extern "C" {
-
-// q/do (BH, T, Dh), k/v (BHkv, T, Dh), dq (BH, T, Dh): bf16, contiguous;
-// lse/delta (BH, T) f32; seg (B, T) int32 or null, with H = BH / B query
-// heads per batch row. Dh must be 64; window <= 0 means none.
-// Returns cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
-int flash_dq_launch(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, const void* seg, void* dq,
-                    int BH, int BHkv, int T, int Dh, int H, int causal, int window,
-                    float scale, void* stream) {
-  if (!shape_ok(BH, BHkv, T, Dh, H)) return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch_dq(const Args& a) {
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kDqSmemBytes));
+      flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kDqSmemBytes<D>));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (T + kTile - 1) / kTile);  // every head's heaviest tile first
-  flash_dq_kernel<<<grid, kThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int32_t*>(seg), static_cast<__nv_bfloat16*>(dq), T, BH / BHkv,
-      H, causal, window, scale);
+  const dim3 grid(a.BH, (a.T + kTile - 1) / kTile);  // every head's heaviest tile first
+  flash_dq_kernel<D><<<grid, kThreads, kDqSmemBytes<D>, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const int32_t*>(a.seg), static_cast<__nv_bfloat16*>(a.dq), a.T,
+      a.BH / a.BHkv, a.H, a.causal, a.window, a.shift, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// As flash_dq_launch; dk/dv (BHkv, T, Dh) bf16, each the sum over the GQA
-// group's BH / BHkv query heads.
-int flash_dkv_launch(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, const void* seg, void* dk,
-                     void* dv, int BH, int BHkv, int T, int Dh, int H, int causal,
-                     int window, float scale, void* stream) {
-  if (!shape_ok(BH, BHkv, T, Dh, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = BH / BHkv;
-  if (H % G) return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch_dkv(const Args& a) {
+  const int G = a.BH / a.BHkv;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kDkvSmemBytes));
+      flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kDkvSmemBytes<D>));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BHkv, (T + kTile - 1) / kTile);  // every head's heaviest tile first
-  flash_dkv_kernel<<<grid, kThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int32_t*>(seg), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), T, G, H / G, causal, window, scale);
+  const dim3 grid(a.BHkv, (a.T + kTile - 1) / kTile);  // every head's heaviest tile first
+  flash_dkv_kernel<D><<<grid, kThreads, kDkvSmemBytes<D>, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const int32_t*>(a.seg), static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.T, G, a.H / G, a.causal, a.window, a.shift,
+      a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// What each kernel takes on this card: out[0] registers a thread, out[1]
-// local (spilled) bytes a thread, out[2] dynamic shared memory a block,
-// out[3] resident blocks an SM. which: 0 dq, 1 dk/dv.
-int flash_bwd_resources(int which, int* out) {
+// The instantiation for head dim Dh: which 0 dq, 1 dk/dv.
+int dispatch(int which, int Dh, const Args& a) {
+  switch (Dh) {
+    case 8: return which == 0 ? launch_dq<8>(a) : launch_dkv<8>(a);
+    case 16: return which == 0 ? launch_dq<16>(a) : launch_dkv<16>(a);
+    case 32: return which == 0 ? launch_dq<32>(a) : launch_dkv<32>(a);
+    case 64: return which == 0 ? launch_dq<64>(a) : launch_dkv<64>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int D>
+int resources(int which, int* out) {
   cudaFuncAttributes attr;
-  const void* fn = which == 0 ? reinterpret_cast<const void*>(flash_dq_kernel)
-                              : reinterpret_cast<const void*>(flash_dkv_kernel);
-  const size_t smem = which == 0 ? kDqSmemBytes : kDkvSmemBytes;
+  const void* fn = which == 0 ? reinterpret_cast<const void*>(flash_dq_kernel<D>)
+                              : reinterpret_cast<const void*>(flash_dkv_kernel<D>);
+  const size_t smem = which == 0 ? kDqSmemBytes<D> : kDkvSmemBytes<D>;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
@@ -365,6 +397,54 @@ int flash_bwd_resources(int which, int* out) {
   out[2] = static_cast<int>(smem);
   out[3] = blocks;
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q/do (BH, T, Dh), k/v (BHkv, T, Dh), dq (BH, T, Dh): bf16, contiguous;
+// lse/delta (BH, T) f32; seg (B, T) int32 or null, with H = BH / B query
+// heads per batch row. Dh is 8, 16, 32 or 64; window <= 0 means none.
+// q_offset and kv_offset place q's rows and k/v's keys on the global
+// positions the masks compare (both 0 outside the ring's block pairs).
+// Returns cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
+int flash_dq_launch(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, const void* seg, void* dq,
+                    int BH, int BHkv, int T, int Dh, int H, int causal, int window,
+                    int q_offset, int kv_offset, float scale, void* stream) {
+  if (!shape_ok(BH, BHkv, T, H)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, dout, lse, delta, seg, dq, nullptr, nullptr, BH, BHkv, T, H,
+               causal, window, q_offset - kv_offset, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(0, Dh, a);
+}
+
+// As flash_dq_launch; dk/dv (BHkv, T, Dh) bf16, each the sum over the GQA
+// group's BH / BHkv query heads.
+int flash_dkv_launch(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, const void* seg, void* dk,
+                     void* dv, int BH, int BHkv, int T, int Dh, int H, int causal,
+                     int window, int q_offset, int kv_offset, float scale, void* stream) {
+  if (!shape_ok(BH, BHkv, T, H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (H % (BH / BHkv)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, dout, lse, delta, seg, nullptr, dk, dv, BH, BHkv, T, H,
+               causal, window, q_offset - kv_offset, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(1, Dh, a);
+}
+
+// What each kernel takes on this card at head dim Dh: out[0] registers a
+// thread, out[1] local (spilled) bytes a thread, out[2] dynamic shared
+// memory a block, out[3] resident blocks an SM. which: 0 dq, 1 dk/dv.
+int flash_bwd_resources(int which, int Dh, int* out) {
+  switch (Dh) {
+    case 8: return resources<8>(which, out);
+    case 16: return resources<16>(which, out);
+    case 32: return resources<32>(which, out);
+    case 64: return resources<64>(which, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

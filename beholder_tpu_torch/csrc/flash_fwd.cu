@@ -24,6 +24,18 @@
 // element mask runs only on tiles where it can bite. GQA: q head bh reads kv
 // head bh / G. T needs no padding: rows and keys past T are masked in place.
 //
+// Head dims 8, 16, 32 and 64, one instantiation each: the score product
+// sums over the D real head dims; the PV product runs the 64 columns of the
+// D = 64 layout and writes the first D (the rest of the v tile is zeros).
+//
+// Ring block-pair mode (the TPU kernel's pallas_call with qoff/kvoff, as
+// flash_block_attend launches it): the C entry takes q_offset and kv_offset,
+// and the masks run on global positions through the shift delta = q_offset
+// - kv_offset (flash_common.cuh). Each block works out its live key tiles
+// from the shifted diagonal, so a rectangular, fully live pair runs every
+// tile and a dead pair runs none: its rows write o = 0 and lse = -1e30,
+// which the ring's online-softmax combine turns into an exact zero.
+//
 // The arithmetic follows the TPU kernel: q is multiplied by 1/sqrt(Dh) in
 // f32 and rounded back to bf16 before the score product; scores are summed
 // in f32, masked to -1e30, and p = exp(s - m) is zeroed where the score is
@@ -41,11 +53,12 @@ using namespace flash;
 constexpr size_t kSmemBytes = sizeof(float) * 4 * kTileFloats + sizeof(int) * 2 * kTile;
 static_assert(kSmemBytes <= 227 * 1024, "shared memory over the per-block limit");
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ seg,
     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int G, int H,
-    int causal, int window, float scale) {
+    int causal, int window, int delta, float scale) {
   const int n_tiles = (T + kTile - 1) / kTile;
   const int r0 = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * kTile;
   const int bh = blockIdx.y;
@@ -61,10 +74,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   int* qseg = reinterpret_cast<int*>(pT + kTileFloats);
   int* kseg = qseg + kTile;
 
-  const size_t q_off = static_cast<size_t>(bh) * T * kDh;
-  const size_t kv_off = static_cast<size_t>(bh / G) * T * kDh;
+  const size_t q_off = static_cast<size_t>(bh) * T * D;
+  const size_t kv_off = static_cast<size_t>(bh / G) * T * D;
   const int b = bh / H;
-  stage(qT, nullptr, q + q_off, r0, T, scale);
+  if (D < kMaxDh) {
+    // the v tile's head dims past D stay zero: PV runs all 64 columns
+    for (int i = threadIdx.x; i < kTileFloats; i += kThreads) vR[i] = 0.f;
+  }
+  stage<D>(qT, nullptr, q + q_off, r0, T, scale);
   if (seg != nullptr) stage_seg(qseg, seg, b, r0, T);
 
   float m[8], l[8], acc[8][4];
@@ -75,25 +92,26 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
   zero(acc);
 
-  const int j_lo = window > 0 ? max(0, r0 - window + 1) / kTile : 0;
-  const int j_hi = causal ? r_last / kTile : n_tiles - 1;
-  for (int j = j_lo; j <= j_hi; ++j) {
+  // an empty range: a dead pair, whose rows keep l = 0
+  const Tiles tiles = key_tiles(r0, r_last, n_tiles, causal, window, delta);
+  const int r0d = r0 + delta;  // the tile's first row, shifted
+  for (int j = tiles.lo; j <= tiles.hi; ++j) {
     const int c0 = j * kTile;
     __syncthreads();  // the previous tile's readers are done
-    stage(kT, nullptr, k + kv_off, c0, T, 0.f);
-    stage(nullptr, vR, v + kv_off, c0, T, 0.f);
+    stage<D>(kT, nullptr, k + kv_off, c0, T, 0.f);
+    stage<D>(nullptr, vR, v + kv_off, c0, T, 0.f);
     if (seg != nullptr) stage_seg(kseg, seg, b, c0, T);
     __syncthreads();
 
     float s[8][4];
     zero(s);
-    outer_acc(s, qT, kT, rg, cg);
-    if (needs_mask(r0, c0, T, causal, window, seg != nullptr)) {
+    outer_acc<D>(s, qT, kT, rg, cg);
+    if (needs_mask(r0d, c0, T, causal, window, seg != nullptr)) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          if (!live(r0 + rg * 8 + i, c0 + cg * 4 + c, T, causal, window,
+          if (!live(r0d + rg * 8 + i, c0 + cg * 4 + c, T, causal, window,
                     seg != nullptr ? qseg : nullptr, kseg, rg * 8 + i, cg * 4 + c)) {
             s[i][c] = kNegInf;
           }
@@ -124,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
     store_t_bf16(pT, s, rg, cg);
     __syncthreads();
-    outer_acc(acc, pT, vR, rg, cg);
+    outer_acc<kTile>(acc, pT, vR, rg, cg);
   }
 
 #pragma unroll
@@ -137,7 +155,24 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       lse[static_cast<size_t>(bh) * T + row] = l[i] > 0.f ? m[i] + logf(denom) : kNegInf;
     }
   }
-  write_rows(out + q_off, acc, r0, T, rg, cg);
+  write_rows<D>(out + q_off, acc, r0, T, rg, cg);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* seg, void* out,
+           void* lse, int BH, int BHkv, int T, int H, int causal, int window, int delta,
+           float scale, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + kTile - 1) / kTile, BH);
+  flash_fwd_kernel<D><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(seg),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), T, BH / BHkv, H,
+      causal, window, delta, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -146,25 +181,26 @@ extern "C" {
 
 // q (BH, T, Dh), k/v (BHkv, T, Dh), out (BH, T, Dh): bf16, contiguous;
 // lse (BH, T) f32; seg (B, T) int32 or null, with H = BH / B query heads
-// per batch row. Dh must be 64; window <= 0 means none.
+// per batch row. Dh is 8, 16, 32 or 64; window <= 0 means none. q_offset
+// and kv_offset place q's rows and k/v's keys on the global positions the
+// causal and window masks compare (both 0 outside the ring's block pairs).
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
 int flash_fwd_launch(const void* q, const void* k, const void* v, const void* seg,
                      void* out, void* lse, int BH, int BHkv, int T, int Dh, int H,
-                     int causal, int window, float scale, void* stream) {
-  if (Dh != kDh || BHkv < 1 || BH % BHkv || T < 1 || H < 1 || BH % H) {
+                     int causal, int window, int q_offset, int kv_offset, float scale,
+                     void* stream) {
+  if (BHkv < 1 || BH % BHkv || T < 1 || H < 1 || BH % H) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kTile - 1) / kTile, BH);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(seg),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), T, BH / BHkv, H,
-      causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
+  const int delta = q_offset - kv_offset;
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 8: return launch<8>(q, k, v, seg, out, lse, BH, BHkv, T, H, causal, window, delta, scale, st);
+    case 16: return launch<16>(q, k, v, seg, out, lse, BH, BHkv, T, H, causal, window, delta, scale, st);
+    case 32: return launch<32>(q, k, v, seg, out, lse, BH, BHkv, T, H, causal, window, delta, scale, st);
+    case 64: return launch<64>(q, k, v, seg, out, lse, BH, BHkv, T, H, causal, window, delta, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

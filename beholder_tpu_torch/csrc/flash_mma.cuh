@@ -1,14 +1,17 @@
 // Tensor-core pieces of the flash backward kernels (flash_bwd.cu).
 //
-// Operand tiles are kTile rows of kDh bf16 values in shared memory, each row
-// padded to kSmemLd = 72 values (144 bytes): the eight 16-byte rows that one
-// ldmatrix phase reads start 4 banks apart, so they hit 32 distinct banks.
-// Tiles arrive by cp.async (16 bytes a thread a copy, rows past T
+// Operand tiles are kTile rows of Dims<D>::kK bf16 values in shared memory:
+// the head dim D (8, 16, 32 or 64), zero-padded to the mma's K of 16 where
+// it is smaller (D = 8; zeros add nothing to a dot product). Each row is
+// padded by 8 more values (to 48, 80 or 144 bytes): the eight 16-byte rows
+// that one ldmatrix phase reads then fall on 32 distinct banks. Tiles arrive
+// by cp.async (16 bytes a thread a copy; rows past T and head dims past D
 // zero-filled) and are double-buffered by the kernels.
 //
 // Products run on mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. Each
-// warp owns 16 rows of a (16 x 64) accumulator, held as acc[n][0..3] for
-// the 8 column tiles n of 8 columns: with g = lane / 4 and t = lane % 4,
+// warp owns 16 rows of a (16 x 64) accumulator (scores; or 16 x kK for a
+// head-dim-wide output: kK / 8 column tiles), held as acc[n][0..3] for
+// the column tiles n of 8 columns: with g = lane / 4 and t = lane % 4,
 // acc[n][0..1] sit at row g, columns 8n + 2t, 8n + 2t + 1, and acc[n][2..3]
 // at row g + 8, the same columns. Two adjacent column tiles of an
 // accumulator, rounded to bf16 pairs, are exactly the A fragment of the
@@ -24,10 +27,18 @@
 
 namespace flash {
 
-constexpr int kSmemLd = kDh + 8;             // padded bf16 row of a staged tile
-constexpr int kSmemTile = kTile * kSmemLd;   // bf16 values per staged tile
+// The tile geometry of head dim D.
+template <int D>
+struct Dims {
+  static_assert(kHeadDimOk<D>, "head dim 8, 16, 32 or 64");
+  static constexpr int kK = D < 16 ? 16 : D;  // head dims in shared memory
+  static constexpr int kSteps = kK / 16;      // 16-wide mma steps over them
+  static constexpr int kN = kK / 8;           // n8 tiles of a head-dim-wide output
+  static constexpr int kLd = kK + 8;          // padded bf16 row of a staged tile
+  static constexpr int kElems = kTile * kLd;  // bf16 values per staged tile
+};
 
-static_assert(kDh == 64 && kTile == 64, "fragments assume 64 x 64 tiles");
+static_assert(kTile == 64, "fragments assume 64-row tiles");
 static_assert(kThreads == 128, "one warpgroup: 4 warps of 16 rows");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -57,20 +68,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [r0, r0 + kTile) of a (T, kDh) bf16 matrix into a padded shared
-// tile; rows at or past T read as zeros. Eight consecutive threads copy one
-// 128-byte row.
+// Rows [r0, r0 + kTile) of a (T, D) bf16 matrix into a padded shared tile;
+// rows at or past T and head dims at or past D read as zeros. kK / 8
+// consecutive threads copy one row.
+template <int D>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* __restrict__ src,
                                                 int r0, int T) {
+  using G = Dims<D>;
+  constexpr int kChunks = G::kK / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < kTile * kDh / 8 / kThreads; ++i) {
-    const int idx = static_cast<int>(threadIdx.x) + i * kThreads;
-    const int row = idx >> 3;
-    const int col = (idx & 7) * 8;
-    const bool valid = r0 + row < T;
-    cp_async16(dst + row * kSmemLd + col,
-               src + (valid ? static_cast<size_t>(r0 + row) * kDh + col : 0), valid);
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    // unsigned: the divisions by the power of two kChunks are shifts
+    const unsigned idx = threadIdx.x + i * kThreads;
+    const int row = static_cast<int>(idx / kChunks);
+    const int col = static_cast<int>(idx % kChunks) * 8;
+    const bool valid = r0 + row < T && col < D;
+    cp_async16(dst + row * G::kLd + col,
+               src + (valid ? static_cast<size_t>(r0 + row) * D + col : 0), valid);
   }
 }
 
@@ -115,48 +130,55 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A fragments of rows [row0, row0 + 16) of a shared tile, all kDh columns:
+// A fragments of rows [row0, row0 + 16) of a shared tile, all kK columns:
 // a[kk] is the 16-wide step kk of the sum index.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const __nv_bfloat16* tile,
-                                       int row0) {
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[Dims<D>::kSteps][4],
+                                       const __nv_bfloat16* tile, int row0) {
+  using G = Dims<D>;
   const int lane = threadIdx.x & 31;
   const int m = lane >> 3;  // which 8 x 8 matrix this lane addresses
-  const __nv_bfloat16* p = tile + (row0 + ((m & 1) << 3) + (lane & 7)) * kSmemLd + ((m >> 1) << 3);
+  const __nv_bfloat16* p = tile + (row0 + ((m & 1) << 3) + (lane & 7)) * G::kLd + ((m >> 1) << 3);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], p + kk * 16);
+  for (int kk = 0; kk < G::kSteps; ++kk) ldsm_x4(a[kk], p + kk * 16);
 }
 
-// acc (16 x 64) += A (16 x 64) * B^T, B a shared tile whose 64 rows are
-// acc's columns and whose 64 columns are the sum index (B read as is).
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[4][4],
+// acc (16 x 64) += A (16 x kK) * B^T, B a shared tile whose 64 rows are
+// acc's columns and whose kK columns are the sum index (B read as is).
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
+                                        const uint32_t (&a)[Dims<D>::kSteps][4],
                                         const __nv_bfloat16* b) {
+  using G = Dims<D>;
   const int lane = threadIdx.x & 31;
   const int m = lane >> 3;
-  const __nv_bfloat16* p = b + (((m >> 1) << 3) + (lane & 7)) * kSmemLd + ((m & 1) << 3);
+  const __nv_bfloat16* p = b + (((m >> 1) << 3) + (lane & 7)) * G::kLd + ((m & 1) << 3);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < G::kSteps; ++kk)
 #pragma unroll
     for (int n = 0; n < 8; n += 2) {
       uint32_t r[4];
-      ldsm_x4(r, p + n * 8 * kSmemLd + kk * 16);
+      ldsm_x4(r, p + n * 8 * G::kLd + kk * 16);
       mma_bf16(acc[n], a[kk], r[0], r[1]);
       mma_bf16(acc[n + 1], a[kk], r[2], r[3]);
     }
 }
 
-// acc (16 x 64) += A (16 x 64) * B, B a shared tile whose 64 rows are the
-// sum index and whose 64 columns are acc's columns (B read transposed).
-__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const uint32_t (&a)[4][4],
+// acc (16 x kK) += A (16 x 64) * B, B a shared tile whose 64 rows are the
+// sum index and whose kK columns are acc's columns (B read transposed).
+template <int D>
+__device__ __forceinline__ void mma_ab(float (&acc)[Dims<D>::kN][4], const uint32_t (&a)[4][4],
                                        const __nv_bfloat16* b) {
+  using G = Dims<D>;
   const int lane = threadIdx.x & 31;
   const int m = lane >> 3;
-  const __nv_bfloat16* p = b + (((m & 1) << 3) + (lane & 7)) * kSmemLd + ((m >> 1) << 3);
+  const __nv_bfloat16* p = b + (((m & 1) << 3) + (lane & 7)) * G::kLd + ((m >> 1) << 3);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int n = 0; n < 8; n += 2) {
+    for (int n = 0; n < G::kN; n += 2) {
       uint32_t r[4];
-      ldsm_x4_trans(r, p + kk * 16 * kSmemLd + n * 8);
+      ldsm_x4_trans(r, p + kk * 16 * G::kLd + n * 8);
       mma_bf16(acc[n], a[kk], r[0], r[1]);
       mma_bf16(acc[n + 1], a[kk], r[2], r[3]);
     }
@@ -174,18 +196,34 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[8][4]
   }
 }
 
-// Write a warp's accumulator, rows row0 + 0..15 (those < T), to a (T, kDh)
-// bf16 matrix, one bf16 pair a store.
+// Write a warp's head-dim-wide accumulator, rows row0 + 0..15 (those < T),
+// columns < D, to a (T, D) bf16 matrix, one bf16 pair a store.
+template <int D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
-                                          const float (&c)[8][4], int row0, int T) {
+                                          const float (&c)[Dims<D>::kN][4], int row0, int T) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + (lane >> 2) + 8 * h;
     if (row >= T) continue;
-    uint32_t* out = reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * kDh + 2 * (lane & 3));
+    uint32_t* out = reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * D + 2 * (lane & 3));
 #pragma unroll
-    for (int n = 0; n < 8; ++n) out[n * 4] = pack_bf16(c[n][2 * h], c[n][2 * h + 1]);
+    for (int n = 0; n < Dims<D>::kN; ++n) {
+      if (n * 8 < D) out[n * 4] = pack_bf16(c[n][2 * h], c[n][2 * h + 1]);
+    }
+  }
+}
+
+// Write zeros to rows row0 + 0..15 (those < T), columns < D, of a (T, D)
+// bf16 matrix: a warp's share of a block pair with nothing live.
+template <int D>
+__device__ __forceinline__ void store_zeros(__nv_bfloat16* __restrict__ dst, int row0, int T) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < 16 * D / 2; i += 32) {
+    const int row = row0 + i / (D / 2);
+    if (row < T) {
+      reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * D)[i % (D / 2)] = 0u;
+    }
   }
 }
 

@@ -28,8 +28,11 @@
 // reference's assembly has it), then the overlay tiles of the chunk's own k/v,
 // only as far as the block's last row can see. A position at or past lens[s]
 // is never read from a page. Scores and PV are plain FMA loops over shared
-// memory, 8 x 8 scores and 8 rows x Dh/16 outputs per thread; tensor-core
-// products (mma.sync/wgmma) and TMA loads are the next steps.
+// memory, 8 x 8 scores and 8 rows x max(Dh/16, 1) outputs per thread (at Dh
+// 8 half the threads' output column is past the head dim and idle);
+// tensor-core products (mma.sync/wgmma) and TMA loads are the next steps.
+// Head dims 8, 16, 32 and 64, one instantiation each per pool family: the
+// pools keep their (N, Hkv, Dh, page) layout, nothing is padded.
 //
 // The arithmetic follows the dense op sequence of the reference
 // (_chunk_block_math) for every pool family, since the chunk path's context
@@ -50,7 +53,6 @@
 
 namespace {
 
-constexpr int kDh = 64;                // head dim (the served model's)
 constexpr int kThreads = 128;          // 4 warps
 constexpr int kRows = 64;              // query rows per block
 constexpr int kKeys = 128;             // keys per tile, one per thread when staging
@@ -105,13 +107,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+template <int DH>
 constexpr size_t kSmemBytes =
-    sizeof(float) * (kRows * (kDh + 1) + kRows * kSStride + 3 * kRows + 2 * kKeys) +
+    sizeof(float) * (kRows * (DH + 1) + kRows * kSStride + 3 * kRows + 2 * kKeys) +
     sizeof(int) * (kRows + 3 * kKeys) +
-    sizeof(__nv_bfloat16) * (kDh * kKStride + kKeys * (kDh + 2));
-static_assert(kSmemBytes <= 227 * 1024, "shared memory over the per-block limit");
+    sizeof(__nv_bfloat16) * (DH * kKStride + kKeys * (DH + 2));
+static_assert(kSmemBytes<64> <= 227 * 1024, "shared memory over the per-block limit");
 
-template <int MODE>
+template <int MODE, int DH>
 __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const void* __restrict__ k_pool,
@@ -121,7 +124,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     int Hkv, int W, int page, int N, int P, int live_pages, int ctx_len,
     int window, float sqrt_dh) {
   using T = typename Elem<MODE>::T;
-  constexpr int kCols = kDh / 16;  // output columns per thread
+  constexpr int kCols = DH < 16 ? 1 : DH / 16;  // output columns per thread
   const int s = blockIdx.x;
   const int kvh = blockIdx.y;
   const int G = H / Hkv;
@@ -134,8 +137,8 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   const int cg = tid & 15;  // its keys cg + 16c, and output columns cg + 16c
 
   extern __shared__ float smem[];
-  float* q_s = smem;                            // (kRows, kDh+1) queries
-  float* s_s = q_s + kRows * (kDh + 1);          // (kRows, kSStride) scores, then p
+  float* q_s = smem;                            // (kRows, DH+1) queries
+  float* s_s = q_s + kRows * (DH + 1);          // (kRows, kSStride) scores, then p
   float* m_s = s_s + kRows * kSStride;          // (kRows,) running max
   float* l_s = m_s + kRows;                     // (kRows,) running sum
   float* alpha_s = l_s + kRows;                 // (kRows,) this tile's rescale
@@ -145,16 +148,16 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   int* kpos_s = jrow_s + kRows;                 // (kKeys,) key position, -1 if none
   int* ksrc_s = kpos_s + kKeys;                 // (kKeys,) page id; -1 zeros
   int* koff_s = ksrc_s + kKeys;                 // (kKeys,) token in page / chunk row
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(koff_s + kKeys);  // (kDh, kKStride)
-  __nv_bfloat16* v_s = k_s + kDh * kKStride;                               // (kKeys, kDh+2)
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(koff_s + kKeys);  // (DH, kKStride)
+  __nv_bfloat16* v_s = k_s + DH * kKStride;                               // (kKeys, DH+2)
 
-  // q and out (S, H, W, kDh): this kv head's G*W rows are contiguous
-  const size_t qo_base = (static_cast<size_t>(s) * H + static_cast<size_t>(kvh) * G) * W * kDh;
-  for (int i = tid; i < kRows * kDh; i += kThreads) {
-    const int r = i / kDh;
-    const int d = i - r * kDh;
+  // q and out (S, H, W, DH): this kv head's G*W rows are contiguous
+  const size_t qo_base = (static_cast<size_t>(s) * H + static_cast<size_t>(kvh) * G) * W * DH;
+  for (int i = tid; i < kRows * DH; i += kThreads) {
+    const int r = i / DH;
+    const int d = i - r * DH;
     const int gr = r0 + r;
-    q_s[r * (kDh + 1) + d] = gr < GW ? __bfloat162float(q[qo_base + static_cast<size_t>(gr) * kDh + d]) : 0.f;
+    q_s[r * (DH + 1) + d] = gr < GW ? __bfloat162float(q[qo_base + static_cast<size_t>(gr) * DH + d]) : 0.f;
   }
   for (int r = tid; r < kRows; r += kThreads) {
     const int gr = r0 + r;
@@ -175,7 +178,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   const int lo = window > 0 ? (max(len - (window - 1), 0) / page) * page : 0;
   const int n_ctx = hi > lo ? (hi - lo + kKeys - 1) / kKeys : 0;
   const int n_ov = (min(jmax + 1, W) + kKeys - 1) / kKeys;
-  const size_t kv_head = static_cast<size_t>(kvh) * kDh;
+  const size_t kv_head = static_cast<size_t>(kvh) * DH;
 
   float acc[8][kCols];
 #pragma unroll
@@ -229,34 +232,34 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     // stage K (d-major) and V (key-major) as bf16; keys with no source are
     // exact zeros, so a zero weight never meets a stale value
     if (ov) {
-      const size_t cbase = (static_cast<size_t>(s) * Hkv + kvh) * W * kDh;
-      for (int idx = tid; idx < kKeys * kDh; idx += kThreads) {
-        const int key = idx / kDh;
-        const int d = idx - key * kDh;
+      const size_t cbase = (static_cast<size_t>(s) * Hkv + kvh) * W * DH;
+      for (int idx = tid; idx < kKeys * DH; idx += kThreads) {
+        const int key = idx / DH;
+        const int d = idx - key * DH;
         __nv_bfloat16 kv = __float2bfloat16_rn(0.f), vv = kv;
         if (kpos_s[key] >= 0) {
-          const size_t e = cbase + static_cast<size_t>(koff_s[key]) * kDh + d;
+          const size_t e = cbase + static_cast<size_t>(koff_s[key]) * DH + d;
           kv = kc[e];
           vv = vc[e];
         }
         k_s[d * kKStride + key] = kv;
-        v_s[key * (kDh + 2) + d] = vv;
+        v_s[key * (DH + 2) + d] = vv;
       }
     } else {
       const T* kp = static_cast<const T*>(k_pool);
       const T* vp = static_cast<const T*>(v_pool);
-      for (int idx = tid; idx < kKeys * kDh; idx += kThreads) {
+      for (int idx = tid; idx < kKeys * DH; idx += kThreads) {
         const int key = idx & (kKeys - 1);
         const int d = idx / kKeys;
         __nv_bfloat16 kv = __float2bfloat16_rn(0.f), vv = kv;
         const int src = ksrc_s[key];
         if (kpos_s[key] >= 0 && src >= 0) {
-          const size_t e = ((static_cast<size_t>(src) * Hkv) * kDh + kv_head + d) * page + koff_s[key];
+          const size_t e = ((static_cast<size_t>(src) * Hkv) * DH + kv_head + d) * page + koff_s[key];
           kv = dequant<MODE>(kp[e], MODE == kBf16 ? 1.f : sk_s[key]);
           vv = dequant<MODE>(vp[e], MODE == kBf16 ? 1.f : sv_s[key]);
         }
         k_s[d * kKStride + key] = kv;
-        v_s[key * (kDh + 2) + d] = vv;
+        v_s[key * (DH + 2) + d] = vv;
       }
     }
     __syncthreads();
@@ -269,10 +272,10 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
 #pragma unroll
         for (int c = 0; c < 8; ++c) sc[i][c] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < kDh; ++d) {
+      for (int d = 0; d < DH; ++d) {
         float qv[8], kv[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) qv[i] = q_s[(rg * 8 + i) * (kDh + 1) + d];
+        for (int i = 0; i < 8; ++i) qv[i] = q_s[(rg * 8 + i) * (DH + 1) + d];
 #pragma unroll
         for (int c = 0; c < 8; ++c) kv[c] = __bfloat162float(k_s[d * kKStride + cg + 16 * c]);
 #pragma unroll
@@ -339,7 +342,9 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
 #pragma unroll
         for (int i = 0; i < 8; ++i) pv[i] = s_s[(rg * 8 + i) * kSStride + key];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) vv[c] = __bfloat162float(v_s[key * (kDh + 2) + cg + 16 * c]);
+        for (int c = 0; c < kCols; ++c) {
+          vv[c] = cg + 16 * c < DH ? __bfloat162float(v_s[key * (DH + 2) + cg + 16 * c]) : 0.f;
+        }
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -357,10 +362,37 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     const float denom = fmaxf(l_s[r], 1e-37f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      out[qo_base + static_cast<size_t>(gr) * kDh + cg + 16 * c] =
+      if (cg + 16 * c >= DH) continue;
+      out[qo_base + static_cast<size_t>(gr) * DH + cg + 16 * c] =
           __float2bfloat16_rn(acc[i][c] / denom);
     }
   }
+}
+
+template <int DH>
+int launch(int mode, const void* q, const void* kc, const void* vc, const void* k_pool,
+           const void* v_pool, const void* k_scale, const void* v_scale, const void* table,
+           const void* lens, void* out, int S, int H, int Hkv, int W, int page, int N,
+           int P, int live_pages, int ctx_len, int window, float sqrt_dh,
+           cudaStream_t stream) {
+  decltype(&paged_chunk_kernel<kBf16, DH>) kernel;
+  switch (mode) {
+    case kBf16: kernel = paged_chunk_kernel<kBf16, DH>; break;
+    case kInt8: kernel = paged_chunk_kernel<kInt8, DH>; break;
+    case kFp8: kernel = paged_chunk_kernel<kFp8, DH>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes<DH>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(S, Hkv, (H / Hkv * W + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, kSmemBytes<DH>, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), k_pool, v_pool, k_scale, v_scale,
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
+      static_cast<__nv_bfloat16*>(out), H, Hkv, W, page, N, P, live_pages, ctx_len,
+      window, sqrt_dh);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -368,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
 extern "C" {
 
 // mode: 0 bf16 pools, 1 int8 pools with f32 scales, 2 fp8 e4m3 pools with
-// uint8 E8M0 scales. Dh must be 64. window <= 0 means none.
+// uint8 E8M0 scales. Dh is 8, 16, 32 or 64. window <= 0 means none.
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
 int paged_chunk_launch(const void* q, const void* kc, const void* vc,
                        const void* k_pool, const void* v_pool, const void* k_scale,
@@ -376,29 +408,22 @@ int paged_chunk_launch(const void* q, const void* kc, const void* vc,
                        void* out, int S, int H, int Hkv, int W, int Dh, int page,
                        int N, int P, int live_pages, int ctx_len, int window,
                        int mode, float sqrt_dh, void* stream) {
-  if (Dh != kDh || Hkv < 1 || H % Hkv || page < 1 || N < 1 || P < 1 ||
+  if (Hkv < 1 || H % Hkv || page < 1 || N < 1 || P < 1 ||
       live_pages < 0 || live_pages > P || ctx_len < P * page) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (S == 0 || W == 0) return 0;
-  decltype(&paged_chunk_kernel<kBf16>) kernel;
-  switch (mode) {
-    case kBf16: kernel = paged_chunk_kernel<kBf16>; break;
-    case kInt8: kernel = paged_chunk_kernel<kInt8>; break;
-    case kFp8: kernel = paged_chunk_kernel<kFp8>; break;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define PAGED_CHUNK_ARGS mode, q, kc, vc, k_pool, v_pool, k_scale, v_scale, table, lens, out, \
+    S, H, Hkv, W, page, N, P, live_pages, ctx_len, window, sqrt_dh, st
+  switch (Dh) {
+    case 8: return launch<8>(PAGED_CHUNK_ARGS);
+    case 16: return launch<16>(PAGED_CHUNK_ARGS);
+    case 32: return launch<32>(PAGED_CHUNK_ARGS);
+    case 64: return launch<64>(PAGED_CHUNK_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(S, Hkv, (H / Hkv * W + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), k_pool, v_pool, k_scale, v_scale,
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
-      static_cast<__nv_bfloat16*>(out), H, Hkv, W, page, N, P, live_pages, ctx_len,
-      window, sqrt_dh);
-  return static_cast<int>(cudaGetLastError());
+#undef PAGED_CHUNK_ARGS
 }
 
 }  // extern "C"

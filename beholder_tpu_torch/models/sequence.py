@@ -14,6 +14,9 @@ arithmetic follows the flax modules it mirrors:
 
 Ported: the full-attention forward, ``attention="flash"`` (the flash
 kernels, forward and backward, :mod:`beholder_tpu_torch.ops.flash_attention`),
+``attention="ring"`` over a :class:`~beholder_tpu_torch.parallel.Mesh`
+(ring attention on the flash kernels' block-pair mode; the rest of each
+block runs on the whole sequence),
 ``return_kv`` (prefill), the dense-cache step (scalar or per-row index,
 ``t >= 1``), the paged decode tick (:class:`PagedInfo`) and the fused chunk
 forward over the paged pools (:class:`ChunkPagedInfo`, prefix-hit and
@@ -22,7 +25,7 @@ version share one op sequence
 (:func:`~beholder_tpu_torch.ops.attention.attend`). Training:
 :func:`seq_loss`, :func:`init_seq_state` and :func:`seq_train_step`, with
 ``remat=True`` recomputing each block in the backward
-(``torch.utils.checkpoint``). Group-parallel forwards, ring/ulysses
+(``torch.utils.checkpoint``). Group-parallel forwards, ulysses
 attention, MoE and sequence sharding raise ``NotImplementedError``.
 
 The model is built with gradients off, so the serving paths record no
@@ -39,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from beholder_tpu_torch.device import resolve_device
 from beholder_tpu_torch.ops import NUM_STATUSES
-from beholder_tpu_torch.ops.attention import attend, full_attention
+from beholder_tpu_torch.ops.attention import attend, full_attention, ring_attention
 from beholder_tpu_torch.ops.flash_attention import flash_attention
 from beholder_tpu_torch.ops.paged_attention import (
     ChunkPagedInfo,
@@ -199,10 +202,11 @@ def _write_dense_cache(cache: torch.Tensor, new: torch.Tensor, index):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: attention (full or flash, dense-cache step,
-    paged decode tick or paged chunk) and a gelu MLP. ``attention`` picks
-    the cache-less path's backend, as in the reference; cached steps run
-    their own attention whatever it is."""
+    """Pre-LN transformer block: attention (full, flash or ring, dense-cache
+    step, paged decode tick or paged chunk) and a gelu MLP. ``attention``
+    picks the cache-less path's backend, as in the reference; cached steps
+    run their own attention whatever it is. Ring attention needs ``mesh``
+    (a :class:`~beholder_tpu_torch.parallel.Mesh`)."""
 
     def __init__(
         self,
@@ -212,16 +216,19 @@ class Block(nn.Module):
         kv_heads: int | None = None,
         window: int | None = None,
         attention: str = "full",
+        mesh=None,
         device=None,
     ):
         super().__init__()
-        if attention not in ("full", "flash"):
+        if attention not in ("full", "flash", "ring"):
             raise NotImplementedError(f"attention={attention!r} is not ported yet")
+        if attention == "ring" and mesh is None:
+            raise ValueError("ring attention needs a mesh")
         hkv = kv_heads or heads
         if heads % hkv:
             raise ValueError(f"heads {heads} not a multiple of kv_heads {hkv}")
         self.dim, self.heads, self.kv_heads, self.window = dim, heads, hkv, window
-        self.attention = attention
+        self.attention, self.mesh = attention, mesh
         dh = dim // heads
         self.ln0 = LayerNorm(dim, device=device)
         self.q_proj = nn.Linear(dim, dim, device=device)
@@ -298,8 +305,11 @@ class Block(nn.Module):
             kv_out = (k_cache, v_cache)
         else:
             kv_out = (k, v)
-            attend_fn = flash_attention if self.attention == "flash" else full_attention
-            att = attend_fn(q, k, v, causal=True, window=self.window)
+            if self.attention == "ring":
+                att = ring_attention(q, k, v, self.mesh, causal=True, window=self.window)
+            else:
+                attend_fn = flash_attention if self.attention == "flash" else full_attention
+                att = attend_fn(q, k, v, causal=True, window=self.window)
         att = att.transpose(1, 2).reshape(b, t, d)
         x = x + _dense_bf16(att, self.proj).to(x.dtype)
         y = self.ln1(x)
@@ -311,7 +321,9 @@ class Block(nn.Module):
 
 
 class TelemetrySequenceModel(nn.Module):
-    """Causal next-delta predictor over telemetry streams."""
+    """Causal next-delta predictor over telemetry streams. ``attention`` is
+    ``"full"``, ``"flash"`` or ``"ring"`` (with ``mesh``); the parameters do
+    not depend on it."""
 
     def __init__(
         self,
@@ -322,6 +334,7 @@ class TelemetrySequenceModel(nn.Module):
         kv_heads: int | None = None,
         window: int | None = None,
         attention: str = "full",
+        mesh=None,
         ffn: str = "dense",
         remat: bool = False,
         seq_shard: bool = False,
@@ -339,7 +352,7 @@ class TelemetrySequenceModel(nn.Module):
         self.embed = nn.Linear(FEATURES, dim, device=device)
         self.blocks = nn.ModuleList(
             Block(dim, heads, kv_heads=kv_heads, window=window,
-                  attention=attention, device=device)
+                  attention=attention, mesh=mesh, device=device)
             for _ in range(layers)
         )
         self.ln = LayerNorm(dim, device=device)

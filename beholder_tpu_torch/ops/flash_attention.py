@@ -19,8 +19,20 @@ head ``bh // G``):
   the GQA group: kernel ``flash_dkv_kernel`` in ``csrc/flash_bwd.cu``,
   plain version :func:`flash_dkv_reference`.
 
-On a CUDA tensor each wrapper launches its kernel (bf16, head dim 64) or
-raises; it never falls back. On a CPU tensor it runs the plain version.
+Each wrapper takes ``offsets=(q_offset, kv_offset)``, the ring block-pair
+mode of the reference's kernels: the causal and window masks then compare
+global positions, row ``r + q_offset`` against key ``c + kv_offset`` (the
+kernels take the two ints by value, so a launch reads nothing back from
+the device). A fully dead pair gives ``o = 0`` and ``lse = -1e30``. Each
+wrapper counts its offset-mode launches apart (``offset_launches``) as well
+as in ``launches``. :func:`flash_block_attend` and
+:func:`flash_block_backward` are the reference's block-pair entry points on
+top of them, the local step of ring attention
+(:mod:`beholder_tpu_torch.ops.attention`).
+
+On a CUDA tensor each wrapper launches its kernel (bf16, head dim 8, 16, 32
+or 64: :data:`KERNEL_HEAD_DIMS`) or raises; it never falls back. On a CPU
+tensor it runs the plain version.
 The plain versions compute the same function densely (the (T, T) scores
 exist there) with the reference's dtype mix:
 
@@ -41,8 +53,7 @@ sum in another order than the plain versions' f32 products and an output's
 bf16 rounding can differ by one ULP. They use no atomics: two launches on
 the same inputs give the same bits. dk/dv are summed over the group in f32
 and rounded once (the reference rounds per-q-head partials to k's dtype
-and sums those). Ring block-pair mode (``flash_block_attend`` /
-``flash_block_backward``) is not ported yet.
+and sums those).
 """
 
 from __future__ import annotations
@@ -53,16 +64,29 @@ import math
 import torch
 
 _NEG_INF = -1e30
-#: the head dim the kernels are compiled for (the served model's)
-_KERNEL_HEAD_DIM = 64
+#: the head dims the CUDA kernels are instantiated for: the reference's
+#: models use 8 (its tests' ``dim=32, heads=4``), 16, 32 (its default
+#: ``dim=128, heads=4``) and 64 (the served ``dim=512, heads=8``)
+KERNEL_HEAD_DIMS = (8, 16, 32, 64)
+
+
+def check_head_dim(kernel: str, dh: int) -> None:
+    """Raise unless the kernels (flash and paged chunk) are instantiated for
+    head dim ``dh``."""
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"the {kernel} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {dh}"
+        )
 
 
 def _live(t: int, causal: bool, window: int | None, segment_ids, bhkv: int,
-          device) -> torch.Tensor | None:
+          device, offsets=None) -> torch.Tensor | None:
     """Boolean mask broadcasting against grouped scores ``(BHkv, G, T, T)``,
-    or None when every pair is live."""
-    rows = torch.arange(t, device=device)[:, None]
-    cols = torch.arange(t, device=device)[None, :]
+    or None when every pair is live. ``offsets`` (q_offset, kv_offset)
+    place rows and keys on the global positions the masks compare."""
+    qoff, kvoff = offsets or (0, 0)
+    rows = torch.arange(t, device=device)[:, None] + qoff
+    cols = torch.arange(t, device=device)[None, :] + kvoff
     live = None
     if causal:
         live = rows >= cols
@@ -81,21 +105,22 @@ def _grouped(x: torch.Tensor, bhkv: int) -> torch.Tensor:
     return x.float().reshape(bhkv, -1, *x.shape[1:])
 
 
-def _probabilities(q, k, lse, causal, window, segment_ids):
+def _probabilities(q, k, lse, causal, window, segment_ids, offsets=None):
     """The backward's p = exp(s - lse) from the saved logsumexp, with s the
     unscaled-q score times ``1/sqrt(d)`` in f32, masked to -1e30 and p
     zeroed there: (BHkv, G, T, T) f32."""
     bhkv, t, d = k.shape
     scale = 1.0 / math.sqrt(d)
     s = torch.matmul(_grouped(q, bhkv), k.float()[:, None].transpose(-1, -2)) * scale
-    live = _live(t, causal, window, segment_ids, bhkv, q.device)
+    live = _live(t, causal, window, segment_ids, bhkv, q.device, offsets)
     if live is not None:
         s = torch.where(live, s, _NEG_INF)
     p = torch.exp(s - lse.reshape(bhkv, -1, t, 1))
     return torch.where(s <= _NEG_INF / 2, 0.0, p)
 
 
-def flash_forward_reference(q, k, v, *, causal=False, window=None, segment_ids=None):
+def flash_forward_reference(q, k, v, *, causal=False, window=None, segment_ids=None,
+                            offsets=None):
     """The plain PyTorch version of the forward kernel: ``(o, lse)`` for
     ``(BH, T, d)`` q and ``(BHkv, T, d)`` k/v; o in q's dtype, lse f32
     ``(BH, T)``."""
@@ -104,7 +129,7 @@ def flash_forward_reference(q, k, v, *, causal=False, window=None, segment_ids=N
     scale = 1.0 / math.sqrt(d)
     qs = (q.float() * scale).to(q.dtype)
     s = torch.matmul(_grouped(qs, bhkv), k.float()[:, None].transpose(-1, -2))
-    live = _live(t, causal, window, segment_ids, bhkv, q.device)
+    live = _live(t, causal, window, segment_ids, bhkv, q.device, offsets)
     if live is not None:
         s = torch.where(live, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
@@ -119,10 +144,10 @@ def flash_forward_reference(q, k, v, *, causal=False, window=None, segment_ids=N
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, *, causal=False, window=None,
-                       segment_ids=None):
+                       segment_ids=None, offsets=None):
     """The plain PyTorch version of the dq kernel: ``dq`` in q's dtype."""
     bhkv, t, d = k.shape
-    p = _probabilities(q, k, lse, causal, window, segment_ids)
+    p = _probabilities(q, k, lse, causal, window, segment_ids, offsets)
     dp = torch.matmul(_grouped(do, bhkv), v.float()[:, None].transpose(-1, -2))
     ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * (1.0 / math.sqrt(d))
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()[:, None])
@@ -130,12 +155,12 @@ def flash_dq_reference(q, k, v, do, lse, delta, *, causal=False, window=None,
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, *, causal=False, window=None,
-                        segment_ids=None):
+                        segment_ids=None, offsets=None):
     """The plain PyTorch version of the dk/dv kernel: ``(dk, dv)`` at
     kv-head shape in k's and v's dtypes, each summed over the GQA group in
     f32."""
     bhkv, t, d = k.shape
-    p = _probabilities(q, k, lse, causal, window, segment_ids)
+    p = _probabilities(q, k, lse, causal, window, segment_ids, offsets)
     dp = torch.matmul(_grouped(do, bhkv), v.float()[:, None].transpose(-1, -2))
     ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * (1.0 / math.sqrt(d))
 
@@ -175,7 +200,7 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         from beholder_tpu_torch import csrc
 
         lib = csrc.load(name)
-        tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        tail = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         if name == "flash_fwd":
             lib.flash_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + tail
             lib.flash_fwd_launch.restype = ctypes.c_int
@@ -189,8 +214,9 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def _check_kernel_inputs(kernel: str, bf16: dict, f32: dict, segment_ids) -> None:
-    """What the kernels take: bf16 q/k/v/do of head dim 64, f32 lse and
-    delta, int32 segment ids, all contiguous on one device, 16-byte aligned."""
+    """What the kernels take: bf16 q/k/v/do of a head dim in
+    :data:`KERNEL_HEAD_DIMS`, f32 lse and delta, int32 segment ids, all
+    contiguous on one device, 16-byte aligned."""
     dev = bf16["q"].device
     tensors = {**bf16, **f32}
     if segment_ids is not None:
@@ -203,11 +229,7 @@ def _check_kernel_inputs(kernel: str, bf16: dict, f32: dict, segment_ids) -> Non
     for name, t in f32.items():
         if t.dtype != torch.float32:
             raise TypeError(f"the {kernel} kernel takes f32 {name}, got {t.dtype}")
-    if bf16["q"].shape[-1] != _KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"the {kernel} kernel takes head_dim {_KERNEL_HEAD_DIM}, "
-            f"got {bf16['q'].shape[-1]}"
-        )
+    check_head_dim(kernel, bf16["q"].shape[-1])
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"all inputs must be on {dev}; {name} is on {t.device}")
@@ -228,14 +250,17 @@ def _on_card(q: torch.Tensor) -> bool:
     return q.is_cuda
 
 
-def _common_args(q, k, segment_ids, causal, window):
+def _common_args(q, k, segment_ids, causal, window, offsets):
     """The launch's trailing scalars: BH, BHkv, T, Dh, H, causal, window,
-    scale (the f32 value the plain versions multiply by), stream."""
+    q_offset, kv_offset, scale (the f32 value the plain versions multiply
+    by), stream."""
     bh, t, d = q.shape
     heads = bh // segment_ids.shape[0] if segment_ids is not None else bh
+    qoff, kvoff = offsets or (0, 0)
     return (
         bh, k.shape[0], t, d, heads, int(causal), 0 if window is None else int(window),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+        int(qoff), int(kvoff), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
 
 
@@ -244,7 +269,7 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
-def _check_flat(q, k, v, segment_ids, window, causal) -> None:
+def _check_flat(q, k, v, segment_ids, window, causal, offsets=None) -> None:
     """Shape checks of the flattened operands, shared by the wrappers."""
     if q.ndim != 3 or k.ndim != 3:
         raise ValueError(f"q and k/v must be (rows, T, d), got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -265,17 +290,31 @@ def _check_flat(q, k, v, segment_ids, window, causal) -> None:
                 f"segment_ids must be (B, T) with B dividing the kv rows, "
                 f"got {tuple(segment_ids.shape)}"
             )
+    if offsets is not None:
+        if segment_ids is not None:
+            raise NotImplementedError("segment ids + ring offsets unsupported")
+        if len(offsets) != 2 or not all(isinstance(o, int) for o in offsets):
+            raise TypeError(f"offsets must be two Python ints (q, kv), got {offsets!r}")
 
 
-def flash_forward(q, k, v, *, causal=False, window=None, segment_ids=None):
-    """``(o, lse)`` of flattened ``(BH, T, d)`` q over ``(BHkv, T, d)`` k/v.
-    CUDA tensors launch ``csrc/flash_fwd.cu`` (each launch adds one to
-    ``flash_forward.launches``); CPU tensors run
+def _count(wrapper, offsets) -> None:
+    wrapper.launches += 1
+    if offsets is not None:
+        wrapper.offset_launches += 1
+
+
+def flash_forward(q, k, v, *, causal=False, window=None, segment_ids=None, offsets=None):
+    """``(o, lse)`` of flattened ``(BH, T, d)`` q over ``(BHkv, T, d)`` k/v;
+    ``offsets=(q_offset, kv_offset)`` runs the ring block-pair mode. CUDA
+    tensors launch ``csrc/flash_fwd.cu`` (each launch adds one to
+    ``flash_forward.launches``, and in offset mode to
+    ``flash_forward.offset_launches``); CPU tensors run
     :func:`flash_forward_reference`."""
-    _check_flat(q, k, v, segment_ids, window, causal)
+    _check_flat(q, k, v, segment_ids, window, causal, offsets)
     if not _on_card(q):
         return flash_forward_reference(
-            q, k, v, causal=causal, window=window, segment_ids=segment_ids
+            q, k, v, causal=causal, window=window, segment_ids=segment_ids,
+            offsets=offsets,
         )
     _check_kernel_inputs("flash forward", {"q": q, "k": k, "v": v}, {}, segment_ids)
     o = torch.empty_like(q)
@@ -283,21 +322,23 @@ def flash_forward(q, k, v, *, causal=False, window=None, segment_ids=None):
     err = _kernel_lib("flash_fwd").flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         segment_ids.data_ptr() if segment_ids is not None else None,
-        o.data_ptr(), lse.data_ptr(), *_common_args(q, k, segment_ids, causal, window),
+        o.data_ptr(), lse.data_ptr(),
+        *_common_args(q, k, segment_ids, causal, window, offsets),
     )
     _raise_on(err, "flash forward")
-    flash_forward.launches += 1
+    _count(flash_forward, offsets)
     return o, lse
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal=False, window=None,
-                      segment_ids=None):
-    """``dq`` from the saved ``lse`` and ``delta = rowsum(do * o)``. CUDA
-    tensors launch the dq kernel of ``csrc/flash_bwd.cu`` (each launch adds
-    one to ``flash_backward_dq.launches``); CPU tensors run
-    :func:`flash_dq_reference`."""
-    _check_flat(q, k, v, segment_ids, window, causal)
-    kw = dict(causal=causal, window=window, segment_ids=segment_ids)
+                      segment_ids=None, offsets=None):
+    """``dq`` from the saved ``lse`` and ``delta = rowsum(do * o)``;
+    ``offsets`` as in :func:`flash_forward`. CUDA tensors launch the dq
+    kernel of ``csrc/flash_bwd.cu`` (counted in
+    ``flash_backward_dq.launches`` and ``.offset_launches``); CPU tensors
+    run :func:`flash_dq_reference`."""
+    _check_flat(q, k, v, segment_ids, window, causal, offsets)
+    kw = dict(causal=causal, window=window, segment_ids=segment_ids, offsets=offsets)
     if not _on_card(q):
         return flash_dq_reference(q, k, v, do, lse, delta, **kw)
     _check_kernel_inputs("flash dq", {"q": q, "k": k, "v": v, "do": do},
@@ -306,21 +347,22 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, causal=False, window=None,
     err = _kernel_lib("flash_bwd").flash_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), segment_ids.data_ptr() if segment_ids is not None else None,
-        dq.data_ptr(), *_common_args(q, k, segment_ids, causal, window),
+        dq.data_ptr(), *_common_args(q, k, segment_ids, causal, window, offsets),
     )
     _raise_on(err, "flash dq")
-    flash_backward_dq.launches += 1
+    _count(flash_backward_dq, offsets)
     return dq
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
-                       segment_ids=None):
-    """``(dk, dv)`` at kv-head shape, each summed over the GQA group. CUDA
-    tensors launch the dk/dv kernel of ``csrc/flash_bwd.cu`` (each launch
-    adds one to ``flash_backward_dkv.launches``); CPU tensors run
-    :func:`flash_dkv_reference`."""
-    _check_flat(q, k, v, segment_ids, window, causal)
-    kw = dict(causal=causal, window=window, segment_ids=segment_ids)
+                       segment_ids=None, offsets=None):
+    """``(dk, dv)`` at kv-head shape, each summed over the GQA group;
+    ``offsets`` as in :func:`flash_forward`. CUDA tensors launch the dk/dv
+    kernel of ``csrc/flash_bwd.cu`` (counted in
+    ``flash_backward_dkv.launches`` and ``.offset_launches``); CPU tensors
+    run :func:`flash_dkv_reference`."""
+    _check_flat(q, k, v, segment_ids, window, causal, offsets)
+    kw = dict(causal=causal, window=window, segment_ids=segment_ids, offsets=offsets)
     if not _on_card(q):
         return flash_dkv_reference(q, k, v, do, lse, delta, **kw)
     _check_kernel_inputs("flash dk/dv", {"q": q, "k": k, "v": v, "do": do},
@@ -329,17 +371,19 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
     err = _kernel_lib("flash_bwd").flash_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), segment_ids.data_ptr() if segment_ids is not None else None,
-        dk.data_ptr(), dv.data_ptr(), *_common_args(q, k, segment_ids, causal, window),
+        dk.data_ptr(), dv.data_ptr(),
+        *_common_args(q, k, segment_ids, causal, window, offsets),
     )
     _raise_on(err, "flash dk/dv")
-    flash_backward_dkv.launches += 1
+    _count(flash_backward_dkv, offsets)
     return dk, dv
 
 
-#: kernel launches since each count was last set to 0
-flash_forward.launches = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
+#: kernel launches since each count was last set to 0, all of them and
+#: those in the ring block-pair (offset) mode
+for _wrapper in (flash_forward, flash_backward_dq, flash_backward_dkv):
+    _wrapper.launches = 0
+    _wrapper.offset_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -416,3 +460,72 @@ def flash_attention(
     q3 = q.reshape(-1, t, d)
     k3, v3 = (a.reshape(-1, t, d) for a in (k, v))
     return FlashAttention.apply(q3, k3, v3, seg, causal, window).reshape(shape)
+
+
+def _offsets(q_offset, kv_offset):
+    if (q_offset is None) != (kv_offset is None):
+        raise ValueError("q_offset and kv_offset come together")
+    return None if q_offset is None else (int(q_offset), int(kv_offset))
+
+
+def flash_block_attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int | None = None,
+    kv_offset: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block pair's attention and logsumexp: the ring's local step, on
+    the forward kernel (the reference's ``flash_block_attend``).
+
+    q is ``(..., T, d)``, k/v ``(..., T, d)`` with fewer heads on dim -3
+    under GQA. With ``q_offset``/``kv_offset`` (Python ints) the causal
+    and window masks run on global positions: a rotated kv block knows
+    where it came from; a fully dead pair yields o = 0 and lse = -1e30,
+    which the online-softmax combine neutralises. Returns (o in q's dtype,
+    lse ``(..., T)`` f32), each normalised within the pair only."""
+    shape = q.shape
+    t, d = shape[-2], shape[-1]
+    q3 = q.reshape(-1, t, d).contiguous()
+    k3, v3 = (a.reshape(-1, a.shape[-2], d).contiguous() for a in (k, v))
+    o, lse = flash_forward(q3, k3, v3, causal=causal, window=window,
+                           offsets=_offsets(q_offset, kv_offset))
+    return o.reshape(shape), lse.reshape(shape[:-1])
+
+
+def flash_block_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int | None = None,
+    kv_offset: int | None = None,
+    delta: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block-pair gradients for the ring backward, on the dq and dk/dv
+    kernels (the reference's ``flash_block_backward``): this pair's
+    probabilities are recomputed from the GLOBAL logsumexp ``lse`` that the
+    ring forward saved, ``o``/``do`` are the shard's global output and
+    cotangent. ``delta = rowsum(do * o)`` may be passed in, computed once
+    per shard (:func:`flash_delta`), since it does not depend on the pair.
+    The reference pads T and gives padding rows lse = +1e30; here T is
+    exact and the kernels give rows past it that lse themselves. Returns
+    (dq, dk, dv), dk/dv at kv-head shape, summed over the GQA group."""
+    shape = q.shape
+    t, d = shape[-2], shape[-1]
+    q3, o3, do3 = (a.reshape(-1, t, d).contiguous() for a in (q, o, do))
+    k3, v3 = (a.reshape(-1, a.shape[-2], d).contiguous() for a in (k, v))
+    lse3 = lse.reshape(-1, t).contiguous()
+    delta3 = flash_delta(o3, do3) if delta is None else delta.reshape(-1, t).contiguous()
+    kw = dict(causal=causal, window=window, offsets=_offsets(q_offset, kv_offset))
+    dq = flash_backward_dq(q3, k3, v3, do3, lse3, delta3, **kw)
+    dk, dv = flash_backward_dkv(q3, k3, v3, do3, lse3, delta3, **kw)
+    return dq.reshape(shape), dk.reshape(k.shape), dv.reshape(v.shape)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import attend
+from .flash_attention import check_head_dim
 from .quant import pool_scales_f32
 
 _NEG_INF = -1e30
@@ -387,8 +388,6 @@ def paged_chunk_reference(
     return attend(q, k_all, v_all, live[:, None, None])
 
 
-#: the head dim the chunk kernel is compiled for (the served model's)
-_CHUNK_HEAD_DIM = 64
 _chunk_lib = None
 
 
@@ -415,8 +414,7 @@ def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len
     slots, h, w, dh = q.shape
     n, hkv, _, page = k_pool.shape
     dev = q.device
-    if dh != _CHUNK_HEAD_DIM:
-        raise ValueError(f"the chunk kernel takes head_dim {_CHUNK_HEAD_DIM}, got {dh}")
+    check_head_dim("paged chunk", dh)
     mode = _kernel_mode({"q": q, "k_chunk": k_chunk, "v_chunk": v_chunk}, k_pool, v_pool,
                         page_table, lens, k_scale, v_scale, "paged chunk")
     lib = _chunk_kernel_lib()

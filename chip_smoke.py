@@ -16,12 +16,18 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    kernel at the fused-wave, warm-prefix and long-context shapes; the flash
    forward, dq and dk/dv kernels at the training shape (B=4, H=8, Hkv=2,
    T=4096, Dh=64, bf16), causal, with a 512 window, non-causal, with
-   segment ids and at T=4000, and at two small edge shapes (a GQA group of
-   8 at T=200, a group of 1 with segment ids at T=130); the backward
-   kernels' registers, spills, shared memory and blocks per SM, their
-   bits equal over two launches, and negative controls (a forward, dq and
-   dk/dv without one key tile, a dk/dv without one query tile or one query
-   head of the group, gradients scaled by 1 + 2**-8: each must fail);
+   segment ids and at T=4000, at two small edge shapes (a GQA group of
+   8 at T=200, a group of 1 with segment ids at T=130) and at head dims 8,
+   16 and 32 (the chunk kernel too, at its wave and warm shapes); the
+   backward kernels' registers, spills, shared memory and blocks per SM at
+   every head dim, their bits equal over two launches, and negative
+   controls (a forward, dq and dk/dv without one key tile, a dk/dv without
+   one query tile or one query head of the group, gradients scaled by 1 +
+   2**-8: each must fail); then the three flash kernels in the ring
+   block-pair (offset) mode at the ring's shard shape (B=4, H=8, Hkv=2,
+   1,024 rows): a fully live off-axis pair, a dead pair, the diagonal
+   through offset mode and a 512 window straddling two shards, with the
+   same checks and controls;
 4. serving: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
    layers=4)`` with random bf16 weights from a numpy seed, over bf16, int8
    and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
@@ -30,7 +36,9 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    ``fused_verify=True`` (a cold pass, then a warm pass), and one
    ``run_what_if``; per path: launch counts of both kernels (set to 0 just
    before, read just after), pages home, forecasts against the dense
-   ``forecast_deltas`` oracle, tokens/s, synchronising calls;
+   ``forecast_deltas`` oracle, tokens/s, synchronising calls; then the
+   reference's default model (``dim=128, heads=4``: head dim 32) through a
+   fused wave and a cold and warm prefix-cache ``run``;
 5. training: the same model with ``attention="flash"`` and f32 params from
    a numpy seed, ``init_seq_state`` then 20 ``seq_train_step``s on 4
    streams of 4096 events (flash launches counted, losses finite and
@@ -39,6 +47,12 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    against ``attention="full"``; ``remat=True`` (gradients bitwise, forward
    launches doubled) and ``window=512`` for 3 steps each; then
    ``ProgressAnomalyModel`` at ``entry()``'s shape and 20 ``train_step``s;
+   then ring attention on a P = 4 mesh of this one card
+   (``Mesh(["cuda:0"] * 4)``, no bytes between devices): the ring forward
+   against ``flash_attention`` at the training shape, the same model with
+   ``attention="ring"`` for 20 steps (launches counted exactly: 64 of each
+   kernel a step, 48 of them in offset mode), step-1 gradients against
+   ``attention="full"``, remat bitwise;
 6. analytics: the aggregation kernel against its plain version (counts,
    max and min bitwise, the mean within rtol 1e-5) and a float64 numpy
    oracle at the sink's flush (4,096 events), 1,000,000 and 8,388,608
@@ -49,7 +63,8 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    observations through ``record()``: launches == flushes (counted), every
    logged summary against the oracle; a synchronous flush makes one
    synchronising call;
-7. output: a ``kernels`` JSON line, then the ``ok`` line last.
+7. output: a ``kernels`` JSON line (the three block-pair sites of the flash
+   kernels as rows of their own), then the ``ok`` line last.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``.
 The full record goes to ``chiprun_out/chip_smoke.json``.
@@ -124,26 +139,30 @@ def card_line() -> str:
 
 
 def backward_resources() -> dict:
-    """What the two flash backward kernels take on this card: registers and
-    local (spilled) bytes a thread, dynamic shared memory a block, resident
-    blocks an SM (cudaFuncGetAttributes and the occupancy calculator).
-    Fails on any local memory."""
+    """What the two flash backward kernels take on this card at each head
+    dim they are instantiated for: registers and local (spilled) bytes a
+    thread, dynamic shared memory a block, resident blocks an SM
+    (cudaFuncGetAttributes and the occupancy calculator). Fails on any
+    local memory."""
     import ctypes
 
     from beholder_tpu_torch.ops import flash_attention as fa
 
     lib = fa._kernel_lib("flash_bwd")
-    lib.flash_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.flash_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.flash_bwd_resources.restype = ctypes.c_int
     out = {}
-    for which, name in enumerate(("flash_dq_kernel", "flash_dkv_kernel")):
-        vals = (ctypes.c_int * 4)()
-        err = lib.flash_bwd_resources(which, vals)
-        check(err == 0, f"{name}: resource query failed, CUDA error {err}")
-        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), vals))
-        check(out[name]["local_bytes"] == 0,
-              f"{name}: {out[name]['local_bytes']} bytes of local memory a thread (spills)")
-        print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in out[name].items()), flush=True)
+    for dh in fa.KERNEL_HEAD_DIMS:
+        for which, kernel in enumerate(("flash_dq_kernel", "flash_dkv_kernel")):
+            name = f"{kernel}<{dh}>"
+            vals = (ctypes.c_int * 4)()
+            err = lib.flash_bwd_resources(which, dh, vals)
+            check(err == 0, f"{name}: resource query failed, CUDA error {err}")
+            out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), vals))
+            check(out[name]["local_bytes"] == 0,
+                  f"{name}: {out[name]['local_bytes']} bytes of local memory a thread (spills)")
+            print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in out[name].items()),
+                  flush=True)
     return out
 
 
@@ -286,7 +305,6 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
 
     dev = torch.device("cuda")
     F = torch.nn.functional
-    H, Hkv, Dh = 8, 2, 64
     shapes = {
         # a fused wave: 8 requests of 256 tokens, an empty paged context,
         # ctx_len = t_max as the fused admission passes it
@@ -301,9 +319,15 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
         "edge": dict(S=4, W=64, page=128, N=32, P=3, lens=[0, 200, 300, 360],
                      ctx_len=384, live_pages=2),
     }
+    # the wave and warm shapes at the head dims of the reference's models
+    # (C.7): dim 32 / 64 / 128 over 4 heads
+    for dh in (8, 16, 32):
+        for name in ("wave", "warm"):
+            shapes[f"{name}-d{dh}"] = dict(shapes[name], H=4, Hkv=4, Dh=dh)
     cases = []
     for shape, c in shapes.items():
         rng = np.random.default_rng(11)
+        H, Hkv, Dh = c.get("H", 8), c.get("Hkv", 2), c.get("Dh", 64)
         S, W, page, N, P = (c[k] for k in ("S", "W", "page", "N", "P"))
         ctx_len = c.get("ctx_len", P * page + W)
         live_pages = c.get("live_pages", P)
@@ -398,8 +422,9 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / BF16_FLOPS * 1e3
                 case = dict(
-                    shape=shape, pool=family, window=window, max_abs_err=err,
-                    max_excess=float(excess.max()), excess_per_row_rms=reading,
+                    shape=shape, H=H, Hkv=Hkv, Dh=Dh, pool=family, window=window,
+                    max_abs_err=err, max_excess=float(excess.max()),
+                    excess_per_row_rms=reading,
                     plain_rms=float(plain.square().mean().sqrt()),
                     tolerance=dict(rtol=CHUNK_RTOL, atol_row_rms=CHUNK_ATOL_RMS),
                     ms=ms, plain_ms=plain_ms,
@@ -409,7 +434,7 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
                 )
                 cases.append(case)
                 print(
-                    f"kernel paged_chunk {shape:5s} {family:4s} window={window!s:5s} "
+                    f"kernel paged_chunk {shape:8s} {family:4s} window={window!s:5s} "
                     f"err={err:.3e} excess={case['max_excess']:.3e} "
                     f"excess/row_rms={reading:.3e} (tol {CHUNK_RTOL:.5f}|plain| + "
                     f"{CHUNK_ATOL_RMS} row_rms) plain_rms={case['plain_rms']:.3e} "
@@ -462,24 +487,26 @@ FLASH_CASES = {
     # tile, and a group of 1 with segment ids over a 2-row last tile
     "mqa-t200": dict(causal=True, B=1, H=8, Hkv=1, T=200),
     "g1-seg-t130": dict(causal=True, B=2, H=2, Hkv=2, T=130, segments=3),
+    # the head dims of the reference's models (C.7): its tests' dim=32 and
+    # dim=64 over 4 heads, and its default dim=128 over 4 heads
+    "d8": dict(causal=True, H=4, Hkv=4, T=2048, Dh=8),
+    "d16": dict(causal=True, H=4, Hkv=2, T=2048, Dh=16),
+    "d32": dict(causal=True, H=4, Hkv=4, T=4096, Dh=32),
 }
 
 
-def flash_pairs(T: int, causal: bool, window, seg) -> int:
-    """(query, key) pairs one head attends: what this data needs."""
-    if seg is not None:
-        i = np.arange(T)
-        n = 0
-        for row in seg:
-            same = row[:, None] == row[None, :]
-            if causal:
-                same &= i[:, None] >= i[None, :]
-            n += int(same.sum())
-        return n // len(seg)
-    if not causal:
-        return T * T
-    seen = np.arange(1, T + 1)
-    return int(np.minimum(seen, window).sum() if window else seen.sum())
+def flash_pairs(T: int, causal: bool, window, seg, offsets=(0, 0)) -> int:
+    """(query, key) pairs one head attends: what this data needs. Rows and
+    keys sit at global positions ``i + offsets[0]`` and ``i + offsets[1]``
+    (a ring block pair); segment ids (B, T) count per batch row, averaged."""
+    i = np.arange(T)
+    rows, cols = i[:, None] + offsets[0], i[None, :] + offsets[1]
+    live = rows >= cols if causal else np.ones((T, T), dtype=bool)
+    if window:
+        live &= rows - cols < window
+    if seg is None:
+        return int(live.sum())
+    return sum(int((live & (row[:, None] == row[None, :])).sum()) for row in seg) // len(seg)
 
 
 def row_reading(got, want) -> float:
@@ -517,7 +544,8 @@ def plain_backward_without(torch, fa, q, k, v, do, lse, delta, *, keys=None, que
     masks the keys summed into dq, ``queries`` (G, T) the GQA group's query
     heads and rows summed into dk/dv (None: all)."""
     bhkv, t, d = k.shape
-    p = fa._probabilities(q, k, lse, kw["causal"], kw["window"], kw["segment_ids"])
+    p = fa._probabilities(q, k, lse, kw["causal"], kw["window"], kw["segment_ids"],
+                          kw.get("offsets"))
     dp = torch.matmul(fa._grouped(do, bhkv), v.float()[:, None].transpose(-1, -2))
     ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * (1.0 / d ** 0.5)
     del dp
@@ -537,18 +565,36 @@ def plain_backward_without(torch, fa, q, k, v, do, lse, delta, *, keys=None, que
     return dq, dk, dv
 
 
-def backward_controls(torch, fa, bwd, plain, lo: int, **kw) -> dict:
+def plain_forward_without(torch, fa, q, k, v, keys, *, causal, window, segment_ids=None,
+                          offsets=None):
+    """The plain forward's o with the keys where ``keys`` (T,) is False
+    left out of every row's softmax, as a forward kernel that skipped a
+    streamed key tile would give."""
+    bhkv, t, d = k.shape
+    qs = (q.float() * (1.0 / d ** 0.5)).to(q.dtype)
+    s = torch.matmul(fa._grouped(qs, bhkv), k.float()[:, None].transpose(-1, -2))
+    live = fa._live(t, causal, window, segment_ids, bhkv, q.device, offsets)
+    live = keys[None, :] if live is None else live & keys
+    # zeroed where masked: a row with no live key gives o = 0, as the plain
+    # forward's
+    w = torch.where(live, torch.softmax(torch.where(live, s, -1e30), dim=-1), 0.0)
+    del s
+    return torch.matmul(w.to(v.dtype).float(), v.float()[:, None]).reshape(q.shape)
+
+
+def backward_controls(torch, fa, bwd, plain, lo: int, row_lo: int | None = None, **kw) -> dict:
     """Faulty backwards against the plain (dq, dk, dv): (reading, share) of
     each. Without the 64 keys from ``lo`` (dq, dk, dv); without the 64
-    query rows from ``lo`` and without the group's first query head (dk,
-    dv: the dk/dv kernel's streamed steps); and scaled by 1 + 2**-8, a
-    fault under one bf16 spacing (dq, dk, dv)."""
+    query rows from ``row_lo`` (default ``lo``) and without the group's
+    first query head (dk, dv: the dk/dv kernel's streamed steps); and
+    scaled by 1 + 2**-8, a fault under one bf16 spacing (dq, dk, dv)."""
     q, k = bwd[:2]
     G, T = q.shape[0] // k.shape[0], k.shape[1]
+    row_lo = lo if row_lo is None else row_lo
     keys = torch.ones(T, device=q.device)
     keys[lo:lo + 64] = 0
     rows = torch.ones(G, T, device=q.device)
-    rows[:, lo:lo + 64] = 0
+    rows[:, row_lo:row_lo + 64] = 0
     head = torch.ones(G, T, device=q.device)
     head[0] = 0
     dq, dk, dv = plain_backward_without(torch, fa, *bwd, keys=keys, **kw)
@@ -563,6 +609,30 @@ def backward_controls(torch, fa, bwd, plain, lo: int, **kw) -> dict:
             for g, got, want in zip(("dq", "dk", "dv"), grads, plain) if got is not None}
 
 
+def run_controls(torch, fa, where, qkv, o_p, bwd, plain, lo, row_lo=None, **kw) -> dict:
+    """The negative controls of one case, each required to fail: a plain
+    forward without the 64 keys from ``lo`` against ``o_p``, and the
+    backward faults of :func:`backward_controls`."""
+    keep = torch.ones(qkv[1].shape[1], dtype=torch.bool, device=o_p.device)
+    keep[lo:lo + 64] = False
+    o_drop = row_reading(plain_forward_without(torch, fa, *qkv, keep, **kw), o_p)
+    check(o_drop > 3 * FLASH_TOL_RMS["o"],
+          f"{where}: an o without one kv tile reads {o_drop}, inside 3x the limit")
+    # and plain backwards with a part of their sums left out, or a small
+    # uniform fault
+    controls = {"key_tile:o": (o_drop, None),
+                **backward_controls(torch, fa, bwd, plain, lo, row_lo, **kw)}
+    for c_name, (reading, share) in controls.items():
+        g = c_name.split(":")[1]
+        if c_name.startswith("scale"):
+            check(share > 3 * FLASH_GRAD_SHARE,
+                  f"{where}: {c_name} differs in a share {share}, inside 3x the limit")
+        else:
+            check(reading > 3 * FLASH_TOL_RMS[g],
+                  f"{where}: {c_name} reads {reading}, inside 3x the limit")
+    return controls
+
+
 def flash_kernel_phase(torch, flush) -> list[dict]:
     """The three flash kernels against their plain versions at the training
     shape, causal, with a window, non-causal, with segment ids and at an
@@ -573,7 +643,6 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
     from beholder_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    F = torch.nn.functional
     cases = []
     for name, c in FLASH_CASES.items():
         shape = {**FLASH_SHAPE, **{k: v for k, v in c.items() if k in FLASH_SHAPE}}
@@ -629,33 +698,10 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
         check(lse_err <= FLASH_LSE_ATOL, f"{where}: lse err {lse_err} > {FLASH_LSE_ATOL}")
         controls = None
         if name == "train":
-            # a plain forward that drops one 64-key tile must read above the limit
-            keep = torch.ones(T, dtype=torch.bool, device=dev)
-            keep[T // 2:T // 2 + 64] = False
-            s = torch.matmul((q.float() / 8.0).bfloat16().float().reshape(B * Hkv, -1, T, Dh),
-                             k.float()[:, None].transpose(-1, -2))
-            live = torch.ones(T, T, dtype=torch.bool, device=dev).tril() & keep[None, :]
-            w = torch.softmax(torch.where(live, s, -1e30), dim=-1)
-            o_drop = torch.matmul(w.bfloat16().float(), v.float()[:, None]).reshape(o_p.shape)
-            del s, w
-            o_drop = row_reading(o_drop, o_p)
-            check(o_drop > 3 * FLASH_TOL_RMS["o"],
-                  f"{where}: an o without one kv tile reads {o_drop}, inside 3x the limit")
-            # and plain backwards with a part of their sums left out, or a
-            # small uniform fault
-            controls = {"key_tile:o": (o_drop, None),
-                        **backward_controls(torch, fa, bwd, (dq_p, dk_p, dv_p), T // 2, **kw)}
-            for c_name, (reading, share) in controls.items():
-                g = c_name.split(":")[1]
-                if c_name.startswith("scale"):
-                    check(share > 3 * FLASH_GRAD_SHARE,
-                          f"{where}: {c_name} differs in a share {share}, inside 3x the limit")
-                else:
-                    check(reading > 3 * FLASH_TOL_RMS[g],
-                          f"{where}: {c_name} reads {reading}, inside 3x the limit")
+            controls = run_controls(torch, fa, where, (q, k, v), o_p, bwd, (dq_p, dk_p, dv_p),
+                                    T // 2, **kw)
 
-        # library yardsticks: SDPA on (B, H, T, Dh) views, never called by the port
-        q4, k4, v4, do4 = (t.reshape(B, -1, T, Dh) for t in (q, k, v, do))
+        # library yardstick: SDPA, with an explicit mask for window and segments
         mask = None
         if window is not None or seg is not None:
             i = torch.arange(T, device=dev)
@@ -665,52 +711,15 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
             mask = mask[None, None]
             if seg is not None:
                 mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
-
-        def sdpa(q4=q4, k4=k4, v4=v4):
-            if mask is None:
-                return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, enable_gqa=True)
-            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
-
-        leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
-        lib_out = sdpa(*leaves)
-
-        def sdpa_bwd():
-            return torch.autograd.grad(lib_out, leaves, do4, retain_graph=True)
-
-        times = {
-            "fwd": (time_ms(torch, lambda: fa.flash_forward(q, k, v, **kw), flush),
-                    time_ms(torch, lambda: fa.flash_forward_reference(q, k, v, **kw), flush, reps=10),
-                    time_ms(torch, sdpa, flush)),
-            "dq": (time_ms(torch, lambda: fa.flash_backward_dq(*bwd, **kw), flush),
-                   time_ms(torch, lambda: fa.flash_dq_reference(*bwd, **kw), flush, reps=10),
-                   time_ms(torch, sdpa_bwd, flush)),
-            "dkv": (time_ms(torch, lambda: fa.flash_backward_dkv(*bwd, **kw), flush),
-                    time_ms(torch, lambda: fa.flash_dkv_reference(*bwd, **kw), flush, reps=10),
-                    time_ms(torch, sdpa_bwd, flush)),
-        }
-        del lib_out, leaves
         pairs = flash_pairs(T, causal, window, seg_np)
-        e = 2  # bf16 bytes
-        qb, kb = B * H * T * Dh * e, B * Hkv * T * Dh * e
-        rowb = B * H * T * 4  # one f32 per query row (lse, delta)
-        segb = 0 if seg is None else B * T * 4
-        work = {  # (bytes: each input read once, each output written once; flops)
-            "fwd": (qb + 2 * kb + qb + rowb + segb, 4 * B * H * Dh * pairs),
-            "dq": (qb + 2 * kb + qb + 2 * rowb + qb + segb, 6 * B * H * Dh * pairs),
-            "dkv": (qb + 2 * kb + qb + 2 * rowb + 2 * kb + segb, 8 * B * H * Dh * pairs),
-        }
         case = dict(case=name, B=B, H=H, Hkv=Hkv, T=T, Dh=Dh, causal=causal, window=window,
                     segments=c.get("segments"), pairs_per_head=pairs, readings=readings,
                     grad_shares=shares, lse_err=lse_err, max_abs_err=errs,
                     controls=controls,
                     tolerance=dict(row_rms=FLASH_TOL_RMS, grad_share=FLASH_GRAD_SHARE,
                                    lse_atol=FLASH_LSE_ATOL))
-        for kern, (ms, plain_ms, lib_ms) in times.items():
-            nbytes, flops = work[kern]
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-            case[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
-                              flops=flops, bound_ms=max(t_bytes, t_ops),
-                              bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case.update(flash_times(torch, fa, flush, B, (q, k, v, do), bwd, kw, mask, pairs,
+                                0 if seg is None else B * T * 4))
         cases.append(case)
         print(
             f"kernel flash {name:9s} T={T} readings(x row RMS) o={readings['o']:.3e} "
@@ -722,11 +731,190 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
                + " ".join(f"{n}={r:.3e},{sh}" for n, (r, sh) in controls.items())),
             flush=True,
         )
-        for kern in ("fwd", "dq", "dkv"):
-            r = case[kern]
-            print(f"  {kern:3s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-                  f"({r['bound_by']}) flops={r['flops']} bytes={r['bytes']}", flush=True)
+        print_times(case)
+    return cases
+
+
+def flash_times(torch, fa, flush, B, qkvdo, bwd, kw, mask, pairs, segb=0) -> dict:
+    """Times (CUDA events, L2 flushed) of the three flash kernels at ``kw``,
+    their plain versions and SDPA on (B, H, T, Dh) views (its forward, and
+    its backward for dq and dk/dv), with the boolean ``mask`` or, when None,
+    ``is_causal``; beside each the bound of the work this data needs:
+    ``pairs`` (query, key) pairs a head, each input read once and each
+    output written once (``segb`` bytes of segment ids)."""
+    q, k, v, do = qkvdo
+    q4, k4, v4, do4 = (t.reshape(B, -1, *t.shape[1:]) for t in (q, k, v, do))
+
+    def sdpa(q4=q4, k4=k4, v4=v4):
+        F = torch.nn.functional
+        if mask is None:
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=kw["causal"],
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    lib_out = sdpa(*leaves)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, leaves, do4, retain_graph=True)
+
+    times = {
+        "fwd": (time_ms(torch, lambda: fa.flash_forward(q, k, v, **kw), flush),
+                time_ms(torch, lambda: fa.flash_forward_reference(q, k, v, **kw), flush, reps=10),
+                time_ms(torch, sdpa, flush)),
+        "dq": (time_ms(torch, lambda: fa.flash_backward_dq(*bwd, **kw), flush),
+               time_ms(torch, lambda: fa.flash_dq_reference(*bwd, **kw), flush, reps=10),
+               time_ms(torch, sdpa_bwd, flush)),
+        "dkv": (time_ms(torch, lambda: fa.flash_backward_dkv(*bwd, **kw), flush),
+                time_ms(torch, lambda: fa.flash_dkv_reference(*bwd, **kw), flush, reps=10),
+                time_ms(torch, sdpa_bwd, flush)),
+    }
+    BH, T, Dh = q.shape
+    qb, kb = q.numel() * 2, k.numel() * 2   # bf16 bytes
+    rowb = BH * T * 4                        # one f32 per query row (lse, delta)
+    work = {  # (bytes: each input read once, each output written once; flops)
+        "fwd": (qb + 2 * kb + qb + rowb + segb, 4 * BH * Dh * pairs),
+        "dq": (qb + 2 * kb + qb + 2 * rowb + qb + segb, 6 * BH * Dh * pairs),
+        "dkv": (qb + 2 * kb + qb + 2 * rowb + 2 * kb + segb, 8 * BH * Dh * pairs),
+    }
+    out = {}
+    for kern, (ms, plain_ms, lib_ms) in times.items():
+        nbytes, flops = work[kern]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        out[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                         flops=flops, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def print_times(case: dict) -> None:
+    for kern in ("fwd", "dq", "dkv"):
+        r = case[kern]
+        print(f"  {kern:3s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+              f"({r['bound_by']}) flops={r['flops']} bytes={r['bytes']}", flush=True)
+
+
+#: the ring path: P = 4 shards of the training shape's 4,096 rows, so one
+#: block pair is a (B, H, 1,024, Dh) shard against a (B, Hkv, 1,024, Dh) one
+RING_P = 4
+OFFSET_SHAPE = dict(B=4, H=8, Hkv=2, T=1024, Dh=64)
+#: block pairs of that ring in the kernels' offset mode: (q_offset,
+#: kv_offset) on global positions; key tile ``lo`` and row tile ``row_lo``
+#: of the negative controls (each must hold live pairs)
+OFFSET_CASES = {
+    # shard 2 against shard 1's block: every pair live
+    "offaxis": dict(offsets=(2048, 1024)),
+    # shard 1 against shard 2's wrapped block: no pair live
+    "dead": dict(offsets=(1024, 2048)),
+    # the diagonal through offset mode (q_offset == kv_offset)
+    "diagonal": dict(offsets=(2048, 2048)),
+    # a 512 window from shard 1 reaching back into shard 0's block: rows
+    # 0-510 of the shard see keys 513-1023 of the block, the rest none
+    "window512": dict(offsets=(1024, 0), window=512, row_lo=0),
+}
+
+
+def offset_kernel_phase(torch, flush) -> list[dict]:
+    """The three flash kernels in the ring block-pair (offset) mode against
+    their plain versions at the ring's shard shape: a fully live off-axis
+    pair, a dead pair, the diagonal through offset mode and a window that
+    straddles two shards. The forward's row reading and lse, the backward's
+    two-part check from the ring's global lse (a pair's own lse where a row
+    sees a key, its diagonal block's elsewhere), repeat launches bitwise,
+    the negative controls failing (live cases), exact zeros (dead case);
+    times of each kernel, its plain version and SDPA with an explicit
+    boolean mask on the global positions, beside the bound of the live
+    pairs."""
+    from beholder_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    B, H, Hkv, T, Dh = (OFFSET_SHAPE[k] for k in ("B", "H", "Hkv", "T", "Dh"))
+    cases = []
+    for name, c in OFFSET_CASES.items():
+        offsets, window = c["offsets"], c.get("window")
+        rng = np.random.default_rng(19)
+
+        def normal(*shape_):
+            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev).bfloat16()
+
+        q, k, v, do = normal(B * H, T, Dh), normal(B * Hkv, T, Dh), normal(B * Hkv, T, Dh), \
+            normal(B * H, T, Dh)
+        kw = dict(causal=True, window=window, segment_ids=None, offsets=offsets)
+        counts0 = flash_counts(fa) + flash_offset_counts(fa)
+        o, lse = fa.flash_forward(q, k, v, **kw)
+        o_p, lse_p = fa.flash_forward_reference(q, k, v, **kw)
+        lse_g = torch.where(lse_p > -1e29, lse_p, fa.flash_forward_reference(q, k, v, causal=True)[1])
+        delta = fa.flash_delta(o_p, do)
+        bwd = (q, k, v, do, lse_g, delta)
+        dq = fa.flash_backward_dq(*bwd, **kw)
+        dk, dv = fa.flash_backward_dkv(*bwd, **kw)
+        repeat = (fa.flash_backward_dq(*bwd, **kw), *fa.flash_backward_dkv(*bwd, **kw))
+        counts = tuple(b - a for a, b in zip(counts0, flash_counts(fa) + flash_offset_counts(fa)))
+        check(counts == (1, 2, 2, 1, 2, 2),
+              f"offset {name}: launches (fwd, dq, dkv, offset fwd, dq, dkv) {counts}")
+        dq_p = fa.flash_dq_reference(*bwd, **kw)
+        dk_p, dv_p = fa.flash_dkv_reference(*bwd, **kw)
+        torch.cuda.synchronize()
+        where = f"offset {name}"
+        for t_name, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
+            check(bool(torch.isfinite(t).all()), f"{where}: {t_name} not finite")
+        for t_name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), repeat):
+            check(torch.equal(a, b), f"{where}: a repeat launch changed {t_name}")
+        del repeat
+        errs = {"o": float((o.float() - o_p.float()).abs().max()),
+                "lse": float((lse - lse_p).abs().max()),
+                "dq": float((dq.float() - dq_p.float()).abs().max()),
+                "dk": float((dk.float() - dk_p.float()).abs().max()),
+                "dv": float((dv.float() - dv_p.float()).abs().max())}
+        check(errs["lse"] <= FLASH_LSE_ATOL, f"{where}: lse err {errs['lse']} > {FLASH_LSE_ATOL}")
+        readings, shares, controls = {}, {}, None
+        pairs = flash_pairs(T, True, window, None, offsets)
+        if pairs == 0:
+            # a dead pair: exact zeros and the mask value, as the plain version
+            for t_name, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv), ("o plain", o_p)):
+                check(not bool(t.any()), f"{where}: {t_name} not all zeros")
+            check(bool((lse == -1e30).all()), f"{where}: lse not -1e30 everywhere")
+        else:
+            grads = {g: grad_readings(got, want)
+                     for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), (dq_p, dk_p, dv_p))}
+            readings = {"o": row_reading(o, o_p), **{g: r for g, (r, _) in grads.items()}}
+            shares = {g: sh for g, (_, sh) in grads.items()}
+            for out_name, reading in readings.items():
+                check(reading <= FLASH_TOL_RMS[out_name],
+                      f"{where}: {out_name} reading {reading} x row RMS > {FLASH_TOL_RMS[out_name]}")
+            for g, share in shares.items():
+                check(share <= FLASH_GRAD_SHARE,
+                      f"{where}: {g} differs from the plain bits in a share {share} > "
+                      f"{FLASH_GRAD_SHARE}")
+            controls = run_controls(torch, fa, where, (q, k, v), o_p, bwd, (dq_p, dk_p, dv_p),
+                                    T // 2, c.get("row_lo"), **kw)
+
+        # library yardstick: SDPA with the block pair's mask on global positions
+        i = torch.arange(T, device=dev)
+        rows, cols = i[:, None] + offsets[0], i[None, :] + offsets[1]
+        mask = rows >= cols
+        if window is not None:
+            mask = mask & (rows - cols < window)
+        case = dict(case=name, B=B, H=H, Hkv=Hkv, T=T, Dh=Dh, offsets=list(offsets),
+                    window=window, pairs_per_head=pairs, readings=readings, grad_shares=shares,
+                    max_abs_err=errs, controls=controls,
+                    tolerance=dict(row_rms=FLASH_TOL_RMS, grad_share=FLASH_GRAD_SHARE,
+                                   lse_atol=FLASH_LSE_ATOL))
+        case.update(flash_times(torch, fa, flush, B, (q, k, v, do), bwd, kw, mask[None, None],
+                                pairs))
+        cases.append(case)
+        print(
+            f"kernel flash offset {name:9s} offsets={offsets} window={window} pairs/head={pairs} "
+            + (" ".join(f"{g}={r:.3e}" for g, r in readings.items()) + f" (limits {FLASH_TOL_RMS}) "
+               + " ".join(f"share_{g}={sh:.3e}" for g, sh in shares.items())
+               + f" (limit {FLASH_GRAD_SHARE})" if readings else "all zeros, lse -1e30")
+            + f" lse_err={errs['lse']:.3e} (limit {FLASH_LSE_ATOL})"
+            + ("" if controls is None else " controls(reading,share) "
+               + " ".join(f"{n}={r:.3e},{sh}" for n, (r, sh) in controls.items())),
+            flush=True,
+        )
+        print_times(case)
     return cases
 
 
@@ -816,9 +1004,33 @@ def check_served(torch, where, b, reqs, results, want, band) -> float:
     return worst
 
 
+def prefix_requests(rng, Request):
+    """The prefix-cache traffic: run's horizons, every request sharing its
+    first 129 progress samples (page 0 of its features) and statuses."""
+    reqs = make_requests(rng, Request, [256] * 12, RUN_HORIZONS)
+    shared = reqs[0].progress[:129]
+    return [
+        Request(np.concatenate([shared, r.progress[129:] - r.progress[128] + shared[-1]]),
+                r.statuses, r.horizon)
+        for r in reqs
+    ]
+
+
+def oracle_steps(torch, model, req):
+    """The dense oracle's first two forecast steps of one request."""
+    from beholder_tpu_torch.models import forecast_deltas
+
+    return forecast_deltas(
+        model,
+        torch.from_numpy(np.asarray(req.progress))[None].cuda(),
+        torch.from_numpy(np.asarray(req.statuses))[None].cuda(),
+        2,
+    )[0].cpu().numpy()
+
+
 def main_path(torch, profile: bool = False) -> dict:
     from beholder_tpu_torch.cache import PrefixCache
-    from beholder_tpu_torch.models import TelemetrySequenceModel, forecast_deltas
+    from beholder_tpu_torch.models import TelemetrySequenceModel
     from beholder_tpu_torch.models.bridge import init_params, load_flax_params
     from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
 
@@ -828,28 +1040,10 @@ def main_path(torch, profile: bool = False) -> dict:
     rng = np.random.default_rng(0)
     wave_reqs = make_requests(rng, Request, [256] * 8, [128] * 8)
     run_reqs = make_requests(rng, Request, [256] * 12, RUN_HORIZONS)
-    # the prefix-cache traffic: run's horizons, every request sharing its
-    # first 129 progress samples (page 0 of its features) and statuses
-    prefix_reqs = make_requests(rng, Request, [256] * 12, RUN_HORIZONS)
-    shared = prefix_reqs[0].progress[:129]
-    prefix_reqs = [
-        Request(np.concatenate([shared, r.progress[129:] - r.progress[128] + shared[-1]]),
-                r.statuses, r.horizon)
-        for r in prefix_reqs
-    ]
-
-    # the dense oracle's first two steps, once per request
-    def oracle(req):
-        return forecast_deltas(
-            model,
-            torch.from_numpy(np.asarray(req.progress))[None].cuda(),
-            torch.from_numpy(np.asarray(req.statuses))[None].cuda(),
-            2,
-        )[0].cpu().numpy()
-
-    want_wave = [oracle(r) for r in wave_reqs]
-    want_run = [oracle(r) for r in run_reqs]
-    want_prefix = [oracle(r) for r in prefix_reqs]
+    prefix_reqs = prefix_requests(rng, Request)
+    want_wave = [oracle_steps(torch, model, r) for r in wave_reqs]
+    want_run = [oracle_steps(torch, model, r) for r in run_reqs]
+    want_prefix = [oracle_steps(torch, model, r) for r in prefix_reqs]
     # what the sync counter reports around nothing (torch's own first use)
     _, baseline = count_syncs(torch, lambda: None)
     print(f"sync_calls around an empty call: {baseline}", flush=True)
@@ -923,10 +1117,12 @@ def main_path(torch, profile: bool = False) -> dict:
 
 
 def prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, family, reqs,
-                want, band) -> dict:
+                want, band, label=None) -> dict:
     """``run`` with a prefix cache and ``fused_verify=True``: a cold pass,
     then a warm pass on the same batcher, each counted; then a full
-    eviction; then timed cold and warm passes on fresh batchers."""
+    eviction; then timed cold and warm passes on fresh batchers. Records
+    and messages are keyed by ``label`` (default: the pool family)."""
+    label = label or family
 
     def make():
         return ContinuousBatcher(model, **SERVE, cache_dtype=family,
@@ -939,7 +1135,7 @@ def prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, family, re
     cache = b.prefix_cache
     out = {}
     for pass_ in ("cold", "warm"):
-        where = f"{family}/prefix_{pass_}"
+        where = f"{label}/prefix_{pass_}"
         hits0, ticks0, rounds0 = cache.hits, b.ticks, b.admission_rounds
         results, syncs, launches, chunk = counted(torch, lambda: b.run(reqs))
         hits, ticks = cache.hits - hits0, b.ticks - ticks0
@@ -961,11 +1157,11 @@ def prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, family, re
                           warm_admits=hits, rounds=n_rounds, syncs=syncs,
                           cached_pages=cache.page_count, first_steps_max_err=worst,
                           band=band)
-    check(cache.hits > 0, f"{family}/prefix: no prefix hit")
+    check(cache.hits > 0, f"{label}/prefix: no prefix hit")
     b._evict_cached(cache.page_count)
     check(cache.page_count == 0 and int(b.state.free_top) == b.num_pages,
-          f"{family}/prefix: free_top {int(b.state.free_top)} after a full eviction")
-    check(int(b.state.page_ref.sum()) == 0, f"{family}/prefix: references left")
+          f"{label}/prefix: free_top {int(b.state.free_top)} after a full eviction")
+    check(int(b.state.page_ref.sum()) == 0, f"{label}/prefix: references left")
     # timed passes: each fresh batcher serves a cold pass, then a warm one
     cold_s, warm_s = [], []
     for _ in range(TIMED_RUNS):
@@ -974,13 +1170,13 @@ def prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, family, re
         warm_s += timed(torch, lambda: fresh.run(reqs), runs=1)
     tokens = sum(r.horizon for r in reqs)
     for pass_, runs in (("cold", cold_s), ("warm", warm_s)):
-        where = f"{family}/prefix_{pass_}"
+        where = f"{label}/prefix_{pass_}"
         seconds = statistics.median(runs)
         out[where].update(seconds=seconds, tokens=tokens, tokens_per_s=tokens / seconds,
                           tokens_per_s_range=(tokens / max(runs), tokens / min(runs)))
         r = out[where]
         print(
-            f"serve {family:4s} prefix_{pass_:5s} requests={len(reqs)} tokens={tokens} "
+            f"serve {label:4s} prefix_{pass_:5s} requests={len(reqs)} tokens={tokens} "
             f"seconds={seconds:.4f} tokens/s={tokens / seconds:.1f} "
             f"(range {tokens / max(runs):.1f}-{tokens / min(runs):.1f} over {TIMED_RUNS} "
             f"runs) ticks={r['ticks']} warm_admits={r['warm_admits']} "
@@ -991,6 +1187,60 @@ def prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, family, re
             flush=True,
         )
     return out
+
+
+#: the reference's default model, TelemetrySequenceModel(dim=128, heads=4)
+#: (beholder_tpu/models/sequence.py:424-425): head dim 32
+DEFAULT_MODEL = dict(dim=128, heads=4, layers=2)
+
+
+def default_model_path(torch) -> dict:
+    """C.7 on the serving path: the reference's default model (head dim 32)
+    through a fused wave (``run_waves`` with ``fused_wave=True``) and a
+    prefix-cache cold and warm ``run`` (warm admission), bf16 pool; launch
+    counts of both kernels, pages home, the first forecast steps against the
+    dense oracle in the bf16 band."""
+    from beholder_tpu_torch.cache import PrefixCache
+    from beholder_tpu_torch.models import TelemetrySequenceModel
+    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
+    from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
+
+    layers = DEFAULT_MODEL["layers"]
+    model = TelemetrySequenceModel(**DEFAULT_MODEL)
+    load_flax_params(model, init_params(model, seed=1, bf16_matrices=True))
+    rng = np.random.default_rng(1)
+    wave_reqs = make_requests(rng, Request, [256] * 8, [64] * 8)
+    prefix_reqs = prefix_requests(rng, Request)
+    band = FORECAST_BAND["bf16"]
+    where = "d32/fused_waves"
+    b = ContinuousBatcher(model, **SERVE, cache_dtype="bf16", fused_wave=True)
+
+    def serve():
+        return b.run_waves(wave_reqs, device_results=True)
+
+    serve()
+    ticks0 = b.ticks
+    results, syncs, launches, chunk = counted(torch, serve)
+    ticks = b.ticks - ticks0
+    waves = -(-len(wave_reqs) // b.slots)
+    check(launches == layers * ticks,
+          f"{where}: {launches} kernel launches for {ticks} ticks x {layers} layers")
+    check(chunk == layers * waves, f"{where}: {chunk} chunk kernel launches, expected "
+          f"{layers * waves}")
+    check(int(b.state.free_top) == b.num_pages,
+          f"{where}: free_top {int(b.state.free_top)} != {b.num_pages}")
+    worst = check_served(torch, where, b, wave_reqs, results,
+                         [oracle_steps(torch, model, r) for r in wave_reqs], band)
+    print(f"serve {where} model={DEFAULT_MODEL} requests={len(wave_reqs)} ticks={ticks} "
+          f"waves={waves} kernel_launches={launches} chunk_launches={chunk} sync_calls={syncs} "
+          f"first2_max_err={worst:.3e} (band rtol {band[0]}, atol {band[1]}) pages_home=yes",
+          flush=True)
+    report = {where: dict(launches=launches, chunk_launches=chunk, ticks=ticks, waves=waves,
+                          syncs=syncs, first_steps_max_err=worst, band=band)}
+    report.update(prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, "bf16",
+                              prefix_reqs, [oracle_steps(torch, model, r) for r in prefix_reqs],
+                              band, label="d32/bf16"))
+    return report
 
 
 def what_if_path(torch, ContinuousBatcher, model, layers, Request) -> dict:
@@ -1083,16 +1333,23 @@ def flash_counts(fa) -> tuple[int, int, int]:
     return fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches
 
 
+def flash_offset_counts(fa) -> tuple[int, int, int]:
+    """The flash wrappers' launches in the ring block-pair (offset) mode."""
+    return (fa.flash_forward.offset_launches, fa.flash_backward_dq.offset_launches,
+            fa.flash_backward_dkv.offset_launches)
+
+
 def counted_flash(torch, fa, fn):
-    """Run ``fn`` with the three flash launch counts set to 0 just before
-    and read just after. Returns (result, (forward, dq, dk/dv))."""
+    """Run ``fn`` with the flash launch counts, all and offset-mode, set to
+    0 just before and read just after. Returns (result, (forward, dq,
+    dk/dv), the same in offset mode)."""
     torch.cuda.synchronize()
-    fa.flash_forward.launches = fa.flash_backward_dq.launches = 0
-    fa.flash_backward_dkv.launches = 0
+    for wrapper in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv):
+        wrapper.launches = wrapper.offset_launches = 0
     result = fn()
-    counts = flash_counts(fa)
+    counts, offset_counts = flash_counts(fa), flash_offset_counts(fa)
     torch.cuda.synchronize()
-    return result, counts
+    return result, counts, offset_counts
 
 
 def train_streams(torch, seed: int, batch: int, t: int):
@@ -1135,24 +1392,9 @@ def train_path(torch, flash_cases: list[dict]) -> dict:
     # 1. the main run: init and TRAIN_STEPS steps, every launch counted
     state = init_seq_state(0, TelemetrySequenceModel(**TRAIN_MODEL))
     n_params = sum(p.numel() for p in state.model.parameters())
-    events = []
-
-    def run():
-        nonlocal state
-        losses = []
-        for _ in range(TRAIN_STEPS):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            state, loss = seq_train_step(state, feats, targets)
-            end.record()
-            events.append((start, end))
-            losses.append(loss)
-        return torch.stack(losses).cpu().numpy()
-
     t0 = time.perf_counter()
-    losses, launches = counted_flash(torch, fa, run)
+    state, losses, step_ms, launches, _ = train_steps(torch, fa, state, feats, targets)
     wall = time.perf_counter() - t0
-    step_ms = [s.elapsed_time(e) for s, e in events]
     steady_ms = statistics.median(step_ms[1:])
     check(bool(np.isfinite(losses).all()), f"train: losses not finite {losses}")
     check(losses[-1] < 0.7 * losses[0],
@@ -1198,37 +1440,14 @@ def train_path(torch, flash_cases: list[dict]) -> dict:
     del state, restored
 
     # 3. step-1 gradients, flash against full attention, B=1
-    f1, t1 = train_streams(torch, 1, 1, TRAIN_T)
     params = init_params(TelemetrySequenceModel(**TRAIN_MODEL), 2)
-    models = {}
-    for attention in ("flash", "full"):
-        m = TelemetrySequenceModel(**{**TRAIN_MODEL, "attention": attention})
-        load_flax_params(m, params)
-        models[attention] = m.requires_grad_(True)
-    g_flash = step_grads(torch, models["flash"], f1, t1)
-    g_full = step_grads(torch, models["full"], f1, t1)
-    rtol, atol = GRAD_BAND
-    worst = max(float(((g_flash[n] - g_full[n]).abs() - rtol * g_full[n].abs()).max())
-                for n in g_full)
-    check(worst <= atol, f"grads: flash vs full excess {worst} over rtol {rtol} > atol {atol}")
-    print(f"train grads B=1 T={TRAIN_T}: flash vs full max excess over {rtol}|full| = "
-          f"{worst:.3e} (atol {atol})", flush=True)
-    report["grads_vs_full"] = dict(max_excess=worst, band=GRAD_BAND)
-    del models
+    report["grads_vs_full"] = grads_vs_full(torch, "flash", TRAIN_MODEL, params)
 
     # 4. remat: step-1 gradients bitwise no-remat's, forward launches doubled
-    plain = TelemetrySequenceModel(**TRAIN_MODEL)
-    remat = TelemetrySequenceModel(**TRAIN_MODEL, remat=True)
-    for m in (plain, remat):
-        load_flax_params(m, params)
-        m.requires_grad_(True)
-    g_plain = step_grads(torch, plain, feats, targets)
-    g_remat, remat_launches = counted_flash(torch, fa, lambda: step_grads(torch, remat, feats, targets))
-    same = all(torch.equal(g_plain[n], g_remat[n]) for n in g_plain)
-    check(same, "remat: step-1 gradients differ from no-remat")
+    remat, remat_launches, _ = remat_grads(torch, fa, "remat", TRAIN_MODEL, params, feats,
+                                           targets)
     check(remat_launches == (2 * layers, layers, layers),
           f"remat: launches {remat_launches} for one step, expected {(2 * layers, layers, layers)}")
-    del plain, g_plain, g_remat
     report.update(side_run(torch, fa, "remat", remat, feats, targets, (2 * layers, layers, layers)))
     del remat
     windowed = TelemetrySequenceModel(**TRAIN_MODEL, window=512)
@@ -1236,6 +1455,71 @@ def train_path(torch, flash_cases: list[dict]) -> dict:
     report.update(side_run(torch, fa, "window512", windowed, feats, targets,
                            (layers, layers, layers)))
     return report
+
+
+def train_steps(torch, fa, state, feats, targets):
+    """TRAIN_STEPS ``seq_train_step``s, each timed with CUDA events, every
+    flash launch counted. Returns (state, losses, step ms, launches,
+    offset-mode launches)."""
+    from beholder_tpu_torch.models import seq_train_step
+
+    events = []
+
+    def run():
+        nonlocal state
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss = seq_train_step(state, feats, targets)
+            end.record()
+            events.append((start, end))
+            losses.append(loss)
+        return torch.stack(losses).cpu().numpy()
+
+    losses, launches, offset_launches = counted_flash(torch, fa, run)
+    return state, losses, [s.elapsed_time(e) for s, e in events], launches, offset_launches
+
+
+def grads_vs_full(torch, name, model_kw, params) -> dict:
+    """Step-1 gradients of ``model_kw`` against ``attention="full"`` on the
+    same params, one stream of TRAIN_T events, inside GRAD_BAND."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel
+    from beholder_tpu_torch.models.bridge import load_flax_params
+
+    f1, t1 = train_streams(torch, 1, 1, TRAIN_T)
+    grads = []
+    for kw in (model_kw, {**model_kw, "attention": "full", "mesh": None}):
+        m = TelemetrySequenceModel(**kw)
+        load_flax_params(m, params)
+        grads.append(step_grads(torch, m.requires_grad_(True), f1, t1))
+        del m
+    got, full = grads
+    rtol, atol = GRAD_BAND
+    worst = max(float(((got[n] - full[n]).abs() - rtol * full[n].abs()).max()) for n in full)
+    check(worst <= atol, f"{name} grads: vs full excess {worst} over rtol {rtol} > atol {atol}")
+    print(f"train {name} grads B=1 T={TRAIN_T}: vs full max excess over {rtol}|full| = "
+          f"{worst:.3e} (atol {atol})", flush=True)
+    return dict(max_excess=worst, band=GRAD_BAND)
+
+
+def remat_grads(torch, fa, name, model_kw, params, feats, targets):
+    """Step-1 gradients of ``model_kw`` with ``remat=True``, bitwise those
+    without. Returns (the remat model, its launches, offset-mode launches)."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel
+    from beholder_tpu_torch.models.bridge import load_flax_params
+
+    plain = TelemetrySequenceModel(**model_kw)
+    remat = TelemetrySequenceModel(**model_kw, remat=True)
+    for m in (plain, remat):
+        load_flax_params(m, params)
+        m.requires_grad_(True)
+    g_plain = step_grads(torch, plain, feats, targets)
+    g_remat, counts, offset_counts = counted_flash(
+        torch, fa, lambda: step_grads(torch, remat, feats, targets))
+    check(all(torch.equal(g_plain[n], g_remat[n]) for n in g_plain),
+          f"{name}: step-1 gradients differ from no-remat")
+    return remat, counts, offset_counts
 
 
 def side_run(torch, fa, name, model, feats, targets, per_step) -> dict:
@@ -1255,7 +1539,7 @@ def side_run(torch, fa, name, model, feats, targets, per_step) -> dict:
         return torch.stack(losses).cpu().numpy()
 
     t0 = time.perf_counter()
-    losses, launches = counted_flash(torch, fa, run)
+    losses, launches, _ = counted_flash(torch, fa, run)
     seconds = time.perf_counter() - t0
     want = tuple(SIDE_STEPS * n for n in per_step)
     check(bool(np.isfinite(losses).all()), f"{name}: losses not finite {losses}")
@@ -1264,6 +1548,106 @@ def side_run(torch, fa, name, model, feats, targets, per_step) -> dict:
           f"{launches} step_ms(host, mean)={seconds / SIDE_STEPS * 1e3:.2f}", flush=True)
     return {name: dict(losses=losses.tolist(), launches=launches,
                        step_ms_host_mean=seconds / SIDE_STEPS * 1e3)}
+
+
+def ring_path(torch, flush, flash_train: dict) -> dict:
+    """The ring path on a P = 4 mesh of one card (``Mesh(["cuda:0"] * 4)``:
+    every shard on the same device, so no byte moves between devices): the
+    ring forward against ``flash_attention`` on the same global inputs at
+    the training shape, and both timed; then the training model with
+    ``attention="ring"``, ``init_seq_state`` and TRAIN_STEPS steps with
+    every flash launch counted (all and offset mode, exactly), losses
+    falling, step ms beside the flash step's; step-1 gradients against
+    ``attention="full"``; remat (gradients bitwise, launches exact). One
+    more step under the profiler gives the ring step's device and busy
+    shares."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel, init_seq_state, seq_train_step
+    from beholder_tpu_torch.models.bridge import init_params
+    from beholder_tpu_torch.ops import flash_attention as fa
+    from beholder_tpu_torch.ops.attention import ring_attention
+    from beholder_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(["cuda:0"] * RING_P)
+    ring_model = {**TRAIN_MODEL, "attention": "ring", "mesh": mesh}
+    layers = TRAIN_MODEL["layers"]
+    report = {}
+
+    # 1. the ring forward against flash_attention, global (B, H, T, Dh) inputs
+    B, H, Hkv, T, Dh = (FLASH_SHAPE[k] for k in ("B", "H", "Hkv", "T", "Dh"))
+    rng = np.random.default_rng(23)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (B, h, T, Dh)).astype(np.float32))
+               .cuda().bfloat16() for h in (H, Hkv, Hkv))
+    o_ring, counts, offset_counts = counted_flash(
+        torch, fa, lambda: ring_attention(q, k, v, mesh, causal=True))
+    per_layer = (RING_P * RING_P, 0, 0)
+    check(counts == per_layer and offset_counts == (RING_P * (RING_P - 1), 0, 0),
+          f"ring forward: launches {counts}, offset {offset_counts}")
+    o_flash = fa.flash_attention(q, k, v, causal=True)
+    reading = row_reading(o_ring, o_flash)
+    check(bool(torch.isfinite(o_ring.float()).all()), "ring forward: not finite")
+    check(reading <= FLASH_TOL_RMS["o"],
+          f"ring forward vs flash_attention: reading {reading} x row RMS > {FLASH_TOL_RMS['o']}")
+    ring_ms = time_ms(torch, lambda: ring_attention(q, k, v, mesh, causal=True), flush)
+    flash_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), flush)
+    print(f"ring forward B={B} H={H} Hkv={Hkv} T={T} Dh={Dh} P={RING_P}: reading vs "
+          f"flash_attention {reading:.3e} x row RMS (limit {FLASH_TOL_RMS['o']}) "
+          f"launches={counts} offset={offset_counts} ms={ring_ms:.4f} "
+          f"flash_attention_ms={flash_ms:.4f}", flush=True)
+    report["ring_forward"] = dict(reading_vs_flash=reading, launches=counts,
+                                  offset_launches=offset_counts, ms=ring_ms,
+                                  flash_attention_ms=flash_ms)
+    del q, k, v, o_ring, o_flash
+
+    # 2. the training run: TRAIN_STEPS steps, every launch counted
+    feats, targets = train_streams(torch, 0, TRAIN_B, TRAIN_T)
+    tokens = TRAIN_B * TRAIN_T
+    state = init_seq_state(0, TelemetrySequenceModel(**ring_model))
+    state, losses, step_ms, launches, offset_launches = train_steps(torch, fa, state, feats,
+                                                                    targets)
+    steady_ms = statistics.median(step_ms[1:])
+    pairs = layers * RING_P * RING_P          # causal, no window: every rotation
+    offset_pairs_ = layers * RING_P * (RING_P - 1)
+    check(bool(np.isfinite(losses).all()), f"ring train: losses not finite {losses}")
+    check(losses[-1] < 0.7 * losses[0],
+          f"ring train: last loss {losses[-1]} not below 0.7 x the first {losses[0]}")
+    want = (TRAIN_STEPS * pairs,) * 3
+    want_offset = (TRAIN_STEPS * offset_pairs_,) * 3
+    check(launches == want and offset_launches == want_offset,
+          f"ring train: launches {launches} offset {offset_launches}, expected {want} "
+          f"offset {want_offset}")
+    print(f"train ring P={RING_P} B={TRAIN_B} T={TRAIN_T} steps={TRAIN_STEPS} loss "
+          f"{losses[0]:.4e} -> {losses[-1]:.4e} launches(fwd,dq,dkv)={launches} "
+          f"offset={offset_launches} step_ms median(2..)={steady_ms:.2f} first={step_ms[0]:.2f} "
+          f"tokens/s={tokens / steady_ms * 1e3:.1f} (flash step_ms "
+          f"{flash_train['step_ms_median']:.2f}, tokens/s {flash_train['tokens_per_s']:.1f})",
+          flush=True)
+    report["ring_train"] = dict(
+        P=RING_P, batch=TRAIN_B, T=TRAIN_T, steps=TRAIN_STEPS, losses=losses.tolist(),
+        launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+        offset_launches=dict(zip(("fwd", "dq", "dkv"), offset_launches)),
+        step_ms=step_ms, step_ms_median=steady_ms, tokens_per_s=tokens / steady_ms * 1e3,
+        flash_step_ms_median=flash_train["step_ms_median"],
+        flash_tokens_per_s=flash_train["tokens_per_s"],
+    )
+    prof, _ = profile_step(torch, lambda: seq_train_step(state, feats, targets))
+    report["ring_train"].update(prof)
+    del state
+
+    # 3. step-1 gradients, ring against full attention, B=1
+    params = init_params(TelemetrySequenceModel(**TRAIN_MODEL), 2)
+    report["ring_grads_vs_full"] = grads_vs_full(torch, "ring", ring_model, params)
+
+    # 4. remat: the ring recomputed in the backward, gradients bitwise
+    _, counts, offset_counts = remat_grads(torch, fa, "ring remat", ring_model, params, feats,
+                                           targets)
+    want, want_offset = (2 * pairs, pairs, pairs), (2 * offset_pairs_, offset_pairs_, offset_pairs_)
+    check(counts == want and offset_counts == want_offset,
+          f"ring remat: launches {counts} offset {offset_counts} for one step, expected {want} "
+          f"offset {want_offset}")
+    print(f"train ring remat: gradients bitwise no-remat's, launches {counts} offset "
+          f"{offset_counts}", flush=True)
+    report["ring_remat"] = dict(bitwise=True, launches=counts, offset_launches=offset_counts)
+    return report
 
 
 def profile_step(torch, step):
@@ -1709,13 +2093,17 @@ def main() -> None:
     cases = kernel_phase(torch, flush)
     chunk_cases = chunk_kernel_phase(torch, flush)
     flash_cases = flash_kernel_phase(torch, flush)
+    offset_cases = offset_kernel_phase(torch, flush)
     record = {"card": card, "build": builds, "kernel_cases": cases,
-              "chunk_kernel_cases": chunk_cases, "flash_kernel_cases": flash_cases}
+              "chunk_kernel_cases": chunk_cases, "flash_kernel_cases": flash_cases,
+              "offset_kernel_cases": offset_cases}
     serving = main_path(torch, profile=args.profile)
     record["serving"] = serving
+    record["serving_default_model"] = default_model_path(torch)
     paths = [v for k, v in serving.items() if k != "profile"]
     training = train_path(torch, flash_cases)
     training["anomaly"] = anomaly_path(torch)
+    training.update(ring_path(torch, flush, training["train"]))
     record["training"] = training
     agg_cases = aggregate_kernel_phase(torch, flush)
     record["aggregate_kernel_cases"] = agg_cases
@@ -1770,6 +2158,28 @@ def main() -> None:
             "bound_ms": train_case[key]["bound_ms"],
             "bound_by": train_case[key]["bound_by"],
             "library_ms": train_case[key]["library_ms"],
+        })
+    # the ring block-pair (offset) mode of the same kernels: launches from the
+    # ring training run, times at the fully live off-axis pair
+    offaxis = next(c for c in offset_cases if c["case"] == "offaxis")
+    for key, name, site, source in (
+        ("fwd", "flash_block_attend", 438, "flash_fwd.cu"),
+        ("dq", "flash_block_backward_dq", 783, "flash_bwd.cu"),
+        ("dkv", "flash_block_backward_dkv", 809, "flash_bwd.cu"),
+    ):
+        outs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"beholder_tpu_torch/csrc/{source}",
+            "replaces": f"beholder_tpu/ops/flash_attention.py:{site}",
+            "launches": training["ring_train"]["offset_launches"][key],
+            "max_abs_err": max(c["max_abs_err"][o] for c in offset_cases for o in outs),
+            "ms": offaxis[key]["ms"],
+            "plain_ms": offaxis[key]["plain_ms"],
+            "bound_ms": offaxis[key]["bound_ms"],
+            "bound_by": offaxis[key]["bound_by"],
+            "library_ms": offaxis[key]["library_ms"],
         })
     flush_case = next(c for c in agg_cases if c["case"] == "flush")
     kernels.append({

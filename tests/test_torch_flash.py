@@ -37,6 +37,10 @@ CASES = {
     "window100-gqa": dict(b=1, h=4, hkv=2, t=200, d=16, causal=True, window=100),
     "segments-causal-gqa": dict(b=2, h=4, hkv=2, t=130, d=16, causal=True, seg=True),
     "segments-noncausal": dict(b=2, h=4, hkv=4, t=64, d=16, causal=False, seg=True),
+    # the head dims of the reference's test models (dim=32, heads=4) and of
+    # its default model (dim=128, heads=4)
+    "causal-gqa-d8": dict(b=2, h=4, hkv=2, t=130, d=8, causal=True),
+    "window40-d32": dict(b=1, h=4, hkv=4, t=160, d=32, causal=True, window=40),
 }
 BANDS = {"f32": ((1e-4, 1e-5), (1e-3, 1e-4)), "bf16": ((2**-6, 2**-6), (2**-6, 2**-6))}
 
@@ -233,3 +237,42 @@ def test_backward_reading_forgives_one_bf16_spacing_at_a_few_values():
         assert reading > chip_smoke.FLASH_TOL_RMS[name], (name, reading)
         _, share = chip_smoke.grad_readings(stepped(1, (bits != 0).nonzero()[:, 0]), want)
         assert share > 3 * chip_smoke.FLASH_GRAD_SHARE, (name, share)
+
+
+class _PastTheCheck(Exception):
+    """Raised by a stub standing after the head-dim check."""
+
+
+@pytest.mark.parametrize("dh", [4, 8, 12, 16, 24, 32, 48, 64, 96, 128])
+def test_kernel_head_dim_check_takes_the_instantiated_dims(dh, monkeypatch):
+    """The CUDA path's head-dim check (run before any launch, so reachable
+    without a card): the flash kernels and the paged chunk kernel take head
+    dims 8, 16, 32 and 64, and raise for any other with a message that names
+    the set. Head dim 128 (the reference's ``bench_ring_block`` width) is
+    among those still refused."""
+    from beholder_tpu_torch.ops import paged_attention as pa
+
+    def past(*_, **__):
+        raise _PastTheCheck
+
+    monkeypatch.setattr(pa, "_kernel_mode", past)
+    assert fa.KERNEL_HEAD_DIMS == (8, 16, 32, 64)
+    q = torch.zeros(4, 8, dh, dtype=torch.bfloat16)
+    k = torch.zeros(2, 8, dh, dtype=torch.bfloat16)
+    f32 = {"lse": torch.zeros(4, 8), "delta": torch.zeros(4, 8)}
+    pool = torch.zeros(3, 2, dh, 16, dtype=torch.bfloat16)
+    checks = [
+        lambda: fa._check_kernel_inputs("flash forward", {"q": q, "k": k, "v": k}, {}, None),
+        lambda: fa._check_kernel_inputs("flash dq", {"q": q, "k": k, "v": k, "do": q}, f32, None),
+        lambda: pa._chunk_launch(q[None], k[None], k[None], pool, pool, None, None, 32, 2,
+                                 None, None, None),
+    ]
+    for check in checks:
+        if dh in (8, 16, 32, 64):
+            try:
+                check()
+            except _PastTheCheck:
+                pass
+        else:
+            with pytest.raises(ValueError, match=r"head_dim in \(8, 16, 32, 64\)"):
+                check()

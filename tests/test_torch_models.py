@@ -104,9 +104,12 @@ def test_bridge_keeps_bf16_leaves_and_maps_names(pairs):
     # the seeded initialiser builds the same tree shape the bridge reads
     fresh = init_params(tm, seed=0, bf16_matrices=True)
     load_flax_params(TelemetrySequenceModel(**SIZES, kv_heads=2, device="cpu"), fresh)
-    # flash is ported (tests/test_torch_flash.py); ring is not yet
-    with pytest.raises(NotImplementedError):
+    # flash and ring are ported (tests/test_torch_flash.py,
+    # tests/test_torch_ring.py): ring needs a mesh; ulysses is not ported yet
+    with pytest.raises(ValueError, match="mesh"):
         TelemetrySequenceModel(**SIZES, attention="ring", device="cpu")
+    with pytest.raises(NotImplementedError):
+        TelemetrySequenceModel(**SIZES, attention="ulysses", device="cpu")
 
 
 @pytest.mark.parametrize(

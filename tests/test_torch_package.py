@@ -34,6 +34,8 @@ PORT_MODULES = [
     "beholder_tpu_torch.models.train",
     "beholder_tpu_torch.models.anomaly",
     "beholder_tpu_torch.models.checkpoint",
+    "beholder_tpu_torch.parallel",
+    "beholder_tpu_torch.parallel.mesh",
     "chip_smoke",
     "serve_ab",
 ]
