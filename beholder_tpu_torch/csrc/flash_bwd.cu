@@ -94,15 +94,6 @@ constexpr size_t kDkvSmemBytes = 4 * kTileBytes<D> + sizeof(int) * 3 * kTile +
 static_assert(kDkvSmemBytes<64> <= 48 * 1024 && kDqSmemBytes<64> <= 48 * 1024,
               "shared memory would limit the occupancy");
 
-// The one score element a thread holds at acc[n][e] of its warp's 16 x 64
-// tile: its row (e < 2: g, else g + 8) and column (8n + 2t + e % 2).
-__device__ __forceinline__ int frag_row(int e) {
-  return ((threadIdx.x & 31) >> 2) + ((e >> 1) << 3);
-}
-__device__ __forceinline__ int frag_col(int n, int e) {
-  return n * 8 + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -383,20 +374,8 @@ int dispatch(int which, int Dh, const Args& a) {
 
 template <int D>
 int resources(int which, int* out) {
-  cudaFuncAttributes attr;
-  const void* fn = which == 0 ? reinterpret_cast<const void*>(flash_dq_kernel<D>)
-                              : reinterpret_cast<const void*>(flash_dkv_kernel<D>);
-  const size_t smem = which == 0 ? kDqSmemBytes<D> : kDkvSmemBytes<D>;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(smem);
-  out[3] = blocks;
-  return 0;
+  return which == 0 ? kernel_resources(flash_dq_kernel<D>, kDqSmemBytes<D>, out)
+                    : kernel_resources(flash_dkv_kernel<D>, kDkvSmemBytes<D>, out);
 }
 
 }  // namespace

@@ -1,19 +1,29 @@
-// Tensor-core pieces of the flash backward kernels (flash_bwd.cu).
+// Tensor-core pieces of the flash forward (flash_fwd.cu), the flash
+// backward (flash_bwd.cu) and the paged chunk kernel (paged_chunk.cu).
+//
+// What bounds the three kernels at their training and long-context shapes
+// is the pair of attention products; on Hopper only the tensor cores run
+// them near the card's bf16 rate (f32 FMA loops peak at 67 TFLOP/s, 1/15 of
+// it). These pieces run every product as mma.sync bf16 with f32 sums and
+// keep the softmax weights in registers between the two products, so
+// neither the (64 x 64) score tile nor p ever touches shared memory.
 //
 // Operand tiles are kTile rows of Dims<D>::kK bf16 values in shared memory:
-// the head dim D (8, 16, 32 or 64), zero-padded to the mma's K of 16 where
-// it is smaller (D = 8; zeros add nothing to a dot product). Each row is
-// padded by 8 more values (to 48, 80 or 144 bytes): the eight 16-byte rows
-// that one ldmatrix phase reads then fall on 32 distinct banks. Tiles arrive
-// by cp.async (16 bytes a thread a copy; rows past T and head dims past D
-// zero-filled) and are double-buffered by the kernels.
+// the head dim D (8, 16, 32, 64 or 128), zero-padded to the mma's K of 16
+// where it is smaller (D = 8; zeros add nothing to a dot product). Each row
+// is padded by 8 more values (to 48, 80, 144 or 272 bytes): the eight
+// 16-byte rows that one ldmatrix phase reads then fall on 32 distinct
+// banks. Tiles arrive by cp.async (16 bytes a thread a copy; rows past T
+// and head dims past D zero-filled), or, for the chunk kernel's quantized
+// pages, through registers, and are double-buffered by the kernels.
 //
 // Products run on mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. Each
 // warp owns 16 rows of a (16 x 64) accumulator (scores; or 16 x kK for a
 // head-dim-wide output: kK / 8 column tiles), held as acc[n][0..3] for
 // the column tiles n of 8 columns: with g = lane / 4 and t = lane % 4,
 // acc[n][0..1] sit at row g, columns 8n + 2t, 8n + 2t + 1, and acc[n][2..3]
-// at row g + 8, the same columns. Two adjacent column tiles of an
+// at row g + 8, the same columns (frag_row, frag_col). A row's 64 scores
+// thus sit in the 4 lanes of one quad. Two adjacent column tiles of an
 // accumulator, rounded to bf16 pairs, are exactly the A fragment of the
 // next product's 16-wide step of its sum index (to_a), so p and ds go from
 // one product into the next in registers.
@@ -30,7 +40,7 @@ namespace flash {
 // The tile geometry of head dim D.
 template <int D>
 struct Dims {
-  static_assert(kHeadDimOk<D>, "head dim 8, 16, 32 or 64");
+  static_assert(kHeadDimOk<D>, "head dim 8, 16, 32, 64 or 128");
   static constexpr int kK = D < 16 ? 16 : D;  // head dims in shared memory
   static constexpr int kSteps = kK / 16;      // 16-wide mma steps over them
   static constexpr int kN = kK / 8;           // n8 tiles of a head-dim-wide output
@@ -40,6 +50,15 @@ struct Dims {
 
 static_assert(kTile == 64, "fragments assume 64-row tiles");
 static_assert(kThreads == 128, "one warpgroup: 4 warps of 16 rows");
+
+// The one accumulator element a thread holds at acc[n][e] of its warp's
+// 16 x 64 tile: its row (e < 2: g, else g + 8) and column (8n + 2t + e % 2).
+__device__ __forceinline__ int frag_row(int e) {
+  return ((threadIdx.x & 31) >> 2) + ((e >> 1) << 3);
+}
+__device__ __forceinline__ int frag_col(int n, int e) {
+  return n * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -193,6 +212,55 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[8][4]
     a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
     a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
     a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// One online-softmax step for row half h of a warp's 16 x 64 score tile (h
+// = 0: row g, 1: row g + 8), whose 64 scores sit in the 4 lanes of a quad:
+// the row's running max m and sum l take the tile, its scores become p =
+// exp(s - m) in f32 (0 where the score is masked, <= -5e29, so a wholly
+// masked row adds nothing), l takes the f32 p, and the row's output
+// accumulator is rescaled by exp(m_old - m).
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&acc)[N][4], int h,
+                                               float& m, float& l) {
+  float mx = kNegInf;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const float m_new = fmaxf(m, mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float x = s[n][2 * h + e];
+      float p = expf(x - m_new);
+      if (x <= kNegInf * 0.5f) p = 0.f;
+      s[n][2 * h + e] = p;
+      sum += p;
+    }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  const float alpha = expf(m - m_new);
+  l = l * alpha + sum;
+  m = m_new;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    acc[n][2 * h] *= alpha;
+    acc[n][2 * h + 1] *= alpha;
+  }
+}
+
+// out = acc / max(l, 1e-37) for row half h of a head-dim-wide accumulator
+template <int N>
+__device__ __forceinline__ void normalize(float (&acc)[N][4], int h, float l) {
+  const float denom = fmaxf(l, 1e-37f);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    acc[n][2 * h] /= denom;
+    acc[n][2 * h + 1] /= denom;
   }
 }
 

@@ -15,24 +15,44 @@
 // 1.6 us at 3.35 TB/s, against ~0.54 GFLOP of causal products (~0.55 us at
 // the bf16 tensor-core rate); a warm prefix admit moves ~0.36 MB (~0.11 us).
 // Both sit far below a kernel launch, so the floor in practice is latency:
-// how fast one block walks its tiles. The TPU kernel's VMEM assembly, DMA
-// rounds and slots_per_block grid are not carried over.
+// how fast one block walks its tiles. At the long-context shape (8 pages of
+// 512 tokens a slot) each block walks ~58 key tiles, so the time a tile
+// takes, its load latency and its two products, is the kernel's time. The
+// TPU kernel's VMEM assembly, DMA rounds and slots_per_block grid are not
+// carried over.
 //
-// What the design does about that: one block per (slot, kv head, tile of 64
-// query rows), where the rows are the G x W (group head, chunk row) pairs of
-// that kv head, contiguous in q and out. So a wave of 8 slots, 2 kv heads and
-// 4 x 256 rows per kv head runs 256 blocks, about two per SM. Each block
-// walks 128-token tiles: first the committed context [p_lo*page, lens[s])
-// (pages read in place, int8 and fp8 dequantized to bf16 on the way into
-// shared memory; a page column at or past live_pages reads as zeros, as the
-// reference's assembly has it), then the overlay tiles of the chunk's own k/v,
-// only as far as the block's last row can see. A position at or past lens[s]
-// is never read from a page. Scores and PV are plain FMA loops over shared
-// memory, 8 x 8 scores and 8 rows x max(Dh/16, 1) outputs per thread (at Dh
-// 8 half the threads' output column is past the head dim and idle);
-// tensor-core products (mma.sync/wgmma) and TMA loads are the next steps.
-// Head dims 8, 16, 32 and 64, one instantiation each per pool family: the
-// pools keep their (N, Hkv, Dh, page) layout, nothing is padded.
+// What the design does about that:
+// - One block per (slot, kv head, tile of 64 query rows), where the rows
+//   are the G x W (group head, chunk row) pairs of that kv head, contiguous
+//   in q and out. 4 warps, each 16 rows.
+// - 64-key tiles: first the committed context [lo, lens[s]) (pages read in
+//   place), then the overlay tiles of the chunk's own k/v, only as far as
+//   the block's last row can see; tiles before every row's window or after
+//   every row are skipped whole.
+// - Both products on the tensor cores (flash_mma.cuh): mma.sync bf16 with
+//   f32 sums, k and v tiles in bf16 shared memory laid out [key][d] with
+//   padded rows, the score accumulator 16 x 64 a warp in registers, p
+//   handed to PV in registers. The q fragments are read from the resident
+//   q tile by ldmatrix at each tile (registers go to the prefetch below).
+// - Context tiles come d-major from the pools and need dequantizing, so
+//   they pass through registers: each warp takes 16 keys of the tile, a
+//   lane loads 8 consecutive keys at one head dim (16 bytes of bf16, 8 of
+//   int8/fp8) when the run lies in one page and below lens[s], key by key
+//   otherwise, dequantizes them with the keys' scales (one lane a key,
+//   passed by shuffle) and writes them into the [key][d] tile. The next
+//   tile's loads start before the current tile's products, so their
+//   latency hides behind the mma work.
+// - Overlay tiles are row-major (W, Dh) and arrive by cp.async. k and v
+//   tiles are double-buffered: one barrier a tile.
+// - A page column at or past live_pages reads as zeros (the reference's
+//   assembly), and a position at or past lens[s] is never read from a page.
+//   Any page size; runs of 8 keys take the vector load when page % 8 == 0
+//   and the pools are aligned for it.
+// Head dims 8, 16, 32, 64 and 128, one instantiation each per pool family:
+// the pools keep their (N, Hkv, Dh, page) layout, nothing is padded in
+// memory (Dh 8 is zero-padded to the mma's K of 16 in shared memory).
+// Next steps: a split of the context across blocks and a two-pass softmax
+// (ROADMAP B.2.b).
 //
 // The arithmetic follows the dense op sequence of the reference
 // (_chunk_block_math) for every pool family, since the chunk path's context
@@ -45,30 +65,20 @@
 // softmax in one pass; the online recurrence here differs from it by
 // rounding, not by algorithm.
 
-#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;          // 4 warps
-constexpr int kRows = 64;              // query rows per block
-constexpr int kKeys = 128;             // keys per tile, one per thread when staging
-constexpr int kSStride = kKeys + 1;    // padded score row
-constexpr int kKStride = kKeys + 2;    // padded K row (d-major, keys minor)
-constexpr float kNegInf = -1e30f;
+using namespace flash;
 
 enum Mode { kBf16 = 0, kInt8 = 1, kFp8 = 2 };
 
 template <int MODE> struct Elem { using T = __nv_bfloat16; };
 template <> struct Elem<kInt8> { using T = int8_t; };
 template <> struct Elem<kFp8> { using T = __nv_fp8_storage_t; };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 template <int MODE>
 __device__ __forceinline__ float load_scale(const void* scales, size_t idx) {
@@ -95,26 +105,58 @@ __device__ __forceinline__ __nv_bfloat16 dequant(typename Elem<MODE>::T e, float
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// A run of 8 consecutive pool elements (one head dim, 8 keys) in registers:
+// 4 words of bf16 or 2 of int8/fp8. Element j of a run, element j set into
+// a zeroed run, and a run loaded whole (j a compile-time index after
+// unrolling).
+template <int MODE>
+constexpr int kRunWords = MODE == kBf16 ? 4 : 2;
+
+template <int MODE>
+__device__ __forceinline__ typename Elem<MODE>::T run_elem(const uint32_t* r, int j) {
+  if constexpr (MODE == kBf16) {
+    return __ushort_as_bfloat16(static_cast<unsigned short>(r[j >> 1] >> (16 * (j & 1))));
+  } else {
+    return static_cast<typename Elem<MODE>::T>(static_cast<uint8_t>(r[j >> 2] >> (8 * (j & 3))));
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+template <int MODE>
+__device__ __forceinline__ void run_set(uint32_t* r, int j, typename Elem<MODE>::T e) {
+  if constexpr (MODE == kBf16) {
+    r[j >> 1] |= static_cast<uint32_t>(__bfloat16_as_ushort(e)) << (16 * (j & 1));
+  } else {
+    r[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(e)) << (8 * (j & 3));
+  }
 }
 
-template <int DH>
-constexpr size_t kSmemBytes =
-    sizeof(float) * (kRows * (DH + 1) + kRows * kSStride + 3 * kRows + 2 * kKeys) +
-    sizeof(int) * (kRows + 3 * kKeys) +
-    sizeof(__nv_bfloat16) * (DH * kKStride + kKeys * (DH + 2));
-static_assert(kSmemBytes<64> <= 227 * 1024, "shared memory over the per-block limit");
+template <int MODE>
+__device__ __forceinline__ void load_run(uint32_t* r, const typename Elem<MODE>::T* p) {
+  if constexpr (MODE == kBf16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    r[0] = u.x;
+    r[1] = u.y;
+    r[2] = u.z;
+    r[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    r[0] = u.x;
+    r[1] = u.y;
+  }
+}
 
-template <int MODE, int DH>
+// runs of 8 keys a lane holds per context tile, for k and for v: two
+// 8-key groups (the warp's 16 keys) at ceil(D / 32) head dims (lane, lane +
+// 32, ...)
+template <int D>
+constexpr int kRuns = 2 * ((D + 31) / 32);
+
+// the query tile, then two stages of a k tile and a v tile
+template <int D>
+constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * 5 * Dims<D>::kElems;
+static_assert(kSmemBytes<128> <= 227 * 1024, "shared memory over the per-block limit");
+
+template <int MODE, int D>
 __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const void* __restrict__ k_pool,
@@ -122,250 +164,214 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     const void* __restrict__ v_scale, const int32_t* __restrict__ table,
     const int32_t* __restrict__ lens, __nv_bfloat16* __restrict__ out, int H,
     int Hkv, int W, int page, int N, int P, int live_pages, int ctx_len,
-    int window, float sqrt_dh) {
+    int window, float sqrt_dh, int vec) {
+  using Dm = Dims<D>;
   using T = typename Elem<MODE>::T;
-  constexpr int kCols = DH < 16 ? 1 : DH / 16;  // output columns per thread
+  constexpr int kHalf = kRuns<D> / 2;
   const int s = blockIdx.x;
   const int kvh = blockIdx.y;
   const int G = H / Hkv;
   const int GW = G * W;
-  const int r0 = blockIdx.z * kRows;
+  const int r0 = blockIdx.z * kTile;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int rg = tid >> 4;  // this thread's rows: rg*8 .. rg*8+7
-  const int cg = tid & 15;  // its keys cg + 16c, and output columns cg + 16c
+  const int w0 = (tid >> 5) * 16;  // this warp's rows, and its keys when staging
+  const T* kp = static_cast<const T*>(k_pool);
+  const T* vp = static_cast<const T*>(v_pool);
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                            // (kRows, DH+1) queries
-  float* s_s = q_s + kRows * (DH + 1);          // (kRows, kSStride) scores, then p
-  float* m_s = s_s + kRows * kSStride;          // (kRows,) running max
-  float* l_s = m_s + kRows;                     // (kRows,) running sum
-  float* alpha_s = l_s + kRows;                 // (kRows,) this tile's rescale
-  float* sk_s = alpha_s + kRows;                // (kKeys,) K scales of the tile
-  float* sv_s = sk_s + kKeys;                   // (kKeys,) V scales of the tile
-  int* jrow_s = reinterpret_cast<int*>(sv_s + kKeys);  // (kRows,) chunk row j, -1 past the end
-  int* kpos_s = jrow_s + kRows;                 // (kKeys,) key position, -1 if none
-  int* ksrc_s = kpos_s + kKeys;                 // (kKeys,) page id; -1 zeros
-  int* koff_s = ksrc_s + kKeys;                 // (kKeys,) token in page / chunk row
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(koff_s + kKeys);  // (DH, kKStride)
-  __nv_bfloat16* v_s = k_s + DH * kKStride;                               // (kKeys, DH+2)
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // (row, d)
+  __nv_bfloat16* k_s = q_s + Dm::kElems;                         // [2] (key, d)
+  __nv_bfloat16* v_s = k_s + 2 * Dm::kElems;                     // [2] (key, d)
 
-  // q and out (S, H, W, DH): this kv head's G*W rows are contiguous
-  const size_t qo_base = (static_cast<size_t>(s) * H + static_cast<size_t>(kvh) * G) * W * DH;
-  for (int i = tid; i < kRows * DH; i += kThreads) {
-    const int r = i / DH;
-    const int d = i - r * DH;
-    const int gr = r0 + r;
-    q_s[r * (DH + 1) + d] = gr < GW ? __bfloat162float(q[qo_base + static_cast<size_t>(gr) * DH + d]) : 0.f;
+  // q and out (S, H, W, D): this kv head's G*W rows are contiguous
+  const size_t qo_base = (static_cast<size_t>(s) * H + static_cast<size_t>(kvh) * G) * W * D;
+  const size_t c_base = (static_cast<size_t>(s) * Hkv + kvh) * W * D;  // chunk k/v
+  if (D < 16) {
+    // head dims past D of the staged k/v tiles stay zero: the context path
+    // writes only d < D (cp.async zero-fills the q and overlay tiles')
+    for (int i = tid; i < 4 * kTile * (Dm::kK - D); i += kThreads) {
+      const int r = i / (Dm::kK - D);
+      k_s[r * Dm::kLd + D + i % (Dm::kK - D)] = __float2bfloat16_rn(0.f);
+    }
   }
-  for (int r = tid; r < kRows; r += kThreads) {
-    const int gr = r0 + r;
-    jrow_s[r] = gr < GW ? gr % W : -1;
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
+  load_tile_async<D>(q_s, q + qo_base, r0, GW);
 
+  const int len = max(lens[s], 0);
+  // the positions of this thread's two fragment rows (g, g + 8); -1 past the end
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = r0 + w0 + (lane >> 2) + 8 * h;
+    qpos[h] = gr < GW ? len + gr % W : -1;
+  }
   // the block's smallest and largest chunk row
-  const int r_last = min(r0 + kRows, GW) - 1;
+  const int r_last = min(r0 + kTile, GW) - 1;
   int jmin = r0 % W, jmax = r_last % W;
   if (r0 / W != r_last / W) {
     jmin = 0;
     jmax = W - 1;
   }
-  const int len = max(lens[s], 0);
   const int hi = min(len, ctx_len);  // committed context: [lo, hi)
   const int lo = window > 0 ? (max(len - (window - 1), 0) / page) * page : 0;
-  const int n_ctx = hi > lo ? (hi - lo + kKeys - 1) / kKeys : 0;
-  const int n_ov = (min(jmax + 1, W) + kKeys - 1) / kKeys;
-  const size_t kv_head = static_cast<size_t>(kvh) * DH;
+  const int n_ctx = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
+  const int w_valid = max(min(W, ctx_len - len), 0);  // overlay rows inside ctx_len
+  const int n_tiles = n_ctx + (min(jmax + 1, W) + kTile - 1) / kTile;
 
-  float acc[8][kCols];
+  // tile t: its first context position (t < n_ctx) or chunk row (overlay)
+  auto base_of = [&](int t) { return t < n_ctx ? lo + t * kTile : (t - n_ctx) * kTile; };
+  // the first tile at or after t that some row of the block can see
+  auto next_live = [&](int t) {
+    for (; t < n_tiles; ++t) {
+      const bool ov = t >= n_ctx;
+      const int base = base_of(t);
+      const int first = ov ? len + base : base;
+      const int last = ov ? len + min(base + kTile, W) - 1 : min(base + kTile, hi) - 1;
+      if (window > 0 && last <= len + jmin - window) continue;  // before every row's window
+      if (first > len + jmax) continue;                           // after every row
+      break;
+    }
+    return t;
+  };
+
+  // the next context tile's values, in registers between its loads and its
+  // store into shared memory: k and v runs, and the scale of key w0 + lane
+  // (lanes 0-15 k's, 16-31 v's)
+  constexpr int kW = kRunWords<MODE>;
+  uint32_t rk[kRuns<D>][kW], rv[kRuns<D>][kW];
+  float rsc = 1.f;
+  auto fetch_ctx = [&](int base) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int gg = 0; gg < 2; ++gg) {
+      const int p0 = base + w0 + 8 * gg;  // the run's first position
+      const int col = p0 / page;
+      const bool whole = vec && p0 + 7 < hi && col < live_pages;
+      const size_t pg = whole ? static_cast<size_t>(min(max(table[static_cast<size_t>(s) * P + col], 0), N - 1))
+                              : 0;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  __syncthreads();
-
-  for (int t = 0; t < n_ctx + n_ov; ++t) {
-    const bool ov = t >= n_ctx;
-    const int base = ov ? (t - n_ctx) * kKeys : lo + t * kKeys;  // chunk row or position
-    // positions this tile spans, for skipping it whole
-    const int first = ov ? len + base : base;
-    const int last = ov ? len + min(base + kKeys, W) - 1 : min(base + kKeys, hi) - 1;
-    if (window > 0 && last <= len + jmin - window) continue;  // before every row's window
-    if (first > len + jmax) continue;                           // after every row
-
-    // per key: where it comes from and where it sits (thread tid = key tid)
-    {
-      const int i = tid;
-      int pos = -1, src = -1, off = 0;
-      if (ov) {
-        const int o = base + i;
-        if (o < W && len + o < ctx_len) {
-          pos = len + o;
-          off = o;
-        }
-      } else {
-        const int p = base + i;
-        if (p < hi) {
-          pos = p;
-          const int col = p / page;
-          off = p - col * page;
-          if (col < live_pages) {
-            // a page id outside the pool is clamped: the read stays inside
-            src = min(max(table[static_cast<size_t>(s) * P + col], 0), N - 1);
-            if (MODE != kBf16) {
-              const size_t sidx = (static_cast<size_t>(src) * Hkv + kvh) * page + off;
-              sk_s[i] = load_scale<MODE>(k_scale, sidx);
-              sv_s[i] = load_scale<MODE>(v_scale, sidx);
+      for (int m = 0; m < kHalf; ++m) {
+        const int c = gg * kHalf + m;
+        const int d = lane + 32 * m;
+#pragma unroll
+        for (int w = 0; w < kW; ++w) rk[c][w] = rv[c][w] = 0u;
+        if (d >= D) continue;
+        if (whole) {
+          const size_t e = ((pg * Hkv + kvh) * D + d) * page + (p0 - col * page);
+          load_run<MODE>(rk[c], kp + e);
+          load_run<MODE>(rv[c], vp + e);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int p = p0 + j;
+            const int pc = p / page;
+            if (p < hi && pc < live_pages) {
+              const size_t src = min(max(table[static_cast<size_t>(s) * P + pc], 0), N - 1);
+              const size_t e = ((src * Hkv + kvh) * D + d) * page + (p - pc * page);
+              run_set<MODE>(rk[c], j, kp[e]);
+              run_set<MODE>(rv[c], j, vp[e]);
             }
           }
         }
       }
-      kpos_s[i] = pos;
-      ksrc_s[i] = src;
-      koff_s[i] = off;
     }
-    __syncthreads();
-
-    // stage K (d-major) and V (key-major) as bf16; keys with no source are
-    // exact zeros, so a zero weight never meets a stale value
-    if (ov) {
-      const size_t cbase = (static_cast<size_t>(s) * Hkv + kvh) * W * DH;
-      for (int idx = tid; idx < kKeys * DH; idx += kThreads) {
-        const int key = idx / DH;
-        const int d = idx - key * DH;
-        __nv_bfloat16 kv = __float2bfloat16_rn(0.f), vv = kv;
-        if (kpos_s[key] >= 0) {
-          const size_t e = cbase + static_cast<size_t>(koff_s[key]) * DH + d;
-          kv = kc[e];
-          vv = vc[e];
-        }
-        k_s[d * kKStride + key] = kv;
-        v_s[key * (DH + 2) + d] = vv;
+    if (MODE != kBf16) {
+      const int p = base + w0 + (lane & 15);
+      const int pc = p / page;
+      rsc = 1.f;
+      if (p < hi && pc < live_pages) {
+        const size_t src = min(max(table[static_cast<size_t>(s) * P + pc], 0), N - 1);
+        rsc = load_scale<MODE>(lane < 16 ? k_scale : v_scale,
+                               (src * Hkv + kvh) * page + (p - pc * page));
       }
+    }
+  };
+  // the context tile in registers into stage st: dequantized, [key][d]
+  auto store_ctx = [&](int st) {
+    __nv_bfloat16* kt = k_s + st * Dm::kElems;
+    __nv_bfloat16* vt = v_s + st * Dm::kElems;
+#pragma unroll
+    for (int gg = 0; gg < 2; ++gg)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float sk = MODE == kBf16 ? 1.f : __shfl_sync(0xffffffffu, rsc, 8 * gg + j);
+        const float sv = MODE == kBf16 ? 1.f : __shfl_sync(0xffffffffu, rsc, 16 + 8 * gg + j);
+        const int row = (w0 + 8 * gg + j) * Dm::kLd;
+#pragma unroll
+        for (int m = 0; m < kHalf; ++m) {
+          const int d = lane + 32 * m;
+          if (d >= D) continue;
+          kt[row + d] = dequant<MODE>(run_elem<MODE>(rk[gg * kHalf + m], j), sk);
+          vt[row + d] = dequant<MODE>(run_elem<MODE>(rv[gg * kHalf + m], j), sv);
+        }
+      }
+  };
+  // tile t's loads: a context tile into registers, an overlay tile by
+  // cp.async into stage st (rows at or past w_valid zero-filled)
+  auto start_loads = [&](int t, int st) {
+    if (t < n_ctx) {
+      fetch_ctx(base_of(t));
     } else {
-      const T* kp = static_cast<const T*>(k_pool);
-      const T* vp = static_cast<const T*>(v_pool);
-      for (int idx = tid; idx < kKeys * DH; idx += kThreads) {
-        const int key = idx & (kKeys - 1);
-        const int d = idx / kKeys;
-        __nv_bfloat16 kv = __float2bfloat16_rn(0.f), vv = kv;
-        const int src = ksrc_s[key];
-        if (kpos_s[key] >= 0 && src >= 0) {
-          const size_t e = ((static_cast<size_t>(src) * Hkv) * DH + kv_head + d) * page + koff_s[key];
-          kv = dequant<MODE>(kp[e], MODE == kBf16 ? 1.f : sk_s[key]);
-          vv = dequant<MODE>(vp[e], MODE == kBf16 ? 1.f : sv_s[key]);
-        }
-        k_s[d * kKStride + key] = kv;
-        v_s[key * (DH + 2) + d] = vv;
-      }
+      load_tile_async<D>(k_s + st * Dm::kElems, kc + c_base, base_of(t), w_valid);
+      load_tile_async<D>(v_s + st * Dm::kElems, vc + c_base, base_of(t), w_valid);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // scores: rows rg*8+i, keys cg+16c
-    {
-      float sc[8][8];
+  float acc[Dm::kN][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) sc[i][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) {
-        float qv[8], kv[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) qv[i] = q_s[(rg * 8 + i) * (DH + 1) + d];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) kv[c] = __bfloat162float(k_s[d * kKStride + cg + 16 * c]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) sc[i][c] = fmaf(qv[i], kv[c], sc[i][c]);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = rg * 8 + i;
-        const int j = jrow_s[r];
-        const int qpos = len + j;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int key = cg + 16 * c;
-          const int kpos = kpos_s[key];
-          const bool live = j >= 0 && kpos >= 0 && kpos <= qpos &&
-                            (window <= 0 || kpos > qpos - window);
-          s_s[r * kSStride + key] = live ? round_bf16(sc[i][c]) / sqrt_dh : kNegInf;
-        }
-      }
-    }
-    __syncthreads();
+  for (int n = 0; n < Dm::kN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = kNegInf, l0 = 0.f, m1 = kNegInf, l1 = 0.f;  // rows g and g + 8
 
-    // online softmax, one warp per 16 rows; p is rounded to bf16 in place
-    for (int r = warp; r < kRows; r += kThreads / 32) {
-      float* row = s_s + r * kSStride;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kKeys / 32; ++c) mx = fmaxf(mx, row[lane + 32 * c]);
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kKeys / 32; ++c) {
-        const float x = row[lane + 32 * c];
-        float p = expf(x - m_new);
-        if (x <= kNegInf * 0.5f) p = 0.f;
-        sum += p;
-        row[lane + 32 * c] = round_bf16(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(fminf(m_old - m_new, 0.f));
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        alpha_s[r] = alpha;
-      }
-    }
+  int t = next_live(0);
+  if (t < n_tiles) start_loads(t, 0);
+  for (int i = 0; t < n_tiles; ++i) {
+    const int st = i & 1;
+    const bool ov = t >= n_ctx;
+    const int base = base_of(t);
+    // stage st was last read two tiles ago, before the previous barrier
+    if (!ov) store_ctx(st);
+    cp_async_wait<0>();
+    // tile t is in; every warp is done with the previous tile's stage
     __syncthreads();
+    const int nt = next_live(t + 1);
+    if (nt < n_tiles) start_loads(nt, st ^ 1);
 
-    // PV: rows rg*8+i, output columns cg+16c
-    {
-      const int n_keys = ov ? min(kKeys, W - base) : min(kKeys, hi - base);
+    uint32_t qa[Dm::kSteps][4];
+    load_a<D>(qa, q_s, w0);
+    float sc[8][4];
+    zero(sc);
+    mma_abt<D>(sc, qa, k_s + st * Dm::kElems);  // q k^T, f32 sums
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float a = alpha_s[rg * 8 + i];
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] *= a;
+      for (int e = 0; e < 4; ++e) {
+        const int ci = base + frag_col(n, e);
+        const int pos = ov ? (ci < w_valid ? len + ci : -1) : (ci < hi ? ci : -1);
+        const int qp = qpos[e >> 1];
+        const bool ok = qp >= 0 && pos >= 0 && pos <= qp && (window <= 0 || pos > qp - window);
+        sc[n][e] = ok ? round_bf16(sc[n][e]) / sqrt_dh : kNegInf;
       }
-      for (int key = 0; key < n_keys; ++key) {
-        float pv[8], vv[kCols];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) pv[i] = s_s[(rg * 8 + i) * kSStride + key];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          vv[c] = cg + 16 * c < DH ? __bfloat162float(v_s[key * (DH + 2) + cg + 16 * c]) : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-      }
-    }
-    __syncthreads();
+    online_softmax(sc, acc, 0, m0, l0);
+    online_softmax(sc, acc, 1, m1, l1);
+    uint32_t pa[4][4];
+    to_a(pa, sc);                                // p rounded to bf16
+    mma_ab<D>(acc, pa, v_s + st * Dm::kElems);   // acc += p v
+    t = nt;
   }
+  cp_async_wait<0>();  // the q tile's copy, when no tile was live
 
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = rg * 8 + i;
-    const int gr = r0 + r;
-    if (gr >= GW) continue;
-    const float denom = fmaxf(l_s[r], 1e-37f);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (cg + 16 * c >= DH) continue;
-      out[qo_base + static_cast<size_t>(gr) * DH + cg + 16 * c] =
-          __float2bfloat16_rn(acc[i][c] / denom);
-    }
+  normalize(acc, 0, l0);
+  normalize(acc, 1, l1);
+  store_acc<D>(out + qo_base, acc, r0 + w0, GW);
+}
+
+template <int DH>
+auto kernel_for(int mode) -> decltype(&paged_chunk_kernel<kBf16, DH>) {
+  switch (mode) {
+    case kBf16: return paged_chunk_kernel<kBf16, DH>;
+    case kInt8: return paged_chunk_kernel<kInt8, DH>;
+    case kFp8: return paged_chunk_kernel<kFp8, DH>;
+    default: return nullptr;
   }
 }
 
@@ -375,24 +381,31 @@ int launch(int mode, const void* q, const void* kc, const void* vc, const void* 
            const void* lens, void* out, int S, int H, int Hkv, int W, int page, int N,
            int P, int live_pages, int ctx_len, int window, float sqrt_dh,
            cudaStream_t stream) {
-  decltype(&paged_chunk_kernel<kBf16, DH>) kernel;
-  switch (mode) {
-    case kBf16: kernel = paged_chunk_kernel<kBf16, DH>; break;
-    case kInt8: kernel = paged_chunk_kernel<kInt8, DH>; break;
-    case kFp8: kernel = paged_chunk_kernel<kFp8, DH>; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const auto kernel = kernel_for<DH>(mode);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes<DH>));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(S, Hkv, (H / Hkv * W + kRows - 1) / kRows);
+  // runs of 8 keys load as one vector when they stay inside a page and the
+  // pools are aligned for it (16 bytes bf16, 8 int8/fp8)
+  const uintptr_t align = mode == kBf16 ? 16 : 8;
+  const int vec = page % 8 == 0 && reinterpret_cast<uintptr_t>(k_pool) % align == 0 &&
+                  reinterpret_cast<uintptr_t>(v_pool) % align == 0;
+  const dim3 grid(S, Hkv, (H / Hkv * W + kTile - 1) / kTile);
   kernel<<<grid, kThreads, kSmemBytes<DH>, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), k_pool, v_pool, k_scale, v_scale,
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
       static_cast<__nv_bfloat16*>(out), H, Hkv, W, page, N, P, live_pages, ctx_len,
-      window, sqrt_dh);
+      window, sqrt_dh, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int resources(int mode, int* out) {
+  const auto kernel = kernel_for<DH>(mode);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return kernel_resources(kernel, kSmemBytes<DH>, out);
 }
 
 }  // namespace
@@ -400,7 +413,8 @@ int launch(int mode, const void* q, const void* kc, const void* vc, const void* 
 extern "C" {
 
 // mode: 0 bf16 pools, 1 int8 pools with f32 scales, 2 fp8 e4m3 pools with
-// uint8 E8M0 scales. Dh is 8, 16, 32 or 64. window <= 0 means none.
+// uint8 E8M0 scales. q, kc, vc and out bf16, contiguous, 16-byte aligned.
+// Dh is 8, 16, 32, 64 or 128. window <= 0 means none.
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
 int paged_chunk_launch(const void* q, const void* kc, const void* vc,
                        const void* k_pool, const void* v_pool, const void* k_scale,
@@ -421,9 +435,24 @@ int paged_chunk_launch(const void* q, const void* kc, const void* vc,
     case 16: return launch<16>(PAGED_CHUNK_ARGS);
     case 32: return launch<32>(PAGED_CHUNK_ARGS);
     case 64: return launch<64>(PAGED_CHUNK_ARGS);
+    case 128: return launch<128>(PAGED_CHUNK_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PAGED_CHUNK_ARGS
+}
+
+// What the kernel of pool mode `mode` takes on this card at head dim Dh:
+// out[0] registers a thread, out[1] local (spilled) bytes a thread, out[2]
+// dynamic shared memory a block, out[3] resident blocks an SM.
+int paged_chunk_resources(int mode, int Dh, int* out) {
+  switch (Dh) {
+    case 8: return resources<8>(mode, out);
+    case 16: return resources<16>(mode, out);
+    case 32: return resources<32>(mode, out);
+    case 64: return resources<64>(mode, out);
+    case 128: return resources<128>(mode, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

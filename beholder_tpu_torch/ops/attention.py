@@ -17,7 +17,12 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_block_attend, flash_block_backward, flash_delta
+from .flash_attention import (
+    check_backward_head_dim,
+    flash_block_attend,
+    flash_block_backward,
+    flash_delta,
+)
 
 _NEG_INF = -1e30
 
@@ -336,7 +341,9 @@ def ring_attention(
     tolerance. GQA is native: k/v may carry fewer heads on dim -3 and
     rotate at kv-head width. ``window`` (requires ``causal``) bounds the
     rotations (:func:`_ring_steps`). ``backend="flash"`` (the default) runs
-    every pair on the flash kernels, ``"einsum"`` the plain block path."""
+    every pair on the flash kernels, ``"einsum"`` the plain block path; on
+    the card at a head dim only the forward kernel takes (128), a flash
+    call whose inputs require a gradient raises before it launches."""
     p_size = mesh.shape["sp"]
     t = q.shape[-2]
     if t % p_size:
@@ -353,4 +360,6 @@ def ring_attention(
         )
     if backend not in ("flash", "einsum"):
         raise ValueError(f"backend must be 'flash' or 'einsum', got {backend!r}")
+    if backend == "flash":
+        check_backward_head_dim(q, k, v)
     return RingAttention.apply(q, k, v, mesh, causal, window, backend)

@@ -30,9 +30,13 @@ as in ``launches``. :func:`flash_block_attend` and
 top of them, the local step of ring attention
 (:mod:`beholder_tpu_torch.ops.attention`).
 
-On a CUDA tensor each wrapper launches its kernel (bf16, head dim 8, 16, 32
-or 64: :data:`KERNEL_HEAD_DIMS`) or raises; it never falls back. On a CPU
-tensor it runs the plain version.
+On a CUDA tensor each wrapper launches its kernel (bf16, a head dim of
+the kernel's set in :data:`KERNEL_HEAD_DIMS`: 8 to 128 for the forward, 8
+to 64 for the backward) or raises; it never falls back. A differentiable
+:func:`flash_attention` or ring attention call on the card at a head dim
+the backward does not take raises before the forward launches
+(:func:`check_backward_head_dim`). On a CPU tensor each wrapper runs the
+plain version.
 The plain versions compute the same function densely (the (T, T) scores
 exist there) with the reference's dtype mix:
 
@@ -44,16 +48,22 @@ exist there) with the reference's dtype mix:
 - masking uses -1e30, and p is zeroed where the score is masked, so a row
   with no live key gives ``o = 0`` and ``lse = -1e30``.
 
-The forward kernel runs the softmax online over 64-key tiles, the plain
-forward over the whole row: their bf16 weights round differently. The
-backward kernels run every product on the tensor cores (``mma.sync``, bf16
-operands, f32 sums; p and ds pass from one product to the next in
-registers, rounded to bf16 where the plain versions round them), so they
-sum in another order than the plain versions' f32 products and an output's
-bf16 rounding can differ by one ULP. They use no atomics: two launches on
-the same inputs give the same bits. dk/dv are summed over the group in f32
-and rounded once (the reference rounds per-q-head partials to k's dtype
-and sums those).
+What bounds the three kernels is operations: at the training shape the
+forward's two products are 68.7 GFLOP against ~42 MB of inputs and
+outputs. So all three run every product on the tensor cores
+(``mma.sync``, bf16 operands, f32 sums, operands by ``ldmatrix`` from
+double-buffered bf16 tiles), and p and ds pass from one product to the
+next in registers, rounded to bf16 where the plain versions round them:
+no score tile touches memory. What holds them below the tensor-core rate
+now is that ldmatrix traffic and the f32 exp and mask arithmetic between
+the products (the note at the top of each source). They sum in another
+order than the plain versions' f32 products, so an output's bf16
+rounding can differ by one ULP. The forward
+kernel runs the softmax online over 64-key tiles, the plain forward over
+the whole row: their bf16 weights round differently. The kernels use no
+atomics: two launches on the same inputs give the same bits. dk/dv are
+summed over the group in f32 and rounded once (the reference rounds
+per-q-head partials to k's dtype and sums those).
 """
 
 from __future__ import annotations
@@ -64,19 +74,34 @@ import math
 import torch
 
 _NEG_INF = -1e30
-#: the head dims the CUDA kernels are instantiated for: the reference's
+#: the head dims each CUDA kernel is instantiated for. The reference's
 #: models use 8 (its tests' ``dim=32, heads=4``), 16, 32 (its default
-#: ``dim=128, heads=4``) and 64 (the served ``dim=512, heads=8``)
-KERNEL_HEAD_DIMS = (8, 16, 32, 64)
+#: ``dim=128, heads=4``) and 64 (the served ``dim=512, heads=8``); its
+#: ``bench_ring_block`` runs the forward at 128. The backward kernels stop
+#: at 64: dk/dv holds 233 of its 255 registers there.
+KERNEL_HEAD_DIMS = {
+    "flash forward": (8, 16, 32, 64, 128),
+    "flash backward": (8, 16, 32, 64),
+    "paged chunk": (8, 16, 32, 64, 128),
+}
 
 
 def check_head_dim(kernel: str, dh: int) -> None:
-    """Raise unless the kernels (flash and paged chunk) are instantiated for
-    head dim ``dh``."""
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"the {kernel} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {dh}"
-        )
+    """Raise unless ``kernel`` (a key of :data:`KERNEL_HEAD_DIMS`) is
+    instantiated for head dim ``dh``; the message names its set."""
+    dims = KERNEL_HEAD_DIMS[kernel]
+    if dh not in dims:
+        raise ValueError(f"the {kernel} kernel takes head_dim in {dims}, got {dh}")
+
+
+def check_backward_head_dim(q: torch.Tensor, *others: torch.Tensor) -> None:
+    """Before a forward that autograd will differentiate (gradients on and
+    some input requiring one): on a CUDA tensor, raise unless the backward
+    kernels take q's head dim, so a call the forward kernel alone could run
+    fails before it launches rather than in the backward."""
+    if (_on_card(q) and torch.is_grad_enabled()
+            and any(x.requires_grad for x in (q, *others))):
+        check_head_dim("flash backward", q.shape[-1])
 
 
 def _live(t: int, causal: bool, window: int | None, segment_ids, bhkv: int,
@@ -214,9 +239,10 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def _check_kernel_inputs(kernel: str, bf16: dict, f32: dict, segment_ids) -> None:
-    """What the kernels take: bf16 q/k/v/do of a head dim in
-    :data:`KERNEL_HEAD_DIMS`, f32 lse and delta, int32 segment ids, all
-    contiguous on one device, 16-byte aligned."""
+    """What the kernels take: bf16 q/k/v/do of a head dim in the kernel's
+    set of :data:`KERNEL_HEAD_DIMS` (the forward's, or the backward's for dq
+    and dk/dv), f32 lse and delta, int32 segment ids, all contiguous on one
+    device, 16-byte aligned."""
     dev = bf16["q"].device
     tensors = {**bf16, **f32}
     if segment_ids is not None:
@@ -229,7 +255,8 @@ def _check_kernel_inputs(kernel: str, bf16: dict, f32: dict, segment_ids) -> Non
     for name, t in f32.items():
         if t.dtype != torch.float32:
             raise TypeError(f"the {kernel} kernel takes f32 {name}, got {t.dtype}")
-    check_head_dim(kernel, bf16["q"].shape[-1])
+    check_head_dim(kernel if kernel == "flash forward" else "flash backward",
+                   bf16["q"].shape[-1])
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"all inputs must be on {dev}; {name} is on {t.device}")
@@ -425,7 +452,9 @@ def flash_attention(
     multiple of kv heads, every other dim equal); ``window`` (requires
     ``causal``, ``>= 1``) keeps the previous ``window`` positions of each
     row; ``segment_ids`` (batch-shaped ``q.shape[:-3] + (T,)``, integers)
-    masks attention across segments. Differentiable in q, k and v."""
+    masks attention across segments. Differentiable in q, k and v; on the
+    card at a head dim only the forward kernel takes (128), a call whose
+    inputs require a gradient raises before it launches."""
     shape = q.shape
     t, d = shape[-2], shape[-1]
     if k.shape != q.shape:
@@ -457,6 +486,7 @@ def flash_attention(
         if segment_ids.is_floating_point():
             raise TypeError("segment_ids must be integers")
         seg = segment_ids.reshape(-1, t).to(torch.int32).contiguous()
+    check_backward_head_dim(q, k, v)
     q3 = q.reshape(-1, t, d)
     k3, v3 = (a.reshape(-1, t, d) for a in (k, v))
     return FlashAttention.apply(q3, k3, v3, seg, causal, window).reshape(shape)

@@ -415,8 +415,12 @@ def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len
     n, hkv, _, page = k_pool.shape
     dev = q.device
     check_head_dim("paged chunk", dh)
-    mode = _kernel_mode({"q": q, "k_chunk": k_chunk, "v_chunk": v_chunk}, k_pool, v_pool,
-                        page_table, lens, k_scale, v_scale, "paged chunk")
+    chunk = {"q": q, "k_chunk": k_chunk, "v_chunk": v_chunk}
+    mode = _kernel_mode(chunk, k_pool, v_pool, page_table, lens, k_scale, v_scale,
+                        "paged chunk")
+    for name, t in chunk.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"the paged chunk kernel takes 16-byte aligned tensors ({name})")
     lib = _chunk_kernel_lib()
     out = torch.empty_like(q)
     err = lib.paged_chunk_launch(

@@ -18,16 +18,22 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    T=4096, Dh=64, bf16), causal, with a 512 window, non-causal, with
    segment ids and at T=4000, at two small edge shapes (a GQA group of
    8 at T=200, a group of 1 with segment ids at T=130) and at head dims 8,
-   16 and 32 (the chunk kernel too, at its wave and warm shapes); the
-   backward kernels' registers, spills, shared memory and blocks per SM at
-   every head dim, their bits equal over two launches, and negative
+   16 and 32 (the chunk kernel at its wave and warm shapes at 8, 16, 32
+   and 128); the registers, spills, shared memory and blocks per SM of the
+   flash forward, the two backward kernels and the chunk kernel (each pool
+   family) at every head dim each is instantiated for, failing on any local
+   memory; the backward's bits equal over two launches, and negative
    controls (a forward, dq and dk/dv without one key tile, a dk/dv without
    one query tile or one query head of the group, gradients scaled by 1 +
    2**-8: each must fail); then the three flash kernels in the ring
    block-pair (offset) mode at the ring's shard shape (B=4, H=8, Hkv=2,
    1,024 rows): a fully live off-axis pair, a dead pair, the diagonal
    through offset mode and a 512 window straddling two shards, with the
-   same checks and controls;
+   same checks and controls; then the forward at head dim 128 on the
+   reference's ``bench_ring_block`` shape (B=1, H=8, Hkv=2, T=2048): a
+   causal block, the off-axis pair (8192, 4096), the diagonal (4096, 4096)
+   and a dead pair, and the guard: a differentiable ``flash_attention``
+   call at 128 raises before any launch (the backward kernels stop at 64);
 4. serving: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
    layers=4)`` with random bf16 weights from a numpy seed, over bf16, int8
    and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
@@ -138,31 +144,43 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def backward_resources() -> dict:
-    """What the two flash backward kernels take on this card at each head
-    dim they are instantiated for: registers and local (spilled) bytes a
-    thread, dynamic shared memory a block, resident blocks an SM
-    (cudaFuncGetAttributes and the occupancy calculator). Fails on any
-    local memory."""
+def kernel_resources() -> dict:
+    """What the flash forward, the two flash backward kernels and the paged
+    chunk kernel take on this card at every instantiation (each head dim of
+    the kernel's set; the chunk kernel per pool family too): registers and
+    local (spilled) bytes a thread, dynamic shared memory a block, resident
+    blocks an SM (cudaFuncGetAttributes and the occupancy calculator).
+    Fails on any local memory."""
     import ctypes
 
     from beholder_tpu_torch.ops import flash_attention as fa
+    from beholder_tpu_torch.ops import paged_attention as pa
 
-    lib = fa._kernel_lib("flash_bwd")
-    lib.flash_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.flash_bwd_resources.restype = ctypes.c_int
+    fwd, bwd, chunk = fa._kernel_lib("flash_fwd"), fa._kernel_lib("flash_bwd"), \
+        pa._chunk_kernel_lib()
+    fwd.flash_fwd_resources.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    bwd.flash_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    chunk.paged_chunk_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    queries = [(f"flash_fwd_kernel<{dh}>", fwd.flash_fwd_resources, (dh,))
+               for dh in fa.KERNEL_HEAD_DIMS["flash forward"]]
+    queries += [(f"{kernel}<{dh}>", bwd.flash_bwd_resources, (which, dh))
+                for dh in fa.KERNEL_HEAD_DIMS["flash backward"]
+                for which, kernel in enumerate(("flash_dq_kernel", "flash_dkv_kernel"))]
+    queries += [(f"paged_chunk_kernel<{family}, {dh}>", chunk.paged_chunk_resources, (mode, dh))
+                for dh in fa.KERNEL_HEAD_DIMS["paged chunk"]
+                for mode, family in enumerate(("bf16", "int8", "fp8"))]
     out = {}
-    for dh in fa.KERNEL_HEAD_DIMS:
-        for which, kernel in enumerate(("flash_dq_kernel", "flash_dkv_kernel")):
-            name = f"{kernel}<{dh}>"
-            vals = (ctypes.c_int * 4)()
-            err = lib.flash_bwd_resources(which, dh, vals)
-            check(err == 0, f"{name}: resource query failed, CUDA error {err}")
-            out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), vals))
-            check(out[name]["local_bytes"] == 0,
-                  f"{name}: {out[name]['local_bytes']} bytes of local memory a thread (spills)")
-            print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in out[name].items()),
-                  flush=True)
+    for name, query, args in queries:
+        query.restype = ctypes.c_int
+        vals = (ctypes.c_int * 4)()
+        err = query(*args, vals)
+        check(err == 0, f"{name}: resource query failed, CUDA error {err}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), vals))
+        print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in out[name].items()),
+              flush=True)
+    for name, row in out.items():
+        check(row["local_bytes"] == 0,
+              f"{name}: {row['local_bytes']} bytes of local memory a thread (spills)")
     return out
 
 
@@ -318,10 +336,13 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
         # chunk's tail dropped past it) and lengths past live_pages (zeros)
         "edge": dict(S=4, W=64, page=128, N=32, P=3, lens=[0, 200, 300, 360],
                      ctx_len=384, live_pages=2),
+        # pages of 100 tokens: runs of 8 keys cross pages, so the kernel
+        # loads context key by key instead of 8 keys at a time
+        "page100": dict(S=4, W=64, page=100, N=32, P=4, lens=[0, 150, 301, 390]),
     }
     # the wave and warm shapes at the head dims of the reference's models
-    # (C.7): dim 32 / 64 / 128 over 4 heads
-    for dh in (8, 16, 32):
+    # (dim 32 / 64 / 128 over 4 heads) and at the served dim 512 over 4 heads
+    for dh in (8, 16, 32, 128):
         for name in ("wave", "warm"):
             shapes[f"{name}-d{dh}"] = dict(shapes[name], H=4, Hkv=4, Dh=dh)
     cases = []
@@ -915,6 +936,120 @@ def offset_kernel_phase(torch, flush) -> list[dict]:
             flush=True,
         )
         print_times(case)
+    return cases
+
+
+#: the forward at head dim 128 on the reference's ``bench_ring_block`` shape
+#: (``bench.py:946-1002``: one device's shard of a 16k-row ring over 8
+#: devices), a causal single block and block pairs on global positions
+FWD128_SHAPE = dict(B=1, H=8, Hkv=2, T=2048, Dh=128)
+FWD128_CASES = {
+    "causal": None,
+    "offaxis": (8192, 4096),   # bench_ring_block's mid-ring rotation: every pair live
+    "diagonal": (4096, 4096),  # its diagonal rotation
+    "dead": (4096, 8192),      # a wrapped future block: no pair live
+}
+
+
+def forward_d128_phase(torch, flush) -> list[dict]:
+    """The forward kernel at head dim 128 against its plain version at
+    FWD128_SHAPE: the row reading and lse within the flash limits, a plain
+    forward without one key tile failing them (live cases), exact zeros
+    and -1e30 (dead case), times of the kernel, its plain version and SDPA
+    (a boolean mask on the global positions in offset mode) beside the
+    bound. Then the head-dim guard on the card: ``flash_attention`` at 128
+    on inputs that require a gradient raises, naming the backward's head
+    dims, before any launch; without gradients it launches the forward."""
+    from beholder_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    B, H, Hkv, T, Dh = (FWD128_SHAPE[k] for k in ("B", "H", "Hkv", "T", "Dh"))
+    rng = np.random.default_rng(29)
+
+    def normal(*shape_):
+        return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev).bfloat16()
+
+    q, k, v = normal(B * H, T, Dh), normal(B * Hkv, T, Dh), normal(B * Hkv, T, Dh)
+    q4, k4, v4 = (t.reshape(B, -1, T, Dh) for t in (q, k, v))
+    cases = []
+    for name, offsets in FWD128_CASES.items():
+        kw = dict(causal=True, window=None, segment_ids=None, offsets=offsets)
+        o, lse = fa.flash_forward(q, k, v, **kw)
+        o_p, lse_p = fa.flash_forward_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        where = f"flash d128 {name}"
+        check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()), f"{where}: not finite")
+        lse_err = float((lse - lse_p).abs().max())
+        check(lse_err <= FLASH_LSE_ATOL, f"{where}: lse err {lse_err} > {FLASH_LSE_ATOL}")
+        pairs = flash_pairs(T, True, None, None, offsets or (0, 0))
+        reading = control = None
+        if pairs == 0:
+            check(not bool(o.any()) and bool((lse == -1e30).all()),
+                  f"{where}: not all zeros with lse -1e30")
+        else:
+            reading = row_reading(o, o_p)
+            check(reading <= FLASH_TOL_RMS["o"],
+                  f"{where}: o reading {reading} x row RMS > {FLASH_TOL_RMS['o']}")
+            keep = torch.ones(T, dtype=torch.bool, device=dev)
+            keep[T // 2:T // 2 + 64] = False
+            control = row_reading(plain_forward_without(torch, fa, q, k, v, keep, causal=True,
+                                                        window=None, offsets=offsets), o_p)
+            check(control > 3 * FLASH_TOL_RMS["o"],
+                  f"{where}: an o without one kv tile reads {control}, inside 3x the limit")
+        if offsets is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                      enable_gqa=True)
+        else:
+            i = torch.arange(T, device=dev)
+            mask = ((i[:, None] + offsets[0]) >= (i[None, :] + offsets[1]))[None, None]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                      enable_gqa=True)
+        ms = time_ms(torch, lambda: fa.flash_forward(q, k, v, **kw), flush)
+        plain_ms = time_ms(torch, lambda: fa.flash_forward_reference(q, k, v, **kw), flush,
+                           reps=10)
+        lib_ms = time_ms(torch, sdpa, flush)
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + B * H * T * 4  # q, o; k, v; lse
+        flops = 4 * B * H * Dh * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        case = dict(case=name, B=B, H=H, Hkv=Hkv, T=T, Dh=Dh,
+                    offsets=None if offsets is None else list(offsets), pairs_per_head=pairs,
+                    reading_o=reading, control_o=control, lse_err=lse_err,
+                    max_abs_err=float((o.float() - o_p.float()).abs().max()),
+                    tolerance=dict(row_rms=FLASH_TOL_RMS["o"], lse_atol=FLASH_LSE_ATOL),
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=flops,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        cases.append(case)
+        print(f"kernel flash d128 {name:8s} offsets={offsets} pairs/head={pairs} "
+              + ("all zeros, lse -1e30" if reading is None else
+                 f"o={reading:.3e} (limit {FLASH_TOL_RMS['o']}) control={control:.3e}")
+              + f" lse_err={lse_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={case['bound_ms']:.5f} ({case['bound_by']})",
+              flush=True)
+
+    # the guard: the backward kernels stop at head dim 64
+    before = flash_counts(fa)
+    leaf = q4.detach().clone().requires_grad_()
+    try:
+        fa.flash_attention(leaf, k4, v4, causal=True)
+    except ValueError as e:
+        message = str(e)
+    else:
+        fail("flash d128: a differentiable flash_attention call did not raise")
+    torch.cuda.synchronize()
+    want = str(fa.KERNEL_HEAD_DIMS["flash backward"])
+    check(want in message, f"flash d128: the refusal does not name {want}: {message}")
+    check(flash_counts(fa) == before, "flash d128: a kernel launched before the refusal")
+    with torch.no_grad():
+        fa.flash_attention(leaf, k4, v4, causal=True)
+    check(flash_counts(fa) == (before[0] + 1, *before[1:]),
+          "flash d128: flash_attention without gradients did not launch the forward")
+    print(f"flash d128 guard: with gradients raises before any launch ({message}); "
+          f"without, one forward launch", flush=True)
     return cases
 
 
@@ -2087,16 +2222,17 @@ def main() -> None:
     for name, log in csrc.build_log.items():
         builds[name] = log
         print(f"build {name}: {log['seconds']:.2f} s\n{log['ptxas']}", flush=True)
-    builds["flash_bwd_resources"] = backward_resources()
+    builds["resources"] = kernel_resources()
 
     flush = torch.empty(64 * 2**20 // 4, device="cuda")
     cases = kernel_phase(torch, flush)
     chunk_cases = chunk_kernel_phase(torch, flush)
     flash_cases = flash_kernel_phase(torch, flush)
     offset_cases = offset_kernel_phase(torch, flush)
+    d128_cases = forward_d128_phase(torch, flush)
     record = {"card": card, "build": builds, "kernel_cases": cases,
               "chunk_kernel_cases": chunk_cases, "flash_kernel_cases": flash_cases,
-              "offset_kernel_cases": offset_cases}
+              "offset_kernel_cases": offset_cases, "flash_d128_cases": d128_cases}
     serving = main_path(torch, profile=args.profile)
     record["serving"] = serving
     record["serving_default_model"] = default_model_path(torch)

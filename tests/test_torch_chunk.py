@@ -133,6 +133,39 @@ def test_chunk_plain_matches_pallas_interpret(monkeypatch, family, window):
     np.testing.assert_allclose(got, want, rtol=ULP, atol=0)
 
 
+#: head dim 128 (the served dim 512 over 4 heads): a fused wave (every slot
+#: empty, the chunk attends itself, ``ctx_len`` the chunk's width) and a
+#: warm prefix admit (one slot, a suffix over cached pages)
+D128_SHAPES = {
+    "wave": dict(slots=4, hkv=2, g=2, w=16, p=1, lens=[0, 0, 0, 0], ctx_extra=8),
+    "warm": dict(slots=1, hkv=2, g=2, w=8, p=3, lens=[16], ctx_extra=8),
+}
+
+
+@pytest.mark.parametrize("family", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", list(D128_SHAPES))
+def test_chunk_plain_matches_jax_reference_at_head_dim_128(family, shape):
+    """The plain chunk version at head dim 128 against the JAX reference,
+    at a wave-like and a warm-like shape, for every pool family; the band
+    of the other head dims."""
+    c = D128_SHAPES[shape]
+    J, T, table, _ = _chunk_inputs(5, family, slots=c["slots"], hkv=c["hkv"], g=c["g"],
+                                   w=c["w"], dh=128, p=c["p"], max_len=c["p"] * PAGE)
+    lens = np.asarray(c["lens"], np.int32)
+    kw = dict(ctx_len=c["p"] * PAGE + c["ctx_extra"])
+    want = jpa.paged_chunk_attention(
+        *J[:5], jnp.asarray(table), jnp.asarray(lens), k_scale=J[5], v_scale=J[6], **kw
+    )
+    got = tpa.paged_chunk_attention(
+        *T[:5], torch.from_numpy(table), torch.from_numpy(lens), k_scale=T[5], v_scale=T[6],
+        **kw,
+    )
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == tuple(want.shape)
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=ULP, atol=0)
+    assert (got != want).mean() < 0.02  # all but a few weights round alike
+
+
 def test_chunk_scores_and_context_are_bitwise_the_references(monkeypatch):
     """The part of the op sequence before the softmax (assembly, overlay,
     bf16 score product, f32 division) gives the reference's bits."""

@@ -19,6 +19,8 @@ with their reasons:
   bf16 first, so a dk/dv entry can differ by a ULP of the largest partial.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +43,10 @@ CASES = {
     # its default model (dim=128, heads=4)
     "causal-gqa-d8": dict(b=2, h=4, hkv=2, t=130, d=8, causal=True),
     "window40-d32": dict(b=1, h=4, hkv=4, t=160, d=32, causal=True, window=40),
+    # head dim 128 (the reference's bench_ring_block width): GQA 4:1, and a
+    # window over a partial last tile
+    "causal-gqa4-d128": dict(b=1, h=4, hkv=1, t=256, d=128, causal=True),
+    "window64-gqa-d128": dict(b=1, h=4, hkv=2, t=200, d=128, causal=True, window=64),
 }
 BANDS = {"f32": ((1e-4, 1e-5), (1e-3, 1e-4)), "bf16": ((2**-6, 2**-6), (2**-6, 2**-6))}
 
@@ -245,34 +251,93 @@ class _PastTheCheck(Exception):
 
 @pytest.mark.parametrize("dh", [4, 8, 12, 16, 24, 32, 48, 64, 96, 128])
 def test_kernel_head_dim_check_takes_the_instantiated_dims(dh, monkeypatch):
-    """The CUDA path's head-dim check (run before any launch, so reachable
-    without a card): the flash kernels and the paged chunk kernel take head
-    dims 8, 16, 32 and 64, and raise for any other with a message that names
-    the set. Head dim 128 (the reference's ``bench_ring_block`` width) is
-    among those still refused."""
+    """The CUDA path's head-dim checks (run before any launch, so reachable
+    without a card), one set per kernel: the flash forward and the paged
+    chunk kernel take head dims 8, 16, 32, 64 and 128, the flash backward
+    kernels (dq, dk/dv) 8, 16, 32 and 64; each raises for any other head
+    dim with a message that names its own set."""
     from beholder_tpu_torch.ops import paged_attention as pa
 
     def past(*_, **__):
         raise _PastTheCheck
 
     monkeypatch.setattr(pa, "_kernel_mode", past)
-    assert fa.KERNEL_HEAD_DIMS == (8, 16, 32, 64)
+    assert fa.KERNEL_HEAD_DIMS == {
+        "flash forward": (8, 16, 32, 64, 128),
+        "flash backward": (8, 16, 32, 64),
+        "paged chunk": (8, 16, 32, 64, 128),
+    }
     q = torch.zeros(4, 8, dh, dtype=torch.bfloat16)
     k = torch.zeros(2, 8, dh, dtype=torch.bfloat16)
     f32 = {"lse": torch.zeros(4, 8), "delta": torch.zeros(4, 8)}
     pool = torch.zeros(3, 2, dh, 16, dtype=torch.bfloat16)
     checks = [
-        lambda: fa._check_kernel_inputs("flash forward", {"q": q, "k": k, "v": k}, {}, None),
-        lambda: fa._check_kernel_inputs("flash dq", {"q": q, "k": k, "v": k, "do": q}, f32, None),
-        lambda: pa._chunk_launch(q[None], k[None], k[None], pool, pool, None, None, 32, 2,
-                                 None, None, None),
+        ("flash forward",
+         lambda: fa._check_kernel_inputs("flash forward", {"q": q, "k": k, "v": k}, {}, None)),
+        ("flash backward",
+         lambda: fa._check_kernel_inputs("flash dq", {"q": q, "k": k, "v": k, "do": q}, f32,
+                                         None)),
+        ("flash backward",
+         lambda: fa._check_kernel_inputs("flash dk/dv", {"q": q, "k": k, "v": k, "do": q}, f32,
+                                         None)),
+        ("paged chunk",
+         lambda: pa._chunk_launch(q[None], k[None], k[None], pool, pool, None, None, 32, 2,
+                                  None, None, None)),
     ]
-    for check in checks:
-        if dh in (8, 16, 32, 64):
+    for kernel, check in checks:
+        dims = fa.KERNEL_HEAD_DIMS[kernel]
+        if dh in dims:
             try:
                 check()
             except _PastTheCheck:
                 pass
         else:
-            with pytest.raises(ValueError, match=r"head_dim in \(8, 16, 32, 64\)"):
+            with pytest.raises(ValueError, match=rf"the {kernel} kernel takes head_dim in "
+                               + re.escape(str(dims))):
                 check()
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("entry", ["flash_attention", "ring_attention"])
+def test_card_path_refuses_a_backward_at_head_dim_128_before_the_forward(entry, dh,
+                                                                         monkeypatch):
+    """On the card a differentiable call at head dim 128, which the forward
+    kernel takes and the backward kernels do not, raises before the forward
+    launches, naming the backward's head dims; without gradients the same
+    call reaches the forward kernel. At head dim 64 both reach it. The card
+    path is taken here on CPU tensors (``_on_card`` patched); the kernel
+    library stands in by raising once the checks are passed."""
+    from beholder_tpu_torch.ops.attention import ring_attention
+    from beholder_tpu_torch.parallel import Mesh
+
+    reached = []
+
+    def kernel_lib(name):
+        reached.append(name)
+        raise _PastTheCheck
+
+    monkeypatch.setattr(fa, "_on_card", lambda q: True)
+    monkeypatch.setattr(fa, "_kernel_lib", kernel_lib)
+    q = torch.zeros(1, 4, 128, dh, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 128, dh, dtype=torch.bfloat16)
+    if entry == "flash_attention":
+        def call(*x):
+            return flash_attention(*x, causal=True)
+    else:
+        def call(*x):
+            return ring_attention(*x, Mesh(["cpu"] * 4), causal=True)
+
+    leaf = q.clone().requires_grad_()
+    if dh == 128:
+        with pytest.raises(ValueError,
+                           match=r"flash backward kernel takes head_dim in \(8, 16, 32, 64\)"):
+            call(leaf, k, k)
+        assert reached == []
+    else:
+        with pytest.raises(_PastTheCheck):
+            call(leaf, k, k)
+        assert reached == ["flash_fwd"]
+    reached.clear()
+    with torch.no_grad(), pytest.raises(_PastTheCheck):
+        call(leaf, k, k)
+    assert reached == ["flash_fwd"]

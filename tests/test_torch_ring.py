@@ -85,6 +85,13 @@ PAIRS = {
     "gqa4-offaxis": dict(shape=(2, 4, 1, 64, 8), q_offset=64, kv_offset=0),
     # T/P = 100, not a multiple of 64: the last tile partial
     "t100-edge": dict(shape=(1, 4, 2, 100, 64), q_offset=100, kv_offset=50),
+    # head dim 128 (the reference's bench_ring_block width): a live off-axis
+    # pair under GQA 4:1, the diagonal, a dead pair and a straddling window
+    "d128-gqa4-offaxis": dict(shape=(1, 4, 1, 128, 128), q_offset=256, kv_offset=128),
+    "d128-diagonal": dict(shape=(1, 4, 2, 128, 128), q_offset=128, kv_offset=128),
+    "d128-dead": dict(shape=(1, 4, 2, 64, 128), q_offset=0, kv_offset=64),
+    "d128-window-straddle": dict(shape=(1, 4, 2, 128, 128), q_offset=128, kv_offset=0,
+                                 window=100),
 }
 
 
@@ -124,7 +131,7 @@ def test_block_pair_matches_jax(pair, dtype):
     for name, got, want in zip(("dq", "dk", "dv"), got_grads, want_grads):
         assert got.dtype == tdt
         _close(got, want, grad_band, name, scaled)
-    if pair == "dead":
+    if pair.endswith("dead"):
         assert not got_o.any() and bool((got_lse == -1e30).all())
         assert not any(g.any() for g in got_grads)
 
