@@ -39,16 +39,37 @@
 //   (flash_mma.cuh to_a). That conversion is where p and ds are rounded.
 // - Streamed tiles are bf16 in shared memory, rows padded to 144 bytes
 //   (ldmatrix without bank conflicts), double-buffered: cp.async brings
-//   tile j+1 while tile j computes. About 37 KB a block, so registers set
-//   the occupancy: dq is held to 168 registers a thread (3 blocks an SM),
-//   dk/dv, which keeps two more accumulators, to 255 (2 blocks an SM).
+//   tile j+1 while tile j computes. About 37 KB a block at head dim 64, so
+//   registers set the occupancy: dq is held to 168 registers a thread (3
+//   blocks an SM), dk/dv, which keeps two more accumulators, to 255 (2
+//   blocks an SM). Head dim 128 below.
 // - Tiles are live only: the causal diagonal and the window bound each
 //   loop, and the per-element mask runs only where it can bite.
-// - Head dims 8, 16, 32 and 64, one instantiation each (flash_mma.cuh Dims):
-//   the two products that sum over the head dim (scores, dp) take it in
-//   16-wide mma steps, D = 8 zero-padded to 16 in shared memory by
+// - Head dims 8, 16, 32, 64 and 128, one instantiation each (flash_mma.cuh
+//   Dims): the two products that sum over the head dim (scores, dp) take it
+//   in 16-wide mma steps, D = 8 zero-padded to 16 in shared memory by
 //   cp.async; the products whose output is head-dim wide (dq, dk, dv) take
 //   n8 column tiles, so their accumulators shrink with D.
+// - Head dim 128, the reference's bench_flash_attention width, does not fit
+//   that register budget: one f32 accumulator of a 16-row warp slice is 64
+//   registers a thread there, dk/dv keep two of them beside the resident k
+//   and v fragments (32 each) and the s and dp tiles (32 each), well past
+//   255. The ways out: dk and dv in two passes; the accumulators split
+//   across two warpgroups; operands kept in shared memory. dk/dv at 128
+//   splits the accumulators across two warpgroups by output rather than by
+//   head dim, with k and v in shared memory, which keeps the loads and the
+//   extra work smallest: two warpgroups (256 threads) over the same 64
+//   keys, the first summing dv, the second dk, each one accumulator. Both
+//   read the same streamed q and do tiles, loaded once for the block; the
+//   first recomputes the score product that the second also runs for ds,
+//   so a tile costs five products instead of four (the two-pass split
+//   costs five too, and streams q and do twice; splitting the head dim
+//   costs six). k and v stay in shared memory and reach the products one
+//   16-wide step at a time (flash_mma.cuh mma_abt_s), as q and do do in
+//   dq at 128, whose single accumulator then fits beside s and dp. Both
+//   kernels at 128 run two warpgroups' worth of registers an SM: dq two
+//   128-thread blocks (105 KB of shared memory each), dk/dv one 256-thread
+//   block.
 // - Ring block-pair mode (the TPU kernels' pallas_calls with qoff/kvoff, as
 //   flash_block_backward launches them): the C entries take q_offset and
 //   kv_offset, the masks shift the diagonal by delta = q_offset - kv_offset
@@ -79,23 +100,38 @@ namespace {
 
 using namespace flash;
 
-// two stages of two bf16 tiles, then segment ids (dq: the resident rows'
-// and two stages of keys'; dk/dv: two stages of rows' and the resident
-// keys'), then (dk/dv) two stages of lse and delta
+// whether the resident operands (dq: q and do; dk/dv: k and v) stay in
+// shared memory rather than in registers, and dk/dv runs as two warpgroups
+template <int D>
+constexpr bool kWide = D == 128;
+
+// two stages of two bf16 tiles, then (at 128) the two resident tiles, then
+// segment ids (dq: the resident rows' and two stages of keys'; dk/dv: two
+// stages of rows' and the resident keys'), then (dk/dv) two stages of lse
+// and delta
 template <int D>
 constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * Dims<D>::kElems;
 template <int D>
-constexpr size_t kDqSmemBytes = 4 * kTileBytes<D> + sizeof(int) * 3 * kTile;
+constexpr size_t kDqSmemBytes = (kWide<D> ? 6 : 4) * kTileBytes<D> + sizeof(int) * 3 * kTile;
 template <int D>
-constexpr size_t kDkvSmemBytes = 4 * kTileBytes<D> + sizeof(int) * 3 * kTile +
-                                 sizeof(float) * 4 * kTile;
-// at most 48 KB a block: 4 blocks fit an SM's shared memory, so registers,
-// not shared memory, set the occupancy
+constexpr size_t kDkvSmemBytes = (kWide<D> ? 6 : 4) * kTileBytes<D> +
+                                 sizeof(int) * 3 * kTile + sizeof(float) * 4 * kTile;
+// at most 48 KB a block below 128: 4 blocks fit an SM's shared memory, so
+// registers, not shared memory, set the occupancy; at 128 two dq blocks
+// fit an SM
 static_assert(kDkvSmemBytes<64> <= 48 * 1024 && kDqSmemBytes<64> <= 48 * 1024,
               "shared memory would limit the occupancy");
+static_assert(2 * kDqSmemBytes<128> <= 227 * 1024, "two dq blocks an SM at head dim 128");
+
+// registers cap: 168 a thread (3 blocks an SM) below 128, 255 (2) at 128
+template <int D>
+constexpr int kDqMinBlocks = kWide<D> ? 2 : 3;
+// the dk/dv kernel's threads: two warpgroups at 128
+template <int D>
+constexpr int kDkvThreads = kWide<D> ? 2 * kThreads : kThreads;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
+__global__ void __launch_bounds__(kThreads, kDqMinBlocks<D>) flash_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -112,8 +148,11 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2] (key, d)
   __nv_bfloat16* vs = ks + 2 * Dm::kElems;                      // [2] (key, d)
-  int* qseg = reinterpret_cast<int*>(vs + 2 * Dm::kElems);      // (row,)
-  int* kseg = qseg + kTile;                                     // [2] (key,)
+  // q and do: at 128 resident here, below it through the second stage
+  __nv_bfloat16* qr = kWide<D> ? vs + 2 * Dm::kElems : ks + Dm::kElems;
+  __nv_bfloat16* dr = kWide<D> ? qr + Dm::kElems : vs + Dm::kElems;
+  int* qseg = reinterpret_cast<int*>(vs + (kWide<D> ? 4 : 2) * Dm::kElems);  // (row,)
+  int* kseg = qseg + kTile;                                                  // [2] (key,)
 
   const size_t q_off = static_cast<size_t>(bh) * T * D;
   const size_t kv_off = static_cast<size_t>(bh / G) * T * D;
@@ -124,10 +163,9 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
   const int j_lo = tiles.lo, j_hi = tiles.hi;
   const int r0d = r0 + shift;  // the resident tile's first row, shifted
 
-  // q and do pass through the second stage's slots; the first key tile
-  // goes to the first stage
-  load_tile_async<D>(ks + Dm::kElems, q + q_off, r0, T);
-  load_tile_async<D>(vs + Dm::kElems, dout + q_off, r0, T);
+  // q and do to their tiles; the first key tile goes to the first stage
+  load_tile_async<D>(qr, q + q_off, r0, T);
+  load_tile_async<D>(dr, dout + q_off, r0, T);
   load_tile_async<D>(ks, k + kv_off, j_lo * kTile, T);
   load_tile_async<D>(vs, v + kv_off, j_lo * kTile, T);
   if (has_seg) {
@@ -144,10 +182,13 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
   }
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[Dm::kSteps][4], doa[Dm::kSteps][4];
-  load_a<D>(qa, ks + Dm::kElems, w0);
-  load_a<D>(doa, vs + Dm::kElems, w0);
-  __syncthreads();  // the second stage is free
+  // below 128 the q and do fragments stay in registers
+  uint32_t qa[kWide<D> ? 1 : Dm::kSteps][4], doa[kWide<D> ? 1 : Dm::kSteps][4];
+  if constexpr (!kWide<D>) {
+    load_a<D>(qa, qr, w0);
+    load_a<D>(doa, dr, w0);
+    __syncthreads();  // the second stage is free
+  }
 
   float acc[Dm::kN][4];
 #pragma unroll
@@ -171,8 +212,13 @@ __global__ void __launch_bounds__(kThreads, 3) flash_dq_kernel(
     float s[8][4], dp[8][4];
     zero(s);
     zero(dp);
-    mma_abt<D>(s, qa, kt);                      // q k^T
-    mma_abt<D>(dp, doa, vs + st * Dm::kElems);  // do v^T
+    if constexpr (kWide<D>) {
+      mma_abt_s<D>(s, qr, w0, kt);                      // q k^T
+      mma_abt_s<D>(dp, dr, w0, vs + st * Dm::kElems);  // do v^T
+    } else {
+      mma_abt<D>(s, qa, kt);                      // q k^T
+      mma_abt<D>(dp, doa, vs + st * Dm::kElems);  // do v^T
+    }
     const bool masked = needs_mask(r0d, c0, T, causal, window, has_seg);
     const int* kseg_t = kseg + st * kTile;
 #pragma unroll
@@ -313,6 +359,124 @@ __global__ void __launch_bounds__(kThreads, 2) flash_dkv_kernel(
   store_acc<D>(dv + kv_off, dv_acc, c0 + w0, T);
 }
 
+// dk/dv at head dim 128: two warpgroups over one 64-key tile, warpgroup 0
+// summing dv, warpgroup 1 dk, each warp the same 16 keys in both (file
+// header). The stream, the masks and the arithmetic are flash_dkv_kernel's;
+// k and v stay in shared memory.
+template <int D>
+__global__ void __launch_bounds__(2 * kThreads, 1) flash_dkv_wide_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int32_t* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int T, int G, int Hkv, int causal, int window,
+    int shift, float scale) {
+  using Dm = Dims<D>;
+  const int n_tiles = (T + kTile - 1) / kTile;
+  const int c0 = blockIdx.y * kTile;  // tile 0 sees the most rows under causal
+  const int bhkv = blockIdx.x;
+  const bool is_dk = threadIdx.x >= kThreads;  // warpgroup 1 (warp-uniform)
+  const unsigned tid = threadIdx.x & (kThreads - 1);  // within the warpgroup
+  const int w0 = static_cast<int>(tid >> 5) * 16;     // this warp's keys in the tile
+  const int c_last = min(c0 + kTile, T) - 1;
+  const bool has_seg = seg != nullptr;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2] (row, d)
+  __nv_bfloat16* dos = qs + 2 * Dm::kElems;                     // [2] (row, d)
+  __nv_bfloat16* kr = dos + 2 * Dm::kElems;                     // (key, d)
+  __nv_bfloat16* vr = kr + Dm::kElems;                          // (key, d)
+  int* qseg = reinterpret_cast<int*>(vr + Dm::kElems);          // [2] (row,)
+  int* kseg = qseg + 2 * kTile;                                 // (key,)
+  float* lse_s = reinterpret_cast<float*>(kseg + kTile);        // [2] (row,)
+  float* delta_s = lse_s + 2 * kTile;                           // [2] (row,)
+
+  const size_t kv_off = static_cast<size_t>(bhkv) * T * D;
+  const int32_t* seg_b = has_seg ? seg + static_cast<size_t>(bhkv / Hkv) * T : nullptr;
+  const Tiles tiles = query_tiles(c0, c_last, n_tiles, causal, window, shift);
+  const int i_lo = tiles.lo;
+  const int n_rows = tiles.hi - i_lo + 1;  // live row tiles per query head
+  const int n_steps = G * n_rows;
+  __nv_bfloat16* out = (is_dk ? dk : dv) + kv_off;
+  if (n_rows <= 0) {  // a dead block pair: no query row sees these keys
+    store_zeros<D>(out, c0 + w0, T);
+    return;
+  }
+
+  // step i of the stream, as flash_dkv_kernel's: warpgroup 0 copies q,
+  // warpgroup 1 do; lse, delta and the rows' segment ids by threads 0-63,
+  // 64-127 and 128-191
+  auto load_step = [&](int i, int st) {
+    const int bh = bhkv * G + i / n_rows;
+    const int r0 = (i_lo + i % n_rows) * kTile;
+    const size_t q_off = static_cast<size_t>(bh) * T * D;
+    load_tile_async<D>((is_dk ? dos : qs) + st * Dm::kElems, (is_dk ? dout : q) + q_off, r0, T,
+                       tid);
+    load_vec_async(lse_s + st * kTile, lse + static_cast<size_t>(bh) * T, r0, T, kPadLse, 0);
+    load_vec_async(delta_s + st * kTile, delta + static_cast<size_t>(bh) * T, r0, T, 0.f, kTile);
+    if (has_seg) load_vec_async(qseg + st * kTile, seg_b, r0, T, -1, 2 * kTile);
+  };
+
+  load_tile_async<D>(is_dk ? vr : kr, (is_dk ? v : k) + kv_off, c0, T, tid);
+  if (has_seg) load_vec_async(kseg, seg_b, c0, T, -1, 3 * kTile);
+  load_step(0, 0);
+  cp_async_commit();
+
+  float acc[Dm::kN][4];
+#pragma unroll
+  for (int n = 0; n < Dm::kN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_steps) {
+      // the other stage's readers finished at the end of the last step
+      load_step(i + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* qt = qs + st * Dm::kElems;
+    const __nv_bfloat16* dot = dos + st * Dm::kElems;
+    const float* lse_t = lse_s + st * kTile;
+    const float* delta_t = delta_s + st * kTile;
+    const int r0d = (i_lo + i % n_rows) * kTile + shift;  // the row tile, shifted
+
+    // transposed scores: the warp's 16 keys by the tile's 64 rows
+    float s[8][4], dp[8][4];
+    zero(s);
+    mma_abt_s<D>(s, kr, w0, qt);  // k q^T
+    if (is_dk) {
+      zero(dp);
+      mma_abt_s<D>(dp, vr, w0, dot);  // v do^T
+    }
+    const bool masked = needs_mask(r0d, c0, T, causal, window, has_seg);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ki = w0 + frag_row(e), ri = frag_col(n, e);
+        float x = s[n][e] * scale;
+        if (masked && !live(r0d + ri, c0 + ki, T, causal, window,
+                            has_seg ? qseg + st * kTile : nullptr, kseg, ri, ki)) {
+          x = kNegInf;
+        }
+        float p = expf(x - lse_t[ri]);
+        if (x <= kNegInf * 0.5f) p = 0.f;
+        s[n][e] = is_dk ? p * (dp[n][e] - delta_t[ri]) * scale : p;  // ds or p
+      }
+    uint32_t fa[4][4];
+    to_a(fa, s);  // p or ds rounded to bf16
+    if (is_dk) {
+      mma_ab<D>(acc, fa, qt);  // dk += ds^T q
+    } else {
+      mma_ab<D>(acc, fa, dot);  // dv += p^T do
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+  store_acc<D>(out, acc, c0 + w0, T);
+}
+
 // the tiles of T on the grid's y dimension (at most 65,535)
 bool shape_ok(int BH, int BHkv, int T, int H) {
   return BHkv >= 1 && BH % BHkv == 0 && T >= 1 && H >= 1 && BH % H == 0 &&
@@ -343,15 +507,25 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the dk/dv kernel of head dim D
+template <int D>
+auto dkv_kernel() {
+  if constexpr (kWide<D>) {
+    return flash_dkv_wide_kernel<D>;
+  } else {
+    return flash_dkv_kernel<D>;
+  }
+}
+
 template <int D>
 int launch_dkv(const Args& a) {
   const int G = a.BH / a.BHkv;
+  const auto kernel = dkv_kernel<D>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kDkvSmemBytes<D>));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDkvSmemBytes<D>));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.BHkv, (a.T + kTile - 1) / kTile);  // every head's heaviest tile first
-  flash_dkv_kernel<D><<<grid, kThreads, kDkvSmemBytes<D>, a.stream>>>(
+  kernel<<<grid, kDkvThreads<D>, kDkvSmemBytes<D>, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -368,6 +542,7 @@ int dispatch(int which, int Dh, const Args& a) {
     case 16: return which == 0 ? launch_dq<16>(a) : launch_dkv<16>(a);
     case 32: return which == 0 ? launch_dq<32>(a) : launch_dkv<32>(a);
     case 64: return which == 0 ? launch_dq<64>(a) : launch_dkv<64>(a);
+    case 128: return which == 0 ? launch_dq<128>(a) : launch_dkv<128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -375,7 +550,7 @@ int dispatch(int which, int Dh, const Args& a) {
 template <int D>
 int resources(int which, int* out) {
   return which == 0 ? kernel_resources(flash_dq_kernel<D>, kDqSmemBytes<D>, out)
-                    : kernel_resources(flash_dkv_kernel<D>, kDkvSmemBytes<D>, out);
+                    : kernel_resources(dkv_kernel<D>(), kDkvSmemBytes<D>, out, kDkvThreads<D>);
 }
 
 }  // namespace
@@ -384,7 +559,7 @@ extern "C" {
 
 // q/do (BH, T, Dh), k/v (BHkv, T, Dh), dq (BH, T, Dh): bf16, contiguous;
 // lse/delta (BH, T) f32; seg (B, T) int32 or null, with H = BH / B query
-// heads per batch row. Dh is 8, 16, 32 or 64; window <= 0 means none.
+// heads per batch row. Dh is 8, 16, 32, 64 or 128; window <= 0 means none.
 // q_offset and kv_offset place q's rows and k/v's keys on the global
 // positions the masks compare (both 0 outside the ring's block pairs).
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
@@ -422,6 +597,7 @@ int flash_bwd_resources(int which, int Dh, int* out) {
     case 16: return resources<16>(which, out);
     case 32: return resources<32>(which, out);
     case 64: return resources<64>(which, out);
+    case 128: return resources<128>(which, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -86,12 +86,12 @@ __device__ __forceinline__ Tiles query_tiles(int c0, int c_last, int n_tiles, bo
           window <= 0 ? n_tiles - 1 : last < 0 ? -1 : min(last / kTile, n_tiles - 1)};
 }
 
-// What `kernel` takes on this card, launched with kThreads threads and
+// What `kernel` takes on this card, launched with `threads` threads and
 // `smem` bytes of dynamic shared memory: out[0] registers a thread, out[1]
 // local (spilled) bytes a thread, out[2] dynamic shared memory a block,
 // out[3] resident blocks an SM. Returns a CUDA error code, 0 on success.
 template <typename Kernel>
-inline int kernel_resources(Kernel kernel, size_t smem, int* out) {
+inline int kernel_resources(Kernel kernel, size_t smem, int* out, int threads = kThreads) {
   cudaFuncAttributes attr;
   int blocks = 0;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
@@ -100,7 +100,7 @@ inline int kernel_resources(Kernel kernel, size_t smem, int* out) {
                                static_cast<int>(smem));
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;

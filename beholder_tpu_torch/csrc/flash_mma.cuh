@@ -89,23 +89,32 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows [r0, r0 + kTile) of a (T, D) bf16 matrix into a padded shared tile;
 // rows at or past T and head dims at or past D read as zeros. kK / 8
-// consecutive threads copy one row.
+// consecutive threads copy one row; `tid` (0 .. kThreads - 1) is this
+// thread's place among the kThreads that copy the tile.
 template <int D>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* __restrict__ src,
-                                                int r0, int T) {
+                                                int r0, int T, unsigned tid) {
   using G = Dims<D>;
   constexpr int kChunks = G::kK / 8;  // 16-byte chunks a row
 #pragma unroll
   for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
     // unsigned: the divisions by the power of two kChunks are shifts
-    const unsigned idx = threadIdx.x + i * kThreads;
+    const unsigned idx = tid + i * kThreads;
     const int row = static_cast<int>(idx / kChunks);
     const int col = static_cast<int>(idx % kChunks) * 8;
     const bool valid = r0 + row < T && col < D;
     cp_async16(dst + row * G::kLd + col,
                src + (valid ? static_cast<size_t>(r0 + row) * D + col : 0), valid);
   }
+}
+
+// The same, copied by a block of kThreads threads.
+template <int D>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* __restrict__ src,
+                                                int r0, int T) {
+  load_tile_async<D>(dst, src, r0, T, threadIdx.x);
 }
 
 // kTile 4-byte values src[r0 + r] into dst[r] (threads lane0 .. lane0 + 63,
@@ -181,6 +190,32 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4],
       mma_bf16(acc[n], a[kk], r[0], r[1]);
       mma_bf16(acc[n + 1], a[kk], r[2], r[3]);
     }
+}
+
+// As mma_abt, with A's rows [row0, row0 + 16) read from a shared tile one
+// 16-wide step at a time instead of held in registers: at head dim 128 a
+// resident A would hold 32 registers a thread for each operand.
+template <int D>
+__device__ __forceinline__ void mma_abt_s(float (&acc)[8][4], const __nv_bfloat16* a_tile,
+                                          int row0, const __nv_bfloat16* b) {
+  using G = Dims<D>;
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+  const __nv_bfloat16* pa =
+      a_tile + (row0 + ((m & 1) << 3) + (lane & 7)) * G::kLd + ((m >> 1) << 3);
+  const __nv_bfloat16* p = b + (((m >> 1) << 3) + (lane & 7)) * G::kLd + ((m & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < G::kSteps; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, pa + kk * 16);
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, p + n * 8 * G::kLd + kk * 16);
+      mma_bf16(acc[n], a, r[0], r[1]);
+      mma_bf16(acc[n + 1], a, r[2], r[3]);
+    }
+  }
 }
 
 // acc (16 x kK) += A (16 x 64) * B, B a shared tile whose 64 rows are the

@@ -31,11 +31,11 @@ top of them, the local step of ring attention
 (:mod:`beholder_tpu_torch.ops.attention`).
 
 On a CUDA tensor each wrapper launches its kernel (bf16, a head dim of
-the kernel's set in :data:`KERNEL_HEAD_DIMS`: 8 to 128 for the forward, 8
-to 64 for the backward) or raises; it never falls back. A differentiable
-:func:`flash_attention` or ring attention call on the card at a head dim
-the backward does not take raises before the forward launches
-(:func:`check_backward_head_dim`). On a CPU tensor each wrapper runs the
+the kernel's set in :data:`KERNEL_HEAD_DIMS`: 8, 16, 32, 64 and 128 for
+the forward and the backward) or raises; it never falls back. A
+differentiable :func:`flash_attention` or ring attention call on the card
+at a head dim the backward does not take raises before the forward
+launches (:func:`check_backward_head_dim`). On a CPU tensor each wrapper runs the
 plain version.
 The plain versions compute the same function densely (the (T, T) scores
 exist there) with the reference's dtype mix:
@@ -77,11 +77,11 @@ _NEG_INF = -1e30
 #: the head dims each CUDA kernel is instantiated for. The reference's
 #: models use 8 (its tests' ``dim=32, heads=4``), 16, 32 (its default
 #: ``dim=128, heads=4``) and 64 (the served ``dim=512, heads=8``); its
-#: ``bench_ring_block`` runs the forward at 128. The backward kernels stop
-#: at 64: dk/dv holds 233 of its 255 registers there.
+#: ``bench_ring_block`` runs the forward at 128 and its
+#: ``bench_flash_attention`` the forward and the backward.
 KERNEL_HEAD_DIMS = {
     "flash forward": (8, 16, 32, 64, 128),
-    "flash backward": (8, 16, 32, 64),
+    "flash backward": (8, 16, 32, 64, 128),
     "paged chunk": (8, 16, 32, 64, 128),
 }
 

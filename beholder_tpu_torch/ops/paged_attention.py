@@ -5,9 +5,10 @@ Counterpart of the reference's ``ops/paged_attention.py``. Pools are
 place through a page table.
 
 - :func:`paged_decode_attention`: each slot's single query attends its own
-  pages (the decode tick). Kernel ``csrc/paged_decode.cu``, plain version
-  :func:`paged_decode_reference` (the TPU kernel's online softmax and dtype
-  mix).
+  pages (the decode tick). Kernel ``csrc/paged_decode.cu``, its page walk
+  split across blocks by :func:`decode_splits` and merged in the same
+  launch; plain version :func:`paged_decode_reference` (the TPU kernel's
+  online softmax and dtype mix).
 - :func:`paged_chunk_attention`: each slot's W-token chunk attends its
   committed pages plus the chunk's own k/v (prefix-hit and fused-wave
   admission). Kernel ``csrc/paged_chunk.cu``, plain version
@@ -165,6 +166,56 @@ _MODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 _SCALE_DTYPES = {torch.int8: torch.float32, torch.float8_e4m3fn: torch.uint8}
 _lib = None
 
+#: tokens of the decode kernel's chunk; a split's run is a whole number of them
+DECODE_TILE = 64
+#: blocks the split aims for: two waves of the H100's 132 SMs
+DECODE_BLOCKS = 264
+#: the most splits one launch merges (the kernel refuses more)
+DECODE_MAX_SPLITS = 64
+
+
+class DecodeSplit(NamedTuple):
+    """The decode kernel's split: ``splits`` blocks per (slot, kv head),
+    split ``j`` reading the table positions ``[j * span, (j + 1) * span)``."""
+
+    splits: int
+    span: int
+
+
+def decode_splits(slots: int, hkv: int, max_pages: int, page: int,
+                  window: int | None) -> DecodeSplit:
+    """The decode kernel's split, from the shapes alone (never from
+    ``lens``, which lives on the card: a launch reads nothing back).
+
+    The table's ``max_pages * page`` positions are cut into runs of whole
+    64-token tiles. A slot can hold live positions in at most ``live``
+    tiles (all of them, or those a ``window`` can reach), and the runs are
+    made as long as keeps about :data:`DECODE_BLOCKS` blocks busy across
+    ``slots * hkv`` (slot, kv head) pairs, at most
+    :data:`DECODE_MAX_SPLITS` of them. Where the pairs alone fill the card,
+    one split."""
+    tiles = -(-max_pages * page // DECODE_TILE)
+    live = tiles if window is None else min(tiles, -(-window // DECODE_TILE) + 1)
+    per = min(tiles, max(1, -(-live * slots * hkv // DECODE_BLOCKS),
+                         -(-tiles // DECODE_MAX_SPLITS)))
+    return DecodeSplit(-(-tiles // per), per * DECODE_TILE)
+
+
+#: per (device, stream): the int32 tickets of the split's combine, one per
+#: (slot, kv head); zeroed once when made or grown, left zero by each launch.
+#: Launches on one stream run in order, so they can share a buffer; two
+#: streams get two.
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _split_counters(dev: torch.device, n: int, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        _counters[key] = buf
+    return buf
+
 
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
@@ -173,13 +224,15 @@ def _kernel_lib() -> ctypes.CDLL:
 
         lib = csrc.load("paged_decode")
         lib.paged_decode_launch.argtypes = (
-            [ctypes.c_void_p] * 8
-            + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 10
+            + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.paged_decode_launch.restype = ctypes.c_int
-        lib.paged_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.paged_decode_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.paged_decode_smem_bytes.restype = ctypes.c_size_t
+        lib.paged_decode_resources.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.paged_decode_resources.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -223,28 +276,49 @@ def _kernel_mode(bf16_inputs: dict, k_pool, v_pool, page_table, lens, k_scale,
     return mode
 
 
-def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale):
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream, raise on a launch error."""
+def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale,
+            split: DecodeSplit | None = None):
+    """Check what the kernel takes, allocate the output (and, with more
+    than one split, the partials' workspace), launch on the current
+    stream, raise on a launch error. ``split`` overrides
+    :func:`decode_splits` (the card checks force one split, or one tile a
+    split)."""
     slots, h, dh = q.shape
     n, hkv, _, page = k_pool.shape
+    max_pages = page_table.shape[1]
     dev = q.device
     mode = _kernel_mode({"q": q}, k_pool, v_pool, page_table, lens, k_scale, v_scale,
                         "paged decode")
     lib = _kernel_lib()
-    if lib.paged_decode_smem_bytes(h, hkv, dh) == 0:
+    smem = lib.paged_decode_smem_bytes(h, hkv, dh, mode)
+    if smem == 0:
         raise ValueError(
             f"the kernel takes at most 16 query heads per kv head, got {h // hkv}"
         )
+    if smem > 227 * 1024:
+        raise ValueError(
+            f"head_dim {dh} with {h // hkv} query heads per kv head needs {smem} bytes "
+            "of shared memory, over the 227 KB a block may have"
+        )
+    if split is None:
+        split = decode_splits(slots, hkv, max_pages, page, window)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = counters = None
+    if split.splits > 1:
+        ws = torch.empty(slots * hkv * split.splits * (h // hkv) * (dh + 2),
+                         dtype=torch.float32, device=dev)
+        counters = _split_counters(dev, slots * hkv, stream)
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if k_scale is not None else None,
         v_scale.data_ptr() if v_scale is not None else None,
         page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        slots, h, hkv, dh, page, n, page_table.shape[1],
-        0 if window is None else window, mode, float(1.0 / math.sqrt(dh)),
-        torch.cuda.current_stream(dev).cuda_stream,
+        ws.data_ptr() if ws is not None else None,
+        counters.data_ptr() if counters is not None else None,
+        slots, h, hkv, dh, page, n, max_pages,
+        0 if window is None else window, split.splits, split.span, mode,
+        float(1.0 / math.sqrt(dh)), stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {err}")

@@ -12,28 +12,35 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    card, at its path's shapes, with the tolerance stated; times (CUDA
    events, median) of the kernel, the plain version and one PyTorch
    library call computing the same function, beside the bound. The paged
-   decode kernel at the headline and long-context shapes; the paged chunk
-   kernel at the fused-wave, warm-prefix and long-context shapes; the flash
-   forward, dq and dk/dv kernels at the training shape (B=4, H=8, Hkv=2,
-   T=4096, Dh=64, bf16), causal, with a 512 window, non-causal, with
-   segment ids and at T=4000, at two small edge shapes (a GQA group of
-   8 at T=200, a group of 1 with segment ids at T=130) and at head dims 8,
-   16 and 32 (the chunk kernel at its wave and warm shapes at 8, 16, 32
-   and 128); the registers, spills, shared memory and blocks per SM of the
-   flash forward, the two backward kernels and the chunk kernel (each pool
-   family) at every head dim each is instantiated for, failing on any local
-   memory; the backward's bits equal over two launches, and negative
-   controls (a forward, dq and dk/dv without one key tile, a dk/dv without
-   one query tile or one query head of the group, gradients scaled by 1 +
-   2**-8: each must fail); then the three flash kernels in the ring
-   block-pair (offset) mode at the ring's shard shape (B=4, H=8, Hkv=2,
-   1,024 rows): a fully live off-axis pair, a dead pair, the diagonal
-   through offset mode and a 512 window straddling two shards, with the
-   same checks and controls; then the forward at head dim 128 on the
-   reference's ``bench_ring_block`` shape (B=1, H=8, Hkv=2, T=2048): a
-   causal block, the off-axis pair (8192, 4096), the diagonal (4096, 4096)
-   and a dead pair, and the guard: a differentiable ``flash_attention``
-   call at 128 raises before any launch (the backward kernels stop at 64);
+   decode kernel at the headline and long-context shapes (timed), at head
+   dim 32, a group of 16 at head dim 128, a group of 1 and 100-token pages,
+   each with the split the wrapper chooses, one split and one 64-token
+   tile a split, repeat launches bitwise, dead slots exact zeros; the paged
+   chunk kernel at the fused-wave, warm-prefix and long-context shapes; the
+   flash forward, dq and dk/dv kernels at the training shape (B=4, H=8,
+   Hkv=2, T=4096, Dh=64, bf16), causal, with a 512 window, non-causal,
+   with segment ids and at T=4000, at two small edge shapes (a GQA group of
+   8 at T=200, a group of 1 with segment ids at T=130), at head dims 8, 16
+   and 32, and at head dim 128 on the reference's ``bench_flash_attention``
+   shape (B=4, H=Hkv=8, T=4096, causal and not; the chunk kernel at its
+   wave and warm shapes at 8, 16, 32 and 128); the registers, spills,
+   shared memory and blocks per SM of the flash forward, the two backward
+   kernels, the chunk kernel (each pool family) at every head dim each is
+   instantiated for and of the decode kernel (each pool family, both
+   instantiations), failing on any local memory; the backward's bits equal
+   over two launches, and negative controls (a forward, dq and dk/dv
+   without one key tile, a dk/dv without one query tile or one query head
+   of the group, gradients scaled by 1 + 2**-8: each must fail); then the
+   three flash kernels in the ring block-pair (offset) mode at the ring's
+   shard shape (B=4, H=8, Hkv=2, 1,024 rows): a fully live off-axis pair,
+   a dead pair, the diagonal through offset mode and a 512 window
+   straddling two shards, and at head dim 128 on the reference's
+   ``bench_ring_block`` shard (B=1, H=8, Hkv=2, T=2048) its off-axis
+   (8192, 4096) and diagonal pairs, with the same checks and controls; then
+   the forward at head dim 128 on that shard: a causal block, the off-axis
+   pair, the diagonal and a dead pair, and the guard: a differentiable
+   ``flash_attention`` call at head dim 96 raises before any launch, and
+   at 128 launches the forward, dq and dk/dv once each;
 4. serving: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
    layers=4)`` with random bf16 weights from a numpy seed, over bf16, int8
    and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
@@ -145,12 +152,14 @@ def card_line() -> str:
 
 
 def kernel_resources() -> dict:
-    """What the flash forward, the two flash backward kernels and the paged
-    chunk kernel take on this card at every instantiation (each head dim of
-    the kernel's set; the chunk kernel per pool family too): registers and
-    local (spilled) bytes a thread, dynamic shared memory a block, resident
-    blocks an SM (cudaFuncGetAttributes and the occupancy calculator).
-    Fails on any local memory."""
+    """What the flash forward, the two flash backward kernels, the paged
+    chunk kernel and the paged decode kernel take on this card at every
+    instantiation (each head dim of the kernel's set; the paged kernels per
+    pool family too, the decode kernel's at a group of 4 (headline, head
+    dim 64) and of 16 (head dim 128)): registers and local (spilled) bytes
+    a thread, dynamic shared memory a block, resident blocks an SM
+    (cudaFuncGetAttributes and the occupancy calculator). Fails on any
+    local memory."""
     import ctypes
 
     from beholder_tpu_torch.ops import flash_attention as fa
@@ -158,6 +167,7 @@ def kernel_resources() -> dict:
 
     fwd, bwd, chunk = fa._kernel_lib("flash_fwd"), fa._kernel_lib("flash_bwd"), \
         pa._chunk_kernel_lib()
+    decode = pa._kernel_lib()
     fwd.flash_fwd_resources.argtypes = [ctypes.c_int, ctypes.c_void_p]
     bwd.flash_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     chunk.paged_chunk_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -168,6 +178,10 @@ def kernel_resources() -> dict:
                 for which, kernel in enumerate(("flash_dq_kernel", "flash_dkv_kernel"))]
     queries += [(f"paged_chunk_kernel<{family}, {dh}>", chunk.paged_chunk_resources, (mode, dh))
                 for dh in fa.KERNEL_HEAD_DIMS["paged chunk"]
+                for mode, family in enumerate(("bf16", "int8", "fp8"))]
+    queries += [(f"paged_decode_kernel<{family}, G={h // hkv}, Dh={dh}>",
+                 decode.paged_decode_resources, (mode, h, hkv, dh))
+                for h, hkv, dh in ((8, 2, 64), (16, 1, 128))
                 for mode, family in enumerate(("bf16", "int8", "fp8"))]
     out = {}
     for name, query, args in queries:
@@ -207,26 +221,45 @@ def time_ms(torch, fn, flush, reps: int = 25, warm: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+#: the paged decode kernel's shapes: the two it is timed at, then shapes
+#: that reach its other instantiations and paths (checked, not timed)
+DECODE_SHAPES = {
+    # the headline serving shape: lens 255..383, one dead slot
+    "headline": dict(S=8, H=8, Hkv=2, Dh=64, page=128, N=32, P=4,
+                     lens=[255, 275, 300, 320, 340, 360, 383, -1], window=200),
+    # the long-context shape: 512-token pages, lens about 3584..3711
+    "long": dict(S=8, H=8, Hkv=2, Dh=64, page=512, N=64, P=8,
+                 lens=[3584, 3600, 3620, 3640, 3660, 3680, 3700, 3711], window=1500),
+    # the reference's default model's head dim (dim=128 over 4 heads)
+    "d32": dict(S=8, H=4, Hkv=2, Dh=32, page=128, N=32, P=4,
+                lens=[0, 63, 64, 200, 300, 511, 700, -1], window=100),
+    # a group of 16 query heads at head dim 128 (the KG=16 instantiation)
+    "d128-g16": dict(S=4, H=16, Hkv=1, Dh=128, page=128, N=16, P=4,
+                     lens=[100, 300, 511, -1], window=200),
+    # no GQA: a group of 1
+    "g1": dict(S=8, H=4, Hkv=4, Dh=64, page=128, N=32, P=4,
+               lens=[5, 127, 128, 250, 381, 400, 511, -1], window=200),
+    # 100-token pages: chunks off 16-byte boundaries, the element-load path
+    "page100": dict(S=8, H=8, Hkv=2, Dh=64, page=100, N=40, P=5,
+                    lens=[0, 99, 100, 250, 377, 420, 499, -1], window=150),
+}
+DECODE_TIMED = ("headline", "long")
+
+
 def kernel_phase(torch, flush) -> list[dict]:
-    from beholder_tpu_torch.ops.paged_attention import (
-        paged_decode_attention,
-        paged_decode_reference,
-    )
+    """The paged decode kernel against its plain version at DECODE_SHAPES,
+    each pool family, window off and on, three split settings: the
+    wrapper's (decode_splits), one split and one 64-token tile a split;
+    two launches bitwise, dead slots exact zeros. At the two timed shapes,
+    times of the kernel (the wrapper's split and one split), the plain
+    version and SDPA beside the bound."""
+    from beholder_tpu_torch.ops import paged_attention as pa
     from beholder_tpu_torch.ops.quant import pool_quantize, pool_scales_f32
 
     dev = torch.device("cuda")
     F = torch.nn.functional
-    shapes = {
-        # the headline serving shape: lens 255..383, one dead slot
-        "headline": dict(S=8, H=8, Hkv=2, Dh=64, page=128, N=32, P=4,
-                         lens=[255, 275, 300, 320, 340, 360, 383, -1], window=200),
-        # the long-context shape: 512-token pages, lens about 3584..3711
-        "long": dict(S=8, H=8, Hkv=2, Dh=64, page=512, N=64, P=8,
-                     lens=[3584, 3600, 3620, 3640, 3660, 3680, 3700, 3711],
-                     window=1500),
-    }
     cases = []
-    for shape, c in shapes.items():
+    for shape, c in DECODE_SHAPES.items():
         rng = np.random.default_rng(7)
         S, H, Hkv, Dh, page, N, P = (c[k] for k in ("S", "H", "Hkv", "Dh", "page", "N", "P"))
         q = torch.from_numpy(rng.normal(0, 1, (S, H, Dh)).astype(np.float32)).to(dev).bfloat16()
@@ -236,6 +269,8 @@ def kernel_phase(torch, flush) -> list[dict]:
             rng.permutation(N)[: S * P].reshape(S, P).astype(np.int32)).to(dev)
         lens_np = np.asarray(c["lens"], np.int32)
         lens = torch.from_numpy(lens_np).to(dev)
+        dead = torch.from_numpy(lens_np < 0).to(dev)
+        tiles = -(-P * page // pa.DECODE_TILE)
         for family in ("bf16", "int8", "fp8"):
             if family == "bf16":
                 kp, vp, ks, vs = k_f.bfloat16(), v_f.bfloat16(), None, None
@@ -251,17 +286,38 @@ def kernel_phase(torch, flush) -> list[dict]:
             for window in (None, c["window"]):
                 args = (q, kp, vp, table, lens)
                 kw = dict(window=window, k_scale=ks, v_scale=vs)
-                out_k = paged_decode_attention(*args, **kw)
-                out_p = paged_decode_reference(*args, **kw)
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(out_k.float()).all()), f"{shape}/{family}: non-finite")
-                err = float((out_k.float() - out_p.float()).abs().max())
-                dead = lens_np < 0
-                if dead.any():
-                    check(bool((out_k[torch.from_numpy(dead).to(dev)] == 0).all()),
-                          f"{shape}/{family}: dead slot row is not zero")
-                check(err <= KERNEL_TOL,
-                      f"{shape}/{family}/window={window}: max abs err {err} > {KERNEL_TOL}")
+                where = f"decode {shape}/{family}/window={window}"
+                out_p = pa.paged_decode_reference(*args, **kw)
+                chosen = pa.decode_splits(S, Hkv, P, page, window)
+                splits = {"chosen": chosen, "one": pa.DecodeSplit(1, tiles * pa.DECODE_TILE),
+                          "tile": pa.DecodeSplit(tiles, pa.DECODE_TILE)}
+                errs = {}
+                for name, split in splits.items():
+                    out_k = pa._launch(q, kp, vp, table, lens, window, ks, vs, split)
+                    again = pa._launch(q, kp, vp, table, lens, window, ks, vs, split)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(out_k.float()).all()), f"{where}/{name}: non-finite")
+                    check(torch.equal(out_k, again), f"{where}/{name}: a repeat launch changed bits")
+                    if dead.any():
+                        check(not bool(out_k[dead].any()), f"{where}/{name}: dead slot row not zero")
+                    errs[name] = float((out_k.float() - out_p.float()).abs().max())
+                    check(errs[name] <= KERNEL_TOL,
+                          f"{where}/{name} splits={split.splits}: max abs err {errs[name]} > "
+                          f"{KERNEL_TOL}")
+                # the wrapper runs the chosen split
+                check(torch.equal(pa.paged_decode_attention(*args, **kw),
+                                  pa._launch(q, kp, vp, table, lens, window, ks, vs, chosen)),
+                      f"{where}: the wrapper's output is not its chosen split's")
+                case = dict(shape=shape, pool=family, window=window, S=S, H=H, Hkv=Hkv, Dh=Dh,
+                            page=page, splits=chosen.splits, span=chosen.span,
+                            max_abs_err=max(errs.values()), errs=errs, tolerance=KERNEL_TOL)
+                cases.append(case)
+                line = (f"kernel paged_decode {shape:8s} {family:4s} window={window!s:5s} "
+                        f"splits={chosen.splits}x{chosen.span} err chosen/one/tile="
+                        + "/".join(f"{e:.3e}" for e in errs.values()) + f" (tol {KERNEL_TOL})")
+                if shape not in DECODE_TIMED:
+                    print(line, flush=True)
+                    continue
                 # library yardstick: SDPA on the pre-gathered dense context
                 # (gather, dequant and head expansion excluded from its time)
                 L = P * page
@@ -275,8 +331,10 @@ def kernel_phase(torch, flush) -> list[dict]:
                     mask = mask & (pos > lens[:, None] - window)
                 mask = mask[:, None, None, :]
                 qd = q[:, :, None, :]
-                ms = time_ms(torch, lambda: paged_decode_attention(*args, **kw), flush)
-                plain_ms = time_ms(torch, lambda: paged_decode_reference(*args, **kw), flush)
+                ms = time_ms(torch, lambda: pa.paged_decode_attention(*args, **kw), flush)
+                one_ms = time_ms(torch, lambda: pa._launch(q, kp, vp, table, lens, window, ks,
+                                                           vs, splits["one"]), flush)
+                plain_ms = time_ms(torch, lambda: pa.paged_decode_reference(*args, **kw), flush)
                 lib_ms = time_ms(
                     torch,
                     lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
@@ -294,16 +352,11 @@ def kernel_phase(torch, flush) -> list[dict]:
                 flops = 4 * H * Dh * tokens                        # QK and PV
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / BF16_FLOPS * 1e3
-                case = dict(
-                    shape=shape, pool=family, window=window, max_abs_err=err,
-                    tolerance=KERNEL_TOL, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    live_bytes=nbytes, bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                )
-                cases.append(case)
+                case.update(ms=ms, one_split_ms=one_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            live_bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes >= t_ops else "operations")
                 print(
-                    f"kernel paged_decode {shape:8s} {family:4s} window={window!s:5s} "
-                    f"err={err:.3e} (tol {KERNEL_TOL}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    line + f" ms={ms:.4f} one_split_ms={one_ms:.4f} plain_ms={plain_ms:.4f} "
                     f"library_ms={lib_ms:.4f} bound_ms={case['bound_ms']:.5f} "
                     f"live_bytes={nbytes}",
                     flush=True,
@@ -513,7 +566,13 @@ FLASH_CASES = {
     "d8": dict(causal=True, H=4, Hkv=4, T=2048, Dh=8),
     "d16": dict(causal=True, H=4, Hkv=2, T=2048, Dh=16),
     "d32": dict(causal=True, H=4, Hkv=4, T=4096, Dh=32),
+    # head dim 128 at the reference's bench_flash_attention shape
+    # (bench.py:838: B=4, H=8, T=4096, forward and backward, causal and not)
+    "d128-causal": dict(causal=True, H=8, Hkv=8, Dh=128),
+    "d128-noncausal": dict(causal=False, H=8, Hkv=8, Dh=128),
 }
+#: the cases whose faulty plain versions must fail the limits
+FLASH_CONTROL_CASES = ("train", "d128-causal", "d128-noncausal")
 
 
 def flash_pairs(T: int, causal: bool, window, seg, offsets=(0, 0)) -> int:
@@ -657,10 +716,12 @@ def run_controls(torch, fa, where, qkv, o_p, bwd, plain, lo, row_lo=None, **kw) 
 def flash_kernel_phase(torch, flush) -> list[dict]:
     """The three flash kernels against their plain versions at the training
     shape, causal, with a window, non-causal, with segment ids and at an
-    unaligned T, and at the two edge shapes; the backward's bits equal over
-    two launches; at the training shape faulty plain versions fail their
-    limits (backward_controls); times of each kernel, its plain version and
-    SDPA (forward, and its backward for dq and dk/dv), beside the bound."""
+    unaligned T, at the two edge shapes, at head dims 8, 16 and 32, and at
+    head dim 128 on the reference's bench_flash_attention shape; the
+    backward's bits equal over two launches; at the training shape and at
+    head dim 128 faulty plain versions fail their limits
+    (backward_controls); times of each kernel, its plain version and SDPA
+    (forward, and its backward for dq and dk/dv), beside the bound."""
     from beholder_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -718,7 +779,7 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
                   f"{where}: {g} differs from the plain bits in a share {share} > {FLASH_GRAD_SHARE}")
         check(lse_err <= FLASH_LSE_ATOL, f"{where}: lse err {lse_err} > {FLASH_LSE_ATOL}")
         controls = None
-        if name == "train":
+        if name in FLASH_CONTROL_CASES:
             controls = run_controls(torch, fa, where, (q, k, v), o_p, bwd, (dq_p, dk_p, dv_p),
                                     T // 2, **kw)
 
@@ -833,6 +894,10 @@ OFFSET_CASES = {
     # a 512 window from shard 1 reaching back into shard 0's block: rows
     # 0-510 of the shard see keys 513-1023 of the block, the rest none
     "window512": dict(offsets=(1024, 0), window=512, row_lo=0),
+    # head dim 128 on bench_ring_block's shard (FWD128_SHAPE, below): its
+    # mid-ring rotation, every pair live, and its diagonal rotation
+    "d128-offaxis": dict(offsets=(8192, 4096), shape="d128"),
+    "d128-diagonal": dict(offsets=(4096, 4096), shape="d128"),
 }
 
 
@@ -840,7 +905,8 @@ def offset_kernel_phase(torch, flush) -> list[dict]:
     """The three flash kernels in the ring block-pair (offset) mode against
     their plain versions at the ring's shard shape: a fully live off-axis
     pair, a dead pair, the diagonal through offset mode and a window that
-    straddles two shards. The forward's row reading and lse, the backward's
+    straddles two shards; and at head dim 128 on bench_ring_block's shard,
+    its off-axis and diagonal pairs. The forward's row reading and lse, the backward's
     two-part check from the ring's global lse (a pair's own lse where a row
     sees a key, its diagonal block's elsewhere), repeat launches bitwise,
     the negative controls failing (live cases), exact zeros (dead case);
@@ -850,9 +916,10 @@ def offset_kernel_phase(torch, flush) -> list[dict]:
     from beholder_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    B, H, Hkv, T, Dh = (OFFSET_SHAPE[k] for k in ("B", "H", "Hkv", "T", "Dh"))
     cases = []
     for name, c in OFFSET_CASES.items():
+        shape = FWD128_SHAPE if c.get("shape") == "d128" else OFFSET_SHAPE
+        B, H, Hkv, T, Dh = (shape[k] for k in ("B", "H", "Hkv", "T", "Dh"))
         offsets, window = c["offsets"], c.get("window")
         rng = np.random.default_rng(19)
 
@@ -957,9 +1024,10 @@ def forward_d128_phase(torch, flush) -> list[dict]:
     forward without one key tile failing them (live cases), exact zeros
     and -1e30 (dead case), times of the kernel, its plain version and SDPA
     (a boolean mask on the global positions in offset mode) beside the
-    bound. Then the head-dim guard on the card: ``flash_attention`` at 128
-    on inputs that require a gradient raises, naming the backward's head
-    dims, before any launch; without gradients it launches the forward."""
+    bound. Then the head-dim guard on the card: ``flash_attention`` at 96,
+    outside the backward's head dims, on inputs that require a gradient
+    raises, naming them, before any launch; at 128 the same call launches
+    the forward, and its backward dq and dk/dv once each."""
     from beholder_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -1031,25 +1099,30 @@ def forward_d128_phase(torch, flush) -> list[dict]:
               f"library_ms={lib_ms:.4f} bound_ms={case['bound_ms']:.5f} ({case['bound_by']})",
               flush=True)
 
-    # the guard: the backward kernels stop at head dim 64
+    # the guard: a differentiable call at a head dim outside the backward's
+    # set (96) raises before any launch; at 128 it runs forward and backward
     before = flash_counts(fa)
-    leaf = q4.detach().clone().requires_grad_()
+    leaf96 = torch.zeros(B, H, T, 96, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    kv96 = torch.zeros(B, Hkv, T, 96, dtype=torch.bfloat16, device=dev)
     try:
-        fa.flash_attention(leaf, k4, v4, causal=True)
+        fa.flash_attention(leaf96, kv96, kv96, causal=True)
     except ValueError as e:
         message = str(e)
     else:
-        fail("flash d128: a differentiable flash_attention call did not raise")
+        fail("flash d96: a differentiable flash_attention call did not raise")
     torch.cuda.synchronize()
     want = str(fa.KERNEL_HEAD_DIMS["flash backward"])
-    check(want in message, f"flash d128: the refusal does not name {want}: {message}")
-    check(flash_counts(fa) == before, "flash d128: a kernel launched before the refusal")
-    with torch.no_grad():
-        fa.flash_attention(leaf, k4, v4, causal=True)
-    check(flash_counts(fa) == (before[0] + 1, *before[1:]),
-          "flash d128: flash_attention without gradients did not launch the forward")
-    print(f"flash d128 guard: with gradients raises before any launch ({message}); "
-          f"without, one forward launch", flush=True)
+    check(want in message, f"flash d96: the refusal does not name {want}: {message}")
+    check(flash_counts(fa) == before, "flash d96: a kernel launched before the refusal")
+    leaf = q4.detach().clone().requires_grad_()
+    fa.flash_attention(leaf, k4, v4, causal=True).backward(torch.ones_like(q4))
+    torch.cuda.synchronize()
+    check(flash_counts(fa) == tuple(b + 1 for b in before),
+          f"flash d128: a differentiable call launched {flash_counts(fa)} from {before}, "
+          "not one forward, one dq and one dk/dv")
+    check(bool(torch.isfinite(leaf.grad).all()), "flash d128: dq not finite")
+    print(f"flash guard: at head dim 96 with gradients raises before any launch ({message}); "
+          f"at 128 one forward, one dq and one dk/dv launch", flush=True)
     return cases
 
 

@@ -252,10 +252,10 @@ class _PastTheCheck(Exception):
 @pytest.mark.parametrize("dh", [4, 8, 12, 16, 24, 32, 48, 64, 96, 128])
 def test_kernel_head_dim_check_takes_the_instantiated_dims(dh, monkeypatch):
     """The CUDA path's head-dim checks (run before any launch, so reachable
-    without a card), one set per kernel: the flash forward and the paged
-    chunk kernel take head dims 8, 16, 32, 64 and 128, the flash backward
-    kernels (dq, dk/dv) 8, 16, 32 and 64; each raises for any other head
-    dim with a message that names its own set."""
+    without a card), one set per kernel: the flash forward, the flash
+    backward kernels (dq, dk/dv) and the paged chunk kernel take head dims
+    8, 16, 32, 64 and 128; each raises for any other head dim with a
+    message that names its own set."""
     from beholder_tpu_torch.ops import paged_attention as pa
 
     def past(*_, **__):
@@ -264,7 +264,7 @@ def test_kernel_head_dim_check_takes_the_instantiated_dims(dh, monkeypatch):
     monkeypatch.setattr(pa, "_kernel_mode", past)
     assert fa.KERNEL_HEAD_DIMS == {
         "flash forward": (8, 16, 32, 64, 128),
-        "flash backward": (8, 16, 32, 64),
+        "flash backward": (8, 16, 32, 64, 128),
         "paged chunk": (8, 16, 32, 64, 128),
     }
     q = torch.zeros(4, 8, dh, dtype=torch.bfloat16)
@@ -297,16 +297,17 @@ def test_kernel_head_dim_check_takes_the_instantiated_dims(dh, monkeypatch):
                 check()
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 96, 128])
 @pytest.mark.parametrize("entry", ["flash_attention", "ring_attention"])
-def test_card_path_refuses_a_backward_at_head_dim_128_before_the_forward(entry, dh,
-                                                                         monkeypatch):
-    """On the card a differentiable call at head dim 128, which the forward
-    kernel takes and the backward kernels do not, raises before the forward
-    launches, naming the backward's head dims; without gradients the same
-    call reaches the forward kernel. At head dim 64 both reach it. The card
-    path is taken here on CPU tensors (``_on_card`` patched); the kernel
-    library stands in by raising once the checks are passed."""
+def test_card_path_refuses_a_backward_at_head_dim_96_before_the_forward(entry, dh,
+                                                                        monkeypatch):
+    """On the card a differentiable call at head dim 96, outside the
+    backward kernels' set, raises before the forward launches, naming the
+    backward's head dims; without gradients the forward's own check refuses
+    it, naming the forward's. At head dims 64 and 128, in both sets, both
+    calls reach the forward kernel. The card path is taken here on CPU
+    tensors (``_on_card`` patched); the kernel library stands in by raising
+    once the checks are passed."""
     from beholder_tpu_torch.ops.attention import ring_attention
     from beholder_tpu_torch.parallel import Mesh
 
@@ -328,15 +329,19 @@ def test_card_path_refuses_a_backward_at_head_dim_128_before_the_forward(entry, 
             return ring_attention(*x, Mesh(["cpu"] * 4), causal=True)
 
     leaf = q.clone().requires_grad_()
-    if dh == 128:
-        with pytest.raises(ValueError,
-                           match=r"flash backward kernel takes head_dim in \(8, 16, 32, 64\)"):
+    if dh == 96:
+        with pytest.raises(ValueError, match=r"flash backward kernel takes head_dim in "
+                           r"\(8, 16, 32, 64, 128\), got 96"):
             call(leaf, k, k)
         assert reached == []
-    else:
-        with pytest.raises(_PastTheCheck):
+        with torch.no_grad(), pytest.raises(ValueError, match=r"flash forward kernel takes "
+                                            r"head_dim in \(8, 16, 32, 64, 128\), got 96"):
             call(leaf, k, k)
-        assert reached == ["flash_fwd"]
+        assert reached == []
+        return
+    with pytest.raises(_PastTheCheck):
+        call(leaf, k, k)
+    assert reached == ["flash_fwd"]
     reached.clear()
     with torch.no_grad(), pytest.raises(_PastTheCheck):
         call(leaf, k, k)
