@@ -3,14 +3,15 @@
 Counterpart of the reference's ``analytics.py``: the progress consumer
 records each observation (``record(status, progress)``); every
 ``flush_every`` observations the buffered batch is aggregated in one
-launch of the aggregation kernel (``ops.aggregate_telemetry``) and the
-summary is logged as a structured record: per lowercase status name with a
-count above 0, its ``count``, ``mean_progress`` rounded to 2 places and
-``max_progress``.
+launch of the aggregation kernel (``ops.aggregate_telemetry_packed``) and
+the summary is logged as a structured record: per lowercase status name
+with a count above 0, its ``count``, ``mean_progress`` rounded to 2 places
+and ``max_progress``.
 
 Each flush moves its batch to the device as int32 through pinned memory
-and reads the four ``(S,)`` results back in one copy, so a synchronous
-flush synchronises once (the reference reads each value on its own).
+and reads the kernel's ``(4, S)`` output back in one copy, so a
+synchronous flush synchronises once (the reference reads each value on its
+own).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device, to_device
-from .ops import NUM_STATUSES, STATUS_NAMES, aggregate_telemetry
+from .ops import NUM_STATUSES, STATUS_NAMES
+from .ops.fused_aggregate import aggregate_telemetry_packed
 
 
 class AnalyticsSink:
@@ -92,13 +94,12 @@ class AnalyticsSink:
             self._log.warning(f"analytics aggregation failed: {err!r}")
 
     def _aggregate(self, statuses: list[int], progress: list[int]) -> dict[str, Any]:
-        out = aggregate_telemetry(
+        # one readback of the kernel's (4, S) output: the int32 counts travel
+        # as their bits beside the f32 rows
+        packed = aggregate_telemetry_packed(
             to_device(np.asarray(statuses, np.int32), self.device),
             to_device(np.asarray(progress, np.int32), self.device),
-        )
-        # one readback: the int32 counts travel as their bits beside the f32 rows
-        packed = torch.stack([out["count"].view(torch.float32), out["mean_progress"],
-                              out["max_progress"]]).cpu()
+        ).cpu()
         counts = packed[0].view(torch.int32).tolist()
         means, maxes = packed[1].tolist(), packed[2].tolist()
         summary = {

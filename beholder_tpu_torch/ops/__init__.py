@@ -14,13 +14,17 @@ from .aggregate import (  # noqa: E402  (needs the names above)
     ewma,
     status_counts,
 )
-from .fused_aggregate import aggregate_telemetry_fused  # noqa: E402
+from .fused_aggregate import (  # noqa: E402
+    aggregate_telemetry_fused,
+    aggregate_telemetry_packed,
+)
 
 __all__ = [
     "NUM_STATUSES",
     "STATUS_NAMES",
     "aggregate_telemetry",
     "aggregate_telemetry_fused",
+    "aggregate_telemetry_packed",
     "aggregate_telemetry_reference",
     "ewma",
     "status_counts",

@@ -26,8 +26,9 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    wave and warm shapes at 8, 16, 32 and 128); the registers, spills,
    shared memory and blocks per SM of the flash forward, the two backward
    kernels, the chunk kernel (each pool family) at every head dim each is
-   instantiated for and of the decode kernel (each pool family, both
-   instantiations), failing on any local memory; the backward's bits equal
+   instantiated for, of the decode kernel (each pool family, both
+   instantiations) and of the aggregation kernel (int32 and f32 progress,
+   each path), failing on any local memory; the backward's bits equal
    over two launches, and negative controls (a forward, dq and dk/dv
    without one key tile, a dk/dv without one query tile or one query head
    of the group, gradients scaled by 1 + 2**-8: each must fail); then the
@@ -70,8 +71,13 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    max and min bitwise, the mean within rtol 1e-5) and a float64 numpy
    oracle at the sink's flush (4,096 events), 1,000,000 and 8,388,608
    events, a ragged batch with out-of-range statuses, a skewed one, f32
-   progress and misaligned inputs; repeat launches bitwise; a negative
-   control; times beside the bound and a four-call PyTorch yardstick. Then
+   progress, misaligned inputs, one event, the one-block path's limit and
+   one past it, and every event in one status; repeat launches bitwise; a
+   negative control; one call is one kernel launch and no memset
+   (profiler); times beside the bound, the first design's recorded time,
+   the same call after a clean (read) L2 flush, the timing floor (a
+   one-cycle kernel) and a four-call PyTorch yardstick, and at 8,388,608
+   events ``torch.sum`` over the same bytes as a read rate. Then
    ``AnalyticsSink(flush_every=4096, async_flush=True)`` takes 2**20
    observations through ``record()``: launches == flushes (counted), every
    logged summary against the oracle; a synchronous flush makes one
@@ -153,10 +159,11 @@ def card_line() -> str:
 
 def kernel_resources() -> dict:
     """What the flash forward, the two flash backward kernels, the paged
-    chunk kernel and the paged decode kernel take on this card at every
-    instantiation (each head dim of the kernel's set; the paged kernels per
-    pool family too, the decode kernel's at a group of 4 (headline, head
-    dim 64) and of 16 (head dim 128)): registers and local (spilled) bytes
+    chunk kernel, the paged decode kernel and the aggregation kernel take
+    on this card at every instantiation (each head dim of the kernel's set;
+    the paged kernels per pool family too, the decode kernel's at a group
+    of 4 (headline, head dim 64) and of 16 (head dim 128); aggregation for
+    int32 and f32 progress on each path): registers and local (spilled) bytes
     a thread, dynamic shared memory a block, resident blocks an SM
     (cudaFuncGetAttributes and the occupancy calculator). Fails on any
     local memory."""
@@ -183,6 +190,12 @@ def kernel_resources() -> dict:
                  decode.paged_decode_resources, (mode, h, hkv, dh))
                 for h, hkv, dh in ((8, 2, 64), (16, 1, 128))
                 for mode, family in enumerate(("bf16", "int8", "fp8"))]
+    from beholder_tpu_torch.ops import fused_aggregate
+
+    agg = fused_aggregate._kernel_lib()
+    queries += [(f"aggregate_kernel<{prog}, {path}>", agg.aggregate_resources, (which,))
+                for which, prog, path in ((0, "int32", "grid"), (1, "f32", "grid"),
+                                          (2, "int32", "one block"), (3, "f32", "one block"))]
     out = {}
     for name, query, args in queries:
         query.restype = ctypes.c_int
@@ -198,18 +211,23 @@ def kernel_resources() -> dict:
     return out
 
 
-def time_ms(torch, fn, flush, reps: int = 25, warm: int = 3) -> float:
+def time_ms(torch, fn, flush, reps: int = 25, warm: int = 3, clean: bool = False) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after ``warm``,
     with the L2 cache flushed (64 MB written) before each timed run. A
     ~1 ms spin kernel before the start event keeps the card busy while the
     host enqueues ``fn``'s launches, so the interval holds device time and
     not the host's launch overhead (for a call that issues more than ~1 ms
-    of launches, part of that overhead remains)."""
+    of launches, part of that overhead remains). The written flush leaves
+    L2 full of dirty lines that a large read must write back first;
+    ``clean`` flushes by reading 64 MB instead, which leaves none."""
     for _ in range(warm):
         fn()
     events = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1971,7 +1989,19 @@ AGG_CASES = {
     "skewed": dict(n=8_388_608, skew=0.9),
     "bench_f32": dict(n=1_000_000, f32=True),
     "unaligned": dict(n=1_000_003, offset=1, progress_offset=2),
+    # the kernel's paths: one event; the one-block path's limit and one past
+    # it (ops/fused_aggregate.py ONE_BLOCK_MAX = 16,384; one past it is the
+    # smallest grid launch); every event in one status
+    "one": dict(n=1),
+    "threshold": dict(n=16_384),
+    "past_threshold": dict(n=16_385),
+    "one_status": dict(n=8_388_608, skew=1.0),
 }
+#: the first design's recorded time (ms) at each AGG_CASES shape it was
+#: timed at (PERF.md §6, row 5 and its history), printed beside this run's;
+#: the cases added with the redesign have none
+AGG_PRIOR_MS = {"flush": 0.0125, "bench": 0.02179, "large": 0.04861, "ragged": 0.04877,
+                "skewed": 0.04854, "bench_f32": 0.02192, "unaligned": 0.02608}
 #: the sink path: the service's default flush (beholder_tpu/service.py:514)
 #: and 2**20 observations, 256 flushes
 SINK_FLUSH_EVERY, SINK_EVENTS = 4096, 2**20
@@ -2034,11 +2064,17 @@ def agg_agrees(got: dict, want: dict) -> tuple[bool, dict]:
 def aggregate_kernel_phase(torch, flush) -> list[dict]:
     """The aggregation kernel against its plain version (and a float64
     numpy oracle) at AGG_CASES, repeat launches bitwise, a negative control
-    (the batch without its last event must fail the check), and times of
-    the kernel, the plain version and a four-call PyTorch yardstick beside
-    the bound."""
+    (the batch without its last event must fail the check), one call one
+    kernel launch and no memset (profiler), and times of the kernel (also
+    after a clean L2 flush), the plain version and a four-call PyTorch
+    yardstick beside the bound and the timing floor."""
     from beholder_tpu_torch.ops import aggregate_telemetry, aggregate_telemetry_reference
+    from beholder_tpu_torch.ops import fused_aggregate
 
+    # what no kernel can go below in time_ms: a kernel that spins one cycle
+    floor_ms = time_ms(torch, lambda: torch.cuda._sleep(1), flush)
+    print(f"kernel aggregate timing floor: a one-cycle kernel {floor_ms:.5f} ms (time_ms)",
+          flush=True)
     cases = []
     for i, (name, c) in enumerate(AGG_CASES.items()):
         st, pr, st_np, pr_np = agg_inputs(torch, c, seed=i)
@@ -2067,7 +2103,24 @@ def aggregate_kernel_phase(torch, flush) -> list[dict]:
             control, _ = agg_agrees(dropped, plain)
             check(not control, f"{where}: the batch without its last event passes the check")
         ms = time_ms(torch, lambda: aggregate_telemetry(st, pr), flush)
-        own = profile_device(torch, lambda: aggregate_telemetry(st, pr), flush)
+        clean_ms = time_ms(torch, lambda: aggregate_telemetry(st, pr), flush, clean=True)
+        read_ref = None
+        if name == "large":  # torch's own reduction over the same bytes, as a read rate
+            x = torch.zeros(2 * n, device="cuda")
+            read_ref = {"ms": time_ms(torch, x.sum, flush),
+                        "clean_ms": time_ms(torch, x.sum, flush, clean=True)}
+            del x
+        # one device operation a call: one kernel row, once a call, no memset.
+        # The profiler has dropped kernel records under load (a row read 2
+        # launches for 5 calls once), so a reading below one a call is
+        # profiled again, up to three times; one above it fails at once.
+        for _ in range(3):
+            own = profile_device(torch, lambda: aggregate_telemetry(st, pr), flush)
+            if all(v["per_call"] >= 1 for v in own.values()):
+                break
+        check(len(own) == 1 and all("aggregate_kernel" in k and v["per_call"] == 1
+                                    for k, v in own.items()),
+              f"{where}: a call is not exactly one kernel launch: {own}")
         plain_ms = time_ms(torch, lambda: aggregate_telemetry_reference(st, pr), flush, reps=10)
         lib_ms = None
         if "out_of_range" not in c:  # index_add_ asserts on an index outside [0, 6)
@@ -2095,14 +2148,24 @@ def aggregate_kernel_phase(torch, flush) -> list[dict]:
                     bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     counts=got["count"].tolist())
+        prior = AGG_PRIOR_MS.get(name)
+        case.update(first_design_ms=prior, clean_l2_ms=clean_ms, timing_floor_ms=floor_ms,
+                    torch_sum_same_bytes=read_ref)
         cases.append(case)
         print(
             f"kernel aggregate {name:9s} n={n} progress={case['progress']} "
+            f"path={'one block' if n <= fused_aggregate.ONE_BLOCK_MAX else 'grid'} "
             f"vs_plain={diffs} (counts/max/min bitwise, mean rtol {AGG_MEAN_RTOL}) "
             f"vs_f64_oracle={vs_oracle} plain_vs_f64_oracle={plain_vs_oracle} "
             f"repeat_bitwise=yes"
             + ("" if control is None else " negative_control(last event dropped)=fails_check")
-            + f" ms={ms:.5f} (profiler, us per call: {own}) plain_ms={plain_ms:.4f} "
+            + f" ms={ms:.5f} (first design: "
+            + ("none recorded" if prior is None else f"{prior:.5f}")
+            + f"; clean L2 {clean_ms:.5f}"
+            + ("" if read_ref is None else
+               f"; torch.sum of the same bytes {read_ref['ms']:.5f}, clean L2 "
+               f"{read_ref['clean_ms']:.5f}")
+            + f"; profiler, one call: {own}) plain_ms={plain_ms:.4f} "
             f"library_ms(4 calls)="
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={case['bound_ms']:.6f} "
             f"({case['bound_by']}) counts={case['counts']}",
@@ -2113,9 +2176,10 @@ def aggregate_kernel_phase(torch, flush) -> list[dict]:
 
 
 def profile_device(torch, fn, flush, calls: int = 5) -> dict:
-    """Device microseconds per call of ``fn`` by profiler row (kernels,
-    memsets, copies), over ``calls`` calls after one warm call, with the L2
-    cache flushed before each (the flush's own row left out)."""
+    """Per profiler row (kernels, memsets, copies) of ``fn``: device
+    microseconds and launches per call (``us``, ``per_call``), over
+    ``calls`` calls after one warm call, with the L2 cache flushed before
+    each (the flush's own row left out)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2126,8 +2190,13 @@ def profile_device(torch, fn, flush, calls: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     # the aggregation path launches no fill: the fill rows are the flush's
-    return {e.key[:60]: round(dev_us(e) / calls, 3)
-            for e in device_rows(prof.key_averages()) if "FillFunctor" not in e.key}
+    out = {}
+    for e in device_rows(prof.key_averages()):
+        if "FillFunctor" not in e.key:  # rows of one name may come split: add them up
+            row = out.setdefault(e.key[:60], {"us": 0.0, "per_call": 0.0})
+            row["us"] += dev_us(e) / calls
+            row["per_call"] += e.count / calls
+    return {k: {"us": round(v["us"], 3), "per_call": v["per_call"]} for k, v in out.items()}
 
 
 def sink_summary(st: np.ndarray, pr: np.ndarray) -> dict:

@@ -7,13 +7,16 @@ The same numpy-seeded batches go through the reference's XLA
 Tolerances: counts, max and min exactly equal; the mean within rtol 1e-5,
 the reference's own band (``tests/test_pallas_aggregate.py:18-20``), since
 the port sums progress in another order than XLA's one-hot product;
-``ewma`` within rtol 1e-6 (``tests/test_ops.py``).
+``ewma`` within rtol 1e-6 (``tests/test_ops.py``). The card path's plan,
+partition and fixed-order combine are checked below without a card.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as hst
 
 from beholder_tpu.ops import aggregate_telemetry as ref_aggregate
 from beholder_tpu.ops import ewma as ref_ewma
@@ -28,7 +31,8 @@ from beholder_tpu_torch.ops import (
     ewma,
     status_counts,
 )
-from beholder_tpu_torch.ops.fused_aggregate import kernel_inputs
+from beholder_tpu_torch.ops import fused_aggregate as fa
+from beholder_tpu_torch.ops.fused_aggregate import aggregate_plan, kernel_inputs, vector_span
 
 
 def _statuses(case: str, rng) -> np.ndarray:
@@ -215,3 +219,174 @@ def test_reference_is_the_plain_version_on_any_device():
     b = aggregate_telemetry_reference(torch.from_numpy(statuses), torch.from_numpy(progress))
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+# --- the card path's plan and partition, checked without a card -------------
+#
+# ``csrc/aggregate.cu`` runs one block up to ``ONE_BLOCK_MAX`` events and a
+# persistent grid above it (``aggregate_plan``), reads events
+# ``[head, head + 4 nvec)`` as 16-byte loads (``vector_span``) in rounds of
+# ``fa.ROUND_EVENTS`` taken by block ``round mod grid``, and the rest one at
+# a time, element ``j`` by global thread ``j mod (grid * THREADS)``. The walk
+# below mirrors the kernel's two loops; ``chip_smoke.py`` holds the kernel
+# itself against the plain version on the card.
+
+#: the H100's SMs
+SMS = 132
+
+
+def _walk(n: int, head: int, nvec: int, grid: int):
+    """(event, block, thread) for every event the kernel's loops add, in
+    the order each thread adds them: the body's rounds, then the element
+    path (its four loads ahead a thread taken in order)."""
+    threads, per_round = fa.THREADS, fa.ROUND_EVENTS // 4
+    rounds = -(-nvec // per_round)
+    tail0 = head + 4 * nvec
+    rest = head + (n - tail0)
+    stride = grid * threads
+    events, blocks, tids = [], [], []
+    for b in range(grid):
+        g = (np.arange(b, rounds, grid)[:, None] * per_round + np.arange(per_round)).ravel()
+        g = g[g < nvec]
+        ev = (head + 4 * g[:, None] + np.arange(4)).ravel()
+        events.append(ev)
+        tids.append(np.repeat(g % threads, 4))
+        j = (b * threads + np.arange(threads))[None, :] + np.arange(0, rest, 4 * stride)[:, None]
+        j = (j[:, None, :] + np.arange(4)[None, :, None] * stride).reshape(-1, threads)
+        t = np.broadcast_to(np.arange(threads), j.shape)
+        keep = j < rest
+        j, t = j[keep], t[keep]
+        events.append(np.where(j < head, j, tail0 + (j - head)))
+        tids.append(t)
+        blocks.append(np.full(ev.size + j.size, b))
+    return np.concatenate(events), np.concatenate(blocks), np.concatenate(tids)
+
+
+def test_plan_runs_one_block_at_the_sink_flush():
+    """The sink's flush of 4,096 events is one block (no ticket, no
+    partials), as is everything up to the limit; one past it is a grid."""
+    assert aggregate_plan(4096, SMS) == (True, 1)
+    assert aggregate_plan(1, SMS) == (True, 1)
+    assert aggregate_plan(fa.ONE_BLOCK_MAX, SMS) == (True, 1)
+    assert aggregate_plan(fa.ONE_BLOCK_MAX + 1, SMS).one_block is False
+    assert aggregate_plan(8_388_608, SMS) == (False, fa.BLOCKS_PER_SM * SMS)
+
+
+@settings(max_examples=200, deadline=None)
+@given(n=hst.integers(1, 10**9), sms=hst.integers(1, 400))
+def test_plan_grid_is_never_empty_and_fits_the_scratch(n, sms):
+    """Never 0 blocks; one block exactly on the one-block path; a grid never
+    larger than the scratch holds (BLOCKS_PER_SM a SM) nor than the last
+    block can stage (MAX_GRID); the same answer for the same (n, SMs)."""
+    plan = aggregate_plan(n, sms)
+    assert plan.grid >= 1
+    assert plan.one_block == (n <= fa.ONE_BLOCK_MAX)
+    if plan.one_block:
+        assert plan.grid == 1
+    else:
+        assert 2 <= plan.grid <= min(fa.BLOCKS_PER_SM * sms, fa.MAX_GRID)
+        assert plan.grid <= -(-n // fa.ROUND_EVENTS)  # no block without a round
+    assert aggregate_plan(n, sms) == plan
+
+
+@settings(max_examples=60, deadline=None)
+@given(n=hst.integers(1, 3_000_000), status_offset=hst.integers(0, 3),
+       progress_offset=hst.integers(0, 3), sms=hst.sampled_from([1, 2, 5, 132]))
+def test_partition_puts_every_event_in_exactly_one_block(n, status_offset, progress_offset,
+                                                         sms):
+    """Head offsets of 0-3 elements for each pointer: every event is in
+    exactly one block's share (element head, 16-byte body, ragged tail), no
+    event outside the batch, and the body starts on a 16-byte boundary of
+    both inputs."""
+    head, nvec = vector_span(n, status_offset, progress_offset)
+    assert 0 <= head and head + 4 * nvec <= n
+    if nvec:
+        assert (status_offset + head) % 4 == 0 and (progress_offset + head) % 4 == 0
+        assert head < 4 and n - head - 4 * nvec < 4
+    plan = aggregate_plan(n, sms)
+    events, blocks, tids = _walk(n, head, nvec, plan.grid)
+    assert events.min() >= 0 and events.max() < n
+    assert np.array_equal(np.bincount(events, minlength=n), np.ones(n, np.int64))
+    assert blocks.max() < plan.grid and tids.max() < fa.THREADS
+
+
+def _emulate(statuses: np.ndarray, progress: np.ndarray, offsets, sms: int) -> dict:
+    """The kernel's arithmetic in numpy: per thread and status an f32 sum in
+    the thread's order; per block, lane l sums threads l, l + 32, ... in f64,
+    then the xor tree; the partials combined the same way over blocks
+    (lane l: blocks l, l + 32, ...). Max and min from -1e9 / +1e9."""
+    n, big = statuses.shape[0], np.float32(1e9)
+    p32 = progress.astype(np.float32)
+    zero = {k: np.zeros(NUM_STATUSES, np.float32) for k in
+            ("mean_progress", "max_progress", "min_progress")}
+    if n == 0:
+        return {"count": np.zeros(NUM_STATUSES, np.int32), **zero}
+    head, nvec = vector_span(n, *offsets)
+    plan = aggregate_plan(n, sms)
+    events, blocks, tids = _walk(n, head, nvec, plan.grid)
+    st = statuses[events]
+    ok = (st >= 0) & (st < NUM_STATUSES)
+    events, blocks, tids, st = events[ok], blocks[ok], tids[ok], st[ok]
+    threads, grid = fa.THREADS, plan.grid
+    thread_sum = np.zeros((grid, threads, NUM_STATUSES), np.float32)
+    for e, b, t, s in zip(events, blocks, tids, st):  # each thread's own order
+        thread_sum[b, t, s] = np.float32(thread_sum[b, t, s] + p32[e])
+
+    def lanes_then_tree(x):  # (..., m) -> (...,): lane l sums l, l + 32, ... then xor tree
+        m = x.shape[-1]
+        lanes = np.zeros(x.shape[:-1] + (32,), np.float64)
+        for k in range(0, m, 32):
+            chunk = x[..., k:k + 32].astype(np.float64)
+            lanes[..., :chunk.shape[-1]] += chunk
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[..., np.arange(32) ^ off]
+        return lanes[..., 0]
+
+    block_sum = lanes_then_tree(thread_sum.transpose(0, 2, 1))  # (grid, S)
+    total = lanes_then_tree(block_sum.T)  # (S,)
+    count = np.bincount(st, minlength=NUM_STATUSES).astype(np.int32)
+    hi = np.full(NUM_STATUSES, -big)
+    lo = np.full(NUM_STATUSES, big)
+    np.maximum.at(hi, st, p32[events])
+    np.minimum.at(lo, st, p32[events])
+    present = count > 0
+    mean = np.where(present, total.astype(np.float32) / np.maximum(count, 1).astype(np.float32),
+                    np.float32(0))
+    return {"count": count, "mean_progress": mean.astype(np.float32),
+            "max_progress": np.where(present, hi, np.float32(0)).astype(np.float32),
+            "min_progress": np.where(present, lo, np.float32(0)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("sms", [SMS, 4], ids=["132sm", "4sm"])
+@pytest.mark.parametrize("progress_dtype", ["int32", "f32"])
+@pytest.mark.parametrize("case", CASES)
+def test_block_partials_combine_to_the_plain_version(case, progress_dtype, sms):
+    """The kernel's per-block partials, combined in its fixed order with f64
+    sums, against ``aggregate_telemetry_reference``: counts, max and min
+    exact, the mean within rtol 1e-5 (the chip check's band). Pointer
+    offsets vary by case; ``out_of_range`` has none in common (every event
+    one at a time); at 4 SMs ``two_tiles`` walks several rounds a block."""
+    statuses, progress = _batch(case, progress_dtype)
+    i = CASES.index(case)
+    offsets = (1, 2) if case == "out_of_range" else (i % 4, i % 4)
+    got = _emulate(statuses, progress, offsets, sms)
+    want = aggregate_telemetry_reference(torch.from_numpy(statuses), torch.from_numpy(progress))
+    np.testing.assert_array_equal(got["count"], want["count"].numpy())
+    np.testing.assert_array_equal(got["max_progress"], want["max_progress"].numpy())
+    np.testing.assert_array_equal(got["min_progress"], want["min_progress"].numpy())
+    np.testing.assert_allclose(got["mean_progress"], want["mean_progress"].numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["ragged", "tiny", "empty", "out_of_range"])
+def test_packed_readback_on_the_cpu_is_the_plain_version(case):
+    """``aggregate_telemetry_packed`` on CPU tensors: one (4, S) f32 tensor,
+    row 0 the int32 counts' bits, rows 1-3 mean, max and min, equal to
+    ``aggregate_telemetry``'s dict (what the sink reads back in one copy)."""
+    statuses, progress = _batch(case, "int32")
+    s, p = torch.from_numpy(statuses), torch.from_numpy(progress)
+    packed = fa.aggregate_telemetry_packed(s, p)
+    want = aggregate_telemetry(s, p)
+    assert packed.shape == (4, NUM_STATUSES) and packed.dtype == torch.float32
+    assert torch.equal(packed[0].view(torch.int32), want["count"])
+    for row, key in enumerate(("mean_progress", "max_progress", "min_progress"), start=1):
+        assert torch.equal(packed[row], want[key]), key
