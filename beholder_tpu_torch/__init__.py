@@ -43,9 +43,13 @@ reference's module layout and names so a reader finds each counterpart:
 - :mod:`beholder_tpu_torch.models.decode` — the dense forecast oracle;
 - :mod:`beholder_tpu_torch.models.serving` — the paged pool and the
   ``ContinuousBatcher``: cold, fused-wave and prefix-hit admission, forks
-  and what-if forecasts.
+  and what-if forecasts;
+- :mod:`beholder_tpu_torch.spec` — speculative decoding
+  (``ContinuousBatcher(spec=SpecConfig(...)).run_spec``): the null, n-gram
+  and small-model drafters, the dense-gather verify and the fused verify
+  through the paged chunk kernel, greedy and sampled acceptance.
 
-Not ported yet: speculative decoding, the intake queue, metrics, tracing,
+Not ported yet: the intake queue, metrics, tracing,
 the flight recorder, deadlines, autotune, MoE, Ulysses attention, the
 rest of the parallel stack (``dp``/``tp`` axes, a multi-process ring,
 sequence sharding), and the cluster and group engines.

@@ -7,8 +7,9 @@
 // committed positions (< lens[s]) read in place from the (N, Hkv, Dh, page)
 // pools through the page table, plus the chunk's own k/v (an overlay that is
 // never written to the pool), causally per row and under an optional window.
-// Prefix-hit admission (one slot, a suffix over cached pages) and fused-wave
-// admission (lens 0: the chunk attends itself only) both run through it.
+// Prefix-hit admission (one slot, a suffix over cached pages), fused-wave
+// admission (lens 0: the chunk attends itself only) and speculative
+// decoding's fused verify (every slot, max_draft + 1 rows) run through it.
 //
 // What bounds it: at the serving shapes, neither bytes nor operations. A
 // fused wave (8 x 256 tokens, Dh 64) moves ~5.2 MB of q/out/chunk k/v, about
@@ -25,10 +26,16 @@
 // - One block per (slot, kv head, tile of 64 query rows), where the rows
 //   are the G x W (group head, chunk row) pairs of that kv head, contiguous
 //   in q and out. 4 warps, each 16 rows.
-// - 64-key tiles: first the committed context [lo, lens[s]) (pages read in
-//   place), then the overlay tiles of the chunk's own k/v, only as far as
-//   the block's last row can see; tiles before every row's window or after
-//   every row are skipped whole.
+// - 64-key tiles at absolute positions: tile i holds positions [64 i,
+//   64 i + 64), those below lens[s] read in place from the pages, those at
+//   or above it from the chunk's own k/v (the one tile that straddles
+//   lens[s] takes both), from the tile holding lo to the one holding the
+//   block's last visible position; tiles before every row's window or after
+//   every row are skipped whole. So a key meets a query at the same tile
+//   and lane whatever lens[s] is, and a row at position p sums the same
+//   terms in the same order whichever chunk row it sits in: speculative
+//   decoding's exactness (spec on == spec off) holds through this kernel.
+//   A tile masked for a row leaves its max, sum and output unchanged.
 // - Both products on the tensor cores (flash_mma.cuh): mma.sync bf16 with
 //   f32 sums, k and v tiles in bf16 shared memory laid out [key][d] with
 //   padded rows, the score accumulator 16 x 64 a warp in registers, p
@@ -42,7 +49,7 @@
 //   passed by shuffle) and writes them into the [key][d] tile. The next
 //   tile's loads start before the current tile's products, so their
 //   latency hides behind the mma work.
-// - Overlay tiles are row-major (W, Dh) and arrive by cp.async. k and v
+// - Overlay rows are row-major (W, Dh) and arrive by cp.async. k and v
 //   tiles are double-buffered: one barrier a tile.
 // - A page column at or past live_pages reads as zeros (the reference's
 //   assembly), and a position at or past lens[s] is never read from a page.
@@ -156,6 +163,35 @@ template <int D>
 constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * 5 * Dims<D>::kElems;
 static_assert(kSmemBytes<128> <= 227 * 1024, "shared memory over the per-block limit");
 
+// Whether a context tile is whole (every row a context key) or straddles
+// lens[s]: a compile-time flag, so whole tiles carry no row test.
+template <bool B>
+struct Whole {
+  static constexpr bool kValue = B;
+};
+
+// Rows [row_from, kTile) of a tile whose row r is chunk row r0 + r of the
+// (T, D) chunk, by cp.async (rows below row_from hold context keys and are
+// left alone; chunk rows at or past T and head dims at or past D read as
+// zeros). kK / 8 consecutive threads copy one row, as load_tile_async.
+template <int D>
+__device__ __forceinline__ void load_overlay_async(__nv_bfloat16* dst,
+                                                   const __nv_bfloat16* __restrict__ src,
+                                                   int r0, int T, int row_from) {
+  using G = Dims<D>;
+  constexpr int kChunks = G::kK / 8;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const unsigned idx = threadIdx.x + i * kThreads;
+    const int row = static_cast<int>(idx / kChunks);
+    const int col = static_cast<int>(idx % kChunks) * 8;
+    if (row < row_from) continue;
+    const bool valid = r0 + row < T && col < D;
+    cp_async16(dst + row * G::kLd + col,
+               src + (valid ? static_cast<size_t>(r0 + row) * D + col : 0), valid);
+  }
+}
+
 template <int MODE, int D>
 __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
@@ -214,21 +250,25 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   }
   const int hi = min(len, ctx_len);  // committed context: [lo, hi)
   const int lo = window > 0 ? (max(len - (window - 1), 0) / page) * page : 0;
-  const int n_ctx = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
   const int w_valid = max(min(W, ctx_len - len), 0);  // overlay rows inside ctx_len
-  const int n_tiles = n_ctx + (min(jmax + 1, W) + kTile - 1) / kTile;
+  // live keys: [lo, hi) from the pages, [len, len + w_valid) from the chunk;
+  // tiles from the one holding lo to the one holding the last position
+  // some row of the block can see
+  const int t_first = lo / kTile;
+  const int last_pos = min(len + jmax, max(hi, len + w_valid) - 1);
+  const int n_tiles = last_pos >= t_first * kTile ? last_pos / kTile - t_first + 1 : 0;
 
-  // tile t: its first context position (t < n_ctx) or chunk row (overlay)
-  auto base_of = [&](int t) { return t < n_ctx ? lo + t * kTile : (t - n_ctx) * kTile; };
-  // the first tile at or after t that some row of the block can see
+  // tile t's first position, and how many of its rows are context keys
+  auto base_of = [&](int t) { return (t_first + t) * kTile; };
+  auto ctx_rows = [&](int base) { return min(max(len - base, 0), kTile); };
+  // the first tile at or after t that holds a live key some row can see
   auto next_live = [&](int t) {
     for (; t < n_tiles; ++t) {
-      const bool ov = t >= n_ctx;
       const int base = base_of(t);
-      const int first = ov ? len + base : base;
-      const int last = ov ? len + min(base + kTile, W) - 1 : min(base + kTile, hi) - 1;
+      const int last = base + kTile - 1;
+      if (base >= hi && (last < len || base >= len + w_valid)) continue;  // no live key
       if (window > 0 && last <= len + jmin - window) continue;  // before every row's window
-      if (first > len + jmax) continue;                           // after every row
+      if (base > len + jmax) continue;                            // after every row
       break;
     }
     return t;
@@ -285,14 +325,17 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
       }
     }
   };
-  // the context tile in registers into stage st: dequantized, [key][d]
-  auto store_ctx = [&](int st) {
+  // rows [0, n_rows) of the context tile in registers into stage st:
+  // dequantized, [key][d] (the rest of a straddling tile is the overlay's;
+  // `whole` is Whole<true> when n_rows is kTile)
+  auto store_ctx = [&](int st, int n_rows, auto whole) {
     __nv_bfloat16* kt = k_s + st * Dm::kElems;
     __nv_bfloat16* vt = v_s + st * Dm::kElems;
 #pragma unroll
     for (int gg = 0; gg < 2; ++gg)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (!decltype(whole)::kValue && w0 + 8 * gg + j >= n_rows) continue;  // warp-uniform
         const float sk = MODE == kBf16 ? 1.f : __shfl_sync(0xffffffffu, rsc, 8 * gg + j);
         const float sv = MODE == kBf16 ? 1.f : __shfl_sync(0xffffffffu, rsc, 16 + 8 * gg + j);
         const int row = (w0 + 8 * gg + j) * Dm::kLd;
@@ -305,14 +348,15 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
         }
       }
   };
-  // tile t's loads: a context tile into registers, an overlay tile by
-  // cp.async into stage st (rows at or past w_valid zero-filled)
+  // tile t's loads: its context rows into registers, its overlay rows by
+  // cp.async into stage st (chunk rows at or past w_valid zero-filled)
   auto start_loads = [&](int t, int st) {
-    if (t < n_ctx) {
-      fetch_ctx(base_of(t));
-    } else {
-      load_tile_async<D>(k_s + st * Dm::kElems, kc + c_base, base_of(t), w_valid);
-      load_tile_async<D>(v_s + st * Dm::kElems, vc + c_base, base_of(t), w_valid);
+    const int base = base_of(t);
+    const int c = ctx_rows(base);
+    if (c > 0) fetch_ctx(base);
+    if (c < kTile) {
+      load_overlay_async<D>(k_s + st * Dm::kElems, kc + c_base, base - len, w_valid, c);
+      load_overlay_async<D>(v_s + st * Dm::kElems, vc + c_base, base - len, w_valid, c);
     }
     cp_async_commit();
   };
@@ -326,10 +370,14 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   if (t < n_tiles) start_loads(t, 0);
   for (int i = 0; t < n_tiles; ++i) {
     const int st = i & 1;
-    const bool ov = t >= n_ctx;
     const int base = base_of(t);
+    const int c = ctx_rows(base);
     // stage st was last read two tiles ago, before the previous barrier
-    if (!ov) store_ctx(st);
+    if (c == kTile) {
+      store_ctx(st, c, Whole<true>{});
+    } else if (c > 0) {
+      store_ctx(st, c, Whole<false>{});
+    }
     cp_async_wait<0>();
     // tile t is in; every warp is done with the previous tile's stage
     __syncthreads();
@@ -345,10 +393,12 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int ci = base + frag_col(n, e);
-        const int pos = ov ? (ci < w_valid ? len + ci : -1) : (ci < hi ? ci : -1);
+        const int pos = base + frag_col(n, e);
+        // a page key below hi, or a chunk key in [len, len + w_valid)
+        const bool key =
+            pos < hi || static_cast<unsigned>(pos - len) < static_cast<unsigned>(w_valid);
         const int qp = qpos[e >> 1];
-        const bool ok = qp >= 0 && pos >= 0 && pos <= qp && (window <= 0 || pos > qp - window);
+        const bool ok = qp >= 0 && key && pos <= qp && (window <= 0 || pos > qp - window);
         sc[n][e] = ok ? round_bf16(sc[n][e]) / sqrt_dh : kNegInf;
       }
     online_softmax(sc, acc, 0, m0, l0);

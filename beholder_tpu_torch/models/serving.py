@@ -33,8 +33,10 @@ chunk kernel of ``csrc/paged_chunk.cu``), prefix-hit admission
 cache (:class:`beholder_tpu_torch.cache.PrefixCache`: lookup, pinning,
 eviction under pool pressure), forks (:func:`paged_fork`,
 :func:`fork_wave`, :meth:`ContinuousBatcher.run_what_if`), and the batcher's
-``run`` / ``run_waves``. Not ported yet: speculative decoding, the intake
-queue (``submit``/``run_pending``), metrics, tracing, the flight recorder,
+``run`` / ``run_waves``, and speculative decoding (``spec=``,
+:meth:`ContinuousBatcher.run_spec`; the loop lives in
+:mod:`beholder_tpu_torch.spec.scheduler`). Not ported yet: the intake queue
+(``submit``/``run_pending``), metrics, tracing, the flight recorder,
 deadlines, autotune and group-parallel serving.
 """
 
@@ -50,6 +52,7 @@ from beholder_tpu_torch.device import resolve_device, to_device
 from beholder_tpu_torch.ops import NUM_STATUSES
 from beholder_tpu_torch.ops.paged_attention import ChunkPagedInfo, PagedInfo, QuantizedPool
 from beholder_tpu_torch.ops.quant import E8M0_BIAS, pool_quantize, pool_scales_f32
+from beholder_tpu_torch.spec import SpecConfig
 
 from .sequence import TelemetrySequenceModel, index_put_dropping_, one_hot
 
@@ -798,6 +801,12 @@ class ContinuousBatcher:
     kernel when ``fused_verify`` is set. ``fused_wave`` admits each
     :meth:`run_waves` wave through the chunk kernel instead of the dense
     prefill. Served forecasts are the same either way.
+
+    ``spec`` (a :class:`beholder_tpu_torch.spec.SpecConfig`) turns on
+    :meth:`run_spec`, draft-then-verify decoding over the same pool;
+    ``fused_verify`` then also selects the fused verify (the chunk attends
+    the pools in place through the paged chunk kernel) over the dense-gather
+    one. ``verify_rounds`` counts the verify rounds run.
     """
 
     _ALLOCATOR_TRIPPED = (
@@ -818,8 +827,13 @@ class ContinuousBatcher:
         prefix_cache=None,
         fused_verify: bool = False,
         fused_wave: bool = False,
+        spec=None,
         device=None,
     ):
+        if spec is not None and not isinstance(spec, SpecConfig):
+            raise TypeError(
+                f"spec must be a beholder_tpu_torch.spec.SpecConfig, got {type(spec).__name__}"
+            )
         if prefix_cache is not None and prefix_cache.page_size != page_size:
             raise ValueError(
                 f"prefix_cache page_size {prefix_cache.page_size} != "
@@ -838,10 +852,12 @@ class ContinuousBatcher:
         )
         self.ticks = 0
         self.admission_rounds = 0
+        self.verify_rounds = 0
+        self.spec = spec
         self._poisoned = False
         self.prefix_cache = prefix_cache
-        #: prefix-hit admissions attend the cached pages in place through
-        #: the paged chunk kernel instead of a dense context
+        #: prefix-hit admissions and spec verify rounds attend the pools in
+        #: place through the paged chunk kernel instead of a dense context
         self.fused_verify = bool(fused_verify)
         #: run_waves admits each wave through the paged chunk kernel
         self.fused_wave = bool(fused_wave)
@@ -853,8 +869,14 @@ class ContinuousBatcher:
 
     def _need_pages(self, req: Request) -> int:
         """Worst-case pages a request holds: prefix plus the horizon-1
-        fed-back tokens (the horizon-th prediction needs no tick)."""
+        fed-back tokens (the horizon-th prediction needs no tick). With spec
+        on the dense-gather verify path, a verify step writes up to
+        ``max_draft`` tokens past the final accepted end before the rollback
+        reclaims them, so that transient is budgeted too; the fused verify
+        writes accepted tokens only."""
         tokens = len(req.progress) - 1 + max(req.horizon - 1, 0)
+        if self.spec is not None and not self.fused_verify:
+            tokens += self.spec.max_draft
         return -(-tokens // self.page_size)
 
     def _prep_np(self, req: Request):
@@ -929,6 +951,20 @@ class ContinuousBatcher:
                 f"the horizon"
             )
 
+    def _start_run(self, requests: list[Request]):
+        """Fail fast before anything is admitted: every request's prefix cap
+        and pool/table fit is checked up front, so an unservable request
+        cannot raise mid-run with earlier requests' pages held (an error
+        that escapes mid-run poisons the batcher)."""
+        self._check_not_poisoned()
+        for req in requests:
+            if req.horizon <= 0:
+                continue
+            t = len(req.progress) - 1
+            if t > self.max_prefix:
+                raise ValueError(f"prefix {t} exceeds max_prefix {self.max_prefix}")
+            self._check_servable(req)
+
     def _claim_admissions(self, queue, results, req_of, free_pages, commit):
         """One admission round: claim every (free slot, queued request)
         pair that fits under the page headroom, in queue order. Zero-
@@ -991,7 +1027,7 @@ class ContinuousBatcher:
         retirement run back to back, retirements snapshot forecast rows on
         the device. The only device-to-host read is one packed buffer at
         the end."""
-        self._check_not_poisoned()
+        self._start_run(requests)
         try:
             with torch.no_grad():
                 return self._run(requests)
@@ -1136,6 +1172,24 @@ class ContinuousBatcher:
         elif bool(self.state.alloc_failed):
             raise RuntimeError(self._ALLOCATOR_TRIPPED)
         return results
+
+    # -- speculative path: draft-then-verify ------------------------------
+
+    def run_spec(self, requests: list[Request]) -> list[np.ndarray]:
+        """Speculative decoding over the paged pool: a drafter proposes up
+        to k tokens per slot, one verify round scores them all (dense-gather,
+        or fused through the paged chunk kernel with ``fused_verify``), the
+        host accepts a prefix per slot. Needs ``spec=``. Results follow
+        :meth:`run`'s contract; under greedy exact acceptance the stream does
+        not depend on the drafter (see :mod:`beholder_tpu_torch.spec`)."""
+        if self.spec is None:
+            raise RuntimeError(
+                "no spec config — construct the batcher with "
+                "spec=SpecConfig(...) to use run_spec()"
+            )
+        from beholder_tpu_torch.spec.scheduler import run_spec
+
+        return run_spec(self, requests)
 
     # -- throughput path: waves ------------------------------------------
 

@@ -11,7 +11,7 @@ place through a page table.
   online softmax and dtype mix).
 - :func:`paged_chunk_attention`: each slot's W-token chunk attends its
   committed pages plus the chunk's own k/v (prefix-hit and fused-wave
-  admission). Kernel ``csrc/paged_chunk.cu``, plain version
+  admission, spec's fused verify). Kernel ``csrc/paged_chunk.cu``, plain version
   :func:`paged_chunk_reference` (the dense path's op sequence over the
   assembled context, :func:`~beholder_tpu_torch.ops.attention.attend`).
 

@@ -16,7 +16,8 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    dim 32, a group of 16 at head dim 128, a group of 1 and 100-token pages,
    each with the split the wrapper chooses, one split and one 64-token
    tile a split, repeat launches bitwise, dead slots exact zeros; the paged
-   chunk kernel at the fused-wave, warm-prefix and long-context shapes; the
+   chunk kernel at the fused-wave, warm-prefix, long-context and spec
+   verify (8 slots of 5 rows over 4-page tables, lens 256-383) shapes; the
    flash forward, dq and dk/dv kernels at the training shape (B=4, H=8,
    Hkv=2, T=4096, Dh=64, bf16), causal, with a 512 window, non-causal,
    with segment ids and at T=4000, at two small edge shapes (a GQA group of
@@ -47,10 +48,15 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
    ``ContinuousBatcher.run`` (cold admission), ``run_waves`` with
    ``fused_wave=True``, ``run`` with a ``PrefixCache`` and
-   ``fused_verify=True`` (a cold pass, then a warm pass), and one
-   ``run_what_if``; per path: launch counts of both kernels (set to 0 just
-   before, read just after), pages home, forecasts against the dense
-   ``forecast_deltas`` oracle, tokens/s, synchronising calls; then the
+   ``fused_verify=True`` (a cold pass, then a warm pass), one
+   ``run_what_if``, and ``run_spec`` (speculative decoding over ``run``'s
+   requests: spec off, n-gram and a replay of spec off's stream, each with
+   the dense-gather and the fused verify, which must all agree bit for bit
+   within a mode; a same-weights ``SmallModelDrafter``; int8 and fp8
+   pools; ``bench_spec``'s throughput mode, timed); per path: launch
+   counts of both kernels (set to 0 just before, read just after), pages
+   home, forecasts against the dense ``forecast_deltas`` oracle, tokens/s,
+   synchronising calls; then the
    reference's default model (``dim=128, heads=4``: head dim 32) through a
    fused wave and a cold and warm prefix-cache ``run``;
 5. training: the same model with ``attention="flash"`` and f32 params from
@@ -85,7 +91,14 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
 7. output: a ``kernels`` JSON line (the three block-pair sites of the flash
    kernels as rows of their own), then the ``ok`` line last.
 
-``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``.
+``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``
+and of one fused n-gram ``run_spec`` (a round's host time, readback wait,
+device time and chunk kernel time).
+``--chunk-parent DIR`` adds, after the spec phase, the chunk kernel of
+another checkout (``DIR/beholder_tpu_torch/csrc/paged_chunk.cu``, e.g. the
+parent commit unpacked by ``git archive``) against this one's in one
+process: every chunk case in turns A B B A, and the fused verify's spec on
+== spec off reading (replay against spec off) with each.
 The full record goes to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -403,6 +416,10 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
         # long context: 512-token pages, 8 per slot, a 128-token chunk
         "long": dict(S=8, W=128, page=512, N=64, P=8,
                      lens=[3584, 3600, 3620, 3640, 3660, 3680, 3700, 3711]),
+        # spec verify: 8 slots of a max_draft + 1 = 5-row chunk over a 4-page
+        # table, ctx_len = P*page as the verify passes it, lens 256..383
+        "verify": dict(S=8, W=5, page=128, N=32, P=4,
+                       lens=[256, 275, 300, 320, 340, 360, 370, 383], ctx_len=512),
         # off the main path: spec verify's width (ctx_len = P*page, the
         # chunk's tail dropped past it) and lengths past live_pages (zeros)
         "edge": dict(S=4, W=64, page=128, N=32, P=3, lens=[0, 200, 300, 360],
@@ -1308,6 +1325,8 @@ def main_path(torch, profile: bool = False) -> dict:
             got = np.stack([r.cpu().numpy() for r in results]) if mode != "run" else None
             if mode == "run_waves":
                 dense_waves = got
+            if mode == "run" and family == "bf16":
+                run_streams = results
             vs_dense = (float(np.abs(got - dense_waves).max())
                         if mode == "fused_waves" else None)
             runs = timed(torch, serve)
@@ -1339,6 +1358,8 @@ def main_path(torch, profile: bool = False) -> dict:
                 torch, b, wave_reqs, report["bf16/run_waves"]["seconds"]
             )
     report.update(what_if_path(torch, ContinuousBatcher, model, layers, Request))
+    report.update(spec_path(torch, model, layers, run_reqs, want_run, report["bf16/run"],
+                            run_streams, profile))
     return report
 
 
@@ -1529,6 +1550,314 @@ def what_if_path(torch, ContinuousBatcher, model, layers, Request) -> dict:
         seconds=seconds, tokens=tokens, tokens_per_s=tokens / seconds,
         max_diff_vs_independent=vs_independent, band=band,
     )}
+
+
+#: the spec phase's draft cap: verify chunks of max_draft + 1 = 5 rows
+SPEC_MAX_DRAFT = 4
+
+
+class accept_spy:
+    """Drafted and accepted counts of every verify step a run makes, read
+    from ``AdaptiveDraftController.update`` (the port has no spec metrics
+    yet): one call per slot per verify round."""
+
+    def __enter__(self):
+        from beholder_tpu_torch.spec import scheduler
+
+        self.cls, self.real = scheduler.AdaptiveDraftController, \
+            scheduler.AdaptiveDraftController.update
+        self.steps = self.drafted = self.accepted = 0
+
+        def update(ctrl, slot, drafted, accepted):
+            self.steps += 1
+            self.drafted += drafted
+            self.accepted += accepted
+            return self.real(ctrl, slot, drafted, accepted)
+
+        self.cls.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self.real
+
+    def reading(self) -> dict:
+        # emitted tokens a slot-step: the accepted drafts plus the verifier's
+        return dict(verify_steps=self.steps, drafted=self.drafted, accepted=self.accepted,
+                    mean_accept_len=(self.accepted + self.steps) / max(self.steps, 1))
+
+
+def replay_drafter(reqs, streams):
+    """A drafter proposing, for the request in a slot (known by its prefix),
+    the tokens ``streams`` holds for it: under exact greedy every draft is
+    accepted exactly when the verifier computes each position as the run
+    that made ``streams`` did, so spec on == spec off is put to the test at
+    every chunk row (the n-gram drafter's drafts are almost never accepted
+    on random weights, so nearly every token comes from row 0)."""
+    from beholder_tpu_torch.spec.drafter import Drafter
+
+    by_prefix = {np.diff(np.asarray(r.progress, np.float32)).tobytes(): s_
+                 for r, s_ in zip(reqs, streams)}
+
+    class Replay(Drafter):
+        def __init__(self):
+            self.slot = {}
+
+        def on_admit(self, slot, feats, last_status):
+            self.slot[slot] = (by_prefix[np.ascontiguousarray(feats[:, 0]).tobytes()],
+                               feats.shape[0])
+
+        def propose(self, slot, history, k):
+            stream, t = self.slot[slot]
+            done = len(history) - t  # tokens emitted so far, the pending one too
+            return np.asarray(stream[done:done + k], np.float32)
+
+    return Replay()
+
+
+def spec_path(torch, model, layers, reqs, want, run_report, run_streams,
+              profile: bool = False) -> dict:
+    """Speculative decoding (``ContinuousBatcher.run_spec``) on the headline
+    model over ``run``'s 12 requests. bf16, exact greedy: ``NullDrafter``
+    (spec off) and n-gram, each with the dense-gather and the fused verify
+    (the paged chunk kernel, one launch a layer a round); n-gram must equal
+    spec off bit for bit in each mode. A same-weights ``SmallModelDrafter``
+    (dense) must equal spec off too. int8 and fp8 pools, n-gram, fused. The
+    throughput mode of ``bench_spec`` (n-gram, ``accept_tol=1e-2``, adaptive,
+    fused), timed. A replay drafter (``replay_drafter``: spec off's own
+    stream as drafts) must equal spec off too, with every draft accepted,
+    in each verify mode: it tests the identity at every chunk row. Every run: launch counts (chunk kernel == layers x fused
+    rounds, no decode kernel), one synchronising call a verify round and one
+    an admission round, pages home (the drafter's pool too), the first two
+    steps within the pool's ``FORECAST_BAND`` of the dense oracle. With
+    ``profile``, where a fused n-gram round's time goes (``profile_spec``)."""
+    from beholder_tpu_torch.models.serving import ContinuousBatcher
+    from beholder_tpu_torch.spec import SpecConfig
+    from beholder_tpu_torch.spec.drafter import NullDrafter, SmallModelDrafter
+
+    tokens = sum(r.horizon for r in reqs)
+    report, streams = {}, {}
+
+    def serve(family, mode, fused, spec, drafter=None, timed_runs=0, warm=True):
+        where = f"{family}/spec_{mode}"
+        band = FORECAST_BAND[family]
+        b = ContinuousBatcher(model, **SERVE, cache_dtype=family, fused_verify=fused, spec=spec)
+        if warm:  # one-time set-up out of the counted run
+            ContinuousBatcher(model, **SERVE, cache_dtype=family, fused_verify=fused,
+                              spec=spec).run_spec(reqs)
+        rounds0, admits0 = b.verify_rounds, b.admission_rounds
+        with accept_spy() as spy:
+            results, syncs, launches, chunk = counted(torch, lambda: b.run_spec(reqs))
+        rounds, admits = b.verify_rounds - rounds0, b.admission_rounds - admits0
+        check(launches == 0, f"{where}: {launches} decode kernel launches")
+        want_chunk = layers * rounds if fused else 0
+        check(chunk == want_chunk,
+              f"{where}: {chunk} chunk kernel launches for {rounds} rounds x {layers} layers"
+              + ("" if fused else " (dense verify launches none)"))
+        check(chunk > 0 or not fused, f"{where}: the chunk kernel never launched")
+        if drafter is None:
+            check(syncs == rounds + admits,
+                  f"{where}: {syncs} synchronising calls for {rounds} verify rounds and "
+                  f"{admits} admission rounds (one readback each)")
+        check(int(b.state.free_top) == b.num_pages,
+              f"{where}: free_top {int(b.state.free_top)} != {b.num_pages}")
+        if drafter is not None:
+            check(int(drafter.state.free_top) == drafter.num_pages,
+                  f"{where}: the drafter's free_top {int(drafter.state.free_top)} != "
+                  f"{drafter.num_pages}")
+        worst = check_served(torch, where, b, reqs, results, want, band)
+        vs_run = max(float(np.abs(g - r).max()) for g, r in zip(results, run_streams))
+        rec = dict(launches=launches, chunk_launches=chunk, rounds=rounds, admission_rounds=admits,
+                   syncs=syncs, first_steps_max_err=worst, band=band,
+                   max_diff_vs_bf16_run=vs_run, **spy.reading())
+        line = (f"serve {where:30s} rounds={rounds} admission_rounds={admits} "
+                f"chunk_launches={chunk} sync_calls={syncs} verify_steps={spy.steps} "
+                f"drafted={spy.drafted} accepted={spy.accepted} "
+                f"mean_accept_len={rec['mean_accept_len']:.4f} first2_max_err={worst:.3e} "
+                f"(band rtol {band[0]}, atol {band[1]}) max_diff_vs_bf16_run={vs_run:.3e}")
+        if timed_runs:
+            runs = timed(torch, lambda: b.run_spec(reqs), runs=timed_runs)
+            seconds = statistics.median(runs)
+            rec.update(seconds=seconds, tokens=tokens, tokens_per_s=tokens / seconds,
+                       tokens_per_s_range=(tokens / max(runs), tokens / min(runs)))
+            line += (f" tokens={tokens} seconds={seconds:.4f} tokens/s={tokens / seconds:.1f} "
+                     f"(range {tokens / max(runs):.1f}-{tokens / min(runs):.1f} over "
+                     f"{timed_runs} runs; bf16/run {run_report['tokens_per_s']:.1f})")
+        print(line + " pages_home=yes", flush=True)
+        report[where] = rec
+        streams[where] = results
+        return results
+
+    for verify in ("dense", "fused"):
+        fused = verify == "fused"
+        off = serve("bf16", f"{verify}/off", fused,
+                    SpecConfig(max_draft=SPEC_MAX_DRAFT, drafter=NullDrafter()))
+        on = serve("bf16", f"{verify}/ngram", fused, SpecConfig(max_draft=SPEC_MAX_DRAFT),
+                   timed_runs=TIMED_RUNS)
+        n_diff = sum(int((a != b_).sum()) for a, b_ in zip(on, off))
+        biggest = max(float(np.abs(a - b_).max()) for a, b_ in zip(on, off))
+        print(f"spec bf16 {verify} verify, ngram vs off: {n_diff} of {tokens} tokens differ, "
+              f"largest difference {biggest:.3e}", flush=True)
+        report[f"bf16/spec_{verify}/ngram"]["vs_off"] = dict(tokens_differ=n_diff,
+                                                             max_diff=biggest)
+        check(n_diff == 0, f"spec {verify}: ngram differs from spec off in {n_diff} tokens "
+              f"(largest {biggest:.3e})")
+        replay = serve("bf16", f"{verify}/replay", fused,
+                       SpecConfig(max_draft=SPEC_MAX_DRAFT, adaptive=False,
+                                  drafter=replay_drafter(reqs, off)))
+        rec = report[f"bf16/spec_{verify}/replay"]
+        n_diff = sum(int((a != b_).sum()) for a, b_ in zip(replay, off))
+        biggest = max(float(np.abs(a - b_).max()) for a, b_ in zip(replay, off))
+        print(f"spec bf16 {verify} verify, replay vs off: {n_diff} of {tokens} tokens differ, "
+              f"largest difference {biggest:.3e}; {rec['accepted']} of {rec['drafted']} "
+              f"drafts accepted", flush=True)
+        rec["vs_off"] = dict(tokens_differ=n_diff, max_diff=biggest)
+        check(n_diff == 0 and rec["accepted"] == rec["drafted"] > 0,
+              f"spec {verify}: replay differs from spec off in {n_diff} tokens (largest "
+              f"{biggest:.3e}), {rec['accepted']} of {rec['drafted']} drafts accepted")
+    fused_vs_dense = max(float(np.abs(a - b_).max())
+                         for a, b_ in zip(streams["bf16/spec_fused/off"],
+                                          streams["bf16/spec_dense/off"]))
+    print(f"spec fused vs dense verify (spec off): largest difference {fused_vs_dense:.3e}",
+          flush=True)
+    report["bf16/spec_fused/off"]["max_diff_vs_dense"] = fused_vs_dense
+
+    # the target's own weights as the drafter, dense verify: one run, untimed
+    drafter = SmallModelDrafter(model, num_pages=SERVE["num_pages"],
+                                page_size=SERVE["page_size"], slots=SERVE["slots"],
+                                max_pages_per_seq=SERVE["max_pages_per_seq"])
+    same = serve("bf16", "dense/same_weights", False,
+                 SpecConfig(max_draft=SPEC_MAX_DRAFT, drafter=drafter), drafter=drafter,
+                 warm=False)
+    n_diff = sum(int((a != b_).sum()) for a, b_ in zip(same, streams["bf16/spec_dense/off"]))
+    check(n_diff == 0, f"spec dense/same_weights: differs from spec off in {n_diff} tokens")
+    for family in ("int8", "fp8"):
+        serve(family, "fused/ngram", True, SpecConfig(max_draft=SPEC_MAX_DRAFT))
+    if profile:
+        report["bf16/spec_fused/ngram"]["profile"] = profile_spec(
+            torch, ContinuousBatcher(model, **SERVE, fused_verify=True,
+                                     spec=SpecConfig(max_draft=SPEC_MAX_DRAFT)), reqs)
+    # bench_spec's throughput mode
+    serve("bf16", "fused/throughput", True,
+          SpecConfig(max_draft=SPEC_MAX_DRAFT, accept_tol=1e-2, adaptive=True),
+          timed_runs=TIMED_RUNS)
+    return report
+
+
+def profile_spec(torch, b, reqs) -> dict:
+    """Where a fused spec round's time goes: one warm ``run_spec`` on the
+    host clock with the time spent in readbacks summed (``Tensor.cpu``
+    wrapped: a readback waits for the queued device work), then one under
+    torch.profiler for the device's busy time and the chunk kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b.run_spec(reqs)
+    waits = []
+    real = torch.Tensor.cpu
+
+    def cpu(t, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(t, *a, **kw)
+        waits.append(time.perf_counter() - t0)
+        return out
+
+    rounds0 = b.verify_rounds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.Tensor.cpu = cpu
+    try:
+        b.run_spec(reqs)
+    finally:
+        torch.Tensor.cpu = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rounds = b.verify_rounds - rounds0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        b.run_spec(reqs)
+        torch.cuda.synchronize()
+    rows = device_rows(prof.key_averages())
+    device_ms = sum(dev_us(e) for e in rows) / 1e3
+    chunk_ms = sum(dev_us(e) for e in rows if "paged_chunk" in e.key) / 1e3
+    out = dict(rounds=rounds, wall_ms=wall * 1e3, readback_wait_ms=sum(waits) * 1e3,
+               readbacks=len(waits), device_ms=device_ms, chunk_kernel_ms=chunk_ms,
+               device_busy_share=device_ms / (wall * 1e3))
+    per = {k: out[k] / rounds for k in ("wall_ms", "readback_wait_ms", "device_ms",
+                                         "chunk_kernel_ms")}
+    print(f"profile bf16 spec fused ngram: rounds={rounds} wall_ms={out['wall_ms']:.1f} "
+          f"a round: wall {per['wall_ms']:.3f} ms, host {per['wall_ms'] - per['readback_wait_ms']:.3f}, "
+          f"readback wait {per['readback_wait_ms']:.3f}, device busy {per['device_ms']:.3f} "
+          f"(chunk kernel {per['chunk_kernel_ms']:.4f}); device_busy_share="
+          f"{out['device_busy_share']:.4f}", flush=True)
+    return out
+
+
+def chunk_ab(torch, flush, parent: Path) -> dict:
+    """``--chunk-parent``: the chunk kernel built from ``parent``'s source
+    (A) against this checkout's (B) in one process. Every case of
+    ``chunk_kernel_phase`` in turns A B B A (each must pass its checks), then
+    the fused verify with each: spec off and the replay of its stream on
+    the headline model over ``run``'s requests, the tokens that differ and
+    the drafts accepted. Returns the times per case and side and the
+    readings."""
+    import ctypes
+
+    from beholder_tpu_torch import csrc
+    from beholder_tpu_torch.models import TelemetrySequenceModel
+    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
+    from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
+    from beholder_tpu_torch.ops import paged_attention as pa
+    from beholder_tpu_torch.spec import SpecConfig
+    from beholder_tpu_torch.spec.drafter import NullDrafter
+
+    lib = csrc.BUILD_DIR / "libpaged_chunk-parent.so"
+    out = subprocess.run(
+        [csrc.find_nvcc(), *csrc.NVCC_FLAGS, "-o", str(lib),
+         str(parent / "beholder_tpu_torch" / "csrc" / "paged_chunk.cu")],
+        capture_output=True, text=True,
+    )
+    check(out.returncode == 0, f"chunk A/B: nvcc failed on {parent}:\n{out.stdout}{out.stderr}")
+    libs = {"A": ctypes.CDLL(str(lib.resolve())), "B": csrc.load("paged_chunk")}
+
+    def use(side):
+        csrc._loaded["paged_chunk"] = libs[side]
+        pa._chunk_lib = None
+
+    times: dict = {}
+    for side in "ABBA":
+        use(side)
+        print(f"chunk A/B: side {side}", flush=True)
+        for c in chunk_kernel_phase(torch, flush):
+            key = f"{c['shape']}/{c['pool']}/window={c['window']}"
+            times.setdefault(key, {"A": [], "B": []})[side].append(c["ms"])
+    for key, t in times.items():
+        print(f"chunk A/B {key:28s} A={t['A']} B={t['B']} "
+              f"B/A={statistics.mean(t['B']) / statistics.mean(t['A']):.3f}", flush=True)
+
+    model = TelemetrySequenceModel(dim=512, heads=8, kv_heads=2, layers=4)
+    load_flax_params(model, init_params(model, seed=0, bf16_matrices=True))
+    rng = np.random.default_rng(0)
+    make_requests(rng, Request, [256] * 8, [128] * 8)  # main_path's draws, in order
+    reqs = make_requests(rng, Request, [256] * 12, RUN_HORIZONS)
+    readings = {}
+    for side in "AB":
+        use(side)
+
+        def spec(drafter, **kw):
+            return ContinuousBatcher(model, **SERVE, fused_verify=True, spec=SpecConfig(
+                max_draft=SPEC_MAX_DRAFT, drafter=drafter, **kw))
+
+        off = spec(NullDrafter()).run_spec(reqs)
+        with accept_spy() as spy:
+            replay = spec(replay_drafter(reqs, off), adaptive=False).run_spec(reqs)
+        diff = [np.abs(a - b_) for a, b_ in zip(replay, off)]
+        readings[side] = dict(tokens_differ=int(sum((d > 0).sum() for d in diff)),
+                              max_diff=max(float(d.max()) for d in diff),
+                              accepted=spy.accepted, drafted=spy.drafted)
+        print(f"chunk A/B side {side}: fused replay vs off: {readings[side]['tokens_differ']} "
+              f"of {sum(r.horizon for r in reqs)} tokens differ, largest "
+              f"{readings[side]['max_diff']:.3e}; {spy.accepted} of {spy.drafted} drafts "
+              "accepted", flush=True)
+    use("B")
+    return {"parent": str(parent), "times": times, "identity": readings}
 
 
 def dev_us(e) -> float:
@@ -2112,11 +2441,12 @@ def aggregate_kernel_phase(torch, flush) -> list[dict]:
             del x
         # one device operation a call: one kernel row, once a call, no memset.
         # The profiler has dropped kernel records under load (a row read 2
-        # launches for 5 calls once), so a reading below one a call is
-        # profiled again, up to three times; one above it fails at once.
-        for _ in range(3):
+        # launches for 5 calls once, 3 for 5 three times running, and no row
+        # at all), so a reading below one a call, none included, is profiled
+        # again, up to five times; one above it fails at once.
+        for _ in range(5):
             own = profile_device(torch, lambda: aggregate_telemetry(st, pr), flush)
-            if all(v["per_call"] >= 1 for v in own.values()):
+            if own and all(v["per_call"] >= 1 for v in own.values()):
                 break
         check(len(own) == 1 and all("aggregate_kernel" in k and v["per_call"] == 1
                                     for k, v in own.items()),
@@ -2335,7 +2665,9 @@ def sink_path(torch) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one bf16 run_waves with torch.profiler")
+                        help="also profile one bf16 run_waves and one fused run_spec")
+    parser.add_argument("--chunk-parent", type=Path, default=None,
+                        help="a checkout whose chunk kernel to time against this one's")
     args = parser.parse_args()
     try:
         import torch
@@ -2377,6 +2709,8 @@ def main() -> None:
               "offset_kernel_cases": offset_cases, "flash_d128_cases": d128_cases}
     serving = main_path(torch, profile=args.profile)
     record["serving"] = serving
+    if args.chunk_parent is not None:
+        record["chunk_ab"] = chunk_ab(torch, flush, args.chunk_parent)
     record["serving_default_model"] = default_model_path(torch)
     paths = [v for k, v in serving.items() if k != "profile"]
     training = train_path(torch, flash_cases)
