@@ -43,16 +43,24 @@ reference's module layout and names so a reader finds each counterpart:
 - :mod:`beholder_tpu_torch.models.decode` — the dense forecast oracle;
 - :mod:`beholder_tpu_torch.models.serving` — the paged pool and the
   ``ContinuousBatcher``: cold, fused-wave and prefix-hit admission, forks
-  and what-if forecasts;
+  and what-if forecasts, the bounded intake (``submit`` / ``run_pending``)
+  and request deadlines;
 - :mod:`beholder_tpu_torch.spec` — speculative decoding
   (``ContinuousBatcher(spec=SpecConfig(...)).run_spec``): the null, n-gram
   and small-model drafters, the dense-gather verify and the fused verify
-  through the paged chunk kernel, greedy and sampled acceptance.
+  through the paged chunk kernel, greedy and sampled acceptance;
+- the serving layer's host-side instruments, each off by default:
+  :mod:`beholder_tpu_torch.metrics` (the Prometheus exposition),
+  :mod:`beholder_tpu_torch.tracing` (spans and trace context),
+  :mod:`beholder_tpu_torch.obs` (the flight recorder and roofline
+  attribution), :mod:`beholder_tpu_torch.reliability` (deadlines, the
+  intake queue, the allocator trip) and :mod:`beholder_tpu_torch.control`
+  (the tenant-fair intake).
 
-Not ported yet: the intake queue, metrics, tracing,
-the flight recorder, deadlines, autotune, MoE, Ulysses attention, the
-rest of the parallel stack (``dp``/``tp`` axes, a multi-process ring,
-sequence sharding), and the cluster and group engines.
+Not ported yet: autotune, MoE, Ulysses attention, the rest of the parallel
+stack (``dp``/``tp`` axes, a multi-process ring, sequence sharding), the
+cluster and group engines, and the service's side of the instruments
+(HTTP exposition, span reporters, the SLO tracker).
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

@@ -25,8 +25,8 @@ shared with a live or forked slot is never reclaimed by eviction.
 Eviction picks cold (``live_users == 0``) LEAF entries in LRU order, so
 every indexed key keeps its full ancestor chain.
 
-Not ported: the metrics registry (``metrics=``) and the cluster fabric's
-``export_entries``/``adopt_entry``/``drop_entries``.
+Not ported: the cluster fabric's ``export_entries``/``adopt_entry``/
+``drop_entries``.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ import hashlib
 import heapq
 
 import numpy as np
+
+from .instruments import PrefixCacheMetrics
 
 
 class _PageEntry:
@@ -74,16 +76,18 @@ class PrefixCache:
 
     Pure bookkeeping — the owner (``ContinuousBatcher``) performs the
     matching device refcount operations and tells the cache what
-    happened. Plain int counters record hits, misses, evictions and
-    prefilled tokens.
+    happened. ``metrics`` (a registry) registers the
+    ``beholder_prefix_cache_*`` series; plain int counters record hits,
+    misses, evictions and prefilled tokens either way.
     """
 
-    def __init__(self, page_size: int):
+    def __init__(self, page_size: int, metrics=None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.page_size = int(page_size)
         self._entries: dict[bytes, _PageEntry] = {}
         self._stamp = 0
+        self._metrics = PrefixCacheMetrics(metrics) if metrics is not None else None
         self.hits = 0           # admits reusing >= 1 cached page
         self.misses = 0         # admits reusing none
         self.evictions = 0      # pages reclaimed
@@ -150,8 +154,13 @@ class PrefixCache:
         if hit_pages:
             self.hits += 1
             self.hit_tokens += len(hit_pages) * self.page_size
+            if self._metrics is not None:
+                self._metrics.hits_total.inc()
+                self._metrics.hit_tokens_total.inc(len(hit_pages) * self.page_size)
         else:
             self.misses += 1
+            if self._metrics is not None:
+                self._metrics.misses_total.inc()
 
     def acquire(self, hashes: list[bytes]) -> None:
         """Mark a slot as a live user of this chain (call after the slot
@@ -191,11 +200,15 @@ class PrefixCache:
                 new_keys.append(key)
             entry.stamp = self._stamp
             parent = key
+        if self._metrics is not None:
+            self._metrics.cached_pages.set(len(self._entries))
         return new_pages, new_keys
 
     def prefilled(self, n_tokens: int) -> None:
         """Record tokens actually run through the prefill forward."""
         self.prefill_tokens += int(n_tokens)
+        if self._metrics is not None:
+            self._metrics.prefill_tokens_total.inc(int(n_tokens))
 
     # -- eviction ------------------------------------------------------------
     def evict(self, n_pages: int) -> list[int]:
@@ -238,4 +251,7 @@ class PrefixCache:
             out.append(victim.page_id)
         if out:
             self.evictions += len(out)
+            if self._metrics is not None:
+                self._metrics.evictions_total.inc(len(out))
+                self._metrics.cached_pages.set(len(self._entries))
         return out

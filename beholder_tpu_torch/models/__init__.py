@@ -4,7 +4,14 @@ checkpoints."""
 
 from .anomaly import ProgressAnomalyModel, anomaly_scores, init_train_state, make_windows
 from .checkpoint import restore_state, save_state
-from .decode import DecodeCache, decode_step, forecast_deltas, init_cache, prefill
+from .decode import (
+    DecodeCache,
+    decode_step,
+    forecast_deltas,
+    forecast_eta,
+    init_cache,
+    prefill,
+)
 from .sequence import (
     FEATURES,
     Block,
@@ -27,6 +34,7 @@ __all__ = [
     "apply_gradients",
     "decode_step",
     "forecast_deltas",
+    "forecast_eta",
     "init_cache",
     "init_seq_state",
     "init_train_state",

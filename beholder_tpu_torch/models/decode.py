@@ -1,7 +1,7 @@
 """Dense KV-cached inference: the oracle for the paged serving path.
 
 Port of the reference's ``models/decode.py`` (``init_cache``, ``prefill``,
-``decode_step``, ``forecast_deltas``). The cache is one (B, Hkv, max_len,
+``decode_step``, ``forecast_deltas``, ``forecast_eta``). The cache is one (B, Hkv, max_len,
 Dh) bf16 tensor per layer plus a 0-d write index; prefill runs the whole
 prefix in one forward and generation is one cached step per token. The
 caches are updated in place: a :class:`DecodeCache` handed to
@@ -93,3 +93,25 @@ def forecast_deltas(
     if not deltas:
         return torch.zeros((b, 0), device=feats.device)
     return torch.stack(deltas, dim=1)
+
+
+@torch.no_grad()
+def forecast_eta(
+    model: TelemetrySequenceModel,
+    progress: torch.Tensor,
+    statuses: torch.Tensor,
+    horizon: int,
+    target: float = 100.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Steps until each stream's forecast reaches ``target`` progress.
+
+    Returns (eta_steps (B,), reached (B,) bool): ``eta_steps`` is the number
+    of future steps until the cumulative forecast crosses the target
+    (``horizon`` where it never does — check ``reached``)."""
+    deltas = forecast_deltas(model, progress, statuses, horizon)
+    future = progress[:, -1:].to(deltas.dtype) + torch.cumsum(deltas, dim=-1)
+    hit = future >= target
+    reached = hit.any(dim=-1)
+    first = torch.argmax(hit.to(torch.int8), dim=-1) + 1
+    eta = torch.where(reached, first, torch.full_like(first, horizon))
+    return eta, reached

@@ -32,27 +32,42 @@ chunk kernel of ``csrc/paged_chunk.cu``), prefix-hit admission
 (:func:`paged_admit_with_prefix`, dense or fused) with the automatic prefix
 cache (:class:`beholder_tpu_torch.cache.PrefixCache`: lookup, pinning,
 eviction under pool pressure), forks (:func:`paged_fork`,
-:func:`fork_wave`, :meth:`ContinuousBatcher.run_what_if`), and the batcher's
-``run`` / ``run_waves``, and speculative decoding (``spec=``,
+:func:`fork_wave`, :meth:`ContinuousBatcher.run_what_if`), the batcher's
+``run`` / ``run_waves``, speculative decoding (``spec=``,
 :meth:`ContinuousBatcher.run_spec`; the loop lives in
-:mod:`beholder_tpu_torch.spec.scheduler`). Not ported yet: the intake queue
-(``submit``/``run_pending``), metrics, tracing, the flight recorder,
-deadlines, autotune and group-parallel serving.
+:mod:`beholder_tpu_torch.spec.scheduler`), the bounded intake
+(``submit`` / ``run_pending``), request deadlines, and the instruments:
+serving metrics, tracer spans and the flight recorder, all off by default
+and all on the host clock. Not ported yet: the autotune table, the cluster
+hooks (``prefix_fetcher``, ``seen_request_shapes``, page export/import) and
+group-parallel serving.
 """
 
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager, nullcontext
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from beholder_tpu_torch.control.admission import Preempted
 from beholder_tpu_torch.device import resolve_device, to_device
+from beholder_tpu_torch.metrics import get_or_create
+from beholder_tpu_torch.obs.roofline import model_flops_per_token
 from beholder_tpu_torch.ops import NUM_STATUSES
-from beholder_tpu_torch.ops.paged_attention import ChunkPagedInfo, PagedInfo, QuantizedPool
+from beholder_tpu_torch.ops.paged_attention import (
+    ChunkPagedInfo,
+    PagedInfo,
+    QuantizedPool,
+    pool_dtype_family,
+)
 from beholder_tpu_torch.ops.quant import E8M0_BIAS, pool_quantize, pool_scales_f32
+from beholder_tpu_torch.reliability.shed import SHED_OVERSIZED, IntakeQueue
 from beholder_tpu_torch.spec import SpecConfig
+from beholder_tpu_torch.tracing import current_trace_id, from_traceparent
 
 from .sequence import TelemetrySequenceModel, index_put_dropping_, one_hot
 
@@ -773,6 +788,207 @@ class Request(NamedTuple):
     progress: np.ndarray   # (T+1,) observed progress
     statuses: np.ndarray   # (T+1,) observed statuses
     horizon: int
+    #: optional :class:`~beholder_tpu_torch.reliability.policy.Deadline`:
+    #: once it expires the batcher retires the request with a
+    #: :class:`DeadlineExceededResult` (checked at claim and at every
+    #: tick-chunk boundary). None changes nothing.
+    deadline: object = None
+    #: optional tenant id: the tenant-fair intake
+    #: (:class:`~beholder_tpu_torch.control.TenantFairQueue`) schedules by
+    #: it, and the recorder's ``req.claim`` instant carries it. None changes
+    #: nothing.
+    tenant: str | None = None
+    #: optional W3C ``traceparent`` of the span that caused this request:
+    #: its ``req.claim`` instant then carries that trace id. None changes
+    #: nothing.
+    traceparent: str | None = None
+
+
+class DeadlineExceededResult:
+    """Terminal outcome of a request whose deadline expired before its
+    horizon completed. ``tokens`` holds the forecast prefix that was
+    decoded (empty when the deadline expired before the claim)."""
+
+    __slots__ = ("tokens",)
+    outcome = "deadline_exceeded"
+
+    def __init__(self, tokens: np.ndarray | None = None):
+        self.tokens = tokens if tokens is not None else np.zeros(0, np.float32)
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"DeadlineExceededResult(tokens={len(self.tokens)})"
+
+
+class _ServingMetrics:
+    """Prometheus series of one batcher, registered only when a registry is
+    handed to :class:`ContinuousBatcher`. Every value comes from the
+    scheduler's host bookkeeping: no device reads."""
+
+    #: rounds span sub-ms dispatches to a readback's wait
+    ROUND_BUCKETS = (
+        0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+    )
+    RUN_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+    TOKEN_BUCKETS = (
+        1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2, 0.1,
+    )
+
+    def __init__(self, registry, num_pages: int):
+        # get_or_create: a replacement batcher re-attaches to the existing
+        # series; a name held by another kind raises here, not mid-run
+        self.pool_pages_free = get_or_create(
+            registry, "gauge",
+            "beholder_serving_pool_pages_free",
+            "KV pages not reserved by any in-flight request",
+        )
+        self.slots_active = get_or_create(
+            registry, "gauge",
+            "beholder_serving_slots_active",
+            "Serving slots holding an in-flight request",
+        )
+        self.requests_total = get_or_create(
+            registry, "counter",
+            "beholder_serving_requests_total",
+            "Requests fully served by the paged serving layer",
+        )
+        self.tokens_total = get_or_create(
+            registry, "counter",
+            "beholder_serving_tokens_total",
+            "Forecast tokens decoded by the paged serving layer",
+        )
+        # device_results mode returns unchecked device tensors (the caller
+        # owns the alloc_failed check), so its work counts as dispatched,
+        # never as served
+        self.requests_dispatched_total = get_or_create(
+            registry, "counter",
+            "beholder_serving_requests_dispatched_total",
+            "Requests dispatched in device_results mode (unverified by "
+            "the end-of-run allocator check)",
+        )
+        self.tokens_dispatched_total = get_or_create(
+            registry, "counter",
+            "beholder_serving_tokens_dispatched_total",
+            "Forecast tokens dispatched in device_results mode "
+            "(unverified by the end-of-run allocator check)",
+        )
+        self.round_seconds = get_or_create(
+            registry, "histogram",
+            "beholder_serving_round_duration_seconds",
+            "Wall time of one scheduling round by phase "
+            "(admit/tick/retire/wave/readback)",
+            labelnames=["phase"],
+            buckets=self.ROUND_BUCKETS,
+        )
+        self.run_seconds = get_or_create(
+            registry, "histogram",
+            "beholder_serving_run_duration_seconds",
+            "End-to-end scheduler call wall time by mode",
+            labelnames=["mode"],
+            buckets=self.RUN_BUCKETS,
+        )
+        self.token_seconds = get_or_create(
+            registry, "histogram",
+            "beholder_serving_token_latency_seconds",
+            "Per-token wall time of one scheduler call (run wall time / "
+            "forecast tokens produced)",
+            labelnames=["mode"],
+            buckets=self.TOKEN_BUCKETS,
+        )
+        self.pool_pages_free.set(num_pages)
+        # the pool-pressure gauges register on their first feed, so an
+        # exposition rendered before any run keeps its series set
+        self._registry = registry
+        self._pool_frag = None
+        self._tenant_pages = None
+        self._tenants_seen: set = set()
+
+    def pool_pressure(self, free: int, claimable: int, committed: dict | None = None) -> None:
+        """Feed the pool gauges: ``free`` pages, ``claimable`` (the largest
+        run of them one request could claim now: bounded by the per-sequence
+        page cap and a free slot), ``committed`` (tenant -> pages reserved
+        by its in-flight requests). Fragmentation renders as ``claimable /
+        free``."""
+        if self._pool_frag is None:
+            self._pool_frag = get_or_create(
+                self._registry, "gauge",
+                "beholder_serving_pool_fragmentation",
+                "Largest single-request-claimable free page run over "
+                "free pages (1 = unfragmented; < 1 = free pages "
+                "stranded behind the per-seq cap or slot exhaustion)",
+            )
+        self._pool_frag.set(round(min(claimable, free) / free, 6) if free > 0 else 1.0)
+        if committed is None or (not committed and self._tenant_pages is None):
+            # the tenant series registers once a tenanted request commits
+            # pages: an untenanted run adds no empty family
+            return
+        if self._tenant_pages is None:
+            self._tenant_pages = get_or_create(
+                self._registry, "gauge",
+                "beholder_serving_tenant_committed_pages",
+                "KV pages committed to a tenant's in-flight requests",
+                labelnames=["tenant"],
+            )
+        for tenant, pages in committed.items():
+            label = str(tenant)
+            self._tenants_seen.add(label)
+            self._tenant_pages.set(float(pages), tenant=label)
+        # a tenant whose last request retired reads 0
+        for label in self._tenants_seen - {str(t) for t in committed}:
+            self._tenant_pages.set(0.0, tenant=label)
+
+    def pool_pressure_from(self, free, req_of, requests, total_need, page_cap) -> None:
+        """:meth:`pool_pressure` from the scheduler loops' bookkeeping:
+        ``req_of`` (slot -> rid or None), ``requests`` (rid-indexable),
+        ``total_need`` (per-slot pages at horizon end) and the per-sequence
+        page cap."""
+        slot_open = any(r is None for r in req_of)
+        claimable = min(free, page_cap) if slot_open and free > 0 else 0
+        committed: dict[str, int] = {}
+        for slot, rid in enumerate(req_of):
+            if rid is None:
+                continue
+            tenant = getattr(requests[rid], "tenant", None)
+            if tenant is None:
+                continue
+            label = str(tenant)
+            committed[label] = committed.get(label, 0) + int(total_need[slot])
+        self.pool_pressure(free, claimable, committed)
+
+    def occupancy(self, slots_active: int, free, req_of, requests, total_need,
+                  page_cap) -> None:
+        """The slot, free-page and pool-pressure gauges at one update
+        site."""
+        self.slots_active.set(slots_active)
+        self.pool_pages_free.set(free)
+        self.pool_pressure_from(free, req_of, requests, total_need, page_cap)
+
+    def served(self, n_requests: int, n_tokens: int) -> None:
+        self.requests_total.inc(n_requests)
+        self.tokens_total.inc(n_tokens)
+
+    def dispatched(self, n_requests: int, n_tokens: int) -> None:
+        self.requests_dispatched_total.inc(n_requests)
+        self.tokens_dispatched_total.inc(n_tokens)
+
+    def observe_round(self, phase: str, seconds: float, trace_id: str | None = None) -> None:
+        # trace_id: the exemplar link; the round span closes before this
+        # observation lands, so the batcher passes the id it captured
+        self.round_seconds.observe(seconds, exemplar_trace_id=trace_id, phase=phase)
+
+    def observe_run(
+        self, mode: str, seconds: float, n_tokens: int, trace_id: str | None = None
+    ) -> None:
+        self.run_seconds.observe(seconds, exemplar_trace_id=trace_id, mode=mode)
+        if n_tokens > 0:
+            self.token_seconds.observe(seconds / n_tokens, exemplar_trace_id=trace_id, mode=mode)
+
+    def idle(self, num_pages: int) -> None:
+        self.slots_active.set(0)
+        self.pool_pages_free.set(num_pages)
+        # a drained pool owes no tenant anything
+        if self._tenant_pages is not None:
+            for label in self._tenants_seen:
+                self._tenant_pages.set(0.0, tenant=label)
 
 
 class ContinuousBatcher:
@@ -807,6 +1023,29 @@ class ContinuousBatcher:
     ``fused_verify`` then also selects the fused verify (the chunk attends
     the pools in place through the paged chunk kernel) over the dense-gather
     one. ``verify_rounds`` counts the verify rounds run.
+
+    ``max_pending``/``max_pending_pages`` (or an explicit ``intake``, a
+    :class:`~beholder_tpu_torch.reliability.shed.IntakeQueue`) put a bounded
+    queue in front of the schedulers: :meth:`submit` returns an explicit
+    accept/shed outcome and :meth:`run_pending` drains and serves.
+
+    Instruments, each off by default (off, nothing is registered and the
+    streams are the same bits as on):
+
+    - ``metrics`` (a :class:`~beholder_tpu_torch.metrics.Registry`, or any
+      object with a ``.registry``): pool and slot gauges, served and
+      dispatched counters, round, run and per-token histograms;
+    - ``tracer`` (a :class:`~beholder_tpu_torch.tracing.Tracer`): one span a
+      scheduler call (``serving.run``, ``serving.run_waves``,
+      ``serving.what_if``, ``serving.run_spec``) with a child span a round;
+    - ``flight_recorder`` (a :class:`~beholder_tpu_torch.obs.FlightRecorder`):
+      one event a phase (claim, admit, draft, tick or wave, verify,
+      readback, rollback, retire) and instants for prefix lookups, stalls,
+      request claims and retirements, spec outcomes and deadline expiries;
+      dispatch rounds carry kernel-attribution tags.
+
+    All of them read host clocks and host bookkeeping only: they add no
+    synchronising call. On the card a round's time is its dispatch time.
     """
 
     _ALLOCATOR_TRIPPED = (
@@ -824,10 +1063,16 @@ class ContinuousBatcher:
         max_prefix: int = 64,
         max_pages_per_seq: int = 32,
         cache_dtype=torch.bfloat16,
+        metrics=None,
+        tracer=None,
+        intake=None,
+        max_pending: int | None = None,
+        max_pending_pages: int | None = None,
         prefix_cache=None,
+        spec=None,
+        flight_recorder=None,
         fused_verify: bool = False,
         fused_wave: bool = False,
-        spec=None,
         device=None,
     ):
         if spec is not None and not isinstance(spec, SpecConfig):
@@ -855,6 +1100,20 @@ class ContinuousBatcher:
         self.verify_rounds = 0
         self.spec = spec
         self._poisoned = False
+        self._registry = getattr(metrics, "registry", metrics) if metrics is not None else None
+        self._metrics = (
+            _ServingMetrics(self._registry, num_pages) if metrics is not None else None
+        )
+        self._tracer = tracer
+        if intake is None and (max_pending is not None or max_pending_pages is not None):
+            intake = IntakeQueue(
+                max_pending if max_pending is not None else 2 * slots,
+                max_cost=max_pending_pages,
+                cost_fn=self._need_pages,
+                metrics=self._registry,
+            )
+        self.intake = intake
+        self.flight_recorder = flight_recorder
         self.prefix_cache = prefix_cache
         #: prefix-hit admissions and spec verify rounds attend the pools in
         #: place through the paged chunk kernel instead of a dense context
@@ -864,6 +1123,13 @@ class ContinuousBatcher:
         #: hash chain each live slot holds in the prefix cache; released
         #: at retirement
         self._slot_chain: list[list[bytes]] = [[] for _ in range(slots)]
+        #: registered on the first deadline expiry only
+        self._deadline_counter = None
+        #: per-request notes for the next scheduler call
+        #: (:meth:`annotate_requests`), moved into ``_run_notes`` by
+        #: ``_start_run``; read only with a flight recorder
+        self._timeline_notes: dict[int, dict] = {}
+        self._run_notes: dict[int, dict] = {}
 
     # -- shared helpers -------------------------------------------------
 
@@ -951,12 +1217,34 @@ class ContinuousBatcher:
                 f"the horizon"
             )
 
+    def _count_deadline_exceeded(self, n: int = 1) -> None:
+        """Count deadline expiries on
+        ``beholder_failover_deadline_exceeded_total``, registered on first
+        use only."""
+        if self._registry is None:
+            return
+        if self._deadline_counter is None:
+            self._deadline_counter = get_or_create(
+                self._registry, "counter",
+                "beholder_failover_deadline_exceeded_total",
+                "Requests retired with an expired deadline (explicit "
+                "deadline_exceeded outcome instead of a wedged slot)",
+            )
+        self._deadline_counter.inc(n)
+
+    @staticmethod
+    def _deadline_expired(req) -> bool:
+        deadline = getattr(req, "deadline", None)
+        return deadline is not None and deadline.expired
+
     def _start_run(self, requests: list[Request]):
         """Fail fast before anything is admitted: every request's prefix cap
         and pool/table fit is checked up front, so an unservable request
         cannot raise mid-run with earlier requests' pages held (an error
-        that escapes mid-run poisons the batcher)."""
+        that escapes mid-run poisons the batcher). Timeline notes set by
+        :meth:`annotate_requests` apply to this call alone."""
         self._check_not_poisoned()
+        self._run_notes, self._timeline_notes = self._timeline_notes, {}
         for req in requests:
             if req.horizon <= 0:
                 continue
@@ -968,56 +1256,228 @@ class ContinuousBatcher:
     def _claim_admissions(self, queue, results, req_of, free_pages, commit):
         """One admission round: claim every (free slot, queued request)
         pair that fits under the page headroom, in queue order. Zero-
-        horizon requests resolve at once. With a prefix cache, each claim's
-        hit chain is looked up and pinned before any pressure eviction this
-        round (eviction must never take pages a claim is about to adopt),
-        cold cached pages are evicted when the pool is short, pins are
-        released on deferral, and hits/misses count once per admission.
-        Returns (slot, rid, feats, t, hit_pages, hashes) tuples; raises
-        when nothing is active and the head request can never fit."""
+        horizon requests resolve at once, and a request whose deadline
+        already expired resolves to :class:`DeadlineExceededResult` without
+        a prefill. With a prefix cache, each claim's hit chain is looked up
+        and pinned before any pressure eviction this round (eviction must
+        never take pages a claim is about to adopt), cold cached pages are
+        evicted when the pool is short, pins are released on deferral, and
+        hits/misses count once per admission. Returns (slot, rid, feats, t,
+        hit_pages, hashes) tuples; raises when nothing is active and the
+        head request can never fit. With a flight recorder: one ``claim``
+        event, and ``req.claim``, ``prefix_lookup``, ``stall`` and
+        ``deadline_exceeded`` instants."""
         cache = self.prefix_cache
+        fr = self.flight_recorder
+        claim_ts = time.time() if fr is not None else 0.0
+        claim_t0 = time.perf_counter()
+        claim_tid = current_trace_id() if fr is not None else None
         batch = []
-        for slot in range(self.slots):
-            if not queue or req_of[slot] is not None:
-                continue
-            rid, req = queue[0]
-            if req.horizon <= 0:
-                queue.pop(0)
-                results[rid] = np.zeros(0, np.float32)
-                continue
-            self._check_servable(req)
-            feats_np, t = self._prep_np(req)
-            hit_pages: list[int] = []
-            hashes: list[bytes] = []
-            pinned: list[bytes] = []
-            if cache is not None:
-                hashes = cache.hashes(feats_np)
-                hit_pages = cache.lookup(hashes, (t - 1) // self.page_size, record=False)
-                pinned = hashes[: len(hit_pages)]
-                cache.acquire(pinned)
-            need = self._need_pages(req)
-            free = free_pages()
-            if need > free and cache is not None:
-                # pool pressure: surrender cold cached pages before deferring
-                free += self._evict_cached(need - free)
-            if need > free:
+        try:
+            for slot in range(self.slots):
+                if not queue or req_of[slot] is not None:
+                    continue
+                rid, req = queue[0]
+                if req.horizon <= 0:
+                    queue.pop(0)
+                    results[rid] = np.zeros(0, np.float32)
+                    continue
+                if self._deadline_expired(req):
+                    # the budget ran out while queued: no prefill, and the
+                    # slot goes to a request that can still make it
+                    queue.pop(0)
+                    results[rid] = DeadlineExceededResult()
+                    self._count_deadline_exceeded()
+                    if fr is not None:
+                        fr.instant("deadline_exceeded", trace_id=claim_tid, stage="claim",
+                                   rid=rid, **self._run_notes.get(rid, {}))
+                    continue
+                self._check_servable(req)
+                feats_np, t = self._prep_np(req)
+                hit_pages: list[int] = []
+                hashes: list[bytes] = []
+                pinned: list[bytes] = []
                 if cache is not None:
-                    cache.release(pinned)  # not admitted this round
-                if not any(r is not None for r in req_of):
-                    raise RuntimeError(
-                        "page pool exhausted: request needs "
-                        f"{need} pages but only {free} exist free — "
-                        "raise num_pages or lower concurrency"
-                    )
-                break  # defer until an active request retires
-            queue.pop(0)
-            if cache is not None:
-                self._slot_chain[slot] = pinned
-                cache.record_admit(hit_pages)
-            batch.append((slot, rid, feats_np, t, hit_pages, hashes))
-            req_of[slot] = rid
-            commit(slot, rid, req, need)
+                    hashes = cache.hashes(feats_np)
+                    hit_pages = cache.lookup(hashes, (t - 1) // self.page_size, record=False)
+                    pinned = hashes[: len(hit_pages)]
+                    cache.acquire(pinned)
+                    if fr is not None:
+                        fr.instant("prefix_lookup", trace_id=claim_tid, slot=slot,
+                                   hit_pages=len(hit_pages))
+                need = self._need_pages(req)
+                free = free_pages()
+                if need > free and cache is not None:
+                    # pool pressure: surrender cold cached pages before deferring
+                    free += self._evict_cached(need - free)
+                if need > free:
+                    if cache is not None:
+                        cache.release(pinned)  # not admitted this round
+                    if not any(r is not None for r in req_of):
+                        raise RuntimeError(
+                            "page pool exhausted: request needs "
+                            f"{need} pages but only {free} exist free — "
+                            "raise num_pages or lower concurrency"
+                        )
+                    if fr is not None:
+                        fr.instant("stall", trace_id=claim_tid, reason="pressure_deferral",
+                                   slot=slot, need=int(need), free=int(free))
+                    break  # defer until an active request retires
+                queue.pop(0)
+                if cache is not None:
+                    self._slot_chain[slot] = pinned
+                    cache.record_admit(hit_pages)
+                batch.append((slot, rid, feats_np, t, hit_pages, hashes))
+                req_of[slot] = rid
+                commit(slot, rid, req, need)
+                if fr is not None:
+                    # the request's lifecycle marker: a tenant rides along
+                    # only when set, and a request's own traceparent names
+                    # the trace
+                    tenant = getattr(req, "tenant", None)
+                    tenant_note = {"tenant": tenant} if tenant is not None else {}
+                    req_tid = claim_tid
+                    tp = getattr(req, "traceparent", None)
+                    if tp is not None:
+                        pctx = from_traceparent(str(tp))
+                        if pctx is not None:
+                            req_tid = f"{pctx.trace_id:032x}"
+                    fr.instant("req.claim", trace_id=req_tid, rid=rid, slot=slot,
+                               prefix_tokens=int(t), hit_pages=len(hit_pages),
+                               horizon=int(req.horizon), **tenant_note,
+                               **self._run_notes.get(rid, {}))
+        finally:
+            if fr is not None:
+                fr.record("claim", claim_ts, time.perf_counter() - claim_t0,
+                          trace_id=claim_tid, claimed=len(batch), queued=len(queue))
         return batch
+
+    # -- instruments ------------------------------------------------------
+
+    def _run_span(self, operation: str, **tags):
+        """Root span of one scheduler call (a nullcontext without a
+        tracer)."""
+        if self._tracer is None:
+            return nullcontext()
+        return self._tracer.start_span(operation, tags=tags)
+
+    @staticmethod
+    def _span_trace_id(span) -> str | None:
+        """The 32-hex trace id of a run span (None for nullcontext): the
+        exemplar link for observations made after the span closed."""
+        ctx = getattr(span, "context", None)
+        return f"{ctx.trace_id:032x}" if ctx is not None else None
+
+    def _kernel_tags(self, family: str, flops: float) -> dict:
+        """Roofline-attribution tags for one dispatch round; empty without a
+        flight recorder."""
+        if self.flight_recorder is None:
+            return {}
+        return self.flight_recorder.kernel_tags(family, flops)
+
+    @property
+    def pool_family(self) -> str:
+        """The KV pool's dtype family (``"bf16"``/``"int8"``/``"fp8"``),
+        which qualifies the fused verify round's roofline family."""
+        pool = self.state.k_pools[0]
+        quantized = isinstance(pool, QuantizedPool)
+        return pool_dtype_family(pool.values if quantized else pool, quantized=quantized)
+
+    def _flops_per_token(self, ctx: float) -> float:
+        return model_flops_per_token(self.model, ctx)
+
+    @contextmanager
+    def _round(self, parent, phase: str, **tags):
+        """One scheduling round: a child span of the run span, a
+        ``round_duration_seconds{phase=...}`` observation and, with a
+        flight recorder, one event carrying the round's tags. The trace id
+        is read inside the child span, so the event and the histogram
+        exemplar both link to it. Host clocks only."""
+        fr = self.flight_recorder
+        ts = time.time() if fr is not None else 0.0
+        t0 = time.perf_counter()
+        cm = (
+            self._tracer.start_span(f"serving.{phase}", child_of=parent, tags=tags)
+            if self._tracer is not None and parent is not None
+            else nullcontext()
+        )
+        trace_id = None
+        try:
+            with cm:
+                trace_id = current_trace_id()
+                yield
+        finally:
+            dur = time.perf_counter() - t0
+            if self._metrics is not None:
+                self._metrics.observe_round(phase, dur, trace_id=trace_id)
+            if fr is not None:
+                fr.record(phase, ts, dur, trace_id=trace_id, **tags)
+
+    def _emit_req_retire(self, rid: int, slot: int, tokens: int, outcome: str = "ok",
+                         **extra) -> None:
+        """The ``req.retire`` instant every serving loop emits (one copy, so
+        its shape cannot drift between loops); caller-set notes win over
+        ``extra``."""
+        fr = self.flight_recorder
+        if fr is None:
+            return
+        note = {**extra, **self._run_notes.get(rid, {})}
+        fr.instant("req.retire", rid=rid, slot=slot, tokens=int(tokens), outcome=outcome,
+                   **note)
+
+    def annotate_requests(self, notes: dict[int, dict]) -> None:
+        """Attach per-request notes to the next scheduler call:
+        ``notes[rid]`` merges into that request's ``req.claim`` and
+        ``req.retire`` instants (e.g. ``queue_wait_s``). Read only with a
+        flight recorder."""
+        self._timeline_notes = dict(notes)
+
+    # -- admission control: bounded intake + shed -----------------------
+
+    def submit(self, request: Request):
+        """Offer one request to the bounded intake; returns an
+        :class:`~beholder_tpu_torch.reliability.shed.Admission`: accepted,
+        or shed with its reason (``queue_full`` / ``cost_backlog`` /
+        ``oversized``). A request that could never fit the pool sheds as
+        ``oversized`` before any page is touched. Needs ``intake=`` or
+        ``max_pending=``."""
+        if self.intake is None:
+            raise RuntimeError(
+                "no intake queue configured — construct the batcher with "
+                "max_pending= (or an explicit IntakeQueue) to use submit()"
+            )
+        need = self._need_pages(request)
+        if need > self.num_pages or need > self.max_pages_per_seq:
+            return self.intake.shed(SHED_OVERSIZED)
+        return self.intake.offer(request, cost=need)
+
+    def run_pending(self, waves: bool | None = None) -> list:
+        """Drain the intake and serve everything admitted since the last
+        drain, results in admission order: :meth:`run_waves` by default,
+        :meth:`run` with a prefix cache (only ``run`` reuses and fills it),
+        :meth:`run_spec` with ``spec``; ``waves`` overrides (``False``
+        still picks spec when set). A tenant-fair intake's preempted
+        requests come after them as
+        :class:`~beholder_tpu_torch.control.Preempted` outcomes."""
+        if self.intake is None:
+            raise RuntimeError("no intake queue configured")
+        pending, waits, _ = self.intake.drain_all()
+        take_preempted = getattr(self.intake, "take_preempted", None)
+        preempted = take_preempted() if take_preempted is not None else []
+        tail = [Preempted(tenant) for _, tenant in preempted]
+        if not pending:
+            return tail
+        if self.flight_recorder is not None:
+            self.annotate_requests(
+                {rid: {"queue_wait_s": round(wait, 6)} for rid, wait in enumerate(waits)}
+            )
+        if waves is None:
+            waves = self.prefix_cache is None and self.spec is None
+        if waves:
+            return self.run_waves(pending) + tail
+        if self.spec is not None:
+            return self.run_spec(pending) + tail
+        return self.run(pending) + tail
 
     # -- flexible path: per-event scheduling ------------------------------
 
@@ -1026,16 +1486,24 @@ class ContinuousBatcher:
         are one batched prefill per round, the ticks until the next
         retirement run back to back, retirements snapshot forecast rows on
         the device. The only device-to-host read is one packed buffer at
-        the end."""
+        the end. A request whose deadline expires comes back as a
+        :class:`DeadlineExceededResult`."""
         self._start_run(requests)
+        t0 = time.perf_counter()
         try:
-            with torch.no_grad():
-                return self._run(requests)
+            with torch.no_grad(), self._run_span("serving.run", requests=len(requests)) as span:
+                results = self._run(requests, span)
         except BaseException:
             self._poisoned = True
             raise
+        if self._metrics:
+            self._metrics.observe_run(
+                "run", time.perf_counter() - t0, sum(max(r.horizon, 0) for r in requests),
+                trace_id=self._span_trace_id(span),
+            )
+        return results
 
-    def _run(self, requests: list[Request]) -> list[np.ndarray]:
+    def _run(self, requests: list[Request], span=None) -> list[np.ndarray]:
         dev = self.device
         queue = list(enumerate(requests))
         results: list = [None] * len(requests)
@@ -1050,6 +1518,13 @@ class ContinuousBatcher:
         total_need = np.zeros(self.slots, np.int64)  # pages at horizon end
         written = np.zeros(self.slots, np.int64)     # forecast entries
         snap_batches: list = []  # (rids, (R, cap) rows, (R,) tails, widths)
+        # requests, tokens: counted into the metrics only after the
+        # allocator check (a failed run served nothing)
+        served = [0, 0]
+        #: rids retired by deadline expiry: their results wrap in
+        #: DeadlineExceededResult after the readback
+        deadline_rids: list[int] = []
+        has_deadlines = any(getattr(r, "deadline", None) is not None for r in requests)
 
         def free_pages() -> int:
             # held pages cancel between free_top and committed growth, so
@@ -1060,25 +1535,43 @@ class ContinuousBatcher:
             cold = self.prefix_cache.cold_page_count if self.prefix_cache else 0
             return self.num_pages - int(total_need.sum()) - cold
 
-        def retire_many(done: list[int]):
-            idx = self._up(np.asarray(done, np.int32))
-            rows = idx.to(torch.int64)
-            snap_batches.append((
-                [req_of[s] for s in done],
-                carry.delta_buf[rows],
-                carry.last_pred[rows],
-                [int(written[s]) for s in done],
-            ))
-            self.state = paged_release_many(self.state, idx)
-            for s in done:
-                req_of[s] = None
-                total_need[s] = 0
-                written[s] = 0
-                if self.prefix_cache is not None and self._slot_chain[s]:
-                    # the slot's references are gone; the cache's own keeps
-                    # its prefix pages resident as cold entries
-                    self.prefix_cache.release(self._slot_chain[s])
-                    self._slot_chain[s] = []
+        def occupancy():
+            if self._metrics:
+                self._metrics.occupancy(sum(r is not None for r in req_of), free_pages(),
+                                        req_of, requests, total_need, self.max_pages_per_seq)
+
+        def retire_many(done: list[int], expired: bool = False):
+            """Snapshot and release a retirement round; ``expired`` retires
+            slots whose deadline ran out, with their partial forecasts."""
+            with self._round(span, "retire", slots=len(done)):
+                idx = self._up(np.asarray(done, np.int32))
+                rows = idx.to(torch.int64)
+                rids = [req_of[s] for s in done]
+                widths = [int(written[s]) for s in done]
+                snap_batches.append((rids, carry.delta_buf[rows], carry.last_pred[rows], widths))
+                self.state = paged_release_many(self.state, idx)
+                for s in done:
+                    req_of[s] = None
+                    total_need[s] = 0
+                    written[s] = 0
+                    if self.prefix_cache is not None and self._slot_chain[s]:
+                        # the slot's references are gone; the cache's own keeps
+                        # its prefix pages resident as cold entries
+                        self.prefix_cache.release(self._slot_chain[s])
+                        self._slot_chain[s] = []
+                served[0] += len(done)
+                if expired:
+                    served[1] += sum(w + 1 for w in widths)
+                    deadline_rids.extend(rids)
+                    self._count_deadline_exceeded(len(done))
+                    if self.flight_recorder is not None:
+                        self.flight_recorder.instant("deadline_exceeded", stage="tick",
+                                                     slots=len(done))
+                else:
+                    served[1] += sum(requests[r].horizon for r in rids)
+                outcome = "deadline_exceeded" if expired else "ok"
+                for s, rid, w in zip(done, rids, widths):
+                    self._emit_req_retire(rid, s, w + 1, outcome)
 
         def commit(slot, rid, req, need):
             remaining[slot] = req.horizon
@@ -1086,47 +1579,64 @@ class ContinuousBatcher:
             written[slot] = 0
 
         while queue or any(r is not None for r in req_of):
+            if has_deadlines:
+                # the deadline sweep at a scheduling-event boundary: an
+                # expired slot retires now with its partial forecast
+                lapsed = [s for s in range(self.slots) if req_of[s] is not None
+                          and self._deadline_expired(requests[req_of[s]])]
+                if lapsed:
+                    retire_many(lapsed, expired=True)
             batch = self._claim_admissions(queue, results, req_of, free_pages, commit)
             if batch:
                 self.admission_rounds += 1
                 page = self.page_size
-                cold = [b for b in batch if not b[4]]
-                warm = [b for b in batch if b[4]]
-                if cold:
-                    # cold admits: one batched prefill
-                    t_pad = -(-max(b[3] for b in cold) // page) * page
-                    self.state, carry = _admit_many_carry(
-                        self.model, self.state, carry,
-                        self._up(np.asarray([b[0] for b in cold], np.int32)),
-                        self._up(np.stack([self._pad_to(b[2], t_pad) for b in cold])),
-                        self._up(np.asarray([b[3] for b in cold], np.int32)),
-                        self._up(np.asarray(
-                            [int(requests[b[1]].statuses[-1]) for b in cold], np.int64
-                        )),
-                    )
-                for slot, rid, feats_np, t, hit_pages, _ in warm:
-                    # warm admits: adopt the cached pages, prefill the
-                    # suffix only (one forward per hit: hit shapes vary)
-                    t_hit = len(hit_pages) * page
-                    s_len = t - t_hit
-                    s_pad = -(-s_len // page) * page
-                    self.state, carry = _admit_cached_carry(
-                        self.model, self.state, carry,
-                        self._up(np.asarray([slot], np.int64)),
-                        self._up(self._pad_to(feats_np[t_hit:], s_pad)[None]),
-                        self._up(np.asarray(s_len, np.int32)),
-                        self._up(np.asarray(hit_pages, np.int32)),
-                        self._up(np.asarray([int(requests[rid].statuses[-1])], np.int64)),
-                        fused=self.fused_verify,
-                    )
-                if self.prefix_cache is not None:
-                    self.prefix_cache.prefilled(
-                        sum(b[3] - len(b[4]) * page for b in batch)
-                    )
-                    self._index_admitted([(b[0], b[5], b[3] // page) for b in batch])
+                admit_tags = {"requests": len(batch)}
+                if self.flight_recorder is not None:
+                    # prefill FLOPs follow the uncached suffix; t/2 is the
+                    # mean causal context
+                    admit_tags.update(self._kernel_tags("flash", sum(
+                        (b[3] - len(b[4]) * page) * self._flops_per_token(b[3] / 2.0)
+                        for b in batch
+                    )))
+                with self._round(span, "admit", **admit_tags):
+                    cold = [b for b in batch if not b[4]]
+                    warm = [b for b in batch if b[4]]
+                    if cold:
+                        # cold admits: one batched prefill
+                        t_pad = -(-max(b[3] for b in cold) // page) * page
+                        self.state, carry = _admit_many_carry(
+                            self.model, self.state, carry,
+                            self._up(np.asarray([b[0] for b in cold], np.int32)),
+                            self._up(np.stack([self._pad_to(b[2], t_pad) for b in cold])),
+                            self._up(np.asarray([b[3] for b in cold], np.int32)),
+                            self._up(np.asarray(
+                                [int(requests[b[1]].statuses[-1]) for b in cold], np.int64
+                            )),
+                        )
+                    for slot, rid, feats_np, t, hit_pages, _ in warm:
+                        # warm admits: adopt the cached pages, prefill the
+                        # suffix only (one forward per hit: hit shapes vary)
+                        t_hit = len(hit_pages) * page
+                        s_len = t - t_hit
+                        s_pad = -(-s_len // page) * page
+                        self.state, carry = _admit_cached_carry(
+                            self.model, self.state, carry,
+                            self._up(np.asarray([slot], np.int64)),
+                            self._up(self._pad_to(feats_np[t_hit:], s_pad)[None]),
+                            self._up(np.asarray(s_len, np.int32)),
+                            self._up(np.asarray(hit_pages, np.int32)),
+                            self._up(np.asarray([int(requests[rid].statuses[-1])], np.int64)),
+                            fused=self.fused_verify,
+                        )
+                    if self.prefix_cache is not None:
+                        self.prefix_cache.prefilled(
+                            sum(b[3] - len(b[4]) * page for b in batch)
+                        )
+                        self._index_admitted([(b[0], b[5], b[3] // page) for b in batch])
                 done = [b[0] for b in batch if remaining[b[0]] == 1]
                 if done:
                     retire_many(done)  # the admit predictions were the forecasts
+            occupancy()
             if not any(r is not None for r in req_of):
                 continue
 
@@ -1137,9 +1647,17 @@ class ContinuousBatcher:
                 1, int(min(remaining[s] for s in range(self.slots) if active[s])) - 1
             )
             write_idx = np.where(active, written, cap).astype(np.int32)
-            self.state, carry = _tick_chunk(
-                self.model, self.state, carry, self._up(write_idx), n_chunk
-            )
+            tick_tags = {"ticks": n_chunk}
+            if self.flight_recorder is not None:
+                lens = [len(requests[req_of[s]].progress) - 1 + int(written[s])
+                        for s in range(self.slots) if active[s]]
+                tick_tags.update(self._kernel_tags(
+                    "paged", n_chunk * len(lens) * self._flops_per_token(float(np.mean(lens)))
+                ))
+            with self._round(span, "tick", **tick_tags):
+                self.state, carry = _tick_chunk(
+                    self.model, self.state, carry, self._up(write_idx), n_chunk
+                )
             self.ticks += n_chunk
             done = []
             for slot in range(self.slots):
@@ -1151,15 +1669,17 @@ class ContinuousBatcher:
                     done.append(slot)
             if done:
                 retire_many(done)
+                occupancy()
 
         # one readback of one buffer: the allocator flag, tails and rows
         if snap_batches:
-            rows = torch.cat([b[1] for b in snap_batches])
-            tails = torch.cat([b[2] for b in snap_batches])
-            packed = torch.cat([
-                self.state.alloc_failed.float()[None], tails.float(), rows.reshape(-1),
-            ])
-            got = packed.cpu().numpy()
+            with self._round(span, "readback", batches=len(snap_batches)):
+                rows = torch.cat([b[1] for b in snap_batches])
+                tails = torch.cat([b[2] for b in snap_batches])
+                packed = torch.cat([
+                    self.state.alloc_failed.float()[None], tails.float(), rows.reshape(-1),
+                ])
+                got = packed.cpu().numpy()
             if got[0]:
                 raise RuntimeError(self._ALLOCATOR_TRIPPED)
             rids = [rid for b in snap_batches for rid in b[0]]
@@ -1169,8 +1689,12 @@ class ContinuousBatcher:
             rows_v = got[1 + r :].reshape(r, cap)
             for i, (rid, w) in enumerate(zip(rids, widths)):
                 results[rid] = np.append(rows_v[i, :w], tails_v[i]).astype(np.float32)
+            for rid in deadline_rids:
+                results[rid] = DeadlineExceededResult(results[rid])
         elif bool(self.state.alloc_failed):
             raise RuntimeError(self._ALLOCATOR_TRIPPED)
+        if self._metrics:
+            self._metrics.served(*served)
         return results
 
     # -- speculative path: draft-then-verify ------------------------------
@@ -1201,18 +1725,28 @@ class ContinuousBatcher:
         come back as tensors on the device and nothing is read back (the
         caller owns checking ``state.alloc_failed``); otherwise one
         packed readback at the end."""
-        self._check_not_poisoned()
+        self._start_run(requests)
+        t0 = time.perf_counter()
         try:
-            with torch.no_grad():
-                return self._run_waves(requests, device_results)
+            with torch.no_grad(), self._run_span(
+                "serving.run_waves", requests=len(requests), device_results=device_results
+            ) as span:
+                results = self._run_waves(requests, device_results, span)
         except BaseException:
             self._poisoned = True
             raise
+        if self._metrics:
+            self._metrics.observe_run(
+                "run_waves", time.perf_counter() - t0,
+                sum(max(r.horizon, 0) for r in requests), trace_id=self._span_trace_id(span),
+            )
+        return results
 
-    def _run_waves(self, requests: list[Request], device_results: bool) -> list:
+    def _run_waves(self, requests: list[Request], device_results: bool, span=None) -> list:
         results: list = [None] * len(requests)
         queue = list(enumerate(requests))
         batches: list = []  # (wave members, deltas)
+        fr = self.flight_recorder
 
         def pages_at(r, hh):
             return -(-(len(r.progress) - 1 + hh - 1) // self.page_size)
@@ -1248,35 +1782,74 @@ class ContinuousBatcher:
                 queue.pop(0)
                 wave.append((rid, req))
                 horizon = h
+                if fr is not None:
+                    # claim = wave membership (the wave that follows is the
+                    # request's admission and its first token)
+                    tenant = getattr(req, "tenant", None)
+                    tenant_note = {"tenant": tenant} if tenant is not None else {}
+                    fr.instant("req.claim", rid=rid, slot=len(wave) - 1,
+                               prefix_tokens=len(req.progress) - 1, horizon=int(req.horizon),
+                               **tenant_note, **self._run_notes.get(rid, {}))
             if not wave:
                 continue
-            prepped = [self._prep_np(req) for _, req in wave]
-            t_pad = -(-max(t for _, t in prepped) // self.page_size) * self.page_size
-            feats = np.stack([self._pad_to(p, t_pad) for p, _ in prepped])
-            lens = np.asarray([t for _, t in prepped], np.int32)
-            stats = np.asarray([int(req.statuses[-1]) for _, req in wave], np.int64)
-            horizons = tuple(req.horizon for _, req in wave) if device_results else None
-            deltas, self.state = serve_wave(
-                self.model, self.state, self._up(feats), self._up(lens),
-                self._up(stats), horizon - 1, horizons, fused=self.fused_wave,
-            )
-            self.ticks += horizon - 1
-            batches.append((wave, deltas))
+            wave_tags = {"requests": len(wave), "horizon": horizon}
+            if fr is not None:
+                # each member's prefill plus horizon-1 ticks at the end-of-wave
+                # context
+                wave_tags.update(self._kernel_tags("paged", sum(
+                    (len(req.progress) - 1) * self._flops_per_token((len(req.progress) - 1) / 2.0)
+                    + (horizon - 1) * self._flops_per_token(len(req.progress) - 1 + horizon / 2.0)
+                    for _, req in wave
+                )))
+            with self._round(span, "wave", **wave_tags):
+                prepped = [self._prep_np(req) for _, req in wave]
+                t_pad = -(-max(t for _, t in prepped) // self.page_size) * self.page_size
+                feats = np.stack([self._pad_to(p, t_pad) for p, _ in prepped])
+                lens = np.asarray([t for _, t in prepped], np.int32)
+                stats = np.asarray([int(req.statuses[-1]) for _, req in wave], np.int64)
+                horizons = tuple(req.horizon for _, req in wave) if device_results else None
+                deltas, self.state = serve_wave(
+                    self.model, self.state, self._up(feats), self._up(lens),
+                    self._up(stats), horizon - 1, horizons, fused=self.fused_wave,
+                )
+                self.ticks += horizon - 1
+                batches.append((wave, deltas))
+            # the wave released its slots (retired before the readback)
+            for slot_i, (rid, req) in enumerate(wave):
+                self._emit_req_retire(rid, slot_i, req.horizon)
+            if self._metrics:
+                # the last dispatched wave's occupancy; the served counters
+                # wait for the allocator check
+                need = [pages_at(r, horizon) for _, r in wave]
+                self._metrics.occupancy(
+                    len(wave), self.num_pages - sum(need), [rid for rid, _ in wave],
+                    {rid: r for rid, r in wave}, need, self.max_pages_per_seq,
+                )
 
+        if self._metrics:
+            self._metrics.idle(self.num_pages)
+        n_served = sum(len(w) for w, _ in batches)
+        t_served = sum(req.horizon for w, _ in batches for _, req in w)
         if device_results:
+            # unchecked: the dispatched counters, never the served ones
+            if self._metrics:
+                self._metrics.dispatched(n_served, t_served)
             for wave, rows in batches:
                 for (rid, _), row in zip(wave, rows):
                     results[rid] = row
             return results
 
         # one readback for all waves' results and the allocator flag
-        packed = torch.cat(
-            [self.state.alloc_failed.float()[None]]
-            + [d.reshape(-1) for _, d in batches]
-        )
-        got = packed.cpu().numpy()
+        with self._round(span, "readback", batches=len(batches)):
+            packed = torch.cat(
+                [self.state.alloc_failed.float()[None]]
+                + [d.reshape(-1) for _, d in batches]
+            )
+            got = packed.cpu().numpy()
         if got[0]:
             raise RuntimeError(self._ALLOCATOR_TRIPPED)
+        if self._metrics:
+            self._metrics.served(n_served, t_served)
         at = 1
         for wave, d in batches:
             arr = got[at : at + d.numel()].reshape(d.shape)
@@ -1327,24 +1900,35 @@ class ContinuousBatcher:
                 f"per-seq cap {self.max_pages_per_seq})"
             )
         t_pad = -(-t // self.page_size) * self.page_size
+        t0 = time.perf_counter()
         try:
-            with torch.no_grad():
-                deltas, self.state = fork_wave(
-                    self.model, self.state,
-                    self._up(self._pad_to(feats_np, t_pad)[None]),
-                    self._up(np.asarray(t, np.int32)),
-                    self._up(np.asarray(branch_statuses, np.int64)),
-                    n_ticks,
-                )
-                self.ticks += n_ticks
-                packed = torch.cat([
-                    self.state.alloc_failed.float()[None], deltas.float().reshape(-1),
-                ])
-                got = packed.cpu().numpy()
+            with torch.no_grad(), self._run_span(
+                "serving.what_if", branches=k, horizon=horizon
+            ) as span:
+                with self._round(span, "wave", requests=1, horizon=horizon):
+                    deltas, self.state = fork_wave(
+                        self.model, self.state,
+                        self._up(self._pad_to(feats_np, t_pad)[None]),
+                        self._up(np.asarray(t, np.int32)),
+                        self._up(np.asarray(branch_statuses, np.int64)),
+                        n_ticks,
+                    )
+                    self.ticks += n_ticks
+                with self._round(span, "readback", batches=1):
+                    packed = torch.cat([
+                        self.state.alloc_failed.float()[None], deltas.float().reshape(-1),
+                    ])
+                    got = packed.cpu().numpy()
         except BaseException:
             self._poisoned = True
             raise
         if got[0]:
             self._poisoned = True
             raise RuntimeError(self._ALLOCATOR_TRIPPED)
+        if self._metrics:
+            # one request, k branch rollouts of decode work
+            self._metrics.served(1, k * horizon)
+            self._metrics.idle(self.num_pages)
+            self._metrics.observe_run("what_if", time.perf_counter() - t0, k * horizon,
+                                      trace_id=self._span_trace_id(span))
         return got[1:].reshape(k, n_ticks + 1)[:, :horizon].astype(np.float32)

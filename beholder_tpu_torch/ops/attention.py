@@ -67,9 +67,8 @@ def full_attention(
 ) -> torch.Tensor:
     """Reference attention over ``(..., H, T, d)`` q and ``(..., Hkv, T,
     d)`` k/v (see :func:`attend`). ``window`` (with ``causal``) keeps the
-    previous ``window`` positions of each row."""
-    if segment_ids is not None:
-        raise NotImplementedError("segment ids are not ported yet")
+    previous ``window`` positions of each row; ``segment_ids``
+    (``q.shape[:-3] + (T,)``) masks attention across segments."""
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True")
@@ -89,6 +88,11 @@ def full_attention(
         live = rows >= cols
     if window is not None:
         live = live & (rows - cols < window)
+    if segment_ids is not None:
+        same = segment_ids[..., :, None] == segment_ids[..., None, :]
+        # (..., T, T) -> the grouped scores' (..., Hkv, G, T, T)
+        same = same[..., None, None, :, :]
+        live = same if live is None else live & same
     return attend(q, k, v, live)
 
 

@@ -1,6 +1,6 @@
-"""KV page quantizers (the pool half of the reference's ``ops/quant.py``).
+"""Quantizers: KV pages and weights (the reference's ``ops/quant.py``).
 
-Two encodings share one ``(values, scales)`` pool container:
+Two page encodings share one ``(values, scales)`` pool container:
 
 - **int8** (:func:`quantize_symmetric`): int8 values and f32 per-block
   scales, ``x ≈ q * scale``;
@@ -11,9 +11,19 @@ Two encodings share one ``(values, scales)`` pool container:
 Both must match the reference bit for bit on the same f32 input: every pool
 write (admit chunks, decode-tick columns) goes through :func:`pool_quantize`
 and every dequant site through :func:`pool_scales_f32`.
+
+Weights (:func:`quantize_weight`, :func:`quantize_params`) are symmetric
+int8 with one scale per output channel. The port's ``nn.Linear`` weight is
+``(out, in)`` where the reference's flax kernel is ``(in, out)``, so the
+scale reduces dim 1 here (dim 0 there); after that transpose the values and
+scales are the reference's bit for bit. :func:`quantize_params` works on the
+port's ``state_dict`` names: every 2-D ``.weight`` except the ``embed`` and
+``head`` projections.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 
@@ -86,3 +96,60 @@ def pool_scales_f32(scales: torch.Tensor) -> torch.Tensor:
     if scales.dtype == torch.uint8:
         return (scales.to(torch.int32) << 23).view(torch.float32)
     return scales
+
+
+_QKEYS = ("qvalues", "scale")
+
+
+def quantize_weight(w: torch.Tensor) -> dict[str, torch.Tensor]:
+    """(out, in) ``nn.Linear`` weight -> symmetric int8 with one f32 scale
+    per output channel: ``w ≈ qvalues.float() * scale[:, None]``."""
+    if w.ndim != 2:
+        raise ValueError(f"expected a 2-D weight, got shape {tuple(w.shape)}")
+    q, scale = quantize_symmetric(w, axis=1)
+    return {"qvalues": q, "scale": scale}
+
+
+def dequantize_weight(q: dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_weight`."""
+    return (q["qvalues"].float() * q["scale"][:, None]).to(dtype)
+
+
+def _is_quantizable(name: str, leaf) -> bool:
+    """Only 2-D matmul weights, and not the embedding or head projections
+    (input featurization and the scalar output head are precision-critical
+    and tiny)."""
+    parts = name.split(".")
+    if not (parts[-1] == "weight" and isinstance(leaf, torch.Tensor) and leaf.ndim == 2):
+        return False
+    return not any(p in ("embed", "head") for p in parts)
+
+
+def quantize_params(params: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """A ``state_dict`` -> the same names with every eligible weight
+    replaced by its ``{"qvalues", "scale"}`` dict."""
+    return {
+        name: quantize_weight(leaf) if _is_quantizable(name, leaf) else leaf
+        for name, leaf in params.items()
+    }
+
+
+def dequantize_params(qparams: Any, dtype=torch.bfloat16) -> Any:
+    """A quantized tree -> loadable weights (dicts, lists and tuples are
+    walked; a ``{"qvalues", "scale"}`` dict becomes its weight)."""
+    if isinstance(qparams, dict):
+        if set(qparams.keys()) == set(_QKEYS):
+            return dequantize_weight(qparams, dtype)
+        return {k: dequantize_params(v, dtype) for k, v in qparams.items()}
+    if isinstance(qparams, (list, tuple)):
+        return type(qparams)(dequantize_params(v, dtype) for v in qparams)
+    return qparams
+
+
+def quantized_nbytes(tree: Any) -> int:
+    """Total bytes of a (possibly quantized) params tree."""
+    if isinstance(tree, dict):
+        return sum(quantized_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(quantized_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()

@@ -56,7 +56,18 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    pools; ``bench_spec``'s throughput mode, timed); per path: launch
    counts of both kernels (set to 0 just before, read just after), pages
    home, forecasts against the dense ``forecast_deltas`` oracle, tokens/s,
-   synchronising calls; then the
+   synchronising calls; then the batcher's intake and instruments
+   (``intake_path``): ``submit`` / ``run_pending`` with a ``Registry``, a
+   ``Tracer`` and a ``FlightRecorder`` whose ``RooflineAttributor``
+   measures the card's f32 matmul ceiling, going to ``run_waves`` (shed
+   outcomes, launches, streams and synchronising calls those of the bare
+   path), to ``run`` with a prefix cache (cold and warm), to ``run_spec``
+   (fused, a replay of spec off's stream: the spec counters against the
+   run's own), request deadlines (expired at claim, lapsing mid-run), trace
+   ids on every recorded event, a default ``RooflineAttributor()``
+   measuring in the background (synchronising calls those of the bare
+   path), and the armed ``run_pending`` -> ``run`` beside a bare ``run``
+   in tokens/s, ten alternating pairs; then the
    reference's default model (``dim=128, heads=4``: head dim 32) through a
    fused wave and a cold and warm prefix-cache ``run``;
 5. training: the same model with ``attention="flash"`` and f32 params from
@@ -105,8 +116,10 @@ The full record goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
 import logging
+import pstats
 import statistics
 import subprocess
 import sys
@@ -123,6 +136,9 @@ BF16_FLOPS = 989e12
 QUEUED, CONVERTING, DEPLOYED, ERRORED = 0, 2, 4, 5
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's boost clock
 TIMED_RUNS = 3
+#: the intake phase's armed/bare overhead: bare and armed calls in this
+#: many pairs, the order alternating
+OVERHEAD_PAIRS = 10
 #: kernel vs plain version: both round the output to bf16, sum in f32 in
 #: different orders, and group the online softmax by 128-token tiles (the
 #: kernel) vs whole pages (the plain version); on bf16 pools a last-bit
@@ -1360,6 +1376,8 @@ def main_path(torch, profile: bool = False) -> dict:
     report.update(what_if_path(torch, ContinuousBatcher, model, layers, Request))
     report.update(spec_path(torch, model, layers, run_reqs, want_run, report["bf16/run"],
                             run_streams, profile))
+    report.update(intake_path(torch, model, layers, run_reqs, want_run, prefix_reqs,
+                              want_prefix))
     return report
 
 
@@ -1558,8 +1576,9 @@ SPEC_MAX_DRAFT = 4
 
 class accept_spy:
     """Drafted and accepted counts of every verify step a run makes, read
-    from ``AdaptiveDraftController.update`` (the port has no spec metrics
-    yet): one call per slot per verify round."""
+    from ``AdaptiveDraftController.update`` (one call per slot per verify
+    round), independently of the spec metrics, which ``intake_path`` holds
+    against these counts."""
 
     def __enter__(self):
         from beholder_tpu_torch.spec import scheduler
@@ -1741,6 +1760,377 @@ def spec_path(torch, model, layers, reqs, want, run_report, run_streams,
           SpecConfig(max_draft=SPEC_MAX_DRAFT, accept_tol=1e-2, adaptive=True),
           timed_runs=TIMED_RUNS)
     return report
+
+
+class Lapsing:
+    """A deadline that passes the claim-time check and expires at the next
+    sweep (``tests/test_slo.py:269-277``)."""
+
+    def __init__(self):
+        self.checks = 0
+
+    @property
+    def expired(self):
+        self.checks += 1
+        return self.checks > 1
+
+
+def traced_run(where, tracer, fr, fn):
+    """Run ``fn`` with the recorder emptied first; check that exactly one
+    root span opened and that every event the run recorded carries its
+    trace id. Returns (result, events)."""
+    fr.clear()
+    roots0 = len([s for s in tracer.reporter.spans if s.context.parent_id == 0])
+    result = fn()
+    roots = [s for s in tracer.reporter.spans if s.context.parent_id == 0][roots0:]
+    check(len(roots) == 1, f"{where}: {len(roots)} root spans for one call")
+    trace_hex = f"{roots[0].context.trace_id:032x}"
+    events = fr.events()
+    check(bool(events), f"{where}: the recorder holds no event")
+    stray = [e["name"] for e in events if e["trace_id"] != trace_hex]
+    check(not stray, f"{where}: events outside the run span's trace: {stray[:5]}")
+    return result, events
+
+
+def ceiling_fracs(where, events) -> list[float]:
+    """The ``ceiling_frac`` stamped on every dispatch event (those tagged
+    with a kernel family): each finite and >= 0."""
+    fracs = [e["args"].get("ceiling_frac") for e in events if e["args"].get("family")]
+    check(bool(fracs), f"{where}: no dispatch event carries a kernel family")
+    check(all(f is not None and np.isfinite(f) and f >= 0 for f in fracs),
+          f"{where}: ceiling_frac missing or not finite on a dispatch event: {fracs[:5]}")
+    return fracs
+
+
+def intake_path(torch, model, layers, run_reqs, want_run, prefix_reqs, want_prefix) -> dict:
+    """The batcher's intake, deadlines and instruments on the headline model,
+    bf16 pool. Every armed batcher carries a ``Registry``, a ``Tracer`` on an
+    ``InMemoryReporter`` and a ``FlightRecorder`` whose ``RooflineAttributor``
+    measured its f32 matmul ceiling on the card before any counted run.
+
+    1. ``max_pending=8``: ``submit`` ``run``'s 12 requests and one oversized
+       (8 accepted, 4 ``queue_full``, 1 ``oversized``); ``run_pending`` goes
+       to ``run_waves``: decode launches == layers x ticks, the streams and
+       synchronising calls those of a bare batcher's ``run_waves`` on the
+       same 8, pages home; the other 4 drain next; the shed counter and the
+       served requests and tokens read back from ``render()``;
+    2. a ``PrefixCache(metrics=registry)`` and ``fused_verify``: cold and
+       warm ``run_pending`` go to ``run``; chunk launches == layers x warm
+       admits; the cache's counters on ``render()``; streams and syncs those
+       of a bare prefix batcher;
+    3. ``spec``, fused, replaying spec off's stream: ``run_pending`` goes to
+       ``run_spec``; the spec counters equal the run's own drafted and
+       accepted counts; ``spec.accept`` instants and ``verify`` rounds tagged
+       ``paged_chunk:bf16``; the stream is spec off's bit for bit;
+    4. deadlines: an expired one returns no tokens, a lapsing one a partial
+       stream; the counter reads 2; pages home;
+    5. each run's recorder events carry its span's trace id; ``ceiling_frac``
+       on dispatch events, finite and >= 0 (reported, not gated);
+    5b. a batcher whose recorder holds a default ``RooflineAttributor()``,
+       measuring in the background inside the counted window: the syncs,
+       launches and streams of a bare ``run``;
+    6. tokens/s of ``run_pending`` -> ``run`` armed beside a bare ``run``,
+       ten alternating pairs, and the Python function calls one call of
+       each side makes (reported, not gated)."""
+    from beholder_tpu_torch.cache import PrefixCache
+    from beholder_tpu_torch.metrics import Registry
+    from beholder_tpu_torch.models.serving import (
+        ContinuousBatcher,
+        DeadlineExceededResult,
+        Request,
+    )
+    from beholder_tpu_torch.obs import FlightRecorder, RooflineAttributor
+    from beholder_tpu_torch.reliability import Deadline
+    from beholder_tpu_torch.spec import SpecConfig
+    from beholder_tpu_torch.spec.drafter import NullDrafter
+    from beholder_tpu_torch.tracing import InMemoryReporter, Tracer
+
+    card = card_line()
+    band = FORECAST_BAND["bf16"]
+    attributor = RooflineAttributor(interval_s=3600.0)
+    ceilings = attributor.ceilings()
+    print(f"intake: attributor f32 matmul ceiling {ceilings['matmul_flops_per_s'] / 1e12:.4f} "
+          f"TFLOP/s (n={ceilings['matmul_n']}), elementwise "
+          f"{ceilings['memcpy_bytes_per_s'] / 1e9:.1f} GB/s; {card}", flush=True)
+    out: dict = {}
+
+    def armed(registry, **kw):
+        tracer = Tracer("chip_smoke", reporter=InMemoryReporter())
+        fr = FlightRecorder(ring_size=1 << 16, attributor=attributor)
+        b = ContinuousBatcher(model, **SERVE, metrics=registry, tracer=tracer,
+                              flight_recorder=fr, **kw)
+        return b, tracer, fr
+
+    def same_bits(where, got, want):
+        n = sum(int((np.asarray(g) != np.asarray(w)).sum()) for g, w in zip(got, want))
+        check(len(got) == len(want) and n == 0,
+              f"{where}: {n} tokens differ from the bare path")
+
+    # 1. bounded intake -> run_waves
+    registry = Registry()
+    b, tracer, fr = armed(registry, max_pending=8)
+    oversized = Request(run_reqs[0].progress, run_reqs[0].statuses, 400)
+    outcomes = [b.submit(r) for r in run_reqs + [oversized]]
+    reasons = {}
+    for o in outcomes:
+        reasons[o.reason or "accepted"] = reasons.get(o.reason or "accepted", 0) + 1
+    check(reasons == {"accepted": 8, "queue_full": 4, "oversized": 1},
+          f"intake: outcomes {reasons}, expected 8 accepted, 4 queue_full, 1 oversized")
+    check(int(b.state.free_top) == b.num_pages, "intake: a shed request touched a page")
+    bare = ContinuousBatcher(model, **SERVE)
+    ticks0 = bare.ticks
+    want, bare_syncs, bare_launches, _ = counted(torch, lambda: bare.run_waves(run_reqs[:8]))
+    bare_ticks = bare.ticks - ticks0
+    ticks0 = b.ticks
+    (got, events), syncs, launches, chunk = counted(
+        torch, lambda: traced_run("intake/waves", tracer, fr, b.run_pending))
+    ticks = b.ticks - ticks0
+    check(launches == layers * ticks and ticks == bare_ticks,
+          f"intake/waves: {launches} decode launches for {ticks} ticks x {layers} layers "
+          f"(bare: {bare_ticks} ticks)")
+    check(chunk == 0, f"intake/waves: {chunk} chunk launches")
+    same_bits("intake/waves", got, want)
+    check(syncs == bare_syncs,
+          f"intake/waves: {syncs} synchronising calls armed, {bare_syncs} bare")
+    check({"req.claim", "wave", "req.retire", "readback"} <= {e["name"] for e in events},
+          "intake/waves: recorder phases missing")
+    worst = check_served(torch, "intake/waves", b, run_reqs[:8], got, want_run[:8], band)
+    check(int(b.state.free_top) == b.num_pages, "intake/waves: pages not home")
+    fracs = ceiling_fracs("intake/waves", events)
+    out["bf16/intake_waves"] = dict(
+        launches=launches, chunk_launches=chunk, ticks=ticks, syncs=syncs,
+        bare_syncs=bare_syncs, outcomes=reasons, first_steps_max_err=worst,
+        ceiling_frac_median=statistics.median(fracs), events=len(events))
+    for r in run_reqs[8:]:
+        check(b.submit(r).accepted, "intake: the other 4 were refused after the drain")
+    (rest, _), syncs2, launches2, chunk2 = counted(
+        torch, lambda: traced_run("intake/drain", tracer, fr, b.run_pending))
+    check(int(b.state.free_top) == b.num_pages, "intake/drain: pages not home")
+    served = got + rest
+    text = registry.render()
+    tokens = sum(len(r) for r in served)
+    for line in ('beholder_serving_shed_total{reason="queue_full"} 4',
+                 'beholder_serving_shed_total{reason="oversized"} 1',
+                 f"beholder_serving_requests_total {len(served)}",
+                 f"beholder_serving_tokens_total {tokens}",
+                 "beholder_serving_admitted_total 12"):
+        check(line in text, f"intake: render() lacks {line!r}")
+    out["bf16/intake_drain"] = dict(launches=launches2, chunk_launches=chunk2, syncs=syncs2,
+                                    requests=len(served), tokens=tokens)
+    print(f"serve bf16 intake_waves submitted=13 {reasons} run_pending->run_waves "
+          f"ticks={ticks} kernel_launches={launches} sync_calls={syncs} (bare {bare_syncs}) "
+          f"bitwise_vs_bare=yes events={len(events)} ceiling_frac median="
+          f"{statistics.median(fracs):.6f} (min {min(fracs):.6f}, max {max(fracs):.6f}) "
+          f"first2_max_err={worst:.3e}; drained the other 4: requests_total={len(served)} "
+          f"tokens_total={tokens} shed queue_full=4 oversized=1 pages_home=yes", flush=True)
+
+    # 2. prefix cache -> run
+    registry = Registry()
+    cache = PrefixCache(SERVE["page_size"], metrics=registry)
+    b, tracer, fr = armed(registry, max_pending=12, prefix_cache=cache, fused_verify=True)
+    bare = ContinuousBatcher(model, **SERVE, prefix_cache=PrefixCache(SERVE["page_size"]),
+                             fused_verify=True)
+    for pass_ in ("cold", "warm"):
+        where = f"intake/prefix_{pass_}"
+        want, bare_syncs, _, bare_chunk = counted(torch, lambda: bare.run(prefix_reqs))
+        for r in prefix_reqs:
+            check(b.submit(r).accepted, f"{where}: a request was shed")
+        hits0, rounds0 = cache.hits, b.admission_rounds
+        (got, events), syncs, launches, chunk = counted(
+            torch, lambda: traced_run(where, tracer, fr, b.run_pending))
+        hits, rounds = cache.hits - hits0, b.admission_rounds - rounds0
+        check("tick" in {e["name"] for e in events}, f"{where}: run_pending did not go to run")
+        check(chunk == layers * hits and chunk == bare_chunk,
+              f"{where}: {chunk} chunk launches for {hits} warm admits x {layers} layers "
+              f"(bare {bare_chunk})")
+        if pass_ == "warm":
+            check(hits == len(prefix_reqs), f"{where}: {hits} hits")
+        check(syncs == bare_syncs == 1 + rounds,
+              f"{where}: {syncs} synchronising calls armed, {bare_syncs} bare, "
+              f"{rounds} admission rounds")
+        same_bits(where, got, want)
+        worst = check_served(torch, where, b, prefix_reqs, got, want_prefix, band)
+        fracs = ceiling_fracs(where, events)
+        out[f"bf16/intake_prefix_{pass_}"] = dict(
+            launches=launches, chunk_launches=chunk, warm_admits=hits, rounds=rounds,
+            syncs=syncs, first_steps_max_err=worst, ceiling_frac_median=statistics.median(fracs))
+        print(f"serve bf16 intake_prefix_{pass_} run_pending->run warm_admits={hits} "
+              f"admission_rounds={rounds} kernel_launches={launches} chunk_launches={chunk} "
+              f"sync_calls={syncs} (bare {bare_syncs}) bitwise_vs_bare=yes ceiling_frac "
+              f"median={statistics.median(fracs):.6f}", flush=True)
+    text = registry.render()
+    for name, value in (("hits", cache.hits), ("misses", cache.misses),
+                        ("hit_tokens", cache.hit_tokens), ("evictions", cache.evictions),
+                        ("prefill_tokens", cache.prefill_tokens)):
+        line = f"beholder_prefix_cache_{name}_total {value}"
+        check(line in text, f"intake/prefix: render() lacks {line!r}")
+    check(f"beholder_prefix_cache_cached_pages {cache.page_count}" in text,
+          "intake/prefix: cached pages gauge")
+    check(int(b.state.free_top) == b.num_pages - cache.page_count, "intake/prefix: pages")
+
+    # 3. spec (fused, replay) -> run_spec
+    off_b = ContinuousBatcher(model, **SERVE, fused_verify=True,
+                              spec=SpecConfig(max_draft=SPEC_MAX_DRAFT, drafter=NullDrafter()))
+    off = off_b.run_spec(run_reqs)
+    registry = Registry()
+    b, tracer, fr = armed(registry, max_pending=12, fused_verify=True,
+                          spec=SpecConfig(max_draft=SPEC_MAX_DRAFT, adaptive=False,
+                                          drafter=replay_drafter(run_reqs, off)))
+    for r in run_reqs:
+        check(b.submit(r).accepted, "intake/spec: a request was shed")
+    vr0, ad0 = b.verify_rounds, b.admission_rounds
+    with accept_spy() as spy:
+        (got, events), syncs, launches, chunk = counted(
+            torch, lambda: traced_run("intake/spec", tracer, fr, b.run_pending))
+    rounds, admits = b.verify_rounds - vr0, b.admission_rounds - ad0
+    check(launches == 0 and chunk == layers * rounds,
+          f"intake/spec: {chunk} chunk launches for {rounds} rounds x {layers} layers, "
+          f"{launches} decode launches")
+    check(syncs == rounds + admits, f"intake/spec: {syncs} synchronising calls for {rounds} "
+          f"verify rounds and {admits} admission rounds")
+    same_bits("intake/spec (vs spec off)", got, off)
+    drafted = registry.find("beholder_spec_drafted_tokens_total").value()
+    accepted = registry.find("beholder_spec_accepted_tokens_total").value()
+    steps = registry.find("beholder_spec_verify_steps_total").value()
+    check((drafted, accepted, steps) == (spy.drafted, spy.accepted, spy.steps),
+          f"intake/spec: counters drafted={drafted} accepted={accepted} steps={steps}, the "
+          f"run's own {spy.drafted}, {spy.accepted}, {spy.steps}")
+    check(accepted == drafted > 0, f"intake/spec: replay accepted {accepted} of {drafted}")
+    names = [e["name"] for e in events]
+    fams = {e["args"].get("family") for e in events if e["name"] == "verify"}
+    check(names.count("spec.accept") == spy.steps,
+          f"intake/spec: {names.count('spec.accept')} spec.accept instants, {spy.steps} steps")
+    check(fams == {"paged_chunk:bf16"}, f"intake/spec: verify families {fams}")
+    check(names.count("verify") == rounds and "device_wait" in names,
+          "intake/spec: verify rounds or device_wait slices missing")
+    check(int(b.state.free_top) == b.num_pages, "intake/spec: pages not home")
+    fracs = ceiling_fracs("intake/spec", events)
+    out["bf16/intake_spec"] = dict(
+        launches=launches, chunk_launches=chunk, rounds=rounds, admission_rounds=admits,
+        syncs=syncs, drafted=drafted, accepted=accepted, verify_steps=steps,
+        ceiling_frac_median=statistics.median(fracs))
+    print(f"serve bf16 intake_spec run_pending->run_spec rounds={rounds} chunk_launches={chunk} "
+          f"sync_calls={syncs} spec counters drafted={drafted:g} accepted={accepted:g} "
+          f"steps={steps:g} (the run's own {spy.drafted}, {spy.accepted}, {spy.steps}) "
+          f"spec.accept={names.count('spec.accept')} verify family paged_chunk:bf16 "
+          f"vs spec off: 0 tokens differ", flush=True)
+
+    # 4. deadlines
+    registry = Registry()
+    b, tracer, fr = armed(registry)
+    short, long_, third = run_reqs[7], run_reqs[0], run_reqs[1]
+    reqs = [short._replace(horizon=3), long_._replace(deadline=Lapsing()),
+            third._replace(deadline=Deadline.after(-1.0))]
+    (res, events), syncs, launches, chunk = counted(
+        torch, lambda: traced_run("intake/deadline", tracer, fr, lambda: b.run(reqs)))
+    check(chunk == 0, f"intake/deadline: {chunk} chunk launches")
+    check(isinstance(res[2], DeadlineExceededResult) and len(res[2].tokens) == 0,
+          f"intake/deadline: the expired request gave {res[2]!r}")
+    check(isinstance(res[1], DeadlineExceededResult)
+          and 1 <= len(res[1].tokens) < long_.horizon,
+          f"intake/deadline: the lapsing request gave {res[1]!r}")
+    check(isinstance(res[0], np.ndarray) and res[0].shape == (3,), "intake/deadline: short")
+    # the partial stream is the head of the same request's stream on a bare
+    # batcher, served with the short one (the expired one never took a slot)
+    full = ContinuousBatcher(model, **SERVE).run([short._replace(horizon=3), long_])
+    partial = np.asarray(res[1].tokens)
+    same_bits("intake/deadline (short)", [res[0]], [full[0]])
+    same_bits("intake/deadline (partial)", [partial], [np.asarray(full[1])[:len(partial)]])
+    counter = registry.find("beholder_failover_deadline_exceeded_total")
+    check(counter is not None and counter.value() == 2,
+          f"intake/deadline: counter {None if counter is None else counter.value()}")
+    check(int(b.state.free_top) == b.num_pages and not bool(b.state.active.any()),
+          "intake/deadline: pages not home")
+    out["bf16/intake_deadline"] = dict(launches=launches, chunk_launches=chunk, syncs=syncs,
+                                       partial_tokens=len(res[1].tokens))
+    print(f"serve bf16 intake_deadline expired_at_claim=0 tokens lapsing="
+          f"{len(res[1].tokens)} of {long_.horizon} tokens (bitwise the head of its bare "
+          f"stream) deadline_exceeded_total=2 sync_calls={syncs} chunk_launches={chunk} "
+          f"pages_home=yes", flush=True)
+
+    # 5b. the attributor as users build it (defaults: its first ceiling is
+    # measured in the background when the first dispatch is recorded, inside
+    # the counted window): run_pending -> run against a bare run
+    bare = ContinuousBatcher(model, **SERVE)
+    want, bare_syncs, bare_launches, bare_chunk = counted(torch, lambda: bare.run(run_reqs))
+    check(bare_chunk == 0, f"intake/run (bare): {bare_chunk} chunk launches")
+    fresh = RooflineAttributor()
+    fb = ContinuousBatcher(model, **SERVE, metrics=Registry(), max_pending=12,
+                           tracer=Tracer("chip_smoke", reporter=InMemoryReporter()),
+                           flight_recorder=FlightRecorder(ring_size=1 << 16, attributor=fresh))
+    for r in run_reqs:
+        check(fb.submit(r).accepted, "intake/defaults: a request was shed")
+    got, syncs, launches, chunk = counted(torch, lambda: fb.run_pending(waves=False))
+    started = fresh._ceilings is not None or fresh._measuring.locked()
+    fresh_ceil = fresh.ceilings()  # waits for the background measurement
+    check(started, "intake/defaults: the recorded dispatches started no measurement")
+    same_bits("intake/defaults", got, want)
+    check(syncs == bare_syncs and launches == bare_launches and chunk == 0,
+          f"intake/defaults: {syncs} synchronising calls, {launches} decode and {chunk} "
+          f"chunk launches with a default attributor, {bare_syncs} and {bare_launches} bare")
+    out["bf16/intake_defaults"] = dict(
+        launches=launches, chunk_launches=chunk, syncs=syncs, bare_syncs=bare_syncs,
+        ceilings=fresh_ceil)
+    print(f"serve bf16 intake_defaults run_pending->run with RooflineAttributor() measuring "
+          f"in the background: sync_calls={syncs} (bare {bare_syncs}) launches={launches} "
+          f"vs bare: 0 tokens differ; its ceiling under load "
+          f"{fresh_ceil['matmul_flops_per_s'] / 1e12:.4f} TFLOP/s (n={fresh_ceil['matmul_n']}), "
+          f"elementwise {fresh_ceil['memcpy_bytes_per_s'] / 1e9:.1f} GB/s; {card}", flush=True)
+
+    # 6. overhead: run_pending -> run armed against a bare run, in pairs
+    # whose order alternates
+    b, tracer, fr = armed(Registry(), max_pending=12)
+
+    def pending():
+        for r in run_reqs:
+            b.submit(r)
+        return b.run_pending(waves=False)
+
+    got, syncs, launches, chunk = counted(torch, pending)
+    same_bits("intake/run", got, want)
+    check(syncs == bare_syncs and launches == bare_launches and chunk == 0,
+          f"intake/run: {syncs} synchronising calls, {launches} decode and {chunk} chunk "
+          f"launches armed, {bare_syncs} and {bare_launches} bare")
+    bare_s, armed_s = [], []
+    for i in range(OVERHEAD_PAIRS):
+        for side in (("bare", "armed") if i % 2 == 0 else ("armed", "bare")):
+            if side == "bare":
+                bare_s += timed(torch, lambda: bare.run(run_reqs), runs=1)
+            else:
+                armed_s += timed(torch, pending, runs=1)
+    tokens = sum(r.horizon for r in run_reqs)
+    events_per_run = sum(1 for e in fr.events() if e["ph"] == "X") / (1 + OVERHEAD_PAIRS)
+    b_med, a_med = statistics.median(bare_s), statistics.median(armed_s)
+    pair_ratios = sorted(bs / a for bs, a in zip(bare_s, armed_s))
+    # the host work each side does, as a count: Python function calls of
+    # one call under cProfile (the times under the profiler are not kept)
+    py_calls = {}
+    for side, fn in (("bare", lambda: bare.run(run_reqs)), ("armed", pending)):
+        prof = cProfile.Profile()
+        prof.runcall(fn)
+        torch.cuda.synchronize()
+        py_calls[side] = pstats.Stats(prof).total_calls
+    out["bf16/intake_overhead"] = dict(
+        launches=launches, chunk_launches=chunk, syncs=syncs, bare_syncs=bare_syncs,
+        tokens=tokens, bare_tokens_per_s=tokens / b_med, armed_tokens_per_s=tokens / a_med,
+        bare_range=(tokens / max(bare_s), tokens / min(bare_s)),
+        armed_range=(tokens / max(armed_s), tokens / min(armed_s)),
+        armed_over_bare=b_med / a_med, pair_ratios=pair_ratios,
+        pair_ratio_median=statistics.median(pair_ratios), events_per_run=events_per_run,
+        card=card,
+        ceilings=ceilings, python_calls=py_calls)
+    print(f"serve bf16 intake_overhead run_pending->run armed {tokens / a_med:.1f} tokens/s "
+          f"(range {tokens / max(armed_s):.1f}-{tokens / min(armed_s):.1f}) vs bare run "
+          f"{tokens / b_med:.1f} (range {tokens / max(bare_s):.1f}-{tokens / min(bare_s):.1f}), "
+          f"median of {OVERHEAD_PAIRS} each in alternating pairs: armed/bare "
+          f"{b_med / a_med:.4f}; per pair median {statistics.median(pair_ratios):.4f} "
+          f"(range {pair_ratios[0]:.4f}-{pair_ratios[-1]:.4f}, "
+          f"{sum(r < 1 for r in pair_ratios)} of {OVERHEAD_PAIRS} below 1); "
+          f"{events_per_run:.0f} recorded phase events a run; sync_calls {syncs} armed, "
+          f"{bare_syncs} bare; Python calls a run {py_calls['armed']} armed, "
+          f"{py_calls['bare']} bare (x{py_calls['armed'] / py_calls['bare']:.4f}); {card}",
+          flush=True)
+    return out
 
 
 def profile_spec(torch, b, reqs) -> dict:

@@ -40,6 +40,19 @@ PORT_MODULES = [
     "beholder_tpu_torch.spec.verify",
     "beholder_tpu_torch.spec.drafter",
     "beholder_tpu_torch.spec.scheduler",
+    "beholder_tpu_torch.spec.instruments",
+    "beholder_tpu_torch.cache.instruments",
+    "beholder_tpu_torch.tracing",
+    "beholder_tpu_torch.metrics",
+    "beholder_tpu_torch.reliability",
+    "beholder_tpu_torch.reliability.policy",
+    "beholder_tpu_torch.reliability.shed",
+    "beholder_tpu_torch.reliability.chaos",
+    "beholder_tpu_torch.control",
+    "beholder_tpu_torch.control.admission",
+    "beholder_tpu_torch.obs",
+    "beholder_tpu_torch.obs.recorder",
+    "beholder_tpu_torch.obs.roofline",
     "chip_smoke",
     "serve_ab",
 ]
