@@ -25,8 +25,10 @@ shared with a live or forked slot is never reclaimed by eviction.
 Eviction picks cold (``live_users == 0``) LEAF entries in LRU order, so
 every indexed key keeps its full ancestor chain.
 
-Not ported: the cluster fabric's ``export_entries``/``adopt_entry``/
-``drop_entries``.
+A cluster drain moves the index with the pages: :meth:`PrefixCache.
+export_entries` lists it parent-first, :meth:`PrefixCache.adopt_entry`
+re-roots each entry on the destination pool, and :meth:`PrefixCache.
+drop_entries` forgets chosen chains.
 """
 
 from __future__ import annotations
@@ -203,6 +205,70 @@ class PrefixCache:
         if self._metrics is not None:
             self._metrics.cached_pages.set(len(self._entries))
         return new_pages, new_keys
+
+    # -- migration (cluster drain) -------------------------------------------
+    def export_entries(self) -> list[tuple[bytes, bytes | None, int, int]]:
+        """Every entry as ``(key, parent, page_id, live_users)``, parent
+        first (:func:`beholder_tpu_torch.cluster.failover.migrate_pool`), so
+        :meth:`adopt_entry` never sees a child before its ancestor."""
+        emitted: set[bytes | None] = {None}
+        out: list[tuple[bytes, bytes | None, int, int]] = []
+        remaining = dict(self._entries)
+        while remaining:
+            progressed = False
+            for key in list(remaining):
+                entry = remaining[key]
+                parent = entry.parent
+                # a parent outside the index counts as emitted
+                if parent in emitted or parent not in self._entries:
+                    out.append((key, parent, entry.page_id, entry.live_users))
+                    emitted.add(key)
+                    del remaining[key]
+                    progressed = True
+            if not progressed:  # pragma: no cover - defensive
+                raise RuntimeError("prefix-cache index has a parent cycle")
+        return out
+
+    def adopt_entry(
+        self, key: bytes, parent: bytes | None, page_id: int, live_users: int = 0
+    ) -> bool:
+        """Adopt one migrated entry with :meth:`insert`'s collision rule: a
+        key already cached here keeps its page (returns False, and the
+        caller drops the cache's reference on the duplicate migrated page);
+        otherwise the entry lands with its pins (``live_users``), and its
+        one device reference rides the migrated refcount."""
+        if key in self._entries:
+            return False
+        entry = self._entries[key] = _PageEntry(key, parent, page_id)
+        entry.live_users = int(live_users)
+        self._stamp += 1
+        entry.stamp = self._stamp
+        if parent is not None and parent in self._entries:
+            self._entries[parent].children += 1
+        if self._metrics is not None:
+            self._metrics.cached_pages.set(len(self._entries))
+        return True
+
+    def drop_entries(self, keys) -> list[int]:
+        """Forget specific cached chains, tip first over ``reversed(keys)``.
+        Pinned entries (``live_users != 0``), entries with cached descendants
+        and absent keys are skipped, as :meth:`evict` would. Returns the
+        dropped page ids; the caller releases the cache's one device
+        reference on each."""
+        out: list[int] = []
+        for key in reversed(list(keys)):
+            entry = self._entries.get(key)
+            if entry is None or entry.live_users != 0 or entry.children != 0:
+                continue
+            del self._entries[key]
+            if entry.parent is not None:
+                parent = self._entries.get(entry.parent)
+                if parent is not None:
+                    parent.children -= 1
+            out.append(entry.page_id)
+        if out and self._metrics is not None:
+            self._metrics.cached_pages.set(len(self._entries))
+        return out
 
     def prefilled(self, n_tokens: int) -> None:
         """Record tokens actually run through the prefill forward."""

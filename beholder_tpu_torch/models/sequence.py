@@ -37,6 +37,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -139,8 +140,27 @@ def _gelu_constants(dtype: torch.dtype) -> tuple[float, float]:
     )
 
 
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim, keepdim, with each row's bits independent of
+    the row count: on the card one reduction over 512 elements picks its
+    thread layout by how many rows there are, and the sums differ in the
+    last bit (8 rows against 16, say). Means of 32-element runs, then the
+    mean of those, keep one layout for any row count; the power-of-two
+    scalings are exact, so this is the sum of the runs' sums over n."""
+    n = x.shape[-1]
+    if n % 32 or n == 32:
+        return x.mean(dim=-1, keepdim=True)
+    return x.reshape(*x.shape[:-1], n // 32, 32).mean(dim=-1).mean(dim=-1, keepdim=True)
+
+
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm()``: epsilon 1e-6, fast variance, f32 math."""
+    """flax ``nn.LayerNorm()``: epsilon 1e-6, fast variance, f32 math.
+    Without autograd (every serving path) the statistics come from
+    :func:`_row_mean`, so a row normalizes to the same bits in any batch (a
+    serving cluster's shard and one batcher admit the same request in
+    different batches). Under autograd (training) each is one reduction:
+    there the two-level mean buys nothing and cost about 4 % of a training
+    step on the card."""
 
     def __init__(self, dim: int, device=None):
         super().__init__()
@@ -150,8 +170,12 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
-        mu = x.mean(dim=-1, keepdim=True)
-        mu2 = (x * x).mean(dim=-1, keepdim=True)
+        if torch.is_grad_enabled():
+            mu = x.mean(dim=-1, keepdim=True)
+            mu2 = (x * x).mean(dim=-1, keepdim=True)
+        else:
+            mu = _row_mean(x)
+            mu2 = _row_mean(x * x)
         var = torch.clamp(mu2 - mu * mu, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         return (x - mu) * mul + self.bias.float()
@@ -363,10 +387,19 @@ class TelemetrySequenceModel(nn.Module):
     def device(self) -> torch.device:
         return self.embed.weight.device
 
-    def forward(self, feats: torch.Tensor, cache=None, return_kv: bool = False, group=None):
+    def forward(self, feats: torch.Tensor, cache=None, return_kv: bool = False, group=None,
+                last: torch.Tensor | None = None, head_rows: int | None = None):
         """(B, T, FEATURES) -> (B, T) predicted next delta per position.
         With ``cache=(keys, values, index)`` (per-layer sequences) one cached
-        step; with ``return_kv`` the per-layer (k, v) come back too."""
+        step; with ``return_kv`` the per-layer (k, v) come back too.
+
+        ``last`` ((B,) positions) runs the head at those rows only and
+        returns (B,) predictions: one row a sequence, padded with zero rows
+        to ``head_rows`` (when given), in one product. The head's f32 GEMM
+        picks its kernel by its row count, and on the card kernels differ in
+        the last bit (a split-K kernel at 224 rows, another at 8), so a fixed
+        ``head_rows`` keeps a sequence's prediction independent of the batch
+        it was prefilled in."""
         if group is not None:
             raise NotImplementedError("group-parallel forwards are not ported yet")
         x = _dense_f32(feats, self.embed)
@@ -386,7 +419,14 @@ class TelemetrySequenceModel(nn.Module):
                 kvs.append(kv)
             else:
                 x = block(x)
-        preds = _dense_f32(self.ln(x), self.head)[..., 0]
+        if last is not None:
+            b = x.shape[0]
+            x = x[torch.arange(b, device=x.device), last.to(torch.int64)]
+            if head_rows is not None and head_rows > b:
+                x = F.pad(x, (0, 0, 0, head_rows - b))
+            preds = _dense_f32(self.ln(x), self.head)[:b, 0]
+        else:
+            preds = _dense_f32(self.ln(x), self.head)[..., 0]
         if cache is not None or return_kv:
             return preds, kvs
         return preds

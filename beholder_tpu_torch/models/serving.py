@@ -38,13 +38,18 @@ eviction under pool pressure), forks (:func:`paged_fork`,
 :mod:`beholder_tpu_torch.spec.scheduler`), the bounded intake
 (``submit`` / ``run_pending``), request deadlines, and the instruments:
 serving metrics, tracer spans and the flight recorder, all off by default
-and all on the host clock. Not ported yet: the autotune table, the cluster
-hooks (``prefix_fetcher``, ``seen_request_shapes``, page export/import) and
-group-parallel serving.
+and all on the host clock; and the shard-aware pool ops the cluster
+(:mod:`beholder_tpu_torch.cluster`) serves through: an off-pool prefill
+into page chunks (:func:`kv_prefill_chunks`), their adoption into another
+pool (:func:`paged_adopt_chunks`), and the raw page move of a drain
+(:func:`paged_export_pages` / :func:`paged_import_pages`). Not ported yet:
+the autotune table, the cluster fabric's hooks (``prefix_fetcher``,
+``seen_request_shapes``) and group-parallel serving.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from contextlib import contextmanager, nullcontext
 from typing import NamedTuple
@@ -339,19 +344,19 @@ def paged_admit_batch(
     p_max = t_max // page
     dev = feats_padded.device
 
+    prefix_lens = prefix_lens.to(torch.int32)
+    # the head runs at each request's last row, at `slots` rows whatever n
+    # is: a request's prediction does not depend on its batch
+    head = dict(last=(prefix_lens - 1).clamp(0, t_max - 1), head_rows=slots)
     if fused:
         info = ChunkPagedInfo(
             torch.zeros((n, 1), dtype=torch.int32, device=dev),
             torch.zeros((n,), dtype=torch.int32, device=dev),
             t_max,
         )
-        preds, kvs = model(feats_padded, cache=(state.k_pools, state.v_pools, info))
+        last_pred, kvs = model(feats_padded, cache=(state.k_pools, state.v_pools, info), **head)
     else:
-        preds, kvs = model(feats_padded, return_kv=True)
-    prefix_lens = prefix_lens.to(torch.int32)
-    last_pred = preds[
-        torch.arange(n, device=dev), (prefix_lens - 1).clamp(0, t_max - 1).to(torch.int64)
-    ]
+        last_pred, kvs = model(feats_padded, return_kv=True, **head)
 
     n_pages = (prefix_lens + page - 1) // page                       # (n,) ceil
     chunk_alive = torch.arange(p_max, device=dev)[None, :] < n_pages[:, None]
@@ -450,6 +455,8 @@ def paged_admit_with_prefix(
     t_hit = p_hit * page
     p_sfx = s_max // page
     suffix_len = _on_device(suffix_len, torch.int32, dev).reshape(())
+    # the head at the last suffix row, at `slots` rows, as a cold admit runs it
+    head = dict(last=(suffix_len - 1).clamp(0, s_max - 1).reshape(1), head_rows=slots)
 
     if fused:
         info = ChunkPagedInfo(
@@ -457,7 +464,7 @@ def paged_admit_with_prefix(
             torch.full((1,), t_hit, dtype=torch.int32, device=dev),
             t_hit + s_max,
         )
-        preds, kvs = model(suffix_feats, cache=(state.k_pools, state.v_pools, info))
+        last_pred, kvs = model(suffix_feats, cache=(state.k_pools, state.v_pools, info), **head)
     else:
         ids = cached_pages.to(torch.int64)
 
@@ -474,16 +481,16 @@ def paged_admit_with_prefix(
             buf[0, :, :t_hit] = g.permute(1, 0, 3, 2).reshape(hkv, t_hit, dh)
             return buf
 
-        preds, kvs = model(
+        last_pred, kvs = model(
             suffix_feats,
             cache=(
                 tuple(ctx_cache(p) for p in state.k_pools),
                 tuple(ctx_cache(p) for p in state.v_pools),
                 torch.tensor(t_hit, dtype=torch.int64, device=dev),
             ),
+            **head,
         )
-    last = (suffix_len - 1).clamp(0, s_max - 1).to(torch.int64).reshape(1)
-    last_pred = preds[0].index_select(0, last).reshape(())
+    last_pred = last_pred.reshape(())
 
     n_sfx_pages = (suffix_len + page - 1) // page
     chunk_alive = torch.arange(p_sfx, device=dev) < n_sfx_pages
@@ -524,6 +531,157 @@ def paged_admit_with_prefix(
         free_top=new_top,
         page_ref=ref,
         alloc_failed=failed,
+    )
+
+
+def kv_prefill_chunks(
+    model: TelemetrySequenceModel,
+    feats_padded: torch.Tensor,
+    prefix_len,
+    page_size: int,
+    *,
+    head_rows: int,
+):
+    """Prefill ONE request off-pool for a prefill -> decode handoff
+    (:mod:`beholder_tpu_torch.cluster`): the dense prefill forward
+    :func:`paged_admit_batch` runs, but the kv comes back as page chunks
+    instead of being written into this worker's pool. The chunks are the
+    transpose :func:`paged_admit_batch` feeds :func:`_write_chunks`, in the
+    forward's dtype, so :func:`paged_adopt_chunks` on another pool writes
+    the bits a colocated admit would. ``head_rows`` is the destination
+    pool's slot count: :func:`paged_admit_batch` runs the head at that many
+    rows, and so must this, for the prediction's bits to match.
+
+    ``feats_padded`` is (1, T_max, F) with a page-multiple T_max. Returns
+    ((,) last prediction, per-layer k chunks, per-layer v chunks), each
+    chunk (p_max, Hkv, Dh, page)."""
+    n, t_max, _ = feats_padded.shape
+    if n != 1:
+        raise ValueError(f"kv_prefill_chunks takes ONE request, got {n}")
+    if t_max % page_size:
+        raise ValueError(f"padded prefix {t_max} not a page multiple ({page_size})")
+    p_max = t_max // page_size
+    dev = feats_padded.device
+    last = (_on_device(prefix_len, torch.int32, dev) - 1).clamp(0, t_max - 1)
+    preds, kvs = model(feats_padded, return_kv=True, last=last, head_rows=head_rows)
+    last_pred = preds.reshape(())
+
+    def chunks(a):
+        # (1, Hkv, T_max, Dh) -> (p_max, Hkv, Dh, page): paged_admit_batch's n == 1
+        hkv, dh = a.shape[1], a.shape[3]
+        a = a.transpose(2, 3).reshape(1, hkv, dh, p_max, page_size)
+        return a.permute(0, 3, 1, 2, 4).reshape(p_max, hkv, dh, page_size)
+
+    return (
+        last_pred,
+        tuple(chunks(k) for k, _ in kvs),
+        tuple(chunks(v) for _, v in kvs),
+    )
+
+
+def paged_adopt_chunks(
+    state: PagedKVState,
+    slot,
+    chunks_k: tuple,
+    chunks_v: tuple,
+    n_pages,
+    seq_len,
+) -> PagedKVState:
+    """Admit one request whose prefill kv arrives as page chunks from
+    another worker (:func:`kv_prefill_chunks`): pop ``n_pages`` pages off
+    this pool's free stack, write the chunks through :func:`_write_chunks`
+    (cast or quantize as a local prefill would), and install the slot's
+    page-table row, length and active bit. Chunk rows past ``n_pages`` drop,
+    as :func:`paged_admit_batch`'s dead rows do."""
+    num_pages, _ = _pool_geometry(state)
+    slots, max_pages = state.page_table.shape
+    dev = state.seq_lens.device
+    p_max = chunks_k[0].shape[0]
+    n_pages = _on_device(n_pages, torch.int32, dev).reshape(())
+    chunk_alive = torch.arange(p_max, device=dev) < n_pages
+    pages, new_top, ref, failed = _pop_pages(state, chunk_alive)
+    failed = failed | (n_pages > max_pages)
+    drop = torch.where(chunk_alive, pages, num_pages)
+    k_pools = tuple(_write_chunks(pool, drop, ck) for pool, ck in zip(state.k_pools, chunks_k))
+    v_pools = tuple(_write_chunks(pool, drop, cv) for pool, cv in zip(state.v_pools, chunks_v))
+    row = torch.cat([
+        torch.where(chunk_alive, pages, 0),
+        torch.zeros((max(0, max_pages - p_max),), dtype=torch.int32, device=dev),
+    ])[:max_pages]
+    sid = _on_device(slot, torch.int64, dev).clamp(0, slots - 1)
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    return state._replace(
+        k_pools=k_pools,
+        v_pools=v_pools,
+        page_table=_scatter_small(state.page_table, sid, row[None], one),
+        seq_lens=_scatter_small(state.seq_lens, sid, _on_device(seq_len, torch.int32, dev), one),
+        active=_scatter_small(state.active, sid, True, one),
+        free_top=new_top,
+        page_ref=ref,
+        alloc_failed=failed,
+    )
+
+
+def paged_export_pages(state: PagedKVState, page_ids: torch.Tensor):
+    """Pages ``page_ids`` (n,) in pool representation, for a live migration
+    (:func:`beholder_tpu_torch.cluster.failover.migrate_pool`): raw 8-bit
+    values and their scales under quantized pools, raw bf16 rows otherwise,
+    with no dequantize/requantize round trip. Each is a gather into a new
+    tensor, so nothing later done to the source pages reaches the export.
+    Returns per-layer (k chunks, v chunks); a quantized layer's chunk is a
+    ``(values, scales)`` pair."""
+    ids = page_ids.to(torch.int64)
+
+    def take(pool):
+        if isinstance(pool, QuantizedPool):
+            return (pool.values[ids], pool.scales[ids])
+        return pool[ids]
+
+    return tuple(take(p) for p in state.k_pools), tuple(take(p) for p in state.v_pools)
+
+
+def paged_import_pages(
+    state: PagedKVState,
+    chunks_k: tuple,
+    chunks_v: tuple,
+    n_pages,
+    refs: torch.Tensor,
+):
+    """Adopt migrated pages into this pool: pop ``n_pages`` pages, write the
+    exported chunks verbatim (the byte-identical twin of
+    :func:`paged_export_pages`) and install the source refcounts ``refs``
+    (n,), so prefix sharing, cache references and forks survive the move.
+    Rows past ``n_pages`` drop. Returns (state, dest_ids): ``dest_ids[i]``
+    is the page now holding chunk row ``i`` (garbage past ``n_pages``)."""
+    num_pages, _ = _pool_geometry(state)
+    dev = state.seq_lens.device
+    first = chunks_k[0][0] if isinstance(chunks_k[0], tuple) else chunks_k[0]
+    p_max = first.shape[0]
+    n_pages = _on_device(n_pages, torch.int32, dev).reshape(())
+    chunk_alive = torch.arange(p_max, device=dev) < n_pages
+    pages, new_top, ref, failed = _pop_pages(state, chunk_alive)
+    drop = torch.where(chunk_alive, pages, num_pages)
+
+    def put(pool, chunk):
+        if isinstance(pool, QuantizedPool):
+            values, scales = chunk
+            index_put_dropping_(pool.values, (drop,), values, chunk_alive)
+            index_put_dropping_(pool.scales, (drop,), scales, chunk_alive)
+            return pool
+        index_put_dropping_(pool, (drop,), chunk, chunk_alive)
+        return pool
+
+    k_pools = tuple(put(pool, ck) for pool, ck in zip(state.k_pools, chunks_k))
+    v_pools = tuple(put(pool, cv) for pool, cv in zip(state.v_pools, chunks_v))
+    # _pop_pages seeded the popped pages at refcount 1; migrated pages carry
+    # their source counts instead (shared pages stay shared)
+    ref = _scatter_small(ref, drop, torch.where(chunk_alive, refs.to(torch.int32), 1), chunk_alive)
+    return (
+        state._replace(
+            k_pools=k_pools, v_pools=v_pools, free_top=new_top, page_ref=ref,
+            alloc_failed=failed,
+        ),
+        pages,
     )
 
 
@@ -755,6 +913,26 @@ def _admit_cached_carry(
         last_pred=carry.last_pred.index_put(sid, pred.float().reshape(1)),
         status_oh=carry.status_oh.index_put(
             sid, one_hot(last_status.reshape(1), NUM_STATUSES)
+        ),
+    )
+
+
+def _adopt_chunks_carry(
+    state, carry: _RunCarry, slot, chunks_k, chunks_v, n_pages, seq_len, pred, last_status
+):
+    """Admit one transferred request (:func:`paged_adopt_chunks`) and record
+    its prefill prediction and status one-hot in the device carry: the
+    handoff twin of :func:`_admit_many_carry`, with the same casts, so the
+    carry seed is the bits a colocated admit would set. ``slot``,
+    ``n_pages``, ``seq_len`` and ``last_status`` may be Python integers:
+    they are then filled in on the device, never copied up."""
+    state = paged_adopt_chunks(state, slot, chunks_k, chunks_v, n_pages, seq_len)
+    dev = state.seq_lens.device
+    sid = (_on_device(slot, torch.int64, dev),)
+    return state, carry._replace(
+        last_pred=carry.last_pred.index_put(sid, pred.float().reshape(1)),
+        status_oh=carry.status_oh.index_put(
+            sid, one_hot(_on_device(last_status, torch.int64, dev), NUM_STATUSES)
         ),
     )
 
@@ -1130,6 +1308,11 @@ class ContinuousBatcher:
         #: ``_start_run``; read only with a flight recorder
         self._timeline_notes: dict[int, dict] = {}
         self._run_notes: dict[int, dict] = {}
+        #: the tick-chunk dispatch ``(state, carry, write_idx, n)``: an
+        #: attribute of the instance, so fault injection
+        #: (:meth:`beholder_tpu_torch.cluster.failover.FailoverEngine.
+        #: inject_fault`) can wrap one shard's ticks
+        self._tick_chunk = functools.partial(_tick_chunk, self.model)
 
     # -- shared helpers -------------------------------------------------
 
@@ -1171,6 +1354,22 @@ class ContinuousBatcher:
         ids[: len(pages)] = pages
         alive[: len(pages)] = True
         return self._up(ids), self._up(alive)
+
+    @property
+    def transfer_device(self) -> torch.device:
+        """The device page transfers to or from this batcher land on: its
+        pool's."""
+        return self.state.seq_lens.device
+
+    def export_pages(self, page_ids: torch.Tensor):
+        """Pages ``page_ids`` in wire representation
+        (:func:`paged_export_pages`)."""
+        return paged_export_pages(self.state, page_ids)
+
+    def import_pages(self, chunks_k, chunks_v, n_pages, refs):
+        """Adopt wire chunks into this pool (:func:`paged_import_pages`).
+        Returns (new_state, dest_ids); the caller assigns ``self.state``."""
+        return paged_import_pages(self.state, chunks_k, chunks_v, n_pages, refs)
 
     def _evict_cached(self, n_pages: int) -> int:
         """Reclaim up to ``n_pages`` cold cached pages (LRU leaf-first):
@@ -1503,7 +1702,63 @@ class ContinuousBatcher:
             )
         return results
 
-    def _run(self, requests: list[Request], span=None) -> list[np.ndarray]:
+    def _admit_claimed(self, span, requests, batch, carry) -> _RunCarry:
+        """One admission round of :meth:`_run`: the cold admits in one
+        batched prefill, each warm (prefix-hit) admit in a forward of its
+        own. Returns the carry with the admitted slots seeded."""
+        page = self.page_size
+        admit_tags = {"requests": len(batch)}
+        if self.flight_recorder is not None:
+            # prefill FLOPs follow the uncached suffix; t/2 is the
+            # mean causal context
+            admit_tags.update(self._kernel_tags("flash", sum(
+                (b[3] - len(b[4]) * page) * self._flops_per_token(b[3] / 2.0)
+                for b in batch
+            )))
+        with self._round(span, "admit", **admit_tags):
+            cold = [b for b in batch if not b[4]]
+            warm = [b for b in batch if b[4]]
+            if cold:
+                # cold admits: one batched prefill
+                t_pad = -(-max(b[3] for b in cold) // page) * page
+                self.state, carry = _admit_many_carry(
+                    self.model, self.state, carry,
+                    self._up(np.asarray([b[0] for b in cold], np.int32)),
+                    self._up(np.stack([self._pad_to(b[2], t_pad) for b in cold])),
+                    self._up(np.asarray([b[3] for b in cold], np.int32)),
+                    self._up(np.asarray(
+                        [int(requests[b[1]].statuses[-1]) for b in cold], np.int64
+                    )),
+                )
+            for slot, rid, feats_np, t, hit_pages, _ in warm:
+                # warm admits: adopt the cached pages, prefill the
+                # suffix only (one forward per hit: hit shapes vary)
+                t_hit = len(hit_pages) * page
+                s_len = t - t_hit
+                s_pad = -(-s_len // page) * page
+                self.state, carry = _admit_cached_carry(
+                    self.model, self.state, carry,
+                    self._up(np.asarray([slot], np.int64)),
+                    self._up(self._pad_to(feats_np[t_hit:], s_pad)[None]),
+                    self._up(np.asarray(s_len, np.int32)),
+                    self._up(np.asarray(hit_pages, np.int32)),
+                    self._up(np.asarray([int(requests[rid].statuses[-1])], np.int64)),
+                    fused=self.fused_verify,
+                )
+            if self.prefix_cache is not None:
+                self.prefix_cache.prefilled(
+                    sum(b[3] - len(b[4]) * page for b in batch)
+                )
+                self._index_admitted([(b[0], b[5], b[3] // page) for b in batch])
+        return carry
+
+    def _run(self, requests: list[Request], span=None, admit=None,
+             worker: str | None = None) -> list[np.ndarray]:
+        """The per-event loop of :meth:`run`. ``admit`` replaces the
+        admission round (same signature as :meth:`_admit_claimed`): the
+        cluster's disaggregated lane prefills elsewhere and adopts the
+        handed-off pages. ``worker`` tags the tick, retire and deadline
+        events with the serving worker's name."""
         dev = self.device
         queue = list(enumerate(requests))
         results: list = [None] * len(requests)
@@ -1525,6 +1780,7 @@ class ContinuousBatcher:
         #: DeadlineExceededResult after the readback
         deadline_rids: list[int] = []
         has_deadlines = any(getattr(r, "deadline", None) is not None for r in requests)
+        tag = {"worker": worker} if worker is not None else {}
 
         def free_pages() -> int:
             # held pages cancel between free_top and committed growth, so
@@ -1566,12 +1822,12 @@ class ContinuousBatcher:
                     self._count_deadline_exceeded(len(done))
                     if self.flight_recorder is not None:
                         self.flight_recorder.instant("deadline_exceeded", stage="tick",
-                                                     slots=len(done))
+                                                     slots=len(done), **tag)
                 else:
                     served[1] += sum(requests[r].horizon for r in rids)
                 outcome = "deadline_exceeded" if expired else "ok"
                 for s, rid, w in zip(done, rids, widths):
-                    self._emit_req_retire(rid, s, w + 1, outcome)
+                    self._emit_req_retire(rid, s, w + 1, outcome, **tag)
 
         def commit(slot, rid, req, need):
             remaining[slot] = req.horizon
@@ -1589,50 +1845,7 @@ class ContinuousBatcher:
             batch = self._claim_admissions(queue, results, req_of, free_pages, commit)
             if batch:
                 self.admission_rounds += 1
-                page = self.page_size
-                admit_tags = {"requests": len(batch)}
-                if self.flight_recorder is not None:
-                    # prefill FLOPs follow the uncached suffix; t/2 is the
-                    # mean causal context
-                    admit_tags.update(self._kernel_tags("flash", sum(
-                        (b[3] - len(b[4]) * page) * self._flops_per_token(b[3] / 2.0)
-                        for b in batch
-                    )))
-                with self._round(span, "admit", **admit_tags):
-                    cold = [b for b in batch if not b[4]]
-                    warm = [b for b in batch if b[4]]
-                    if cold:
-                        # cold admits: one batched prefill
-                        t_pad = -(-max(b[3] for b in cold) // page) * page
-                        self.state, carry = _admit_many_carry(
-                            self.model, self.state, carry,
-                            self._up(np.asarray([b[0] for b in cold], np.int32)),
-                            self._up(np.stack([self._pad_to(b[2], t_pad) for b in cold])),
-                            self._up(np.asarray([b[3] for b in cold], np.int32)),
-                            self._up(np.asarray(
-                                [int(requests[b[1]].statuses[-1]) for b in cold], np.int64
-                            )),
-                        )
-                    for slot, rid, feats_np, t, hit_pages, _ in warm:
-                        # warm admits: adopt the cached pages, prefill the
-                        # suffix only (one forward per hit: hit shapes vary)
-                        t_hit = len(hit_pages) * page
-                        s_len = t - t_hit
-                        s_pad = -(-s_len // page) * page
-                        self.state, carry = _admit_cached_carry(
-                            self.model, self.state, carry,
-                            self._up(np.asarray([slot], np.int64)),
-                            self._up(self._pad_to(feats_np[t_hit:], s_pad)[None]),
-                            self._up(np.asarray(s_len, np.int32)),
-                            self._up(np.asarray(hit_pages, np.int32)),
-                            self._up(np.asarray([int(requests[rid].statuses[-1])], np.int64)),
-                            fused=self.fused_verify,
-                        )
-                    if self.prefix_cache is not None:
-                        self.prefix_cache.prefilled(
-                            sum(b[3] - len(b[4]) * page for b in batch)
-                        )
-                        self._index_admitted([(b[0], b[5], b[3] // page) for b in batch])
+                carry = (admit or self._admit_claimed)(span, requests, batch, carry)
                 done = [b[0] for b in batch if remaining[b[0]] == 1]
                 if done:
                     retire_many(done)  # the admit predictions were the forecasts
@@ -1647,7 +1860,7 @@ class ContinuousBatcher:
                 1, int(min(remaining[s] for s in range(self.slots) if active[s])) - 1
             )
             write_idx = np.where(active, written, cap).astype(np.int32)
-            tick_tags = {"ticks": n_chunk}
+            tick_tags = {"ticks": n_chunk, **tag}
             if self.flight_recorder is not None:
                 lens = [len(requests[req_of[s]].progress) - 1 + int(written[s])
                         for s in range(self.slots) if active[s]]
@@ -1655,8 +1868,8 @@ class ContinuousBatcher:
                     "paged", n_chunk * len(lens) * self._flops_per_token(float(np.mean(lens)))
                 ))
             with self._round(span, "tick", **tick_tags):
-                self.state, carry = _tick_chunk(
-                    self.model, self.state, carry, self._up(write_idx), n_chunk
+                self.state, carry = self._tick_chunk(
+                    self.state, carry, self._up(write_idx), n_chunk
                 )
             self.ticks += n_chunk
             done = []

@@ -9,7 +9,13 @@ Not ported: the reference's SLO tracker, timelines fold, sentinel,
 retention vault and flight plane, and ``flight_recorder_from_config``.
 """
 
-from .recorder import DEFAULT_RING_SIZE, FlightRecorder, chrome_trace, parse_cursor
+from .recorder import (
+    DEFAULT_RING_SIZE,
+    WORKER_TID_BASE,
+    FlightRecorder,
+    chrome_trace,
+    parse_cursor,
+)
 from .roofline import (
     PHASE_FAMILIES,
     RooflineAttributor,
@@ -22,6 +28,7 @@ __all__ = [
     "FlightRecorder",
     "PHASE_FAMILIES",
     "RooflineAttributor",
+    "WORKER_TID_BASE",
     "attribution_summary",
     "chrome_trace",
     "model_flops_per_token",

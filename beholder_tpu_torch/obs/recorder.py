@@ -26,7 +26,7 @@ trace-event JSON (:func:`chrome_trace`, loadable in Perfetto).
 Not ported: the flight plane's ring identity and cross-worker edges
 (``set_meta``, ``arm_edges``, ``next_edge``), ``bind_metrics`` (the
 drop-pressure series), the ``/debug/flight`` HTTP route, and the
-cluster's worker tracks and flow arrows in the Chrome export.
+cross-worker flow arrows in the Chrome export.
 """
 
 from __future__ import annotations
@@ -188,6 +188,10 @@ def parse_cursor(query) -> tuple[int | None, int | None]:
     return since, limit
 
 
+#: cluster-worker tracks start here, far above any count of trace ids in
+#: one ring, so the two track namespaces never collide
+WORKER_TID_BASE = 100_000
+
 #: event names drawn in their own ``failover`` category
 FAILOVER_EVENTS = frozenset(
     {"failover", "drain", "heartbeat", "deadline_exceeded", "promote", "standby"}
@@ -197,8 +201,13 @@ FAILOVER_EVENTS = frozenset(
 def chrome_trace(events: list[dict[str, Any]]) -> dict[str, Any]:
     """Recorder events as Chrome trace-event JSON (the Perfetto-compatible
     subset): one named track per trace id, untraced events on track 0,
-    phase slices (``ph="X"``) with their duration, instants thread-scoped."""
+    phase slices (``ph="X"``) with their duration, instants thread-scoped.
+    An event whose args carry a ``worker`` (the cluster's route, transfer,
+    prefill, claim and tick events, the failover events) goes on that
+    worker's own track instead (``worker decode-0``, ``worker prefill-0``,
+    ...), so a disaggregated run reads as parallel worker lanes."""
     tid_of: dict[str, int] = {}
+    worker_tid_of: dict[str, int] = {}
 
     def tid(trace_id: str | None) -> int:
         if not trace_id:
@@ -206,6 +215,11 @@ def chrome_trace(events: list[dict[str, Any]]) -> dict[str, Any]:
         if trace_id not in tid_of:
             tid_of[trace_id] = len(tid_of) + 1
         return tid_of[trace_id]
+
+    def worker_tid(worker: str) -> int:
+        if worker not in worker_tid_of:
+            worker_tid_of[worker] = WORKER_TID_BASE + len(worker_tid_of)
+        return worker_tid_of[worker]
 
     trace_events: list[dict[str, Any]] = [
         {"name": "process_name", "ph": "M", "pid": 1, "tid": 0,
@@ -217,12 +231,13 @@ def chrome_trace(events: list[dict[str, Any]]) -> dict[str, Any]:
         if event.get("ph") == "M":
             continue
         trace_id = event.get("trace_id")
+        worker = (event.get("args") or {}).get("worker")
         out: dict[str, Any] = {
             "name": event["name"],
             "ph": event.get("ph", "X"),
             "ts": int(event.get("ts_us", 0)),
             "pid": 1,
-            "tid": tid(trace_id),
+            "tid": worker_tid(str(worker)) if worker else tid(trace_id),
             "cat": "failover" if event["name"] in FAILOVER_EVENTS else "serving",
             "args": {**event.get("args", {}), "trace_id": trace_id},
         }
@@ -234,4 +249,7 @@ def chrome_trace(events: list[dict[str, Any]]) -> dict[str, Any]:
     for trace_id, row in tid_of.items():
         trace_events.append({"name": "thread_name", "ph": "M", "pid": 1, "tid": row,
                              "args": {"name": f"trace {trace_id[:12]}"}})
+    for worker, row in worker_tid_of.items():
+        trace_events.append({"name": "thread_name", "ph": "M", "pid": 1, "tid": row,
+                             "args": {"name": f"worker {worker}"}})
     return {"traceEvents": trace_events, "displayTimeUnit": "ms"}

@@ -37,7 +37,7 @@ Nothing drafts unless a batcher is built with ``spec=`` (a
 :class:`SpecConfig`; :func:`spec_from_config` parses ``instance.spec.*``,
 off by default). This module imports no torch; the device half lives in
 :mod:`.verify`, :mod:`.drafter` and :mod:`.scheduler` and loads on first
-use. The reference's ``SpecMetrics`` is not ported yet (``ROADMAP.md`` A.3).
+use; the counters live in :mod:`.instruments` (``SpecMetrics``).
 """
 
 from __future__ import annotations

@@ -67,7 +67,15 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    ids on every recorded event, a default ``RooflineAttributor()``
    measuring in the background (synchronising calls those of the bare
    path), and the armed ``run_pending`` -> ``run`` beside a bare ``run``
-   in tokens/s, ten alternating pairs; then the
+   in tokens/s, ten alternating pairs; then the serving cluster
+   (``cluster_path``, ``beholder_tpu_torch.cluster``, every worker on this
+   card): ``bench_cluster``'s 16-request trace through one batcher, a
+   colocated and a disaggregated ``ClusterScheduler`` (streams bitwise,
+   handoff counters, launches, syncs, pages home; tokens/s in turns and
+   their ratio), admitted-before-shed for 1 and 2 shards, failover (a shard
+   killed mid-stream, recovered streams bitwise), drain over bf16, int8 and
+   fp8 pools (adopted pages byte-identical), a deadline, and a prefix-cache
+   cluster with ``fused_verify`` (chunk launches); then the
    reference's default model (``dim=128, heads=4``: head dim 32) through a
    fused wave and a cold and warm prefix-cache ``run``;
 5. training: the same model with ``attention="flash"`` and f32 params from
@@ -1378,6 +1386,7 @@ def main_path(torch, profile: bool = False) -> dict:
                             run_streams, profile))
     report.update(intake_path(torch, model, layers, run_reqs, want_run, prefix_reqs,
                               want_prefix))
+    report.update(cluster_path(torch, model, layers))
     return report
 
 
@@ -2131,6 +2140,327 @@ def intake_path(torch, model, layers, run_reqs, want_run, prefix_reqs, want_pref
           f"{py_calls['bare']} bare (x{py_calls['armed'] / py_calls['bare']:.4f}); {card}",
           flush=True)
     return out
+
+
+#: bench_cluster's per-shard geometry (bench.py:1580-1585), bf16 pool
+CLUSTER = dict(num_pages=96, page_size=8, slots=4, max_prefix=64, max_pages_per_seq=24)
+#: the disaggregated cluster's handoffs for one run of ``cluster_trace()``
+#: on the headline model: one a request, ceil(t / 8) pages each, 16,384
+#: bytes a page (4 layers x k and v x 2 kv heads x 64 x 8 tokens x bf16);
+#: ``tests/test_torch_cluster.py`` pins the same numbers on the CPU
+CLUSTER_HANDOFF = dict(transfers=16, pages=52, bytes=851_968)
+#: cluster timings: runs per mode, taken in alternating order
+CLUSTER_TIMED = 3
+
+
+def cluster_request(Request, seed: int, t: int, horizon: int, deadline=None, base: int = 300):
+    """bench_cluster's (and, with ``base=700``, bench_failover's) request:
+    a ``t``-event CONVERTING stream from numpy seed ``base + seed``."""
+    rng = np.random.default_rng(base + seed)
+    return Request(np.cumsum(1.0 + rng.normal(0, 0.05, t + 1)), np.full(t + 1, CONVERTING),
+                   horizon, deadline)
+
+
+def cluster_trace(Request):
+    """bench_cluster's mixed trace (bench.py:1587-1604): 6 prefill-heavy
+    requests (56-event prefix, horizon 8) interleaved with 10 decode-heavy
+    ones (8-event prefix, horizon 48), seeds 300+."""
+    heavy = [cluster_request(Request, i, 56, 8) for i in range(6)]
+    light = [cluster_request(Request, 100 + i, 8, 48) for i in range(10)]
+    trace = []
+    while heavy or light:
+        if light:
+            trace.append(light.pop(0))
+        if heavy:
+            trace.append(heavy.pop(0))
+        if light:
+            trace.append(light.pop(0))
+    return trace
+
+
+def stream_diff(got, want) -> tuple[int, float]:
+    """(tokens whose bits differ, largest absolute difference) between two
+    lists of forecast arrays of equal shapes."""
+    n, worst = 0, 0.0
+    for g, w in zip(got, want):
+        g, w = np.asarray(getattr(g, "tokens", g)), np.asarray(getattr(w, "tokens", w))
+        check(g.shape == w.shape, f"stream shapes {g.shape} vs {w.shape}")
+        n += int((g.view(np.uint32) != w.view(np.uint32)).sum())
+        if g.size:
+            worst = max(worst, float(np.abs(g - w).max()))
+    return n, worst
+
+
+def pages_home(where, shards) -> None:
+    """No flag, every page back on each shard's free stack, no reference
+    left."""
+    for shard in shards:
+        b = shard.batcher
+        check(not bool(b.state.alloc_failed), f"{where} {shard.pool.name}: alloc_failed")
+        check(int(b.state.free_top) == b.num_pages,
+              f"{where} {shard.pool.name}: free_top {int(b.state.free_top)} != {b.num_pages}")
+        check(int(b.state.page_ref.sum()) == 0, f"{where} {shard.pool.name}: refs left")
+
+
+def cluster_path(torch, model, layers) -> dict:
+    """The serving cluster (``beholder_tpu_torch.cluster``) on the headline
+    model, every shard and prefill worker on this one card:
+
+    1. ``cluster_trace()`` through one ``ContinuousBatcher.run`` at the
+       per-shard geometry, then a colocated (2 decode shards) and a
+       disaggregated (2 decode shards + 1 prefill worker) ``ClusterScheduler``:
+       streams bitwise the single batcher's and each other's, decode
+       launches == layers x ticks (counted), no chunk launch, the handoff
+       counters ``CLUSTER_HANDOFF``, pages home, synchronising calls those
+       of one batcher ``run`` per shard served;
+    2. tokens/s of each mode, the median of ``CLUSTER_TIMED`` runs in
+       alternating order, and their ratio (bench_cluster's
+       ``cluster_decode_latency_ratio``);
+    3. capacity: admitted-before-shed for 1 and 2 shards with
+       ``max_pending_per_shard=256`` (the second exactly twice the first);
+    4. failover (bench_failover): 2 shards with ``FailoverConfig()``, 12
+       decode-heavy requests; ``decode-1`` killed after one dispatch; the
+       recovered streams bitwise the uninterrupted run's, recoveries > 0,
+       the recovery pass's wall; a warm shard with a ``PrefixCache(8)``
+       drained with ``drain(0)`` over bf16, int8 and fp8 pools, every
+       adopted page's export on the destination byte-identical to its
+       export on the source before the drain; an expired deadline returns a
+       ``DeadlineExceededResult``;
+    5. a prefix-cache cluster with ``fused_verify=True``: a cold then a warm
+       ``run`` of the trace; the warm pass's chunk launches (counted) > 0,
+       its first two steps within the bf16 band of the cold pass's."""
+    from beholder_tpu_torch.cluster import ClusterConfig
+    from beholder_tpu_torch.cluster.router import ClusterScheduler
+    from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
+
+    card = card_line()
+    report = {}
+    trace = cluster_trace(Request)
+    tokens = sum(r.horizon for r in trace)
+    count_syncs(torch, lambda: None)  # torch's own first use, when this phase runs first
+
+    single = ContinuousBatcher(model, **CLUSTER)
+    single.run(trace)  # warm-up
+    ticks0 = single.ticks
+    want, single_syncs, single_launches, _ = counted(torch, lambda: single.run(trace))
+    check(single_launches == layers * (single.ticks - ticks0),
+          f"cluster single: {single_launches} launches for {single.ticks - ticks0} ticks")
+    print(f"cluster single run: requests={len(trace)} tokens={tokens} "
+          f"kernel_launches={single_launches} sync_calls={single_syncs}", flush=True)
+
+    def ticks(cluster):
+        return sum(s.batcher.ticks for s in cluster.shards)
+
+    clusters, streams = {}, {}
+    for mode, n_prefill in (("colocated", 0), ("disaggregated", 1)):
+        where = f"cluster/{mode}"
+        c = ClusterScheduler(model, ClusterConfig(n_decode_workers=2, n_prefill_workers=n_prefill),
+                             **CLUSTER)
+        c.run(trace)  # warm-up
+        t0 = c.transfer.transfers, c.transfer.pages, c.transfer.bytes
+        k0 = ticks(c)
+        got, syncs, launches, chunk = counted(torch, lambda: c.run(trace))
+        handoff = dict(zip(("transfers", "pages", "bytes"), (
+            c.transfer.transfers - t0[0], c.transfer.pages - t0[1], c.transfer.bytes - t0[2])))
+        n_ticks = ticks(c) - k0
+        served = sum(1 for s in c.shards if s.batcher.ticks > 0)
+        check(launches > 0, f"{where}: the decode kernel never launched")
+        check(launches == layers * n_ticks,
+              f"{where}: {launches} kernel launches for {n_ticks} ticks x {layers} layers")
+        check(chunk == 0, f"{where}: {chunk} chunk kernel launches")
+        want_handoff = CLUSTER_HANDOFF if n_prefill else dict(transfers=0, pages=0, bytes=0)
+        check(handoff == want_handoff, f"{where}: handoff {handoff} != {want_handoff}")
+        check(syncs == served * single_syncs,
+              f"{where}: {syncs} synchronising calls, {served} shards x {single_syncs}")
+        pages_home(where, c.shards)
+        differ, worst = stream_diff(got, want)
+        print(f"serve cluster {mode}: {differ} of {tokens} tokens differ from one batcher's run "
+              f"(max abs {worst:.3e}) kernel_launches={launches} chunk_launches={chunk} "
+              f"ticks={n_ticks} sync_calls={syncs} ({served} shards x {single_syncs}) "
+              f"handoff={handoff} pages_home=yes", flush=True)
+        check(differ == 0, f"{where}: {differ} tokens differ from one batcher's run")
+        clusters[mode], streams[mode] = c, got
+        report[where] = dict(launches=launches, chunk_launches=chunk, ticks=n_ticks, syncs=syncs,
+                             handoff=handoff, tokens=tokens, tokens_differ=differ,
+                             max_abs_diff=worst)
+    differ, worst = stream_diff(streams["disaggregated"], streams["colocated"])
+    check(differ == 0, f"cluster: disaggregated vs colocated: {differ} tokens differ")
+
+    walls = {mode: [] for mode in clusters}
+    for _ in range(CLUSTER_TIMED):
+        for mode, c in clusters.items():
+            walls[mode] += timed(torch, lambda: c.run(trace), runs=1)
+    tps = {mode: tokens / statistics.median(w) for mode, w in walls.items()}
+    ratio = statistics.median(walls["disaggregated"]) / statistics.median(walls["colocated"])
+    for mode in clusters:
+        report[f"cluster/{mode}"].update(
+            seconds=statistics.median(walls[mode]), walls=walls[mode], tokens_per_s=tps[mode])
+    report["cluster/colocated"]["cluster_decode_latency_ratio"] = ratio
+    print(f"cluster tokens/s: colocated {tps['colocated']:.1f} disaggregated "
+          f"{tps['disaggregated']:.1f} (median of {CLUSTER_TIMED}, alternating; walls "
+          f"{walls}) cluster_decode_latency_ratio={ratio:.4f} [{card}]", flush=True)
+
+    def admitted_before_shed(n_shards):
+        # bench_cluster's capacity lever (bench.py:1634-1652)
+        c = ClusterScheduler(model, ClusterConfig(n_decode_workers=n_shards,
+                                                  max_pending_per_shard=256), **CLUSTER)
+        for i in range(512):
+            if not c.submit(cluster_request(Request, 500 + i, 8, 48)).accepted:
+                return i
+        fail("cluster capacity: the intake never shed")
+
+    cap, launches, chunk = [], 0, 0
+    for n_shards in (1, 2):
+        admitted, _, decode, chunked = counted(torch, lambda: admitted_before_shed(n_shards))
+        cap.append(admitted)
+        launches, chunk = launches + decode, chunk + chunked
+    check(cap[0] > 0 and cap[1] == 2 * cap[0], f"cluster capacity: admitted {cap}")
+    # submit queues on the host: nothing reaches the card until run_pending
+    check(launches == 0 and chunk == 0,
+          f"cluster capacity: submit launched {launches} decode, {chunk} chunk kernels")
+    print(f"cluster capacity: admitted before shed 1 shard {cap[0]}, 2 shards {cap[1]} "
+          f"kernel_launches={launches} chunk_launches={chunk}", flush=True)
+    report["cluster/capacity"] = dict(launches=launches, chunk_launches=chunk, admitted=cap)
+
+    report.update(failover_path(torch, model, layers, card))
+    report.update(cluster_prefix_path(torch, model, layers, trace))
+    return report
+
+
+def failover_path(torch, model, layers, card) -> dict:
+    """Phase 4 of :func:`cluster_path`: kill and recovery, drain over the
+    three pool families, the deadline leg."""
+    from beholder_tpu_torch.cache import PrefixCache
+    from beholder_tpu_torch.cluster import ClusterConfig, FailoverConfig
+    from beholder_tpu_torch.cluster.router import ClusterScheduler
+    from beholder_tpu_torch.models.serving import DeadlineExceededResult, Request
+    from beholder_tpu_torch.reliability import Deadline, WorkerFault, inject_worker_fault
+
+    def mk(seed, t, horizon, deadline=None):
+        return cluster_request(Request, seed, t, horizon, deadline, base=700)
+
+    def build(**kw):
+        return ClusterScheduler(model, ClusterConfig(n_decode_workers=2,
+                                                     failover=FailoverConfig()),
+                                **{**CLUSTER, **kw})
+
+    trace = [mk(i, 8, 48) for i in range(12)]
+    steady = build()
+    steady.run(trace)
+    base = steady.run(trace)
+    chaos = build()
+    chaos.run(trace)  # warm-up, before the fault arms
+    inject_worker_fault(chaos, WorkerFault("decode-1", "kill", after_dispatches=1))
+    k0 = sum(s.batcher.ticks for s in chaos.shards)
+    t0 = time.perf_counter()
+    recovered, syncs, launches, chunk = counted(torch, lambda: chaos.run(trace))
+    wall = time.perf_counter() - t0
+    n_ticks = sum(s.batcher.ticks for s in chaos.shards) - k0
+    fo = chaos.failover
+    check(fo.state("decode-1") == "down", "failover: decode-1 not down")
+    check(fo.recovered_total > 0, "failover: nothing recovered")
+    # the killed dispatch raises before it launches anything, and counts no tick
+    check(launches == layers * n_ticks,
+          f"failover: {launches} launches for {n_ticks} ticks x {layers} layers")
+    pages_home("failover survivor", chaos.shards[:1])
+    differ, worst = stream_diff(recovered, base)
+    recovery_s = float(np.mean(fo.recovery_walls))
+    print(f"cluster failover: decode-1 killed after 1 dispatch, {fo.recovered_total} recovered, "
+          f"{differ} of {sum(r.horizon for r in trace)} tokens differ from the uninterrupted run "
+          f"(max abs {worst:.3e}) recovery pass {recovery_s:.4f} s, run {wall:.4f} s "
+          f"kernel_launches={launches} sync_calls={syncs} [{card}]", flush=True)
+    check(differ == 0, f"failover: {differ} recovered tokens differ")
+    report = {"cluster/failover": dict(
+        launches=launches, chunk_launches=chunk, recovered=fo.recovered_total,
+        recovery_pass_s=recovery_s, run_s=wall, tokens_differ=differ)}
+
+    drains, launches, chunk = {}, 0, 0
+    for family in ("bf16", "int8", "fp8"):
+        warm = build(prefix_cache_factory=lambda: PrefixCache(8), cache_dtype=family)
+        # distinct prefixes, so every cached page of shard 0 is adopted (a
+        # key the survivor holds already keeps the survivor's page)
+        _, _, decode, chunked = counted(torch, lambda: warm.run([mk(900 + i, 24, 8)
+                                                                 for i in range(6)]))
+        check(decode > 0, f"drain {family}: the warm run never launched the decode kernel")
+        src, dst = (s.batcher for s in warm.shards)
+        src_pages = {k: p for k, _, p, _ in src.prefix_cache.export_entries()}
+        dst_keys = {k for k, _, _, _ in dst.prefix_cache.export_entries()}
+        ids = torch.tensor(sorted(src_pages.values()), device=src.transfer_device)
+        before = dict(zip(ids.tolist(), flatten_pages(torch, src.export_pages(ids))))
+        outcome, _, drain_decode, drain_chunk = counted(torch, lambda: warm.drain(0))
+        # nothing was in flight: the drain moves pages and launches nothing
+        check(drain_decode == 0 and drain_chunk == 0,
+              f"drain {family}: drain(0) launched {drain_decode} decode, {drain_chunk} chunk")
+        launches, chunk = launches + decode, chunk + chunked
+        after_pages = {k: p for k, _, p, _ in dst.prefix_cache.export_entries()}
+        adopted = [k for k in src_pages if k not in dst_keys]
+        check(outcome["migrated_pages"] > 0 and adopted, f"drain {family}: nothing migrated")
+        new_ids = torch.tensor([after_pages[k] for k in adopted], device=dst.transfer_device)
+        for key, got in zip(adopted, flatten_pages(torch, dst.export_pages(new_ids))):
+            want = before[src_pages[key]]
+            check(len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"drain {family}: an adopted page's bytes differ")
+        drains[family] = dict(migrated=outcome["migrated_pages"], compared=len(adopted),
+                              launches=decode, chunk_launches=chunked)
+        print(f"cluster drain {family}: {outcome['migrated_pages']} pages migrated to "
+              f"{outcome['target']}, {len(adopted)} adopted pages byte-identical; warm run "
+              f"kernel_launches={decode} chunk_launches={chunked}, drain(0) 0", flush=True)
+    report["cluster/drain"] = dict(launches=launches, chunk_launches=chunk, families=drains)
+
+    lapsed = build()
+    res = lapsed.run([mk(950, 8, 16), mk(951, 8, 16, deadline=Deadline.after(-1.0))])
+    check(isinstance(res[1], DeadlineExceededResult) and res[1].tokens.shape == (0,),
+          f"deadline: {type(res[1]).__name__}")
+    check(res[0].shape == (16,) and bool(np.isfinite(res[0]).all()), "deadline: first request")
+    print("cluster deadline: expired request -> DeadlineExceededResult(tokens=0)", flush=True)
+    return report
+
+
+def flatten_pages(torch, chunks) -> list:
+    """Per page, every layer's raw bytes (values and scales) from an
+    ``export_pages`` result, as uint8 tensors."""
+    ks, vs = chunks
+    parts = [x for c in (*ks, *vs) for x in (c if isinstance(c, tuple) else (c,))]
+    return [[p[i].contiguous().view(torch.uint8) for p in parts]
+            for i in range(parts[0].shape[0])]
+
+
+def cluster_prefix_path(torch, model, layers, trace) -> dict:
+    """Phase 5 of :func:`cluster_path`: the chunk kernel on the cluster's
+    path (prefix-hit admission through ``fused_verify``)."""
+    from beholder_tpu_torch.cache import PrefixCache
+    from beholder_tpu_torch.cluster import ClusterConfig
+    from beholder_tpu_torch.cluster.router import ClusterScheduler
+
+    c = ClusterScheduler(model, ClusterConfig(n_decode_workers=2),
+                         prefix_cache_factory=lambda: PrefixCache(8), fused_verify=True,
+                         **CLUSTER)
+    cold, cold_syncs, cold_launches, cold_chunk = counted(torch, lambda: c.run(trace))
+    k0 = sum(s.batcher.ticks for s in c.shards)
+    warm, syncs, launches, chunk = counted(torch, lambda: c.run(trace))
+    n_ticks = sum(s.batcher.ticks for s in c.shards) - k0
+    hits = sum(s.batcher.prefix_cache.hits for s in c.shards)
+    check(chunk > 0, "cluster prefix: the chunk kernel never launched")
+    check(launches == layers * n_ticks,
+          f"cluster prefix: {launches} launches for {n_ticks} ticks x {layers} layers")
+    rtol, atol = FORECAST_BAND["bf16"]
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(warm, cold)):
+        check(g.shape == w.shape and bool(np.isfinite(g).all()), f"cluster prefix: request {i}")
+        ok = np.abs(g[:2] - w[:2]) <= atol + rtol * np.abs(w[:2])
+        check(bool(ok.all()), f"cluster prefix: request {i} warm {g[:2]} vs cold {w[:2]}")
+        worst = max(worst, float(np.abs(g[:2] - w[:2]).max()))
+    for s in c.shards:
+        s.batcher._evict_cached(s.batcher.num_pages)
+    pages_home("cluster prefix", c.shards)
+    print(f"serve cluster prefix_warm: hits={hits} chunk_launches={chunk} "
+          f"kernel_launches={launches} ticks={n_ticks} sync_calls={syncs} "
+          f"(cold: chunk_launches={cold_chunk} sync_calls={cold_syncs}) "
+          f"first2 vs cold max_err={worst:.3e} pages_home=yes", flush=True)
+    return {"cluster/prefix_warm": dict(launches=launches, chunk_launches=chunk, hits=hits,
+                                         syncs=syncs, first2_vs_cold=worst),
+            "cluster/prefix_cold": dict(launches=cold_launches, chunk_launches=cold_chunk,
+                                         syncs=cold_syncs)}
 
 
 def profile_spec(torch, b, reqs) -> dict:

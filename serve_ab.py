@@ -12,7 +12,12 @@ spread among the A processes. Each process warms each path once, then times
 process's median tokens/s per path, then per path the median over B's
 processes over the median over A's, beside the spread (max - min over
 median) of each side. The record goes to ``chiprun_out/serve_ab.json``.
-Needs one CUDA card and nvcc; imports nothing of JAX.
+
+``--train`` times the training step instead: ``chip_smoke.py``'s headline
+training model, flash and ring (P = 4 on the one card), ``TRAIN_STEPS``
+``seq_train_step``s each (CUDA events, steps 2 on), and records to
+``chiprun_out/train_ab.json``. Needs one CUDA card and nvcc; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 PATHS = [f"{family}/{mode}" for family in ("bf16", "int8", "fp8")
          for mode in ("run_waves", "run")]
+TRAIN_PATHS = ["train/flash", "train/ring"]
 
 
 def load_smoke():
@@ -41,9 +47,10 @@ def load_smoke():
     return smoke
 
 
-def child(root: str, runs: int) -> None:
-    """Serve the traffic through ``root``'s package; print one JSON line of
-    seconds per timed call."""
+def child(root: str, runs: int, train: bool) -> None:
+    """Serve the traffic (or, with ``train``, take the training steps)
+    through ``root``'s package; print one JSON line of seconds per timed
+    call."""
     sys.path.insert(0, str(Path(root).resolve()))
     smoke = load_smoke()
     import torch
@@ -60,6 +67,9 @@ def child(root: str, runs: int) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if train:
+        train_child(root, smoke, torch)
+        return
     csrc.build("paged_decode")
     model = TelemetrySequenceModel(dim=512, heads=8, kv_heads=2, layers=4)
     load_flax_params(model, init_params(model, seed=0, bf16_matrices=True))
@@ -83,16 +93,45 @@ def child(root: str, runs: int) -> None:
     print(json.dumps({"root": root, "paths": seconds}), flush=True)
 
 
+def train_child(root: str, smoke, torch) -> None:
+    """``chip_smoke.py``'s training runs, flash and ring, through
+    ``root``'s package: seconds of each step after the first."""
+    from beholder_tpu_torch import csrc
+    from beholder_tpu_torch.models import TelemetrySequenceModel, init_seq_state
+    from beholder_tpu_torch.ops import flash_attention as fa
+    from beholder_tpu_torch.parallel import Mesh
+
+    csrc.build("flash_fwd", "flash_bwd")
+    feats, targets = smoke.train_streams(torch, 0, smoke.TRAIN_B, smoke.TRAIN_T)
+    models = {
+        "train/flash": smoke.TRAIN_MODEL,
+        "train/ring": {**smoke.TRAIN_MODEL, "attention": "ring",
+                       "mesh": Mesh(["cuda:0"] * smoke.RING_P)},
+    }
+    seconds = {}
+    for path, kw in models.items():
+        state = init_seq_state(0, TelemetrySequenceModel(**kw))
+        state, losses, step_ms, _, _ = smoke.train_steps(torch, fa, state, feats, targets)
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"{path}: losses not finite {losses}")
+        seconds[path] = dict(tokens=smoke.TRAIN_B * smoke.TRAIN_T,
+                             seconds=[ms / 1e3 for ms in step_ms[1:]])
+        del state
+    print(json.dumps({"root": root, "paths": seconds}), flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("a_root", nargs="?")
     parser.add_argument("b_root", nargs="?")
     parser.add_argument("--runs", type=int, default=5, help="timed calls per path")
     parser.add_argument("--rounds", type=int, default=1, help="A, B, B, A repeats")
+    parser.add_argument("--train", action="store_true",
+                        help="time the training step (flash, ring) instead of serving")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
-        child(args.child, args.runs)
+        child(args.child, args.runs, args.train)
         return
     if not (args.a_root and args.b_root):
         parser.error("give two checkout roots, A and B")
@@ -103,7 +142,8 @@ def main() -> None:
     procs = []
     for label, root in order:
         out = subprocess.run(
-            [sys.executable, __file__, "--child", root, "--runs", str(args.runs)],
+            [sys.executable, __file__, "--child", root, "--runs", str(args.runs)]
+            + ["--train"] * args.train,
             capture_output=True, text=True, timeout=900,
         )
         if out.returncode != 0:
@@ -117,7 +157,7 @@ def main() -> None:
         print(f"{label} {root}: " + " ".join(f"{p}={t:.1f}" for p, t in medians.items()),
               flush=True)
     summary = {}
-    for path in PATHS:
+    for path in TRAIN_PATHS if args.train else PATHS:
         med = {"A": [], "B": []}
         for r in procs:
             v = r["paths"][path]
@@ -129,7 +169,7 @@ def main() -> None:
               f"(spread {spread['B']:.4f})  B/A {b / a:.4f}", flush=True)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "serve_ab.json").write_text(
+    (out_dir / ("train_ab.json" if args.train else "serve_ab.json")).write_text(
         json.dumps({"card": card, "a": args.a_root, "b": args.b_root, "processes": procs,
                     "summary": summary}, indent=1))
 

@@ -53,6 +53,12 @@ PORT_MODULES = [
     "beholder_tpu_torch.obs",
     "beholder_tpu_torch.obs.recorder",
     "beholder_tpu_torch.obs.roofline",
+    "beholder_tpu_torch.cluster",
+    "beholder_tpu_torch.cluster.pool",
+    "beholder_tpu_torch.cluster.instruments",
+    "beholder_tpu_torch.cluster.transfer",
+    "beholder_tpu_torch.cluster.failover",
+    "beholder_tpu_torch.cluster.router",
     "chip_smoke",
     "serve_ab",
 ]
