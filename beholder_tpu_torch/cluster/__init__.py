@@ -21,6 +21,12 @@ over its own paged pool, and optionally M prefill workers:
   then fail-stop): heartbeats and injected faults, recovery of in-flight
   requests on surviving shards, graceful drain with a byte-identical page
   migration, deadline-aware retirement.
+- **Memory fabric** (:mod:`.fabric`, off by default): a cluster-wide
+  prefix index, so a prefix cached on one shard admits as a hit on
+  another after a verbatim page fetch, and a dark standby that mirrors the
+  cached pages and is promoted when a worker dies.
+- **Group-parallel decode** (:mod:`.group`, off by default): a decode
+  shard served by a group of devices, its pool split by kv head.
 
 **Placement.** The cluster is single-controller, as the reference's is: one
 process drives every worker, and each worker is placed on a torch device by
@@ -36,9 +42,8 @@ handoff writes pool content and carry seeds through the same casts. Routing
 and disaggregation change where work runs, never what it computes.
 
 This module imports no torch; the device half lives in :mod:`.pool`,
-:mod:`.transfer`, :mod:`.router` and :mod:`.failover`. Not ported yet: the
-cluster memory fabric (``fabric=``) and group-parallel decode (``group=``),
-whose configs parse here, and the control plane (``control_plane=``).
+:mod:`.transfer`, :mod:`.router`, :mod:`.failover`, :mod:`.fabric` and
+:mod:`.group`. Not ported yet: the control plane (``control_plane=``).
 """
 
 from __future__ import annotations
@@ -98,9 +103,10 @@ class FabricConfig:
     """Cluster-memory-fabric knobs (``instance.cluster.fabric.*``).
 
     None on :class:`ClusterConfig` (the default) keeps each shard's
-    prefix cache private and failover on the replay path. The fabric
-    itself (a cluster-wide prefix index and a dark standby shard) is not
-    ported yet: the port's scheduler refuses a config that sets it."""
+    prefix cache private and failover on the replay path. Set, the router
+    arms a :class:`~beholder_tpu_torch.cluster.fabric.engine.FabricEngine`:
+    a cluster-wide prefix index and, with ``standby``, a dark standby
+    shard."""
 
     #: cross-shard hit count at/past which a fetched chain stays
     #: cached on the borrowing shard as a durable replica; below it
@@ -124,19 +130,19 @@ class GroupConfig:
 
     None on :class:`ClusterConfig` (the default) keeps every decode
     shard single-device: serving output, handoff wire bytes, and the
-    /metrics exposition byte-identical to the pre-group cluster. The
-    group engine itself (one logical shard over ``size`` devices, the
-    pool partitioned by KV head) is not ported yet: the port's scheduler
-    refuses a config that sets it."""
+    /metrics exposition byte-identical to the pre-group cluster. Set,
+    each decode shard is a :class:`~beholder_tpu_torch.cluster.group.
+    engine.GroupBatcher`: one logical shard over ``size`` devices, the
+    pool partitioned by KV head."""
 
     #: devices per decode group (>= 2 — a group of 1 IS the plain
     #: single-device shard, so asking for it is a config error, not a
     #: silent no-op); must divide the model's KV-head count and the
     #: mesh's device count
     size: int = 2
-    #: mesh-axis name the group's collectives run over — the params'
-    #: tp axis (``seq_state_shardings`` specs name it), so trained
-    #: sharded params drop in without a respec
+    #: the reference's mesh-axis name for the group (its params' tp axis);
+    #: parsed and kept on the port's ``GroupSpec``, where one controller
+    #: drives every member and no collective runs over it
     axis: str = "tp"
     #: pool-partition policy. Only ``"kv_head"`` exists: member m owns
     #: heads [m*Hkv/size, (m+1)*Hkv/size) of every page, which is what

@@ -167,6 +167,14 @@ class FailoverEngine:
             if self.state(w.name) == WORKER_UP
         ]
 
+    def adopt_worker(self, worker: str) -> None:
+        """Register a worker that joined outside
+        :meth:`~beholder_tpu_torch.cluster.router.ClusterScheduler.scale_up`
+        (the fabric's standby promotion) as up and beating, so routing and
+        the sweep treat it as a boot-time shard."""
+        self._set_state(worker, WORKER_UP)
+        self.heartbeat(worker)
+
     def mark_down(self, worker: str, kind: str) -> None:
         """Record a detected failure: the worker leaves the routing
         set, the failure counts by kind, and the timeline gets a

@@ -23,6 +23,17 @@ batcher's bits.
 - **Rebalance** (:meth:`ClusterScheduler._rebalance`): at drain time,
   queued requests that no longer fit their shard move to the
   least-pressure shard (``reason="rebalance"``).
+- **Memory fabric** (``ClusterConfig.fabric``,
+  :mod:`beholder_tpu_torch.cluster.fabric`): a prefix cached on one shard
+  admits as a hit on another after a verbatim page fetch; a dark standby
+  mirrors the cached pages between serves and is promoted when a worker
+  dies.
+- **Decode groups** (``ClusterConfig.group``,
+  :mod:`beholder_tpu_torch.cluster.group`): each decode shard is a
+  :class:`~beholder_tpu_torch.cluster.group.engine.GroupBatcher` over a
+  contiguous block of ``group.size`` devices, named ``decode-g<id>``;
+  prefill workers and a fabric standby stay single-device, placed after the
+  blocks.
 
 The scheduler is single-controller: one process drives every worker, each
 worker's tensors live on its device, and a tensor moves with
@@ -35,9 +46,8 @@ only when a registry is wired, ``route``/``transfer``/``prefill`` are
 recorder-only events, and per-shard shed attribution rides each shard's
 uniquely named intake (``beholder_intake_shed_total{queue, reason}``).
 
-Not ported yet: the cluster memory fabric (``ClusterConfig.fabric``),
-group-parallel decode (``ClusterConfig.group``) and the control plane
-(``control_plane=``); each raises ``NotImplementedError``.
+Not ported yet: the control plane (``control_plane=``), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -100,11 +110,6 @@ class ClusterScheduler:
         from beholder_tpu_torch.parallel.mesh import serving_shard_devices
         from beholder_tpu_torch.reliability.policy import RetryPolicy
 
-        if cluster.fabric is not None or cluster.group is not None:
-            raise NotImplementedError(
-                "the cluster memory fabric and group-parallel decode are not "
-                "ported yet (ROADMAP A.4)"
-            )
         if control_plane is not None:
             raise NotImplementedError("the control plane is not ported yet (ROADMAP A.1)")
         self.cluster = cluster
@@ -127,11 +132,26 @@ class ClusterScheduler:
             self.instruments.shards.set(cluster.n_decode_workers)
 
         n_workers = cluster.n_decode_workers + cluster.n_prefill_workers
-        placed = serving_shard_devices(n_workers, devices=devices)
-        decode_devices = placed[: cluster.n_decode_workers]
-        prefill_devices = placed[cluster.n_decode_workers:]
-        #: devices handed out so far; scale_up() continues the cycle
-        self._devices_used = n_workers
+        if cluster.group is not None:
+            # each decode shard owns a contiguous block of group.size
+            # devices; prefill workers stay single-device, continuing the
+            # cycle after the blocks
+            gsz = cluster.group.size
+            decode_devices = serving_shard_devices(
+                cluster.n_decode_workers, group_size=gsz, devices=devices
+            )
+            singles = serving_shard_devices(
+                cluster.n_decode_workers * gsz + cluster.n_prefill_workers, devices=devices
+            )
+            prefill_devices = singles[cluster.n_decode_workers * gsz:]
+            #: blocks handed out so far; scale_up() continues the block cycle
+            self._devices_used = cluster.n_decode_workers
+        else:
+            placed = serving_shard_devices(n_workers, devices=devices)
+            decode_devices = placed[: cluster.n_decode_workers]
+            prefill_devices = placed[cluster.n_decode_workers:]
+            #: devices handed out so far; scale_up() continues the cycle
+            self._devices_used = n_workers
 
         self.shards: list[_Shard] = [
             self._build_shard(i, decode_devices[i]) for i in range(cluster.n_decode_workers)
@@ -161,6 +181,17 @@ class ClusterScheduler:
             if cluster.failover is not None
             else None
         )
+        #: the memory fabric (None: private prefix caches, failover replays):
+        #: the global prefix index and the standby mirror, over the transfer
+        #: engine
+        self.fabric = None
+        if cluster.fabric is not None:
+            from .fabric.engine import FabricEngine
+
+            self.fabric = FabricEngine(cluster.fabric, self.transfer,
+                                       flight_recorder=flight_recorder)
+            for shard in self.shards:
+                self.fabric.attach_shard(shard)
         #: admission-order results decided outside a serve (drain-time
         #: shard_down drops), merged by run_pending
         self._pending_drops: dict[int, object] = {}
@@ -189,12 +220,14 @@ class ClusterScheduler:
     def _build_shard(self, shard_id: int, device, name: str | None = None) -> _Shard:
         """One decode shard exactly as ``__init__`` builds them; also
         :meth:`scale_up`'s path, so a spawned shard is indistinguishable
-        from a boot-time one."""
+        from a boot-time one. ``device`` a tuple builds a decode group
+        (``decode-g<id>``, its pool's device member 0); ``name`` overrides
+        the pool name (the fabric's standby lives outside the decode ids
+        until promotion)."""
         from beholder_tpu_torch.models.serving import ContinuousBatcher
         from beholder_tpu_torch.reliability.shed import IntakeQueue
 
-        batcher = ContinuousBatcher(
-            self._model_on(device),
+        shared = dict(
             metrics=self._metrics,
             tracer=self._tracer,
             flight_recorder=self.flight_recorder,
@@ -202,9 +235,16 @@ class ClusterScheduler:
                 self._prefix_cache_factory() if self._prefix_cache_factory is not None else None
             ),
             spec=self._spec,
-            device=device,
             **self._batcher_kwargs,
         )
+        if isinstance(device, tuple):
+            from .group.engine import GroupBatcher
+
+            name = name if name is not None else f"decode-g{shard_id}"
+            batcher = GroupBatcher(self._model_on(device[0]), devices=device,
+                                   axis=self.cluster.group.axis, name=name, **shared)
+        else:
+            batcher = ContinuousBatcher(self._model_on(device), device=device, **shared)
         pool = ShardPool(shard_id, batcher.num_pages, device=batcher.transfer_device)
         if name is not None:
             pool.name = name
@@ -230,13 +270,18 @@ class ClusterScheduler:
         at once. The inverse is :meth:`drain`."""
         from beholder_tpu_torch.parallel.mesh import serving_shard_devices
 
-        device = serving_shard_devices(self._devices_used + 1, devices=self._devices)[-1]
+        # a group shard claims the next contiguous block, as at boot
+        gsz = self.cluster.group.size if self.cluster.group is not None else 1
+        device = serving_shard_devices(self._devices_used + 1, group_size=gsz,
+                                       devices=self._devices)[-1]
         self._devices_used += 1
         shard = self._build_shard(len(self.shards), device)
         self.shards.append(shard)
         self.pool_view.shards.append(shard.pool)
         if self.failover is not None:
             self.failover._set_state(shard.pool.name, WORKER_UP)
+        if self.fabric is not None:
+            self.fabric.attach_shard(shard)
         if self.instruments is not None:
             self.instruments.shards.set(sum(
                 1 for s in self.shards
@@ -281,7 +326,13 @@ class ClusterScheduler:
                 "drain requires instance.cluster.failover — the "
                 "fail-stop cluster has no migration machinery"
             )
-        return self.failover.drain(shard_id)
+        name = self.shards[shard_id].pool.name
+        result = self.failover.drain(shard_id)
+        if self.fabric is not None:
+            # pins against the drained pool repoint to the migration target;
+            # the drained shard leaves the directory
+            self.fabric.on_drain(name, result["target"])
+        return result
 
     # -- routing ---------------------------------------------------------
 
@@ -458,6 +509,10 @@ class ClusterScheduler:
                     for _, _, need in items:
                         shard.pool.release(need)
                     kind = fo.on_shard_failure(shard, err)
+                    if self.fabric is not None:
+                        # release the dead worker's pins, forget it, and
+                        # promote a mirroring standby in place of the replay
+                        self.fabric.on_worker_down(self, shard.pool.name)
                     retried = 0
                     for key, req, _ in items:
                         attempts[key] = attempts.get(key, 0) + 1
@@ -479,6 +534,9 @@ class ClusterScheduler:
                 # reservations come off first: the serve is done
                 for _, _, need in items:
                     shard.pool.release(need)
+                if self.fabric is not None:
+                    # release this borrower's pins, drop transient borrows
+                    self.fabric.finish_serve(shard)
                 for (key, _, _), res in zip(items, served):
                     if fo is not None and isinstance(res, np.ndarray):
                         res = fo.splice(key, res)
@@ -492,6 +550,10 @@ class ClusterScheduler:
             # keys recur across run() calls: terminal outcomes' ledger
             # entries must not survive into the next call
             fo.discard_emitted(list(out))
+        if self.fabric is not None:
+            # between serves: spawn the standby on first use, refresh its
+            # mirror against settled pools
+            self.fabric.sync(self)
         self.pool_view.refresh_gauges(self.instruments)
         return out
 
@@ -560,9 +622,13 @@ class ClusterScheduler:
             served = self._serve(shard, requests)
             for req in requests:
                 shard.pool.release(self._need(req))
+            if self.fabric is not None:
+                self.fabric.finish_serve(shard)
             collected.extend(zip((seq for seq, _ in pending), served))
             if self.instruments is not None:
                 self.instruments.requests_total.inc(len(pending), shard=str(shard.pool.shard_id))
+        if self.fabric is not None:
+            self.fabric.sync(self)
         self.pool_view.refresh_gauges(self.instruments)
         collected.extend(drops.items())
         collected.sort(key=lambda pair: pair[0])

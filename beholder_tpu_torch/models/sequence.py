@@ -25,8 +25,11 @@ version share one op sequence
 (:func:`~beholder_tpu_torch.ops.attention.attend`). Training:
 :func:`seq_loss`, :func:`init_seq_state` and :func:`seq_train_step`, with
 ``remat=True`` recomputing each block in the backward
-(``torch.utils.checkpoint``). Group-parallel forwards, ulysses
-attention, MoE and sequence sharding raise ``NotImplementedError``.
+(``torch.utils.checkpoint``). ``group=`` (a
+:class:`~beholder_tpu_torch.ops.paged_attention.GroupSpec`) runs a paged
+forward over a decode group's pools, each member holding a slice of the kv
+heads (:func:`_group_attention`). Ulysses attention, MoE and sequence
+sharding raise ``NotImplementedError``.
 
 The model is built with gradients off, so the serving paths record no
 autograd graph; :func:`init_seq_state` turns them on for training.
@@ -47,6 +50,7 @@ from beholder_tpu_torch.ops.attention import attend, full_attention, ring_attent
 from beholder_tpu_torch.ops.flash_attention import flash_attention
 from beholder_tpu_torch.ops.paged_attention import (
     ChunkPagedInfo,
+    GroupSpec,
     PagedInfo,
     QuantizedPool,
     paged_chunk_attention,
@@ -225,6 +229,95 @@ def _write_dense_cache(cache: torch.Tensor, new: torch.Tensor, index):
     return cache
 
 
+def _pool_device(pool) -> torch.device:
+    return (pool.values if isinstance(pool, QuantizedPool) else pool).device
+
+
+def _paged_attention(q, k, v, k_cache, v_cache, index, window, group: int = 1):
+    """One pool's paged attention: the decode tick (:class:`PagedInfo`,
+    ``t == 1``: the kv column is written into the pool first) or the chunk
+    (:class:`ChunkPagedInfo`: the chunk's own kv is overlaid, the pool is
+    not written). Returns the attention (S, H, t, Dh) and the block's kv
+    output: the updated pools for a tick, the chunk's own (k, v) columns
+    for a chunk. ``group`` is the member count of a group-parallel call."""
+    quant = isinstance(k_cache, QuantizedPool)
+    if isinstance(index, PagedInfo):
+        if q.shape[2] != 1:
+            raise ValueError(f"the paged decode tick takes t == 1, got {q.shape[2]}")
+        k_cache = _pool_write_column(k_cache, index, k[:, :, 0, :])
+        v_cache = _pool_write_column(v_cache, index, v[:, :, 0, :])
+        att = paged_decode_attention(
+            q[:, :, 0, :].contiguous(),
+            k_cache.values if quant else k_cache,
+            v_cache.values if quant else v_cache,
+            index.page_table,
+            index.lens,
+            window=window,
+            k_scale=k_cache.scales if quant else None,
+            v_scale=v_cache.scales if quant else None,
+            group=group,
+        )[:, :, None, :]                                            # (S, H, 1, Dh)
+        return att, (k_cache, v_cache)
+    # the t >= 1 chunk attends its slot's pages in place plus its own kv (the
+    # kernel's overlay); nothing is written to the pools here: the caller
+    # writes the columns it keeps
+    att = paged_chunk_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        k_cache.values if quant else k_cache,
+        v_cache.values if quant else v_cache,
+        index.page_table,
+        index.lens,
+        ctx_len=index.ctx_len,
+        live_pages=index.live_pages,
+        window=window,
+        k_scale=k_cache.scales if quant else None,
+        v_scale=v_cache.scales if quant else None,
+        group=group,
+    )                                                               # (S, H, t, Dh)
+    return att, (k, v)
+
+
+def _group_attention(q, k, v, k_members, v_members, index, window, group: GroupSpec):
+    """Paged attention over a decode group's pools: ``k_members[m]`` /
+    ``v_members[m]`` hold kv heads ``[m * Hkv/n, (m + 1) * Hkv/n)`` of every
+    page, each a contiguous pool on its member's device. The projections
+    came in at full width; each member gets its head slice (q heads stay
+    next to their kv head, GQA groups being contiguous), taken before its
+    pool write, attends over its own pool, and the members' outputs are
+    concatenated along the head axis: a copy, never a sum of partials, so
+    the heads carry the single-pool launch's bits. Returns the attention on
+    q's device and the block's kv output: the members' pools for a tick,
+    the chunk's own full-width (k, v) for a chunk."""
+    if len(k_members) != group.size or len(v_members) != group.size:
+        raise ValueError(
+            f"a group of {group.size} takes {group.size} member pools, got {len(k_members)}"
+        )
+    hkv, h = k.shape[1], q.shape[1]
+    if hkv % group.size:
+        raise ValueError(f"group size {group.size} does not divide {hkv} kv heads")
+    hloc = hkv // group.size
+    qloc = hloc * (h // hkv)
+    info_fields = index._fields
+    atts, new_k, new_v = [], [], []
+    for m, (kp, vp) in enumerate(zip(k_members, v_members)):
+        dev = _pool_device(kp)
+        info = type(index)(*(
+            x.to(dev) if torch.is_tensor(x) else x
+            for x in (getattr(index, f) for f in info_fields)
+        ))
+        att, (kp, vp) = _paged_attention(
+            q[:, m * qloc:(m + 1) * qloc].to(dev),
+            k[:, m * hloc:(m + 1) * hloc].to(dev),
+            v[:, m * hloc:(m + 1) * hloc].to(dev),
+            kp, vp, info, window, group=group.size,
+        )
+        atts.append(att.to(q.device))
+        new_k.append(kp)
+        new_v.append(vp)
+    kv_out = (k, v) if isinstance(index, ChunkPagedInfo) else (tuple(new_k), tuple(new_v))
+    return torch.cat(atts, dim=1), kv_out
+
+
 class Block(nn.Module):
     """Pre-LN transformer block: attention (full, flash or ring, dense-cache
     step, paged decode tick or paged chunk) and a gelu MLP. ``attention``
@@ -263,70 +356,51 @@ class Block(nn.Module):
         self.up = nn.Linear(dim, 4 * dim, device=device)
         self.down = nn.Linear(4 * dim, dim, device=device)
 
-    def forward(self, x: torch.Tensor, cache=None, return_kv: bool = False, group=None):
+    def forward(self, x: torch.Tensor, cache=None, return_kv: bool = False,
+                group: GroupSpec | None = None):
         """Full forward, or with ``cache=(k, v, index)`` one cached step:
         ``index`` a :class:`PagedInfo` (paged decode tick, t == 1), a
         :class:`ChunkPagedInfo` (paged chunk, t >= 1: the chunk's own (k, v)
         come back and the pools are not written) or an integer tensor
         (dense cache: scalar, or one position per row). Dense caches and
-        the tick's pools are updated in place and returned."""
-        if group is not None:
-            raise NotImplementedError("group-parallel forwards are not ported yet")
+        the tick's pools are updated in place and returned.
+
+        ``group`` (paged caches only): ``k`` and ``v`` are a decode group's
+        member pools, tuples of ``group.size`` (see
+        :func:`_group_attention`); the tick's member pools come back as such
+        tuples, the chunk's kv at full width."""
         b, t, d = x.shape
         h, hkv = self.heads, self.kv_heads
         dh = d // h
+        if group is not None and (
+            cache is None or not isinstance(cache[2], (PagedInfo, ChunkPagedInfo))
+        ):
+            raise ValueError(
+                "group-parallel forwards are paged-only (a PagedInfo or "
+                "ChunkPagedInfo cache index)"
+            )
         y = self.ln0(x)
         q = _dense_bf16(y, self.q_proj).reshape(b, t, h, dh).transpose(1, 2)
         k = _dense_bf16(y, self.k_proj).reshape(b, t, hkv, dh).transpose(1, 2)
         v = _dense_bf16(y, self.v_proj).reshape(b, t, hkv, dh).transpose(1, 2)
         if cache is not None:
             k_cache, v_cache, index = cache
-            if isinstance(index, PagedInfo):
-                if t != 1:
-                    raise ValueError(f"the paged decode tick takes t == 1, got {t}")
-                q_col, k_col, v_col = q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :]
-                k_cache = _pool_write_column(k_cache, index, k_col)
-                v_cache = _pool_write_column(v_cache, index, v_col)
-                quant = isinstance(k_cache, QuantizedPool)
-                att = paged_decode_attention(
-                    q_col.contiguous(),
-                    k_cache.values if quant else k_cache,
-                    v_cache.values if quant else v_cache,
-                    index.page_table,
-                    index.lens,
-                    window=self.window,
-                    k_scale=k_cache.scales if quant else None,
-                    v_scale=v_cache.scales if quant else None,
-                )[:, :, None, :]                                    # (S, H, 1, Dh)
-            elif isinstance(index, ChunkPagedInfo):
-                # the t >= 1 chunk attends its slot's pages in place plus its
-                # own kv (the kernel's overlay); nothing is written to the
-                # pools here: the caller writes the columns it keeps
-                quant = isinstance(k_cache, QuantizedPool)
-                att = paged_chunk_attention(
-                    q.contiguous(), k.contiguous(), v.contiguous(),
-                    k_cache.values if quant else k_cache,
-                    v_cache.values if quant else v_cache,
-                    index.page_table,
-                    index.lens,
-                    ctx_len=index.ctx_len,
-                    live_pages=index.live_pages,
-                    window=self.window,
-                    k_scale=k_cache.scales if quant else None,
-                    v_scale=v_cache.scales if quant else None,
-                )                                                   # (S, H, t, Dh)
-                k_cache, v_cache = k, v      # the chunk's own kv columns
+            if group is not None:
+                att, kv_out = _group_attention(q, k, v, k_cache, v_cache, index, self.window,
+                                               group)
+            elif isinstance(index, (PagedInfo, ChunkPagedInfo)):
+                att, kv_out = _paged_attention(q, k, v, k_cache, v_cache, index, self.window)
             elif isinstance(index, torch.Tensor) and not index.is_floating_point():
                 if index.ndim > 1:
                     raise ValueError(f"cache index must be 0-d or 1-d, got {index.ndim}-d")
                 k_cache = _write_dense_cache(k_cache, k, index)
                 v_cache = _write_dense_cache(v_cache, v, index)
                 att = _dense_attention(q, k_cache, v_cache, index, self.window, t)
+                kv_out = (k_cache, v_cache)
             else:
                 raise NotImplementedError(
                     f"cache index {type(index).__name__} is not ported yet"
                 )
-            kv_out = (k_cache, v_cache)
         else:
             kv_out = (k, v)
             if self.attention == "ring":
@@ -387,8 +461,9 @@ class TelemetrySequenceModel(nn.Module):
     def device(self) -> torch.device:
         return self.embed.weight.device
 
-    def forward(self, feats: torch.Tensor, cache=None, return_kv: bool = False, group=None,
-                last: torch.Tensor | None = None, head_rows: int | None = None):
+    def forward(self, feats: torch.Tensor, cache=None, return_kv: bool = False,
+                group: GroupSpec | None = None, last: torch.Tensor | None = None,
+                head_rows: int | None = None):
         """(B, T, FEATURES) -> (B, T) predicted next delta per position.
         With ``cache=(keys, values, index)`` (per-layer sequences) one cached
         step; with ``return_kv`` the per-layer (k, v) come back too.
@@ -399,9 +474,15 @@ class TelemetrySequenceModel(nn.Module):
         picks its kernel by its row count, and on the card kernels differ in
         the last bit (a split-K kernel at 224 rows, another at 8), so a fixed
         ``head_rows`` keeps a sequence's prediction independent of the batch
-        it was prefilled in."""
-        if group is not None:
-            raise NotImplementedError("group-parallel forwards are not ported yet")
+        it was prefilled in.
+
+        ``group`` runs a paged step over a decode group's member pools
+        (per-layer tuples of member pools; see :meth:`Block.forward`)."""
+        if group is not None and cache is None:
+            raise ValueError(
+                "group-parallel forwards need a paged cache (prefill runs at "
+                "full width on one device)"
+            )
         x = _dense_f32(feats, self.embed)
         # remat only pays in the training backward: each block's activations
         # are dropped after the forward and recomputed when its gradient is
@@ -412,7 +493,7 @@ class TelemetrySequenceModel(nn.Module):
             if remat:
                 x = checkpoint(block, x, use_reentrant=False)
             elif cache is not None:
-                x, kv = block(x, cache=(cache[0][i], cache[1][i], cache[2]))
+                x, kv = block(x, cache=(cache[0][i], cache[1][i], cache[2]), group=group)
                 kvs.append(kv)
             elif return_kv:
                 x, kv = block(x, return_kv=True)

@@ -42,9 +42,14 @@ and all on the host clock; and the shard-aware pool ops the cluster
 (:mod:`beholder_tpu_torch.cluster`) serves through: an off-pool prefill
 into page chunks (:func:`kv_prefill_chunks`), their adoption into another
 pool (:func:`paged_adopt_chunks`), and the raw page move of a drain
-(:func:`paged_export_pages` / :func:`paged_import_pages`). Not ported yet:
-the autotune table, the cluster fabric's hooks (``prefix_fetcher``,
-``seen_request_shapes``) and group-parallel serving.
+(:func:`paged_export_pages` / :func:`paged_import_pages`); the cluster
+fabric's admission hook (``prefix_fetcher``) and its record of served
+request shapes (``seen_request_shapes``); and the pool ops of a decode group
+(:mod:`beholder_tpu_torch.cluster.group`), whose layers hold one pool per
+member, each a contiguous slice of the kv heads on its member's device:
+every op here writes, imports and exports such a layer member by member
+(:func:`_slice_chunk_heads`), and the wire format stays full-head. Not
+ported yet: the autotune table.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from beholder_tpu_torch.obs.roofline import model_flops_per_token
 from beholder_tpu_torch.ops import NUM_STATUSES
 from beholder_tpu_torch.ops.paged_attention import (
     ChunkPagedInfo,
+    GroupSpec,
     PagedInfo,
     QuantizedPool,
     pool_dtype_family,
@@ -74,7 +80,7 @@ from beholder_tpu_torch.reliability.shed import SHED_OVERSIZED, IntakeQueue
 from beholder_tpu_torch.spec import SpecConfig
 from beholder_tpu_torch.tracing import current_trace_id, from_traceparent
 
-from .sequence import TelemetrySequenceModel, index_put_dropping_, one_hot
+from .sequence import TelemetrySequenceModel, _pool_device, index_put_dropping_, one_hot
 
 
 class PagedKVState(NamedTuple):
@@ -82,7 +88,8 @@ class PagedKVState(NamedTuple):
 
     - ``k_pools``/``v_pools``: per-layer (num_pages, Hkv, Dh, page) bf16
       pools, or :class:`QuantizedPool` (int8 + f32 scales, fp8 + uint8
-      E8M0 scales);
+      E8M0 scales); in a decode group each layer is a tuple of member
+      pools, member ``m`` holding its slice of the kv heads;
     - ``page_table`` (slots, max_pages) int32, ``seq_lens`` (slots,) int32,
       ``active`` (slots,) bool;
     - ``free_stack`` (num_pages,) int32 with ``free_stack[:free_top]`` free;
@@ -155,11 +162,30 @@ def init_paged(
     )
 
 
+def _members(pool) -> bool:
+    """Whether a layer's pool is a decode group's tuple of member pools."""
+    return not torch.is_tensor(pool) and not isinstance(pool, QuantizedPool)
+
+
 def _pool_geometry(state: PagedKVState) -> tuple[int, int]:
     """(num_pages, page_size) of the state's pools."""
     p0 = state.k_pools[0]
+    if _members(p0):
+        p0 = p0[0]
     vals = p0.values if isinstance(p0, QuantizedPool) else p0
     return vals.shape[0], vals.shape[3]
+
+
+def _slice_chunk_heads(chunk, size: int, m: int, device):
+    """Member ``m`` of ``size``'s kv-head slice of a full-head chunk, on
+    ``device``: (n, Hkv, ...) values, or a ``(values, scales)`` pair, both
+    with heads on dim 1. Pages cross the wire full-head, and each member
+    keeps its slice. Slicing commutes with the per-(head, token)
+    quantization, so a member's pool bytes are the full pool's slice."""
+    if isinstance(chunk, tuple):
+        return tuple(_slice_chunk_heads(c, size, m, device) for c in chunk)
+    hloc = chunk.shape[1] // size
+    return chunk[:, m * hloc:(m + 1) * hloc].to(device)
 
 
 def _scatter_small(old: torch.Tensor, idx: torch.Tensor, vals, valid: torch.Tensor):
@@ -267,12 +293,14 @@ def slot_cache(state: PagedKVState, slot: int, layer: int):
 
 
 def paged_decode_tick(
-    model: TelemetrySequenceModel, state: PagedKVState, feats_t: torch.Tensor
+    model: TelemetrySequenceModel, state: PagedKVState, feats_t: torch.Tensor,
+    group: GroupSpec | None = None,
 ):
     """One decode step for all slots: ``feats_t`` is (slots, FEATURES);
     inactive slots run too (their writes drop, their outputs are
     ignored, and they pass the -1 length so the kernel reads none of
-    their pages). Returns ((slots,) predictions, updated state)."""
+    their pages). ``group`` runs the step over a decode group's member
+    pools. Returns ((slots,) predictions, updated state)."""
     state = _alloc_for_tick(state)
     num_pages, page = _pool_geometry(state)
     slots, max_pages = state.page_table.shape
@@ -286,7 +314,7 @@ def paged_decode_tick(
         state.seq_lens % page,
     )
     preds, new_kvs = model(
-        feats_t[:, None, :], cache=(state.k_pools, state.v_pools, info)
+        feats_t[:, None, :], cache=(state.k_pools, state.v_pools, info), group=group
     )
     state = state._replace(
         k_pools=tuple(k for k, _ in new_kvs),
@@ -305,7 +333,13 @@ def _quantize_tokens(x: torch.Tensor, values_dtype: torch.dtype):
 def _write_chunks(pool, drop_pages: torch.Tensor, chunks: torch.Tensor):
     """Write (n, Hkv, Dh, page) chunks into pool rows ``drop_pages`` in
     place (ids ``>= num_pages`` drop), quantizing per token when the pool
-    is quantized."""
+    is quantized; a group's member pools each take their head slice."""
+    if _members(pool):
+        return tuple(
+            _write_chunks(p, drop_pages.to(_pool_device(p)),
+                          _slice_chunk_heads(chunks, len(pool), m, _pool_device(p)))
+            for m, p in enumerate(pool)
+        )
     values = pool.values if isinstance(pool, QuantizedPool) else pool
     valid = drop_pages < values.shape[0]
     if isinstance(pool, QuantizedPool):
@@ -324,6 +358,7 @@ def paged_admit_batch(
     feats_padded: torch.Tensor,
     prefix_lens: torch.Tensor,
     fused: bool = False,
+    group: GroupSpec | None = None,
 ):
     """Admit a wave of requests with one prefill: ``feats_padded`` (n,
     T_max, F) with a page-multiple T_max, ``slot_ids``/``prefix_lens``
@@ -334,7 +369,9 @@ def paged_admit_batch(
     runs the same forward through the paged chunk kernel with an empty
     context (lens 0, width T_max: the dense branch's width), so each chunk
     attends itself causally and no dense per-wave context is built. Both
-    return the chunk's own kv columns, written below the same way.
+    return the chunk's own kv columns, written below the same way. Under
+    a decode group (member pools) the dense prefill runs at full width and
+    each member writes its head slice; ``fused`` needs ``group`` there.
     Returns ((n,) last predictions, state)."""
     num_pages, page = _pool_geometry(state)
     slots, max_pages = state.page_table.shape
@@ -354,7 +391,8 @@ def paged_admit_batch(
             torch.zeros((n,), dtype=torch.int32, device=dev),
             t_max,
         )
-        last_pred, kvs = model(feats_padded, cache=(state.k_pools, state.v_pools, info), **head)
+        last_pred, kvs = model(feats_padded, cache=(state.k_pools, state.v_pools, info),
+                               group=group, **head)
     else:
         last_pred, kvs = model(feats_padded, return_kv=True, **head)
 
@@ -427,6 +465,7 @@ def paged_admit_with_prefix(
     suffix_len,
     cached_pages: torch.Tensor,
     fused: bool = False,
+    group: GroupSpec | None = None,
 ):
     """Admit one request whose first ``len(cached_pages) * page`` tokens are
     already in the pool (a prefix-cache hit): prefill only the suffix.
@@ -443,7 +482,17 @@ def paged_admit_with_prefix(
     freshly popped pages as :func:`paged_admit_batch` writes them, and the
     slot takes one reference on every adopted page (the cache's own
     reference keeps it resident after the slot retires).
+
+    ``group`` runs the fused forward over a decode group's member pools.
+    A group's warm admission is fused only: a member holds a slice of the
+    heads, so there is no full-head context to gather for the dense path
+    (and fused differs from dense on the card, ROADMAP C.4).
     Returns ((,) last prediction, state)."""
+    if group is not None and not fused:
+        raise ValueError(
+            "group-parallel prefix-hit admission requires fused=True "
+            "(the dense context gather cannot run on a head slice)"
+        )
     num_pages, page = _pool_geometry(state)
     slots, max_pages = state.page_table.shape
     _, s_max, _ = suffix_feats.shape
@@ -464,7 +513,8 @@ def paged_admit_with_prefix(
             torch.full((1,), t_hit, dtype=torch.int32, device=dev),
             t_hit + s_max,
         )
-        last_pred, kvs = model(suffix_feats, cache=(state.k_pools, state.v_pools, info), **head)
+        last_pred, kvs = model(suffix_feats, cache=(state.k_pools, state.v_pools, info),
+                               group=group, **head)
     else:
         ids = cached_pages.to(torch.int64)
 
@@ -592,7 +642,8 @@ def paged_adopt_chunks(
     this pool's free stack, write the chunks through :func:`_write_chunks`
     (cast or quantize as a local prefill would), and install the slot's
     page-table row, length and active bit. Chunk rows past ``n_pages`` drop,
-    as :func:`paged_admit_batch`'s dead rows do."""
+    as :func:`paged_admit_batch`'s dead rows do. The chunks arrive
+    full-head; a decode group's members each write their head slice."""
     num_pages, _ = _pool_geometry(state)
     slots, max_pages = state.page_table.shape
     dev = state.seq_lens.device
@@ -629,10 +680,22 @@ def paged_export_pages(state: PagedKVState, page_ids: torch.Tensor):
     with no dequantize/requantize round trip. Each is a gather into a new
     tensor, so nothing later done to the source pages reaches the export.
     Returns per-layer (k chunks, v chunks); a quantized layer's chunk is a
-    ``(values, scales)`` pair."""
+    ``(values, scales)`` pair. A decode group's members are merged back
+    into the full-head chunk (a concatenation along the heads, on
+    ``page_ids``' device): the wire format is one."""
     ids = page_ids.to(torch.int64)
 
     def take(pool):
+        if _members(pool):
+            parts = [take_one(p, ids.to(_pool_device(p))) for p in pool]
+            if isinstance(parts[0], tuple):
+                return tuple(
+                    torch.cat([x[i].to(ids.device) for x in parts], dim=1) for i in range(2)
+                )
+            return torch.cat([x.to(ids.device) for x in parts], dim=1)
+        return take_one(pool, ids)
+
+    def take_one(pool, ids):
         if isinstance(pool, QuantizedPool):
             return (pool.values[ids], pool.scales[ids])
         return pool[ids]
@@ -651,8 +714,10 @@ def paged_import_pages(
     exported chunks verbatim (the byte-identical twin of
     :func:`paged_export_pages`) and install the source refcounts ``refs``
     (n,), so prefix sharing, cache references and forks survive the move.
-    Rows past ``n_pages`` drop. Returns (state, dest_ids): ``dest_ids[i]``
-    is the page now holding chunk row ``i`` (garbage past ``n_pages``)."""
+    Rows past ``n_pages`` drop; a decode group's members each take their
+    head slice of the full-head chunks. Returns (state, dest_ids):
+    ``dest_ids[i]`` is the page now holding chunk row ``i`` (garbage past
+    ``n_pages``)."""
     num_pages, _ = _pool_geometry(state)
     dev = state.seq_lens.device
     first = chunks_k[0][0] if isinstance(chunks_k[0], tuple) else chunks_k[0]
@@ -662,13 +727,19 @@ def paged_import_pages(
     pages, new_top, ref, failed = _pop_pages(state, chunk_alive)
     drop = torch.where(chunk_alive, pages, num_pages)
 
-    def put(pool, chunk):
+    def put(pool, chunk, drop=drop, alive=chunk_alive):
+        if _members(pool):
+            return tuple(
+                put(p, _slice_chunk_heads(chunk, len(pool), m, _pool_device(p)),
+                    drop.to(_pool_device(p)), alive.to(_pool_device(p)))
+                for m, p in enumerate(pool)
+            )
         if isinstance(pool, QuantizedPool):
             values, scales = chunk
-            index_put_dropping_(pool.values, (drop,), values, chunk_alive)
-            index_put_dropping_(pool.scales, (drop,), scales, chunk_alive)
+            index_put_dropping_(pool.values, (drop,), values, alive)
+            index_put_dropping_(pool.scales, (drop,), scales, alive)
             return pool
-        index_put_dropping_(pool, (drop,), chunk, chunk_alive)
+        index_put_dropping_(pool, (drop,), chunk, alive)
         return pool
 
     k_pools = tuple(put(pool, ck) for pool, ck in zip(state.k_pools, chunks_k))
@@ -899,14 +970,14 @@ def _admit_many_carry(
 
 def _admit_cached_carry(
     model, state, carry: _RunCarry, slot, suffix_feats, suffix_len, cached_pages,
-    last_status, fused: bool = False,
+    last_status, fused: bool = False, group: GroupSpec | None = None,
 ):
     """Admit one prefix-cache hit (:func:`paged_admit_with_prefix`) and
     record its prediction and status one-hot in the device carry: the warm
     twin of :func:`_admit_many_carry`. ``fused`` routes the suffix forward
-    through the paged chunk kernel."""
+    through the paged chunk kernel (a decode group's ``group`` needs it)."""
     pred, state = paged_admit_with_prefix(
-        model, state, slot, suffix_feats, suffix_len, cached_pages, fused=fused
+        model, state, slot, suffix_feats, suffix_len, cached_pages, fused=fused, group=group
     )
     sid = (slot.to(torch.int64).reshape(1),)
     return state, carry._replace(
@@ -937,7 +1008,8 @@ def _adopt_chunks_carry(
     )
 
 
-def _tick_with_carry(model, state, carry: _RunCarry, write_idx: torch.Tensor):
+def _tick_with_carry(model, state, carry: _RunCarry, write_idx: torch.Tensor,
+                     group: GroupSpec | None = None):
     """One decode tick for all slots, feedback on the device: append each
     active slot's pending prediction to its forecast row (inactive slots
     pass ``write_idx == cap``, which matches no column), run the tick,
@@ -947,18 +1019,19 @@ def _tick_with_carry(model, state, carry: _RunCarry, write_idx: torch.Tensor):
     hit = cols[None, :] == write_idx.to(torch.int64)[:, None]
     buf = torch.where(hit, carry.last_pred[:, None], carry.delta_buf)
     feats_t = torch.cat([carry.last_pred[:, None], carry.status_oh], dim=-1)
-    preds, state = paged_decode_tick(model, state, feats_t)
+    preds, state = paged_decode_tick(model, state, feats_t, group=group)
     return state, carry._replace(last_pred=preds.float(), delta_buf=buf)
 
 
-def _tick_chunk(model, state, carry: _RunCarry, write_idx: torch.Tensor, n: int):
+def _tick_chunk(model, state, carry: _RunCarry, write_idx: torch.Tensor, n: int,
+                group: GroupSpec | None = None):
     """``n`` decode ticks between two scheduling events; tick i writes
     forecast column ``write_idx + i`` (the cap sentinel stays out of
     range)."""
     cap = carry.delta_buf.shape[1]
     for i in range(n):
         cur = torch.where(write_idx >= cap, cap, write_idx + i)
-        state, carry = _tick_with_carry(model, state, carry, cur)
+        state, carry = _tick_with_carry(model, state, carry, cur, group=group)
     return state, carry
 
 
@@ -1226,6 +1299,11 @@ class ContinuousBatcher:
     synchronising call. On the card a round's time is its dispatch time.
     """
 
+    #: the :class:`~beholder_tpu_torch.ops.paged_attention.GroupSpec` of a
+    #: decode group (:mod:`beholder_tpu_torch.cluster.group`), whose warm
+    #: admissions and ticks run over member pools; None for one device
+    group: GroupSpec | None = None
+
     _ALLOCATOR_TRIPPED = (
         "page pool exhausted mid-run (device allocator tripped despite "
         "host headroom checks) — raise num_pages"
@@ -1311,8 +1389,18 @@ class ContinuousBatcher:
         #: the tick-chunk dispatch ``(state, carry, write_idx, n)``: an
         #: attribute of the instance, so fault injection
         #: (:meth:`beholder_tpu_torch.cluster.failover.FailoverEngine.
-        #: inject_fault`) can wrap one shard's ticks
+        #: inject_fault`) can wrap one shard's ticks, and a decode group can
+        #: run its own
         self._tick_chunk = functools.partial(_tick_chunk, self.model)
+        #: the cluster fabric's admission hook ``(hashes, max_pages,
+        #: free_pages)``, called right before the prefix lookup so a chain
+        #: cached on another shard can be pulled into this pool and the
+        #: local lookup hits it; None leaves admission as it is
+        self.prefix_fetcher = None
+        #: request geometries :meth:`run` has served, ``(T + 1, horizon) ->``
+        #: the most of them in one call (at most ``slots``): the fabric
+        #: replays them through a new standby before it can be promoted
+        self.seen_request_shapes: dict[tuple[int, int], int] = {}
 
     # -- shared helpers -------------------------------------------------
 
@@ -1498,6 +1586,10 @@ class ContinuousBatcher:
                 pinned: list[bytes] = []
                 if cache is not None:
                     hashes = cache.hashes(feats_np)
+                    if self.prefix_fetcher is not None and hashes:
+                        # the cluster fabric pulls a chain cached on another
+                        # shard into this pool, so the lookup below hits
+                        self.prefix_fetcher(hashes, (t - 1) // self.page_size, free_pages)
                     hit_pages = cache.lookup(hashes, (t - 1) // self.page_size, record=False)
                     pinned = hashes[: len(hit_pages)]
                     cache.acquire(pinned)
@@ -1579,6 +1671,8 @@ class ContinuousBatcher:
         """The KV pool's dtype family (``"bf16"``/``"int8"``/``"fp8"``),
         which qualifies the fused verify round's roofline family."""
         pool = self.state.k_pools[0]
+        if _members(pool):
+            pool = pool[0]
         quantized = isinstance(pool, QuantizedPool)
         return pool_dtype_family(pool.values if quantized else pool, quantized=quantized)
 
@@ -1686,8 +1780,17 @@ class ContinuousBatcher:
         retirement run back to back, retirements snapshot forecast rows on
         the device. The only device-to-host read is one packed buffer at
         the end. A request whose deadline expires comes back as a
-        :class:`DeadlineExceededResult`."""
+        :class:`DeadlineExceededResult`. Each call's request shapes land in
+        ``seen_request_shapes``."""
         self._start_run(requests)
+        counts: dict[tuple[int, int], int] = {}
+        for r in requests:
+            key = (len(r.progress), r.horizon)
+            counts[key] = counts.get(key, 0) + 1
+        for key, n in counts.items():
+            self.seen_request_shapes[key] = max(
+                self.seen_request_shapes.get(key, 0), min(n, self.slots)
+            )
         t0 = time.perf_counter()
         try:
             with torch.no_grad(), self._run_span("serving.run", requests=len(requests)) as span:
@@ -1744,6 +1847,7 @@ class ContinuousBatcher:
                     self._up(np.asarray(hit_pages, np.int32)),
                     self._up(np.asarray([int(requests[rid].statuses[-1])], np.int64)),
                     fused=self.fused_verify,
+                    group=self.group,
                 )
             if self.prefix_cache is not None:
                 self.prefix_cache.prefilled(

@@ -82,6 +82,18 @@ class ChunkPagedInfo(NamedTuple):
     live_pages: int | None = None
 
 
+class GroupSpec(NamedTuple):
+    """The group-parallel layout a model forward runs under
+    (:mod:`beholder_tpu_torch.cluster.group`): ``size`` members, member
+    ``m`` holding KV heads ``[m * Hkv/size, (m + 1) * Hkv/size)`` of every
+    paged pool as a contiguous tensor of its own. ``axis`` names the
+    reference's mesh axis and is kept for its configs; one controller
+    drives every member here, so no collective runs over it."""
+
+    axis: str
+    size: int
+
+
 def pool_dtype_family(pool_values: torch.Tensor, *, quantized: bool) -> str:
     """``"bf16"``, ``"int8"`` or ``"fp8"`` (any other dtype keys by its
     name)."""
@@ -272,7 +284,10 @@ def _kernel_mode(bf16_inputs: dict, k_pool, v_pool, page_table, lens, k_scale,
         if t.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous tensors")
+            # pools go by data pointer with full-head strides: a group
+            # member's pool must be a tensor of its own, never a head view
+            raise ValueError("the kernel takes contiguous tensors (a group member's pool "
+                             "must be its own tensor, not a view of a full pool)")
     return mode
 
 
@@ -358,6 +373,7 @@ def paged_decode_attention(
     window: int | None = None,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    group: int = 1,
 ) -> torch.Tensor:
     """Single-token decode attention over a paged KV pool, in place.
 
@@ -370,19 +386,30 @@ def paged_decode_attention(
       ``[i*page, (i+1)*page)``;
     - ``lens``: (S,) — slot ``s`` attends positions ``0..lens[s]`` (minus
       those at or before ``lens[s] - window``); -1 marks a dead slot,
-      which reads no page and returns a zero row.
+      which reads no page and returns a zero row;
+    - ``group``: the call is one of ``group`` members of a group-parallel
+      launch (:class:`GroupSpec`), holding ``Hkv`` of the model's ``group *
+      Hkv`` kv heads. The split is the full-head launch's
+      (:func:`decode_splits` over ``group * Hkv`` heads): a member's own
+      head count would split the walk differently, merge the partials in
+      another order and change the bits.
 
     Returns (S, H, Dh) in q's dtype. CUDA tensors go to the kernel (each
     launch adds one to ``paged_decode_attention.launches``); CPU tensors
     to :func:`paged_decode_reference`."""
     if q.ndim != 3:
         raise ValueError(f"q must be (slots, heads, head_dim), got {tuple(q.shape)}")
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
     _, h, dh = q.shape
     _check_pools(h, dh, k_pool, v_pool, k_scale, v_scale, window)
     if q.is_cuda:
+        slots = q.shape[0]
+        _, hkv, _, page = k_pool.shape
+        split = decode_splits(slots, hkv * group, page_table.shape[1], page, window)
         return _launch(
             q, k_pool, v_pool, page_table.to(torch.int32), lens.to(torch.int32),
-            window, k_scale, v_scale,
+            window, k_scale, v_scale, split=split,
         )
     return paged_decode_reference(
         q, k_pool, v_pool, page_table, lens,
@@ -544,12 +571,16 @@ def paged_chunk_attention(
     - ``page_table``: (S, P); ``lens``: (S,) committed tokens per slot;
     - ``ctx_len``: attention width (default ``P * page``; prefix-hit
       admission passes ``P * page + W``);
-    - ``live_pages``: bound on the table columns read (default all).
+    - ``live_pages``: bound on the table columns read (default all);
+    - ``group``: the call is one of ``group`` members of a group-parallel
+      forward (:class:`GroupSpec`), on its own slice of the kv heads. In
+      the reference it only picks autotuned block sizes; here the launch
+      is the same for any head count (its grid is slot x kv head x row
+      tile), so a member's heads get the bits of the full-head launch.
 
     Returns (S, H, W, Dh) bf16. CUDA tensors go to the kernel (each launch
     adds one to ``paged_chunk_attention.launches``); CPU tensors to
-    :func:`paged_chunk_reference`. Group-parallel layouts (``group > 1``)
-    are not ported."""
+    :func:`paged_chunk_reference`."""
     if q.ndim != 4:
         raise ValueError(
             f"q must be (slots, heads, width, head_dim), got {tuple(q.shape)}"
@@ -576,8 +607,6 @@ def paged_chunk_attention(
         raise ValueError(f"live_pages {live_pages} must be in [0, {max_pages}]")
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
-    if group > 1:
-        raise NotImplementedError("group-parallel chunk attention is not ported yet")
     if q.is_cuda:
         return _chunk_launch(
             q, k_chunk, v_chunk, k_pool, v_pool, page_table.to(torch.int32),

@@ -1,7 +1,7 @@
 """The port's parallel stack: so far the ``sp`` mesh that ring attention
-runs on and the serving cluster's worker placement
-(:mod:`beholder_tpu_torch.parallel.mesh`)."""
+runs on, the serving cluster's worker placement and the megatron split a
+decode group keeps its weights in (:mod:`beholder_tpu_torch.parallel.mesh`)."""
 
-from .mesh import Mesh, serving_shard_devices
+from .mesh import Mesh, seq_param_slices, seq_params_from_slices, serving_shard_devices
 
-__all__ = ["Mesh", "serving_shard_devices"]
+__all__ = ["Mesh", "seq_param_slices", "seq_params_from_slices", "serving_shard_devices"]

@@ -42,7 +42,12 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    the forward at head dim 128 on that shard: a causal block, the off-axis
    pair, the diagonal and a dead pair, and the guard: a differentiable
    ``flash_attention`` call at head dim 96 raises before any launch, and
-   at 128 launches the forward, dq and dk/dv once each;
+   at 128 launches the forward, dq and dk/dv once each; then both paged
+   kernels on a decode group member's head slice (``group=2``): each
+   member bitwise the matching heads of the full-head launch (decode at
+   the headline and long shapes with the full-head split, the chunk
+   kernel at the wave shape), a member at its own split printed as the
+   control, a member pool given as a view refused;
 4. serving: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
    layers=4)`` with random bf16 weights from a numpy seed, over bf16, int8
    and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
@@ -75,7 +80,15 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    their ratio), admitted-before-shed for 1 and 2 shards, failover (a shard
    killed mid-stream, recovered streams bitwise), drain over bf16, int8 and
    fp8 pools (adopted pages byte-identical), a deadline, and a prefix-cache
-   cluster with ``fused_verify`` (chunk launches); then the
+   cluster with ``fused_verify`` (chunk launches); the memory fabric
+   (``fabric_path``: a prefix warm on one shard admitted on the other,
+   bitwise its local hit, over bf16, int8, fp8 and ``fused_verify`` off
+   and on; recovery by replay against a promoted standby; a standby killed
+   mid-mirror) and group-parallel decode (``group_path``: a group of 2
+   bitwise one batcher in bf16, int8, fp8 and a warm pass, launches,
+   syncs, tokens/s against one batcher; groups in a cluster: colocated,
+   disaggregated, a fabric hit, a whole group killed), every member, shard
+   and standby on this one card; then the
    reference's default model (``dim=128, heads=4``: head dim 32) through a
    fused wave and a cold and warm prefix-cache ``run``;
 5. training: the same model with ``attention="flash"`` and f32 params from
@@ -2154,8 +2167,10 @@ CLUSTER_TIMED = 3
 
 
 def cluster_request(Request, seed: int, t: int, horizon: int, deadline=None, base: int = 300):
-    """bench_cluster's (and, with ``base=700``, bench_failover's) request:
-    a ``t``-event CONVERTING stream from numpy seed ``base + seed``."""
+    """bench_cluster's (and, with ``base=700``, bench_failover's; 7300,
+    bench_fabric's; 7100, ``_replay_vs_replica``'s; 8800, bench_group's)
+    request: a ``t``-event CONVERTING stream from numpy seed ``base +
+    seed``."""
     rng = np.random.default_rng(base + seed)
     return Request(np.cumsum(1.0 + rng.normal(0, 0.05, t + 1)), np.full(t + 1, CONVERTING),
                    horizon, deadline)
@@ -2195,11 +2210,14 @@ def pages_home(where, shards) -> None:
     """No flag, every page back on each shard's free stack, no reference
     left."""
     for shard in shards:
-        b = shard.batcher
-        check(not bool(b.state.alloc_failed), f"{where} {shard.pool.name}: alloc_failed")
-        check(int(b.state.free_top) == b.num_pages,
-              f"{where} {shard.pool.name}: free_top {int(b.state.free_top)} != {b.num_pages}")
-        check(int(b.state.page_ref.sum()) == 0, f"{where} {shard.pool.name}: refs left")
+        batcher_home(f"{where} {shard.pool.name}", shard.batcher)
+
+
+def batcher_home(where, b) -> None:
+    check(not bool(b.state.alloc_failed), f"{where}: alloc_failed")
+    check(int(b.state.free_top) == b.num_pages,
+          f"{where}: free_top {int(b.state.free_top)} != {b.num_pages}")
+    check(int(b.state.page_ref.sum()) == 0, f"{where}: refs left")
 
 
 def cluster_path(torch, model, layers) -> dict:
@@ -2324,6 +2342,14 @@ def cluster_path(torch, model, layers) -> dict:
 
     report.update(failover_path(torch, model, layers, card))
     report.update(cluster_prefix_path(torch, model, layers, trace))
+    print(f"fabric and group: every member, shard and standby on one card ({CARD}); a page "
+          "hop between them moves no bytes", flush=True)
+    t0 = time.perf_counter()
+    report.update(fabric_path(torch, model, layers, card))
+    t_fabric = time.perf_counter() - t0
+    report.update(group_path(torch, model, layers, card))
+    print(f"fabric phase {t_fabric:.2f} s, group phase {time.perf_counter() - t0 - t_fabric:.2f} s "
+          "of wall time", flush=True)
     return report
 
 
@@ -2461,6 +2487,457 @@ def cluster_prefix_path(torch, model, layers, trace) -> dict:
                                          syncs=syncs, first2_vs_cold=worst),
             "cluster/prefix_cold": dict(launches=cold_launches, chunk_launches=cold_chunk,
                                          syncs=cold_syncs)}
+
+
+#: a decode group's members on this one card: two per group
+GROUP_SIZE = 2
+#: the card every fabric and group worker sits on
+CARD = "cuda:0"
+
+
+def head_slice_phase(torch) -> list[dict]:
+    """The decode and chunk kernels launched on a decode group member's head
+    slice (``group=2``: 1 kv head and 4 q heads a member, each member's pool
+    a contiguous tensor of its own), every pool family, window off and on:
+    each member's output bitwise the matching heads of the full-head
+    launch. The decode kernel at the headline and long shapes (the member
+    launches with the full-head split), the chunk kernel at the wave shape.
+    Control: at the long shape a member launched with its own head count's
+    split (``decode_splits`` over 1 kv head) is printed beside it, to show
+    what the gate guards. A member's pool given as a view of the full pool
+    must be refused before any launch."""
+    from beholder_tpu_torch.ops import paged_attention as pa
+    from beholder_tpu_torch.ops.quant import pool_quantize
+
+    dev = torch.device("cuda")
+    n = GROUP_SIZE
+    cases = []
+
+    def member(x, m, axis=1):
+        if x is None:
+            return None
+        w = x.shape[axis] // n
+        return x.narrow(axis, m * w, w).contiguous()
+
+    def pools(rng, N, Hkv, Dh, page, family):
+        k_f = torch.from_numpy(rng.normal(0, 1, (N, Hkv, Dh, page)).astype(np.float32)).to(dev)
+        v_f = torch.from_numpy(rng.normal(0, 1, (N, Hkv, Dh, page)).astype(np.float32)).to(dev)
+        if family == "bf16":
+            return k_f.bfloat16(), v_f.bfloat16(), None, None
+        dt = torch.int8 if family == "int8" else torch.float8_e4m3fn
+        kp, ks = pool_quantize(k_f, axis=-2, values_dtype=dt)
+        vp, vs = pool_quantize(v_f, axis=-2, values_dtype=dt)
+        return kp, vp, ks, vs
+
+    for shape in ("headline", "long"):
+        c = DECODE_SHAPES[shape]
+        S, H, Hkv, Dh, page, N, P = (c[k] for k in ("S", "H", "Hkv", "Dh", "page", "N", "P"))
+        for family in ("bf16", "int8", "fp8"):
+            rng = np.random.default_rng(7)
+            q = torch.from_numpy(rng.normal(0, 1, (S, H, Dh)).astype(np.float32)).to(dev).bfloat16()
+            kp, vp, ks, vs = pools(rng, N, Hkv, Dh, page, family)
+            table = torch.from_numpy(
+                rng.permutation(N)[: S * P].reshape(S, P).astype(np.int32)).to(dev)
+            lens = torch.from_numpy(np.asarray(c["lens"], np.int32)).to(dev)
+            for window in (None, c["window"]):
+                where = f"head slice decode {shape}/{family}/window={window}"
+                full = pa.paged_decode_attention(q, kp, vp, table, lens, window=window,
+                                                 k_scale=ks, v_scale=vs)
+                split_full = pa.decode_splits(S, Hkv, P, page, window)
+                split_own = pa.decode_splits(S, Hkv // n, P, page, window)
+                same, own_differs = True, False
+                for m in range(n):
+                    args = (member(q, m), member(kp, m), member(vp, m), table, lens)
+                    kw = dict(window=window, k_scale=member(ks, m), v_scale=member(vs, m))
+                    got = pa.paged_decode_attention(*args, **kw, group=n)
+                    want = full[:, m * (H // n):(m + 1) * (H // n)]
+                    same = same and torch.equal(got, want)
+                    if shape == "long":
+                        own = pa._launch(*args, window, kw["k_scale"], kw["v_scale"], split_own)
+                        own_differs = own_differs or not torch.equal(own, want)
+                check(same, f"{where}: a member's heads differ from the full launch's")
+                case = dict(kernel="paged_decode", shape=shape, pool=family, window=window,
+                            members=n, split_full=tuple(split_full), split_own=tuple(split_own),
+                            bitwise=same)
+                line = (f"kernel head slice paged_decode {shape:8s} {family:4s} "
+                        f"window={window!s:5s} members={n} split "
+                        f"{split_full.splits}x{split_full.span} (full-head): bitwise=yes")
+                if shape == "long":
+                    case["own_split_differs"] = own_differs
+                    line += (f"; control, each member at its own split "
+                             f"{split_own.splits}x{split_own.span}: "
+                             f"{'differs' if own_differs else 'same bits'}")
+                cases.append(case)
+                print(line, flush=True)
+    try:
+        pa.paged_decode_attention(member(q, 0), kp[:, :1], vp[:, :1], table, lens,
+                                  k_scale=None if ks is None else ks[:, :1],
+                                  v_scale=None if vs is None else vs[:, :1], group=n)
+    except ValueError as err:
+        check("contiguous" in str(err), f"head slice: a view refused for another reason: {err}")
+    else:
+        fail("head slice: a member pool given as a view of the full pool was launched")
+
+    S, W, page, N, P, H, Hkv, Dh = 8, 256, 128, 32, 1, 8, 2, 64
+    for family in ("bf16", "int8", "fp8"):
+        rng = np.random.default_rng(11)
+
+        def normal(*shape_):
+            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev)
+
+        q, kc, vc = normal(S, H, W, Dh).bfloat16(), normal(S, Hkv, W, Dh).bfloat16(), \
+            normal(S, Hkv, W, Dh).bfloat16()
+        kp, vp, ks, vs = pools(rng, N, Hkv, Dh, page, family)
+        table = torch.from_numpy(rng.permutation(N)[: S * P].reshape(S, P).astype(np.int32)).to(dev)
+        lens = torch.zeros(S, dtype=torch.int32, device=dev)
+        for window in (None, 200):
+            kw = dict(ctx_len=W, window=window)
+            full = pa.paged_chunk_attention(q, kc, vc, kp, vp, table, lens, k_scale=ks,
+                                            v_scale=vs, **kw)
+            same = all(
+                torch.equal(
+                    pa.paged_chunk_attention(member(q, m), member(kc, m), member(vc, m),
+                                             member(kp, m), member(vp, m), table, lens,
+                                             k_scale=member(ks, m), v_scale=member(vs, m),
+                                             group=n, **kw),
+                    full[:, m * (H // n):(m + 1) * (H // n)])
+                for m in range(n)
+            )
+            check(same, f"head slice chunk wave/{family}/window={window}: a member differs")
+            cases.append(dict(kernel="paged_chunk", shape="wave", pool=family, window=window,
+                              members=n, bitwise=same))
+            print(f"kernel head slice paged_chunk wave     {family:4s} window={window!s:5s} "
+                  f"members={n}: bitwise=yes", flush=True)
+    return cases
+
+
+def fabric_path(torch, model, layers, card) -> dict:
+    """The cluster memory fabric (``beholder_tpu_torch.cluster.fabric``) on
+    the headline model at ``CLUSTER``'s geometry, round-robin 2 shards with
+    a ``PrefixCache(8)`` each:
+
+    1. warm anywhere (bench_fabric): 6 requests of 25 events, horizon 8; a
+       cold pass, a local warm pass (the oracle), then the replay shifted by
+       one, so every request lands on the shard that lacks its prefix. Over
+       bf16, int8 and fp8 pools, ``fused_verify`` off and on: cross-shard
+       hits and fetched pages > 0, a ``fabric`` hop, no pin left, each
+       shifted stream bitwise the same request's local hit, decode launches
+       == layers x ticks, chunk launches > 0 when fused, pages home once the
+       caches are dropped. A fabric-off cluster's shifted replay (cold
+       admissions) is reported against the warm streams within
+       ``FORECAST_BAND``;
+    2. replay against replica (``_replay_vs_replica``): 8 requests of 65
+       events, horizon 6, ``decode-1`` killed before its first dispatch,
+       with failover alone (the dead shard's requests prefill again) and
+       with ``FabricConfig(standby=True)`` (the standby is promoted), legs
+       alternating, one discarded round then 2; the replica leg's recovered
+       streams bitwise its warm pass, one promotion a round, mirrored pages,
+       no pin; the replay leg's difference reported; both recovery walls and
+       their ratio;
+    3. the standby killed mid-mirror: the primaries keep serving, one
+       standby failure, a fresh standby at the next sync, the warm replay
+       bitwise."""
+    from beholder_tpu_torch.cache import PrefixCache
+    from beholder_tpu_torch.cluster import ClusterConfig, FabricConfig, FailoverConfig
+    from beholder_tpu_torch.cluster.router import ClusterScheduler
+    from beholder_tpu_torch.models.serving import Request
+    from beholder_tpu_torch.reliability import WorkerFault, inject_worker_fault
+
+    def build(fabric=None, failover=False, **kw):
+        return ClusterScheduler(
+            model,
+            ClusterConfig(n_decode_workers=2, route_policy="round_robin", fabric=fabric,
+                          failover=FailoverConfig() if failover else None),
+            prefix_cache_factory=lambda: PrefixCache(8), **{**CLUSTER, **kw})
+
+    def drop_caches(c):
+        for s in c.shards:
+            s.batcher._evict_cached(s.batcher.num_pages)
+
+    count_syncs(torch, lambda: None)  # torch's own first use, when this phase runs first
+    report = {}
+    warm = [cluster_request(Request, i, 24, 8, base=7300) for i in range(6)]
+    shifted = warm[1:] + warm[:1]
+    tokens = sum(r.horizon for r in shifted)
+    launches = chunk_total = 0
+    warm_streams = {}
+    for family in ("bf16", "int8", "fp8"):
+        for fused in (False, True):
+            where = f"fabric {family}/fused_verify={fused}"
+            c = build(FabricConfig(), cache_dtype=family, fused_verify=fused)
+            c.run(warm)
+            local = c.run(warm)
+            fab = c.fabric
+            l0, h0, p0 = fab.cross_shard_lookups, fab.cross_shard_hits, fab.pages_fetched
+            k0 = sum(s.batcher.ticks for s in c.shards)
+            cross, syncs, decode, chunk = counted(torch, lambda: c.run(shifted))
+            n_ticks = sum(s.batcher.ticks for s in c.shards) - k0
+            lookups, hits = fab.cross_shard_lookups - l0, fab.cross_shard_hits - h0
+            fetched = fab.pages_fetched - p0
+            check(hits > 0 and fetched > 0, f"{where}: no cross-shard hit ({hits}, {fetched})")
+            check("fabric" in c.transfer.ops_by_plane, f"{where}: no fabric hop")
+            check(fab.index.outstanding_pins == 0, f"{where}: pins left")
+            check(decode == layers * n_ticks,
+                  f"{where}: {decode} decode launches for {n_ticks} ticks x {layers} layers")
+            check(chunk > 0 if fused else chunk == 0, f"{where}: {chunk} chunk launches")
+            differ, worst = stream_diff(cross, [local[(i + 1) % len(warm)]
+                                                for i in range(len(warm))])
+            check(differ == 0, f"{where}: {differ} shifted tokens differ from the local hits")
+            drop_caches(c)
+            pages_home(where, c.shards)
+            launches, chunk_total = launches + decode, chunk_total + chunk
+            warm_streams[(family, fused)] = cross
+            print(f"serve fabric {family:4s} fused_verify={fused!s:5s}: lookups={lookups} "
+                  f"hits={hits} hit_ratio={hits / lookups:.4f} pages_fetched={fetched} "
+                  f"fetch_failures={fab.fetch_failures} ops_by_plane="
+                  f"{dict(c.transfer.ops_by_plane)}; {differ} of {tokens} shifted tokens "
+                  f"differ from the local hits; kernel_launches={decode} chunk_launches={chunk} "
+                  f"ticks={n_ticks} sync_calls={syncs} pins=0 pages_home=yes", flush=True)
+            report[f"fabric/{family}/fused={fused}"] = dict(
+                launches=decode, chunk_launches=chunk, ticks=n_ticks, syncs=syncs,
+                lookups=lookups, hits=hits, hit_ratio=hits / lookups, pages_fetched=fetched,
+                fetch_failures=fab.fetch_failures, tokens_differ=differ)
+    off = build(None)
+    off.run(warm)
+    cold, _, decode, chunk = counted(torch, lambda: off.run(shifted))
+    launches, chunk_total = launches + decode, chunk_total + chunk
+    differ, worst = stream_diff(cold, warm_streams[("bf16", False)])
+    rtol, atol = FORECAST_BAND["bf16"]
+    for i, (g, w) in enumerate(zip(cold, warm_streams[("bf16", False)])):
+        check(bool(np.all(np.abs(g - w) <= atol + rtol * np.abs(w))),
+              f"fabric off: request {i} cold {g} vs warm {w} outside the bf16 band")
+    print(f"serve fabric off bf16: cold admissions on the shifted replay, {differ} of {tokens} "
+          f"tokens differ from the fabric's warm streams (max abs {worst:.3e}, inside the bf16 "
+          f"band rtol {rtol} atol {atol}) kernel_launches={decode}", flush=True)
+    report["fabric/off"] = dict(launches=decode, chunk_launches=chunk, tokens_differ=differ,
+                                max_abs_diff=worst)
+
+    trace = [cluster_request(Request, i, 64, 6, base=7100) for i in range(8)]
+    walls = {"replay": [], "replica": []}
+    legs = {"replay": [], "replica": []}
+    for rnd in range(3):
+        for leg in ("replay", "replica"):
+            c = build(FabricConfig(standby=True) if leg == "replica" else None, failover=True)
+            c.run(trace)
+            base = c.run(trace)
+            inject_worker_fault(c, WorkerFault("decode-1", "kill", after_dispatches=0))
+            recovered, syncs, decode, chunk = counted(torch, lambda: c.run(trace))
+            launches, chunk_total = launches + decode, chunk_total + chunk
+            differ, worst = stream_diff(recovered, base)
+            if leg == "replica":
+                fab = c.fabric
+                check(fab.promotions == 1, f"fabric replica: {fab.promotions} promotions")
+                check(fab.mirror.mirrored_pages > 0, "fabric replica: nothing mirrored")
+                check(fab.index.outstanding_pins == 0, "fabric replica: pins left")
+                check(differ == 0, f"fabric replica: {differ} recovered tokens differ")
+            else:
+                for i, (g, w) in enumerate(zip(recovered, base)):
+                    check(bool(np.all(np.abs(g - w) <= atol + rtol * np.abs(w))),
+                          f"fabric replay: request {i} outside the bf16 band")
+            if rnd == 0:
+                continue
+            wall = float(np.mean(c.failover.recovery_walls))
+            walls[leg].append(wall)
+            legs[leg].append(dict(
+                wall_s=wall, tokens_differ=differ, max_abs_diff=worst, launches=decode,
+                chunk_launches=chunk, syncs=syncs,
+                mirrored=c.fabric.mirror.mirrored_pages if leg == "replica" else 0))
+    replay_s, replica_s = (float(np.mean(walls[k])) for k in ("replay", "replica"))
+    rep_differ = max(x["tokens_differ"] for x in legs["replay"])
+    rep_worst = max(x["max_abs_diff"] for x in legs["replay"])
+    replay_note = "bitwise" if rep_differ == 0 else (
+        f"{rep_differ} of {sum(r.horizon for r in trace)} tokens differ from the warm pass (max "
+        f"abs {rep_worst:.3e}, inside the bf16 band: the survivor prefills cold what the dead "
+        "shard admitted warm)")
+    print(f"fabric recovery: replay {replay_s * 1e3:.3f} ms (walls {walls['replay']}), replica "
+          f"{replica_s * 1e3:.3f} ms (walls {walls['replica']}), replica_recovery_ratio "
+          f"{replay_s / replica_s:.4f}; replica streams bitwise, mirrored "
+          f"{legs['replica'][-1]['mirrored']} pages, 1 promotion a round; replay streams "
+          f"{replay_note} [{card}]", flush=True)
+    report["fabric/recovery"] = dict(
+        launches=sum(x["launches"] for v in legs.values() for x in v),
+        chunk_launches=sum(x["chunk_launches"] for v in legs.values() for x in v),
+        replay_s=replay_s, replica_s=replica_s, ratio=replay_s / replica_s, legs=legs)
+
+    c = build(FabricConfig(standby=True), failover=True)
+    first = [cluster_request(Request, i, 24, 8, base=7400) for i in range(4)]
+    base = c.run(first)
+    fab = c.fabric
+    check(fab.standby is not None and fab.mirror.mirrored_pages > 0, "standby chaos: no mirror")
+    c.transfer.fail_next(3, worker="standby-0")
+    survived = c.run([cluster_request(Request, i, 24, 8, base=7420) for i in range(4)])
+    check(len(survived) == 4 and all(np.isfinite(s).all() for s in survived),
+          "standby chaos: the primaries stopped serving")
+    check(fab.standby_failures == 1 and fab.standby is None,
+          f"standby chaos: failures {fab.standby_failures}")
+    replay, syncs, decode, chunk = counted(torch, lambda: c.run(first))
+    launches, chunk_total = launches + decode, chunk_total + chunk
+    differ, _ = stream_diff(replay, base)
+    check(differ == 0, f"standby chaos: {differ} replayed tokens differ")
+    check(fab.standby is not None and fab.standby.pool.name == "standby-1"
+          and fab.standbys_spawned == 2, "standby chaos: no fresh standby")
+    print(f"fabric standby chaos: standby-0 killed mid-mirror, standby_failures=1, primaries "
+          f"served, standby-1 spawned at the next sync, warm replay bitwise, mirrored "
+          f"{fab.mirror.mirrored_pages} pages, pins {fab.index.outstanding_pins}", flush=True)
+    report["fabric/standby_chaos"] = dict(launches=decode, chunk_launches=chunk)
+    return report
+
+
+def group_path(torch, model, layers, card) -> dict:
+    """Group-parallel decode (``beholder_tpu_torch.cluster.group``) on the
+    headline model at ``CLUSTER``'s geometry, each group's 2 members on this
+    one card (1 kv head and 4 q heads a member):
+
+    1. bench_group's trace, 8 requests of 9 events, horizon 48, through a
+       ``GroupBatcher`` and a ``ContinuousBatcher`` over bf16, int8 and fp8
+       pools: streams bitwise, decode launches == layers x ticks x 2 (one a
+       member), synchronising calls those of the single batcher's run, pages
+       home; a warm prefix pass (bench_fabric's 25-event requests, a
+       ``PrefixCache(8)``) bitwise the single batcher's with
+       ``fused_verify=True`` (a group's warm admission is always fused),
+       chunk launches == 2 x layers a warm admission, pages home once the
+       caches are evicted; group and single tokens/s in alternating turns and
+       their ratio (bench_group's ``group_decode_latency_ratio``);
+    2. ``ClusterConfig(n_decode_workers=2, group=GroupConfig(size=2))`` over
+       ``["cuda:0"] * 4``: colocated, with 1 prefill worker (handoffs into a
+       group), a fabric hit onto a group shard, and a whole group killed,
+       each bitwise one batcher's run."""
+    from beholder_tpu_torch.cache import PrefixCache
+    from beholder_tpu_torch.cluster import (
+        ClusterConfig,
+        FabricConfig,
+        FailoverConfig,
+        GroupConfig,
+    )
+    from beholder_tpu_torch.cluster.group import GroupBatcher
+    from beholder_tpu_torch.cluster.router import ClusterScheduler
+    from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
+    from beholder_tpu_torch.reliability import WorkerFault, inject_worker_fault
+
+    members = [CARD] * GROUP_SIZE
+    count_syncs(torch, lambda: None)  # torch's own first use, when this phase runs first
+    report = {}
+    trace = [cluster_request(Request, i, 8, 48, base=8800) for i in range(8)]
+    tokens = sum(r.horizon for r in trace)
+    for family in ("bf16", "int8", "fp8"):
+        where = f"group {family}"
+        single = ContinuousBatcher(model, **CLUSTER, cache_dtype=family)
+        grp = GroupBatcher(model, devices=members, **CLUSTER, cache_dtype=family)
+        single.run(trace)
+        grp.run(trace)
+        want, single_syncs, _, _ = counted(torch, lambda: single.run(trace))
+        k0 = grp.ticks
+        got, syncs, decode, chunk = counted(torch, lambda: grp.run(trace))
+        n_ticks = grp.ticks - k0
+        differ, _ = stream_diff(got, want)
+        check(differ == 0, f"{where}: {differ} of {tokens} tokens differ from the single batcher")
+        check(decode == layers * n_ticks * GROUP_SIZE,
+              f"{where}: {decode} decode launches for {n_ticks} ticks x {layers} layers x "
+              f"{GROUP_SIZE} members")
+        check(chunk == 0, f"{where}: {chunk} chunk launches")
+        check(syncs == single_syncs, f"{where}: {syncs} synchronising calls, single "
+              f"{single_syncs}")
+        batcher_home(where, grp)
+        print(f"serve group {family:4s}: {differ} of {tokens} tokens differ from one batcher "
+              f"kernel_launches={decode} (= {layers} layers x {n_ticks} ticks x {GROUP_SIZE} "
+              f"members) chunk_launches={chunk} sync_calls={syncs} (single {single_syncs}) "
+              f"pages_home=yes", flush=True)
+        report[f"group/{family}"] = dict(launches=decode, chunk_launches=chunk, ticks=n_ticks,
+                                         syncs=syncs, tokens_differ=differ)
+        if family == "bf16":
+            walls = {"group": [], "single": []}
+            for _ in range(CLUSTER_TIMED):
+                walls["group"] += timed(torch, lambda: grp.run(trace), runs=1)
+                walls["single"] += timed(torch, lambda: single.run(trace), runs=1)
+            med = {k: statistics.median(v) for k, v in walls.items()}
+            ratio = med["group"] / med["single"]
+            print(f"group tokens/s: group {tokens / med['group']:.1f} single "
+                  f"{tokens / med['single']:.1f} (median of {CLUSTER_TIMED}, alternating; walls "
+                  f"{walls}) group_decode_latency_ratio={ratio:.4f} [{card}]", flush=True)
+            report["group/bf16"].update(walls=walls, group_decode_latency_ratio=ratio,
+                                        tokens_per_s=tokens / med["group"],
+                                        single_tokens_per_s=tokens / med["single"])
+
+    warm = [cluster_request(Request, i, 24, 8, base=7300) for i in range(6)]
+    single = ContinuousBatcher(model, **CLUSTER, prefix_cache=PrefixCache(8), fused_verify=True)
+    grp = GroupBatcher(model, devices=members, **CLUSTER, prefix_cache=PrefixCache(8))
+    want = single.run(warm) + single.run(warm)
+    got_cold = grp.run(warm)
+    h0 = grp.prefix_cache.hits
+    got_warm, syncs, decode, chunk = counted(torch, lambda: grp.run(warm))
+    warm_admits = grp.prefix_cache.hits - h0
+    differ, _ = stream_diff(got_cold + got_warm, want)
+    check(differ == 0, f"group warm: {differ} tokens differ from fused single")
+    check(warm_admits > 0 and chunk == GROUP_SIZE * layers * warm_admits,
+          f"group warm: {chunk} chunk launches for {warm_admits} warm admissions")
+    for b in (single, grp):
+        b._evict_cached(b.num_pages)
+        batcher_home("group warm", b)
+    print(f"serve group prefix_warm: {differ} tokens differ from one batcher with "
+          f"fused_verify=True; warm admissions={warm_admits} chunk_launches={chunk} (= "
+          f"{GROUP_SIZE} x {layers} layers x {warm_admits}) kernel_launches={decode} "
+          f"sync_calls={syncs} pages_home=yes", flush=True)
+    report["group/prefix_warm"] = dict(launches=decode, chunk_launches=chunk, syncs=syncs,
+                                       warm_admissions=warm_admits)
+
+    def cluster(config: dict, **kw):
+        cfg = ClusterConfig(n_decode_workers=2, group=GroupConfig(size=GROUP_SIZE), **config)
+        return ClusterScheduler(model, cfg, devices=[CARD] * 4, **{**CLUSTER, **kw})
+
+    single = ContinuousBatcher(model, **CLUSTER)
+    base = single.run(trace)
+    for mode, config in (("colocated", {}), ("disaggregated", {"n_prefill_workers": 1})):
+        c = cluster(config)
+        check([s.pool.name for s in c.shards] == ["decode-g0", "decode-g1"],
+              f"group cluster {mode}: shards {[s.pool.name for s in c.shards]}")
+        got, syncs, decode, chunk = counted(torch, lambda: c.run(trace))
+        differ, _ = stream_diff(got, base)
+        check(differ == 0, f"group cluster {mode}: {differ} tokens differ")
+        pages_home(f"group cluster {mode}", c.shards)
+        print(f"serve group cluster {mode}: {differ} of {tokens} tokens differ from one batcher "
+              f"kernel_launches={decode} transfers={c.transfer.transfers} sync_calls={syncs} "
+              f"pages_home=yes", flush=True)
+        report[f"group/cluster_{mode}"] = dict(launches=decode, chunk_launches=chunk, syncs=syncs,
+                                               tokens_differ=differ)
+
+    c = cluster(dict(route_policy="round_robin", fabric=FabricConfig()),
+                prefix_cache_factory=lambda: PrefixCache(8))
+    shifted = warm[1:] + warm[:1]
+    c.run(warm)
+    local = c.run(warm)
+    cross, syncs, decode, chunk = counted(torch, lambda: c.run(shifted))
+    differ, _ = stream_diff(cross, [local[(i + 1) % len(warm)] for i in range(len(warm))])
+    # one batcher's warm hits (fused: a group's warm admission is) on the same requests
+    single_warm = want[len(warm):]
+    vs_single, _ = stream_diff(cross, [single_warm[(i + 1) % len(warm)]
+                                       for i in range(len(warm))])
+    fab = c.fabric
+    check(fab.cross_shard_hits > 0 and differ == 0 and fab.index.outstanding_pins == 0,
+          f"group fabric: hits {fab.cross_shard_hits}, {differ} tokens differ")
+    check(vs_single == 0, f"group fabric: {vs_single} tokens differ from one batcher's warm hits")
+    print(f"serve group fabric: hits={fab.cross_shard_hits} pages_fetched={fab.pages_fetched} "
+          f"onto group shards, {differ} shifted tokens differ from the local hits and "
+          f"{vs_single} from one batcher's fused warm hits kernel_launches={decode} "
+          f"sync_calls={syncs}", flush=True)
+    report["group/fabric"] = dict(launches=decode, chunk_launches=chunk, tokens_differ=differ)
+
+    # more requests than a group's slots, so a group lives past one dispatch
+    kill_trace = [cluster_request(Request, i, 8, 48, base=8800) for i in range(12)]
+    base = ContinuousBatcher(model, **CLUSTER).run(kill_trace)
+    c = cluster(dict(failover=FailoverConfig()))
+    c.run(kill_trace)
+    inject_worker_fault(c, WorkerFault("decode-g1", "kill", after_dispatches=1))
+    got, syncs, decode, chunk = counted(torch, lambda: c.run(kill_trace))
+    differ, _ = stream_diff(got, base)
+    check(c.failover.state("decode-g1") == "down" and c.failover.recovered_total > 0,
+          "group kill: nothing recovered")
+    check(differ == 0, f"group kill: {differ} recovered tokens differ")
+    pages_home("group kill survivor", c.shards[:1])
+    print(f"serve group kill: decode-g1 killed after 1 dispatch, {c.failover.recovered_total} "
+          f"recovered on decode-g0, {differ} tokens differ from one batcher "
+          f"kernel_launches={decode}", flush=True)
+    report["group/kill"] = dict(launches=decode, chunk_launches=chunk, tokens_differ=differ)
+    return report
 
 
 def profile_spec(torch, b, reqs) -> dict:
@@ -3424,7 +3901,11 @@ def main() -> None:
     flash_cases = flash_kernel_phase(torch, flush)
     offset_cases = offset_kernel_phase(torch, flush)
     d128_cases = forward_d128_phase(torch, flush)
+    t0 = time.perf_counter()
+    slice_cases = head_slice_phase(torch)
+    print(f"head slice phase {time.perf_counter() - t0:.2f} s of wall time", flush=True)
     record = {"card": card, "build": builds, "kernel_cases": cases,
+              "head_slice_cases": slice_cases,
               "chunk_kernel_cases": chunk_cases, "flash_kernel_cases": flash_cases,
               "offset_kernel_cases": offset_cases, "flash_d128_cases": d128_cases}
     serving = main_path(torch, profile=args.profile)

@@ -203,8 +203,10 @@ def test_chunk_scores_and_context_are_bitwise_the_references(monkeypatch):
 
 
 def test_chunk_validates_like_the_reference():
-    """The reference's errors (``tests/test_paged_chunk_kernel.py:320``),
-    and group-parallel layouts are not ported."""
+    """The reference's errors (``tests/test_paged_chunk_kernel.py:320``).
+    ``group`` names a group-parallel member's call: it changes nothing the
+    launch computes (the reference keys autotuned block sizes on it), so a
+    member's result is the plain call's, and a group below 1 is refused."""
     _, (q, kc, vc, kp, vp, _, _), table, lens = _chunk_inputs(0, "bf16")
     t, ln = torch.from_numpy(table), torch.from_numpy(lens)
     with pytest.raises(ValueError, match="slots, heads"):
@@ -219,8 +221,10 @@ def test_chunk_validates_like_the_reference():
         tpa.paged_chunk_attention(q, kc, vc, kp, vp, t, ln, live_pages=99)
     with pytest.raises(ValueError, match="window"):
         tpa.paged_chunk_attention(q, kc, vc, kp, vp, t, ln, window=0)
-    with pytest.raises(NotImplementedError):
-        tpa.paged_chunk_attention(q, kc, vc, kp, vp, t, ln, group=2)
+    want = tpa.paged_chunk_attention(q, kc, vc, kp, vp, t, ln)
+    assert torch.equal(tpa.paged_chunk_attention(q, kc, vc, kp, vp, t, ln, group=2), want)
+    with pytest.raises(ValueError, match="group"):
+        tpa.paged_chunk_attention(q, kc, vc, kp, vp, t, ln, group=0)
 
 
 @pytest.mark.parametrize(

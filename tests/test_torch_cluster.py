@@ -101,13 +101,19 @@ def _single(tm, **kw):
 
 
 def _jcfg(cfg):
-    """The reference's config for a port ``ClusterConfig`` (failover
-    included), field for field."""
+    """The reference's config for a port ``ClusterConfig`` (failover, fabric
+    and group included), field for field."""
+    from beholder_tpu.cluster import FabricConfig as JaxFabricConfig
     from beholder_tpu.cluster import FailoverConfig as JaxFailoverConfig
+    from beholder_tpu.cluster import GroupConfig as JaxGroupConfig
 
     fields = dataclasses.asdict(cfg)
-    fo = fields.pop("failover")
-    return JaxClusterConfig(**fields, failover=JaxFailoverConfig(**fo) if fo else None)
+    nested = {}
+    for key, cls in (("failover", JaxFailoverConfig), ("fabric", JaxFabricConfig),
+                     ("group", JaxGroupConfig)):
+        sub = fields.pop(key)
+        nested[key] = cls(**sub) if sub else None
+    return JaxClusterConfig(**fields, **nested)
 
 
 def _bitwise(got, want):
@@ -186,14 +192,23 @@ def test_cluster_from_config_matches_the_reference(tree):
 
 
 def test_unported_cluster_options_refuse(pair):
+    """The control plane is not ported and refuses; the fabric and decode
+    groups build (a group needs a device list it divides: the reference's
+    ``ValueError`` for a group larger than the devices)."""
     _, _, tm = pair
-    for cfg in (ClusterConfig(fabric=FabricConfig()), ClusterConfig(group=GroupConfig())):
-        with pytest.raises(NotImplementedError, match="A.4"):
-            _port(tm, cfg)
+    for cfg in (ClusterConfig(fabric=FabricConfig()),
+                ClusterConfig(fabric=FabricConfig(standby=True))):
+        cluster = ClusterScheduler(tm, cfg, devices=["cpu"], **BATCHER_KW)
+        assert cluster.fabric is not None and cluster.fabric.config is cfg.fabric
+    cluster = ClusterScheduler(tm, ClusterConfig(group=GroupConfig(size=2)),
+                               devices=["cpu"] * 4, **BATCHER_KW)
+    assert [s.pool.name for s in cluster.shards] == ["decode-g0", "decode-g1"]
     with pytest.raises(NotImplementedError):
         _port(tm, ClusterConfig(), control_plane=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="does not divide"):
         serving_shard_devices(2, group_size=2, devices=["cpu"])
+    with pytest.raises(ValueError, match="does not divide"):
+        _port(tm, ClusterConfig(group=GroupConfig(size=2)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serving_shard_devices(2)

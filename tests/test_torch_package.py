@@ -59,6 +59,12 @@ PORT_MODULES = [
     "beholder_tpu_torch.cluster.transfer",
     "beholder_tpu_torch.cluster.failover",
     "beholder_tpu_torch.cluster.router",
+    "beholder_tpu_torch.cluster.fabric",
+    "beholder_tpu_torch.cluster.fabric.index",
+    "beholder_tpu_torch.cluster.fabric.mirror",
+    "beholder_tpu_torch.cluster.fabric.engine",
+    "beholder_tpu_torch.cluster.group",
+    "beholder_tpu_torch.cluster.group.engine",
     "chip_smoke",
     "serve_ab",
 ]
