@@ -14,8 +14,9 @@ With ``instance.cluster.group.*`` set, each decode shard is a
   prefix cache, the fabric's directory and the host arithmetic never learn
   that the pool was split;
 - **weights rest in the megatron split**
-  (:func:`~beholder_tpu_torch.parallel.mesh.seq_param_slices`) and are put
-  back together by concatenation, a bitwise copy;
+  (:func:`~beholder_tpu_torch.parallel.sharding.seq_spec` over
+  :func:`~beholder_tpu_torch.parallel.mesh.group_mesh`) and are put back
+  together by concatenation, a bitwise copy;
 - **attention is the only head-aware stage**: each member attends its own
   pool over its head slice, and the heads are concatenated, never summed,
   so a group's streams are the single batcher's bits in every pool dtype;

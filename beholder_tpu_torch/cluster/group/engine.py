@@ -16,10 +16,13 @@ live and how the paged steps run over them:
   of :mod:`beholder_tpu_torch.models.serving` write, import and export such
   layers member by member; the wire format stays full-head.
 - **Weights.** At rest they are the members' megatron slices
-  (``param_slices``, :func:`~beholder_tpu_torch.parallel.mesh.
-  seq_param_slices`: column layers split their output features, row layers
-  their input features). The forward's weights on member 0 are their
-  concatenation, a bitwise copy made once at construction.
+  (``param_slices``: :func:`~beholder_tpu_torch.parallel.sharding.
+  shard_tensors` under :func:`~beholder_tpu_torch.parallel.sharding.seq_spec`
+  on :func:`~beholder_tpu_torch.parallel.mesh.group_mesh`; column layers
+  split their output features, row layers their input features). The
+  forward's weights on member 0 are their concatenation
+  (:func:`~beholder_tpu_torch.parallel.sharding.unshard_tensors`), a
+  bitwise copy made once at construction.
 - **The step.** Where the reference runs one program a member and
   all-gathers the heads, this runs the full-width layers (LayerNorms,
   projections, MLP, head) once a step on member 0 and sends each member its
@@ -51,7 +54,8 @@ import torch
 
 from beholder_tpu_torch.models.serving import ContinuousBatcher, QuantizedPool, _tick_chunk
 from beholder_tpu_torch.ops.paged_attention import GroupSpec
-from beholder_tpu_torch.parallel.mesh import seq_param_slices, seq_params_from_slices
+from beholder_tpu_torch.parallel.mesh import group_mesh
+from beholder_tpu_torch.parallel.sharding import seq_spec, shard_tensors, specs_for, unshard_tensors
 
 
 def _split_heads(pool, size: int, devices):
@@ -107,9 +111,11 @@ class GroupBatcher(ContinuousBatcher):
         self.devices = devices
         self.name = name
         #: the members' megatron slices of every weight, each on its device
-        self.param_slices = seq_param_slices(model.state_dict(), n, devices)
+        weights = model.state_dict()
+        mesh, specs = group_mesh(devices), specs_for(weights, seq_spec)
+        self.param_slices = shard_tensors(weights, specs, mesh)
         full = copy.deepcopy(model).to(devices[0])
-        full.load_state_dict(seq_params_from_slices(self.param_slices, devices[0]))
+        full.load_state_dict(unshard_tensors(self.param_slices, specs, mesh, devices[0]))
         super().__init__(full, device=devices[0], **kwargs)
         self.group = GroupSpec(axis, n)
         #: warm admissions always run the paged chunk kernel (see the module)

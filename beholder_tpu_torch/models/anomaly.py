@@ -14,10 +14,13 @@ f32: its products are f32, not bf16.)
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from beholder_tpu_torch.device import resolve_device
 from beholder_tpu_torch.ops import NUM_STATUSES
+from beholder_tpu_torch.parallel.collectives import along, tp_all_reduce, tp_replicate
+from beholder_tpu_torch.parallel.sharding import batch_slices
 
 from .sequence import one_hot
 from .train import TrainState, apply_gradients, init_state
@@ -46,6 +49,30 @@ class ProgressAnomalyModel(nn.Module):
         x = torch.relu(self.in_proj(x))
         x = torch.relu(self.mid_proj(x))
         return self.out_proj(x)[..., 0]
+
+    def members_forward(self, params: list[dict], xs: list, mesh) -> list:
+        """The forward on every member of a ``("dp", "tp")`` mesh in
+        lockstep: ``params[i]`` holds member ``i``'s slices by ``state_dict``
+        name, ``xs[i]`` its dp row of windows. ``in_proj`` is
+        column-parallel, ``mid_proj`` row-parallel: each member's partial
+        product is summed over tp (megatron's *g*), then the bias is added
+        once; ``out_proj`` runs on every member."""
+        if set(mesh.axis_names) - {"dp", "tp"}:
+            raise ValueError(f"the anomaly MLP shards over dp and tp, got {mesh.axis_names}")
+        xs = along(mesh, "tp", tp_replicate, [x.to(torch.bfloat16).float() for x in xs])
+        hs = [torch.relu(F.linear(x, p["in_proj.weight"], p["in_proj.bias"]))
+              for p, x in zip(params, xs)]
+        parts = along(mesh, "tp", tp_all_reduce,
+                      [F.linear(h, p["mid_proj.weight"]) for p, h in zip(params, hs)])
+        hs = [torch.relu(s + p["mid_proj.bias"]) for p, s in zip(params, parts)]
+        return [F.linear(h, p["out_proj.weight"], p["out_proj.bias"])[..., 0]
+                for p, h in zip(params, hs)]
+
+    def members_loss(self, params: list[dict], windows: torch.Tensor, targets: torch.Tensor,
+                     mesh) -> list:
+        """Each member's mean squared error over its dp row of ``windows``."""
+        preds = self.members_forward(params, batch_slices(mesh, windows), mesh)
+        return [torch.mean((p - t) ** 2) for p, t in zip(preds, batch_slices(mesh, targets))]
 
 
 def make_windows(

@@ -4,19 +4,26 @@ the port's modules.
 The reference's params are a nested dict (as ``jax.tree.map(np.asarray,
 params)`` gives them, with or without the outer ``{"params": ...}``). For
 ``TelemetrySequenceModel``: ``embed``, ``block_{i}/{LayerNorm_0, q_proj,
-k_proj, v_proj, proj, LayerNorm_1, up, down}``, a top-level ``LayerNorm_0``
-and ``head``; for ``ProgressAnomalyModel``: ``in_proj``, ``mid_proj``,
-``out_proj``. A Dense ``kernel (in, out)`` becomes ``weight (out, in)``; a
-LayerNorm ``scale`` becomes ``weight``. bf16 leaves stay bf16.
+k_proj, v_proj, proj, LayerNorm_1, up, down}`` (a MoE block has ``moe``
+instead of ``up``/``down``: ``router/{kernel, bias}`` and the expert stacks
+``expert_up``, ``expert_up_bias``, ``expert_down``, ``expert_down_bias``,
+which keep their layout), a top-level ``LayerNorm_0`` and ``head``; for
+``ProgressAnomalyModel``: ``in_proj``, ``mid_proj``, ``out_proj``. A Dense
+``kernel (in, out)`` becomes ``weight (out, in)``; a LayerNorm ``scale``
+becomes ``weight``. bf16 leaves stay bf16.
 
 :func:`flax_named` maps such a tree (params, or gradients, or Adam moments
 of the same structure) to the port's parameter names; :func:`load_optax_adam`
 carries an optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) into the
 port's ``torch.optim.Adam``, so a step from a mid-training JAX state can be
-compared. :func:`init_params` makes a tree from a numpy seed without JAX
-(flax's initialisers in spirit: lecun-normal kernels, zero biases, unit
-LayerNorm scales), so a run on the card can build a model at full width
-from random weights.
+compared; placing that state on a mesh
+(:func:`~beholder_tpu_torch.parallel.mesh.place_seq_state`,
+:func:`~beholder_tpu_torch.parallel.zero.place_zero_state`) carries the
+moments into the members' slices. :func:`init_params` makes a tree from a
+numpy seed without JAX (flax's initialisers in spirit: lecun-normal
+kernels, zero biases, unit LayerNorm scales; an expert stack's fan-in is its
+own input width), so a run on the card can build a model at full width from
+random weights.
 """
 
 from __future__ import annotations
@@ -24,11 +31,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from beholder_tpu_torch.ops.moe import SwitchFFN
+
 from .anomaly import ProgressAnomalyModel
 from .sequence import FEATURES, TelemetrySequenceModel
 from .train import TrainState
 
 _BLOCK_DENSE = ("q_proj", "k_proj", "v_proj", "proj", "up", "down")
+#: a MoE block's expert stacks, (E, D, F) / (E, F, D) and their biases: the
+#: same layout on both sides, no transpose
+_EXPERT_LEAVES = ("expert_up", "expert_up_bias", "expert_down", "expert_down_bias")
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -58,12 +70,21 @@ def _norm(prefix: str, tree: dict) -> dict[str, torch.Tensor]:
     return {f"{prefix}.weight": _tensor(tree["scale"]), f"{prefix}.bias": _tensor(tree["bias"])}
 
 
+def _moe(prefix: str, tree: dict) -> dict[str, torch.Tensor]:
+    out = _dense(prefix + "router", tree["router"])
+    out.update({prefix + name: _tensor(tree[name]) for name in _EXPERT_LEAVES})
+    return out
+
+
 def flax_named(model, params: dict) -> dict[str, torch.Tensor]:
-    """A flax-shaped tree for ``model`` (a ``TelemetrySequenceModel`` or a
-    ``ProgressAnomalyModel``) as ``{port parameter name: tensor}``, on the
+    """A flax-shaped tree for ``model`` (a ``TelemetrySequenceModel``, a
+    ``ProgressAnomalyModel`` or a ``SwitchFFN``) as ``{port parameter name:
+    tensor}``, on the
     CPU. Works for any tree of the params' structure: gradients, Adam
     moments."""
     tree = params.get("params", params)
+    if isinstance(model, SwitchFFN):
+        return _moe("", tree)
     if isinstance(model, ProgressAnomalyModel):
         out = {}
         for name in ("in_proj", "mid_proj", "out_proj"):
@@ -75,7 +96,10 @@ def flax_named(model, params: dict) -> dict[str, torch.Tensor]:
         out.update(_norm(f"blocks.{i}.ln0", sub["LayerNorm_0"]))
         out.update(_norm(f"blocks.{i}.ln1", sub["LayerNorm_1"]))
         for name in _BLOCK_DENSE:
-            out.update(_dense(f"blocks.{i}.{name}", sub[name]))
+            if name in sub:
+                out.update(_dense(f"blocks.{i}.{name}", sub[name]))
+        if "moe" in sub:
+            out.update(_moe(f"blocks.{i}.moe.", sub["moe"]))
     out.update(_norm("ln", tree["LayerNorm_0"]))
     out.update(_dense("head", tree["head"]))
     return out
@@ -139,8 +163,18 @@ def init_params(
     def norm():
         return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
 
+    def experts(moe):
+        e, f = moe.num_experts, moe.ff_dim
+
+        def stack(fan_in, fan_out):
+            return rng.normal(0.0, 1.0 / np.sqrt(fan_in), (e, fan_in, fan_out)).astype(np.float32)
+
+        return {"router": dense(d, e), "expert_up": stack(d, f),
+                "expert_up_bias": np.zeros((e, f), np.float32), "expert_down": stack(f, d),
+                "expert_down_bias": np.zeros((e, d), np.float32)}
+
     tree = {"embed": dense(FEATURES, d)}
-    for i in range(model.layers):
+    for i, block in enumerate(model.blocks):
         tree[f"block_{i}"] = {
             "LayerNorm_0": norm(),
             "q_proj": dense(d, d),
@@ -148,9 +182,11 @@ def init_params(
             "v_proj": dense(d, hkv * dh),
             "proj": dense(d, d),
             "LayerNorm_1": norm(),
-            "up": dense(d, 4 * d),
-            "down": dense(4 * d, d),
         }
+        if block.ffn == "moe":
+            tree[f"block_{i}"]["moe"] = experts(block.moe)
+        else:
+            tree[f"block_{i}"].update(up=dense(d, 4 * d), down=dense(4 * d, d))
     tree["LayerNorm_0"] = norm()
     tree["head"] = dense(d, 1)
     return {"params": tree}

@@ -28,8 +28,25 @@ version share one op sequence
 (``torch.utils.checkpoint``). ``group=`` (a
 :class:`~beholder_tpu_torch.ops.paged_attention.GroupSpec`) runs a paged
 forward over a decode group's pools, each member holding a slice of the kv
-heads (:func:`_group_attention`). Ulysses attention, MoE and sequence
-sharding raise ``NotImplementedError``.
+heads (:func:`_group_attention`). ``attention="ulysses"`` runs
+:func:`~beholder_tpu_torch.ops.attention.ulysses_attention` over the mesh's
+``sp`` axis, and ``ffn="moe"`` a
+:class:`~beholder_tpu_torch.ops.moe.SwitchFFN` whose router terms come back
+through ``terms``, a per-forward dict that :func:`seq_loss` adds to the
+loss.
+
+The sharded training step (:mod:`beholder_tpu_torch.parallel.mesh`) runs
+:meth:`TelemetrySequenceModel.members_forward`: every mesh member's forward
+in lockstep over its own parameter slices, with megatron tensor parallelism
+over ``tp`` (each member holds ``heads/tp`` q heads and ``kv_heads/tp`` kv
+heads; a row layer's bias is added once, after the member sum), ring or
+Ulysses attention over ``sp`` inside each (dp, tp) member, expert
+parallelism over ``ep``, and, with ``seq_shard=True``, the residual stream
+and LayerNorms as T-slices over tp (and sp): reduce-scattered after
+``proj``/``down`` and all-gathered before q/k/v/``up``, so each member saves
+1/tp of those activations for the backward. On one device (the plain
+forward) ``seq_shard`` changes nothing, as the reference's sharding
+constraint changes no value.
 
 The model is built with gradients off, so the serving paths record no
 autograd graph; :func:`init_seq_state` turns them on for training.
@@ -46,8 +63,16 @@ from torch.utils.checkpoint import checkpoint
 
 from beholder_tpu_torch.device import resolve_device
 from beholder_tpu_torch.ops import NUM_STATUSES
-from beholder_tpu_torch.ops.attention import attend, full_attention, ring_attention
+from beholder_tpu_torch.ops.attention import (
+    attend,
+    full_attention,
+    ring_attention,
+    ring_attention_members,
+    ulysses_attention,
+    ulysses_attention_members,
+)
 from beholder_tpu_torch.ops.flash_attention import flash_attention
+from beholder_tpu_torch.ops.moe import SwitchFFN
 from beholder_tpu_torch.ops.paged_attention import (
     ChunkPagedInfo,
     GroupSpec,
@@ -57,6 +82,14 @@ from beholder_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
 )
 from beholder_tpu_torch.ops.quant import pool_quantize
+from beholder_tpu_torch.parallel.collectives import (
+    all_gather,
+    along,
+    reduce_scatter,
+    tp_all_reduce,
+    tp_replicate,
+)
+from beholder_tpu_torch.parallel.sharding import batch_slices
 
 from .train import TrainState, apply_gradients, init_state
 
@@ -115,13 +148,21 @@ def _pool_write_column(pool, info: PagedInfo, col: torch.Tensor):
 def _dense_bf16(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """flax ``Dense(dtype=bf16)``: the product rounds to bf16, then the
     bf16 bias is added (another bf16 rounding), as XLA does it."""
-    y = torch.matmul(x.to(torch.bfloat16), lin.weight.to(torch.bfloat16).t())
-    return y + lin.bias.to(torch.bfloat16)
+    return _linear_bf16(x, lin.weight, lin.bias)
+
+
+def _linear_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    y = torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16).t())
+    return y + b.to(torch.bfloat16)
 
 
 def _dense_f32(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """flax ``Dense`` computing in f32 (``embed``, ``head``)."""
-    return torch.matmul(x.float(), lin.weight.float().t()) + lin.bias.float()
+    return _linear_f32(x, lin.weight, lin.bias)
+
+
+def _linear_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x.float(), w.float().t()) + b.float()
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -173,16 +214,22 @@ class LayerNorm(nn.Module):
         self.eps = 1e-6
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        if torch.is_grad_enabled():
-            mu = x.mean(dim=-1, keepdim=True)
-            mu2 = (x * x).mean(dim=-1, keepdim=True)
-        else:
-            mu = _row_mean(x)
-            mu2 = _row_mean(x * x)
-        var = torch.clamp(mu2 - mu * mu, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return (x - mu) * mul + self.bias.float()
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """:class:`LayerNorm`'s arithmetic on given parameters."""
+    x = x.float()
+    if torch.is_grad_enabled():
+        mu = x.mean(dim=-1, keepdim=True)
+        mu2 = (x * x).mean(dim=-1, keepdim=True)
+    else:
+        mu = _row_mean(x)
+        mu2 = _row_mean(x * x)
+    var = torch.clamp(mu2 - mu * mu, min=0.0)
+    mul = torch.rsqrt(var + eps) * weight.float()
+    return (x - mu) * mul + bias.float()
 
 
 def _dense_attention(q, k_cache, v_cache, index, window, t):
@@ -319,11 +366,12 @@ def _group_attention(q, k, v, k_members, v_members, index, window, group: GroupS
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: attention (full, flash or ring, dense-cache
-    step, paged decode tick or paged chunk) and a gelu MLP. ``attention``
-    picks the cache-less path's backend, as in the reference; cached steps
-    run their own attention whatever it is. Ring attention needs ``mesh``
-    (a :class:`~beholder_tpu_torch.parallel.Mesh`)."""
+    """Pre-LN transformer block: attention (full, flash, ring or Ulysses,
+    dense-cache step, paged decode tick or paged chunk) and a gelu MLP or a
+    routed MoE FFN. ``attention`` picks the cache-less path's backend, as in
+    the reference; cached steps run their own attention whatever it is.
+    Ring and Ulysses attention need ``mesh`` (a
+    :class:`~beholder_tpu_torch.parallel.Mesh` with an ``sp`` axis)."""
 
     def __init__(
         self,
@@ -334,18 +382,25 @@ class Block(nn.Module):
         window: int | None = None,
         attention: str = "full",
         mesh=None,
+        ffn: str = "dense",
+        num_experts: int = 4,
+        moe_topk: int = 1,
+        moe_router: str = "tokens",
+        seq_shard: bool = False,
         device=None,
     ):
         super().__init__()
-        if attention not in ("full", "flash", "ring"):
-            raise NotImplementedError(f"attention={attention!r} is not ported yet")
-        if attention == "ring" and mesh is None:
-            raise ValueError("ring attention needs a mesh")
+        if attention not in ("full", "flash", "ring", "ulysses"):
+            raise ValueError(f"attention must be full, flash, ring or ulysses, got {attention!r}")
+        if attention in ("ring", "ulysses") and mesh is None:
+            raise ValueError(f"{attention} attention needs a mesh")
+        if ffn not in ("dense", "moe"):
+            raise ValueError(f"ffn must be 'dense' or 'moe', got {ffn!r}")
         hkv = kv_heads or heads
         if heads % hkv:
             raise ValueError(f"heads {heads} not a multiple of kv_heads {hkv}")
         self.dim, self.heads, self.kv_heads, self.window = dim, heads, hkv, window
-        self.attention, self.mesh = attention, mesh
+        self.attention, self.mesh, self.ffn, self.seq_shard = attention, mesh, ffn, seq_shard
         dh = dim // heads
         self.ln0 = LayerNorm(dim, device=device)
         self.q_proj = nn.Linear(dim, dim, device=device)
@@ -353,11 +408,15 @@ class Block(nn.Module):
         self.v_proj = nn.Linear(dim, hkv * dh, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
         self.ln1 = LayerNorm(dim, device=device)
-        self.up = nn.Linear(dim, 4 * dim, device=device)
-        self.down = nn.Linear(4 * dim, dim, device=device)
+        if ffn == "moe":
+            self.moe = SwitchFFN(dim, 4 * dim, num_experts, router_topk=moe_topk,
+                                 router_type=moe_router, mesh=mesh, device=device)
+        else:
+            self.up = nn.Linear(dim, 4 * dim, device=device)
+            self.down = nn.Linear(4 * dim, dim, device=device)
 
     def forward(self, x: torch.Tensor, cache=None, return_kv: bool = False,
-                group: GroupSpec | None = None):
+                group: GroupSpec | None = None, terms: dict | None = None):
         """Full forward, or with ``cache=(k, v, index)`` one cached step:
         ``index`` a :class:`PagedInfo` (paged decode tick, t == 1), a
         :class:`ChunkPagedInfo` (paged chunk, t >= 1: the chunk's own (k, v)
@@ -368,7 +427,8 @@ class Block(nn.Module):
         ``group`` (paged caches only): ``k`` and ``v`` are a decode group's
         member pools, tuples of ``group.size`` (see
         :func:`_group_attention`); the tick's member pools come back as such
-        tuples, the chunk's kv at full width."""
+        tuples, the chunk's kv at full width. ``terms`` (a dict) receives
+        the MoE layer's router terms."""
         b, t, d = x.shape
         h, hkv = self.heads, self.kv_heads
         dh = d // h
@@ -405,23 +465,118 @@ class Block(nn.Module):
             kv_out = (k, v)
             if self.attention == "ring":
                 att = ring_attention(q, k, v, self.mesh, causal=True, window=self.window)
+            elif self.attention == "ulysses":
+                att = ulysses_attention(q, k, v, self.mesh, causal=True, window=self.window)
             else:
                 attend_fn = flash_attention if self.attention == "flash" else full_attention
                 att = attend_fn(q, k, v, causal=True, window=self.window)
         att = att.transpose(1, 2).reshape(b, t, d)
         x = x + _dense_bf16(att, self.proj).to(x.dtype)
         y = self.ln1(x)
-        y = _gelu_tanh(_dense_bf16(y, self.up))
-        x = x + _dense_bf16(y, self.down).to(x.dtype)
+        if self.ffn == "moe":
+            x = x + self.moe(y, terms)
+        else:
+            y = _gelu_tanh(_dense_bf16(y, self.up))
+            x = x + _dense_bf16(y, self.down).to(x.dtype)
         if cache is not None or return_kv:
             return x, kv_out
         return x
 
+    def members_forward(self, params: list[dict], xs: list, mesh, prefix: str,
+                        terms: list[dict]) -> list:
+        """The block on every member of ``mesh`` in lockstep: ``params[i]``
+        holds member ``i``'s slices under their ``state_dict`` names
+        (``prefix`` + ``"q_proj.weight"``, ...), ``xs[i]`` its (B/dp, T',
+        D) rows (T' = T/sp, or T/(sp*tp) with ``seq_shard``); ``terms[i]``
+        receives its MoE terms. Returns each member's output rows."""
+        tp = mesh.shape.get("tp", 1)
+        h, hkv = self.heads, self.kv_heads
+        if h % tp or hkv % tp:
+            raise ValueError(
+                f"tp={tp} must divide heads {h} and kv_heads {hkv} (each member holds whole heads)"
+            )
+        ys = [layer_norm(x, p[prefix + "ln0.weight"], p[prefix + "ln0.bias"])
+              for p, x in zip(params, xs)]
+        ys = self._to_columns(ys, mesh)
+        b, t, d = ys[0].shape
+        dh = d // h
+
+        def heads(name, n):
+            return [_linear_bf16(y, p[prefix + name + ".weight"], p[prefix + name + ".bias"])
+                    .reshape(b, t, n // tp, dh).transpose(1, 2) for p, y in zip(params, ys)]
+
+        qs, ks, vs = heads("q_proj", h), heads("k_proj", hkv), heads("v_proj", hkv)
+        atts = [a.transpose(1, 2).reshape(b, t, d // tp)
+                for a in self._members_attention(qs, ks, vs, mesh)]
+        xs = self._row(params, atts, xs, mesh, prefix + "proj")
+        ys = [layer_norm(x, p[prefix + "ln1.weight"], p[prefix + "ln1.bias"])
+              for p, x in zip(params, xs)]
+        if self.ffn == "moe":
+            out = self.moe.members_forward(params, ys, mesh, prefix + "moe.", terms)
+            return [x + o for x, o in zip(xs, out)]
+        ys = self._to_columns(ys, mesh)
+        ys = [_gelu_tanh(_linear_bf16(y, p[prefix + "up.weight"], p[prefix + "up.bias"]))
+              for p, y in zip(params, ys)]
+        return self._row(params, ys, xs, mesh, prefix + "down")
+
+    def _to_columns(self, ys: list, mesh) -> list:
+        """A column layer's input: all-gathered over tp from T-slices under
+        ``seq_shard``, else megatron's *f* over the replicated rows."""
+        if self.seq_shard:
+            return along(mesh, "tp", all_gather, ys, dim=1)
+        return along(mesh, "tp", tp_replicate, ys)
+
+    def _row(self, params: list[dict], ins: list, xs: list, mesh, name: str) -> list:
+        """A row-parallel layer added to the residual: each member's product
+        over its input features, of bf16 operands but in f32 (exact
+        products, f32 sums), summed over tp in f32 (megatron's *g*, or a
+        reduce-scatter onto the T-slices under ``seq_shard``), rounded to
+        bf16 once, then the bias, once: the unsharded ``Dense(dtype=bf16)``
+        up to the order of its f32 sums. (The reference's partitioner
+        rounds each member's partial to bf16 before its sum, a rounding the
+        unsharded layer does not make.) With one member along tp it is the
+        unsharded layer's own op."""
+        if mesh.shape.get("tp", 1) == 1:
+            return [x + _linear_bf16(a, p[name + ".weight"], p[name + ".bias"]).to(x.dtype)
+                    for p, a, x in zip(params, ins, xs)]
+        bf = torch.bfloat16
+        parts = [torch.matmul(a.to(bf).float(), p[name + ".weight"].to(bf).float().t())
+                 for p, a in zip(params, ins)]
+        if self.seq_shard:
+            parts = along(mesh, "tp", reduce_scatter, parts, dim=1)
+        else:
+            parts = along(mesh, "tp", tp_all_reduce, parts)
+        return [x + (s.to(torch.bfloat16) + p[name + ".bias"].to(torch.bfloat16)).to(x.dtype)
+                for p, s, x in zip(params, parts, xs)]
+
+    def _members_attention(self, qs: list, ks: list, vs: list, mesh) -> list:
+        """Each member's attention over its heads: within the member when
+        the mesh has no ``sp`` axis, else ring or Ulysses over ``sp``."""
+        kw = dict(causal=True, window=self.window)
+        if mesh.shape.get("sp", 1) == 1:
+            attend_fn = full_attention if self.attention == "full" else flash_attention
+            return [attend_fn(q, k, v, **kw) for q, k, v in zip(qs, ks, vs)]
+        if self.attention == "ring":
+            fn = ring_attention_members
+        elif self.attention == "ulysses":
+            fn = ulysses_attention_members
+        else:
+            raise ValueError(
+                f"an sp axis needs attention='ring' or 'ulysses', got {self.attention!r}"
+            )
+        out = along(mesh, "sp", lambda qkv: fn(*map(list, zip(*qkv)), **kw),
+                    list(zip(qs, ks, vs)))
+        return out
+
 
 class TelemetrySequenceModel(nn.Module):
     """Causal next-delta predictor over telemetry streams. ``attention`` is
-    ``"full"``, ``"flash"`` or ``"ring"`` (with ``mesh``); the parameters do
-    not depend on it."""
+    ``"full"``, ``"flash"``, ``"ring"`` or ``"ulysses"`` (the last two with
+    ``mesh``); the parameters do not depend on it. ``ffn="moe"`` swaps each
+    block's MLP for a :class:`~beholder_tpu_torch.ops.moe.SwitchFFN` of
+    ``num_experts`` experts (``moe_topk`` 1 or 2, ``moe_router`` "tokens" or
+    "experts"; routing groups of 1,024 tokens, as many as ``mesh``'s token
+    shards need)."""
 
     def __init__(
         self,
@@ -434,23 +589,23 @@ class TelemetrySequenceModel(nn.Module):
         attention: str = "full",
         mesh=None,
         ffn: str = "dense",
+        num_experts: int = 4,
+        moe_topk: int = 1,
+        moe_router: str = "tokens",
         remat: bool = False,
         seq_shard: bool = False,
         device=None,
     ):
         super().__init__()
-        if ffn != "dense":
-            raise NotImplementedError(f"ffn={ffn!r} is not ported yet")
-        if seq_shard:
-            raise NotImplementedError("seq_shard is not ported yet")
         device = resolve_device(device)
         self.dim, self.heads, self.layers = dim, heads, layers
-        self.remat = remat
+        self.remat, self.seq_shard, self.ffn = remat, seq_shard, ffn
         self.kv_heads, self.window = kv_heads, window
         self.embed = nn.Linear(FEATURES, dim, device=device)
         self.blocks = nn.ModuleList(
-            Block(dim, heads, kv_heads=kv_heads, window=window,
-                  attention=attention, mesh=mesh, device=device)
+            Block(dim, heads, kv_heads=kv_heads, window=window, attention=attention, mesh=mesh,
+                  ffn=ffn, num_experts=num_experts, moe_topk=moe_topk, moe_router=moe_router,
+                  seq_shard=seq_shard, device=device)
             for _ in range(layers)
         )
         self.ln = LayerNorm(dim, device=device)
@@ -463,7 +618,7 @@ class TelemetrySequenceModel(nn.Module):
 
     def forward(self, feats: torch.Tensor, cache=None, return_kv: bool = False,
                 group: GroupSpec | None = None, last: torch.Tensor | None = None,
-                head_rows: int | None = None):
+                head_rows: int | None = None, terms: dict | None = None):
         """(B, T, FEATURES) -> (B, T) predicted next delta per position.
         With ``cache=(keys, values, index)`` (per-layer sequences) one cached
         step; with ``return_kv`` the per-layer (k, v) come back too.
@@ -477,7 +632,9 @@ class TelemetrySequenceModel(nn.Module):
         it was prefilled in.
 
         ``group`` runs a paged step over a decode group's member pools
-        (per-layer tuples of member pools; see :meth:`Block.forward`)."""
+        (per-layer tuples of member pools; see :meth:`Block.forward`).
+        ``terms`` (a dict) receives each MoE layer's router terms under
+        ``"block_{i}"``."""
         if group is not None and cache is None:
             raise ValueError(
                 "group-parallel forwards need a paged cache (prefill runs at "
@@ -490,16 +647,17 @@ class TelemetrySequenceModel(nn.Module):
         remat = self.remat and cache is None and not return_kv and torch.is_grad_enabled()
         kvs = []
         for i, block in enumerate(self.blocks):
+            kw = {} if terms is None else {"terms": terms.setdefault(f"block_{i}", {})}
             if remat:
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(block, x, use_reentrant=False, **kw)
             elif cache is not None:
-                x, kv = block(x, cache=(cache[0][i], cache[1][i], cache[2]), group=group)
+                x, kv = block(x, cache=(cache[0][i], cache[1][i], cache[2]), group=group, **kw)
                 kvs.append(kv)
             elif return_kv:
-                x, kv = block(x, return_kv=True)
+                x, kv = block(x, return_kv=True, **kw)
                 kvs.append(kv)
             else:
-                x = block(x)
+                x = block(x, **kw)
         if last is not None:
             b = x.shape[0]
             x = x[torch.arange(b, device=x.device), last.to(torch.int64)]
@@ -511,6 +669,77 @@ class TelemetrySequenceModel(nn.Module):
         if cache is not None or return_kv:
             return preds, kvs
         return preds
+
+    def _check_mesh(self, mesh) -> None:
+        unknown = set(mesh.axis_names) - {"dp", "tp", "sp", "ep"}
+        if unknown:
+            raise ValueError(f"mesh axes must come from dp, tp, sp, ep; got {mesh.axis_names}")
+        if self.ffn == "moe" and (mesh.shape.get("tp", 1) > 1 or mesh.shape.get("sp", 1) > 1):
+            raise ValueError("a sharded MoE model runs on dp and ep axes only")
+        if self.ffn != "moe" and mesh.shape.get("ep", 1) > 1:
+            raise ValueError("an ep axis needs ffn='moe'")
+
+    def _member_pieces(self, mesh) -> list[int]:
+        """Each member's piece of the sequence, of ``sp`` pieces (``sp *
+        tp`` under ``seq_shard``: member (t, s) holds piece ``s * tp +
+        t``)."""
+        tp = mesh.shape.get("tp", 1) if self.seq_shard else 1
+        axes = mesh.axis_names
+        out = []
+        for c in mesh.coords():
+            s = c[axes.index("sp")] if "sp" in axes else 0
+            t = c[axes.index("tp")] if "tp" in axes and self.seq_shard else 0
+            out.append(s * tp + t)
+        return out
+
+    def members_forward(self, params: list[dict], feats: list, mesh) -> tuple[list, list]:
+        """The forward on every member of ``mesh`` in lockstep (see
+        :meth:`Block.members_forward`): ``params[i]`` member ``i``'s slices by
+        ``state_dict`` name, ``feats[i]`` its (B/dp, T', FEATURES) piece of
+        the batch (:meth:`_member_pieces`). Returns each member's (B/dp, T')
+        predictions and its terms (``{"block_{i}": {...}}``)."""
+        self._check_mesh(mesh)
+        xs = [_linear_f32(f, p["embed.weight"], p["embed.bias"]) for p, f in zip(params, feats)]
+        terms = [{} for _ in xs]
+        remat = self.remat and torch.is_grad_enabled()
+        for i, block in enumerate(self.blocks):
+            layer = [t.setdefault(f"block_{i}", {}) for t in terms]
+
+            def run(*xs_, block=block, i=i, layer=layer):
+                return tuple(block.members_forward(params, list(xs_), mesh, f"blocks.{i}.",
+                                                   layer))
+
+            xs = list(checkpoint(run, *xs, use_reentrant=False) if remat else run(*xs))
+        preds = [_linear_f32(layer_norm(x, p["ln.weight"], p["ln.bias"]), p["head.weight"],
+                             p["head.bias"])[..., 0] for p, x in zip(params, xs)]
+        return preds, terms
+
+    def members_loss(self, params: list[dict], feats: torch.Tensor, targets: torch.Tensor,
+                     mesh) -> list:
+        """Each member's share of :func:`seq_loss` on the whole ``feats`` /
+        ``targets``: its piece's masked squared error over its dp row's
+        ``B/dp * (T-1)`` targets, plus the MoE router terms (whole-row
+        values on every ep member)."""
+        b, t = targets.shape
+        pieces = mesh.shape.get("sp", 1) * (mesh.shape.get("tp", 1) if self.seq_shard else 1)
+        if t % pieces:
+            raise ValueError(f"sequence length {t} does not split {pieces} ways")
+        w = t // pieces
+        where = self._member_pieces(mesh)
+        bd = b // mesh.shape.get("dp", 1)
+
+        def pieces_of(x):
+            return [r[:, j * w:(j + 1) * w] for r, j in zip(batch_slices(mesh, x), where)]
+
+        targets = pieces_of(targets)
+        preds, terms = self.members_forward(params, pieces_of(feats), mesh)
+        losses = []
+        for i, (pred, term) in enumerate(zip(preds, terms)):
+            err = (pred - targets[i]) ** 2
+            live = torch.arange(where[i] * w, (where[i] + 1) * w, device=err.device) != t - 1
+            loss = (err * live).sum() / max(bd * (t - 1), 1)
+            losses.append(_add_router_terms(loss, term))
+        return losses
 
 
 def one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -533,15 +762,34 @@ def stream_features(
     return feats, targets
 
 
+#: the Switch load-balance and ST-MoE z-loss coefficients (the reference's)
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-3
+
+
+def _add_router_terms(loss: torch.Tensor, terms: dict) -> torch.Tensor:
+    """``loss`` plus each MoE layer's weighted load-balance and z-loss terms
+    (the drop and unrouted fractions are metrics, not losses)."""
+    for layer in terms.values():
+        if "aux_loss" in layer:
+            loss = loss + AUX_LOSS_WEIGHT * layer["aux_loss"]
+        if "router_z_loss" in layer:
+            loss = loss + Z_LOSS_WEIGHT * layer["router_z_loss"]
+    return loss
+
+
 def seq_loss(model: TelemetrySequenceModel, feats: torch.Tensor,
-             targets: torch.Tensor) -> torch.Tensor:
-    """Masked mean squared error of the next-delta predictions; the last
-    position's target is padding. (MoE router terms do not arise: MoE is
-    not ported.)"""
-    err = (model(feats) - targets) ** 2
+             targets: torch.Tensor, terms: dict | None = None) -> torch.Tensor:
+    """Masked mean squared error of the next-delta predictions (the last
+    position's target is padding), plus ``AUX_LOSS_WEIGHT * aux +
+    Z_LOSS_WEIGHT * z`` for each MoE layer. ``terms`` (a dict, when given)
+    keeps the forward's router terms, for
+    :func:`~beholder_tpu_torch.ops.moe.moe_metrics`."""
+    terms = {} if terms is None else terms
+    err = (model(feats, terms=terms) - targets) ** 2
     mask = torch.ones_like(err)
     mask[:, -1] = 0.0
-    return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return _add_router_terms((err * mask).sum() / torch.clamp(mask.sum(), min=1.0), terms)
 
 
 def init_seq_state(

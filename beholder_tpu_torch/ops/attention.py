@@ -2,9 +2,14 @@
 attention.
 
 Counterpart of the reference's ``ops/attention.py``: ``full_attention``
-(plain XLA there too) and ``ring_attention``, context parallelism over the
-``sp`` axis of a :class:`~beholder_tpu_torch.parallel.Mesh`. Ulysses
-attention is not ported yet.
+(plain XLA there too), and context parallelism over the ``sp`` axis of a
+:class:`~beholder_tpu_torch.parallel.Mesh`: ``ring_attention`` (k/v blocks
+rotate around the members) and ``ulysses_attention`` (one all-to-all trades
+each member's sequence slice of all heads for the whole sequence of a slice
+of the heads, the flash kernels run on those, and one all-to-all trades
+back). Each has a member-list form (:func:`ring_attention_members`,
+:func:`ulysses_attention_members`) that the sharded training step runs
+inside each (dp, tp) member.
 
 :func:`attend` is the one dense op sequence of the port: ``full_attention``
 (prefill), the dense-cache branch of ``models.sequence.Block`` and the plain
@@ -16,6 +21,8 @@ reference's shared ``_chunk_block_math`` does for it.
 from __future__ import annotations
 
 import torch
+
+from beholder_tpu_torch.parallel.collectives import all_to_all, shifted
 
 from .flash_attention import (
     check_backward_head_dim,
@@ -164,17 +171,17 @@ def _ring_steps(p_size: int, block: int, causal: bool, window) -> int:
     return min(p_size, reach + 1)
 
 
-def _rotate(mesh, blocks: list) -> list:
-    """One ring hop: shard ``j`` receives shard ``j - 1``'s block, moved to
-    its device (the reference's ppermute ``j -> j + 1``)."""
-    p = len(blocks)
-    return [mesh.to(blocks[(j - 1) % p], j) for j in range(p)]
+def _rotate(blocks: list) -> list:
+    """One ring hop: shard ``j`` receives shard ``j - 1``'s block on its
+    device (the reference's ppermute ``j -> j + 1``; :func:`ring_shift`'s
+    forward, copying nothing between shards on one device)."""
+    return shifted(blocks, 1, copy=False)
 
 
-def _ring_local_fwd(mesh, qs, ks, vs, *, block, causal, window=None, backend="flash"):
+def _ring_local_fwd(qs, ks, vs, *, block, causal, window=None, backend="flash"):
     """The ring forward over every shard, step-major: each rotation's pair
     for every shard, then the rotation. ``qs``/``ks``/``vs`` hold shard
-    ``j`` on ``mesh.devices[j]``. Returns the shards' (o, lse).
+    ``j``, each on its member's device. Returns the shards' (o, lse).
 
     ``backend="flash"`` runs each pair on the flash forward kernel
     (:func:`~beholder_tpu_torch.ops.flash_attention.flash_block_attend`):
@@ -212,7 +219,7 @@ def _ring_local_fwd(mesh, qs, ks, vs, *, block, causal, window=None, backend="fl
                 blk = _block_attend(qs[j], kc[j], vc[j], j * block, kv_offset, causal, window)
                 states[j] = _combine(states[j], blk)
         if step < n_steps - 1:
-            kc, vc = _rotate(mesh, kc), _rotate(mesh, vc)
+            kc, vc = _rotate(kc), _rotate(vc)
     outs, lses = [], []
     for q, (m, l, o) in zip(qs, states):
         # causal rows see at least their own position and non-causal rows
@@ -222,7 +229,7 @@ def _ring_local_fwd(mesh, qs, ks, vs, *, block, causal, window=None, backend="fl
     return outs, lses
 
 
-def _ring_local_bwd(mesh, qs, ks, vs, os_, lses, dos, *, block, causal, window=None,
+def _ring_local_bwd(qs, ks, vs, os_, lses, dos, *, block, causal, window=None,
                     backend="flash"):
     """The ring backward over every shard, step-major: dq accumulates per
     shard in f32; each kv block's (dk, dv) partial travels with the block,
@@ -235,6 +242,7 @@ def _ring_local_bwd(mesh, qs, ks, vs, os_, lses, dos, *, block, causal, window=N
     per shard; ``backend="einsum"`` runs the reference's plain path."""
     p_size = len(qs)
     n_steps = _ring_steps(p_size, block, causal, window)
+    devices = [q.device for q in qs]
     kc, vc = list(ks), list(vs)
     dkc = [torch.zeros(k.shape, device=k.device) for k in ks]
     dvc = [torch.zeros(v.shape, device=v.device) for v in vs]
@@ -275,13 +283,13 @@ def _ring_local_bwd(mesh, qs, ks, vs, os_, lses, dos, *, block, causal, window=N
             dq[j] = dq[j] + torch.einsum("...gqk,...kd->...gqd", ds, kc[j]).float()
             dkc[j] = dkc[j] + torch.einsum("...gqk,...gqd->...kd", ds.float(), qg.float())
         if step < n_steps - 1:
-            kc, vc = _rotate(mesh, kc), _rotate(mesh, vc)
-            dkc, dvc = _rotate(mesh, dkc), _rotate(mesh, dvc)
+            kc, vc = _rotate(kc), _rotate(vc)
+            dkc, dvc = _rotate(dkc), _rotate(dvc)
     # the partials have hopped n_steps - 1 times: shard j holds block
     # j - (n_steps - 1); send each home in one jump
     home = n_steps - 1
-    dk = [mesh.to(dkc[(b + home) % p_size], b).to(ks[b].dtype) for b in range(p_size)]
-    dv = [mesh.to(dvc[(b + home) % p_size], b).to(vs[b].dtype) for b in range(p_size)]
+    dk = [dkc[(b + home) % p_size].to(devices[b]).to(ks[b].dtype) for b in range(p_size)]
+    dv = [dvc[(b + home) % p_size].to(devices[b]).to(vs[b].dtype) for b in range(p_size)]
     dq = [g.reshape(q.shape).to(q.dtype) for g, q in zip(dq, qs)]
     return dq, dk, dv
 
@@ -293,37 +301,71 @@ def _shards(mesh, x: torch.Tensor, dim: int) -> list:
             for j, c in enumerate(x.chunk(mesh.shape["sp"], dim=dim))]
 
 
-class RingAttention(torch.autograd.Function):
-    """The reference's custom VJP ``_ring_vjp``: the forward saves only q,
-    k, v, o and the per-row logsumexp; the backward re-rotates k/v around
-    the ring and recomputes each pair's probabilities from that lse, so no
-    (T/P, T/P) block outlives its step."""
+def _sp_mesh(mesh, at: dict | None = None):
+    """The one-axis ``sp`` mesh of ``mesh`` (at ``at``'s other coordinates,
+    0 where not given)."""
+    if "sp" not in mesh.shape:
+        raise ValueError(f"context parallelism needs an 'sp' axis, got {mesh.axis_names}")
+    return mesh if mesh.axis_names == ("sp",) else mesh.axis_mesh("sp", at)
+
+
+class RingShards(torch.autograd.Function):
+    """The reference's custom VJP ``_ring_vjp`` over P member shards: the
+    forward saves only each shard's q, k, v, o and per-row logsumexp; the
+    backward re-rotates k/v around the ring and recomputes each pair's
+    probabilities from that lse, so no (T/P, T/P) block outlives its step.
+    Inputs are the P q shards, then the P k and the P v shards."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mesh, causal, window, backend):
-        block = q.shape[-2] // mesh.shape["sp"]
-        outs, lses = _ring_local_fwd(
-            mesh, _shards(mesh, q, -2), _shards(mesh, k, -2), _shards(mesh, v, -2),
-            block=block, causal=causal, window=window, backend=backend,
-        )
-        o = torch.cat([x.to(q.device) for x in outs], dim=-2)
-        lse = torch.cat([x.to(q.device) for x in lses], dim=-1)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mesh, ctx.causal, ctx.window, ctx.backend = mesh, causal, window, backend
-        return o
+    def forward(ctx, p, causal, window, backend, *qkv):
+        qs, ks, vs = qkv[:p], qkv[p:2 * p], qkv[2 * p:]
+        block = qs[0].shape[-2]
+        outs, lses = _ring_local_fwd(qs, ks, vs, block=block, causal=causal, window=window,
+                                     backend=backend)
+        ctx.save_for_backward(*qkv, *outs, *lses)
+        ctx.p, ctx.causal, ctx.window, ctx.backend = p, causal, window, backend
+        return tuple(outs)
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        mesh = ctx.mesh
-        grads = _ring_local_bwd(
-            mesh, *(_shards(mesh, x, -2) for x in (q, k, v, o)), _shards(mesh, lse, -1),
-            _shards(mesh, do, -2), block=q.shape[-2] // mesh.shape["sp"],
+    def backward(ctx, *dos):
+        p = ctx.p
+        saved = ctx.saved_tensors
+        qs, ks, vs = saved[:p], saved[p:2 * p], saved[2 * p:3 * p]
+        outs, lses = saved[3 * p:4 * p], saved[4 * p:]
+        dq, dk, dv = _ring_local_bwd(
+            qs, ks, vs, outs, lses, [d.contiguous() for d in dos], block=qs[0].shape[-2],
             causal=ctx.causal, window=ctx.window, backend=ctx.backend,
         )
-        dq, dk, dv = (torch.cat([g.to(x.device) for g in gs], dim=-2)
-                      for gs, x in zip(grads, (q, k, v)))
-        return dq, dk, dv, None, None, None, None
+        return (None, None, None, None, *dq, *dk, *dv)
+
+
+def _check_window(causal: bool, window) -> None:
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+
+
+def ring_attention_members(qs: list, ks: list, vs: list, causal: bool = False,
+                           window: int | None = None, backend: str = "flash") -> list:
+    """Ring attention over P members' shards: ``qs[j]`` (..., T/P, d) holds
+    rows ``j*T/P ..`` on member ``j``'s device, ``ks``/``vs`` likewise
+    (GQA: fewer heads on dim -3). Returns each member's output shard, on
+    its device; differentiable through :class:`RingShards`."""
+    _check_window(causal, window)
+    q = qs[0]
+    if q.ndim >= 3 and ks[0].shape[-3] != q.shape[-3] and q.shape[-3] % ks[0].shape[-3]:
+        raise ValueError(
+            f"GQA q heads must be a multiple of kv heads; got "
+            f"{tuple(q.shape)} vs {tuple(ks[0].shape)}"
+        )
+    if backend not in ("flash", "einsum"):
+        raise ValueError(f"backend must be 'flash' or 'einsum', got {backend!r}")
+    if backend == "flash":
+        check_backward_head_dim(q, ks[0], vs[0])
+    qs, ks, vs = ([x.contiguous() for x in xs] for xs in (qs, ks, vs))
+    return list(RingShards.apply(len(qs), causal, window, backend, *qs, *ks, *vs))
 
 
 def ring_attention(
@@ -336,8 +378,9 @@ def ring_attention(
     backend: str = "flash",
 ) -> torch.Tensor:
     """Context-parallel attention over the ``sp`` axis of ``mesh`` (a
-    :class:`~beholder_tpu_torch.parallel.Mesh`), differentiable in q, k and
-    v through :class:`RingAttention`.
+    :class:`~beholder_tpu_torch.parallel.Mesh`; on a mesh of more axes, its
+    ``sp`` members at coordinate 0 of the others), differentiable in q, k
+    and v through :class:`RingShards`.
 
     Inputs are ``(..., T, d)`` tensors, cut along T into P blocks, block
     ``j`` on the mesh's device ``j``; T must divide by P. The output is
@@ -348,22 +391,100 @@ def ring_attention(
     every pair on the flash kernels, ``"einsum"`` the plain block path; on
     the card at a head dim only the forward kernel takes (128), a flash
     call whose inputs require a gradient raises before it launches."""
+    mesh = _sp_mesh(mesh)
     p_size = mesh.shape["sp"]
     t = q.shape[-2]
     if t % p_size:
         raise ValueError(f"sequence length {t} not divisible by sp={p_size}")
-    if window is not None:
-        if not causal:
-            raise ValueError("window requires causal=True")
-        if window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
-    if q.ndim >= 3 and k.shape[-3] != q.shape[-3] and q.shape[-3] % k.shape[-3]:
-        raise ValueError(
-            f"GQA q heads must be a multiple of kv heads; got "
-            f"{tuple(q.shape)} vs {tuple(k.shape)}"
+    outs = ring_attention_members(
+        *(_shards(mesh, x, -2) for x in (q, k, v)), causal=causal, window=window,
+        backend=backend,
+    )
+    return torch.cat([o.to(q.device) for o in outs], dim=-2)
+
+
+def ulysses_attention_members(qs: list, ks: list, vs: list, causal: bool = False,
+                              window: int | None = None, backend: str = "flash") -> list:
+    """Ulysses over P members' (B, H', T/P, d) shards (``H'`` the heads a
+    member holds, after any tp split): an all-to-all gives each member the
+    whole sequence of ``H'/P`` heads, :func:`flash_attention` (or
+    ``full_attention`` for ``backend="full"``) runs on them, an all-to-all
+    trades back. kv heads that do not split P ways are broadcast to the q
+    heads first (whole GQA groups, so each q head keeps its kv head)."""
+
+    from .flash_attention import flash_attention
+
+    _check_window(causal, window)
+    p = len(qs)
+    h, hkv = qs[0].shape[-3], ks[0].shape[-3]
+    if h % hkv:
+        raise ValueError(f"GQA q heads must be a multiple of kv heads; got {h} vs {hkv}")
+    if h % p:
+        raise ValueError(f"per-device heads {h} not divisible by sp={p}")
+    if hkv % p:
+        ks = [k.repeat_interleave(h // hkv, dim=-3) for k in ks]
+        vs = [v.repeat_interleave(h // hkv, dim=-3) for v in vs]
+    attend = flash_attention if backend == "flash" else full_attention
+    qh, kh, vh = (all_to_all(xs, split_dim=-3, concat_dim=-2) for xs in (qs, ks, vs))
+    att = [attend(q, k, v, causal=causal, window=window) for q, k, v in zip(qh, kh, vh)]
+    return all_to_all(att, split_dim=-2, concat_dim=-3)
+
+
+def ulysses_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mesh,
+    axis: str = "sp",
+    causal: bool = False,
+    backend: str = "flash",
+    window: int | None = None,
+) -> torch.Tensor:
+    """DeepSpeed-Ulysses over the ``axis`` of ``mesh`` on whole (B, H, T, d)
+    tensors: T is cut into P slices, one a member; on a mesh with ``tp`` the
+    heads are first cut into tp column shards (megatron's layout) and each
+    runs its own exchange over its ``sp`` members. The reference's checks
+    and GQA rules: ``H / tp`` must divide by P and T by P; when the kv heads
+    do not split over tp they are broadcast to H first; otherwise the
+    exchange stays at kv-head width when ``(Hkv / tp) % P == 0`` and
+    broadcasts the groups inside each member when not. ``window`` requires
+    ``causal``. The output is whole, on q's device."""
+    if axis != "sp":
+        raise ValueError(f"Ulysses runs over the 'sp' axis, got {axis!r}")
+    p_size = mesh.shape[axis]
+    b, h, t, d = q.shape
+    hkv = k.shape[1]
+    if h % hkv:
+        raise ValueError(f"GQA q heads must be a multiple of kv heads; got {h} vs {hkv}")
+    _check_window(causal, window)
+    tp = mesh.shape.get("tp", 1)
+    h_local = h // tp
+    if h_local % p_size:
+        raise ValueError(f"per-device heads {h_local} not divisible by {axis}={p_size}")
+    if t % p_size:
+        raise ValueError(f"sequence length {t} not divisible by {axis}={p_size}")
+    if hkv % tp:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+        hkv = h
+    if backend not in ("flash", "full"):
+        raise ValueError(f"backend must be 'flash' or 'full', got {backend!r}")
+    kv_local = hkv // tp
+    outs = []
+    for i in range(tp):
+        sub = _sp_mesh(mesh, {"tp": i})
+        heads = slice(i * h_local, (i + 1) * h_local)
+        kv_heads = slice(i * kv_local, (i + 1) * kv_local)
+        shards = ulysses_attention_members(
+            _shards(sub, q[:, heads], -2), _shards(sub, k[:, kv_heads], -2),
+            _shards(sub, v[:, kv_heads], -2), causal=causal, window=window, backend=backend,
         )
-    if backend not in ("flash", "einsum"):
-        raise ValueError(f"backend must be 'flash' or 'einsum', got {backend!r}")
-    if backend == "flash":
-        check_backward_head_dim(q, k, v)
-    return RingAttention.apply(q, k, v, mesh, causal, window, backend)
+        outs.append(torch.cat([o.to(q.device) for o in shards], dim=-2))
+    return torch.cat(outs, dim=1)
+
+
+def sequence_sharding(mesh, x: torch.Tensor, axis: str = "sp") -> list:
+    """``x`` cut along its sequence dim (-2) into one slice a member of
+    ``mesh``'s ``axis``, each on its member's device: the counterpart of the
+    reference's ``NamedSharding`` with the sequence dim on ``axis``."""
+    return _shards(_sp_mesh(mesh) if axis == "sp" else mesh.axis_mesh(axis), x, -2)

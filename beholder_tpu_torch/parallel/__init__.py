@@ -1,7 +1,67 @@
-"""The port's parallel stack: so far the ``sp`` mesh that ring attention
-runs on, the serving cluster's worker placement and the megatron split a
-decode group keeps its weights in (:mod:`beholder_tpu_torch.parallel.mesh`)."""
+"""The port's parallel stack, single-controller: a mesh with named axes
+(``dp``, ``tp``, ``sp``, ``ep``), the sharding rules over ``state_dict``
+names, explicit differentiable collectives over member tensors, and the
+sharded training steps built on them (dp x tp for the anomaly MLP; dp x tp x
+sp megatron with ring or Ulysses attention and ``seq_shard`` for the
+transformer; dp x ep for its MoE; ZeRO-2/3), with the serving cluster's
+worker placement. Pipeline parallelism and the multi-process runtime are
+not ported."""
 
-from .mesh import Mesh, seq_param_slices, seq_params_from_slices, serving_shard_devices
+from .collectives import (
+    all_gather,
+    all_reduce,
+    all_to_all,
+    along,
+    gather_from_members,
+    reduce_scatter,
+    ring_shift,
+    scatter_to_members,
+    tp_all_reduce,
+    tp_replicate,
+)
+from .mesh import (
+    Mesh,
+    ShardedState,
+    gather_state,
+    group_mesh,
+    make_mesh,
+    param_shardings,
+    place_seq_state,
+    place_state,
+    seq_state_shardings,
+    serving_shard_devices,
+    sharded_seq_train_step,
+    sharded_train_step,
+    state_shardings,
+)
+from .zero import ZeroState, place_zero_state, zero_state_specs, zero_train_step
 
-__all__ = ["Mesh", "seq_param_slices", "seq_params_from_slices", "serving_shard_devices"]
+__all__ = [
+    "Mesh",
+    "ShardedState",
+    "ZeroState",
+    "all_gather",
+    "all_reduce",
+    "all_to_all",
+    "along",
+    "gather_from_members",
+    "gather_state",
+    "group_mesh",
+    "make_mesh",
+    "param_shardings",
+    "place_seq_state",
+    "place_state",
+    "place_zero_state",
+    "reduce_scatter",
+    "ring_shift",
+    "scatter_to_members",
+    "seq_state_shardings",
+    "serving_shard_devices",
+    "sharded_seq_train_step",
+    "sharded_train_step",
+    "state_shardings",
+    "tp_all_reduce",
+    "tp_replicate",
+    "zero_state_specs",
+    "zero_train_step",
+]

@@ -1,44 +1,159 @@
-"""A device mesh with one sequence-parallel axis: the port's counterpart of
-the ``jax.sharding.Mesh(devices, ("sp",))`` that the reference's ring
-attention runs on.
+"""A device mesh with named axes, and the sharded training steps that run
+over it: the port's counterpart of the reference's ``parallel/mesh.py``.
 
-The port drives the mesh from one process, as JAX's single controller
-does: the caller holds every shard, runs each ring step for every shard,
-and moves a block to the next device with :meth:`Mesh.to`. That move is a
-peer copy when two devices differ and nothing when they are the same. A
-device may repeat, so ``Mesh(["cuda:0"] * 4)`` runs a ring of four shards
-on one card (the counterpart of the virtual CPU devices the reference's
-ring tests use); such a ring moves no bytes between devices. Data and
-tensor parallel axes (``dp``, ``tp``) are not ported as mesh axes.
+The port is single-controller, as JAX's is: one process holds every
+member's shard and drives each member in turn; a tensor moves to a
+member's device with :meth:`Mesh.to` (a peer copy between two devices,
+nothing on the same one), and every collective is an explicit,
+differentiable op with a fixed member order
+(:mod:`beholder_tpu_torch.parallel.collectives`). A device may repeat, so
+``make_mesh(8, devices=["cuda:0"] * 8)`` runs a (4, 2) mesh on one card
+(the counterpart of the virtual CPU devices the reference's tests use);
+such a mesh moves no bytes between devices.
+
+Axes are named from ``dp`` (data), ``tp`` (megatron tensor), ``sp``
+(sequence: ring or Ulysses attention) and ``ep`` (experts).
+``Mesh(devices)`` is one ``sp`` axis, the mesh ring attention runs on.
+
+Sharded training (:func:`place_state` / :func:`sharded_train_step` for the
+anomaly MLP, :func:`place_seq_state` / :func:`sharded_seq_train_step` for
+the transformer): each member holds its own slice of every parameter (its
+own copy of a replicated one) and of its Adam moments, as a
+:class:`ShardedState`. A step runs every member's forward in lockstep,
+back-propagates each member's loss, sums each gradient over the members
+that computed parts of it (in member order, so every replica gets the same
+bits), and lets one Adam update every member's leaves; the replicas of a
+parameter therefore stay bitwise equal. :func:`gather_state` puts the
+whole parameters and moments back into a :class:`TrainState`.
 
 :func:`serving_shard_devices` places the serving cluster's workers
-(:mod:`beholder_tpu_torch.cluster`) the same way: one process, one device
-(or one group of devices) per worker, cycling over the devices it is
-given. :func:`seq_param_slices` is the reference's megatron rule
-(``_seq_spec_for``) over the port's ``state_dict`` names, which a decode
-group (:mod:`beholder_tpu_torch.cluster.group`) keeps its weights in.
+(:mod:`beholder_tpu_torch.cluster`) the same way: one device (or one group
+of devices) a worker; a decode group (:mod:`beholder_tpu_torch.cluster.group`)
+keeps its weights in the megatron split over :func:`group_mesh`.
 """
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
+import numpy as np
 import torch
+
+from .collectives import member_sum
+from .sharding import (
+    expert_spec,
+    mlp_spec,
+    seq_spec,
+    shard_tensors,
+    specs_for,
+    unshard_tensors,
+)
 
 
 class Mesh:
-    """Ordered devices along the ``sp`` axis. ``shape["sp"]`` is the ring
-    size, ``devices[i]`` holds shard ``i`` (rows ``i*T/P .. (i+1)*T/P``)."""
+    """Devices on a grid with named axes. ``devices`` is an N-d nested list
+    (or array) of devices, ``axis_names`` one name a dim; ``Mesh(devices)``
+    of a flat list is one ``sp`` axis. ``shape[name]`` is an axis' size and
+    ``devices`` the flat tuple in row-major order: member ``i`` of every
+    list of member tensors sits on ``devices[i]`` at ``coords()[i]``."""
 
-    def __init__(self, devices):
-        self.devices = tuple(torch.device(d) for d in devices)
-        if not self.devices:
+    def __init__(self, devices, axis_names=("sp",)):
+        grid = np.empty(np.shape(np.array(devices, dtype=object)), dtype=object)
+        for idx in np.ndindex(grid.shape):
+            d = devices
+            for i in idx:
+                d = d[i]
+            grid[idx] = torch.device(d)
+        axis_names = tuple(axis_names)
+        if grid.size == 0:
             raise ValueError("a mesh needs at least one device")
-        self.axis_names = ("sp",)
-        self.shape = {"sp": len(self.devices)}
+        if len(axis_names) != grid.ndim or len(set(axis_names)) != len(axis_names):
+            raise ValueError(
+                f"axis names {axis_names} do not name the {grid.ndim} dims of the device grid"
+            )
+        self.grid = grid
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, grid.shape))
+        self.devices = tuple(grid.reshape(-1))
+        self.size = grid.size
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
 
     def to(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        """``x`` on the mesh's device ``i`` (the same tensor when it is
-        there already)."""
+        """``x`` on member ``i``'s device (the same tensor when it is there
+        already)."""
         return x.to(self.devices[i])
+
+    def coords(self) -> list[tuple]:
+        """Every member's coordinates, in row-major order."""
+        return list(np.ndindex(self.grid.shape))
+
+    def device_at(self, coords) -> torch.device:
+        """The device at ``coords``: a tuple in axis order or a dict by name."""
+        if isinstance(coords, dict):
+            coords = tuple(coords.get(a, 0) for a in self.axis_names)
+        return self.grid[tuple(coords)]
+
+    def groups(self, *axes: str) -> list[list[int]]:
+        """The members (flat indices) that differ only in their ``axes``
+        coordinates, one list a group, each in row-major order."""
+        keep = [i for i, a in enumerate(self.axis_names) if a not in axes]
+        out: dict = {}
+        for i, c in enumerate(self.coords()):
+            out.setdefault(tuple(c[k] for k in keep), []).append(i)
+        return list(out.values())
+
+    def take(self, **fixed: int) -> "Mesh":
+        """The mesh over the remaining axes at the ``fixed`` coordinates."""
+        index = tuple(fixed.get(a, slice(None)) for a in self.axis_names)
+        names = tuple(a for a in self.axis_names if a not in fixed)
+        return Mesh(self.grid[index].tolist() if names else [self.grid[index]],
+                    names or ("sp",))
+
+    def axis_mesh(self, axis: str, at: dict | None = None) -> "Mesh":
+        """The one-axis mesh along ``axis``, the other axes at ``at``
+        (coordinate 0 where not given): e.g. the ``sp`` ring inside one
+        (dp, tp) member."""
+        at = at or {}
+        return self.take(**{a: at.get(a, 0) for a in self.axis_names if a != axis})
+
+
+def _visible_devices(devices) -> list:
+    """``devices`` as ``torch.device``s; every visible CUDA device when None,
+    raising when there is none (the port never drops to the CPU unasked)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: meshes and serving workers lie on the card by default; "
+                "pass devices=['cpu'] * n to run the plain PyTorch path"
+            )
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [torch.device(d) for d in devices]
+
+
+def make_mesh(n_devices: int | None = None, tp: int | None = None, devices=None) -> Mesh:
+    """A 2-D ``("dp", "tp")`` mesh over the first ``n_devices`` of
+    ``devices`` (every visible CUDA device when None, raising when there is
+    none). ``tp`` defaults to 2 when the count is even, else 1 (pure dp)."""
+    devices = _visible_devices(devices)
+    n = n_devices or len(devices)
+    if n > len(devices):
+        raise ValueError(f"requested {n} devices, have {len(devices)}")
+    if tp is None:
+        tp = 2 if n % 2 == 0 and n >= 2 else 1
+    if n % tp:
+        raise ValueError(f"n_devices={n} not divisible by tp={tp}")
+    return Mesh([devices[r * tp:(r + 1) * tp] for r in range(n // tp)], ("dp", "tp"))
+
+
+def group_mesh(devices, axis: str = "tp") -> Mesh:
+    """The one-group mesh ``(1, N)``: a ``dp`` axis of 1 (so the dp x tp
+    specs apply as they are) and the group's members along ``axis``."""
+    devices = tuple(devices)
+    if not devices:
+        raise ValueError("group_mesh needs at least one device")
+    return Mesh([list(devices)], ("dp", axis))
 
 
 def serving_shard_devices(n_workers: int, group_size: int = 1, devices=None) -> list:
@@ -57,14 +172,7 @@ def serving_shard_devices(n_workers: int, group_size: int = 1, devices=None) -> 
         raise ValueError(f"n_workers must be >= 1, got {n_workers}")
     if group_size < 1:
         raise ValueError(f"group_size must be >= 1, got {group_size}")
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: serving workers run on the card by default; "
-                "pass devices=['cpu'] to run the plain PyTorch path"
-            )
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-    devices = [torch.device(d) for d in devices]
+    devices = _visible_devices(devices)
     if not devices:
         raise ValueError("serving_shard_devices needs at least one device")
     if group_size == 1:
@@ -79,64 +187,208 @@ def serving_shard_devices(n_workers: int, group_size: int = 1, devices=None) -> 
     ]
 
 
-#: megatron tensor parallelism over the port's ``state_dict`` names:
-#: column-parallel layers split their output features, row-parallel ones
-#: their input features. ``nn.Linear.weight`` is (out, in), the transpose of
-#: flax's kernel, so a column layer splits dim 0 of its weight (and its
-#: bias) and a row layer dim 1 (its bias stays whole).
-_COLUMN = ("q_proj", "k_proj", "v_proj", "up")
-_ROW = ("proj", "down")
+# -- sharded training ---------------------------------------------------------
 
 
-def seq_split_dim(name: str, tensor: torch.Tensor) -> int | None:
-    """The dim the reference's ``_seq_spec_for`` shards ``name`` along over
-    the ``tp`` axis, in the port's layout, or None for a replicated leaf
-    (embedding, head, LayerNorms, row-layer biases)."""
-    parts = name.split(".")
-    if any(p in _COLUMN for p in parts):
-        if tensor.ndim == 2 and parts[-1] == "weight":
-            return 0
-        if tensor.ndim == 1 and parts[-1] == "bias":
-            return 0
-    if any(p in _ROW for p in parts) and tensor.ndim == 2 and parts[-1] == "weight":
-        return 1
-    return None
+class ShardedState(NamedTuple):
+    """A training state laid out on ``mesh``: ``members[i]`` maps each
+    parameter name to member ``i``'s slice under ``specs`` (a leaf with
+    gradients on, on the member's device); ``optimizer`` is one Adam over
+    every member's leaves, holding each leaf's moments. ``model`` carries
+    the configuration; its own parameters are not kept up to date (see
+    :func:`gather_state`)."""
+
+    model: torch.nn.Module
+    mesh: Mesh
+    specs: dict
+    members: list
+    optimizer: torch.optim.Optimizer
+    step: int
 
 
-def seq_param_slices(state_dict: dict, size: int, devices=None) -> list[dict]:
-    """Member ``m``'s slice of every parameter under the megatron rule
-    (:func:`seq_split_dim`): ``size`` dicts, each a copy of its own on
-    ``devices[m]`` (where it already lies when None). Concatenating the
-    members' slices along each leaf's split dim
-    (:func:`seq_params_from_slices`) gives back the full tensors bit for
-    bit."""
-    out = []
-    for m in range(size):
-        member = {}
-        dev = devices[m] if devices is not None else None
-        for name, t in state_dict.items():
-            dim = seq_split_dim(name, t)
-            if dim is not None:
-                if t.shape[dim] % size:
-                    raise ValueError(
-                        f"{name}: dim {dim} of {tuple(t.shape)} does not split {size} ways"
-                    )
-                w = t.shape[dim] // size
-                t = t.narrow(dim, m * w, w)
-            member[name] = t.to(dev if dev is not None else t.device, copy=True).contiguous()
-        out.append(member)
-    return out
-
-
-def seq_params_from_slices(slices: list[dict], device) -> dict:
-    """The full parameters on ``device`` from member slices: a bitwise copy,
-    each split leaf concatenated along its split dim, each replicated leaf
-    taken from member 0."""
+def _adam_state(state) -> dict:
+    """``{name: (step, exp_avg, exp_avg_sq)}`` of a state's Adam (empty
+    before its first step)."""
     out = {}
-    for name, t in slices[0].items():
-        dim = seq_split_dim(name, t)
-        if dim is None:
-            out[name] = t.to(device)
-        else:
-            out[name] = torch.cat([s[name].to(device) for s in slices], dim=dim)
+    for name, p in state.model.named_parameters():
+        st = state.optimizer.state.get(p)
+        if st:
+            out[name] = (st["step"], st["exp_avg"], st["exp_avg_sq"])
     return out
+
+
+def _set_moments(optimizer, leaves: list[dict], moments: dict, specs: dict, mesh) -> None:
+    """Each leaf's Adam moments from the whole ones, cut like the leaves."""
+    if not moments:
+        return
+    avg = shard_tensors({n: m[1] for n, m in moments.items()}, specs, mesh)
+    sq = shard_tensors({n: m[2] for n, m in moments.items()}, specs, mesh)
+    for member, a, q in zip(leaves, avg, sq):
+        for name, leaf in member.items():
+            optimizer.state[leaf] = {"step": moments[name][0].clone(), "exp_avg": a[name],
+                                     "exp_avg_sq": q[name]}
+
+
+def _place(state, mesh: Mesh, specs: dict) -> ShardedState:
+    from beholder_tpu_torch.models.train import adam
+
+    tensors = {n: p.detach() for n, p in state.model.named_parameters()}
+    members = shard_tensors(tensors, specs, mesh)
+    for member in members:
+        for leaf in member.values():
+            leaf.requires_grad_(True)
+    lr = state.optimizer.param_groups[0]["lr"]
+    optimizer = adam([leaf for member in members for leaf in member.values()], lr)
+    _set_moments(optimizer, members, _adam_state(state), specs, mesh)
+    return ShardedState(state.model, mesh, specs, members, optimizer, state.step)
+
+
+def gather_state(sstate: ShardedState, device=None):
+    """The whole training state back from the members: parameters (written
+    into ``sstate.model``, on ``device`` or the model's own) and a fresh Adam
+    holding the whole moments. A bitwise copy of the members' slices."""
+    from beholder_tpu_torch.models.train import TrainState, adam
+
+    model, mesh, specs = sstate.model, sstate.mesh, sstate.specs
+    device = device or next(model.parameters()).device
+    full = unshard_tensors([{n: t.detach() for n, t in m.items()} for m in sstate.members],
+                           specs, mesh, device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = full[name].clone()
+    optimizer = adam(model.parameters(), sstate.optimizer.param_groups[0]["lr"])
+    first = sstate.members[0]
+    if sstate.optimizer.state.get(next(iter(first.values()))):
+        st = [{n: sstate.optimizer.state[t] for n, t in m.items()} for m in sstate.members]
+        avg = unshard_tensors([{n: s["exp_avg"] for n, s in m.items()} for m in st],
+                              specs, mesh, device)
+        sq = unshard_tensors([{n: s["exp_avg_sq"] for n, s in m.items()} for m in st],
+                             specs, mesh, device)
+        for name, p in model.named_parameters():
+            optimizer.state[p] = {"step": st[0][name]["step"].clone(),
+                                  "exp_avg": avg[name].clone(), "exp_avg_sq": sq[name].clone()}
+    return TrainState(model, optimizer, sstate.step)
+
+
+def _reduce_grads(mesh: Mesh, members: list[dict], axes_of: Callable[[str], tuple]) -> None:
+    """Sum each leaf's gradient over the members that differ only along
+    ``axes_of(name)``, in member order, and give every one of them the sum
+    (the same bits on each). A missing gradient counts as zeros."""
+    for name in members[0]:
+        axes = [a for a in axes_of(name) if mesh.shape.get(a, 1) > 1]
+        if not axes:
+            continue
+        for group in mesh.groups(*axes):
+            leaves = [members[i][name] for i in group]
+            grads = [x.grad if x.grad is not None else torch.zeros_like(x) for x in leaves]
+            total = member_sum(grads)
+            for leaf in leaves:
+                leaf.grad = total.to(leaf.device, copy=True)
+
+
+def _representatives(mesh: Mesh, replicated: tuple) -> list[int]:
+    """The members at coordinate 0 of every axis in ``replicated``."""
+    idx = [mesh.axis_names.index(a) for a in replicated if a in mesh.axis_names]
+    return [i for i, c in enumerate(mesh.coords()) if all(c[k] == 0 for k in idx)]
+
+
+def _step(sstate: ShardedState, losses: list, replicated: tuple,
+          axes_of: Callable[[str], tuple]) -> tuple[ShardedState, torch.Tensor]:
+    """Back-propagate every member's loss (each weighted 1/dp, so the dp sum
+    of the gradients is their mean), reduce the gradients, take one Adam
+    step. The loss returned is the mean over dp of the representatives'."""
+    mesh = sstate.mesh
+    dp = mesh.shape.get("dp", 1)
+    dev = losses[0].device
+    total = member_sum([loss / dp for loss in losses])
+    total.backward()
+    _reduce_grads(mesh, sstate.members, axes_of)
+    sstate.optimizer.step()
+    loss = member_sum([losses[i].detach().to(dev) for i in _representatives(mesh, replicated)]) / dp
+    return sstate._replace(step=sstate.step + 1), loss
+
+
+def state_shardings(state, mesh: Mesh) -> dict:
+    """The anomaly MLP's spec of every parameter name (its Adam moments are
+    keyed, and cut, the same way): ``in_proj`` column-parallel over ``tp``,
+    ``mid_proj`` row-parallel, the rest replicated."""
+    return specs_for(dict(state.model.named_parameters()), mlp_spec)
+
+
+param_shardings = state_shardings
+
+
+def place_state(state, mesh: Mesh) -> ShardedState:
+    """The anomaly MLP's state on a ``("dp", "tp")`` mesh (parameters and
+    Adam moments cut by :func:`state_shardings`)."""
+    return _place(state, mesh, state_shardings(state, mesh))
+
+
+def sharded_train_step(sstate: ShardedState, windows: torch.Tensor,
+                       targets: torch.Tensor) -> tuple[ShardedState, torch.Tensor]:
+    """One Adam step of the anomaly MLP over its mesh: the batch split over
+    ``dp``, ``in_proj`` column- and ``mid_proj`` row-parallel over ``tp``
+    (megatron's *f* and *g*; the row bias added once, after the sum), the
+    gradients averaged over ``dp``. Returns the state and the loss."""
+    sstate.optimizer.zero_grad(set_to_none=True)
+    losses = sstate.model.members_loss(sstate.members, windows, targets, sstate.mesh)
+    return _step(sstate, losses, ("tp",), lambda name: ("dp",))
+
+
+def seq_state_shardings(state, mesh: Mesh) -> dict:
+    """The transformer's spec of every parameter name (Adam moments keyed
+    the same way): megatron over ``tp`` (:func:`~.sharding.seq_spec`) and,
+    on a mesh with ``ep``, the expert stacks along E
+    (:func:`~.sharding.expert_spec`)."""
+    def rule(name, t):
+        if "ep" in mesh.shape and expert_spec(name, t):
+            return expert_spec(name, t)
+        return seq_spec(name, t) if "tp" in mesh.shape else ()
+
+    return specs_for(dict(state.model.named_parameters()), rule)
+
+
+def place_seq_state(state, mesh: Mesh) -> ShardedState:
+    """The transformer's state on a mesh of ``dp``, ``tp``, ``sp`` (or
+    ``dp``, ``ep``) axes, cut by :func:`seq_state_shardings`."""
+    return _place(state, mesh, seq_state_shardings(state, mesh))
+
+
+def _seq_grad_axes(model, specs: dict) -> Callable[[str], tuple]:
+    """The axes each transformer gradient is summed over: ``dp`` and ``sp``
+    always (members hold other rows or other positions); ``tp`` for a
+    replicated leaf under ``seq_shard`` (used on each member's T-slice;
+    without it every tp member computes the replicated layers itself and
+    megatron's *f* already sums what reaches them); ``ep`` for the router
+    (each ep member routes its own token groups)."""
+    def axes(name: str) -> tuple:
+        out = ("dp", "sp")
+        if model.seq_shard and "tp" not in specs[name]:
+            out += ("tp",)
+        if ".moe.router." in name:
+            out += ("ep",)
+        return out
+
+    return axes
+
+
+def sharded_seq_train_step(sstate: ShardedState, feats: torch.Tensor,
+                           targets: torch.Tensor) -> tuple[ShardedState, torch.Tensor]:
+    """One Adam step of the transformer over its mesh: the batch over
+    ``dp``; megatron over ``tp`` (q/k/v/up column layers, proj/down row
+    layers, a row bias added once after the member sum; with
+    ``model.seq_shard`` the residual stream and the LayerNorms as T-slices,
+    reduce-scattered after a row layer and all-gathered before a column
+    one); on an ``sp`` axis the sequence split too, attention by ring or
+    Ulysses over ``sp`` inside each (dp, tp) member; on an ``ep`` axis the
+    expert stacks and token groups split (MoE). The model's ``attention``,
+    ``seq_shard``, ``remat`` and FFN settings apply; the mesh is the
+    state's. Returns the state and the loss, the unsharded ``seq_loss``'s
+    counterpart."""
+    mesh, model = sstate.mesh, sstate.model
+    sstate.optimizer.zero_grad(set_to_none=True)
+    losses = model.members_loss(sstate.members, feats, targets, mesh)
+    replicated = ("ep",) if model.seq_shard else ("tp", "ep")
+    return _step(sstate, losses, replicated, _seq_grad_axes(model, sstate.specs))
+
+

@@ -120,7 +120,19 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    observations through ``record()``: launches == flushes (counted), every
    logged summary against the oracle; a synchronous flush makes one
    synchronising call;
-7. output: a ``kernels`` JSON line (the three block-pair sites of the flash
+7. sharded training (``parallel_path``, ``beholder_tpu_torch.parallel``,
+   every mesh member on this card; last, after every profiled gate): the
+   anomaly MLP on (dp, tp) = (4, 2); the headline model (flash) on (2, 2)
+   with ``seq_shard`` off and on (bytes saved for the backward per member
+   each way), on (dp, tp, sp) = (2, 2, 2) with Ulysses and with ring
+   attention (``seq_shard`` on); ZeRO-2, and ZeRO-3 with remat, on dp = 4,
+   each bitwise the plain dp step; the MoE model (4 experts) on (dp, ep) =
+   (2, 2), top-1, top-2 and expert choice, each member's dispatch bitwise
+   the unsharded routing of its tokens. Each cell 3 steps, each against the
+   unsharded step from the same state on the same inputs within the
+   reference's band, losses falling at every step, dp replicas bitwise,
+   shard shapes, flash launches exact; step ms each way;
+8. output: a ``kernels`` JSON line (the three block-pair sites of the flash
    kernels as rows of their own), then the ``ok`` line last.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``
@@ -3402,6 +3414,375 @@ def ring_path(torch, flush, flash_train: dict) -> dict:
     return report
 
 
+#: the sharded training cells (parallel_path): PARALLEL_STEPS steps each,
+#: every one against the unsharded step on the same inputs
+PARALLEL_STEPS = 3
+#: the transformer cells' Adam rate. On these random weights the loss
+#: overshoots at the training cell's 1e-3 (the training phase's own losses
+#: go 4.79 -> 178.62 -> 0.13 -> 16.18), so three steps need not show it
+#: falling; at 3e-6 it falls at every step of every cell. Each step is
+#: compared from the same state, so the rate does not change what the bands
+#: hold.
+PARALLEL_LR = 3e-6
+#: loss bands, relative to max(1, |unsharded loss|): the reference's own,
+#: __graft_entry__.py:108-120 and each _assert_close call there
+PARALLEL_BANDS = {"mlp": 1e-3, "tp": 8e-3, "ulysses": 1e-3, "ring": 4e-3, "zero": 1e-3,
+                  "moe": 2e-3, "moe-experts": 1e-3}
+#: the band of every cell's reduced gradients and Adam first moments, leaf
+#: by leaf (``leaf_errors``): the reference's sharded-step band,
+#: tests/test_parallel.py:67 (rel 2e-2). A dropped reduction, or a
+#: collective's backward that sums where it should not, is off by O(1)
+PARALLEL_GRAD_BAND = 2e-2
+
+
+def card_mesh(shape, names):
+    from beholder_tpu_torch.parallel import Mesh
+
+    return Mesh(np.full(shape, CARD, dtype=object).tolist(), names)
+
+
+def timed_step(torch, step, state, *data):
+    """One ``step`` between two CUDA events: (state, loss, the events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, loss = step(state, *data)
+    end.record()
+    return state, loss, (start, end)
+
+
+def replicas_bitwise(torch, sstate) -> bool:
+    """Every member's leaf bitwise its twin at coordinate 0 of each axis the
+    leaf is not split over."""
+    mesh = sstate.mesh
+    coords = mesh.coords()
+    for i, c in enumerate(coords):
+        for name, leaf in sstate.members[i].items():
+            split = {a for a in sstate.specs[name] if a}
+            at = tuple(c[k] if a in split else 0 for k, a in enumerate(mesh.axis_names))
+            if not torch.equal(leaf, sstate.members[coords.index(at)][name]):
+                return False
+    return True
+
+
+def saved_bytes_per_member(torch, sstate, feats, targets) -> float:
+    """Bytes the sharded forward saves for the backward (distinct storages),
+    over the mesh's members."""
+    seen = {}
+
+    def pack(t):
+        seen[(t.untyped_storage().data_ptr(), t.dtype)] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        losses = sstate.model.members_loss(sstate.members, feats, targets, sstate.mesh)
+    del losses
+    return sum(seen.values()) / sstate.mesh.size
+
+
+def leaf_errors(torch, got: dict, want: dict) -> dict:
+    """Per leaf, ``|got - want| / max(|want|, |W| * sqrt(n / N))`` in norms
+    (``W`` every leaf of ``want``, ``N`` its size, ``n`` the leaf's): the
+    relative error, or, where a leaf is smaller than its even share of the
+    whole (attention's q/k gradients at near-uniform attention, a k bias's
+    zero gradient), the error against that share, so that rounding noise in
+    a vanishing leaf is not magnified into a failure."""
+    total = float(torch.sqrt(sum(w.double().norm() ** 2 for w in want.values())))
+    n_all = sum(w.numel() for w in want.values())
+    return {n: float((got[n].double() - w.double()).norm())
+            / max(float(w.double().norm()), total * (w.numel() / n_all) ** 0.5)
+            for n, w in want.items()}
+
+
+def sharded_grads(sstate) -> dict:
+    """The whole gradients a sharded (or ZeRO) step applied: each member's
+    reduced gradient put back together like its leaf."""
+    from beholder_tpu_torch.parallel.sharding import unshard_tensors
+
+    grads = [{n: t.grad for n, t in m.items()} for m in sstate.members]
+    return unshard_tensors(grads, sstate.specs, sstate.mesh, CARD)
+
+
+def parallel_cell(torch, fa, name, band, make_state, place, step, plain_step, data,
+                  launches=None, extra=None) -> dict:
+    """One sharded cell: PARALLEL_STEPS steps of ``step`` on ``place(make_state())``
+    (flash launches counted), each beside one ``plain_step`` of the unsharded
+    state gathered from the members just before it (the same parameters and
+    moments), on the same ``data``: every loss finite and inside ``band`` of
+    the unsharded step's; the gradients the sharded step reduced and applied,
+    and the Adam first moments after it, within PARALLEL_GRAD_BAND of the
+    unsharded step's, leaf by leaf (``leaf_errors``: the losses are taken
+    before the update and Adam's step hardly depends on the gradient's
+    scale, so only these see a wrong gradient sum); the sharded losses
+    falling, dp replicas bitwise, and the launches (fwd, dq, dk/dv) and
+    offset-mode launches ``launches`` when given. ``extra(sstate)`` adds
+    checks of its own."""
+    from beholder_tpu_torch.parallel import gather_state
+
+    sstate = place(make_state())
+    plain = gather_state(sstate)
+    got, want, events, plain_events, grad_errs, avg_errs = [], [], [], [], [], []
+    counts, offsets = (0, 0, 0), (0, 0, 0)
+    for _ in range(PARALLEL_STEPS):
+        plain, loss, ev = timed_step(torch, plain_step, plain, *data)
+        params = dict(plain.model.named_parameters())
+        want_grads = {n: p.grad.detach().clone() for n, p in params.items()}
+        want_avg = {n: plain.optimizer.state[p]["exp_avg"].clone() for n, p in params.items()}
+        want.append(loss)
+        plain_events.append(ev)
+        del plain, params
+        (sstate, loss, ev), c, o = counted_flash(
+            torch, fa, lambda: timed_step(torch, step, sstate, *data))
+        counts = tuple(a + b for a, b in zip(counts, c))
+        offsets = tuple(a + b for a, b in zip(offsets, o))
+        got.append(loss)
+        events.append(ev)
+        grad_errs.append(leaf_errors(torch, sharded_grads(sstate), want_grads))
+        # the next step's start: the sharded state after this one, whole
+        plain = gather_state(sstate)
+        avg_errs.append(leaf_errors(torch, {n: plain.optimizer.state[p]["exp_avg"]
+                                            for n, p in plain.model.named_parameters()},
+                                    want_avg))
+        del want_grads, want_avg
+    del plain
+    got, want = torch.stack(got).cpu().numpy(), torch.stack(want).cpu().numpy()
+    ms = [s.elapsed_time(e) for s, e in events]
+    plain_ms = [s.elapsed_time(e) for s, e in plain_events]
+    check(bool(np.isfinite(got).all() and np.isfinite(want).all()),
+          f"{name}: losses not finite {got} / {want}")
+    worst = max(float(abs(g - w) / max(1.0, abs(w))) for g, w in zip(got, want))
+    check(worst <= band, f"{name}: losses {got} vs unsharded {want}: {worst} > band {band}")
+    grad_leaf, grad_worst = max(((n, e) for errs in grad_errs for n, e in errs.items()),
+                                key=lambda kv: kv[1])
+    avg_leaf, avg_worst = max(((n, e) for errs in avg_errs for n, e in errs.items()),
+                              key=lambda kv: kv[1])
+    check(grad_worst <= PARALLEL_GRAD_BAND,
+          f"{name}: reduced gradient of {grad_leaf} off the unsharded one by {grad_worst} "
+          f"> {PARALLEL_GRAD_BAND}")
+    check(avg_worst <= PARALLEL_GRAD_BAND,
+          f"{name}: Adam first moment of {avg_leaf} off the unsharded one by {avg_worst} "
+          f"> {PARALLEL_GRAD_BAND}")
+    check(bool((np.diff(got) < 0).all()), f"{name}: loss did not fall at every step {got}")
+    if launches is not None:
+        check((counts, offsets) == launches,
+              f"{name}: flash launches {counts} offset {offsets}, expected {launches}")
+    if not hasattr(sstate, "replicas"):
+        check(replicas_bitwise(torch, sstate), f"{name}: dp replicas are not bitwise equal")
+    out = dict(losses=got.tolist(), unsharded_losses=want.tolist(), worst=worst, band=band,
+               grad_worst=grad_worst, grad_worst_leaf=grad_leaf,
+               grad_worst_by_step=[max(e.values()) for e in grad_errs],
+               exp_avg_worst=avg_worst, exp_avg_worst_leaf=avg_leaf,
+               grad_band=PARALLEL_GRAD_BAND,
+               step_ms=ms, step_ms_median=statistics.median(ms),
+               unsharded_step_ms=plain_ms, unsharded_step_ms_median=statistics.median(plain_ms),
+               launches=counts, offset_launches=offsets)
+    if extra is not None:
+        out.update(extra(sstate))
+    print(f"parallel {name}: losses {np.array2string(got, precision=6)} unsharded "
+          f"{np.array2string(want, precision=6)} worst {worst:.3e} (band {band}) "
+          f"grads worst {grad_worst:.3e} ({grad_leaf}) exp_avg worst {avg_worst:.3e} "
+          f"({avg_leaf}) (band {PARALLEL_GRAD_BAND}) "
+          f"launches(fwd,dq,dkv)={counts} offset={offsets} step_ms median "
+          f"{out['step_ms_median']:.2f} unsharded {out['unsharded_step_ms_median']:.2f}",
+          flush=True)
+    del sstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_dispatch_check(torch, sstate, feats, targets) -> dict:
+    """Each member's dispatch one-hots against the unsharded layer's routing
+    of the same tokens (the members' groups gathered in member order), layer
+    by layer: bitwise. Also the router metrics of that forward."""
+    from beholder_tpu_torch.ops.moe import moe_metrics
+
+    from beholder_tpu_torch.parallel import gather_state
+    from beholder_tpu_torch.parallel.sharding import batch_slices
+
+    model, mesh = gather_state(sstate).model, sstate.mesh   # the routers' present weights
+    members = [{n: t.detach() for n, t in m.items()} for m in sstate.members]
+    _, terms = model.members_forward(members, batch_slices(mesh, feats), mesh)
+    entries = 0
+    for i, block in enumerate(model.blocks):
+        layer = [t[f"block_{i}"] for t in terms]
+        tokens = torch.cat([t["groups"] for t in layer])
+        g, s, d = tokens.shape
+        with torch.no_grad():
+            want = block.moe.routing(tokens.reshape(1, g * s, d), mesh)
+        per = g // mesh.size
+        for m, t in enumerate(layer):
+            check(torch.equal(t["dispatch"], want[m * per:(m + 1) * per]),
+                  f"moe dispatch: member {m}, layer {i} differs from the unsharded routing")
+            entries += t["dispatch"].numel()
+    metrics = moe_metrics(terms[0])
+    del terms
+    return dict(dispatch_bitwise=True, dispatch_entries=entries, metrics=metrics)
+
+
+def parallel_path(torch) -> dict:
+    """The sharded training step (``beholder_tpu_torch.parallel``) at full
+    width, every mesh on this one card (no byte moves between members): the
+    anomaly MLP on (dp, tp) = (4, 2); the headline transformer with flash
+    attention on (2, 2), ``seq_shard`` off and on (bytes saved for the
+    backward per member, each way); on (2, 2, 2) with Ulysses and with ring
+    attention, ``seq_shard`` on; ZeRO-2, and ZeRO-3 with remat, on dp = 4,
+    each bitwise the plain dp step; the MoE model (4 experts) on (dp, ep) =
+    (2, 2), top-1, top-2 and expert choice, dispatch bitwise the unsharded
+    routing. Each cell: PARALLEL_STEPS steps against the unsharded step on
+    the same inputs (losses in the bands of PARALLEL_BANDS, reduced
+    gradients and Adam first moments in PARALLEL_GRAD_BAND), losses falling,
+    dp replicas bitwise, member shard shapes, flash launches counted
+    exactly."""
+    from beholder_tpu_torch.models import (
+        TelemetrySequenceModel, anomaly, init_seq_state, seq_train_step,
+    )
+    from beholder_tpu_torch.ops import flash_attention as fa
+    from beholder_tpu_torch.parallel import (
+        gather_state, place_seq_state, place_state, place_zero_state, sharded_seq_train_step,
+        sharded_train_step, zero_train_step,
+    )
+
+    t_start = time.perf_counter()
+    layers = TRAIN_MODEL["layers"]
+    feats, targets = train_streams(torch, 0, TRAIN_B, TRAIN_T)
+    report = {}
+
+    # 1. the anomaly MLP, (dp, tp) = (4, 2), 256 windows of one job
+    rng = np.random.default_rng(3)
+    progress = torch.from_numpy(np.cumsum(1.0 + rng.normal(0, 0.05, 256 + anomaly.WINDOW + 1)))
+    windows, wtargets = anomaly.make_windows(progress.to(CARD), torch.full(
+        (progress.shape[0],), CONVERTING, device=CARD))
+    mlp_mesh = card_mesh((4, 2), ("dp", "tp"))
+
+    def mlp_shapes(sstate):
+        shape = tuple(sstate.members[0]["in_proj.weight"].shape)
+        check(shape == (64, 112), f"mlp: in_proj shard {shape}, expected (64, 112)")
+        return dict(in_proj_shard=shape)
+
+    report["mlp"] = parallel_cell(
+        torch, fa, "mlp dp=4 tp=2", PARALLEL_BANDS["mlp"], lambda: anomaly.init_train_state(0),
+        lambda s: place_state(s, mlp_mesh), sharded_train_step, anomaly.train_step,
+        (windows, wtargets), extra=mlp_shapes)
+
+    def seq_state(**kw):
+        return lambda: init_seq_state(0, TelemetrySequenceModel(**{**TRAIN_MODEL, **kw}),
+                                      learning_rate=PARALLEL_LR)
+
+    def q_shard(tp):
+        def extra(sstate):
+            shape = tuple(sstate.members[0]["blocks.0.q_proj.weight"].shape)
+            want = (TRAIN_MODEL["dim"] // tp, TRAIN_MODEL["dim"])
+            check(shape == want, f"q_proj shard {shape}, expected {want}")
+            return dict(q_proj_shard=shape)
+        return extra
+
+    # 2. dp x tp, flash, seq_shard off and on; bytes saved per member
+    mesh = card_mesh((2, 2), ("dp", "tp"))
+    per_step = tuple(PARALLEL_STEPS * 4 * layers for _ in range(3))
+    saved = {}
+    for shard in (False, True):
+        name = f"tp dp=2 tp=2 seq_shard={'on' if shard else 'off'}"
+        report[name] = parallel_cell(
+            torch, fa, name, PARALLEL_BANDS["tp"], seq_state(seq_shard=shard),
+            lambda s: place_seq_state(s, mesh), sharded_seq_train_step, seq_train_step,
+            (feats, targets), launches=(per_step, (0, 0, 0)), extra=q_shard(2))
+        sstate = place_seq_state(seq_state(seq_shard=shard)(), mesh)
+        saved[shard] = saved_bytes_per_member(torch, sstate, feats, targets)
+        del sstate
+    check(saved[True] < saved[False],
+          f"seq_shard saves {saved[True]} bytes a member, plain TP {saved[False]}")
+    report["saved_bytes_per_member"] = {"seq_shard_off": saved[False], "seq_shard_on": saved[True]}
+    print(f"parallel saved for backward per member (dp=2 tp=2, B={TRAIN_B} T={TRAIN_T}): "
+          f"seq_shard off {saved[False] / 2**20:.1f} MiB, on {saved[True] / 2**20:.1f} MiB "
+          f"(ratio {saved[True] / saved[False]:.4f})", flush=True)
+
+    # 3. dp x tp x sp = (2, 2, 2): Ulysses and ring, seq_shard on
+    mesh3 = card_mesh((2, 2, 2), ("dp", "tp", "sp"))
+    uly = tuple(PARALLEL_STEPS * 8 * layers for _ in range(3))
+    pairs = 4 * 2 * 2 * layers               # 4 (dp, tp) rings of 2: 2 x 2 pairs a layer
+    offs = 4 * 2 * 1 * layers
+    for attention, key, want in (
+        ("ulysses", "ulysses", (uly, (0, 0, 0))),
+        ("ring", "ring", (tuple(PARALLEL_STEPS * pairs for _ in range(3)),
+                          tuple(PARALLEL_STEPS * offs for _ in range(3)))),
+    ):
+        name = f"{attention} dp=2 tp=2 sp=2 seq_shard=on"
+        report[name] = parallel_cell(
+            torch, fa, name, PARALLEL_BANDS[key],
+            seq_state(attention=attention, mesh=mesh3, seq_shard=True),
+            lambda s: place_seq_state(s, mesh3), sharded_seq_train_step, seq_train_step,
+            (feats, targets), launches=want, extra=q_shard(2))
+
+    # 4. ZeRO-2 (flash) and ZeRO-3 (flash + remat) on dp = 4, bitwise plain dp
+    dp_mesh = card_mesh((4,), ("dp",))
+    for stage, kw in ((2, {}), (3, {"remat": True})):
+        remat = 2 if kw else 1
+        want = (tuple(PARALLEL_STEPS * 4 * layers * k for k in (remat, 1, 1)), (0, 0, 0))
+        plain_dp = [place_seq_state(seq_state(**kw)(), dp_mesh)]
+
+        def zero_extra(zstate, plain_dp=plain_dp, kw=kw):
+            dp_state, losses = plain_dp[0], []
+            for _ in range(PARALLEL_STEPS):
+                dp_state, loss = sharded_seq_train_step(dp_state, feats, targets)
+                losses.append(float(loss))
+            a, b = gather_state(dp_state), gather_state(zstate)
+            same = all(torch.equal(p, q) and torch.equal(a.optimizer.state[p]["exp_avg"],
+                                                         b.optimizer.state[q]["exp_avg"])
+                       for p, q in zip(a.model.parameters(), b.model.parameters()))
+            check(same, f"zero-{stage}: not bitwise the plain dp step")
+            up = b.optimizer.state[dict(b.model.named_parameters())["blocks.0.up.weight"]]
+            shard = tuple(zstate.optimizer.state[zstate.members[0]["blocks.0.up.weight"]]
+                          ["exp_avg"].shape)
+            check(shard == (up["exp_avg"].shape[0] // 4, up["exp_avg"].shape[1]),
+                  f"zero-{stage}: up moment shard {shard}")
+            return dict(bitwise_plain_dp=True, plain_dp_losses=losses, up_moment_shard=shard)
+
+        name = f"zero-{stage} dp=4" + (" remat" if kw else "")
+        report[name] = parallel_cell(
+            torch, fa, name, PARALLEL_BANDS["zero"], seq_state(**kw),
+            lambda s, st=stage: place_zero_state(s, dp_mesh, shard_params=st == 3),
+            zero_train_step, seq_train_step, (feats, targets), launches=want, extra=zero_extra)
+        del plain_dp
+
+    # 5. MoE, (dp, ep) = (2, 2), 4 experts: top-1, top-2, expert choice. The
+    # unsharded model carries the same mesh, so it groups the tokens as the
+    # sharded step does (the reference pins expert choice's group_size for
+    # that, __graft_entry__.py:507-513): 16 groups of 1,024 either way
+    ep_mesh = card_mesh((2, 2), ("dp", "ep"))
+    moe_launch = (tuple(PARALLEL_STEPS * 4 * layers for _ in range(3)), (0, 0, 0))
+    for key, kw in (("moe", dict(moe_topk=1)), ("moe", dict(moe_topk=2)),
+                    ("moe-experts", dict(moe_router="experts"))):
+        name = "moe dp=2 ep=2 " + (kw.get("moe_router") or f"top{kw['moe_topk']}")
+        make = seq_state(ffn="moe", num_experts=4, mesh=ep_mesh, **kw)
+
+        def moe_extra(sstate):
+            shape = tuple(sstate.members[0]["blocks.0.moe.expert_up"].shape)
+            check(shape == (2, TRAIN_MODEL["dim"], 4 * TRAIN_MODEL["dim"]),
+                  f"moe: expert_up shard {shape}")
+            return dict(expert_up_shard=shape, **moe_dispatch_check(torch, sstate, feats, targets))
+
+        report[name] = parallel_cell(
+            torch, fa, name, PARALLEL_BANDS[key], make, lambda s: place_seq_state(s, ep_mesh),
+            sharded_seq_train_step, seq_train_step, (feats, targets), launches=moe_launch,
+            extra=moe_extra)
+        m = report[name]["metrics"]
+        print(f"parallel {name}: dispatch bitwise the unsharded routing "
+              f"({report[name]['dispatch_entries']} one-hot entries); "
+              + " ".join(f"{k}={v:.6f}" for k, v in sorted(m.items())), flush=True)
+
+    totals = [0, 0, 0]
+    offsets = [0, 0, 0]
+    for cell in report.values():
+        if isinstance(cell, dict) and "launches" in cell:
+            totals = [a + b for a, b in zip(totals, cell["launches"])]
+            offsets = [a + b for a, b in zip(offsets, cell["offset_launches"])]
+    report["launches"] = dict(zip(("fwd", "dq", "dkv"), totals))
+    report["offset_launches"] = dict(zip(("fwd", "dq", "dkv"), offsets))
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"parallel path: flash launches (fwd, dq, dkv) {tuple(totals)}, offset "
+          f"{tuple(offsets)}; wall {report['wall_s']:.2f} s", flush=True)
+    return report
+
+
 def profile_step(torch, step):
     """torch.profiler over one training step: device time by kernel, the
     flash kernels' share of it, and the device's busy share of that
@@ -3921,6 +4302,9 @@ def main() -> None:
     agg_cases = aggregate_kernel_phase(torch, flush)
     record["aggregate_kernel_cases"] = agg_cases
     record["analytics"] = sink_path(torch)
+    # after every profiled gate: with this phase before it, the aggregation
+    # gate's profiler read 4 kernel rows for 5 calls (ROADMAP.md C.10)
+    training["parallel"] = parallel_path(torch)
 
     head = next(c for c in cases
                 if c["shape"] == "headline" and c["pool"] == "bf16" and c["window"] is None)
@@ -3953,6 +4337,10 @@ def main() -> None:
         "library_ms": wave["library_ms"],
     })
     train_case = next(c for c in flash_cases if c["case"] == "train")
+    # the sharded training path's flash launches (its ring cell's pairs in
+    # offset mode) join the training run's
+    parallel_launches = training["parallel"]["launches"]
+    parallel_offsets = training["parallel"]["offset_launches"]
     for key, name, replaces, source in (
         ("fwd", "flash_forward", "beholder_tpu/ops/flash_attention.py:227", "flash_fwd.cu"),
         ("dq", "flash_backward_dq", "beholder_tpu/ops/flash_attention.py:558", "flash_bwd.cu"),
@@ -3964,7 +4352,8 @@ def main() -> None:
             "route": "cuda",
             "source": f"beholder_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": training["train"]["launches"][key],
+            "launches": training["train"]["launches"][key] + parallel_launches[key]
+            - parallel_offsets[key],
             "max_abs_err": max(c["max_abs_err"][o] for c in flash_cases for o in outs),
             "ms": train_case[key]["ms"],
             "plain_ms": train_case[key]["plain_ms"],
@@ -3986,7 +4375,7 @@ def main() -> None:
             "route": "cuda",
             "source": f"beholder_tpu_torch/csrc/{source}",
             "replaces": f"beholder_tpu/ops/flash_attention.py:{site}",
-            "launches": training["ring_train"]["offset_launches"][key],
+            "launches": training["ring_train"]["offset_launches"][key] + parallel_offsets[key],
             "max_abs_err": max(c["max_abs_err"][o] for c in offset_cases for o in outs),
             "ms": offaxis[key]["ms"],
             "plain_ms": offaxis[key]["plain_ms"],

@@ -65,11 +65,13 @@ from beholder_tpu_torch.ops.paged_attention import (
     PagedInfo,
     QuantizedPool,
 )
-from beholder_tpu_torch.parallel.mesh import (
-    seq_param_slices,
-    seq_params_from_slices,
+from beholder_tpu_torch.parallel.mesh import group_mesh, serving_shard_devices
+from beholder_tpu_torch.parallel.sharding import (
+    seq_spec,
     seq_split_dim,
-    serving_shard_devices,
+    shard_tensors,
+    specs_for,
+    unshard_tensors,
 )
 from beholder_tpu_torch.reliability.chaos import WorkerFault, inject_worker_fault
 from beholder_tpu_torch.spec import SpecConfig
@@ -528,7 +530,8 @@ def test_tp_rule_slices_concatenate_back(pair):
             want = 1 - want  # (in, out) kernel -> (out, in) weight
         assert got == want, name
     for n in (1, 2):
-        slices = seq_param_slices(sd, n, devices=["cpu"] * n)
+        mesh, specs = group_mesh(["cpu"] * n), specs_for(sd, seq_spec)
+        slices = shard_tensors(sd, specs, mesh)
         for name, t in sd.items():
             dim = seq_split_dim(name, t)
             for m, member in enumerate(slices):
@@ -537,7 +540,7 @@ def test_tp_rule_slices_concatenate_back(pair):
                 else:
                     assert member[name].shape[dim] == t.shape[dim] // n
                     assert member[name].is_contiguous()
-        back = seq_params_from_slices(slices, "cpu")
+        back = unshard_tensors(slices, specs, mesh, "cpu")
         assert back.keys() == sd.keys()
         for name, t in sd.items():
             assert torch.equal(back[name], t)

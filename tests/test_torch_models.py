@@ -104,11 +104,12 @@ def test_bridge_keeps_bf16_leaves_and_maps_names(pairs):
     # the seeded initialiser builds the same tree shape the bridge reads
     fresh = init_params(tm, seed=0, bf16_matrices=True)
     load_flax_params(TelemetrySequenceModel(**SIZES, kv_heads=2, device="cpu"), fresh)
-    # flash and ring are ported (tests/test_torch_flash.py,
-    # tests/test_torch_ring.py): ring needs a mesh; ulysses is not ported yet
+    # flash, ring and ulysses are ported (tests/test_torch_flash.py,
+    # tests/test_torch_ring.py, tests/test_torch_parallel.py): ring and
+    # ulysses need a mesh
     with pytest.raises(ValueError, match="mesh"):
         TelemetrySequenceModel(**SIZES, attention="ring", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         TelemetrySequenceModel(**SIZES, attention="ulysses", device="cpu")
 
 

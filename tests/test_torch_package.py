@@ -36,6 +36,10 @@ PORT_MODULES = [
     "beholder_tpu_torch.models.checkpoint",
     "beholder_tpu_torch.parallel",
     "beholder_tpu_torch.parallel.mesh",
+    "beholder_tpu_torch.parallel.collectives",
+    "beholder_tpu_torch.parallel.sharding",
+    "beholder_tpu_torch.parallel.zero",
+    "beholder_tpu_torch.ops.moe",
     "beholder_tpu_torch.spec",
     "beholder_tpu_torch.spec.verify",
     "beholder_tpu_torch.spec.drafter",

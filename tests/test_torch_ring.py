@@ -255,9 +255,9 @@ def test_window_bounds_the_rotations():
     moves = []
     rotate = att._rotate
 
-    def counted(m, blocks):
+    def counted(blocks):
         moves.append(len(blocks))
-        return rotate(m, blocks)
+        return rotate(blocks)
 
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(15, 1, 2, 2, 128, 8))
     att._rotate = counted
@@ -290,8 +290,8 @@ def test_ring_checks_like_the_reference():
 
 
 def test_ring_saves_only_q_k_v_o_lse():
-    """The forward saves q, k, v, o and lse (all O(T * d)), nothing of a
-    (T/P, T/P) block."""
+    """The forward saves each shard's q, k, v, o and lse (all O(T/P * d)),
+    nothing of a (T/P, T/P) block."""
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(16, 1, 4, 2, 64, 8))
     saved = []
 
@@ -302,8 +302,8 @@ def test_ring_saves_only_q_k_v_o_lse():
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
         out = ring_attention(q, k, v, Mesh(["cpu"] * P), causal=True)
     out.sum().backward()
-    assert sorted(saved) == sorted([(1, 4, 64, 8), (1, 2, 64, 8), (1, 2, 64, 8),
-                                    (1, 4, 64, 8), (1, 4, 64)]), saved
+    shard = [(1, 4, 16, 8), (1, 2, 16, 8), (1, 2, 16, 8), (1, 4, 16, 8), (1, 4, 16)]
+    assert sorted(saved) == sorted(shard * P), saved
 
 
 # -- the model -----------------------------------------------------------------
