@@ -62,7 +62,8 @@ def _set(param: torch.nn.Parameter, value: torch.Tensor) -> None:
 
 
 def _dense(prefix: str, tree: dict) -> dict[str, torch.Tensor]:
-    return {f"{prefix}.weight": _tensor(tree["kernel"]).t().contiguous(),
+    # (in, out) -> (out, in); a stacked (S, in, out) kernel keeps its stage dim
+    return {f"{prefix}.weight": _tensor(tree["kernel"]).transpose(-1, -2).contiguous(),
             f"{prefix}.bias": _tensor(tree["bias"])}
 
 
@@ -74,6 +75,34 @@ def _moe(prefix: str, tree: dict) -> dict[str, torch.Tensor]:
     out = _dense(prefix + "router", tree["router"])
     out.update({prefix + name: _tensor(tree[name]) for name in _EXPERT_LEAVES})
     return out
+
+
+def _block(prefix: str, sub: dict) -> dict[str, torch.Tensor]:
+    """A flax ``Block``'s tree as the port's ``Block`` names under ``prefix``."""
+    out = _norm(prefix + "ln0", sub["LayerNorm_0"])
+    out.update(_norm(prefix + "ln1", sub["LayerNorm_1"]))
+    for name in _BLOCK_DENSE:
+        if name in sub:
+            out.update(_dense(prefix + name, sub[name]))
+    if "moe" in sub:
+        out.update(_moe(prefix + "moe.", sub["moe"]))
+    return out
+
+
+def flax_stage_params(stacked: dict, prefix: str = "0.") -> dict[str, torch.Tensor]:
+    """The reference's stacked pipeline-stage params (numpy leaves with a
+    leading stage dim, as ``stack_stage_params`` there makes them) as the
+    port's stacked dict (:func:`~beholder_tpu_torch.parallel.stack_stage_params`),
+    on the CPU. A flax ``Block``'s tree takes the port's ``Block`` names
+    under ``prefix`` (``"0."``: the one block of a stage of
+    :func:`~beholder_tpu_torch.models.sequence.pipeline_stages`), each
+    stage's kernel transposed; any other dict of leaves (plain ``{"w",
+    "b"}`` or ``{"w1", "w2"}`` stages) keeps its names and layout. Works for
+    gradients of the same structure."""
+    tree = stacked.get("params", stacked)
+    if "LayerNorm_0" in tree:
+        return _block(prefix, tree)
+    return {name: _tensor(leaf) for name, leaf in tree.items()}
 
 
 def flax_named(model, params: dict) -> dict[str, torch.Tensor]:
@@ -92,14 +121,7 @@ def flax_named(model, params: dict) -> dict[str, torch.Tensor]:
         return out
     out = _dense("embed", tree["embed"])
     for i in range(len(model.blocks)):
-        sub = tree[f"block_{i}"]
-        out.update(_norm(f"blocks.{i}.ln0", sub["LayerNorm_0"]))
-        out.update(_norm(f"blocks.{i}.ln1", sub["LayerNorm_1"]))
-        for name in _BLOCK_DENSE:
-            if name in sub:
-                out.update(_dense(f"blocks.{i}.{name}", sub[name]))
-        if "moe" in sub:
-            out.update(_moe(f"blocks.{i}.moe.", sub["moe"]))
+        out.update(_block(f"blocks.{i}.", tree[f"block_{i}"]))
     out.update(_norm("ln", tree["LayerNorm_0"]))
     out.update(_dense("head", tree["head"]))
     return out

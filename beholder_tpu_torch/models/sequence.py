@@ -89,6 +89,7 @@ from beholder_tpu_torch.parallel.collectives import (
     tp_all_reduce,
     tp_replicate,
 )
+from beholder_tpu_torch.parallel.mesh import group_mesh
 from beholder_tpu_torch.parallel.sharding import batch_slices
 
 from .train import TrainState, apply_gradients, init_state
@@ -483,12 +484,19 @@ class Block(nn.Module):
         return x
 
     def members_forward(self, params: list[dict], xs: list, mesh, prefix: str,
-                        terms: list[dict]) -> list:
+                        terms: list[dict], cache=None, return_kv: bool = False):
         """The block on every member of ``mesh`` in lockstep: ``params[i]``
         holds member ``i``'s slices under their ``state_dict`` names
         (``prefix`` + ``"q_proj.weight"``, ...), ``xs[i]`` its (B/dp, T',
         D) rows (T' = T/sp, or T/(sp*tp) with ``seq_shard``); ``terms[i]``
-        receives its MoE terms. Returns each member's output rows."""
+        receives its MoE terms. Returns each member's output rows.
+
+        ``cache=(k_caches, v_caches, index)`` runs one dense-cache step
+        over a tp group (sharded serving): ``k_caches[i]`` / ``v_caches[i]``
+        hold member ``i``'s ``Hkv/tp`` kv heads of its rows' cache, which it
+        writes and attends alone (in place) at the 0-d ``index``. With a
+        cache or ``return_kv`` each member's (k, v) come back too: its
+        updated cache shards, or its heads' columns, as ``(xs, (ks, vs))``."""
         tp = mesh.shape.get("tp", 1)
         h, hkv = self.heads, self.kv_heads
         if h % tp or hkv % tp:
@@ -506,18 +514,29 @@ class Block(nn.Module):
                     .reshape(b, t, n // tp, dh).transpose(1, 2) for p, y in zip(params, ys)]
 
         qs, ks, vs = heads("q_proj", h), heads("k_proj", hkv), heads("v_proj", hkv)
-        atts = [a.transpose(1, 2).reshape(b, t, d // tp)
-                for a in self._members_attention(qs, ks, vs, mesh)]
+        if cache is None:
+            atts = self._members_attention(qs, ks, vs, mesh)
+            kv_out = (ks, vs)
+        else:
+            k_caches, v_caches, index = cache
+            k_caches = [_write_dense_cache(c, k, index.to(c.device)) for c, k in zip(k_caches, ks)]
+            v_caches = [_write_dense_cache(c, v, index.to(c.device)) for c, v in zip(v_caches, vs)]
+            atts = [_dense_attention(q, kc, vc, index.to(q.device), self.window, t)
+                    for q, kc, vc in zip(qs, k_caches, v_caches)]
+            kv_out = (k_caches, v_caches)
+        atts = [a.transpose(1, 2).reshape(b, t, d // tp) for a in atts]
         xs = self._row(params, atts, xs, mesh, prefix + "proj")
         ys = [layer_norm(x, p[prefix + "ln1.weight"], p[prefix + "ln1.bias"])
               for p, x in zip(params, xs)]
         if self.ffn == "moe":
             out = self.moe.members_forward(params, ys, mesh, prefix + "moe.", terms)
-            return [x + o for x, o in zip(xs, out)]
-        ys = self._to_columns(ys, mesh)
-        ys = [_gelu_tanh(_linear_bf16(y, p[prefix + "up.weight"], p[prefix + "up.bias"]))
-              for p, y in zip(params, ys)]
-        return self._row(params, ys, xs, mesh, prefix + "down")
+            xs = [x + o for x, o in zip(xs, out)]
+        else:
+            ys = self._to_columns(ys, mesh)
+            ys = [_gelu_tanh(_linear_bf16(y, p[prefix + "up.weight"], p[prefix + "up.bias"]))
+                  for p, y in zip(params, ys)]
+            xs = self._row(params, ys, xs, mesh, prefix + "down")
+        return (xs, kv_out) if cache is not None or return_kv else xs
 
     def _to_columns(self, ys: list, mesh) -> list:
         """A column layer's input: all-gathered over tp from T-slices under
@@ -809,6 +828,37 @@ def init_seq_state(
     model = model or TelemetrySequenceModel(device=device)
     load_flax_params(model, init_params(model, seed))
     return init_state(model, learning_rate)
+
+
+def pipeline_stages(model: TelemetrySequenceModel, n_stages: int) -> tuple:
+    """The model's blocks as ``n_stages`` pipeline stages of ``layers /
+    n_stages`` consecutive blocks each (:mod:`beholder_tpu_torch.parallel.pipeline`).
+    Returns ``(stage_fn, stage_params)``: each stage's parameters (detached)
+    under the ``state_dict`` names of ``nn.Sequential`` over its blocks
+    (``"0.ln0.weight"``, ``"1.q_proj.weight"``, ...), and
+    ``stage_fn(params, x)``, the stage's blocks in order on a (Bm, T, D)
+    residual stream through ``torch.func.functional_call``. Over a tp group
+    (tensor parallelism inside the stages) ``params`` and ``x`` are the
+    group's member lists, cut megatron's way, and each block runs
+    :meth:`Block.members_forward` on them."""
+    if n_stages < 1 or model.layers % n_stages:
+        raise ValueError(f"{model.layers} layers do not split into {n_stages} stages")
+    per = model.layers // n_stages
+    stage = nn.Sequential(*model.blocks[:per])
+    params = [{f"{k}.{name}": p.detach()
+               for k, block in enumerate(model.blocks[i * per:(i + 1) * per])
+               for name, p in block.named_parameters()}
+              for i in range(n_stages)]
+
+    def stage_fn(params, x):
+        if isinstance(x, list):
+            mesh = group_mesh([member.device for member in x])
+            for k, block in enumerate(stage):
+                x = block.members_forward(params, x, mesh, f"{k}.", [{} for _ in x])
+            return x
+        return torch.func.functional_call(stage, params, (x,))
+
+    return stage_fn, params
 
 
 def seq_train_step(

@@ -3,9 +3,9 @@
 names, explicit differentiable collectives over member tensors, and the
 sharded training steps built on them (dp x tp for the anomaly MLP; dp x tp x
 sp megatron with ring or Ulysses attention and ``seq_shard`` for the
-transformer; dp x ep for its MoE; ZeRO-2/3), with the serving cluster's
-worker placement. Pipeline parallelism and the multi-process runtime are
-not ported."""
+transformer; dp x ep for its MoE; ZeRO-2/3), pipeline parallelism over a
+``pp`` axis (GPipe, 1F1B, dp x pp, tp inside the stages), and the serving
+cluster's worker placement. The multi-process runtime is not ported."""
 
 from .collectives import (
     all_gather,
@@ -34,6 +34,17 @@ from .mesh import (
     sharded_train_step,
     state_shardings,
 )
+from .pipeline import (
+    bubble_fraction,
+    merge_microbatches,
+    pipeline_forward,
+    pipeline_train_step,
+    split_microbatches,
+    stack_stage_grads,
+    stack_stage_params,
+    stage_shardings,
+    stage_specs,
+)
 from .zero import ZeroState, place_zero_state, zero_state_specs, zero_train_step
 
 __all__ = [
@@ -44,11 +55,15 @@ __all__ = [
     "all_reduce",
     "all_to_all",
     "along",
+    "bubble_fraction",
     "gather_from_members",
     "gather_state",
     "group_mesh",
     "make_mesh",
+    "merge_microbatches",
     "param_shardings",
+    "pipeline_forward",
+    "pipeline_train_step",
     "place_seq_state",
     "place_state",
     "place_zero_state",
@@ -59,6 +74,11 @@ __all__ = [
     "serving_shard_devices",
     "sharded_seq_train_step",
     "sharded_train_step",
+    "split_microbatches",
+    "stack_stage_grads",
+    "stack_stage_params",
+    "stage_shardings",
+    "stage_specs",
     "state_shardings",
     "tp_all_reduce",
     "tp_replicate",

@@ -12,7 +12,8 @@ differentiable op with a fixed member order
 such a mesh moves no bytes between devices.
 
 Axes are named from ``dp`` (data), ``tp`` (megatron tensor), ``sp``
-(sequence: ring or Ulysses attention) and ``ep`` (experts).
+(sequence: ring or Ulysses attention), ``ep`` (experts) and ``pp``
+(pipeline stages, :mod:`beholder_tpu_torch.parallel.pipeline`).
 ``Mesh(devices)`` is one ``sp`` axis, the mesh ring attention runs on.
 
 Sharded training (:func:`place_state` / :func:`sharded_train_step` for the
@@ -339,13 +340,16 @@ def seq_state_shardings(state, mesh: Mesh) -> dict:
     """The transformer's spec of every parameter name (Adam moments keyed
     the same way): megatron over ``tp`` (:func:`~.sharding.seq_spec`) and,
     on a mesh with ``ep``, the expert stacks along E
-    (:func:`~.sharding.expert_spec`)."""
+    (:func:`~.sharding.expert_spec`). ``state`` is a training state or the
+    model itself (sharded serving)."""
+    model = getattr(state, "model", state)
+
     def rule(name, t):
         if "ep" in mesh.shape and expert_spec(name, t):
             return expert_spec(name, t)
         return seq_spec(name, t) if "tp" in mesh.shape else ()
 
-    return specs_for(dict(state.model.named_parameters()), rule)
+    return specs_for(dict(model.named_parameters()), rule)
 
 
 def place_seq_state(state, mesh: Mesh) -> ShardedState:

@@ -8,8 +8,10 @@ an ``nn.Linear`` weight is ``(out, in)``, the transpose of flax's kernel, so
 a column-parallel layer splits dim 0 where the reference's kernel splits
 dim 1. A spec rule maps ``(name, tensor)`` to a spec; the rules here are the
 reference's: the anomaly MLP's (:func:`mlp_spec`), megatron's for the
-transformer (:func:`seq_spec`), the expert stacks' (:func:`expert_spec`) and
-ZeRO's shape rule (:func:`zero_leaf_spec`).
+transformer (:func:`seq_spec`), the expert stacks' (:func:`expert_spec`),
+ZeRO's shape rule (:func:`zero_leaf_spec`) and the pipeline's stacked
+stages (:func:`leading_axis_spec`, :func:`stage_spec`: the leading stage dim
+over ``pp``, with a rule for the rest of each stage's leaf).
 
 :func:`shard_tensors` cuts named tensors (params, or Adam moments keyed the
 same way) into one dict a mesh member, each slice a copy of its own on the
@@ -98,6 +100,22 @@ def zero_leaf_spec(tensor: torch.Tensor, dp: int, axis: str = "dp") -> Spec:
     return _split(len(shape), max(divisible, key=lambda i: shape[i]), axis)
 
 
+def leading_axis_spec(tensor: torch.Tensor, axis: str) -> Spec:
+    """``(axis, None, ...)`` over the leading dim; replicated for a 0-d
+    tensor, which has no dim to split."""
+    return _split(tensor.ndim, 0, axis) if tensor.ndim else ()
+
+
+def stage_spec(name: str, stacked: torch.Tensor, axis: str = "pp",
+               rule: Callable[[str, torch.Tensor], Spec] | None = None) -> Spec:
+    """A stacked stage leaf's spec: the leading (stage) dim over ``axis``,
+    and each stage's own leaf (``stacked[0]``) split by ``rule`` when given
+    (megatron's :func:`seq_spec` for tensor parallelism inside the stages),
+    else replicated."""
+    inner = tuple(rule(name, stacked[0])) if rule is not None else ()
+    return (axis,) + (inner or (None,) * (stacked.ndim - 1))
+
+
 def specs_for(tensors: dict, rule: Callable[[str, torch.Tensor], Spec]) -> dict:
     return {name: tuple(rule(name, t)) for name, t in tensors.items()}
 
@@ -153,13 +171,13 @@ def unshard_tensors(members: list[dict], specs: dict, mesh, device) -> dict:
     return {name: _unshard(members, name, specs[name], mesh, device) for name in specs}
 
 
-def batch_slices(mesh, x: torch.Tensor) -> list:
-    """Each member's slice of the batch (dim 0) by its ``dp`` coordinate
-    (the whole batch on a mesh without ``dp``), on its device."""
-    dp = mesh.shape.get("dp", 1)
-    if x.shape[0] % dp:
-        raise ValueError(f"batch {x.shape[0]} does not split {dp} ways over dp")
-    k = mesh.axis_names.index("dp") if "dp" in mesh.axis_names else None
-    chunks = x.chunk(dp, dim=0)
+def batch_slices(mesh, x: torch.Tensor, axis: str = "dp") -> list:
+    """Each member's slice of the batch (dim 0) by its ``axis`` coordinate
+    (the whole batch on a mesh without that axis), on its device."""
+    n = mesh.shape.get(axis, 1)
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} does not split {n} ways over {axis}")
+    k = mesh.axis_names.index(axis) if axis in mesh.axis_names else None
+    chunks = x.chunk(n, dim=0)
     return [chunks[c[k] if k is not None else 0].to(dev)
             for c, dev in zip(mesh.coords(), mesh.devices)]

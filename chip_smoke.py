@@ -121,7 +121,8 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    logged summary against the oracle; a synchronous flush makes one
    synchronising call;
 7. sharded training (``parallel_path``, ``beholder_tpu_torch.parallel``,
-   every mesh member on this card; last, after every profiled gate): the
+   every mesh member on this card; last, with the two phases after it,
+   after every profiled gate): the
    anomaly MLP on (dp, tp) = (4, 2); the headline model (flash) on (2, 2)
    with ``seq_shard`` off and on (bytes saved for the backward per member
    each way), on (dp, tp, sp) = (2, 2, 2) with Ulysses and with ring
@@ -131,7 +132,19 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    the unsharded routing of its tokens. Each cell 3 steps, each against the
    unsharded step from the same state on the same inputs within the
    reference's band, losses falling at every step, dp replicas bitwise,
-   shard shapes, flash launches exact; step ms each way;
+   shard shapes, flash launches exact; step ms each way; then pipeline
+   parallelism (``pipeline_path``): the same model's four blocks as the
+   stages of the 1F1B step on pp = 4 (M = 4), (dp, pp) = (2, 2) and (dp,
+   pp, tp) = (2, 2, 2) (two megatron blocks a stage, M = 2), and of the
+   GPipe forward on pp = 4, each against the sequential blocks (loss and
+   gradients in the dryrun's bands, flash launches exactly the live units',
+   the residual ring's peak, two planted faults failing the gradient gate,
+   step ms each way); then dp/tp-sharded dense serving
+   (``sharded_serving_path``): the headline model, 8 streams of 256 steps,
+   horizon 128, on dp = 4, (dp, tp) = (4, 2) with megatron params and dp =
+   4 with flash attention (cache shard shapes, a teacher-forced rollout in
+   the reference's band, eta and reached equal to the unsharded
+   ``forecast_eta``, no synchronising call, prefill flash launches);
 8. output: a ``kernels`` JSON line (the three block-pair sites of the flash
    kernels as rows of their own), then the ``ok`` line last.
 
@@ -3783,6 +3796,355 @@ def parallel_path(torch) -> dict:
     return report
 
 
+#: the pipeline cells (pipeline_path): PIPE_STEPS steps each, every one
+#: against the sequential application of the same blocks on the same data
+PIPE_STEPS = 3
+#: the dryrun's bands (__graft_entry__.py:273, 282-295): the loss within rel
+#: 1e-3 of max(1, |sequential loss|), every gradient leaf within
+#: PIPE_GRAD_ABS * max(1, max|g|). Beside them each leaf's relative error
+#: (``leaf_errors``) within PARALLEL_GRAD_BAND, as the sharded cells hold
+#: theirs (ROADMAP C.19): on these random weights max|g| < 1, so the dryrun's
+#: band is an absolute 5e-2, wider than a dropped microbatch's gradient
+PIPE_LOSS_BAND = 1e-3
+PIPE_GRAD_ABS = 5e-2
+
+
+def pipe_grad_readings(torch, got: dict, want: dict) -> dict:
+    """Leaf by leaf: ``max|got - want| / max(1, max|want|)`` (the dryrun's
+    reading) and ``leaf_errors``; the worst of each with its leaf, and
+    whether both bands hold."""
+    dry = {n: float((got[n] - w).abs().max()) / max(1.0, float(w.abs().max()))
+           for n, w in want.items()}
+    rel = leaf_errors(torch, got, want)
+    dry_leaf = max(dry, key=dry.get)
+    rel_leaf = max(rel, key=rel.get)
+    return dict(dry_worst=dry[dry_leaf], dry_worst_leaf=dry_leaf, rel_worst=rel[rel_leaf],
+                rel_worst_leaf=rel_leaf,
+                ok=dry[dry_leaf] <= PIPE_GRAD_ABS and rel[rel_leaf] <= PARALLEL_GRAD_BAND)
+
+
+def pipeline_path(torch) -> dict:
+    """Pipeline parallelism (``beholder_tpu_torch.parallel.pipeline``) at the
+    training cell's full width, every stage member on this one card: the
+    flash model's four blocks as the stages, the stage inputs its ``embed``
+    of ``train_streams``' features and the loss its ``ln`` + ``head`` + MSE,
+    both held fixed. Cells: the 1F1B step on pp = 4 (a block a stage, M =
+    4), on (dp, pp) = (2, 2) (two blocks a stage, M = 2) and on (dp, pp, tp)
+    = (2, 2, 2) (two megatron blocks a stage), and the GPipe forward on pp =
+    4 under autograd. Each against the sequential application of the same
+    blocks on the same data: the loss and every gradient leaf in the
+    dryrun's bands and within PARALLEL_GRAD_BAND leaf by leaf; the flash
+    launches exactly the live units' (PERF.md); the 1F1B ring's peak
+    ``min(2(S-1)+1, M)`` and ``M + 2(S-1)`` ticks; two planted faults (one
+    microbatch's gradient dropped, the gradients not divided by M) failing
+    the gradient gate; step ms each way (CUDA events, median of
+    PIPE_STEPS)."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel, init_seq_state, pipeline_stages
+    from beholder_tpu_torch.ops import flash_attention as fa
+    from beholder_tpu_torch.parallel import (
+        pipeline_forward, pipeline_train_step, split_microbatches, stack_stage_grads,
+        stack_stage_params, stage_specs,
+    )
+    from beholder_tpu_torch.parallel.sharding import seq_spec
+
+    t_start = time.perf_counter()
+    model = init_seq_state(0, TelemetrySequenceModel(**TRAIN_MODEL)).model
+    model.requires_grad_(False)
+    feats, targets = train_streams(torch, 0, TRAIN_B, TRAIN_T)
+    with torch.no_grad():
+        h = model.embed(feats)
+
+    def loss_fn(out, y):
+        pred = model.head(model.ln(out))[..., 0]
+        return ((pred - y) ** 2)[:, :-1].mean()
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = fn()
+        end.record()
+        return result, (start, end)
+
+    def sequential(stage_fn, stacked):
+        """The stages in sequence on the whole batch: (loss, stacked grads)."""
+        leaves = {n: t.clone().requires_grad_() for n, t in stacked.items()}
+        z = h
+        for i in range(next(iter(stacked.values())).shape[0]):
+            z = stage_fn({n: t[i] for n, t in leaves.items()}, z)
+        loss = loss_fn(z, targets)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    report = {}
+    cells = (
+        ("pp=4 M=4", (4,), ("pp",), None, 4, None),
+        ("dp=2 pp=2 M=2", (2, 2), ("dp", "pp"), "dp", 2, None),
+        ("dp=2 pp=2 tp=2 M=2", (2, 2, 2), ("dp", "pp", "tp"), "dp", 2, seq_spec),
+    )
+    for name, shape, names, dp_axis, m, rule in cells:
+        s = shape[names.index("pp")]
+        dp = shape[0] if dp_axis else 1
+        tp = shape[-1] if rule else 1
+        stage_fn, stage_params = pipeline_stages(model, s)
+        stacked = stack_stage_params(stage_params)
+        specs = stage_specs(stacked, rule=rule)
+        mesh = card_mesh(shape, names)
+        x, y = split_microbatches(h, m), split_microbatches(targets, m)
+        ref_loss, ref_grads, ref_events = None, None, []
+        got, events, counts, stats = [], [], (0, 0, 0), {}
+
+        def step(x=x, y=y, stacked=stacked, stage_fn=stage_fn, mesh=mesh, dp_axis=dp_axis,
+                 specs=specs, stats=stats):
+            return pipeline_train_step(stage_fn, loss_fn, stacked, x, y, mesh, dp_axis=dp_axis,
+                                       param_specs=specs, stats=stats)
+
+        for _ in range(PIPE_STEPS):
+            (ref_loss, ref_grads), ev = timed(lambda: sequential(stage_fn, stacked))
+            ref_events.append(ev)
+            ((loss, grads), ev), c, _ = counted_flash(torch, fa, lambda: timed(step))
+            counts = tuple(a + b for a, b in zip(counts, c))
+            events.append(ev)
+            got.append(loss)
+        grads = stack_stage_grads(grads, mesh, specs)
+        losses = torch.stack(got).cpu().numpy()
+        want = float(ref_loss)
+        worst = max(abs(float(v) - want) / max(1.0, abs(want)) for v in losses)
+        readings = pipe_grad_readings(torch, grads, ref_grads)
+        per_block = (2 * m, m, m)              # a live F unit; a B unit's recompute, dq, dk/dv
+        blocks = TRAIN_MODEL["layers"] * dp * tp
+        want_counts = tuple(PIPE_STEPS * blocks * k for k in per_block)
+        peak = min(2 * (s - 1) + 1, m)
+        check(bool(np.isfinite(losses).all()), f"pipeline {name}: losses not finite {losses}")
+        check(worst <= PIPE_LOSS_BAND,
+              f"pipeline {name}: losses {losses} vs sequential {want}: {worst} > {PIPE_LOSS_BAND}")
+        check(readings["ok"], f"pipeline {name}: gradients off the sequential ones {readings}")
+        check(counts == want_counts, f"pipeline {name}: flash launches {counts}, "
+              f"predicted {want_counts}")
+        check(stats["residual_peak"] == peak and stats["ticks"] == m + 2 * (s - 1),
+              f"pipeline {name}: ring peak {stats['residual_peak']} (want {peak}), ticks "
+              f"{stats['ticks']}")
+        ms = [a.elapsed_time(b) for a, b in events]
+        ref_ms = [a.elapsed_time(b) for a, b in ref_events]
+        cell = dict(losses=losses.tolist(), sequential_loss=want, worst=worst,
+                    launches=counts, predicted_launches=want_counts, stats=dict(stats),
+                    step_ms=ms, step_ms_median=statistics.median(ms), sequential_ms=ref_ms,
+                    sequential_ms_median=statistics.median(ref_ms), **readings)
+        if name == "pp=4 M=4":
+            # planted faults, from this run's own outputs: one microbatch's
+            # gradient dropped (the step on the other M - 1, weighted 1/M),
+            # and the gradients left undivided by M
+            _, part = pipeline_train_step(stage_fn, loss_fn, stacked, x[1:], y[1:], mesh,
+                                          param_specs=specs)
+            part = stack_stage_grads(part, mesh, specs)
+            dropped = pipe_grad_readings(torch, {n: g * (m - 1) / m for n, g in part.items()},
+                                         ref_grads)
+            undivided = pipe_grad_readings(torch, {n: g * m for n, g in grads.items()}, ref_grads)
+            check(not dropped["ok"] and not undivided["ok"],
+                  f"pipeline controls passed the gate: dropped {dropped}, undivided {undivided}")
+            cell["controls"] = dict(dropped=dropped, undivided=undivided)
+            print(f"pipeline controls fail the gate: one microbatch dropped rel "
+                  f"{dropped['rel_worst']:.3e} dryrun {dropped['dry_worst']:.3e}; not divided "
+                  f"by M rel {undivided['rel_worst']:.3e} dryrun {undivided['dry_worst']:.3e}",
+                  flush=True)
+        report[name] = cell
+        print(f"pipeline {name}: loss {losses[0]:.6f} sequential {want:.6f} worst {worst:.3e} "
+              f"(band {PIPE_LOSS_BAND}); grads dryrun {readings['dry_worst']:.3e} "
+              f"({readings['dry_worst_leaf']}) rel {readings['rel_worst']:.3e} "
+              f"({readings['rel_worst_leaf']}); launches(fwd,dq,dkv)={counts} predicted "
+              f"{want_counts}; ring peak {stats['residual_peak']}, ticks {stats['ticks']}, "
+              f"units {stats['forward_units']}/{stats['backward_units']}; step ms median "
+              f"{cell['step_ms_median']:.2f} sequential {cell['sequential_ms_median']:.2f}",
+              flush=True)
+        del grads, ref_grads
+        torch.cuda.empty_cache()
+
+    # GPipe: pipeline_forward under autograd, pp = 4, M = 4
+    stage_fn, stage_params = pipeline_stages(model, 4)
+    stacked = stack_stage_params(stage_params)
+    mesh = card_mesh((4,), ("pp",))
+    x, y = split_microbatches(h, 4), split_microbatches(targets, 4)
+
+    def gpipe():
+        leaves = {n: t.clone().requires_grad_() for n, t in stacked.items()}
+        out = pipeline_forward(stage_fn, leaves, x, mesh)
+        loss = torch.stack([loss_fn(out[j], y[j]) for j in range(4)]).mean()
+        return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    got, events, counts = [], [], (0, 0, 0)
+    for _ in range(PIPE_STEPS):
+        ((loss, grads), ev), c, _ = counted_flash(torch, fa, lambda: timed(gpipe))
+        counts = tuple(a + b for a, b in zip(counts, c))
+        got.append(loss)
+        events.append(ev)
+    ref_loss, ref_grads = sequential(stage_fn, stacked)
+    losses = torch.stack(got).cpu().numpy()
+    want = float(ref_loss)
+    worst = max(abs(float(v) - want) / max(1.0, abs(want)) for v in losses)
+    readings = pipe_grad_readings(torch, grads, ref_grads)
+    want_counts = tuple(PIPE_STEPS * TRAIN_MODEL["layers"] * 4 for _ in range(3))
+    check(worst <= PIPE_LOSS_BAND, f"pipeline gpipe: losses {losses} vs sequential {want}")
+    check(readings["ok"], f"pipeline gpipe: gradients off the sequential ones {readings}")
+    check(counts == want_counts, f"pipeline gpipe: flash launches {counts}, predicted "
+          f"{want_counts}")
+    ms = [a.elapsed_time(b) for a, b in events]
+    report["gpipe pp=4 M=4"] = dict(losses=losses.tolist(), sequential_loss=want, worst=worst,
+                                    launches=counts, predicted_launches=want_counts, step_ms=ms,
+                                    step_ms_median=statistics.median(ms), **readings)
+    print(f"pipeline gpipe pp=4 M=4: loss {losses[0]:.6f} sequential {want:.6f} worst "
+          f"{worst:.3e}; grads dryrun {readings['dry_worst']:.3e} rel {readings['rel_worst']:.3e} "
+          f"({readings['rel_worst_leaf']}); launches {counts} predicted {want_counts}; step ms "
+          f"median {statistics.median(ms):.2f}", flush=True)
+    totals = [sum(c["launches"][k] for c in report.values()) for k in range(3)]
+    report["launches"] = dict(zip(("fwd", "dq", "dkv"), totals))
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"pipeline path: flash launches (fwd, dq, dkv) {tuple(totals)}; wall "
+          f"{report['wall_s']:.2f} s", flush=True)
+    return report
+
+
+#: the sharded serving cells (sharded_serving_path): the headline model and
+#: streams
+SHARD_MODEL = dict(dim=512, heads=8, kv_heads=2, layers=4)
+SHARD_STREAMS, SHARD_OBSERVED, SHARD_HORIZON, SHARD_SPLIT = 8, 256, 128, 192
+#: a sharded rollout against the unsharded one: the reference's band,
+#: tests/test_decode.py:207-212 (rtol, atol)
+SHARD_BAND = (2e-2, 5e-3)
+
+
+def sharded_serving_path(torch) -> dict:
+    """dp/tp-sharded dense serving (``models.decode``'s ``sharded_*``) at the
+    headline's full width, every member on this one card: the headline
+    model's bf16 weights, 8 streams of 256 observed steps, horizon 128.
+    Cells: dp = 4; (dp, tp) = (4, 2) with megatron params (one kv head a
+    member); dp = 4 with ``attention="flash"`` (the prefill launches the
+    flash forward once a layer and member). Each: every member's cache shard
+    shape; a prefill of 192 steps and 64 teacher-forced decode steps in the
+    reference's band of the unsharded rollout; ``sharded_forecast_eta``'s
+    eta and reached equal to the unsharded ``forecast_eta``'s, at a target
+    inside the forecasts, with the predictions that differ in any bit
+    counted (the same rollout fed back through ``sharded_prefill`` /
+    ``sharded_decode_step``); no synchronising call in the rollout."""
+    from beholder_tpu_torch.models import (
+        TelemetrySequenceModel, decode_step, forecast_deltas, forecast_eta, prefill,
+        serving_params, sharded_decode_step, sharded_forecast_eta, sharded_prefill,
+        stream_features,
+    )
+    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
+    from beholder_tpu_torch.models.sequence import one_hot
+    from beholder_tpu_torch.ops import NUM_STATUSES
+    from beholder_tpu_torch.ops import flash_attention as fa
+    from beholder_tpu_torch.parallel import seq_state_shardings
+
+    t_start = time.perf_counter()
+    dims = SHARD_MODEL
+    tree = init_params(TelemetrySequenceModel(**dims), seed=0, bf16_matrices=True)
+    models = {}
+    for attention in ("full", "flash"):
+        models[attention] = load_flax_params(TelemetrySequenceModel(**dims, attention=attention),
+                                             tree)
+    rng = np.random.default_rng(5)
+    b, t_obs, horizon, split = SHARD_STREAMS, SHARD_OBSERVED, SHARD_HORIZON, SHARD_SPLIT
+    progress = torch.from_numpy(np.cumsum(1.0 + rng.normal(0, 0.05, (b, t_obs + 1)), axis=-1)
+                                .astype(np.float32)).to(CARD)
+    statuses = torch.full((b, t_obs + 1), CONVERTING, device=CARD)
+    feats, _ = stream_features(progress, statuses)
+    status_oh = one_hot(statuses[:, -1], NUM_STATUSES)
+    dh = dims["dim"] // dims["heads"]
+    hkv = dims["kv_heads"]
+    report = {}
+    cells = (("dp=4", (4,), ("dp",), "full", False), ("dp=4 tp=2", (4, 2), ("dp", "tp"), "full",
+                                                       True),
+             ("dp=4 flash", (4,), ("dp",), "flash", False))
+    for name, shape, names, attention, megatron in cells:
+        model = models[attention]
+        mesh = card_mesh(shape, names)
+        specs = seq_state_shardings(model, mesh) if megatron else None
+        params = serving_params(model, mesh, specs)
+        tp = shape[1] if megatron else 1
+        pre = sharded_prefill(model, mesh, t_obs + horizon, params_shardings=specs)
+        step = sharded_decode_step(model, mesh, params_shardings=specs)
+
+        # the unsharded oracle: teacher-forced rollout and the forecast
+        with torch.no_grad():
+            _, cache = prefill(model, feats[:, :split], t_obs)
+            want_tf = []
+            for i in range(split, t_obs):
+                p, cache = decode_step(model, cache, feats[:, i])
+                want_tf.append(p)
+            want_tf = torch.stack(want_tf, 1)
+            want_d = forecast_deltas(model, progress, statuses, horizon)
+        future = (progress[:, -1:] + torch.cumsum(want_d, -1)).flatten().sort().values
+        gaps = future.diff()
+        lo, hi = len(gaps) // 4, 3 * len(gaps) // 4
+        k = lo + int(torch.argmax(gaps[lo:hi]))
+        target = float((future[k] + future[k + 1]) / 2)
+        want_eta, want_reached = forecast_eta(model, progress, statuses, horizon, target)
+        del cache
+
+        def teacher_forced():
+            _, cache = pre(params, feats[:, :split])
+            out = []
+            for i in range(split, t_obs):
+                p, cache = step(params, cache, feats[:, i])
+                out.append(p)
+            return torch.stack(out, 1), cache
+
+        (got_tf, cache), syncs_tf = count_syncs(torch, teacher_forced)
+        shards = {tuple(kk.shape) for layer in cache.keys + cache.values for kk in layer}
+        want_shard = (b // shape[0], hkv // tp, t_obs + horizon, dh)
+        check(shards == {want_shard}, f"sharded serving {name}: cache shards {shards}, "
+              f"expected {want_shard}")
+        check(all(len(layer) == mesh.size for layer in cache.keys),
+              f"sharded serving {name}: not one cache shard a member")
+        del cache
+        rtol, atol = SHARD_BAND
+        excess = float(((got_tf - want_tf).abs() - (atol + rtol * want_tf.abs())).max())
+        check(excess <= 0, f"sharded serving {name}: teacher-forced rollout outside the band "
+              f"(rtol {rtol}, atol {atol}) by {excess}")
+
+        fn = sharded_forecast_eta(model, mesh, horizon, target, params_shardings=specs)
+        ((eta, reached), syncs_eta), counts, _ = counted_flash(
+            torch, fa, lambda: count_syncs(torch, lambda: fn(params, progress, statuses)))
+        check(torch.equal(eta, want_eta) and torch.equal(reached, want_reached),
+              f"sharded serving {name}: eta {eta.tolist()} reached {reached.tolist()} vs "
+              f"unsharded {want_eta.tolist()} {want_reached.tolist()}")
+        check(syncs_tf == 0 and syncs_eta == 0,
+              f"sharded serving {name}: {syncs_tf} / {syncs_eta} synchronising calls")
+        want_counts = (dims["layers"] * mesh.size if attention == "flash" else 0, 0, 0)
+        check(counts == want_counts, f"sharded serving {name}: flash launches {counts}, "
+              f"expected {want_counts}")
+
+        # the forecast's own deltas through the public sharded steps: bits
+        deltas = []
+        delta, cache = pre(params, feats)
+        for _ in range(horizon):
+            deltas.append(delta)
+            delta, cache = step(params, cache, torch.cat([delta[:, None], status_oh], -1))
+        deltas = torch.stack(deltas, 1)
+        differ = int((deltas != want_d).sum())
+        tf_differ = int((got_tf != want_tf).sum())
+        del cache
+        report[name] = dict(
+            cache_shard=want_shard, teacher_forced_max_abs=float((got_tf - want_tf).abs().max()),
+            teacher_forced_bits_differ=tf_differ, teacher_forced_total=got_tf.numel(),
+            band_excess=excess, target=target, eta=eta.tolist(), reached=reached.tolist(),
+            forecast_bits_differ=differ, forecast_total=deltas.numel(),
+            forecast_max_abs=float((deltas - want_d).abs().max()),
+            syncs=dict(teacher_forced=syncs_tf, forecast_eta=syncs_eta), launches=counts)
+        print(f"sharded serving {name}: cache shard {want_shard} x {mesh.size}; teacher-forced "
+              f"max |diff| {report[name]['teacher_forced_max_abs']:.3e} ({tf_differ} of "
+              f"{got_tf.numel()} differ in a bit); eta == unsharded at target {target:.4f} "
+              f"({int(reached.sum())} of {b} reached); forecast {differ} of {deltas.numel()} "
+              f"deltas differ in a bit (max {report[name]['forecast_max_abs']:.3e}); syncs "
+              f"{syncs_tf}/{syncs_eta}; flash launches {counts}", flush=True)
+    totals = [sum(c["launches"][k] for c in report.values()) for k in range(3)]
+    report["launches"] = dict(zip(("fwd", "dq", "dkv"), totals))
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"sharded serving path: flash launches {tuple(totals)}; wall {report['wall_s']:.2f} s",
+          flush=True)
+    return report
+
+
 def profile_step(torch, step):
     """torch.profiler over one training step: device time by kernel, the
     flash kernels' share of it, and the device's busy share of that
@@ -4305,6 +4667,8 @@ def main() -> None:
     # after every profiled gate: with this phase before it, the aggregation
     # gate's profiler read 4 kernel rows for 5 calls (ROADMAP.md C.10)
     training["parallel"] = parallel_path(torch)
+    training["pipeline"] = pipeline_path(torch)
+    record["sharded_serving"] = sharded_serving_path(torch)
 
     head = next(c for c in cases
                 if c["shape"] == "headline" and c["pool"] == "bf16" and c["window"] is None)
@@ -4337,9 +4701,11 @@ def main() -> None:
         "library_ms": wave["library_ms"],
     })
     train_case = next(c for c in flash_cases if c["case"] == "train")
-    # the sharded training path's flash launches (its ring cell's pairs in
-    # offset mode) join the training run's
-    parallel_launches = training["parallel"]["launches"]
+    # the sharded training, pipeline and sharded serving paths' flash
+    # launches (the ring cell's pairs in offset mode) join the training run's
+    parallel_launches = {k: training["parallel"]["launches"][k]
+                         + training["pipeline"]["launches"][k]
+                         + record["sharded_serving"]["launches"][k] for k in ("fwd", "dq", "dkv")}
     parallel_offsets = training["parallel"]["offset_launches"]
     for key, name, replaces, source in (
         ("fwd", "flash_forward", "beholder_tpu/ops/flash_attention.py:227", "flash_fwd.cu"),

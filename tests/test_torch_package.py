@@ -39,6 +39,7 @@ PORT_MODULES = [
     "beholder_tpu_torch.parallel.collectives",
     "beholder_tpu_torch.parallel.sharding",
     "beholder_tpu_torch.parallel.zero",
+    "beholder_tpu_torch.parallel.pipeline",
     "beholder_tpu_torch.ops.moe",
     "beholder_tpu_torch.spec",
     "beholder_tpu_torch.spec.verify",
@@ -91,6 +92,42 @@ print("ok")
 def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE.format(modules=PORT_MODULES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+#: the pipeline's and sharded serving's public names, as the reference's
+#: ``parallel/__init__.py`` and ``models/decode.py`` export them
+SLICE_NAMES = {
+    "beholder_tpu_torch.parallel": [
+        "pipeline_forward", "pipeline_train_step", "stack_stage_params", "stage_shardings",
+        "split_microbatches", "merge_microbatches", "bubble_fraction"],
+    "beholder_tpu_torch.models.decode": [
+        "cache_shardings", "sharded_prefill", "sharded_decode_step", "sharded_forecast_eta"],
+}
+
+_NAMES_PROBE = """
+import importlib, sys
+for blocked in ("jax", "jaxlib", "flax", "optax"):
+    sys.modules[blocked] = None
+for module, names in {names!r}.items():
+    m = importlib.import_module(module)
+    missing = [n for n in names if not callable(getattr(m, n, None))]
+    assert not missing, (module, missing)
+leaked = sorted(m for m in sys.modules
+                if m == "beholder_tpu" or m.startswith("beholder_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_pipeline_and_sharded_serving_names_import_without_jax():
+    """The pipeline's and sharded serving's names resolve with JAX absent,
+    and importing them pulls in nothing of the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NAMES_PROBE.format(names=SLICE_NAMES)],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
