@@ -5,7 +5,10 @@ sharded training steps built on them (dp x tp for the anomaly MLP; dp x tp x
 sp megatron with ring or Ulysses attention and ``seq_shard`` for the
 transformer; dp x ep for its MoE; ZeRO-2/3), pipeline parallelism over a
 ``pp`` axis (GPipe, 1F1B, dp x pp, tp inside the stages), and the serving
-cluster's worker placement. The multi-process runtime is not ported."""
+cluster's worker placement; and the multi-process runtime's entry
+(:func:`initialize`, a ``torch.distributed`` process group) with the hybrid
+``(dp, tp)`` mesh (:func:`make_hybrid_mesh`), whose mesh still spans one
+process (``parallel/distributed.py``)."""
 
 from .collectives import (
     all_gather,
@@ -19,6 +22,7 @@ from .collectives import (
     tp_all_reduce,
     tp_replicate,
 )
+from .distributed import initialize, make_hybrid_mesh
 from .mesh import (
     Mesh,
     ShardedState,
@@ -59,6 +63,8 @@ __all__ = [
     "gather_from_members",
     "gather_state",
     "group_mesh",
+    "initialize",
+    "make_hybrid_mesh",
     "make_mesh",
     "merge_microbatches",
     "param_shardings",

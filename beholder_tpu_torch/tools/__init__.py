@@ -1,0 +1,2 @@
+"""Operator and measurement tools of the port: the step-level serving
+profile (:mod:`.profile_serving`)."""

@@ -144,13 +144,23 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    horizon 128, on dp = 4, (dp, tp) = (4, 2) with megatron params and dp =
    4 with flash attention (cache shard shapes, a teacher-forced rollout in
    the reference's band, eta and reached equal to the unsharded
-   ``forecast_eta``, no synchronising call, prefill flash launches);
+   ``forecast_eta``, no synchronising call, prefill flash launches); then
+   the measurement tooling (``tooling_path``): the serving profile
+   (``beholder_tpu_torch.tools.profile_serving.main()`` at the reference's
+   defaults, the headline model at full width: five slope-timed numbers,
+   four latency probes, the paged decode kernel's launches exactly as
+   predicted, none of the chunk kernel, its artifact valid with the card in
+   its provenance) and the runtime entry (``parallel.initialize``: a no-op
+   without a coordinator, then a one-process NCCL group whose ``all_reduce``
+   is exact; ``make_hybrid_mesh`` on this card);
 8. output: a ``kernels`` JSON line (the three block-pair sites of the flash
    kernels as rows of their own), then the ``ok`` line last.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``
 and of one fused n-gram ``run_spec`` (a round's host time, readback wait,
-device time and chunk kernel time).
+device time and chunk kernel time), and, after the tooling phase, the
+serving profile's ``serve_wave`` against its ``paged_wave`` in rounds of
+turning order (``profile_wave_order``).
 ``--chunk-parent DIR`` adds, after the spec phase, the chunk kernel of
 another checkout (``DIR/beholder_tpu_torch/csrc/paged_chunk.cu``, e.g. the
 parent commit unpacked by ``git archive``) against this one's in one
@@ -165,7 +175,10 @@ import argparse
 import cProfile
 import json
 import logging
+import math
+import os
 import pstats
+import socket
 import statistics
 import subprocess
 import sys
@@ -4145,6 +4158,256 @@ def sharded_serving_path(torch) -> dict:
     return report
 
 
+#: the profile's slope timing (``tools/profile_serving.py::_slope``): a warm
+#: ``fn(2)``, two rounds at k = n1 and two at k = n2, so 2 + 2 n1 + 2 n2 calls
+#: of each timed function. n1 is the profiler's fixed 2; n2 is 6, not the
+#: reference's 10: at 10 the phase
+#: took 140 s of the script's time limit (H100 80GB HBM3, 700 W); the model's
+#: width and shapes stay the reference's
+PROFILE_N1, PROFILE_N2 = 2, 6
+PROFILE_CALLS = 2 + 2 * PROFILE_N1 + 2 * PROFILE_N2
+PROFILE_KEYS = ("serve_wave_program_ms", "wave_scan_program_ms", "us_per_tick",
+                "run_waves_host_path_ms", "dense_rollout_program_ms")
+PROFILE_RAW = ("profile.serve_wave", "profile.wave_scan", "profile.run_waves_host",
+               "profile.dense_rollout")
+
+
+def profile_decode_launches(cfg: dict) -> int:
+    """The paged decode kernel's launches in one ``profile_serving`` run:
+    ``serve_wave`` and ``paged_wave`` roll horizon - 1 ticks a call;
+    ``run_waves`` serves its ``slots`` requests as one wave, which
+    ``ContinuousBatcher._run_waves`` rolls horizon - 1 ticks, with one warm
+    call before its slope; the dense rollout launches none. One launch a
+    layer a tick."""
+    calls = 2 * PROFILE_CALLS + (1 + PROFILE_CALLS)
+    return cfg["layers"] * (cfg["horizon"] - 1) * calls
+
+
+def tooling_path(torch, card: str, profile_order: bool = False) -> dict:
+    """The measurement tooling and the runtime entry on the card. The
+    serving profile (``python -m beholder_tpu_torch.tools.profile_serving``,
+    run in-process through its ``main()`` at the reference's defaults, the
+    headline model at full width) with its artifact under
+    ``chiprun_out/artifacts``: five finite positive numbers, ``us_per_tick``
+    its formula, four finite positive probes, the decode kernel's launches
+    exactly :func:`profile_decode_launches`, no chunk launch, and the
+    artifact valid under the port's validator with four ``profile.*`` raw
+    entries of four samples and the card in its provenance. Then
+    ``parallel.initialize`` (a no-op without ``MASTER_ADDR``; a one-process
+    NCCL group on a free local port, whose ``all_reduce`` of a CUDA tensor
+    returns it unchanged) and ``make_hybrid_mesh`` on this card."""
+    import torch.distributed as dist
+
+    from beholder_tpu_torch import artifact
+    from beholder_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention,
+        paged_decode_attention,
+    )
+    from beholder_tpu_torch.parallel import initialize, make_hybrid_mesh
+    from beholder_tpu_torch.tools import profile_serving as ps
+
+    t_start = time.perf_counter()
+    cfg = ps.DEFAULTS
+    want_launches = profile_decode_launches(cfg)
+    out_dir = (OUT / "artifacts").resolve()
+    before = os.environ.get("BENCH_ARTIFACT_DIR")
+    os.environ["BENCH_ARTIFACT_DIR"] = str(out_dir)
+    torch.cuda.synchronize()
+    paged_decode_attention.launches = 0
+    paged_chunk_attention.launches = 0
+    try:
+        path = ps.main(n2=PROFILE_N2)
+    except Exception as err:  # noqa: BLE001 - the gate names it
+        fail(f"tooling: profile_serving.main raised {err!r}")
+    finally:
+        if before is None:
+            os.environ.pop("BENCH_ARTIFACT_DIR", None)
+        else:
+            os.environ["BENCH_ARTIFACT_DIR"] = before
+    torch.cuda.synchronize()
+    launches, chunk = paged_decode_attention.launches, paged_chunk_attention.launches
+    t_profile = time.perf_counter() - t_start
+
+    try:
+        obj = artifact.validate_file(path)
+    except ValueError as err:
+        fail(f"tooling: the profile artifact does not validate: {err}")
+    check(obj["outcome"] == "ok", f"tooling: artifact outcome {obj['outcome']!r}")
+    profile = obj["sections"]["serving_profile"]["result"]
+    probes = obj["sections"]["latency_probes"]["result"]
+    check(sorted(profile) == sorted(PROFILE_KEYS), f"tooling: profile keys {sorted(profile)}")
+    for key, value in {**profile, **probes}.items():
+        check(math.isfinite(value) and value > 0, f"tooling: {key} = {value}")
+    check(sorted(probes) == sorted(("eager_op_ms", "launch_ms", "h2d_8kb_ms",
+                                    "d2h_readback_ms")), f"tooling: probe keys {sorted(probes)}")
+    per_tick = profile["wave_scan_program_ms"] / (cfg["horizon"] - 1) * 1e3
+    check(profile["us_per_tick"] == per_tick,
+          f"tooling: us_per_tick {profile['us_per_tick']} != {per_tick}")
+    raw = {r["label"]: r for r in obj["raw_timings"]}
+    check(sorted(raw) == sorted(PROFILE_RAW) and len(obj["raw_timings"]) == len(PROFILE_RAW),
+          f"tooling: raw labels {[r['label'] for r in obj['raw_timings']]}")
+    for label, r in raw.items():
+        check(len(r["samples_s"]) == 4 and (r["k1"], r["k2"]) == (PROFILE_N1, PROFILE_N2),
+              f"tooling: {label} has {len(r['samples_s'])} samples at k {r['k1']}, {r['k2']}")
+    want_device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                   "count": torch.cuda.device_count()}
+    prov = obj["provenance"]
+    check(prov["device"] == want_device,
+          f"tooling: provenance device {prov['device']}, expected {want_device}")
+    card_w = float(card.rsplit(",", 1)[1].split()[0])
+    check(prov["power_limit_w"] == card_w,
+          f"tooling: provenance power_limit_w {prov['power_limit_w']}, nvidia-smi {card_w}")
+    check(launches == want_launches,
+          f"tooling: {launches} paged decode launches, predicted {want_launches}")
+    check(chunk == 0, f"tooling: {chunk} paged chunk launches, expected 0")
+    print("tooling profile: " + " ".join(f"{k}={profile[k]!r}" for k in PROFILE_KEYS),
+          flush=True)
+    print("tooling probes: " + " ".join(f"{k}={v!r}" for k, v in probes.items()), flush=True)
+    print(f"tooling artifact {path}: valid, outcome ok, raw {len(raw)} x 4 samples, "
+          f"provenance {prov['device']} {prov['power_limit_w']} W torch {prov['torch']} "
+          f"cuda {prov['cuda']}; decode launches {launches} (predicted {want_launches}), "
+          f"chunk launches {chunk}; profile wall {t_profile:.2f} s", flush=True)
+
+    # the runtime entry: a no-op without a coordinator, then one process
+    t0 = time.perf_counter()
+    addr = os.environ.pop("MASTER_ADDR", None)
+    try:
+        initialize()
+        check(not dist.is_initialized(), "tooling: initialize() without MASTER_ADDR joined a group")
+    finally:
+        if addr is not None:
+            os.environ["MASTER_ADDR"] = addr
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0, timeout_s=120)
+    try:
+        backend = dist.get_backend()
+        x = torch.arange(4096, dtype=torch.float32, device=CARD) * 0.5 - 7.25
+        y = x.clone()
+        dist.all_reduce(y)
+        torch.cuda.synchronize()
+        exact = torch.equal(y, x)
+        world = dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+    check(backend == "nccl" and world == 1, f"tooling: group {backend}, world size {world}")
+    check(exact, "tooling: a one-process all_reduce changed its tensor")
+    check(not dist.is_initialized(), "tooling: the process group outlived destroy")
+    mesh = make_hybrid_mesh(ici_tp=1)
+    check(mesh.grid.shape == (1, 1) and mesh.axis_names == ("dp", "tp")
+          and mesh.devices == (torch.device("cuda:0"),),
+          f"tooling: make_hybrid_mesh(1) {mesh.grid.shape} {mesh.axis_names} {mesh.devices}")
+    try:
+        make_hybrid_mesh(ici_tp=2)
+        fail("tooling: make_hybrid_mesh(ici_tp=2) on one card did not raise")
+    except ValueError as err:
+        check("does not divide" in str(err), f"tooling: make_hybrid_mesh(2) raised {err}")
+    t_runtime = time.perf_counter() - t0
+    wall = time.perf_counter() - t_start
+    print(f"tooling runtime: initialize() no-op; {backend} world {world} on tcp://127.0.0.1:{port}, "
+          f"all_reduce exact, destroyed; make_hybrid_mesh(1) {mesh.grid.shape} "
+          f"{mesh.axis_names}, (2) refused; {t_runtime:.2f} s", flush=True)
+    print(f"tooling path: wall {wall:.2f} s", flush=True)
+    out = dict(profile=profile, probes=probes, artifact=str(path), launches=launches,
+               chunk_launches=chunk, predicted_launches=want_launches,
+               provenance=prov, profile_wall_s=t_profile, runtime_wall_s=t_runtime,
+               wall_s=wall)
+    if profile_order:
+        out["order"] = profile_wave_order(torch)
+    return out
+
+
+def profile_wave_order(torch, rounds: int = 4, k2: int = 6) -> dict:
+    """``serve_wave`` against ``paged_wave`` alone, set up as
+    ``profile_serving`` sets them up: ``rounds`` rounds, the order turned
+    each round, of k = 2 and ``k2`` chained calls and one readback, each
+    with its wall and thread CPU seconds and both slopes; then one
+    profiled call of each (launches, device ms, and its busy share of the
+    wall slope)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from beholder_tpu_torch.device import to_device
+    from beholder_tpu_torch.models import TelemetrySequenceModel
+    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
+    from beholder_tpu_torch.models.sequence import FEATURES
+    from beholder_tpu_torch.models.serving import (
+        init_paged,
+        paged_admit_batch,
+        paged_wave,
+        serve_wave,
+    )
+    from beholder_tpu_torch.ops import NUM_STATUSES
+    from beholder_tpu_torch.tools import profile_serving as ps
+
+    cfg = ps.DEFAULTS
+    t, horizon, slots = cfg["t"], cfg["horizon"], cfg["slots"]
+    model = TelemetrySequenceModel(dim=cfg["dim"], heads=cfg["heads"], kv_heads=cfg["kv_heads"],
+                                   layers=cfg["layers"], device=CARD)
+    load_flax_params(model, init_params(model, seed=0, bf16_matrices=True))
+    dev = model.device
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        pstate0 = init_paged(model, cfg["num_pages"], cfg["page_size"], slots,
+                             cfg["max_pages_per_seq"])
+        feats = to_device(rng.normal(size=(slots, t, FEATURES)).astype(np.float32), dev)
+        lens = torch.full((slots,), t, dtype=torch.int32, device=dev)
+        stats = torch.full((slots,), ps.CONVERTING, dtype=torch.int32, device=dev)
+        pred0, pstate1 = paged_admit_batch(
+            model, pstate0, torch.arange(slots, dtype=torch.int32, device=dev), feats, lens)
+        pred0 = pred0.float()
+        oh = torch.zeros((slots, NUM_STATUSES), device=dev)
+
+        def serve(k):
+            s, d = pstate0, None
+            for _ in range(k):
+                d, s = serve_wave(model, s, feats, lens, stats, horizon - 1)
+            return d
+
+        def wave(k):
+            d = None
+            for _ in range(k):
+                d, _ = paged_wave(model, pstate1, pred0, oh, horizon - 1)
+            return d
+
+        fns = {"serve_wave": serve, "paged_wave": wave}
+        samples = {name: [] for name in fns}
+        for fn in fns.values():
+            float(fn(2)[0, 0])
+        for r in range(rounds):
+            for name in (fns if r % 2 == 0 else list(fns)[::-1]):
+                for k in (2, k2):
+                    torch.cuda.synchronize()
+                    c0, t0 = time.thread_time(), time.perf_counter()
+                    float(fns[name](k)[0, 0])
+                    samples[name].append(dict(round=r, k=k, wall_s=time.perf_counter() - t0,
+                                              cpu_s=time.thread_time() - c0))
+        out = {}
+        for name, xs in samples.items():
+            def slope(key):
+                lo = min(x[key] for x in xs if x["k"] == 2)
+                return (min(x[key] for x in xs if x["k"] == k2) - lo) / (k2 - 2) * 1e3
+
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                float(fns[name](1)[0, 0])
+            events = prof.key_averages()
+            device_ms = sum(dev_us(e) for e in device_rows(events)) / 1e3
+            launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
+            wall_ms = slope("wall_s")
+            out[name] = dict(samples=samples[name], slope_wall_ms=wall_ms,
+                             slope_cpu_ms=slope("cpu_s"), launches=launches,
+                             device_ms=device_ms, busy=device_ms / wall_ms)
+            k6 = [x["wall_s"] for x in xs if x["k"] == k2]
+            print(f"wave order {name}: slope {wall_ms!r} ms wall, "
+                  f"{out[name]['slope_cpu_ms']!r} ms thread CPU; k={k2} rounds "
+                  f"{[round(v, 3) for v in k6]} s (max/min {max(k6) / min(k6):.3f}); "
+                  f"one call {launches} launches, device {device_ms!r} ms "
+                  f"(busy {device_ms / wall_ms:.3f} of the slope)", flush=True)
+    return out
+
+
 def profile_step(torch, step):
     """torch.profiler over one training step: device time by kernel, the
     flash kernels' share of it, and the device's busy share of that
@@ -4669,6 +4932,7 @@ def main() -> None:
     training["parallel"] = parallel_path(torch)
     training["pipeline"] = pipeline_path(torch)
     record["sharded_serving"] = sharded_serving_path(torch)
+    record["tooling"] = tooling_path(torch, card, profile_order=args.profile)
 
     head = next(c for c in cases
                 if c["shape"] == "headline" and c["pool"] == "bf16" and c["window"] is None)
@@ -4677,7 +4941,7 @@ def main() -> None:
         "route": "cuda",
         "source": "beholder_tpu_torch/csrc/paged_decode.cu",
         "replaces": "beholder_tpu/ops/paged_attention.py:154",
-        "launches": sum(v["launches"] for v in paths),
+        "launches": sum(v["launches"] for v in paths) + record["tooling"]["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -4692,7 +4956,8 @@ def main() -> None:
         "route": "cuda",
         "source": "beholder_tpu_torch/csrc/paged_chunk.cu",
         "replaces": "beholder_tpu/ops/paged_attention.py:567",
-        "launches": sum(v["chunk_launches"] for v in paths),
+        "launches": sum(v["chunk_launches"] for v in paths)
+        + record["tooling"]["chunk_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in chunk_cases),
         "ms": wave["ms"],
         "plain_ms": wave["plain_ms"],

@@ -40,6 +40,7 @@ PORT_MODULES = [
     "beholder_tpu_torch.parallel.sharding",
     "beholder_tpu_torch.parallel.zero",
     "beholder_tpu_torch.parallel.pipeline",
+    "beholder_tpu_torch.parallel.distributed",
     "beholder_tpu_torch.ops.moe",
     "beholder_tpu_torch.spec",
     "beholder_tpu_torch.spec.verify",
@@ -58,6 +59,9 @@ PORT_MODULES = [
     "beholder_tpu_torch.obs",
     "beholder_tpu_torch.obs.recorder",
     "beholder_tpu_torch.obs.roofline",
+    "beholder_tpu_torch.artifact",
+    "beholder_tpu_torch.tools",
+    "beholder_tpu_torch.tools.profile_serving",
     "beholder_tpu_torch.cluster",
     "beholder_tpu_torch.cluster.pool",
     "beholder_tpu_torch.cluster.instruments",
