@@ -25,7 +25,8 @@ Catalog (all appear only when a cluster scheduler gets a registry):
   that failed terminally (bounded retry exhausted)
 - ``beholder_cluster_routes_total{reason}`` — counter: routing
   decisions by reason (``pressure`` / ``round_robin`` / ``only_shard``
-  / ``rebalance``)
+  / ``rebalance``, and with a control plane ``control_tail_avoid`` /
+  ``control_deadline``)
 - ``beholder_cluster_requests_total{shard}`` — counter: requests fully
   served, attributed to the shard that decoded them
 

@@ -57,6 +57,14 @@ class ShardedPoolView:
             raise ValueError("a cluster needs at least one shard pool")
         self.shards = shards
 
+    @property
+    def total_pages(self) -> int:
+        return sum(s.num_pages for s in self.shards)
+
+    @property
+    def total_free(self) -> int:
+        return sum(s.free for s in self.shards)
+
     def least_pressure(self, pools: list[ShardPool] | None = None) -> ShardPool:
         """The shard with the most free pages, over every shard or the
         ``pools`` subset (failover routes over up shards only). Ties break

@@ -34,6 +34,14 @@ batcher's bits.
   contiguous block of ``group.size`` devices, named ``decode-g<id>``;
   prefill workers and a fabric standby stay single-device, placed after the
   blocks.
+- **Control plane** (``control_plane=``, a
+  :class:`~beholder_tpu_torch.control.policy.ControlPlane`): each shard's
+  intake is the plane's tenant-fair queue (a preempted request resolves to
+  a ``Preempted`` outcome in its admission-order slot), spec shards shed
+  draft length under burn, routing consults the plane's tail and deadline
+  policy (``control_tail_avoid`` / ``control_deadline`` routes), and
+  ``run_pending`` evaluates the autoscaler between serves. Without one,
+  routing, intakes and the shard count are exactly the plain cluster's.
 
 The scheduler is single-controller: one process drives every worker, each
 worker's tensors live on its device, and a tensor moves with
@@ -45,9 +53,6 @@ Instruments are host-side only (no device reads): cluster series register
 only when a registry is wired, ``route``/``transfer``/``prefill`` are
 recorder-only events, and per-shard shed attribution rides each shard's
 uniquely named intake (``beholder_intake_shed_total{queue, reason}``).
-
-Not ported yet: the control plane (``control_plane=``), which raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -110,8 +115,6 @@ class ClusterScheduler:
         from beholder_tpu_torch.parallel.mesh import serving_shard_devices
         from beholder_tpu_torch.reliability.policy import RetryPolicy
 
-        if control_plane is not None:
-            raise NotImplementedError("the control plane is not ported yet (ROADMAP A.1)")
         self.cluster = cluster
         self.model = model
         self.flight_recorder = flight_recorder
@@ -121,6 +124,8 @@ class ClusterScheduler:
         self._spec = spec
         self._devices = devices
         self._batcher_kwargs = dict(batcher_kwargs)
+        #: the SLO-acting control plane (None: the plain cluster)
+        self.control_plane = control_plane
         #: the model per device: shards on one device share it
         self._models: dict[str, object] = {}
         self._registry = getattr(metrics, "registry", metrics) if metrics is not None else None
@@ -251,8 +256,7 @@ class ClusterScheduler:
         # the router owns the shard intakes: queued items are (submit
         # sequence, request) pairs, so run_pending() hands results back in
         # admission order across the cluster
-        batcher.intake = IntakeQueue(
-            self.cluster.max_pending_per_shard,
+        intake_kwargs = dict(
             max_cost=(
                 self.cluster.max_pending_pages_per_shard
                 if self.cluster.max_pending_pages_per_shard is not None
@@ -263,7 +267,38 @@ class ClusterScheduler:
             name=f"cluster.{pool.name}",
             labelled_sheds=True,
         )
+        if self.control_plane is not None:
+            # tenant-fair admission: the intake drains in weighted DRR order
+            # and preempts over-share tenants under pressure
+            batcher.intake = self.control_plane.intake(
+                self.cluster.max_pending_per_shard,
+                on_preempt=self._make_on_preempt(pool), **intake_kwargs,
+            )
+            if self._spec is not None:
+                self.control_plane.attach_spec(batcher)
+        else:
+            batcher.intake = IntakeQueue(self.cluster.max_pending_per_shard, **intake_kwargs)
         return _Shard(pool, batcher, batcher.intake)
+
+    def _make_on_preempt(self, pool):
+        """Preemption for one shard's tenant-fair intake: release the
+        submit-time reservation, park a ``Preempted`` outcome in the
+        request's admission-order slot, and emit ``req.dropped`` carrying
+        the tenant (the request never claimed, so the SLO tracker has no
+        open entry to read it from)."""
+
+        def on_preempt(item, tenant):
+            from beholder_tpu_torch.control.admission import Preempted
+
+            seq, request = item
+            pool.release(self._need(request))
+            self._pending_drops[seq] = Preempted(tenant)
+            if self.flight_recorder is not None:
+                tenant_note = {"tenant": tenant} if tenant is not None else {}
+                self.flight_recorder.instant("req.dropped", gid=f"s{seq}",
+                                             reason="tenant_preempted", **tenant_note)
+
+        return on_preempt
 
     def scale_up(self) -> _Shard:
         """Spawn one decode shard on the next device in the cycle, routable
@@ -363,14 +398,30 @@ class ClusterScheduler:
             self.flight_recorder.record("route", ts_s, dur_s, worker=shard.pool.name,
                                         reason=reason, need=int(need))
 
-    def _route(self, need: int) -> _Shard:
+    def _route(self, need: int, request=None) -> _Shard:
         """Pick the shard for one request of worst-case ``need`` pages and
-        record the decision. Under failover only up shards are
-        candidates."""
+        record the decision. Under failover only up shards are candidates.
+        With a control plane whose routing is armed, placement consults
+        :meth:`~beholder_tpu_torch.control.policy.ControlPlane.route_shard`;
+        its overrides are counted as ``control_tail_avoid`` /
+        ``control_deadline``, and where it only agrees with plain pressure a
+        round-robin cluster keeps round-robining."""
         ts = time.time()
         t0 = time.perf_counter()
         candidates = self._routable()
-        if len(candidates) == 1:
+        controlled = None
+        if self.control_plane is not None and len(candidates) > 1:
+            controlled = self.control_plane.route_shard(candidates, need, request)
+            if (
+                controlled is not None
+                and controlled[1] == "pressure"
+                and self.cluster.route_policy == ROUTE_ROUND_ROBIN
+            ):
+                controlled = None
+        if controlled is not None:
+            shard, control_reason = controlled
+            reason = "pressure" if control_reason == "pressure" else f"control_{control_reason}"
+        elif len(candidates) == 1:
             shard, reason = candidates[0], "only_shard"
         elif self.cluster.route_policy == ROUTE_ROUND_ROBIN:
             shard = candidates[self._rr % len(candidates)]
@@ -473,7 +524,7 @@ class ClusterScheduler:
                         # hold falls through to the batcher's own error
                         out[key] = fo.drop(SHED_SHARD_DOWN, key=gid_of.get(key))
                         continue
-                shard = self._route(need)
+                shard = self._route(need, request=req)
                 shard.pool.reserve(need)
                 assignments[shard.pool.shard_id].append((key, req, need))
             pending = []
@@ -577,7 +628,7 @@ class ClusterScheduler:
                     else SHED_OVERSIZED
                 )
                 return fo.shed(reason)
-        shard = self._route(need)
+        shard = self._route(need, request=request)
         batcher = shard.batcher
         if need > batcher.num_pages or need > batcher.max_pages_per_seq:
             # unservable at any load (the batcher's own submit rule)
@@ -595,7 +646,12 @@ class ClusterScheduler:
         With failover the drain goes through the recovery-aware loop
         instead: queued work on a down shard moves to survivors, and items
         nothing can hold (and drain-time drops) resolve to explicit
-        ``Dropped`` outcomes in their admission-order positions."""
+        ``Dropped`` outcomes in their admission-order positions; preempted
+        requests (a control plane's intakes) to ``Preempted`` outcomes, in
+        either mode. With a control plane the autoscaler is evaluated
+        first, between serves, against settled pools."""
+        if self.control_plane is not None:
+            self.control_plane.evaluate_scaling(self)
         if self.failover is not None:
             return self._run_pending_failover()
         self._rebalance()

@@ -4,12 +4,15 @@
 :mod:`.roofline` measures the device's ceilings and tags each dispatch with
 its achieved fraction of them. Both are off unless a
 ``ContinuousBatcher(flight_recorder=...)`` is built with one.
+:mod:`.timeline` folds the recorder's events into per-request timelines
+and :mod:`.slo` keeps streaming latency digests and error-budget burn
+(:class:`SLOTracker`, a recorder listener the control plane reads).
 :func:`register_build_info` labels a registry with the build: the artifact
 schema version (:mod:`beholder_tpu_torch.artifact`), the package version
 and the torch version (the reference's label is ``jax_version``).
 
-Not ported: the reference's SLO tracker, timelines fold, sentinel,
-retention vault and flight plane, and ``flight_recorder_from_config``.
+Not ported: the reference's sentinel, retention vault and flight plane,
+and ``flight_recorder_from_config``.
 """
 
 from .recorder import (
@@ -25,18 +28,40 @@ from .roofline import (
     attribution_summary,
     model_flops_per_token,
 )
+from .slo import (
+    LatencyDigest,
+    P2Quantile,
+    SLOConfig,
+    SLOTracker,
+    slo_from_config,
+)
+from .timeline import (
+    RequestTimeline,
+    TimelineReport,
+    build_timelines,
+    phase_walls,
+)
 
 __all__ = [
     "DEFAULT_RING_SIZE",
     "FlightRecorder",
+    "LatencyDigest",
+    "P2Quantile",
     "PHASE_FAMILIES",
+    "RequestTimeline",
     "RooflineAttributor",
+    "SLOConfig",
+    "SLOTracker",
+    "TimelineReport",
     "WORKER_TID_BASE",
     "attribution_summary",
+    "build_timelines",
     "chrome_trace",
     "model_flops_per_token",
     "parse_cursor",
+    "phase_walls",
     "register_build_info",
+    "slo_from_config",
 ]
 
 

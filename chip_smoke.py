@@ -72,7 +72,17 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    ids on every recorded event, a default ``RooflineAttributor()``
    measuring in the background (synchronising calls those of the bare
    path), and the armed ``run_pending`` -> ``run`` beside a bare ``run``
-   in tokens/s, ten alternating pairs; then the serving cluster
+   in tokens/s, ten alternating pairs; then the SLO tracker and the control
+   plane (``control_path``): a tenant-skew replay (12 flood requests ahead
+   of 2 victim ones) served FIFO and tenant-fair in three interleaved
+   passes each (claim order: DRR claims both victims in the first round,
+   FIFO after 8 or more flood claims; streams bitwise equal; the tracker's
+   tenant counts those of the timelines fold; p95 claim-relative first
+   token ms), a spec batcher shedding its draft length under injected burn
+   (bitwise spec off), an autoscaled cluster (up under burn and pressure,
+   served on 2 shards, down by a drain through ``ScalingEvaluator``,
+   bitwise one batcher) and tail and deadline routing (each counted once,
+   bitwise one batcher); then the serving cluster
    (``cluster_path``, ``beholder_tpu_torch.cluster``, every worker on this
    card): ``bench_cluster``'s 16-request trace through one batcher, a
    colocated and a disaggregated ``ClusterScheduler`` (streams bitwise,
@@ -1437,6 +1447,7 @@ def main_path(torch, profile: bool = False) -> dict:
                             run_streams, profile))
     report.update(intake_path(torch, model, layers, run_reqs, want_run, prefix_reqs,
                               want_prefix))
+    report.update(control_path(torch, model, layers, run_reqs))
     report.update(cluster_path(torch, model, layers))
     return report
 
@@ -2256,6 +2267,403 @@ def batcher_home(where, b) -> None:
     check(int(b.state.free_top) == b.num_pages,
           f"{where}: free_top {int(b.state.free_top)} != {b.num_pages}")
     check(int(b.state.page_ref.sum()) == 0, f"{where}: refs left")
+
+
+#: the control cell's tenant-skew replay (``bench_control``'s scenario at the
+#: headline geometry): 12 flood requests ahead of 2 victim ones, 256-step
+#: prefixes, horizon 32, 3 pages each worst case (8 slots hold 24 of 32)
+CONTROL_SKEW = dict(heavy_n=12, victim_n=2, prefix_t=256, horizon=32)
+#: interleaved FIFO / DRR passes of the replay (medians over them)
+CONTROL_PASSES = 3
+#: the autoscale leg's knobs (``bench_control``'s, on an injected clock)
+CONTROL_AUTOSCALE = dict(min_shards=1, max_shards=2, up_burn=1.0, up_pressure=0.3,
+                         down_burn=0.5, down_pressure=0.2, sustain_s=1.0, cooldown_s=0.0)
+#: calls timed for the plane's host cost on the submit path
+CONTROL_TIMED_CALLS = 2000
+
+
+def claim_rounds(events) -> list[tuple[int, str | None]]:
+    """``(admission round, tenant)`` of every ``req.claim`` in ring order:
+    a round's ``claim`` slice is recorded after its claims, so a claim
+    belongs to the round of the next slice that claimed something."""
+    out, rnd = [], 0
+    for e in events:
+        if e["name"] == "claim" and e["ph"] == "X" and e["args"].get("claimed"):
+            rnd += 1
+        elif e["name"] == "req.claim":
+            out.append((rnd, e["args"].get("tenant")))
+    return out
+
+
+def control_path(torch, model, layers, run_reqs) -> dict:
+    """The SLO tracker and the control plane
+    (``beholder_tpu_torch.obs.slo``, ``beholder_tpu_torch.control``) on the
+    headline model. Every serving call's launches are counted.
+
+    a. tenant skew (``control.replay.tenant_skew(**CONTROL_SKEW)``) through
+       one batcher, ``run_pending(waves=False)``, FIFO (``IntakeQueue``) and
+       tenant-fair (``ControlPlane`` intake, victim weight 4) in
+       ``CONTROL_PASSES`` interleaved passes, each after a warm-up of 6
+       requests and a cleared ring, an ``SLOTracker`` listening: under DRR
+       both victim requests claim in the first admission round, under FIFO
+       after at least 8 flood claims (the ``req.claim`` order); every
+       stream bitwise equal across passes and policies; the tracker's
+       tenant TTFT counts those of ``build_timelines``; admitted 12 flood
+       and 2 victim; decode launches == layers x ticks; pages home; the
+       victim's and the flood's p95 claim-relative first-token ms;
+    b. k-shed: a fused-verify spec batcher (``max_draft=4``, replaying spec
+       off's stream) with ``SpecShedConfig(burn_threshold=2.0, shed_to=0)``
+       on an injected clock: no shed while healthy, sheds after 20
+       observations of 5 s against a 10 ms objective; streams bitwise spec
+       off; chunk launches == layers x verify rounds, no decode launch;
+    c. autoscale: a 1-shard failover cluster at ``CLUSTER``'s geometry with
+       ``AutoscaleConfig(**CONTROL_AUTOSCALE)`` on an injected clock: burn
+       and pressure scale up, ``run_pending`` serves on 2 shards, calm
+       drains one (evaluated by ``ScalingEvaluator.poll_once`` on this
+       thread: one evaluation, no error); ``scale_log`` up then down;
+       streams bitwise one batcher; pages home;
+    d. routing: 2 shards with ``RoutingConfig`` armed, decode-0's digest
+       inflated by injected observations: one request routes
+       ``control_tail_avoid``, one with a deadline inside its slack
+       ``control_deadline``; streams bitwise one batcher; the same cluster
+       without a plane routes ``pressure`` twice with the same streams.
+    Then the plane's host cost per ``route_shard`` and ``evaluate_scaling``
+    call, and the control block recorded in an artifact (validated)."""
+    from beholder_tpu_torch import artifact
+    from beholder_tpu_torch.cluster import ClusterConfig, FailoverConfig
+    from beholder_tpu_torch.cluster.router import ClusterScheduler
+    from beholder_tpu_torch.control import (
+        AutoscaleConfig,
+        ControlConfig,
+        ControlPlane,
+        RoutingConfig,
+        ScalingEvaluator,
+        SpecShedConfig,
+        TenantPolicy,
+    )
+    from beholder_tpu_torch.control.replay import replay, tenant_skew
+    from beholder_tpu_torch.metrics import Registry
+    from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
+    from beholder_tpu_torch.obs import FlightRecorder, SLOConfig, SLOTracker, build_timelines
+    from beholder_tpu_torch.reliability import Deadline
+    from beholder_tpu_torch.reliability.shed import IntakeQueue
+    from beholder_tpu_torch.spec import SpecConfig
+    from beholder_tpu_torch.spec.drafter import NullDrafter
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    tally = {"launches": 0, "chunk_launches": 0}
+
+    def run_counted(fn):
+        result, syncs, decode, chunk = counted(torch, fn)
+        tally["launches"] += decode
+        tally["chunk_launches"] += chunk
+        return result, syncs, decode, chunk
+
+    def bitwise(where, got, want):
+        differ, worst = stream_diff(got, want)
+        check(differ == 0, f"{where}: {differ} tokens differ (largest {worst:.3e})")
+
+    # a. tenant skew, FIFO against DRR
+    scn = tenant_skew(**CONTROL_SKEW)
+    reqs = [a.request for a in scn.arrivals]
+
+    def skew_pass(fair: bool) -> dict:
+        where = f"control/skew_{'drr' if fair else 'fifo'}"
+        ring = FlightRecorder(ring_size=8192)
+        b = ContinuousBatcher(model, **SERVE, flight_recorder=ring)
+        if fair:
+            plane = ControlPlane(ControlConfig(tenants={"victim": TenantPolicy(weight=4.0)}))
+            b.intake = plane.intake(64, cost_fn=b._need_pages)
+        else:
+            b.intake = IntakeQueue(64, cost_fn=b._need_pages)
+        for arrival in scn.arrivals[:6]:  # warm-up, as bench_control
+            b.submit(arrival.request)
+        run_counted(lambda: b.run_pending(waves=False))
+        ring.clear()
+        tracker = SLOTracker()
+        ring.add_listener(tracker.on_event)
+        # the drained order is the order of run_pending's results
+        drained, real = [], b.intake.drain_all
+
+        def drain_all(*a, **kw):
+            got = real(*a, **kw)
+            drained[:] = got[0]
+            return got
+
+        b.intake.drain_all = drain_all
+        ticks0 = b.ticks
+        rep, _, launches, chunk = run_counted(
+            lambda: replay(b, scn, recorder=ring, run_pending_kwargs={"waves": False}))
+        ticks = b.ticks - ticks0
+        check(launches == layers * ticks and chunk == 0,
+              f"{where}: {launches} decode launches for {ticks} ticks x {layers} layers, "
+              f"{chunk} chunk launches")
+        check(rep.admitted == {"flood": 12, "victim": 2}, f"{where}: admitted {rep.admitted}")
+        check(len(rep.results) == len(drained) == len(reqs)
+              and all(isinstance(r, np.ndarray) for r in rep.results),
+              f"{where}: {len(rep.results)} results for {len(reqs)} requests")
+        batcher_home(where, b)
+        by_req = {id(r): res for r, res in zip(drained, rep.results)}
+        streams = [by_req[id(r)] for r in reqs]
+        check(all(s_.shape == (r.horizon,) and np.isfinite(s_).all()
+                  for s_, r in zip(streams, reqs)), f"{where}: a stream is not finite or short")
+        events = ring.events()
+        claims = claim_rounds(events)
+        check(len(claims) == len(reqs), f"{where}: {len(claims)} req.claim instants")
+        victim_at = [i for i, (_, t) in enumerate(claims) if t == "victim"]
+        victim_rounds = [claims[i][0] for i in victim_at]
+        floods_before = [sum(1 for _, t in claims[:i] if t == "flood") for i in victim_at]
+        if fair:
+            check(victim_rounds == [0, 0],
+                  f"{where}: victim claims in admission rounds {victim_rounds}, expected the first")
+        else:
+            check(len(floods_before) == 2 and min(floods_before) >= 8,
+                  f"{where}: victim claims after {floods_before} flood claims, expected >= 8")
+        folded = build_timelines(events)
+        stats = tracker.tenant_stats()
+        for tenant in ("flood", "victim"):
+            offline = sum(1 for t in folded.timelines if t.tenant == tenant and t.ttft_s is not None)
+            streaming = stats.get(tenant, {}).get("ttft_ms", {}).get("count")
+            check(streaming == offline == rep.admitted[tenant],
+                  f"{where}: {tenant} TTFT count streaming {streaming}, offline {offline}")
+        return dict(report=rep, streams=streams, launches=launches, ticks=ticks,
+                    victim_rounds=victim_rounds, floods_before_victim=floods_before,
+                    claim_order=[t for _, t in claims])
+
+    passes = {"fifo": [], "drr": []}
+    for _ in range(CONTROL_PASSES):
+        passes["fifo"].append(skew_pass(fair=False))
+        passes["drr"].append(skew_pass(fair=True))
+    base = passes["fifo"][0]["streams"]
+    for side, runs in passes.items():
+        for i, p in enumerate(runs):
+            bitwise(f"control/skew {side} pass {i} vs fifo pass 0", p["streams"], base)
+    p95 = {side: {tenant: [p["report"].tenant_p95_ms(tenant) for p in runs]
+                  for tenant in ("victim", "flood")} for side, runs in passes.items()}
+    med = {side: {tenant: statistics.median(v) for tenant, v in by.items()}
+           for side, by in p95.items()}
+    victim_ratio = med["drr"]["victim"] / med["fifo"]["victim"]
+    tail_fairness = med["drr"]["victim"] / med["drr"]["flood"]
+    uncontrolled = med["fifo"]["victim"] / med["fifo"]["flood"]
+    skew_launches = sum(p["launches"] for runs in passes.values() for p in runs)
+    out = {"control/tenant_skew": dict(
+        launches=0, chunk_launches=0, replay_launches=skew_launches,
+        ticks=[p["ticks"] for runs in passes.values() for p in runs],
+        p95_ms=p95, median_p95_ms=med, victim_ttft_ratio=victim_ratio,
+        tail_fairness_ratio=tail_fairness, uncontrolled_fairness_ratio=uncontrolled,
+        admitted=passes["drr"][-1]["report"].admitted,
+        drr_claim_order=passes["drr"][0]["claim_order"],
+        fifo_claim_order=passes["fifo"][0]["claim_order"],
+        fifo_floods_before_victim=passes["fifo"][0]["floods_before_victim"])}
+    print(f"control tenant_skew: {len(reqs)} requests x {CONTROL_PASSES} passes a side; "
+          f"claim order DRR {''.join(t[0] for t in out['control/tenant_skew']['drr_claim_order'])} "
+          f"FIFO {''.join(t[0] for t in out['control/tenant_skew']['fifo_claim_order'])}; "
+          f"streams bitwise across passes and policies; p95 claim-relative first token ms "
+          f"(median of {CONTROL_PASSES}): victim FIFO {med['fifo']['victim']:.3f} DRR "
+          f"{med['drr']['victim']:.3f}, flood FIFO {med['fifo']['flood']:.3f} DRR "
+          f"{med['drr']['flood']:.3f}; victim_ttft_ratio={victim_ratio:.4f} "
+          f"tail_fairness_ratio={tail_fairness:.4f} uncontrolled={uncontrolled:.4f}; "
+          f"decode launches {skew_launches} in the replays (ticks "
+          f"{out['control/tenant_skew']['ticks']}); {card}", flush=True)
+
+    # b. k-shed under injected burn
+    off = ContinuousBatcher(model, **SERVE, fused_verify=True,
+                            spec=SpecConfig(max_draft=SPEC_MAX_DRAFT, drafter=NullDrafter()))
+    want_spec, _, _, _ = run_counted(lambda: off.run_spec(run_reqs))
+    clock = [0.0]
+    tracker = SLOTracker(SLOConfig(ttft_ms=10.0, target=0.9, fast_window_s=60.0),
+                         clock=lambda: clock[0])
+    registry = Registry()
+    shed_plane = ControlPlane(ControlConfig(spec=SpecShedConfig(burn_threshold=2.0, shed_to=0)),
+                              tracker=tracker, registry=registry)
+    sb = ContinuousBatcher(model, **SERVE, fused_verify=True,
+                           spec=SpecConfig(max_draft=SPEC_MAX_DRAFT,
+                                           drafter=replay_drafter(run_reqs, want_spec)))
+    shed_plane.attach_spec(sb)
+    shed = {}
+    for state in ("healthy", "burning"):
+        where = f"control/k_shed_{state}"
+        if state == "burning":
+            for _ in range(20):
+                tracker.observe(5.0)
+            check(tracker.burn_rate("fast") > 2.0, f"{where}: burn {tracker.burn_rate('fast')}")
+        rounds0, events0 = sb.verify_rounds, shed_plane.k_shed_events
+        with accept_spy() as spy:
+            got, syncs, launches, chunk = run_counted(lambda: sb.run_spec(run_reqs))
+        rounds, events = sb.verify_rounds - rounds0, shed_plane.k_shed_events - events0
+        check(launches == 0 and chunk == layers * rounds,
+              f"{where}: {chunk} chunk launches for {rounds} rounds x {layers} layers, "
+              f"{launches} decode launches")
+        bitwise(f"{where} vs spec off", got, want_spec)
+        batcher_home(where, sb)
+        if state == "healthy":
+            check(events == 0 and spy.accepted == spy.drafted > 0,
+                  f"{where}: {events} k-shed events, {spy.accepted} of {spy.drafted} accepted")
+        else:
+            check(events > 0 and spy.drafted == 0,
+                  f"{where}: {events} k-shed events, {spy.drafted} drafted under the cap")
+        shed[state] = dict(launches=launches, chunk_launches=chunk, rounds=rounds, syncs=syncs,
+                           k_shed_events=events, **spy.reading())
+    text = registry.render()
+    for line in (f"beholder_control_k_shed_total {shed['burning']['k_shed_events']}",
+                 "beholder_control_k_cap 0"):
+        check(line in text, f"control/k_shed: render() lacks {line!r}")
+    out["control/k_shed"] = dict(launches=0, chunk_launches=0, healthy=shed["healthy"],
+                                 burning=shed["burning"],
+                                 k_shed_events=shed_plane.k_shed_events)
+    print(f"control k_shed: healthy {shed['healthy']['rounds']} verify rounds, "
+          f"{shed['healthy']['accepted']} of {shed['healthy']['drafted']} drafts accepted, "
+          f"0 shed; burning (burn {tracker.burn_rate('fast'):.1f}) "
+          f"{shed['burning']['rounds']} rounds, k_shed_events="
+          f"{shed['burning']['k_shed_events']}, 0 drafted; chunk launches "
+          f"{shed['healthy']['chunk_launches']} + {shed['burning']['chunk_launches']} "
+          f"(layers x rounds), no decode launch; both bitwise spec off", flush=True)
+
+    # c. autoscale: burn + pressure up, calm down (a drain)
+    trace = cluster_trace(Request)
+    first, later = trace[:8], trace[8:10]
+    scale_clock = [0.0]
+    scale_tracker = SLOTracker(SLOConfig(ttft_ms=10.0, target=0.9, fast_window_s=30.0),
+                               clock=lambda: scale_clock[0])
+    scale_plane = ControlPlane(ControlConfig(autoscale=AutoscaleConfig(**CONTROL_AUTOSCALE)),
+                               tracker=scale_tracker, clock=lambda: scale_clock[0])
+    sched = ClusterScheduler(model, ClusterConfig(n_decode_workers=1, failover=FailoverConfig()),
+                             control_plane=scale_plane, **CLUSTER)
+    for _ in range(10):
+        scale_tracker.observe(5.0)
+    for r in first:
+        check(sched.submit(r).accepted, "control/autoscale: a request was shed")
+    check(scale_plane.evaluate_scaling(sched) is None, "control/autoscale: acted unsustained")
+    scale_clock[0] += 2.0
+    up = scale_plane.evaluate_scaling(sched)
+    check(up is not None and up["direction"] == "up" and len(sched.shards) == 2,
+          f"control/autoscale: {up}, {len(sched.shards)} shards")
+    ticks0 = [s.batcher.ticks for s in sched.shards]
+    got1, _, launches1, chunk1 = run_counted(sched.run_pending)
+    served_on = [s.pool.name for s, t0 in zip(sched.shards, ticks0) if s.batcher.ticks > t0]
+    check(served_on == ["decode-0", "decode-1"], f"control/autoscale: served on {served_on}")
+    scale_clock[0] += 60.0  # the bad window drains
+    scale_tracker.observe(0.001)
+    for r in later:
+        check(sched.submit(r).accepted, "control/autoscale: a later request was shed")
+    queued = [s.intake.depth for s in sched.shards]
+    check(scale_plane.evaluate_scaling(sched) is None, "control/autoscale: down unsustained")
+    scale_clock[0] += 2.0
+    evaluator = ScalingEvaluator(scale_plane, sched, interval_s=1.0)
+    t0 = time.perf_counter()
+    down = evaluator.poll_once()
+    drain_wall = time.perf_counter() - t0
+    check(evaluator.evaluations == 1 and evaluator.errors == 0,
+          f"control/autoscale: evaluator {evaluator.evaluations} evaluations, "
+          f"{evaluator.errors} errors")
+    check(down is not None and down["direction"] == "down",
+          f"control/autoscale: the calm evaluation gave {down}")
+    got2, _, launches2, chunk2 = run_counted(sched.run_pending)
+    check([e["direction"] for e in scale_plane.scale_log] == ["up", "down"],
+          f"control/autoscale: scale_log {scale_plane.scale_log}")
+    check(sched.failover.drains == 1, f"control/autoscale: {sched.failover.drains} drains")
+    single = ContinuousBatcher(model, **CLUSTER)
+    want, _, _, _ = run_counted(lambda: single.run(first + later))
+    bitwise("control/autoscale vs one batcher", got1 + got2, want)
+    pages_home("control/autoscale", sched.shards)
+    check(chunk1 == chunk2 == 0, f"control/autoscale: chunk launches {chunk1}, {chunk2}")
+    out["control/autoscale"] = dict(
+        launches=0, chunk_launches=0, serve_launches=[launches1, launches2], scale_log=list(
+            scale_plane.scale_log), queued_before_drain=queued, drain_wall_s=drain_wall,
+        migrated_pages=down["migrated_pages"], requeued=down["requeued"],
+        evaluator=dict(evaluations=evaluator.evaluations, errors=evaluator.errors))
+    print(f"control autoscale: scale_log {[e['direction'] for e in scale_plane.scale_log]} "
+          f"(up at burn {up['burn_fast']} pressure {up['pool_pressure']}, down at burn "
+          f"{down['burn_fast']} pressure {down['pool_pressure']}); served 8 on "
+          f"{served_on}; the drain of {down['worker']} (by ScalingEvaluator.poll_once: 1 "
+          f"evaluation, 0 errors) requeued {down['requeued']} (queued {queued}) and migrated "
+          f"{down['migrated_pages']} pages in {drain_wall * 1e3:.3f} ms; 10 streams bitwise "
+          f"one batcher; pages home", flush=True)
+
+    # d. routing: tail avoidance and deadline slack
+    def routed(plane):
+        reg = Registry()
+        cluster = ClusterScheduler(model, ClusterConfig(n_decode_workers=2), metrics=reg,
+                                   control_plane=plane, **CLUSTER)
+        plain, urgent = trace[10], trace[11]._replace(deadline=Deadline.after(20.0))
+        for r in (plain, urgent):
+            check(cluster.submit(r).accepted, "control/routing: a request was shed")
+        got, _, decode, chunk = run_counted(cluster.run_pending)
+        pages_home("control/routing", cluster.shards)
+        routes = {labels[0]: v for labels, v in reg.find("beholder_cluster_routes_total").items()}
+        return cluster, got, routes, reg.render(), (plain, urgent)
+
+    route_tracker = SLOTracker(SLOConfig(ttft_ms=30000.0))
+    for _ in range(20):
+        route_tracker.observe(0.010, worker="decode-0")
+        route_tracker.observe(0.010, worker="decode-1")
+    for _ in range(5):
+        route_tracker.observe(2.0, worker="decode-0")
+        route_tracker.observe(0.012, worker="decode-1")
+    ratios = {w: route_tracker.scope_tail_ratio(w) for w in ("decode-0", "decode-1")}
+    check(ratios["decode-0"] > 3.0 > ratios["decode-1"], f"control/routing: tail ratios {ratios}")
+    route_reg = Registry()
+    route_plane = ControlPlane(ControlConfig(routing=RoutingConfig(tail_threshold=3.0,
+                                                                   deadline_slack_s=30.0)),
+                               tracker=route_tracker, registry=route_reg)
+    cluster, got, routes, text, pair = routed(route_plane)
+    check(routes == {"control_tail_avoid": 1, "control_deadline": 1},
+          f"control/routing: routes {routes}")
+    for line in ('beholder_control_route_overrides_total{reason="tail_avoid"} 1',
+                 'beholder_control_route_overrides_total{reason="deadline"} 1'):
+        check(line in route_reg.render(), f"control/routing: render() lacks {line!r}")
+    _, plain_got, plain_routes, _, _ = routed(None)
+    check(plain_routes == {"pressure": 2}, f"control/routing: plain routes {plain_routes}")
+    want, _, _, _ = run_counted(lambda: ContinuousBatcher(model, **CLUSTER).run(list(pair)))
+    bitwise("control/routing vs one batcher", got, want)
+    bitwise("control/routing, no plane, vs one batcher", plain_got, want)
+    print(f"control routing: tail ratios {ratios['decode-0']:.3f} / {ratios['decode-1']:.3f}; "
+          f"routes {routes} (no plane: {plain_routes}); streams bitwise one batcher",
+          flush=True)
+
+    # the plane's host cost on the submit path (no actuation: one shard up,
+    # at min_shards, and calm)
+    candidates = cluster._routable()
+    t0 = time.perf_counter()
+    for _ in range(CONTROL_TIMED_CALLS):
+        route_plane.route_shard(candidates, 8, pair[0])
+    route_us = (time.perf_counter() - t0) / CONTROL_TIMED_CALLS * 1e6
+    t0 = time.perf_counter()
+    for _ in range(CONTROL_TIMED_CALLS):
+        scale_plane.evaluate_scaling(sched)
+    eval_us = (time.perf_counter() - t0) / CONTROL_TIMED_CALLS * 1e6
+    check(len(scale_plane.scale_log) == 2, "control: the timed evaluations actuated")
+    out["control/routing"] = dict(launches=0, chunk_launches=0, routes=routes,
+                                  plain_routes=plain_routes, tail_ratios=ratios,
+                                  route_shard_us=route_us, evaluate_scaling_us=eval_us)
+
+    summary = dict(victim_ttft_ratio=victim_ratio, tail_fairness_ratio=tail_fairness,
+                   uncontrolled_fairness_ratio=uncontrolled,
+                   admitted_by_tenant=passes["drr"][-1]["report"].admitted,
+                   shed_by_tenant={t: sum(r.values())
+                                   for t, r in passes["drr"][-1]["report"].shed.items()},
+                   k_shed_events=float(shed_plane.k_shed_events),
+                   scale_events=float(len(scale_plane.scale_log)))
+    rec = artifact.ArtifactRecorder("chip_smoke_control")
+    rec.record_control(summary)
+    path = rec.write(str((OUT / "artifacts" / "chip_smoke_control.json").resolve()))
+    try:
+        obj = artifact.validate_file(path)
+    except ValueError as err:
+        fail(f"control: the artifact does not validate: {err}")
+    check(obj["control"]["k_shed_events"] == summary["k_shed_events"],
+          f"control: artifact control block {obj['control']}")
+    wall = time.perf_counter() - t_phase
+    # the phase's launches ride on its first entry (the kernels line sums
+    # every serving entry's)
+    out["control/tenant_skew"].update(tally)
+    out["control/tenant_skew"]["phase_wall_s"] = wall
+    print(f"control plane cost: route_shard {route_us:.3f} us, evaluate_scaling "
+          f"{eval_us:.3f} us a call (mean of {CONTROL_TIMED_CALLS}); artifact {path} valid; "
+          f"phase launches decode {tally['launches']} chunk {tally['chunk_launches']}; "
+          f"phase {wall:.2f} s; {card}", flush=True)
+    return out
 
 
 def cluster_path(torch, model, layers) -> dict:

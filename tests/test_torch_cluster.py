@@ -51,6 +51,7 @@ from beholder_tpu_torch.cluster import (
     cluster_from_config,
 )
 from beholder_tpu_torch.cluster.router import ClusterScheduler
+from beholder_tpu_torch.control import ControlConfig, ControlPlane, TenantFairQueue
 from beholder_tpu_torch.metrics import Registry
 from beholder_tpu_torch.models import TelemetrySequenceModel
 from beholder_tpu_torch.models import serving as tsv
@@ -192,9 +193,10 @@ def test_cluster_from_config_matches_the_reference(tree):
 
 
 def test_unported_cluster_options_refuse(pair):
-    """The control plane is not ported and refuses; the fabric and decode
-    groups build (a group needs a device list it divides: the reference's
-    ``ValueError`` for a group larger than the devices)."""
+    """Every cluster option builds: a control plane (each shard's intake
+    its tenant-fair queue), the fabric and decode groups (a group needs a
+    device list it divides: the reference's ``ValueError`` for a group
+    larger than the devices)."""
     _, _, tm = pair
     for cfg in (ClusterConfig(fabric=FabricConfig()),
                 ClusterConfig(fabric=FabricConfig(standby=True))):
@@ -203,8 +205,10 @@ def test_unported_cluster_options_refuse(pair):
     cluster = ClusterScheduler(tm, ClusterConfig(group=GroupConfig(size=2)),
                                devices=["cpu"] * 4, **BATCHER_KW)
     assert [s.pool.name for s in cluster.shards] == ["decode-g0", "decode-g1"]
-    with pytest.raises(NotImplementedError):
-        _port(tm, ClusterConfig(), control_plane=object())
+    plane = ControlPlane(ControlConfig())
+    cluster = _port(tm, ClusterConfig(), control_plane=plane)
+    assert cluster.control_plane is plane
+    assert all(isinstance(s.intake, TenantFairQueue) for s in cluster.shards)
     with pytest.raises(ValueError, match="does not divide"):
         serving_shard_devices(2, group_size=2, devices=["cpu"])
     with pytest.raises(ValueError, match="does not divide"):

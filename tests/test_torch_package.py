@@ -56,9 +56,15 @@ PORT_MODULES = [
     "beholder_tpu_torch.reliability.chaos",
     "beholder_tpu_torch.control",
     "beholder_tpu_torch.control.admission",
+    "beholder_tpu_torch.control.instruments",
+    "beholder_tpu_torch.control.policy",
+    "beholder_tpu_torch.control.evaluator",
+    "beholder_tpu_torch.control.replay",
     "beholder_tpu_torch.obs",
     "beholder_tpu_torch.obs.recorder",
     "beholder_tpu_torch.obs.roofline",
+    "beholder_tpu_torch.obs.timeline",
+    "beholder_tpu_torch.obs.slo",
     "beholder_tpu_torch.artifact",
     "beholder_tpu_torch.tools",
     "beholder_tpu_torch.tools.profile_serving",
