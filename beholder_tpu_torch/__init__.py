@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the beholder_tpu accelerator path.
+"""PyTorch/CUDA port of beholder_tpu: the service and its accelerator path.
 
 The JAX package ``beholder_tpu`` stays the reference; this package is its
 counterpart for an NVIDIA Hopper card (H100, ``sm_90a``). It keeps the
@@ -28,10 +28,14 @@ reference's module layout and names so a reader finds each counterpart:
   progress observations and aggregates each full batch on the card;
 - :mod:`beholder_tpu_torch.cache.prefix` — the automatic prefix cache (a
   radix index over page hashes, host side);
-- :mod:`beholder_tpu_torch.parallel` — ``Mesh``, the ordered devices of
-  the ``sp`` axis (one card may repeat);
+- :mod:`beholder_tpu_torch.parallel` — the named-axis ``Mesh`` (``dp``,
+  ``tp``, ``sp``, ``ep``, ``pp``; one card may repeat), megatron tensor
+  parallelism with sequence sharding, ZeRO-2/3, the GPipe and 1F1B
+  pipelines, and ``initialize`` (a ``torch.distributed`` group);
+- :mod:`beholder_tpu_torch.ops.moe` — Switch, GShard and expert-choice
+  MoE; :mod:`beholder_tpu_torch.ops.attention` also holds Ulysses;
 - :mod:`beholder_tpu_torch.models.sequence` — ``TelemetrySequenceModel``
-  (full, flash or ring attention, remat) and its training step;
+  (full, flash, ring or Ulysses attention, remat) and its training step;
 - :mod:`beholder_tpu_torch.models.anomaly` — ``ProgressAnomalyModel`` and
   its training step;
 - :mod:`beholder_tpu_torch.models.train` — the shared ``TrainState`` and
@@ -40,7 +44,8 @@ reference's module layout and names so a reader finds each counterpart:
   ``restore_state`` (bit-identical resume);
 - :mod:`beholder_tpu_torch.models.bridge` — loads the reference's flax
   params and optax Adam state into the port's modules;
-- :mod:`beholder_tpu_torch.models.decode` — the dense forecast oracle;
+- :mod:`beholder_tpu_torch.models.decode` — the dense forecast oracle and
+  dp/tp-sharded dense serving;
 - :mod:`beholder_tpu_torch.models.serving` — the paged pool and the
   ``ContinuousBatcher``: cold, fused-wave and prefix-hit admission, forks
   and what-if forecasts, the bounded intake (``submit`` / ``run_pending``)
@@ -49,18 +54,35 @@ reference's module layout and names so a reader finds each counterpart:
   (``ContinuousBatcher(spec=SpecConfig(...)).run_spec``): the null, n-gram
   and small-model drafters, the dense-gather verify and the fused verify
   through the paged chunk kernel, greedy and sampled acceptance;
+- :mod:`beholder_tpu_torch.cluster` — the serving cluster (sharded pools,
+  prefill/decode handoff, routing, failover and drain), its memory fabric
+  and group-parallel decode;
 - the serving layer's host-side instruments, each off by default:
-  :mod:`beholder_tpu_torch.metrics` (the Prometheus exposition),
-  :mod:`beholder_tpu_torch.tracing` (spans and trace context),
-  :mod:`beholder_tpu_torch.obs` (the flight recorder and roofline
-  attribution), :mod:`beholder_tpu_torch.reliability` (deadlines, the
-  intake queue, the allocator trip) and :mod:`beholder_tpu_torch.control`
-  (the tenant-fair intake).
+  :mod:`beholder_tpu_torch.metrics` (the Prometheus exposition and its
+  HTTP server), :mod:`beholder_tpu_torch.tracing` (spans, trace context,
+  span reporters), :mod:`beholder_tpu_torch.obs` (the flight recorder,
+  roofline attribution, request timelines, the SLO tracker),
+  :mod:`beholder_tpu_torch.reliability` (deadlines, the intake queue, the
+  allocator trip) and :mod:`beholder_tpu_torch.control` (the tenant-fair
+  intake, k-shedding, tail and deadline routing, the autoscaler);
+- :mod:`beholder_tpu_torch.artifact` and :mod:`beholder_tpu_torch.tools`
+  — the schema-versioned artifact recorder, the serving profile and the
+  producer CLI (``tools.publish``);
+- the service itself: :mod:`beholder_tpu_torch.service` (``init``,
+  ``main``, the status and progress consumers, feeding ``AnalyticsSink``),
+  :mod:`beholder_tpu_torch.config`, :mod:`beholder_tpu_torch.log`,
+  :mod:`beholder_tpu_torch.proto` (the ``api`` messages, a hand-written
+  proto3 codec), :mod:`beholder_tpu_torch.mq` (the in-memory broker, the
+  AMQP 0-9-1 client and mini broker), :mod:`beholder_tpu_torch.storage`
+  (memory and SQLite), :mod:`beholder_tpu_torch.clients` (Trello,
+  Telegram, Emby), :mod:`beholder_tpu_torch.httpd` and
+  :mod:`beholder_tpu_torch.health`.
 
-Not ported yet: autotune, MoE, Ulysses attention, the rest of the parallel
-stack (``dp``/``tp`` axes, a multi-process ring, sequence sharding), the
-cluster and group engines, and the service's side of the instruments
-(HTTP exposition, span reporters, the SLO tracker).
+Not ported yet (``ROADMAP.md``): the autotune table (A.1), a mesh over
+several processes (C.22), and the service's reliability, caching,
+batched-ingest, Postgres, flight-plane, retention and sentinel subsystems
+with the perf gate tools (A.8); the service refuses the knobs of those it
+lacks.
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

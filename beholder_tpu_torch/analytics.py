@@ -16,13 +16,13 @@ own).
 
 from __future__ import annotations
 
-import logging
 from typing import Any
 
 import numpy as np
 import torch
 
 from .device import resolve_device, to_device
+from .log import get_logger
 from .ops import NUM_STATUSES, STATUS_NAMES
 from .ops.fused_aggregate import aggregate_telemetry_packed
 
@@ -46,7 +46,7 @@ class AnalyticsSink:
         self.device = resolve_device(device)
         self._statuses: list[int] = []
         self._progress: list[int] = []
-        self._log = logger or logging.getLogger("analytics")
+        self._log = logger or get_logger("analytics")
         self._executor = None
         if async_flush:
             from concurrent.futures import ThreadPoolExecutor

@@ -360,8 +360,8 @@ class ControlPlane:
 
     def http_route(self):
         """A route rendering :meth:`snapshot` as JSON: a callable
-        returning ``(200, "application/json", body)``. The port has no
-        HTTP server yet, so nothing serves it."""
+        returning ``(200, "application/json", body)``; the service serves
+        it at ``GET /control`` on the metrics server."""
 
         def control_route():
             return (

@@ -11,10 +11,16 @@ trace-linked observation log (:func:`configure_observation_log`): one
 JSON line per raw observation, stamped with the active span's trace id,
 rotated by size.
 
-Not ported: the reference's ``Metrics`` set (its two service counters and
-the ``/metrics`` HTTP server) and ``set_exemplar_resolver`` (the retention
-vault's join). The serving layer accepts a :class:`Registry` or any object
-with a ``.registry``, as the reference's does.
+The service's :class:`Metrics` set holds the reference's two counters,
+``beholder_progress_updates_total{status}`` and ``beholder_trello_comments``,
+with help text byte-identical to the reference's (its "crreated" typo
+included) and no ``_total`` appended, and serves the exposition over HTTP
+(:meth:`Metrics.expose`) with extra routes beside it
+(:meth:`Metrics.add_route`). The serving layer accepts a :class:`Registry`
+or any object with a ``.registry``, as the reference's does.
+
+Not ported: ``set_exemplar_resolver`` (the retention vault's join) and the
+cached ``/metrics`` response (the cache subsystem's).
 """
 
 from __future__ import annotations
@@ -24,9 +30,14 @@ import json
 import os
 import threading
 import time
+from http.server import ThreadingHTTPServer
 from typing import Iterable
 
+from beholder_tpu_torch.httpd import serve_routes
 from beholder_tpu_torch.tracing import current_trace_id
+
+DEFAULT_PORT = 8000
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 #: prom-client's default latency buckets (seconds), cumulative ``le``
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
@@ -79,6 +90,14 @@ class Counter(_Labelled):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def labels(self, **labels: str) -> "_BoundCounter":
+        """A bound child for one label combination (prom-client pattern);
+        hot paths cache these to skip per-call label validation."""
+        key = self._key(labels)
+        with self._lock:
+            self._values.setdefault(key, 0.0)
+        return _BoundCounter(self, key)
+
     def value(self, **labels: str) -> float:
         key = self._key(labels)
         with self._lock:
@@ -97,6 +116,18 @@ class Counter(_Labelled):
 
     def render(self) -> str:
         return self._render_simple("counter", self.items())
+
+
+class _BoundCounter:
+    __slots__ = ("_counter", "_key")
+
+    def __init__(self, counter: Counter, key: tuple[str, ...]):
+        self._counter = counter
+        self._key = key
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._counter._lock:
+            self._counter._values[self._key] += amount
 
 
 def _fmt(value: float) -> str:
@@ -199,6 +230,10 @@ class Histogram(_Labelled):
             for idx, ex in sorted(found.items())
         }
 
+    def time(self, **labels: str) -> "_HistogramTimer":
+        """Context manager observing the block's wall time in seconds."""
+        return _HistogramTimer(self, labels)
+
     def count(self, **labels: str) -> int:
         key = self._key(labels)
         with self._lock:
@@ -229,6 +264,21 @@ class Histogram(_Labelled):
             lines.append(f"{self.name}_sum{suffix} {_fmt(total_sum)}")
             lines.append(f"{self.name}_count{suffix} {cumulative}")
         return "\n".join(lines)
+
+
+class _HistogramTimer:
+    __slots__ = ("_histogram", "_labels", "_t0")
+
+    def __init__(self, histogram: Histogram, labels: dict):
+        self._histogram = histogram
+        self._labels = labels
+
+    def __enter__(self) -> "_HistogramTimer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        self._histogram.observe(time.perf_counter() - self._t0, **self._labels)
 
 
 # -- observation log ---------------------------------------------------------
@@ -421,3 +471,62 @@ def get_or_create(registry: Registry, kind: str, name: str, help: str, **kwargs)
             )
         return found
     return getattr(registry, kind)(name, help, **kwargs)
+
+
+class Metrics:
+    """The beholder metric set (``Prom.new('beholder')`` in the reference)."""
+
+    def __init__(self, registry: Registry | None = None):
+        self.registry = registry or Registry()
+        self.progress_updates_total = self.registry.counter(
+            "beholder_progress_updates_total",
+            "Total number of messages processed in this processes lifetime",
+            labelnames=["status"],
+        )
+        self.trello_comments_total = self.registry.counter(
+            "beholder_trello_comments",
+            "Total trello comments crreated in this processes lifetime",
+        )
+        self._server: ThreadingHTTPServer | None = None
+        #: extra endpoints riding the metrics server (``/slo``,
+        #: ``/control``, ``/debug/flight``): registered before OR after
+        #: expose() — the handler resolves routes per request off the
+        #: live dict
+        self._routes: dict | None = None
+        self._extra_routes: dict = {}
+
+    def add_route(self, path: str, route) -> None:
+        """Serve ``route`` (an httpd Route callable) at ``path`` on the
+        metrics server. Safe before or after :meth:`expose` — the request
+        handler looks paths up per request, so a route added to a live
+        server takes effect immediately."""
+        self._extra_routes[path] = route
+        if self._routes is not None:
+            self._routes[path] = route
+
+    def expose(self, port: int | None = None) -> int:
+        """Start the /metrics endpoint (``Prom.expose()``); returns the
+        bound port (pass 0 for an ephemeral one). ``None`` reads
+        ``$METRICS_PORT``, else :data:`DEFAULT_PORT`."""
+        if port is None:
+            port = int(os.environ.get("METRICS_PORT", DEFAULT_PORT))
+        registry = self.registry
+
+        def render():
+            return 200, CONTENT_TYPE, registry.render().encode()
+
+        self._routes = {"/metrics": render, "/": render}
+        self._routes.update(self._extra_routes)
+        self._server = serve_routes(self._routes, port)
+        return self._server.server_address[1]
+
+    @property
+    def port(self) -> int | None:
+        """The bound port of the running server, or None."""
+        return None if self._server is None else self._server.server_address[1]
+
+    def close(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None

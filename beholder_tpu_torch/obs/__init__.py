@@ -11,8 +11,10 @@ and :mod:`.slo` keeps streaming latency digests and error-budget burn
 schema version (:mod:`beholder_tpu_torch.artifact`), the package version
 and the torch version (the reference's label is ``jax_version``).
 
-Not ported: the reference's sentinel, retention vault and flight plane,
-and ``flight_recorder_from_config``.
+:func:`flight_recorder_from_config` builds the service's recorder from
+``instance.observability.flight_recorder.*``.
+
+Not ported: the reference's sentinel, retention vault and flight plane.
 """
 
 from .recorder import (
@@ -57,6 +59,7 @@ __all__ = [
     "attribution_summary",
     "build_timelines",
     "chrome_trace",
+    "flight_recorder_from_config",
     "model_flops_per_token",
     "parse_cursor",
     "phase_walls",
@@ -94,3 +97,28 @@ def register_build_info(registry):
         torch_version=probe("torch"),
     )
     return gauge
+
+
+def flight_recorder_from_config(config, device=None) -> FlightRecorder | None:
+    """Build the flight recorder from ``instance.observability.
+    flight_recorder.*`` config, or None when disabled (the default).
+
+    Keys: ``enabled`` (bool), ``ring_size`` (int, default 4096 — the
+    bounded event memory), ``export_path`` (str; the service dumps the
+    ring there on shutdown), ``ceiling_interval_s`` (float, default 300 —
+    how often the roofline attributor re-measures the device's ceilings;
+    <= 0 disables attribution entirely). ``device`` is where the
+    attributor measures (None: the card, raising where there is none).
+    """
+    node = config.get("instance.observability.flight_recorder")
+    if node is None or not node.get("enabled"):
+        return None
+    interval = float(node.get("ceiling_interval_s", 300.0))
+    attributor = (
+        RooflineAttributor(interval_s=interval, device=device) if interval > 0 else None
+    )
+    return FlightRecorder(
+        ring_size=int(node.get("ring_size", DEFAULT_RING_SIZE)),
+        attributor=attributor,
+        export_path=node.get("export_path"),
+    )

@@ -23,10 +23,13 @@ accept/rollback outcomes, request claim and retirement).
 Events export as JSON lines (:meth:`FlightRecorder.dump`) and as Chrome
 trace-event JSON (:func:`chrome_trace`, loadable in Perfetto).
 
+:meth:`FlightRecorder.bind_metrics` registers the drop-pressure series
+and :meth:`FlightRecorder.route` serves the live ring (``GET
+/debug/flight``).
+
 Not ported: the flight plane's ring identity and cross-worker edges
-(``set_meta``, ``arm_edges``, ``next_edge``), ``bind_metrics`` (the
-drop-pressure series), the ``/debug/flight`` HTTP route, and the
-cross-worker flow arrows in the Chrome export.
+(``set_meta``, ``arm_edges``, ``next_edge``) and the cross-worker flow
+arrows in the Chrome export.
 """
 
 from __future__ import annotations
@@ -67,6 +70,8 @@ class FlightRecorder:
         self.dropped = 0
         #: the largest ring occupancy observed
         self.high_water = 0
+        self._dropped_counter = None
+        self._high_water_gauge = None
         self._seq = 0
         self._ring: deque[dict[str, Any]] = deque(maxlen=ring_size)
         self._lock = threading.Lock()
@@ -77,6 +82,24 @@ class FlightRecorder:
     def add_listener(self, listener) -> None:
         """Subscribe ``listener(event_dict)`` to every recorded event."""
         self._listeners.append(listener)
+
+    def bind_metrics(self, registry) -> None:
+        """Register the drop-pressure series on ``registry``:
+        ``beholder_flight_dropped_total`` (events lost to ring saturation)
+        and ``beholder_flight_ring_high_water`` (the largest occupancy)."""
+        from beholder_tpu_torch.metrics import get_or_create
+
+        self._dropped_counter = get_or_create(
+            registry, "counter", "beholder_flight_dropped_total",
+            "Flight-recorder events dropped to ring saturation",
+        )
+        self._high_water_gauge = get_or_create(
+            registry, "gauge", "beholder_flight_ring_high_water",
+            "Max flight-recorder ring occupancy observed",
+        )
+        if self.dropped:
+            self._dropped_counter.inc(self.dropped)
+        self._high_water_gauge.set(float(self.high_water))
 
     # -- recording -------------------------------------------------------
 
@@ -122,10 +145,16 @@ class FlightRecorder:
         with self._lock:
             self._seq += 1
             event["seq"] = self._seq
-            if len(self._ring) == self.ring_size:
+            dropped_now = len(self._ring) == self.ring_size
+            if dropped_now:
                 self.dropped += 1
             self._ring.append(event)
-            self.high_water = max(self.high_water, len(self._ring))
+            if len(self._ring) > self.high_water:
+                self.high_water = len(self._ring)
+                if self._high_water_gauge is not None:
+                    self._high_water_gauge.set(float(self.high_water))
+        if dropped_now and self._dropped_counter is not None:
+            self._dropped_counter.inc()
         for listener in self._listeners:
             try:
                 listener(event)
@@ -155,11 +184,19 @@ class FlightRecorder:
             self._ring.clear()
             self.dropped = 0
 
-    def jsonl(self, since: int | None = None, limit: int | None = None) -> str:
-        """The ring as JSON lines, one event a line."""
-        return "".join(
-            json.dumps(event, default=str) + "\n" for event in self.events(since, limit)
-        )
+    def jsonl(self, since: int | None = None, limit: int | None = None,
+              cursor: bool = False) -> str:
+        """The ring as JSON lines, one event a line. ``cursor=True`` (the
+        poll route) appends a ``flight.cursor`` line whose ``next_since``
+        is the seq a poller passes back as ``?since=``."""
+        events = self.events(since, limit)
+        tail = ""
+        if cursor:
+            next_since = events[-1].get("seq", 0) if events else (since or 0)
+            tail = json.dumps(
+                {"name": "flight.cursor", "ph": "M", "next_since": next_since}
+            ) + "\n"
+        return "".join(json.dumps(event, default=str) + "\n" for event in events) + tail
 
     def dump(self, path: str | None = None) -> str:
         """Write the ring as JSON lines to ``path`` (default:
@@ -170,6 +207,19 @@ class FlightRecorder:
         with open(path, "w") as f:
             f.write(self.jsonl())
         return path
+
+    def route(self):
+        """An httpd Route serving the live ring as JSONL — the ``GET
+        /debug/flight`` endpoint. Accepts ``?since=<seq>`` and
+        ``limit=<n>``; the response ends with a ``flight.cursor`` line."""
+
+        def flight_route(query=None):
+            since, limit = parse_cursor(query)
+            body = self.jsonl(since=since, limit=limit, cursor=True).encode()
+            return 200, "application/x-ndjson", body
+
+        flight_route.wants_query = True
+        return flight_route
 
 
 def parse_cursor(query) -> tuple[int | None, int | None]:

@@ -729,8 +729,8 @@ class SLOTracker:
 
     def route(self):
         """A route rendering :meth:`snapshot` as JSON: a callable
-        returning ``(200, "application/json", body)``. The port has no
-        HTTP server yet, so nothing serves it."""
+        returning ``(200, "application/json", body)``; the service serves
+        it at ``GET /slo`` on the metrics server."""
 
         def slo_route():
             return (

@@ -1,0 +1,560 @@
+"""The beholder service: bootstrap + the two telemetry consumers.
+
+The port's own copy of the reference's ``service.py``, with the same
+observable semantics:
+
+- status consumer: decode -> update DB -> early-ack if NO_TRELLO -> fetch
+  row -> move the Trello card when the creator is TRELLO and a flow list
+  is mapped (pos=2) -> on DEPLOYED, fire the Telegram and Emby hooks with
+  errors swallowed (warn only) -> ack. Failures *before* the hook block
+  (DB, Trello move) propagate and the message is left unacked.
+- progress consumer: the whole body wrapped; any error warns and acks
+  anyway — at-most-once. With ``instance.analytics.enabled`` every
+  progress observation goes to an :class:`~beholder_tpu_torch.analytics.
+  AnalyticsSink`, which aggregates each full batch on the card (the
+  aggregation kernel, ``csrc/aggregate.cu``).
+- the comment helper increments ``beholder_trello_comments``.
+
+``device`` goes to the analytics sink and the flight recorder's roofline
+attributor: None means the CUDA card (raising where there is none),
+``"cpu"`` the plain PyTorch path. With neither knob on, the service does
+no device work.
+
+Knobs whose subsystems are not ported raise :class:`NotImplementedError`
+at construction (``ROADMAP.md`` A.8): ``instance.reliability``,
+``instance.cache``, ``instance.observability.flight_plane``,
+``.retention`` and ``.sentinel``, ``instance.ingest``, and a Postgres URL
+in ``$BEHOLDER_DB``. Nothing runs another path in place of the one asked
+for.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+from beholder_tpu_torch import proto
+from beholder_tpu_torch.clients import (
+    EmbyClient,
+    HttpTransport,
+    TelegramClient,
+    TrelloClient,
+)
+from beholder_tpu_torch.config import Config, ConfigNode, dyn, no_trello
+from beholder_tpu_torch.log import get_logger
+from beholder_tpu_torch.metrics import Metrics
+from beholder_tpu_torch.mq import Broker, Delivery
+from beholder_tpu_torch.storage import SqliteStorage, Storage
+
+STATUS_TOPIC = "v1.telemetry.status"
+PROGRESS_TOPIC = "v1.telemetry.progress"
+PREFETCH = 100
+
+#: knobs whose subsystems the port does not have yet; each is armed by
+#: ``<knob>.enabled``
+REFUSED_KNOBS = (
+    "instance.reliability",
+    "instance.cache",
+    "instance.observability.flight_plane",
+    "instance.observability.retention",
+    "instance.observability.sentinel",
+    "instance.ingest",
+)
+
+
+def _refuse(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to beholder_tpu_torch yet (ROADMAP.md A.8); "
+        "turn it off to run the port's service"
+    )
+
+
+class BeholderService:
+    def __init__(
+        self,
+        config: ConfigNode,
+        broker: Broker,
+        db: Storage,
+        metrics: Metrics | None = None,
+        transport: HttpTransport | None = None,
+        logger=None,
+        *,
+        device=None,
+    ):
+        for knob in REFUSED_KNOBS:
+            if config.get(f"{knob}.enabled"):
+                raise _refuse(knob)
+        self.config = config
+        self.broker = broker
+        self.db = db
+        self.metrics = metrics or Metrics()
+        self.logger = logger or get_logger("beholder")
+
+        #: optional deep observability (off by default so the reference
+        #: exposition stays byte-identical): per-message handle histograms
+        #: on the consumers and outbound HTTP latency via TimedTransport
+        self.handle_seconds = None
+        if config.get("instance.observability.enabled"):
+            from beholder_tpu_torch.clients.http import RequestsTransport, TimedTransport
+            from beholder_tpu_torch.metrics import get_or_create
+
+            self.handle_seconds = get_or_create(
+                self.metrics.registry,
+                "histogram",
+                "beholder_message_handle_seconds",
+                "Telemetry message handle wall time by topic and outcome",
+                labelnames=["topic", "outcome"],
+            )
+            transport = TimedTransport(transport or RequestsTransport(), self.metrics.registry)
+
+        #: library knobs the service only parses, for whatever embeds the
+        #: serving layer next to the consumers (each None when off)
+        from beholder_tpu_torch.spec import spec_from_config
+
+        self.spec = spec_from_config(config)
+
+        from beholder_tpu_torch.obs import flight_recorder_from_config, register_build_info
+
+        self.flight_recorder = flight_recorder_from_config(config, device=device)
+        if self.flight_recorder is not None:
+            # the drop-pressure series and beholder_build_info register
+            # only with the recorder armed: off, the exposition is unchanged
+            self.flight_recorder.bind_metrics(self.metrics.registry)
+            register_build_info(self.metrics.registry)
+
+        self.fused_verify = bool(config.get("instance.serving.fused_verify", False))
+        self.autotune_table = config.get("instance.serving.autotune.table", None)
+        cache_dtype = str(config.get("instance.serving.cache_dtype", "bf16"))
+        if cache_dtype not in ("bf16", "int8", "fp8"):
+            raise ValueError(
+                f"instance.serving.cache_dtype must be one of "
+                f"bf16/int8/fp8, got {cache_dtype!r}"
+            )
+        self.cache_dtype = cache_dtype
+        self.fused_wave = bool(config.get("instance.serving.fused_wave", False))
+
+        #: the request-level SLO engine: a flight-recorder listener; the
+        #: metrics server gains GET /slo and /healthz the ``slo`` check
+        from beholder_tpu_torch.obs.slo import slo_from_config
+
+        self.slo = slo_from_config(config, registry=self.metrics.registry)
+        if self.slo is not None and self.flight_recorder is not None:
+            self.flight_recorder.add_listener(self.slo.on_event)
+
+        from beholder_tpu_torch.cluster import cluster_from_config
+
+        self.cluster = cluster_from_config(config)
+        if self.cluster is not None and self.cluster.group is not None and self.spec is not None:
+            raise ValueError(
+                "instance.cluster.group and instance.spec are mutually "
+                "exclusive: speculative decoding is a single-device "
+                "lane (GroupBatcher rejects spec) — disable one"
+            )
+        #: set by whatever embeds a live ClusterScheduler next to the
+        #: consumers; /healthz's ``cluster`` check reads it at probe time
+        self.cluster_scheduler = None
+
+        #: the SLO-acting control plane (host side: it reads the tracker);
+        #: the metrics server gains GET /control
+        from beholder_tpu_torch.control import control_from_config
+
+        self.control = control_from_config(config)
+        self.control_plane = None
+        if self.control is not None:
+            from beholder_tpu_torch.control.policy import ControlPlane
+
+            self.control_plane = ControlPlane(
+                self.control,
+                tracker=self.slo,
+                registry=self.metrics.registry,
+                flight_recorder=self.flight_recorder,
+            )
+        #: the periodic autoscaler clock, started by
+        #: :meth:`start_scaling_evaluator`, stopped in :meth:`close`
+        self.scaling_evaluator = None
+
+        deadline_s = float(config.get("instance.http.deadline_s", 10.0))
+        self.trello = TrelloClient(
+            config.get("keys.trello.key", ""),
+            config.get("keys.trello.token", ""),
+            transport=transport,
+            deadline_s=deadline_s,
+        )
+        self.telegram = TelegramClient(
+            config.get("keys.telegram.token", ""),
+            transport=transport,
+            deadline_s=deadline_s,
+        )
+        self.emby = EmbyClient(
+            config.get("instance.emby.host", ""),
+            config.get("keys.emby.token", ""),
+            transport=transport,
+            deadline_s=deadline_s,
+        )
+
+        #: status-name (lowercase) -> Trello list id; config is load-once,
+        #: so it is resolved to plain values here
+        flow = config.get("instance.flow_ids") or ConfigNode({})
+        self.flow_ids = flow.to_dict() if isinstance(flow, ConfigNode) else dict(flow)
+        self._telegram_enabled = bool(config.get("instance.telegram.enabled"))
+        self._telegram_channel = config.get("instance.telegram.channel")
+        self._emby_enabled = bool(
+            config.get("keys.emby.token") and config.get("instance.emby.enabled")
+        )
+        self._emby_host = config.get("instance.emby.host")
+        self._progress_counters = {}  # status text -> bound counter child
+        self._status_names = {}  # status int -> enum name
+
+        from beholder_tpu_torch.tracing import tracer_from_config
+
+        self.tracer = tracer_from_config(config, logger=self.logger)
+
+        #: batch analytics on the card
+        self.analytics = None
+        if config.get("instance.analytics.enabled"):
+            from beholder_tpu_torch.analytics import AnalyticsSink
+
+            self.analytics = AnalyticsSink(
+                flush_every=int(config.get("instance.analytics.flush_every", 4096)),
+                logger=self.logger,
+                async_flush=True,  # device work must not stall the consumer
+                device=device,
+            )
+
+        #: set by init() when instance.health.enabled (see health.py)
+        self.health = None
+
+        self._status_proto = proto.load("api.TelemetryStatus")
+        self._progress_proto = proto.load("api.TelemetryProgress")
+        self._deployed_status = proto.string_to_enum(
+            self._status_proto, "TelemetryStatusEntry", "DEPLOYED"
+        )
+        self._creator_trello = proto.string_to_enum(proto.Media, "CreatorType", "TRELLO")
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> None:
+        """Register both consumers and log 'initialized'."""
+        self.broker.connect()
+        status, progress = self.handle_status, self.handle_progress
+        if self.handle_seconds is not None:
+            # timing INSIDE tracing: observations carry the consumer span's
+            # trace id
+            status = self._timed(STATUS_TOPIC, status)
+            progress = self._timed(PROGRESS_TOPIC, progress)
+        if self.tracer is not None:
+            status = self._traced("telemetry.status", status)
+            progress = self._traced("telemetry.progress", progress)
+        self.broker.listen(STATUS_TOPIC, status)
+        self.broker.listen(PROGRESS_TOPIC, progress)
+        self.logger.info("initialized")
+
+    def _timed(self, topic: str, handler):
+        """Observe per-message handle wall time into
+        ``beholder_message_handle_seconds{topic, outcome}``; an escaping
+        exception counts as ``outcome="error"`` and still propagates."""
+        hist = self.handle_seconds
+
+        def timed_handler(delivery: Delivery) -> None:
+            t0 = time.perf_counter()
+            try:
+                handler(delivery)
+            except Exception:
+                hist.observe(time.perf_counter() - t0, topic=topic, outcome="error")
+                raise
+            hist.observe(time.perf_counter() - t0, topic=topic, outcome="ok")
+
+        return timed_handler
+
+    def _traced(self, operation: str, handler):
+        """Run ``handler`` inside a consumer span; joins the producer's
+        trace when the delivery carries an uber-trace-id header."""
+        from beholder_tpu_torch.tracing import extract
+
+        tracer = self.tracer
+
+        def traced_handler(delivery: Delivery) -> None:
+            parent = extract(delivery.headers)
+            with tracer.start_span(
+                operation,
+                child_of=parent,
+                tags={"topic": delivery.topic, "redelivered": delivery.redelivered},
+            ):
+                handler(delivery)
+
+        return traced_handler
+
+    def start_scaling_evaluator(self):
+        """Start the periodic autoscaler evaluator thread, if armed: call
+        after attaching ``cluster_scheduler``. Returns the running
+        :class:`~beholder_tpu_torch.control.evaluator.ScalingEvaluator`,
+        or None when the control plane, the autoscaler, its
+        ``evaluator_interval_s`` or the scheduler is missing."""
+        if self.scaling_evaluator is not None:
+            return self.scaling_evaluator
+        cfg = getattr(self.control, "autoscale", None)
+        if (
+            self.control_plane is None
+            or cfg is None
+            or cfg.evaluator_interval_s is None
+            or self.cluster_scheduler is None
+        ):
+            return None
+        from beholder_tpu_torch.control.evaluator import ScalingEvaluator
+
+        self.scaling_evaluator = ScalingEvaluator(
+            self.control_plane,
+            self.cluster_scheduler,
+            cfg.evaluator_interval_s,
+            logger=self.logger,
+        ).start()
+        return self.scaling_evaluator
+
+    def close(self) -> None:
+        """Graceful teardown: stop consuming, drain analytics, flush the
+        observability tail (open spans, raw observations, the flight-
+        recorder ring), close."""
+        self.logger.info("shutting down")
+        if self.scaling_evaluator is not None:
+            try:
+                self.scaling_evaluator.stop()
+            except Exception:  # noqa: BLE001 - best effort on the way out
+                pass
+        self.broker.close()
+        if self.analytics is not None:
+            try:
+                self.analytics.flush()
+                self.analytics.drain()
+            except Exception:  # noqa: BLE001 - best effort on the way out
+                pass
+        if self.health is not None:
+            self.health.close()
+        if self.tracer is not None:
+            try:
+                flushed = self.tracer.flush()
+                if flushed:
+                    self.logger.info("flushed %d open trace span(s) at shutdown", flushed)
+            except Exception:  # noqa: BLE001
+                pass
+        from beholder_tpu_torch.metrics import flush_observation_log
+
+        flush_observation_log()
+        if self.flight_recorder is not None and self.flight_recorder.export_path:
+            try:
+                self.flight_recorder.dump()
+            except Exception:  # noqa: BLE001
+                pass
+        self.metrics.close()
+        self.db.close()
+
+    # -- helpers -----------------------------------------------------------
+    def comment(self, card_id: str, text: str) -> None:
+        """Comment on a Trello card + count it."""
+        self.logger.info("creating comment on %s with text: %s", card_id, text)
+        self.trello.comment_card(card_id, text)
+        self.metrics.trello_comments_total.inc()
+
+    def _status_text(self, status: int) -> str:
+        text = self._status_names.get(status)
+        if text is None:
+            text = self._status_names[status] = proto.enum_to_string(
+                self._status_proto, "TelemetryStatusEntry", status
+            )
+        return text
+
+    # -- consumers ---------------------------------------------------------
+    def handle_status(self, delivery: Delivery) -> None:
+        """v1.telemetry.status."""
+        msg = proto.decode(self._status_proto, delivery.body)
+        media_id, status = msg.mediaId, msg.status
+
+        self.logger.info(
+            "processing status update for media %s, status: %s", media_id, status
+        )
+        self.db.update_status(media_id, status)
+
+        if no_trello():
+            return delivery.ack()
+
+        status_text = self._status_text(status)
+        media = self.db.get_by_id(media_id)
+
+        # Trello card movement
+        if media.creator == 1:
+            list_pointer = self.flow_ids.get(status_text.lower())
+            if list_pointer:
+                self.logger.info(
+                    "moving media card %s (card id %s)", media_id, media.creatorId
+                )
+                self.trello.move_card(media.creatorId, list_pointer, pos=2)
+            else:
+                self.logger.warning(
+                    f"unable to find list for status {status} ({status_text}) "
+                    f"avail ([{','.join(self.flow_ids)}])"
+                )
+
+        # deployed hooks — failures swallowed
+        try:
+            if media.status == self._deployed_status:
+                if self._telegram_enabled:
+                    self.logger.info(
+                        "informing telegram that media '%s' is available", media_id
+                    )
+                    self.telegram.notify_deployed(
+                        self._telegram_channel, media.name, media.metadataId
+                    )
+
+                if self._emby_enabled:
+                    self.logger.info("telling emby to refresh at %s", self._emby_host)
+                    self.emby.refresh_library()
+        except Exception as err:  # noqa: BLE001 - the reference swallows hook errors
+            self.logger.warning(f"failed to run deployed hooks: {err}")
+
+        delivery.ack()
+
+    def handle_progress(self, delivery: Delivery) -> None:
+        """v1.telemetry.progress."""
+        try:
+            msg = proto.decode(self._progress_proto, delivery.body)
+            media_id, status = msg.mediaId, msg.status
+            progress, host = msg.progress, msg.host
+
+            self.logger.info(
+                "processing progress update on media %s status %s percent %s",
+                media_id,
+                status,
+                progress,
+            )
+            status_text = self._status_text(status)
+
+            counter = self._progress_counters.get(status_text)
+            if counter is None:
+                counter = self.metrics.progress_updates_total.labels(
+                    status=status_text.lower()
+                )
+                self._progress_counters[status_text] = counter
+            counter.inc()
+
+            if self.analytics is not None:
+                try:
+                    self.analytics.record(status, progress)
+                except Exception as err:  # noqa: BLE001
+                    # the extension must never break the parity path: on any
+                    # sink failure, disable analytics and keep consuming
+                    self.logger.warning(
+                        f"analytics sink failed ({err!r}); disabling analytics"
+                    )
+                    self.analytics = None
+
+            media = self.db.get_by_id(media_id)
+
+            if media.creator == self._creator_trello:
+                comment_text = f"{status_text}: Progress **{progress}%**"
+                if host:
+                    comment_text += f" (_{host}_)"
+                self.comment(media.creatorId, comment_text)
+        except Exception as err:  # noqa: BLE001 - the reference warns and acks
+            self.logger.warning(f"failed to update media progress {err}")
+            return delivery.ack()
+
+        return delivery.ack()
+
+
+def init(
+    config: ConfigNode | None = None,
+    broker: Broker | None = None,
+    db: Storage | None = None,
+    metrics_port: int | None = None,
+    *,
+    device=None,
+) -> BeholderService:
+    """Bootstrap: config, the /metrics server, storage, the broker, the
+    consumers, the operator routes and the health server. ``device`` goes
+    to :class:`BeholderService`."""
+    config = config or Config.load("events")
+    target = os.environ.get("BEHOLDER_DB", "beholder.db") if db is None else None
+    if target is not None and target.startswith(("postgres://", "postgresql://")):
+        raise _refuse("a postgres:// BEHOLDER_DB (the Postgres backend)")
+
+    metrics = Metrics()
+    metrics.expose(metrics_port)
+
+    service = None
+    own_db = db is None
+    own_broker = broker is None
+    try:
+        if db is None:
+            db = SqliteStorage(target)
+
+        if broker is None:
+            from beholder_tpu_torch.mq.amqp import AmqpBroker
+
+            broker = AmqpBroker(dyn("rabbitmq"), prefetch=PREFETCH)
+
+        service = BeholderService(config, broker, db, metrics=metrics, device=device)
+        service.start()
+
+        #: operator endpoints riding the metrics server, each gated on its
+        #: knob, so the default server stays /metrics-only
+        if service.slo is not None:
+            metrics.add_route("/slo", service.slo.route())
+        if service.control_plane is not None:
+            metrics.add_route("/control", service.control_plane.http_route())
+        if service.flight_recorder is not None:
+            metrics.add_route("/debug/flight", service.flight_recorder.route())
+
+        from beholder_tpu_torch.health import health_from_config
+
+        service.health = health_from_config(config, service)
+    except Exception:
+        # a failed boot must release everything it acquired (metrics port,
+        # broker threads, db handles), or a supervised restart would hit
+        # Address-already-in-use / fd exhaustion forever
+        if service is not None:
+            try:
+                service.close()
+            except Exception:  # noqa: BLE001
+                pass
+        else:
+            metrics.close()
+            for resource, owned in ((broker, own_broker), (db, own_db)):
+                if owned and resource is not None:
+                    try:
+                        resource.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+        raise
+    return service
+
+
+def main() -> None:  # pragma: no cover - process entrypoint
+    """Run the service until SIGTERM or SIGINT. ``$BEHOLDER_SUPERVISE``
+    wraps it in the crash-restart :class:`~beholder_tpu_torch.health.
+    Supervisor`."""
+    import signal
+    import threading
+
+    supervised = bool(os.environ.get("BEHOLDER_SUPERVISE"))
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+
+    if supervised:
+        from beholder_tpu_torch.health import Supervisor
+
+        supervisor = Supervisor(
+            init,
+            liveness=lambda svc: getattr(svc.broker, "connected", True),
+            liveness_grace_s=float(os.environ.get("BEHOLDER_LIVENESS_GRACE", 60)),
+        )
+        supervisor.start()
+        stop.wait()
+        supervisor.stop()
+        return
+
+    service = init()
+    stop.wait()
+    service.close()
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()

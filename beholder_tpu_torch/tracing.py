@@ -11,20 +11,24 @@ device work), trimmed to what the serving layer uses:
   may carry;
 - :class:`Span` records operation, service, start and duration (epoch µs),
   tags and logs; finished spans go to a reporter;
-- :class:`InMemoryReporter` collects them.
+- :class:`InMemoryReporter` collects them, :class:`LogReporter` logs one
+  structured line a span and :class:`JsonlReporter` appends jaeger-shaped
+  JSON lines; :func:`tracer_from_config` builds the service's tracer from
+  ``instance.tracing.*``.
 
 A ``with span:`` block makes the span the active context
 (:func:`active_context`, :func:`current_trace_id`): nested spans default to
 it as parent, and histogram observations inside the block carry its trace
 id (:mod:`beholder_tpu_torch.metrics`).
 
-Not ported: ``LogReporter``, ``JsonlReporter``, ``inject_traceparent`` and
-``tracer_from_config``, which belong to the service.
+Not ported: ``inject_traceparent`` (the flight plane's AMQP leg).
 """
 
 from __future__ import annotations
 
 import contextvars
+import json
+import os
 import random
 import threading
 import time
@@ -254,6 +258,38 @@ class InMemoryReporter:
             return [s for s in self.spans if s.operation == operation]
 
 
+class LogReporter:
+    """One structured log line per finished span."""
+
+    def __init__(self, logger):
+        self._logger = logger
+
+    def report(self, span: Span) -> None:
+        self._logger.info(
+            "span %s %s trace=%032x span=%016x duration_us=%d tags=%s",
+            span.service,
+            span.operation,
+            span.context.trace_id,
+            span.context.span_id,
+            span.duration_us,
+            span.tags,
+        )
+
+
+class JsonlReporter:
+    """One jaeger-shaped JSON object per line, append-only."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+
+    def report(self, span: Span) -> None:
+        line = json.dumps(span.to_dict(), default=str)
+        with self._lock:
+            with open(self.path, "a") as f:
+                f.write(line + "\n")
+
+
 class Tracer:
     """Makes spans, samples, reports.
 
@@ -327,3 +363,24 @@ class Tracer:
             self.reporter.report(span)
         except Exception:  # noqa: BLE001 - a broken sink must not kill work
             pass
+
+
+def tracer_from_config(config, logger=None) -> Tracer | None:
+    """Build the service tracer from ``instance.tracing.*`` config, or None
+    when disabled (the default).
+
+    Keys: ``enabled`` (bool), ``sample_rate`` (float, default 1.0),
+    ``jsonl_path`` (str; also via $TRACE_JSONL — when set, spans append
+    there instead of the log).
+    """
+    if not config.get("instance.tracing.enabled"):
+        return None
+    path = os.environ.get("TRACE_JSONL") or config.get("instance.tracing.jsonl_path")
+    if path:
+        reporter = JsonlReporter(str(path))
+    elif logger is not None:
+        reporter = LogReporter(logger)
+    else:
+        reporter = InMemoryReporter()
+    rate = float(config.get("instance.tracing.sample_rate", 1.0))
+    return Tracer("beholder", reporter=reporter, sample_rate=rate)

@@ -80,13 +80,34 @@ PORT_MODULES = [
     "beholder_tpu_torch.cluster.fabric.engine",
     "beholder_tpu_torch.cluster.group",
     "beholder_tpu_torch.cluster.group.engine",
+    "beholder_tpu_torch.log",
+    "beholder_tpu_torch.config",
+    "beholder_tpu_torch.proto",
+    "beholder_tpu_torch.mq",
+    "beholder_tpu_torch.mq.base",
+    "beholder_tpu_torch.mq.memory",
+    "beholder_tpu_torch.mq.codec",
+    "beholder_tpu_torch.mq.amqp",
+    "beholder_tpu_torch.mq.server",
+    "beholder_tpu_torch.storage",
+    "beholder_tpu_torch.storage.base",
+    "beholder_tpu_torch.storage.sqlite",
+    "beholder_tpu_torch.clients",
+    "beholder_tpu_torch.clients.http",
+    "beholder_tpu_torch.clients.trello",
+    "beholder_tpu_torch.clients.telegram",
+    "beholder_tpu_torch.clients.emby",
+    "beholder_tpu_torch.httpd",
+    "beholder_tpu_torch.health",
+    "beholder_tpu_torch.service",
+    "beholder_tpu_torch.tools.publish",
     "chip_smoke",
     "serve_ab",
 ]
 
 _PROBE = """
 import importlib, sys
-for blocked in ("jax", "jaxlib", "flax", "optax"):
+for blocked in ("jax", "jaxlib", "flax", "optax", "google.protobuf", "yaml", "requests"):
     sys.modules[blocked] = None  # any import of these now raises
 for name in {modules!r}:
     importlib.import_module(name)
@@ -100,6 +121,9 @@ print("ok")
 
 
 def test_port_imports_without_jax_or_the_jax_package():
+    """Every port module imports with JAX, the JAX package,
+    ``google.protobuf``, PyYAML and ``requests`` all blocked (the card's
+    machine has none of the last three) and builds no kernel."""
     out = subprocess.run(
         [sys.executable, "-c", _PROBE.format(modules=PORT_MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
@@ -197,3 +221,36 @@ def test_flash_wrappers_never_fall_back():
             TelemetrySequenceModel(attention="flash")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_seq_state(0)
+
+
+_SERVICE_PROBE = """
+import sys
+for blocked in ("jax", "jaxlib", "google.protobuf", "yaml", "requests"):
+    sys.modules[blocked] = None
+from beholder_tpu_torch import proto
+from beholder_tpu_torch.config import ConfigNode
+from beholder_tpu_torch.mq import InMemoryBroker
+from beholder_tpu_torch.service import PROGRESS_TOPIC, BeholderService
+from beholder_tpu_torch.storage import MemoryStorage
+svc = BeholderService(ConfigNode({"instance": {}}), InMemoryBroker(), MemoryStorage(),
+                      device="cpu")
+svc.start()
+svc.broker.publish(PROGRESS_TOPIC, proto.encode(proto.TelemetryProgress(mediaId="m", progress=3)))
+assert svc.broker.in_flight == 0
+assert svc.metrics.progress_updates_total.value(status="queued") == 1
+svc.close()
+leaked = sorted(m for m in sys.modules if m == "beholder_tpu" or m.startswith("beholder_tpu."))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_service_runs_without_protobuf_yaml_or_requests():
+    """The port's service boots and consumes with ``google.protobuf``,
+    PyYAML and ``requests`` blocked in ``sys.modules``."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVICE_PROBE],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
