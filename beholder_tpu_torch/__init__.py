@@ -62,8 +62,8 @@ reference's module layout and names so a reader finds each counterpart:
   HTTP server), :mod:`beholder_tpu_torch.tracing` (spans, trace context,
   span reporters), :mod:`beholder_tpu_torch.obs` (the flight recorder,
   roofline attribution, request timelines, the SLO tracker),
-  :mod:`beholder_tpu_torch.reliability` (deadlines, the intake queue, the
-  allocator trip) and :mod:`beholder_tpu_torch.control` (the tenant-fair
+  :mod:`beholder_tpu_torch.reliability` (deadlines, retries, the circuit
+  breaker, the dead-letter consumer, the intake queue, fault injection) and :mod:`beholder_tpu_torch.control` (the tenant-fair
   intake, k-shedding, tail and deadline routing, the autoscaler);
 - :mod:`beholder_tpu_torch.artifact` and :mod:`beholder_tpu_torch.tools`
   — the schema-versioned artifact recorder, the serving profile and the
@@ -73,15 +73,17 @@ reference's module layout and names so a reader finds each counterpart:
   :mod:`beholder_tpu_torch.config`, :mod:`beholder_tpu_torch.log`,
   :mod:`beholder_tpu_torch.proto` (the ``api`` messages, a hand-written
   proto3 codec), :mod:`beholder_tpu_torch.mq` (the in-memory broker, the
-  AMQP 0-9-1 client and mini broker), :mod:`beholder_tpu_torch.storage`
+  AMQP 0-9-1 client and mini broker, and the batched native ingest path
+  with its frame scanner built from C++ at first use),
+  :mod:`beholder_tpu_torch.storage`
   (memory and SQLite), :mod:`beholder_tpu_torch.clients` (Trello,
   Telegram, Emby), :mod:`beholder_tpu_torch.httpd` and
   :mod:`beholder_tpu_torch.health`.
 
 Not ported yet (``ROADMAP.md``): the autotune table (A.1), a mesh over
-several processes (C.22), and the service's reliability, caching,
-batched-ingest, Postgres, flight-plane, retention and sentinel subsystems
-with the perf gate tools (A.8); the service refuses the knobs of those it
+several processes (C.22), and the service's caching, Postgres,
+flight-plane, retention and sentinel subsystems with the perf gate tools
+(A.8); the service refuses the knobs of those it
 lacks.
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a

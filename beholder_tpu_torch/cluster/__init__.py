@@ -77,8 +77,8 @@ class FailoverConfig:
     #: this (pathological cascades) resolves to an explicit ``Dropped``
     #: outcome instead of looping forever
     max_recoveries_per_request: int = 2
-    #: the service's shutdown drains every shard before exiting (parsed as
-    #: the reference parses it; the port has no service to act on it)
+    #: the service's ``close()`` (SIGTERM) drains every shard before exiting:
+    #: ``ClusterScheduler.shutdown(drain=True)``
     drain_on_sigterm: bool = True
 
     def __post_init__(self):

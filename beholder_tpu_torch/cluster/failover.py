@@ -144,6 +144,9 @@ class FailoverEngine:
         self.migrated_pages = 0
         #: wall seconds of each recovery re-serve pass (bench evidence)
         self.recovery_walls: list[float] = []
+        #: set by the scheduler's shutdown() final drain: draining shards
+        #: stay servable (they only stopped admitting)
+        self._drain_serving = False
 
     # -- worker state ----------------------------------------------------
 
@@ -158,8 +161,12 @@ class FailoverEngine:
         return self.states.get(worker, WORKER_UP)
 
     def routable_shards(self) -> list:
-        """Shards admissions may use: the up ones."""
-        return [s for s in self.router.shards if self.state(s.pool.name) == WORKER_UP]
+        """Shards admissions may use: the up ones — plus the draining ones
+        during a shutdown's final drain (they stopped admitting, not
+        serving; see :meth:`~beholder_tpu_torch.cluster.router.
+        ClusterScheduler.shutdown`)."""
+        states = (WORKER_UP, WORKER_DRAINING) if self._drain_serving else (WORKER_UP,)
+        return [s for s in self.router.shards if self.state(s.pool.name) in states]
 
     def up_prefill_workers(self) -> list:
         return [

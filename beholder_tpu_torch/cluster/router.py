@@ -369,6 +369,31 @@ class ClusterScheduler:
             self.fabric.on_drain(name, result["target"])
         return result
 
+    def shutdown(self, drain: bool = True) -> None:
+        """Planned full-cluster shutdown (the service's ``close()`` with
+        ``failover.drain_on_sigterm``): every shard stops admitting FIRST
+        (``draining`` — a submit racing the shutdown sheds ``shard_down``
+        instead of being lost at exit), then queued work is served to
+        completion, so a decommission loses nothing. ``drain=False`` skips
+        the final serve."""
+        fo = self.failover
+        if fo is not None:
+            from .failover import WORKER_DRAINING
+
+            for shard in self.shards:
+                if fo.state(shard.pool.name) == WORKER_UP:
+                    fo._set_state(shard.pool.name, WORKER_DRAINING)
+        if drain and any(s.intake.depth for s in self.shards):
+            if fo is not None:
+                # draining shards still SERVE during the final drain
+                fo._drain_serving = True
+                try:
+                    self.run_pending()
+                finally:
+                    fo._drain_serving = False
+            else:
+                self.run_pending()
+
     # -- routing ---------------------------------------------------------
 
     def _need(self, request) -> int:

@@ -241,8 +241,12 @@ def health_from_config(config, service) -> HealthServer | None:
     config (``enabled``, ``port``), or None when disabled (the default).
 
     Registered checks: ``broker`` (connection liveness), ``db`` (a
-    probe read), ``slo`` when the SLO tracker is armed, and — when
-    ``instance.cluster`` is on — ``cluster`` (per-worker
+    probe read), ``breaker`` when the reliability subsystem is on (an
+    OPEN outbound-HTTP circuit breaker means a dependency is sick and
+    calls are being fast-failed: the probe reports degraded, while
+    half-open probes recover it without a restart), ``slo`` when the SLO
+    tracker is armed, and — when ``instance.cluster`` is on — ``cluster``
+    (per-worker
     up/down/draining + pool pressure; a DOWN decode shard or prefill
     worker degrades the probe, while draining workers report as detail —
     planned decommission is not sickness). ``/readyz`` flips once the
@@ -266,6 +270,20 @@ def health_from_config(config, service) -> HealthServer | None:
         return True
 
     server.add_check("db", db_check)
+
+    if getattr(service, "breaker", None) is not None:
+        circuit = service.breaker
+
+        def breaker_check():
+            state = circuit.state
+            if state == "open":
+                raise RuntimeError(
+                    f"circuit breaker {circuit.name!r} is open "
+                    f"(failure rate {circuit.failure_rate():.0%})"
+                )
+            return state  # "closed"/"half_open" as the check detail
+
+        server.add_check("breaker", breaker_check)
 
     if getattr(service, "cluster", None) is not None:
         # the scheduler is embedder-owned and usually attached AFTER

@@ -43,7 +43,8 @@ class Delivery:
     """One message handed to a consumer."""
 
     __slots__ = (
-        "topic", "body", "delivery_tag", "redelivered", "headers", "_settle",
+        "topic", "body", "delivery_tag", "redelivered", "headers",
+        "prepared", "_settle",
     )
 
     def __init__(
@@ -61,6 +62,13 @@ class Delivery:
         self.redelivered = redelivered
         #: AMQP basic-properties headers table (trace context rides here)
         self.headers = headers or {}
+        #: batched-ingest scratch: a prepare stage registered via
+        #: :meth:`Broker.listen_batch` stashes this delivery's
+        #: precomputed work (decoded proto, batched-write outcome) here;
+        #: None on the per-message path, and handlers must treat an
+        #: absent key as "do the work inline" (the fallback is the
+        #: per-message loop's exact semantics)
+        self.prepared = None
         #: settle(delivery_tag, acked, requeue) — exactly-once per delivery.
         self._settle = settle
 
@@ -124,6 +132,23 @@ class Broker(abc.ABC):
         are identical either way."""
         for topic, body in items:
             self.publish(topic, body, headers)
+
+    def listen_batch(self, topic: str, handler: Handler, prepare) -> None:
+        """Subscribe ``handler`` with a batch PREPARE stage.
+
+        When the broker's batched ingest path drains several deliveries
+        for ``topic`` in one dispatch round, ``prepare(deliveries)``
+        runs ONCE before ``handler`` is invoked per delivery — the hook
+        for folding per-message work (one protobuf decode pass, one
+        storage transaction). The per-message handler chain still runs
+        for every delivery, so settlement/tracing semantics are
+        unchanged; a prepare must only stash results on
+        ``delivery.prepared``, never settle or raise for one message
+        (per-message failures belong in the handler's own scope).
+
+        Default: plain :meth:`listen` — brokers without a batched path
+        ignore ``prepare`` and keep per-message semantics exactly."""
+        self.listen(topic, handler)
 
     def declare(self, topic: str) -> None:
         """Ensure ``topic``'s queue exists WITHOUT consuming from it.

@@ -4,8 +4,8 @@ beholder path needs.
 The port's own copy of the reference's ``mq/codec.py``, written from the
 public AMQP 0-9-1 specification: the client (:mod:`beholder_tpu_torch.mq.
 amqp`) and the loopback server (:mod:`beholder_tpu_torch.mq.server`) are
-built on it. The frame parser is the reference's pure-Python walk; its
-native scanner belongs to the batched ingest path, which is not ported.
+built on it. The frame parser walks frames in Python, or binds the native
+scanner (``mq/_native.py``, built from C++ at first use) when asked to.
 """
 
 from __future__ import annotations
@@ -343,17 +343,69 @@ def parse_method(frame: Frame) -> tuple[tuple[int, int], Reader]:
     return (cid, mid), reader
 
 
+def bad_frame_offset(err: ValueError) -> int | None:
+    """The bad frame's start offset from a scanner's ValueError — the
+    ONE place that knows how backends report it. The Python-side
+    scanners attach it structurally (``err.offset``); the C-API
+    extension reports it only in its documented message format
+    ("... at buffer offset N", the same across backends), which the
+    regex fallback covers."""
+    offset = getattr(err, "offset", None)
+    if offset is not None:
+        return int(offset)
+    import re
+
+    m = re.search(r"offset (\d+)$", str(err))
+    return int(m.group(1)) if m else None
+
+
 class FrameParser:
-    """Incremental byte-stream -> frame parser (pure Python).
+    """Incremental byte-stream -> frame parser.
 
-    A bad frame end raises :class:`ProtocolError` with the buffer left
-    starting at the bad frame, as the reference's parser leaves it."""
+    The default walks frames in Python (the per-message path's parser;
+    the batched ingest path scans through
+    :class:`~beholder_tpu_torch.mq.ingest.BatchFeed` instead).
+    ``use_native=True`` builds the native scanner at first use (raising
+    with the compiler's output when that fails) and binds it. Every
+    backend leaves the buffer starting AT a bad frame when it raises
+    :class:`ProtocolError`."""
 
-    def __init__(self):
+    def __init__(self, use_native: bool = False):
         self._buf = bytearray()
+        self._ext = None
+        if use_native:
+            from . import _native
+
+            _native.build()
+            self._ext = _native.ext_scan  # bound once; feed stays lean
 
     def feed(self, data: bytes) -> list[Frame]:
         self._buf.extend(data)
+        if self._ext is None:
+            return self._feed_python()
+        try:
+            frames, consumed = self._ext(self._buf, Frame)
+        except ValueError as err:
+            self._raise_bad_frame(err)
+        del self._buf[:consumed]
+        return frames
+
+    def _raise_bad_frame(self, err: ValueError):
+        """Normalize post-error buffer state across backends: the native
+        scanner raises WITHOUT consuming the good frames before the bad
+        one, while the pure-Python walk consumes as it goes. It reports
+        the bad frame's start offset — trim up to it so both backends
+        leave the buffer starting AT the bad frame."""
+        msg = str(err)
+        offset = bad_frame_offset(err)
+        if offset is not None:
+            del self._buf[:offset]
+            # the reported offset described the PRE-trim buffer; the
+            # retained buffer now starts at the bad frame
+            msg += " (buffer trimmed; the bad frame is now at offset 0)"
+        raise ProtocolError(msg) from None
+
+    def _feed_python(self) -> list[Frame]:
         buf = self._buf
         frames = []
         pos, n = 0, len(buf)

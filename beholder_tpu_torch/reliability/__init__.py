@@ -1,29 +1,47 @@
-"""Reliability pieces the serving layer uses.
-
-The port's own copies of the reference's jax-free ``reliability/``
-modules, trimmed to what the batcher needs:
+"""Reliability subsystem: retries, circuit breakers, dead-letter queues,
+and load shedding (the port's own copy of the reference's
+``reliability/``).
 
 - :mod:`.policy` — :class:`~.policy.Deadline` and its contextvar scope,
   :class:`~.policy.RetryBudget` and :class:`~.policy.RetryPolicy` (the
-  cluster's page transfers retry through one);
+  outbound HTTP retries and the cluster's page transfers);
+- :mod:`.breaker` — a closed/open/half-open :class:`~.breaker.
+  CircuitBreaker` and the :class:`~.breaker.ResilientTransport` that puts
+  it, with retries and deadlines, in front of every outbound HTTP client;
+- :mod:`.dlq` — consumer-side at-least-once delivery
+  (:class:`~.dlq.ReliableConsumer`): bounded redelivery, then parking on
+  ``<topic>.dlq``, with an idempotency window so redeliveries stay
+  effectively-once;
 - :mod:`.shed` — the bounded :class:`~.shed.IntakeQueue` behind
   ``ContinuousBatcher.submit`` / ``run_pending`` and the cluster's
   per-shard intakes;
-- :mod:`.chaos` — :func:`~.chaos.trip_allocator` and the cluster's
-  :class:`~.chaos.WorkerFault` / :func:`~.chaos.inject_worker_fault`.
+- :mod:`.chaos` — the deterministic fault-injection harness;
+- :mod:`.instruments` — the ``beholder_retry_*`` / ``beholder_breaker_*``
+  / ``beholder_dead_lettered_total`` / ``beholder_dedup_hits_total``
+  catalog, registered only on request.
 
-Not ported: the circuit breaker, the dead-letter consumer, the rest of
-the chaos harness and the reliability metric catalog.
+The service arms the consumer and transport pieces behind
+``instance.reliability.enabled`` (see ``service.py``).
 """
 
+from .breaker import (
+    BreakerOpenError,
+    CircuitBreaker,
+    ResilientTransport,
+)
 from .chaos import (
     WORKER_HANG,
     WORKER_KILL,
     WORKER_TRANSFER_CORRUPTION,
+    FlakyHandler,
+    FlakyTransport,
     WorkerFault,
+    drop_broker_connections,
     inject_worker_fault,
     trip_allocator,
 )
+from .dlq import ReliableConsumer, default_dlq_topic
+from .instruments import ReliabilityMetrics
 from .policy import (
     Deadline,
     DeadlineExceeded,
@@ -44,10 +62,17 @@ from .shed import (
 
 __all__ = [
     "Admission",
+    "BreakerOpenError",
+    "CircuitBreaker",
     "Deadline",
     "DeadlineExceeded",
+    "FlakyHandler",
+    "FlakyTransport",
     "IntakeQueue",
     "LoadShedError",
+    "ReliabilityMetrics",
+    "ReliableConsumer",
+    "ResilientTransport",
     "RetryBudget",
     "RetryPolicy",
     "SHED_COST_BACKLOG",
@@ -59,7 +84,9 @@ __all__ = [
     "WORKER_TRANSFER_CORRUPTION",
     "WorkerFault",
     "current_deadline",
+    "default_dlq_topic",
     "deadline_scope",
+    "drop_broker_connections",
     "inject_worker_fault",
     "trip_allocator",
 ]

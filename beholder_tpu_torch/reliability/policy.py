@@ -13,10 +13,10 @@ reference's ``reliability/policy.py``).
 - :class:`RetryPolicy` is bounded exponential backoff with full jitter,
   composed with the budget and the deadline. The cluster's page transfer
   engine retries every hop through one
-  (:class:`~beholder_tpu_torch.cluster.transfer.PageTransferEngine`).
-
-Not ported: the reliability metric catalog (``metrics=`` takes any object
-with ``retry_attempts_total`` and ``retry_give_ups_total`` counters).
+  (:class:`~beholder_tpu_torch.cluster.transfer.PageTransferEngine`), and
+the service's outbound HTTP retries through one
+(:class:`~beholder_tpu_torch.reliability.breaker.ResilientTransport`),
+counted on the :mod:`~beholder_tpu_torch.reliability.instruments` catalog.
 """
 
 from __future__ import annotations

@@ -15,17 +15,36 @@ observable semantics:
   aggregation kernel, ``csrc/aggregate.cu``).
 - the comment helper increments ``beholder_trello_comments``.
 
+Reliability (``instance.reliability.enabled``; off by default, so the
+semantics above and the default exposition stay byte-identical):
+
+- the consumers become AT-LEAST-ONCE with a dead-letter parking lot: a
+  failing handler nacks for redelivery up to ``consumer.max_attempts``
+  deliveries, then the message is parked on ``<topic>.dlq`` with
+  death-provenance headers; an idempotency window acks redeliveries of
+  already-handled messages without re-running side effects;
+- outbound HTTP (Trello, Telegram, Emby share one transport) rides a
+  :class:`~beholder_tpu_torch.reliability.ResilientTransport`: a circuit
+  breaker, bounded jittered retries under a shared budget, per-attempt
+  timeouts capped by the deadline. An open breaker degrades /healthz.
+
+Batched native ingest (``instance.ingest.enabled``; off by default): a
+broker that supports it (``AmqpBroker``) scans each socket poll in one
+native pass with zero-copy payloads and dispatches whole batches; the
+consumers' prepare stages fold one decode pass and ONE storage transaction
+per drained batch, while the per-message handler chain (tracing, timing,
+at-least-once settlement) runs unchanged.
+
 ``device`` goes to the analytics sink and the flight recorder's roofline
 attributor: None means the CUDA card (raising where there is none),
 ``"cpu"`` the plain PyTorch path. With neither knob on, the service does
 no device work.
 
 Knobs whose subsystems are not ported raise :class:`NotImplementedError`
-at construction (``ROADMAP.md`` A.8): ``instance.reliability``,
-``instance.cache``, ``instance.observability.flight_plane``,
-``.retention`` and ``.sentinel``, ``instance.ingest``, and a Postgres URL
-in ``$BEHOLDER_DB``. Nothing runs another path in place of the one asked
-for.
+at construction (``ROADMAP.md`` A.8): ``instance.cache``,
+``instance.observability.flight_plane``, ``.retention`` and
+``.sentinel``, and a Postgres URL in ``$BEHOLDER_DB``. Nothing runs
+another path in place of the one asked for.
 """
 
 from __future__ import annotations
@@ -44,7 +63,8 @@ from beholder_tpu_torch.config import Config, ConfigNode, dyn, no_trello
 from beholder_tpu_torch.log import get_logger
 from beholder_tpu_torch.metrics import Metrics
 from beholder_tpu_torch.mq import Broker, Delivery
-from beholder_tpu_torch.storage import SqliteStorage, Storage
+from beholder_tpu_torch.mq.ingest import ingest_from_config
+from beholder_tpu_torch.storage import MediaNotFound, SqliteStorage, Storage
 
 STATUS_TOPIC = "v1.telemetry.status"
 PROGRESS_TOPIC = "v1.telemetry.progress"
@@ -53,12 +73,10 @@ PREFETCH = 100
 #: knobs whose subsystems the port does not have yet; each is armed by
 #: ``<knob>.enabled``
 REFUSED_KNOBS = (
-    "instance.reliability",
     "instance.cache",
     "instance.observability.flight_plane",
     "instance.observability.retention",
     "instance.observability.sentinel",
-    "instance.ingest",
 )
 
 
@@ -107,6 +125,66 @@ class BeholderService:
             )
             transport = TimedTransport(transport or RequestsTransport(), self.metrics.registry)
 
+        #: the reliability subsystem: at-least-once consumers with DLQ
+        #: parking and dedup, and breaker/retry/deadline armour on the
+        #: shared outbound transport
+        self._at_least_once = bool(config.get("instance.reliability.enabled"))
+        self.breaker = None
+        self.reliability = None
+        self.reliable_consumers: dict[str, object] = {}
+        if self._at_least_once:
+            from beholder_tpu_torch.reliability import (
+                CircuitBreaker,
+                ReliabilityMetrics,
+                ResilientTransport,
+                RetryBudget,
+                RetryPolicy,
+            )
+
+            if transport is None:
+                from beholder_tpu_torch.clients.http import RequestsTransport
+
+                transport = RequestsTransport()
+
+            rel = config.get("instance.reliability") or ConfigNode({})
+            self.reliability = ReliabilityMetrics(self.metrics.registry)
+            self.breaker = CircuitBreaker(
+                name="http",
+                window=int(rel.get("breaker.window", 20)),
+                min_calls=int(rel.get("breaker.min_calls", 5)),
+                failure_threshold=float(rel.get("breaker.failure_threshold", 0.5)),
+                reset_timeout_s=float(rel.get("breaker.reset_timeout_s", 30.0)),
+                half_open_probes=int(rel.get("breaker.half_open_probes", 1)),
+                half_open_successes=int(rel.get("breaker.half_open_successes", 2)),
+                metrics=self.reliability,
+                logger=self.logger,
+            )
+            retry = RetryPolicy(
+                max_attempts=int(rel.get("retry.max_attempts", 3)),
+                base_delay_s=float(rel.get("retry.base_delay_s", 0.05)),
+                max_delay_s=float(rel.get("retry.max_delay_s", 2.0)),
+                budget=RetryBudget(
+                    capacity=float(rel.get("retry.budget_capacity", 10.0)),
+                    deposit_per_call=float(rel.get("retry.budget_per_call", 0.1)),
+                ),
+                # the transport decides retryability per error (4xx never
+                # raises; BreakerOpenError is excluded by should_retry)
+                retry_on=(Exception,),
+                metrics=self.reliability,
+                logger=self.logger,
+            )
+            # Resilient OUTSIDE Timed: each attempt is timed on its own,
+            # while the breaker sees the attempt stream
+            transport = ResilientTransport(
+                transport,
+                breaker=self.breaker,
+                retry=retry,
+                default_deadline_s=float(config.get("instance.http.deadline_s", 10.0)),
+                logger=self.logger,
+            )
+            self._consumer_max_attempts = int(rel.get("consumer.max_attempts", 3))
+            self._consumer_dedup_window = int(rel.get("consumer.dedup_window", 4096))
+
         #: library knobs the service only parses, for whatever embeds the
         #: serving layer next to the consumers (each None when off)
         from beholder_tpu_torch.spec import spec_from_config
@@ -132,6 +210,9 @@ class BeholderService:
             )
         self.cache_dtype = cache_dtype
         self.fused_wave = bool(config.get("instance.serving.fused_wave", False))
+
+        #: batched native ingest (an IngestConfig, or None when off)
+        self.ingest = ingest_from_config(config)
 
         #: the request-level SLO engine: a flight-recorder listener; the
         #: metrics server gains GET /slo and /healthz the ``slo`` check
@@ -234,6 +315,18 @@ class BeholderService:
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
         """Register both consumers and log 'initialized'."""
+        if self.ingest is not None:
+            # arm the broker's batched ingest path BEFORE connect (the
+            # per-connection batch feed is built at handshake time);
+            # brokers without the surface (InMemoryBroker) stay on the
+            # per-message path with identical semantics
+            configure = getattr(self.broker, "configure_ingest", None)
+            if configure is not None:
+                configure(
+                    self.ingest,
+                    registry=self.metrics.registry,
+                    flight_recorder=self.flight_recorder,
+                )
         self.broker.connect()
         status, progress = self.handle_status, self.handle_progress
         if self.handle_seconds is not None:
@@ -244,8 +337,31 @@ class BeholderService:
         if self.tracer is not None:
             status = self._traced("telemetry.status", status)
             progress = self._traced("telemetry.progress", progress)
-        self.broker.listen(STATUS_TOPIC, status)
-        self.broker.listen(PROGRESS_TOPIC, progress)
+        if self._at_least_once:
+            # OUTERMOST wrapper: it owns settlement on failure (nack for
+            # redelivery, park to the DLQ at the attempt cap, dedup acks
+            # on redelivered already-done messages)
+            from beholder_tpu_torch.reliability import ReliableConsumer
+
+            status, progress = (
+                ReliableConsumer(
+                    self.broker,
+                    topic,
+                    handler,
+                    max_attempts=self._consumer_max_attempts,
+                    dedup_window=self._consumer_dedup_window,
+                    metrics=self.reliability,
+                    logger=self.logger,
+                )
+                for topic, handler in ((STATUS_TOPIC, status), (PROGRESS_TOPIC, progress))
+            )
+            self.reliable_consumers = {STATUS_TOPIC: status, PROGRESS_TOPIC: progress}
+        if self.ingest is not None:
+            self.broker.listen_batch(STATUS_TOPIC, status, self.prepare_status_batch)
+            self.broker.listen_batch(PROGRESS_TOPIC, progress, self.prepare_progress_batch)
+        else:
+            self.broker.listen(STATUS_TOPIC, status)
+            self.broker.listen(PROGRESS_TOPIC, progress)
         self.logger.info("initialized")
 
     def _timed(self, topic: str, handler):
@@ -320,6 +436,18 @@ class BeholderService:
             except Exception:  # noqa: BLE001 - best effort on the way out
                 pass
         self.broker.close()
+        # graceful cluster drain (SIGTERM routes here): stop admitting and
+        # serve what is queued, so a decommission loses nothing
+        if (
+            self.cluster_scheduler is not None
+            and self.cluster is not None
+            and self.cluster.failover is not None
+            and self.cluster.failover.drain_on_sigterm
+        ):
+            try:
+                self.cluster_scheduler.shutdown(drain=True)
+            except Exception as err:  # noqa: BLE001 - best effort on the way out
+                self.logger.warning(f"cluster drain at shutdown failed: {err!r}")
         if self.analytics is not None:
             try:
                 self.analytics.flush()
@@ -361,22 +489,136 @@ class BeholderService:
             )
         return text
 
+    # -- batched ingest prepare stages -------------------------------------
+    def prepare_status_batch(self, deliveries: list[Delivery]) -> None:
+        """Batched-ingest prepare for ``v1.telemetry.status``: one
+        protobuf decode pass and ONE storage transaction for the whole
+        drained run (``update_status_batch``), stashing per-delivery
+        results on ``delivery.prepared`` for :meth:`handle_status` —
+        which still runs per message under its usual wrappers, so acks,
+        redelivery, tracing and error outcomes are unchanged.
+
+        In at-least-once mode the fold STOPS at the first redelivered
+        message: the ReliableConsumer's dedup window may skip its handler
+        entirely (the prepare must not run side effects the handler
+        won't), and folding LATER same-media writes into a transaction
+        that commits BEFORE the redelivered message's own inline write
+        would invert the per-message loop's arrival-order outcome — so
+        everything from the redelivered message on falls back to the
+        per-message path, in order. A message whose decode fails is left
+        without a ``msg`` (the handler re-decodes and raises in its OWN
+        scope); a wholesale write failure leaves the ``found`` flags off
+        and every handler re-runs its update inline."""
+        rows: dict[str, proto.Media] = {}
+        pending: list[tuple[dict, str, int]] = []
+        for delivery in deliveries:
+            if self._at_least_once and delivery.redelivered:
+                break
+            prepared: dict = {"rows": rows}
+            delivery.prepared = prepared
+            try:
+                msg = proto.decode(self._status_proto, delivery.body)
+            except Exception:  # noqa: BLE001 - re-raised by the handler
+                continue
+            prepared["msg"] = msg
+            pending.append((prepared, msg.mediaId, msg.status))
+        if not pending or not self.ingest.batch_storage:
+            return
+        try:
+            found = self.db.update_status_batch(
+                [(media_id, status) for _, media_id, status in pending]
+            )
+        except Exception as err:  # noqa: BLE001 - degrade to inline writes
+            self.logger.warning(
+                f"batched status write failed ({err!r}); "
+                "falling back to per-message updates"
+            )
+            return
+        for (prepared, _, _), ok in zip(pending, found):
+            prepared["found"] = ok
+        # prefetch the post-write rows in ONE query (the handlers'
+        # read-after-own-write; _read_media overrides status per message).
+        # Best-effort: a miss here just re-reads inline. NO_TRELLO handlers
+        # ack right after the write and never read.
+        if no_trello():
+            return
+        try:
+            rows.update(self.db.get_by_ids([p[1] for p, ok in zip(pending, found) if ok]))
+        except Exception:  # noqa: BLE001
+            pass
+
+    def prepare_progress_batch(self, deliveries: list[Delivery]) -> None:
+        """Batched-ingest prepare for ``v1.telemetry.progress``: one
+        decode pass plus a shared per-run row-read memo (the progress
+        handler only reads media rows — one read per distinct id per run
+        instead of per message). Redelivered messages are skipped in
+        at-least-once mode: the dedup window decides whether they run."""
+        rows: dict[str, proto.Media] = {}
+        media_ids: list[str] = []
+        for delivery in deliveries:
+            if self._at_least_once and delivery.redelivered:
+                continue
+            prepared: dict = {"rows": rows}
+            delivery.prepared = prepared
+            try:
+                msg = proto.decode(self._progress_proto, delivery.body)
+            except Exception:  # noqa: BLE001 - re-raised by the handler
+                continue
+            prepared["msg"] = msg
+            media_ids.append(msg.mediaId)
+        # one read round trip for the whole run; a missing id keeps its
+        # MediaNotFound outcome (the handler's fallback read raises)
+        if media_ids:
+            try:
+                rows.update(self.db.get_by_ids(media_ids))
+            except Exception:  # noqa: BLE001 - handlers re-read inline
+                pass
+
+    def _read_media(
+        self, prepared: dict | None, media_id: str, status: int | None = None
+    ) -> proto.Media:
+        """Row read, batch-aware: on the per-message path it is exactly
+        ``db.get_by_id``; on the batched path the run's shared memo
+        serves one read per distinct id. ``status`` overrides the
+        returned row's status with THIS message's own just-written value
+        — precisely what the per-message read-after-own-write observes,
+        also when a later message in the batch already moved the row on."""
+        if prepared is None:
+            return self.db.get_by_id(media_id)
+        rows = prepared["rows"]
+        media = rows.get(media_id)
+        if media is None:
+            media = rows[media_id] = self.db.get_by_id(media_id)
+        clone = proto.Media()
+        clone.CopyFrom(media)
+        if status is not None:
+            clone.status = status
+        return clone
+
     # -- consumers ---------------------------------------------------------
     def handle_status(self, delivery: Delivery) -> None:
         """v1.telemetry.status."""
-        msg = proto.decode(self._status_proto, delivery.body)
+        prepared = delivery.prepared
+        if prepared is not None and "msg" in prepared:
+            msg = prepared["msg"]
+        else:
+            msg = proto.decode(self._status_proto, delivery.body)
         media_id, status = msg.mediaId, msg.status
 
         self.logger.info(
             "processing status update for media %s, status: %s", media_id, status
         )
-        self.db.update_status(media_id, status)
+        found = prepared.get("found") if prepared is not None else None
+        if found is None:
+            self.db.update_status(media_id, status)
+        elif not found:
+            raise MediaNotFound(media_id)
 
         if no_trello():
             return delivery.ack()
 
         status_text = self._status_text(status)
-        media = self.db.get_by_id(media_id)
+        media = self._read_media(prepared, media_id, status)
 
         # Trello card movement
         if media.creator == 1:
@@ -414,7 +656,11 @@ class BeholderService:
     def handle_progress(self, delivery: Delivery) -> None:
         """v1.telemetry.progress."""
         try:
-            msg = proto.decode(self._progress_proto, delivery.body)
+            prepared = delivery.prepared
+            if prepared is not None and "msg" in prepared:
+                msg = prepared["msg"]
+            else:
+                msg = proto.decode(self._progress_proto, delivery.body)
             media_id, status = msg.mediaId, msg.status
             progress, host = msg.progress, msg.host
 
@@ -445,7 +691,7 @@ class BeholderService:
                     )
                     self.analytics = None
 
-            media = self.db.get_by_id(media_id)
+            media = self._read_media(prepared, media_id)
 
             if media.creator == self._creator_trello:
                 comment_text = f"{status_text}: Progress **{progress}%**"
@@ -453,6 +699,11 @@ class BeholderService:
                     comment_text += f" (_{host}_)"
                 self.comment(media.creatorId, comment_text)
         except Exception as err:  # noqa: BLE001 - the reference warns and acks
+            if self._at_least_once:
+                # the error propagates to the ReliableConsumer, which nacks
+                # for redelivery or parks the message: ack-on-error would
+                # LOSE it
+                raise
             self.logger.warning(f"failed to update media progress {err}")
             return delivery.ack()
 

@@ -1,6 +1,5 @@
 """Storage interface and the in-memory backend (the port's own copy of
-the reference's ``storage/base.py``, without the batched-ingest hops
-``update_status_batch`` and ``get_by_ids``)."""
+the reference's ``storage/base.py``)."""
 
 from __future__ import annotations
 
@@ -28,6 +27,44 @@ class Storage(abc.ABC):
     @abc.abstractmethod
     def add_media(self, media: proto.Media) -> None:
         """Insert/replace a media row."""
+
+    def update_status_batch(
+        self, updates: list[tuple[str, int]]
+    ) -> list[bool]:
+        """Apply status updates IN ORDER; returns per-row found flags
+        (``False`` where :meth:`update_status` would have raised
+        :class:`MediaNotFound`).
+
+        The batched-ingest storage hop: backends override this with a
+        one-transaction implementation (one commit per drained batch
+        instead of per message) — rows and per-row outcomes must be
+        identical to the per-message loop, which is exactly what this
+        default does."""
+        found: list[bool] = []
+        for media_id, status in updates:
+            try:
+                self.update_status(media_id, status)
+                found.append(True)
+            except MediaNotFound:
+                found.append(False)
+        return found
+
+    def get_by_ids(self, media_ids) -> dict[str, proto.Media]:
+        """Fetch several media rows at once; missing ids are simply
+        absent from the result (callers keep :meth:`get_by_id`'s
+        MediaNotFound semantics by falling back per id).
+
+        The batched-ingest read hop: backends override this with a
+        single-query implementation so a drained batch stops paying a
+        storage round trip per message. This default is the per-id
+        loop, semantics identical."""
+        out: dict[str, proto.Media] = {}
+        for media_id in media_ids:
+            try:
+                out[media_id] = self.get_by_id(media_id)
+            except MediaNotFound:
+                pass
+        return out
 
     def close(self) -> None:  # pragma: no cover - trivial default
         pass

@@ -67,6 +67,25 @@ class SqliteStorage(Storage):
             if cur.rowcount == 0:
                 raise MediaNotFound(media_id)
 
+    def update_status_batch(
+        self, updates: list[tuple[str, int]]
+    ) -> list[bool]:
+        """One transaction per drained ingest batch: the per-message
+        loop pays a WAL commit per status update — the commit, not the
+        UPDATE, is the storage hop's fixed cost. Rows execute in order
+        (a later duplicate id wins, like the per-message loop) and
+        per-row found flags preserve the MediaNotFound outcomes."""
+        found: list[bool] = []
+        with self._lock, self._conn:
+            execute = self._conn.execute
+            for media_id, status in updates:
+                cur = execute(
+                    "UPDATE media SET status = ? WHERE id = ?",
+                    (status, media_id),
+                )
+                found.append(cur.rowcount != 0)
+        return found
+
     def get_by_id(self, media_id: str) -> proto.Media:
         with self._lock:
             row = self._conn.execute(
@@ -84,6 +103,32 @@ class SqliteStorage(Storage):
             metadataId=row[4],
             status=row[5],
         )
+
+    def get_by_ids(self, media_ids) -> dict[str, proto.Media]:
+        """One ``IN`` query per drained ingest batch instead of one
+        SELECT round trip per message (missing ids absent, per the base
+        contract)."""
+        ids = list(dict.fromkeys(media_ids))  # de-dupe, keep order
+        if not ids:
+            return {}
+        placeholders = ",".join("?" * len(ids))
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT id, name, creator, creator_id, metadata_id, status "
+                f"FROM media WHERE id IN ({placeholders})",
+                ids,
+            ).fetchall()
+        return {
+            row[0]: proto.Media(
+                id=row[0],
+                name=row[1],
+                creator=row[2],
+                creatorId=row[3],
+                metadataId=row[4],
+                status=row[5],
+            )
+            for row in rows
+        }
 
     def close(self) -> None:
         self._conn.close()

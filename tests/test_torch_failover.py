@@ -631,3 +631,52 @@ def test_failover_off_keeps_cluster_fail_stop_and_exposition(pair):
         cluster.run([_request(i, horizon=5) for i in range(6)])
     batcher._tick_chunk = orig
     assert "beholder_failover" not in registry.render()
+
+
+# -- the service's shutdown drain ------------------------------------------------
+
+
+def test_service_close_drains_the_cluster_like_the_reference(pair):
+    """``failover.drain_on_sigterm``: the service's ``close()`` calls
+    ``ClusterScheduler.shutdown(drain=True)``: a request queued before it is
+    served, every shard ends ``draining``, and a submit racing the shutdown
+    sheds ``shard_down`` — on the port as on the reference."""
+    import beholder_tpu.config as ref_config
+    import beholder_tpu.mq as ref_mq
+    import beholder_tpu.service as ref_service
+    import beholder_tpu.storage as ref_storage
+    import beholder_tpu_torch.config as port_config
+    import beholder_tpu_torch.mq as port_mq
+    import beholder_tpu_torch.service as port_service
+    import beholder_tpu_torch.storage as port_storage
+
+    data = {"keys": {"trello": {"key": "K", "token": "T"}},
+            "instance": {"cluster": {"enabled": True, "failover": {"enabled": True}}}}
+    cluster, ref = _both(pair, _failover_cfg())
+    out, streams = {}, {}
+    for name, sched, svc_mod, cfg_mod, mq_mod, st_mod, req, kw in (
+            ("port", cluster, port_service, port_config, port_mq, port_storage,
+             _request(0, horizon=3), {"device": "cpu"}),
+            ("ref", ref, ref_service, ref_config, ref_mq, ref_storage,
+             _jreq(_request(0, horizon=3)), {})):
+        service = svc_mod.BeholderService(cfg_mod.ConfigNode(data), mq_mod.InMemoryBroker(),
+                                          st_mod.MemoryStorage(), **kw)
+        assert service.cluster.failover.drain_on_sigterm
+        service.cluster_scheduler = sched
+        assert sched.submit(req).accepted
+        served = []
+        run_pending = sched.run_pending
+        sched.run_pending = lambda: served.extend(run_pending()) or served
+        service.close()
+        racing = sched.submit(req)
+        streams[name] = served
+        out[name] = ([s.intake.depth for s in sched.shards],
+                     {s.pool.name: sched.failover.state(s.pool.name) for s in sched.shards},
+                     len(served), (racing.accepted, racing.reason))
+    assert out["port"] == out["ref"]
+    assert out["port"][1] == {"decode-0": "draining", "decode-1": "draining"}
+    assert out["port"][2] == 1 and out["port"][3] == (False, "shard_down")
+    _bitwise(streams["port"], _single(pair[2]).run([_request(0, horizon=3)]))
+    _close(streams["port"], streams["ref"])
+    for shard in cluster.shards:
+        _pristine(shard.batcher)

@@ -54,6 +54,9 @@ PORT_MODULES = [
     "beholder_tpu_torch.reliability.policy",
     "beholder_tpu_torch.reliability.shed",
     "beholder_tpu_torch.reliability.chaos",
+    "beholder_tpu_torch.reliability.breaker",
+    "beholder_tpu_torch.reliability.dlq",
+    "beholder_tpu_torch.reliability.instruments",
     "beholder_tpu_torch.control",
     "beholder_tpu_torch.control.admission",
     "beholder_tpu_torch.control.instruments",
@@ -89,6 +92,8 @@ PORT_MODULES = [
     "beholder_tpu_torch.mq.codec",
     "beholder_tpu_torch.mq.amqp",
     "beholder_tpu_torch.mq.server",
+    "beholder_tpu_torch.mq.ingest",
+    "beholder_tpu_torch.mq._native",
     "beholder_tpu_torch.storage",
     "beholder_tpu_torch.storage.base",
     "beholder_tpu_torch.storage.sqlite",
