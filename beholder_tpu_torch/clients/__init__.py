@@ -8,11 +8,13 @@ All share a pluggable HTTP transport so tests can intercept traffic.
 
 from .emby import EmbyClient
 from .http import (
+    CachingTransport,
     HttpResponse,
     HttpTransport,
     RecordingTransport,
     RequestsTransport,
     TimedTransport,
+    read_only_get,
 )
 from .telegram import TelegramClient
 from .trello import TrelloClient
@@ -23,6 +25,8 @@ __all__ = [
     "RequestsTransport",
     "RecordingTransport",
     "TimedTransport",
+    "CachingTransport",
+    "read_only_get",
     "TrelloClient",
     "TelegramClient",
     "EmbyClient",

@@ -1,7 +1,7 @@
 """Emby media-server client.
 
-One operation: trigger a library refresh after a deployment
-(index.js:110-118).
+Trigger a library refresh after a deployment (index.js:110-118), and
+the read-only library listing.
 
 The port's own copy of the reference's ``clients/emby.py``.
 """
@@ -30,6 +30,21 @@ class EmbyClient:
         resp = self._transport.request(
             "get",  # request-promise-native defaults to GET (index.js:112)
             f"{self._host}/emby/library/refresh",
+            params={"api_key": self._token},
+            timeout=self._deadline_s,
+        )
+        resp.raise_for_status()
+        return resp
+
+    def library_folders(self) -> HttpResponse:
+        """GET /emby/Library/VirtualFolders — the read-only library
+        listing. Unlike :meth:`refresh_library` (a GET with a side
+        effect, never cacheable) this is a pure lookup, TTL-cached by
+        the service's :class:`~beholder_tpu_torch.clients.http
+        .CachingTransport` (``instance.cache.http``)."""
+        resp = self._transport.request(
+            "get",
+            f"{self._host}/emby/Library/VirtualFolders",
             params={"api_key": self._token},
             timeout=self._deadline_s,
         )

@@ -1,6 +1,7 @@
 """Pluggable HTTP transport (the port's own copy of the reference's
-``clients/http.py``; its response cache, ``CachingTransport``, and the
-flight plane's ``TracingTransport`` are not ported).
+``clients/http.py``, with its read-only lookup cache,
+:class:`CachingTransport`; the flight plane's ``TracingTransport`` is not
+ported).
 
 The reference talks to Trello through the ``trello`` npm package and to
 Telegram/Emby through raw ``request-promise-native`` calls (index.js:14,
@@ -11,6 +12,7 @@ tests can assert on exact requests without network access.
 from __future__ import annotations
 
 import abc
+import copy
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -122,6 +124,122 @@ class TimedTransport(HttpTransport):
             outcome=f"{resp.status // 100}xx",
         )
         return resp
+
+
+def read_only_get(method: str, url: str) -> bool:
+    """The service's default cacheability predicate: ONLY known
+    read-only lookups. It must be an allowlist — this stack's
+    "request-promise-native defaults to GET" heritage means GETs with
+    side effects exist (Telegram ``sendMessage``, Emby
+    ``library/refresh``), and caching one would silently swallow the
+    side effect on every hit."""
+    if method.upper() != "GET":
+        return False
+    return (
+        "/1/boards/" in url          # Trello board lookups
+        or "/1/cards/" in url        # Trello card lookups
+        or "VirtualFolders" in url   # Emby library listing
+    )
+
+
+class CachingTransport(HttpTransport):
+    """TTL response cache for read-only outbound lookups.
+
+    Wraps any transport (the service puts it OUTSIDE
+    :class:`~beholder_tpu_torch.reliability.breaker.ResilientTransport`, so a
+    hit skips the breaker/retry machinery entirely — cached traffic
+    costs the dependency nothing) and serves repeat lookups from a
+    :class:`beholder_tpu_torch.cache.KeyedCache` keyed by (method, url,
+    params). Singleflight collapses concurrent identical lookups into
+    one wire call. Only responses passing ``cacheable`` (default:
+    :func:`read_only_get`) with status < 300 are stored; everything
+    else — writes, side-effectful GETs, errors — passes straight
+    through. Extension surface: nothing registers on the exposition
+    unless a registry is handed in."""
+
+    def __init__(
+        self,
+        inner: HttpTransport,
+        ttl_s: float = 5.0,
+        max_entries: int = 256,
+        cacheable=read_only_get,
+        metrics=None,
+        clock=None,
+    ):
+        from beholder_tpu_torch.cache import KeyedCache
+
+        self.inner = inner
+        self._cacheable = cacheable
+        kwargs = {"clock": clock} if clock is not None else {}
+        self._cache = KeyedCache(
+            "http.get",
+            max_entries=max_entries,
+            policy="ttl",
+            ttl_s=ttl_s,
+            metrics=metrics,
+            **kwargs,
+        )
+
+    @property
+    def cache(self):
+        return self._cache
+
+    def request(self, method, url, *, params=None, json=None, timeout=10.0,
+                headers=None):
+        # headers forwarded only when set: duck-typed transports
+        # predating the headers kwarg keep working headerless
+        extra = {"headers": headers} if headers is not None else {}
+        if json is not None or not self._cacheable(method, url):
+            return self.inner.request(
+                method, url, params=params, json=json, timeout=timeout,
+                **extra,
+            )
+        # headers are deliberately NOT part of the cache key: trace
+        # context varies per request and must not shatter the cache
+        key = (method.upper(), url, _freeze(params or {}))
+
+        def load():
+            resp = self.inner.request(
+                method, url, params=params, json=None, timeout=timeout,
+                **extra,
+            )
+            if resp.status >= 300:
+                # an error/redirect must not be replayed for ttl_s; the
+                # private raise carries it out of the cache uncached
+                raise _Uncached(resp)
+            return resp
+
+        # a defensive copy per caller on EVERY exit (hit, fresh load, or
+        # error bypass — singleflight can hand one object to several
+        # collapsed callers): the body is a mutable parsed-JSON object
+        # and one caller's mutation must not poison another's view (same
+        # contract as CachingStorage's row clones)
+        try:
+            resp = self._cache.get_or_load(key, load)
+        except _Uncached as bypass:
+            resp = bypass.response
+        return HttpResponse(resp.status, copy.deepcopy(resp.body))
+
+
+def _freeze(value):
+    """Recursively hashable view of a params structure — list-valued
+    query params are legal for the uncached transport, so they must not
+    crash the cache-key build."""
+    if isinstance(value, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in value.items()))
+    if isinstance(value, (list, tuple)):
+        return tuple(_freeze(v) for v in value)
+    if isinstance(value, (set, frozenset)):
+        return frozenset(_freeze(v) for v in value)
+    return value
+
+
+class _Uncached(Exception):
+    """Internal: carries a non-cacheable response out of a loader."""
+
+    def __init__(self, response: HttpResponse):
+        super().__init__(response.status)
+        self.response = response
 
 
 @dataclass

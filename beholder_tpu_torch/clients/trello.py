@@ -2,7 +2,8 @@
 
 Covers the two operations the reference performs through the ``trello`` npm
 package: moving a card to a list (index.js:83-86) and commenting on a card
-(index.js:53-55). Auth is key+token query parameters, as the npm client does.
+(index.js:53-55), plus the read-only board and card lookups. Auth is
+key+token query parameters, as the npm client does.
 
 The port's own copy of the reference's ``clients/trello.py``.
 """
@@ -62,3 +63,15 @@ class TrelloClient:
             f"/1/cards/{card_id}/actions/comments",
             {"text": text or "Failed to retrieve comment text."},
         )
+
+    def get_board(self, board_id: str) -> HttpResponse:
+        """GET /1/boards/<id> — a read-only lookup (board metadata, list
+        layout). Hot when resolving flow lists for many cards; the
+        service's :class:`~beholder_tpu_torch.clients.http.CachingTransport`
+        TTL-caches it (``instance.cache.http``)."""
+        return self.make_request("get", f"/1/boards/{board_id}")
+
+    def get_card(self, card_id: str) -> HttpResponse:
+        """GET /1/cards/<id> — read-only card lookup (same cache tier
+        as :meth:`get_board`)."""
+        return self.make_request("get", f"/1/cards/{card_id}")

@@ -33,7 +33,7 @@ import time
 from http.server import ThreadingHTTPServer
 from typing import Iterable
 
-from beholder_tpu_torch.httpd import serve_routes
+from beholder_tpu_torch.httpd import CachedRoute, serve_routes
 from beholder_tpu_torch.tracing import current_trace_id
 
 DEFAULT_PORT = 8000
@@ -504,10 +504,20 @@ class Metrics:
         if self._routes is not None:
             self._routes[path] = route
 
-    def expose(self, port: int | None = None) -> int:
+    def expose(
+        self, port: int | None = None, cache_max_age_s: float | None = None
+    ) -> int:
         """Start the /metrics endpoint (``Prom.expose()``); returns the
         bound port (pass 0 for an ephemeral one). ``None`` reads
-        ``$METRICS_PORT``, else :data:`DEFAULT_PORT`."""
+        ``$METRICS_PORT``, else :data:`DEFAULT_PORT`.
+
+        ``cache_max_age_s`` (the service threads
+        ``instance.cache.httpd.metrics_max_age_s`` here) memoizes the
+        rendered exposition for that window and serves it with
+        ``Cache-Control``/``ETag`` (304 on revalidation): under scrape
+        storms the registry renders once per window, not once per
+        request. None (the default) keeps the uncached server
+        byte-identical."""
         if port is None:
             port = int(os.environ.get("METRICS_PORT", DEFAULT_PORT))
         registry = self.registry
@@ -515,7 +525,10 @@ class Metrics:
         def render():
             return 200, CONTENT_TYPE, registry.render().encode()
 
-        self._routes = {"/metrics": render, "/": render}
+        route = render
+        if cache_max_age_s is not None:
+            route = CachedRoute(render, cache_max_age_s)
+        self._routes = {"/metrics": route, "/": route}
         self._routes.update(self._extra_routes)
         self._server = serve_routes(self._routes, port)
         return self._server.server_address[1]

@@ -35,16 +35,26 @@ consumers' prepare stages fold one decode pass and ONE storage transaction
 per drained batch, while the per-message handler chain (tracing, timing,
 at-least-once settlement) runs unchanged.
 
+Caching (``instance.cache.enabled``; off by default): storage reads go
+through a :class:`~beholder_tpu_torch.storage.CachingStorage` (TTL, writer-side
+invalidation, singleflight), read-only outbound lookups through a
+:class:`~beholder_tpu_torch.clients.http.CachingTransport` outside the
+resilience stack, and ``init()`` memoizes the /metrics exposition for
+``instance.cache.httpd.metrics_max_age_s``.
+
+Storage: ``init()`` opens ``$BEHOLDER_DB`` as SQLite, or as
+:class:`~beholder_tpu_torch.storage.PostgresStorage` when it is a
+``postgres://`` or ``postgresql://`` URL.
+
 ``device`` goes to the analytics sink and the flight recorder's roofline
 attributor: None means the CUDA card (raising where there is none),
 ``"cpu"`` the plain PyTorch path. With neither knob on, the service does
 no device work.
 
 Knobs whose subsystems are not ported raise :class:`NotImplementedError`
-at construction (``ROADMAP.md`` A.8): ``instance.cache``,
-``instance.observability.flight_plane``, ``.retention`` and
-``.sentinel``, and a Postgres URL in ``$BEHOLDER_DB``. Nothing runs
-another path in place of the one asked for.
+at construction (``ROADMAP.md`` A.8): ``instance.observability.flight_plane``,
+``.retention`` and ``.sentinel``. Nothing runs another path in place of the
+one asked for.
 """
 
 from __future__ import annotations
@@ -64,7 +74,7 @@ from beholder_tpu_torch.log import get_logger
 from beholder_tpu_torch.metrics import Metrics
 from beholder_tpu_torch.mq import Broker, Delivery
 from beholder_tpu_torch.mq.ingest import ingest_from_config
-from beholder_tpu_torch.storage import MediaNotFound, SqliteStorage, Storage
+from beholder_tpu_torch.storage import MediaNotFound, PostgresStorage, SqliteStorage, Storage
 
 STATUS_TOPIC = "v1.telemetry.status"
 PROGRESS_TOPIC = "v1.telemetry.progress"
@@ -73,7 +83,6 @@ PREFETCH = 100
 #: knobs whose subsystems the port does not have yet; each is armed by
 #: ``<knob>.enabled``
 REFUSED_KNOBS = (
-    "instance.cache",
     "instance.observability.flight_plane",
     "instance.observability.retention",
     "instance.observability.sentinel",
@@ -184,6 +193,34 @@ class BeholderService:
             )
             self._consumer_max_attempts = int(rel.get("consumer.max_attempts", 3))
             self._consumer_dedup_window = int(rel.get("consumer.dedup_window", 4096))
+
+        #: the caching subsystem: storage reads memoized with writer-side
+        #: invalidation (a progress message's ``get_by_id`` stops re-querying
+        #: rows that change only on status transitions), and read-only
+        #: outbound lookups TTL-cached OUTSIDE the resilience stack (a hit
+        #: costs the dependency, and the breaker's window, nothing).
+        #: Side-effectful GETs (Telegram sendMessage, Emby refresh) are never
+        #: cached: ``clients.http.read_only_get`` is an allowlist
+        if config.get("instance.cache.enabled"):
+            cache_cfg = config.get("instance.cache") or ConfigNode({})
+            if bool(cache_cfg.get("storage.enabled", True)):
+                from beholder_tpu_torch.storage import CachingStorage
+
+                self.db = CachingStorage(
+                    db,
+                    ttl_s=float(cache_cfg.get("storage.ttl_s", 30.0)),
+                    max_entries=int(cache_cfg.get("storage.max_entries", 1024)),
+                    metrics=self.metrics.registry,
+                )
+            if bool(cache_cfg.get("http.enabled", True)):
+                from beholder_tpu_torch.clients.http import CachingTransport, RequestsTransport
+
+                transport = CachingTransport(
+                    transport or RequestsTransport(),
+                    ttl_s=float(cache_cfg.get("http.ttl_s", 5.0)),
+                    max_entries=int(cache_cfg.get("http.max_entries", 256)),
+                    metrics=self.metrics.registry,
+                )
 
         #: library knobs the service only parses, for whatever embeds the
         #: serving layer next to the consumers (each None when off)
@@ -722,19 +759,27 @@ def init(
     consumers, the operator routes and the health server. ``device`` goes
     to :class:`BeholderService`."""
     config = config or Config.load("events")
-    target = os.environ.get("BEHOLDER_DB", "beholder.db") if db is None else None
-    if target is not None and target.startswith(("postgres://", "postgresql://")):
-        raise _refuse("a postgres:// BEHOLDER_DB (the Postgres backend)")
 
     metrics = Metrics()
-    metrics.expose(metrics_port)
+    #: the cache subsystem's /metrics memoization (ETag + max-age: a scrape
+    #: storm renders the exposition once per window)
+    max_age = (
+        config.get("instance.cache.httpd.metrics_max_age_s")
+        if config.get("instance.cache.enabled")
+        else None
+    )
+    metrics.expose(metrics_port, cache_max_age_s=float(max_age) if max_age else None)
 
     service = None
     own_db = db is None
     own_broker = broker is None
     try:
         if db is None:
-            db = SqliteStorage(target)
+            target = os.environ.get("BEHOLDER_DB", "beholder.db")
+            if target.startswith(("postgres://", "postgresql://")):
+                db = PostgresStorage(target)
+            else:
+                db = SqliteStorage(target)
 
         if broker is None:
             from beholder_tpu_torch.mq.amqp import AmqpBroker

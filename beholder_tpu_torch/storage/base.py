@@ -94,3 +94,12 @@ class MemoryStorage(Storage):
         clone = proto.Media()
         clone.CopyFrom(row)
         return clone
+
+
+def postgres_storage(url: str, **kwargs) -> Storage:
+    """The Postgres backend (:class:`.postgres.PostgresStorage` over the
+    from-scratch wire client in :mod:`.pg_wire`), kept as a function for
+    callers that predate the class."""
+    from .postgres import PostgresStorage
+
+    return PostgresStorage(url, **kwargs)

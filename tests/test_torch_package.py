@@ -26,6 +26,7 @@ PORT_MODULES = [
     "beholder_tpu_torch.analytics",
     "beholder_tpu_torch.cache",
     "beholder_tpu_torch.cache.prefix",
+    "beholder_tpu_torch.cache.core",
     "beholder_tpu_torch.models",
     "beholder_tpu_torch.models.sequence",
     "beholder_tpu_torch.models.bridge",
@@ -97,6 +98,10 @@ PORT_MODULES = [
     "beholder_tpu_torch.storage",
     "beholder_tpu_torch.storage.base",
     "beholder_tpu_torch.storage.sqlite",
+    "beholder_tpu_torch.storage.cached",
+    "beholder_tpu_torch.storage.pg_wire",
+    "beholder_tpu_torch.storage.pg_server",
+    "beholder_tpu_torch.storage.postgres",
     "beholder_tpu_torch.clients",
     "beholder_tpu_torch.clients.http",
     "beholder_tpu_torch.clients.trello",

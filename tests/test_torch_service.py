@@ -131,11 +131,12 @@ def env(**values):
                 os.environ[k] = v
 
 
-def run(impl, config, steps, media=(), environ=None):
-    """Drive one service through ``steps``; everything it did."""
+def run(impl, config, steps, media=(), environ=None, make_db=None):
+    """Drive one service through ``steps``; everything it did. ``make_db``
+    (impl -> Storage) replaces the in-memory storage."""
     with captured(impl, "beholder") as (logger, capture), env(**(environ or {})):
         broker = impl.mq.InMemoryBroker(prefetch=100)
-        db = impl.storage.MemoryStorage()
+        db = impl.storage.MemoryStorage() if make_db is None else make_db(impl)
         transport = impl.clients.RecordingTransport()
         service = impl.service.BeholderService(
             impl.config.ConfigNode(config), broker, db, transport=transport, logger=logger,
@@ -181,9 +182,9 @@ def run(impl, config, steps, media=(), environ=None):
     return out
 
 
-def assert_same(config, steps, media=(), environ=None):
-    want = run(REF, config, steps, media, environ)
-    got = run(PORT, config, steps, media, environ)
+def assert_same(config, steps, media=(), environ=None, make_db=None):
+    want = run(REF, config, steps, media, environ, make_db)
+    got = run(PORT, config, steps, media, environ, make_db)
     for key in want:
         assert got[key] == want[key], key
     return got
@@ -374,13 +375,6 @@ def test_unported_knob_is_refused(knob):
         _quiet(PORT, data)
     node[leaf] = {"enabled": False}
     _quiet(PORT, data).close()
-
-
-def test_postgres_db_is_refused(monkeypatch):
-    monkeypatch.setenv("BEHOLDER_DB", "postgres://u:p@127.0.0.1:1/db")
-    with pytest.raises(NotImplementedError, match=r"postgres.*ROADMAP\.md A\.8"):
-        port_service.init(config=port_config.ConfigNode(make_config()),
-                          broker=port_mq.InMemoryBroker(), metrics_port=0, device="cpu")
 
 
 # -- storage across ------------------------------------------------------------
