@@ -76,15 +76,12 @@ reference's module layout and names so a reader finds each counterpart:
   AMQP 0-9-1 client and mini broker, and the batched native ingest path
   with its frame scanner built from C++ at first use),
   :mod:`beholder_tpu_torch.storage`
-  (memory and SQLite), :mod:`beholder_tpu_torch.clients` (Trello,
+  (memory, SQLite and Postgres), :mod:`beholder_tpu_torch.clients` (Trello,
   Telegram, Emby), :mod:`beholder_tpu_torch.httpd` and
   :mod:`beholder_tpu_torch.health`.
 
 Not ported yet (``ROADMAP.md``): the autotune table (A.1), a mesh over
-several processes (C.22), and the service's caching, Postgres,
-flight-plane, retention and sentinel subsystems with the perf gate tools
-(A.8); the service refuses the knobs of those it
-lacks.
+several processes (C.22) and the perf gate tool (A.6).
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

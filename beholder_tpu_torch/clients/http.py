@@ -1,7 +1,7 @@
 """Pluggable HTTP transport (the port's own copy of the reference's
 ``clients/http.py``, with its read-only lookup cache,
-:class:`CachingTransport`; the flight plane's ``TracingTransport`` is not
-ported).
+:class:`CachingTransport`, and the flight plane's trace-context leg,
+:class:`TracingTransport`).
 
 The reference talks to Trello through the ``trello`` npm package and to
 Telegram/Emby through raw ``request-promise-native`` calls (index.js:14,
@@ -124,6 +124,34 @@ class TimedTransport(HttpTransport):
             outcome=f"{resp.status // 100}xx",
         )
         return resp
+
+
+class TracingTransport(HttpTransport):
+    """Injects the active span's W3C ``traceparent`` header into every
+    outbound request: the flight plane's HTTP leg, so an egress call
+    (Trello, Telegram, Emby) carries the trace the triggering message
+    opened across the process boundary. The service wires it outermost,
+    and only when ``instance.observability.flight_plane.*`` is armed: off,
+    no wrapper exists and outbound bytes are unchanged. Caller headers win
+    on conflict (an explicit traceparent is an explicit parent)."""
+
+    def __init__(self, inner: HttpTransport):
+        self.inner = inner
+
+    def request(self, method, url, *, params=None, json=None, timeout=10.0,
+                headers=None):
+        from beholder_tpu_torch.tracing import active_context, to_traceparent
+
+        ctx = active_context()
+        if ctx is not None:
+            merged = {"traceparent": to_traceparent(ctx)}
+            if headers:
+                merged.update(headers)
+            headers = merged
+        extra = {"headers": headers} if headers is not None else {}
+        return self.inner.request(
+            method, url, params=params, json=json, timeout=timeout, **extra,
+        )
 
 
 def read_only_get(method: str, url: str) -> bool:

@@ -29,8 +29,9 @@ fabric-less one):
 
 Each page hop is a recorder-only ``fabric`` or ``mirror`` event (worker,
 source, pages), and a promotion and a spawn are ``promote`` and ``standby``
-instants. The port's recorder has no flight plane, so the hops carry no
-edge ids, as :mod:`beholder_tpu_torch.cluster.transfer`'s events do not.
+instants. With a flight plane bound to the recorder, each hop's event and a
+``fabric.send`` or ``mirror.send`` instant on the source worker share an
+edge id, as :mod:`beholder_tpu_torch.cluster.transfer`'s handoff does.
 """
 
 from __future__ import annotations
@@ -193,6 +194,9 @@ class FabricEngine:
         n = len(page_ids)
         fr = self.flight_recorder
         ts = time.time() if fr is not None else 0.0
+        edge = fr.next_edge() if fr is not None else None
+        if edge is not None:
+            fr.instant(f"{plane}.send", worker=src_name, dst=dst_name, pages=n, edge=edge)
         t0 = time.perf_counter()
         padded = list(page_ids)
         padded += [padded[-1]] * (-n % self.MOVE_BUCKET)
@@ -209,8 +213,9 @@ class FabricEngine:
         dst.batcher.state = new_state
         dest = dest.cpu().numpy()[:n]
         if fr is not None:
+            edge_note = {"edge": edge} if edge is not None else {}
             fr.record(plane, ts, time.perf_counter() - t0,
-                      worker=dst_name, src=src_name, pages=n)
+                      worker=dst_name, src=src_name, pages=n, **edge_note)
         return [int(d) for d in dest]
 
     # -- pin lifecycle -----------------------------------------------------

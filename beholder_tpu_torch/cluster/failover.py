@@ -485,10 +485,20 @@ class FailoverEngine:
         for target in survivors:
             items = moves[target.pool.shard_id]
             if items:
+                # flight-plane edge pair (armed only): the drained worker's
+                # send instant and the survivor's restock mark share an id
+                fr = self.flight_recorder
+                edge = fr.next_edge() if fr is not None else None
+                if edge is not None:
+                    fr.instant("drain.send", worker=name, dst=target.pool.name,
+                               requeued=len(items), edge=edge)
                 target.intake.restock(
                     items,
                     enqueued_at=move_stamps[target.pool.shard_id],
                 )
+                if edge is not None:
+                    fr.instant("restock", worker=target.pool.name, src=name,
+                               requeued=len(items), edge=edge)
 
         # 3. resident pool state moves byte-identically. A migration
         # failure (destination capacity, transfer) rolls the shard back

@@ -20,7 +20,8 @@ Disaggregation splits one admission into three steps:
 The handoff is counted on the host (the ``beholder_cluster_transfer*``
 counters of :mod:`.instruments`, from tensor shapes only: no device read)
 and recorded as a recorder-only ``transfer`` event carrying the worker
-pair.
+pair. With a flight plane bound to the recorder, a ``transfer.send`` instant
+on the source worker and the ``transfer`` event share an edge id.
 """
 
 from __future__ import annotations
@@ -169,6 +170,13 @@ class PageTransferEngine:
         bounded retry and count the handoff. Returns the moved tensors."""
         fr = self.flight_recorder
         ts = time.time() if fr is not None else 0.0
+        # edge id: None unless a flight plane is bound; with one, the send
+        # instant lands on the source worker's track and the transfer
+        # record on the destination's (the receive's ts was taken above,
+        # before the send is stamped, as the reference orders them)
+        edge = fr.next_edge() if fr is not None else None
+        if edge is not None:
+            fr.instant("transfer.send", worker=src, dst=dst, pages=int(n_pages), edge=edge)
         t0 = time.perf_counter()
         pred, chunks_k, chunks_v = self.raw_move(
             (pred, chunks_k, chunks_v), dst_device,
@@ -181,6 +189,7 @@ class PageTransferEngine:
         if self.instruments is not None:
             self.instruments.observe_transfer(int(n_pages), nbytes)
         if fr is not None:
+            edge_note = {"edge": edge} if edge is not None else {}
             fr.record("transfer", ts, time.perf_counter() - t0,
-                      worker=dst, src=src, pages=int(n_pages), bytes=nbytes)
+                      worker=dst, src=src, pages=int(n_pages), bytes=nbytes, **edge_note)
         return pred, chunks_k, chunks_v

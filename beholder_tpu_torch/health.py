@@ -1,8 +1,8 @@
 """Failure detection and elastic recovery: health probes + a supervisor.
 
-The port's own copy of the reference's ``health.py`` (without the circuit
-breaker's and the regression sentinel's checks, whose subsystems are not
-ported). The upstream service has neither (SURVEY.md §5: a crash in
+The port's own copy of the reference's ``health.py``, with every check the
+reference registers: broker, db, the circuit breaker, the cluster, the SLO
+burn and the regression sentinel. The upstream service has neither (SURVEY.md §5: a crash in
 init() kills the process and restart is delegated to the container
 orchestrator). This module is
 the in-process equivalent of that orchestrator plus the liveness/readiness
@@ -245,7 +245,8 @@ def health_from_config(config, service) -> HealthServer | None:
     OPEN outbound-HTTP circuit breaker means a dependency is sick and
     calls are being fast-failed: the probe reports degraded, while
     half-open probes recover it without a restart), ``slo`` when the SLO
-    tracker is armed, and — when ``instance.cluster`` is on — ``cluster``
+    tracker is armed, ``sentinel`` when the regression sentinel is (an open
+    verdict degrades the probe), and — when ``instance.cluster`` is on — ``cluster``
     (per-worker
     up/down/draining + pool pressure; a DOWN decode shard or prefill
     worker degrades the probe, while draining workers report as detail —
@@ -300,6 +301,11 @@ def health_from_config(config, service) -> HealthServer | None:
         # than the page-now alert tolerates — /healthz says so
         add_slo_check(server, lambda: getattr(service, "slo", None))
 
+    if getattr(service, "sentinel", None) is not None:
+        # an open sentinel verdict (a phase@worker regressed fast against
+        # baseline, hysteresis applied) degrades /healthz beside the burn
+        add_sentinel_check(server, lambda: getattr(service, "sentinel", None))
+
     server.start()
     server.set_ready(True)
     return server
@@ -349,3 +355,23 @@ def add_slo_check(server: HealthServer, tracker) -> None:
         return detail
 
     server.add_check("slo", slo_check)
+
+
+def add_sentinel_check(server: HealthServer, sentinel) -> None:
+    """Register the ``sentinel`` health check for a
+    :class:`~beholder_tpu_torch.obs.sentinel.Sentinel` (or a zero-arg
+    callable resolving to one at probe time; None means "configured but not
+    attached yet", a healthy answer): the check fails (degrading
+    ``/healthz`` to 503) while a regression verdict is open, and otherwise
+    returns the check and breach counters as detail."""
+
+    def sentinel_check():
+        target = sentinel() if callable(sentinel) else sentinel
+        if target is None:
+            return "sentinel configured; not attached"
+        healthy, detail = target.health()
+        if not healthy:
+            raise RuntimeError(detail)
+        return detail
+
+    server.add_check("sentinel", sentinel_check)

@@ -11,8 +11,9 @@ the route's body is memoized for ``max_age_s`` and served with
 with ``If-None-Match`` gets a body-less 304. Under scrape storms the
 exposition renders once per window instead of once per request. Plain
 callables are untouched: a server with no CachedRoute behaves
-byte-identically. The reference's path-prefix routes (``wants_path``) come
-with retention (``ROADMAP.md`` A.8) and are not ported.
+byte-identically. A route registered under a key ending in "/" whose
+``wants_path`` is truthy serves every path under that prefix (the retention
+vault's ``/debug/traces/<id>``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ from urllib.parse import parse_qs
 #: A route handler: () -> (status code, content type, body bytes).
 #: A route with a truthy ``wants_query`` attribute is instead called
 #: with the parsed query-string dict (``parse_qs``) as its one arg.
+#: A route with a truthy ``wants_path`` attribute, registered under a
+#: key ending in "/", matches any path under that prefix and is called
+#: with the remainder (the /debug/traces/<id> lookups).
 Route = Callable[[], tuple[int, str, bytes]]
 
 
@@ -105,11 +109,27 @@ def serve_routes(routes: dict[str, Route], port: int) -> ThreadingHTTPServer:
         def do_GET(self):
             path, _, query = self.path.partition("?")
             route = routes.get(path)
+            subpath = None
+            if route is None:
+                # longest-prefix fallback for path-parameter routes: keys
+                # ending "/" whose route declares wants_path
+                prefix = max(
+                    (key for key, r in routes.items()
+                     if key.endswith("/") and getattr(r, "wants_path", False)
+                     and path.startswith(key) and len(path) > len(key)),
+                    key=len,
+                    default=None,
+                )
+                if prefix is not None:
+                    route = routes[prefix]
+                    subpath = path[len(prefix):]
             if route is None:
                 self.send_error(404)
                 return
             extra: dict[str, str] = {}
-            if hasattr(route, "respond"):
+            if subpath is not None:
+                code, content_type, body = route(subpath)
+            elif hasattr(route, "respond"):
                 code, content_type, body, extra = route.respond(self.headers)
             elif getattr(route, "wants_query", False):
                 # query-aware routes (the /debug/flight poll cursor)

@@ -19,8 +19,8 @@ included) and no ``_total`` appended, and serves the exposition over HTTP
 (:meth:`Metrics.add_route`). The serving layer accepts a :class:`Registry`
 or any object with a ``.registry``, as the reference's does.
 
-Not ported: ``set_exemplar_resolver`` (the retention vault's join) and the
-cached ``/metrics`` response (the cache subsystem's).
+:func:`set_exemplar_resolver` installs the retention vault's join: with it
+set, an exemplar whose trace the vault keeps gains a ``trace_ref`` field.
 """
 
 from __future__ import annotations
@@ -221,14 +221,26 @@ class Histogram(_Labelled):
     def exemplars(self, **labels: str) -> dict[str, dict]:
         """Latest traced observation per bucket for one label set, keyed by
         the bucket's ``le`` rendering (``"+Inf"`` for the overflow
-        bucket)."""
+        bucket). With the retention vault's resolver installed
+        (:func:`set_exemplar_resolver`) and the exemplar's trace kept, a
+        ``trace_ref`` field carries the vault id; otherwise the shape is
+        unchanged."""
         key = self._key(labels)
         with self._lock:
             found = dict(self._exemplars.get(key, ()))
-        return {
-            (_fmt(self.buckets[idx]) if idx < len(self.buckets) else "+Inf"): dict(ex)
-            for idx, ex in sorted(found.items())
-        }
+        resolver = _exemplar_resolver
+        out: dict[str, dict] = {}
+        for idx, ex in sorted(found.items()):
+            entry = dict(ex)
+            if resolver is not None:
+                try:
+                    ref = resolver(entry.get("trace_id"))
+                except Exception:  # noqa: BLE001 - a join must not break reads
+                    ref = None
+                if ref is not None:
+                    entry["trace_ref"] = ref
+            out[_fmt(self.buckets[idx]) if idx < len(self.buckets) else "+Inf"] = entry
+        return out
 
     def time(self, **labels: str) -> "_HistogramTimer":
         """Context manager observing the block's wall time in seconds."""
@@ -322,6 +334,23 @@ def configure_observation_log(
                 pass
         _obs_file = None
         _obs_file_path = None
+
+
+#: exemplar -> kept-trace join: a callable mapping a trace id to the
+#: retention vault's id for it, or None. Module-global, as the observation
+#: log is: histograms are built all over the tree, before (and whether or
+#: not) a vault exists. Unset (the default) leaves exemplars' shape alone.
+_exemplar_resolver = None
+
+
+def set_exemplar_resolver(resolver) -> None:
+    """Install (or, with None, remove) the exemplar ``trace_ref`` resolver,
+    ``resolver(trace_id) -> vault_id | None``. The service installs it when
+    retention is armed and removes it at ``close()``; it is read when
+    :meth:`Histogram.exemplars` renders, so an exemplar recorded before its
+    trace retired still links once the vault keeps it."""
+    global _exemplar_resolver
+    _exemplar_resolver = resolver
 
 
 def _obs_rotation_policy() -> tuple[int, int]:

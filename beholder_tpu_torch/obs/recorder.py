@@ -21,15 +21,16 @@ accept/rollback outcomes, request claim and retirement).
   recorded (:func:`beholder_tpu_torch.tracing.current_trace_id`).
 
 Events export as JSON lines (:meth:`FlightRecorder.dump`) and as Chrome
-trace-event JSON (:func:`chrome_trace`, loadable in Perfetto).
+trace-event JSON (:func:`beholder_tpu_torch.tools.trace_export.chrome_trace`,
+loadable in Perfetto).
 
 :meth:`FlightRecorder.bind_metrics` registers the drop-pressure series
 and :meth:`FlightRecorder.route` serves the live ring (``GET
-/debug/flight``).
-
-Not ported: the flight plane's ring identity and cross-worker edges
-(``set_meta``, ``arm_edges``, ``next_edge``) and the cross-worker flow
-arrows in the Chrome export.
+/debug/flight``). A bound :class:`~beholder_tpu_torch.obs.flightplane.
+FlightPlane` stamps the ring's identity (:meth:`FlightRecorder.set_meta`,
+rendered as a ``flight.meta`` header line) and arms cross-worker edge ids
+(:meth:`FlightRecorder.next_edge`); unbound, ``next_edge`` returns None and
+a dump is what it was without the plane.
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from typing import Any
 from beholder_tpu_torch.tracing import current_trace_id
 
 DEFAULT_RING_SIZE = 4096
-PROCESS_NAME = "beholder-serving"
 
 
 class FlightRecorder:
@@ -75,6 +75,15 @@ class FlightRecorder:
         self._seq = 0
         self._ring: deque[dict[str, Any]] = deque(maxlen=ring_size)
         self._lock = threading.Lock()
+        #: ring identity and clock anchor (set by the flight plane through
+        #: :meth:`set_meta`); rendered as a ``flight.meta`` header line in
+        #: :meth:`jsonl`, never stored in the ring
+        self.meta: dict[str, Any] | None = None
+        #: cross-worker edge ids, armed by the flight plane; unarmed,
+        #: :meth:`next_edge` returns None and the cluster's edge events
+        #: stay off
+        self._edge_prefix: str | None = None
+        self._edge_seq = 0
         #: called with each event after it lands in the ring, outside the
         #: lock; a listener that raises is swallowed
         self._listeners: list = []
@@ -82,6 +91,28 @@ class FlightRecorder:
     def add_listener(self, listener) -> None:
         """Subscribe ``listener(event_dict)`` to every recorded event."""
         self._listeners.append(listener)
+
+    def set_meta(self, **meta: Any) -> None:
+        """Attach ring identity (worker name, pid) and a monotonic/epoch
+        clock anchor, the header the flight plane's merge aligns skew on.
+        Merged into any meta set before."""
+        if self.meta is None:
+            self.meta = {}
+        self.meta.update(meta)
+
+    def arm_edges(self, prefix: str) -> None:
+        """Arm cross-worker edge ids; ``prefix`` namespaces them per worker
+        so two workers never mint the same edge."""
+        self._edge_prefix = prefix
+
+    def next_edge(self) -> str | None:
+        """Mint a cross-worker edge id, or None when no flight plane is
+        bound (the cluster's send/receive events key off this None)."""
+        if self._edge_prefix is None:
+            return None
+        with self._lock:
+            self._edge_seq += 1
+            return f"{self._edge_prefix}-{self._edge_seq}"
 
     def bind_metrics(self, registry) -> None:
         """Register the drop-pressure series on ``registry``:
@@ -186,9 +217,14 @@ class FlightRecorder:
 
     def jsonl(self, since: int | None = None, limit: int | None = None,
               cursor: bool = False) -> str:
-        """The ring as JSON lines, one event a line. ``cursor=True`` (the
-        poll route) appends a ``flight.cursor`` line whose ``next_since``
-        is the seq a poller passes back as ``?since=``."""
+        """The ring as JSON lines, one event a line. When the flight plane
+        has stamped ring identity a ``flight.meta`` header line leads.
+        ``cursor=True`` (the poll route) appends a ``flight.cursor`` line
+        whose ``next_since`` is the seq a poller passes back as
+        ``?since=``."""
+        head = ""
+        if self.meta is not None:
+            head = json.dumps({"name": "flight.meta", "ph": "M", **self.meta}, default=str) + "\n"
         events = self.events(since, limit)
         tail = ""
         if cursor:
@@ -196,7 +232,7 @@ class FlightRecorder:
             tail = json.dumps(
                 {"name": "flight.cursor", "ph": "M", "next_since": next_since}
             ) + "\n"
-        return "".join(json.dumps(event, default=str) + "\n" for event in events) + tail
+        return head + "".join(json.dumps(event, default=str) + "\n" for event in events) + tail
 
     def dump(self, path: str | None = None) -> str:
         """Write the ring as JSON lines to ``path`` (default:
@@ -237,69 +273,3 @@ def parse_cursor(query) -> tuple[int | None, int | None]:
             limit = None
     return since, limit
 
-
-#: cluster-worker tracks start here, far above any count of trace ids in
-#: one ring, so the two track namespaces never collide
-WORKER_TID_BASE = 100_000
-
-#: event names drawn in their own ``failover`` category
-FAILOVER_EVENTS = frozenset(
-    {"failover", "drain", "heartbeat", "deadline_exceeded", "promote", "standby"}
-)
-
-
-def chrome_trace(events: list[dict[str, Any]]) -> dict[str, Any]:
-    """Recorder events as Chrome trace-event JSON (the Perfetto-compatible
-    subset): one named track per trace id, untraced events on track 0,
-    phase slices (``ph="X"``) with their duration, instants thread-scoped.
-    An event whose args carry a ``worker`` (the cluster's route, transfer,
-    prefill, claim and tick events, the failover events) goes on that
-    worker's own track instead (``worker decode-0``, ``worker prefill-0``,
-    ...), so a disaggregated run reads as parallel worker lanes."""
-    tid_of: dict[str, int] = {}
-    worker_tid_of: dict[str, int] = {}
-
-    def tid(trace_id: str | None) -> int:
-        if not trace_id:
-            return 0
-        if trace_id not in tid_of:
-            tid_of[trace_id] = len(tid_of) + 1
-        return tid_of[trace_id]
-
-    def worker_tid(worker: str) -> int:
-        if worker not in worker_tid_of:
-            worker_tid_of[worker] = WORKER_TID_BASE + len(worker_tid_of)
-        return worker_tid_of[worker]
-
-    trace_events: list[dict[str, Any]] = [
-        {"name": "process_name", "ph": "M", "pid": 1, "tid": 0,
-         "args": {"name": PROCESS_NAME}},
-        {"name": "thread_name", "ph": "M", "pid": 1, "tid": 0,
-         "args": {"name": "untraced"}},
-    ]
-    for event in events:
-        if event.get("ph") == "M":
-            continue
-        trace_id = event.get("trace_id")
-        worker = (event.get("args") or {}).get("worker")
-        out: dict[str, Any] = {
-            "name": event["name"],
-            "ph": event.get("ph", "X"),
-            "ts": int(event.get("ts_us", 0)),
-            "pid": 1,
-            "tid": worker_tid(str(worker)) if worker else tid(trace_id),
-            "cat": "failover" if event["name"] in FAILOVER_EVENTS else "serving",
-            "args": {**event.get("args", {}), "trace_id": trace_id},
-        }
-        if out["ph"] == "X":
-            out["dur"] = int(event.get("dur_us", 0))
-        elif out["ph"] == "i":
-            out["s"] = "t"
-        trace_events.append(out)
-    for trace_id, row in tid_of.items():
-        trace_events.append({"name": "thread_name", "ph": "M", "pid": 1, "tid": row,
-                             "args": {"name": f"trace {trace_id[:12]}"}})
-    for worker, row in worker_tid_of.items():
-        trace_events.append({"name": "thread_name", "ph": "M", "pid": 1, "tid": row,
-                             "args": {"name": f"worker {worker}"}})
-    return {"traceEvents": trace_events, "displayTimeUnit": "ms"}

@@ -263,6 +263,9 @@ class SLOTracker:
         #: thread observes: every public entry point takes this
         #: (re-entrant: observe() reads burn_rate() internally)
         self._lock = threading.RLock()
+        #: the tail-based retention vault (:meth:`link_vault`): linked,
+        #: rendered worst_request blocks carry a ``trace_ref``
+        self._vault = None
         self.good = 0
         self.bad = 0
         self.dropped_open = 0
@@ -676,7 +679,7 @@ class SLOTracker:
             "budget_remaining": round(self.budget_remaining(), 4),
             "fast_burn_threshold": cfg.fast_burn_threshold,
             "healthy": self._health()[0],
-            "worst_request": dict(self.worst_request),
+            "worst_request": self._worst_request_block(),
             "queue_wait_ms": self._queue_wait.to_dict(unit_scale=1e3),
             "scopes": {
                 scope: {
@@ -724,8 +727,26 @@ class SLOTracker:
             "ttft_p95_ms": round(digest["ttft"].quantile(0.95) * 1e3, 4),
             "tpot_p50_ms": round(digest["tpot"].quantile(0.5) * 1e3, 4),
             "attainment": round(self.attainment(), 6),
-            "worst_request": dict(self.worst_request),
+            "worst_request": self._worst_request_block(),
         }
+
+    def link_vault(self, vault) -> None:
+        """Link a tail-based retention vault (:class:`~beholder_tpu_torch.
+        obs.retention.TraceVault`): rendered ``worst_request`` blocks gain a
+        ``trace_ref`` naming the kept trace when the vault holds one. It is
+        resolved at render time: the vault is a later recorder listener
+        than the tracker, so the retirement that set worst_request has not
+        reached the vault when ``_observe`` runs. With no vault linked the
+        block's shape is unchanged."""
+        self._vault = vault
+
+    def _worst_request_block(self) -> dict[str, Any]:
+        worst = dict(self.worst_request)
+        if self._vault is not None and worst:
+            ref = self._vault.trace_ref(worst.get("key"))
+            if ref is not None:
+                worst["trace_ref"] = ref
+        return worst
 
     def route(self):
         """A route rendering :meth:`snapshot` as JSON: a callable

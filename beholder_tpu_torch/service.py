@@ -51,10 +51,19 @@ attributor: None means the CUDA card (raising where there is none),
 ``"cpu"`` the plain PyTorch path. With neither knob on, the service does
 no device work.
 
-Knobs whose subsystems are not ported raise :class:`NotImplementedError`
-at construction (``ROADMAP.md`` A.8): ``instance.observability.flight_plane``,
-``.retention`` and ``.sentinel``. Nothing runs another path in place of the
-one asked for.
+Cluster observability (each off by default; off, serving output, wire bytes
+and the default exposition are unchanged):
+
+- ``instance.observability.flight_plane``: the recorder's ring gains worker
+  identity, a clock anchor and cross-worker edge ids; outbound HTTP carries
+  the active span's W3C ``traceparent`` (:class:`~beholder_tpu_torch.
+  clients.http.TracingTransport`, outermost); ``GET /debug/cluster-flight``
+  serves the merged timeline, dumped at shutdown;
+- ``.retention``: a tail-based trace vault behind the SLO tracker
+  (``GET /debug/traces`` and ``/debug/traces/<id>``; SLO worst requests and
+  histogram exemplars gain ``trace_ref`` joins);
+- ``.sentinel``: the online regression sentinel behind the vault, opening
+  incidents on it (``GET /debug/sentinel`` and a ``/healthz`` check).
 """
 
 from __future__ import annotations
@@ -80,21 +89,6 @@ STATUS_TOPIC = "v1.telemetry.status"
 PROGRESS_TOPIC = "v1.telemetry.progress"
 PREFETCH = 100
 
-#: knobs whose subsystems the port does not have yet; each is armed by
-#: ``<knob>.enabled``
-REFUSED_KNOBS = (
-    "instance.observability.flight_plane",
-    "instance.observability.retention",
-    "instance.observability.sentinel",
-)
-
-
-def _refuse(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to beholder_tpu_torch yet (ROADMAP.md A.8); "
-        "turn it off to run the port's service"
-    )
-
 
 class BeholderService:
     def __init__(
@@ -108,9 +102,6 @@ class BeholderService:
         *,
         device=None,
     ):
-        for knob in REFUSED_KNOBS:
-            if config.get(f"{knob}.enabled"):
-                raise _refuse(knob)
         self.config = config
         self.broker = broker
         self.db = db
@@ -228,7 +219,11 @@ class BeholderService:
 
         self.spec = spec_from_config(config)
 
-        from beholder_tpu_torch.obs import flight_recorder_from_config, register_build_info
+        from beholder_tpu_torch.obs import (
+            flight_plane_from_config,
+            flight_recorder_from_config,
+            register_build_info,
+        )
 
         self.flight_recorder = flight_recorder_from_config(config, device=device)
         if self.flight_recorder is not None:
@@ -236,6 +231,14 @@ class BeholderService:
             # only with the recorder armed: off, the exposition is unchanged
             self.flight_recorder.bind_metrics(self.metrics.registry)
             register_build_info(self.metrics.registry)
+
+        #: the cluster-wide flight plane: it stamps this process's ring with
+        #: worker identity and a clock anchor, arms cross-worker edge ids,
+        #: carries ``traceparent`` on outbound HTTP (TracingTransport below)
+        #: and serves the merged timeline at GET /debug/cluster-flight
+        self.flight_plane = flight_plane_from_config(config)
+        if self.flight_plane is not None and self.flight_recorder is not None:
+            self.flight_plane.bind(self.flight_recorder)
 
         self.fused_verify = bool(config.get("instance.serving.fused_verify", False))
         self.autotune_table = config.get("instance.serving.autotune.table", None)
@@ -258,6 +261,35 @@ class BeholderService:
         self.slo = slo_from_config(config, registry=self.metrics.registry)
         if self.slo is not None and self.flight_recorder is not None:
             self.flight_recorder.add_listener(self.slo.on_event)
+
+        #: tail-based trace retention and the online regression sentinel,
+        #: both recorder listeners. The order matters: the SLO tracker folds
+        #: first (the vault probes its live digests for the p99-tail keep),
+        #: then the vault, then the sentinel (which opens incidents on it)
+        from beholder_tpu_torch.obs import retention_from_config, sentinel_from_config
+
+        self.trace_vault = retention_from_config(
+            config, slo=self.slo, registry=self.metrics.registry
+        )
+        if self.trace_vault is not None:
+            if self.flight_recorder is not None:
+                self.flight_recorder.add_listener(self.trace_vault.on_event)
+            if self.slo is not None:
+                # worst_request blocks gain trace_ref joins
+                self.slo.link_vault(self.trace_vault)
+            # histogram exemplars gain trace_ref joins (module-global:
+            # histograms predate the vault; close() removes it again)
+            from beholder_tpu_torch.metrics import set_exemplar_resolver
+
+            set_exemplar_resolver(self.trace_vault.trace_ref)
+            if self.flight_plane is not None:
+                # incident-kept traces assemble from the merged plane
+                self.trace_vault.link_flight_plane(self.flight_plane)
+        self.sentinel = sentinel_from_config(
+            config, slo=self.slo, vault=self.trace_vault, registry=self.metrics.registry
+        )
+        if self.sentinel is not None and self.flight_recorder is not None:
+            self.flight_recorder.add_listener(self.sentinel.on_event)
 
         from beholder_tpu_torch.cluster import cluster_from_config
 
@@ -290,6 +322,14 @@ class BeholderService:
         #: the periodic autoscaler clock, started by
         #: :meth:`start_scaling_evaluator`, stopped in :meth:`close`
         self.scaling_evaluator = None
+
+        if self.flight_plane is not None:
+            # trace context on every egress call, outermost on the transport
+            # chain (above caching: a cache hit has no wire request to
+            # stamp); off, no wrapper exists and outbound bytes are unchanged
+            from beholder_tpu_torch.clients.http import RequestsTransport, TracingTransport
+
+            transport = TracingTransport(transport or RequestsTransport())
 
         deadline_s = float(config.get("instance.http.deadline_s", 10.0))
         self.trello = TrelloClient(
@@ -465,7 +505,7 @@ class BeholderService:
     def close(self) -> None:
         """Graceful teardown: stop consuming, drain analytics, flush the
         observability tail (open spans, raw observations, the flight-
-        recorder ring), close."""
+        recorder ring, the merged flight plane, the trace vault), close."""
         self.logger.info("shutting down")
         if self.scaling_evaluator is not None:
             try:
@@ -508,6 +548,24 @@ class BeholderService:
                 self.flight_recorder.dump()
             except Exception:  # noqa: BLE001
                 pass
+        if self.flight_plane is not None and self.flight_plane.export_path:
+            # the merged cluster timeline dumps beside the raw ring
+            try:
+                self.flight_plane.dump()
+            except Exception:  # noqa: BLE001
+                pass
+        if self.trace_vault is not None:
+            if self.trace_vault.config.export_path:
+                # shift-rotating any previous generation
+                try:
+                    self.trace_vault.dump()
+                except Exception:  # noqa: BLE001
+                    pass
+            # the exemplar join is module-global: remove it, so a later
+            # vault-less service renders exemplars without it
+            from beholder_tpu_torch.metrics import set_exemplar_resolver
+
+            set_exemplar_resolver(None)
         self.metrics.close()
         self.db.close()
 
@@ -797,6 +855,18 @@ def init(
             metrics.add_route("/control", service.control_plane.http_route())
         if service.flight_recorder is not None:
             metrics.add_route("/debug/flight", service.flight_recorder.route())
+        if service.flight_plane is not None:
+            # the live skew-aligned merged timeline, with /debug/flight's
+            # ?since=/limit poll cursor
+            metrics.add_route("/debug/cluster-flight", service.flight_plane.route())
+        if service.trace_vault is not None:
+            # the vault's index, and one kept trace as Perfetto JSON (a
+            # prefix route: the trailing "/" key and wants_path)
+            metrics.add_route("/debug/traces", service.trace_vault.index_route())
+            metrics.add_route("/debug/traces/", service.trace_vault.trace_route())
+        if service.sentinel is not None:
+            # the live regression verdict and the ranking behind it
+            metrics.add_route("/debug/sentinel", service.sentinel.route())
 
         from beholder_tpu_torch.health import health_from_config
 

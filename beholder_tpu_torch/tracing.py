@@ -19,9 +19,8 @@ device work), trimmed to what the serving layer uses:
 A ``with span:`` block makes the span the active context
 (:func:`active_context`, :func:`current_trace_id`): nested spans default to
 it as parent, and histogram observations inside the block carry its trace
-id (:mod:`beholder_tpu_torch.metrics`).
-
-Not ported: ``inject_traceparent`` (the flight plane's AMQP leg).
+id (:mod:`beholder_tpu_torch.metrics`). :func:`inject_traceparent` writes
+the W3C form into a headers carrier (the flight plane's write side).
 """
 
 from __future__ import annotations
@@ -137,6 +136,13 @@ def from_traceparent(value: str) -> SpanContext | None:
     if trace_id == 0 or span_id == 0:
         return None
     return SpanContext(trace_id, span_id, 0, flags)
+
+
+def inject_traceparent(ctx: SpanContext, carrier: dict) -> dict:
+    """Write the W3C form of ``ctx`` into a headers carrier (the flight
+    plane's armed write side)."""
+    carrier[W3C_HEADER] = to_traceparent(ctx)
+    return carrier
 
 
 class Span:

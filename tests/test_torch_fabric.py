@@ -32,8 +32,11 @@ Model, placement and tolerances as in ``tests/test_torch_cluster.py`` at
 
 The reference's two federated-trace tests (``test_incident_trace_federates_
 across_plane_rings``, ``test_federation_falls_back_to_local_on_single_ring``)
-have no counterpart: they exercise the flight plane, which is not ported
-(ROADMAP A.1)."""
+run here through both packages' flight plane and retention vault, with the
+same events and a fake clock: the kept summaries, the merged assembly and
+the served ``/debug/traces/<id>`` body equal."""
+
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -390,7 +393,7 @@ def test_fabric_events_recorded_without_edges(pair):
     """With a recorder, every page hop is a ``fabric`` or ``mirror`` event
     naming its worker, source and pages, and a spawn and a promotion are
     ``standby`` and ``promote`` instants, as many of each as the
-    reference's; the port's recorder has no flight plane, so no ``*.send``
+    reference's; with no flight plane bound to the recorder, no ``*.send``
     edge instants and no edge ids."""
     names = ("fabric", "mirror", "standby", "promote")
     fr = FlightRecorder(ring_size=1 << 14)
@@ -412,3 +415,73 @@ def test_fabric_events_recorded_without_edges(pair):
         if e["name"] in ("fabric", "mirror"):
             assert {"worker", "src", "pages"} <= set(e["args"])
     assert _fab_state(port) == _fab_state(ref)
+
+
+# -- federated incident traces ----------------------------------------------
+
+
+def _federated_vault(impl, worker_legs):
+    """A plane bound to a recorder, a vault linked to the plane with an
+    incident open, and one request's lifecycle: in the plane's ring
+    (``worker_legs``: the workers its events name) and folded by the
+    vault. Returns (vault, the vault id of the kept trace)."""
+    import beholder_tpu.obs as jobs
+    import beholder_tpu.obs.flightplane as jfp
+    import beholder_tpu_torch.obs as tobs
+    import beholder_tpu_torch.obs.flightplane as tfp
+
+    obs, fp = (jobs, jfp) if impl == "ref" else (tobs, tfp)
+    plane = fp.FlightPlane(worker="decode-0")
+    recorder = plane.bind(obs.FlightRecorder())
+    recorder.set_meta(epoch_us=10_000_000, mono_us=1_000_000, pid=1)
+    vault = obs.TraceVault(obs.RetentionConfig(incident_budget=4), clock=lambda: 1e9)
+    vault.link_flight_plane(plane)
+    vault.open_incident("chaos: mirror link down")
+    trace = "tr-fed-0"
+    for i, (name, worker) in enumerate(worker_legs):
+        args = {"gid": "g-fed", "slot": 0}
+        if worker is not None:
+            args["worker"] = worker
+        if name == "req.retire":
+            args.update(tokens=4, outcome="ok")
+        recorder._append({"name": name, "ph": "i", "ts_us": 10_000_000 + 1000 * i,
+                          "trace_id": trace, "args": args})
+    vault.on_event({"name": "req.claim", "ph": "i", "ts_us": 1_000, "trace_id": trace,
+                    "args": {"gid": "g-fed", "slot": 0}})
+    vault.on_event({"name": "req.retire", "ph": "i", "ts_us": 90_000, "trace_id": trace,
+                    "args": {"gid": "g-fed", "tokens": 4, "outcome": "ok"}})
+    return vault, vault.trace_ref("g-fed"), plane
+
+
+def test_incident_trace_federates_across_plane_rings():
+    """An incident-kept trace is assembled from the merged flight plane
+    (the claim on decode-0's ring, the handoff and retirement on
+    decode-1's) instead of the local buffer, marked ``federated``, and
+    served so at /debug/traces/<id>: the port's and the reference's equal
+    byte for byte."""
+    legs = [("req.claim", None), ("handoff.recv", "decode-1"), ("req.retire", "decode-1")]
+    out = {}
+    for impl in ("ref", "port"):
+        vault, vault_id, plane = _federated_vault(impl, legs)
+        assert len(plane.rings()) >= 2
+        assert vault.federated == 1 and vault_id is not None
+        out[impl] = (vault.index(), vault.trace_route()(vault_id))
+    assert out["port"] == out["ref"]
+    code, _, body = out["port"][1]
+    doc = json.loads(body)
+    assert code == 200 and doc["federated"] is True and doc["vault"]["federated"] is True
+    workers = {e.get("args", {}).get("worker") for e in doc["traceEvents"]
+               if e.get("ph") != "M"}
+    assert {"decode-0", "decode-1"} <= workers
+
+
+def test_federation_falls_back_to_local_on_single_ring():
+    """With one ring on the plane there is nothing to merge: the incident
+    keep falls back to the local assembly, unmarked, as the reference's."""
+    out = {}
+    for impl in ("ref", "port"):
+        vault, vault_id, _ = _federated_vault(impl, [("req.claim", None)])
+        assert vault.federated == 0 and vault_id is not None
+        out[impl] = (vault.index(), vault.trace_route()(vault_id))
+    assert out["port"] == out["ref"]
+    assert "federated" not in json.loads(out["port"][1][2])

@@ -69,9 +69,14 @@ PORT_MODULES = [
     "beholder_tpu_torch.obs.roofline",
     "beholder_tpu_torch.obs.timeline",
     "beholder_tpu_torch.obs.slo",
+    "beholder_tpu_torch.obs.flightplane",
+    "beholder_tpu_torch.obs.retention",
+    "beholder_tpu_torch.obs.sentinel",
     "beholder_tpu_torch.artifact",
     "beholder_tpu_torch.tools",
     "beholder_tpu_torch.tools.profile_serving",
+    "beholder_tpu_torch.tools.trace_export",
+    "beholder_tpu_torch.tools.perf_explain",
     "beholder_tpu_torch.cluster",
     "beholder_tpu_torch.cluster.pool",
     "beholder_tpu_torch.cluster.instruments",

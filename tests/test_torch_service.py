@@ -7,7 +7,8 @@ with ``device="cpu"``): acks and in-flight counts, DB rows, outbound
 requests, the exposition, the log records (without ``time``) and the
 analytics summaries must be equal. Then ``init()`` over the wire, the
 ``main()`` entry point in a process of its own, SQLite files read across,
-and one test per knob the port refuses."""
+and the cluster observability knobs (flight plane, retention, sentinel),
+each armed alone and together, against the reference's."""
 
 import json
 import logging
@@ -16,6 +17,7 @@ import signal
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from contextlib import contextmanager
 from pathlib import Path
@@ -28,6 +30,7 @@ import beholder_tpu.clients as ref_clients
 import beholder_tpu.clients.http as ref_http
 import beholder_tpu.config as ref_config
 import beholder_tpu.log as ref_log
+import beholder_tpu.metrics as ref_metrics
 import beholder_tpu.mq as ref_mq
 import beholder_tpu.mq.amqp as ref_amqp
 import beholder_tpu.mq.server as ref_server
@@ -38,6 +41,7 @@ import beholder_tpu_torch.clients as port_clients
 import beholder_tpu_torch.clients.http as port_http
 import beholder_tpu_torch.config as port_config
 import beholder_tpu_torch.log as port_log
+import beholder_tpu_torch.metrics as port_metrics
 import beholder_tpu_torch.mq as port_mq
 import beholder_tpu_torch.mq.amqp as port_amqp
 import beholder_tpu_torch.mq.server as port_server
@@ -361,20 +365,180 @@ def test_observability_and_tracing_knobs_match_the_reference(tmp_path):
     assert any("beholder_http_request_seconds" in s for s in out["port"][0])
 
 
-# -- refusals ------------------------------------------------------------------
+# -- the cluster observability knobs -------------------------------------------
 
-@pytest.mark.parametrize("knob", list(port_service.REFUSED_KNOBS))
-def test_unported_knob_is_refused(knob):
-    data = make_config()
-    node = data
-    *parents, leaf = knob.split(".")
-    for part in parents:
-        node = node.setdefault(part, {})
-    node[leaf] = {"enabled": True}
-    with pytest.raises(NotImplementedError, match=rf"{knob}.*ROADMAP\.md A\.8"):
-        _quiet(PORT, data)
-    node[leaf] = {"enabled": False}
-    _quiet(PORT, data).close()
+#: the flight plane, retention and sentinel knobs at test sizes; the recorder
+#: measures no ceiling (no device work), the SLO objectives are loose so only
+#: the p99 tail and the incident keep
+OBS_KNOBS = {
+    "flight_plane": {"enabled": True, "worker": "svc-0"},
+    "retention": {"enabled": True, "head_sample_every": 0, "incident_budget": 3},
+    "sentinel": {"enabled": True, "bucket_s": 1.0, "fast_buckets": 1, "baseline_buckets": 4,
+                 "min_rate": 1e-9, "open_after": 1, "close_after": 2, "check_every": 4},
+}
+US = 1_000_000
+
+
+def _obs_events():
+    """Fixed recorder events: nine fast request lifecycles and a slow tenth
+    (the p99 tail once the tracker has folded it), then phase slices whose
+    last bucket regresses 8x (a sentinel verdict, an incident), then two
+    lifecycles kept on that incident."""
+    events = []
+
+    def life(key, start, ttft):
+        trace = f"tr-{key}"
+        events.extend([
+            {"name": "req.claim", "ph": "i", "ts_us": start, "trace_id": trace,
+             "args": {"gid": key, "slot": 0}},
+            {"name": "admit", "ph": "X", "ts_us": start, "dur_us": ttft, "trace_id": trace,
+             "args": {"slot": 0}},
+            {"name": "req.retire", "ph": "i", "ts_us": start + ttft + 1000, "trace_id": trace,
+             "args": {"gid": key, "tokens": 4, "outcome": "ok"}},
+        ])
+
+    for i in range(9):
+        life(f"g-{i}", i * 1000, 10_000)
+    life("g-slow", 20_000, 900_000)
+    for b in range(4):
+        events.append({"name": "tick", "ph": "X", "ts_us": (10 + b) * US, "dur_us": US // 10,
+                       "trace_id": None, "args": {"worker": "decode-1"}})
+    events.append({"name": "tick", "ph": "X", "ts_us": 14 * US, "dur_us": 8 * US // 10,
+                   "trace_id": None, "args": {"worker": "decode-1"}})
+    for _ in range(3):
+        events.append({"name": "tick.mark", "ph": "i", "ts_us": 14 * US, "trace_id": None,
+                       "args": {}})
+    life("g-inc-0", 15 * US, 10_000)
+    life("g-inc-1", 16 * US, 10_000)
+    return events
+
+
+def _no_clock(obj):
+    """``obj`` without the wall-clock stamps (``*_unix_s``), which differ
+    between any two runs."""
+    if isinstance(obj, dict):
+        return {k: _no_clock(v) for k, v in obj.items() if not k.endswith("_unix_s")}
+    if isinstance(obj, list):
+        return [_no_clock(v) for v in obj]
+    return obj
+
+
+def _series(text):
+    return sorted({line.split(" ")[0].split("{")[0] for line in text.splitlines()
+                   if line and not line.startswith("#")})
+
+
+def _drive_obs(impl, knobs, tmp_path):
+    """One service with the recorder, the SLO tracker, the health server and
+    ``knobs`` armed (export paths under ``tmp_path``), booted by ``init()``
+    over an in-memory broker: the fixed events through its recorder, a few
+    deliveries, then every operator route over HTTP, the health checks, the
+    dumps after ``close()`` and the exemplar resolver left installed."""
+    out_dir = tmp_path / impl.name
+    out_dir.mkdir()
+    obs = {"flight_recorder": {"enabled": True, "ceiling_interval_s": 0}}
+    for knob in knobs:
+        obs[knob] = dict(OBS_KNOBS[knob])
+        if knob != "sentinel":
+            obs[knob]["export_path"] = str(out_dir / f"{knob}.jsonl")
+    data = make_config(observability=obs, health={"enabled": True, "port": 0},
+                       slo={"enabled": True, "objectives": {"ttft_ms": 30_000.0,
+                                                            "tpot_ms": 30_000.0}})
+    db = impl.storage.MemoryStorage()
+    db.add_media(impl.proto.Media(id="m1", name="M1", creator=API))
+    broker = impl.mq.InMemoryBroker(prefetch=100)
+    with captured(impl, f"obs_knobs.{impl.name}"):
+        service = impl.service.init(config=impl.config.ConfigNode(data), broker=broker, db=db,
+                                    metrics_port=0, **impl.kw)
+        try:
+            for event in _obs_events():
+                service.flight_recorder._append(json.loads(json.dumps(event)))
+            broker.publish(impl.service.STATUS_TOPIC, impl.proto.encode(
+                impl.proto.TelemetryStatus(mediaId="m1", status=S.DOWNLOADING)))
+            broker.publish(impl.service.PROGRESS_TOPIC, impl.proto.encode(
+                impl.proto.TelemetryProgress(mediaId="m1", status=1, progress=5)))
+            port = service.metrics._server.server_address[1]  # the reference has no .port
+            routes = {path: _get(port, path) for path in (
+                "/debug/cluster-flight", "/debug/cluster-flight?since=3&limit=2",
+                "/debug/traces", "/debug/sentinel", "/slo")}
+            if routes["/debug/traces"][0] == 200:
+                for trace in json.loads(routes["/debug/traces"][1])["traces"]:
+                    routes[f"trace {trace['key']}"] = _get(port, f"/debug/traces/{trace['id']}")
+            code, health = _get(service.health.port, "/healthz")
+            checks = {k: v["ok"] for k, v in json.loads(health)["checks"].items()}
+            text = service.metrics.registry.render()
+            transport = type(service.trello._transport).__name__
+            status = db.get_by_id("m1").status
+        finally:
+            service.close()
+    dumps = {p.name: p.read_text() for p in sorted(out_dir.iterdir())}
+    metrics = ref_metrics if impl is REF else port_metrics
+    return dict(routes=routes, healthz=code, checks=checks, text=text, transport=transport,
+                status=status, dumps=dumps, resolver_left=metrics._exemplar_resolver)
+
+
+def _parsed_routes(routes):
+    out = {}
+    for path, (code, body) in routes.items():
+        if code != 200:
+            out[path] = code
+        elif path.startswith("/debug/cluster-flight"):
+            out[path] = body
+        else:
+            out[path] = _no_clock(json.loads(body))
+    return out
+
+
+@pytest.mark.parametrize("knobs", [(), ("flight_plane",), ("retention",), ("sentinel",),
+                                   ("flight_plane", "retention", "sentinel")],
+                         ids=["off", "flight_plane", "retention", "sentinel", "all"])
+def test_observability_plane_knobs_match_the_reference(tmp_path, knobs):
+    """Each knob armed alone and all three together, on ``init()`` with the
+    recorder and the SLO tracker on: the same events give the same routes
+    (``/debug/cluster-flight`` byte for byte; the vault index, kept traces,
+    sentinel snapshot and ``/slo`` without wall-clock stamps), health checks,
+    exposed series and dumps as the reference's; off, the routes 404 and the
+    series are the recorder's and the tracker's alone. After ``close()`` no
+    exemplar resolver is left installed."""
+    want = _drive_obs(REF, knobs, tmp_path)
+    got = _drive_obs(PORT, knobs, tmp_path)
+    assert _parsed_routes(got["routes"]) == _parsed_routes(want["routes"])
+    assert (got["healthz"], got["checks"]) == (want["healthz"], want["checks"])
+    assert _series(got["text"]) == _series(want["text"])
+    for prefix in ("beholder_retention", "beholder_sentinel"):
+        lines = [x for x in got["text"].splitlines() if x.startswith(prefix)]
+        assert lines == [x for x in want["text"].splitlines() if x.startswith(prefix)]
+        assert bool(lines) == (prefix.split("_")[1] in knobs)
+    assert (got["transport"], got["status"]) == (want["transport"], want["status"])
+    assert (got["transport"] == "TracingTransport") == ("flight_plane" in knobs)
+    assert sorted(got["dumps"]) == sorted(want["dumps"]) == sorted(
+        f"{k}.jsonl" for k in knobs if k != "sentinel")
+    for name, body in got["dumps"].items():
+        if name == "flight_plane.jsonl":
+            assert body == want["dumps"][name]
+            assert json.loads(body.splitlines()[0])["name"] == "flight.plane"
+        else:
+            assert [_no_clock(json.loads(x)) for x in body.splitlines()] == [
+                _no_clock(json.loads(x)) for x in want["dumps"][name].splitlines()]
+    assert got["resolver_left"] is None and want["resolver_left"] is None
+    routes = got["routes"]
+    for path, knob in (("/debug/cluster-flight", "flight_plane"), ("/debug/traces", "retention"),
+                       ("/debug/sentinel", "sentinel")):
+        assert routes[path][0] == (200 if knob in knobs else 404), path
+    assert ("sentinel" in got["checks"]) == ("sentinel" in knobs)
+    if "retention" in knobs:
+        kept = {t["key"]: t["reasons"] for t in json.loads(routes["/debug/traces"][1])["traces"]}
+        # the tracker folds before the vault: the slow tenth request is the
+        # tail of a digest that already holds it
+        assert kept["g-slow"] == ["p99_tail"]
+        assert json.loads(routes["trace g-slow"][1])["traceEvents"]
+        if "sentinel" in knobs:
+            assert kept["g-inc-0"][0] == "incident"
+    if "sentinel" in knobs:
+        assert got["healthz"] == 503 and not got["checks"]["sentinel"]
+    if "flight_plane" in knobs:
+        head = json.loads(routes["/debug/cluster-flight"][1].splitlines()[0])
+        assert head["name"] == "flight.plane" and head["merged_events"] > 0
 
 
 # -- storage across ------------------------------------------------------------
