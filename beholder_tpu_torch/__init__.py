@@ -80,8 +80,10 @@ reference's module layout and names so a reader finds each counterpart:
   Telegram, Emby), :mod:`beholder_tpu_torch.httpd` and
   :mod:`beholder_tpu_torch.health`.
 
-Not ported yet (``ROADMAP.md``): the autotune table (A.1), a mesh over
-several processes (C.22) and the perf gate tool (A.6).
+The chunk kernel's autotune table is :mod:`beholder_tpu_torch.ops.autotune`
+and the ratio-only perf gate :mod:`beholder_tpu_torch.tools.perf_gate`.
+Not ported yet (``ROADMAP.md``): a mesh over several processes (C.22) and
+the port's bench (A.6).
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

@@ -356,6 +356,10 @@ class ArtifactRecorder:
         self.capacity: dict[str, float] = dict(EMPTY_CAPACITY)
         self.fabric: dict[str, float] = dict(EMPTY_FABRIC)
         self.group: dict[str, float] = dict(EMPTY_GROUP)
+        from beholder_tpu_torch.ops import autotune
+
+        #: chunk launches before this mark belong to an earlier run
+        self._autotune_mark = autotune.launch_mark()
 
     def section(
         self,
@@ -657,7 +661,7 @@ class ArtifactRecorder:
             "cluster": copy.deepcopy(self.cluster),
             "failover": dict(self.failover),
             "slo": copy.deepcopy(self.slo),
-            "kernel": copy.deepcopy(self.kernel),
+            "kernel": self._kernel_block(),
             "ingest": dict(self.ingest),
             "control": copy.deepcopy(self.control),
             "flight_plane": dict(self.flight_plane),
@@ -666,6 +670,17 @@ class ArtifactRecorder:
             "fabric": dict(self.fabric),
             "group": dict(self.group),
         }
+
+    def _kernel_block(self) -> dict[str, Any]:
+        """The kernel block, its ``autotuned`` map joined by the config each
+        chunk-kernel shape this run launched used (by full shape key)."""
+        from beholder_tpu_torch.ops import autotune
+
+        kernel = copy.deepcopy(self.kernel)
+        kernel["autotuned"] = {
+            **kernel["autotuned"], **autotune.used_configs(since=self._autotune_mark),
+        }
+        return kernel
 
     def write(self, path: str | None = None) -> str:
         """Write the artifact JSON; returns the path. Default location is

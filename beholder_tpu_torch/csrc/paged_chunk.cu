@@ -23,9 +23,20 @@
 // carried over.
 //
 // What the design does about that:
-// - One block per (slot, kv head, tile of 64 query rows), where the rows
+// - One block per (slot, kv head, R tiles of 64 query rows), where the rows
 //   are the G x W (group head, chunk row) pairs of that kv head, contiguous
-//   in q and out. 4 warps, each 16 rows.
+//   in q and out. 4 R warps, each 16 rows. R (row_tiles, 1 or 2) is a
+//   template parameter, picked at launch by the wrapper's autotune table
+//   (ops/autotune.py): a block of two row tiles loads each key tile once
+//   for both. It is neutral by construction: a row's terms, their order
+//   and its key tiles do not depend on the block it sits in (the next
+//   point), so every R gives the same bits. A template keeps R = 1 the
+//   launch it was (launch bound 128, no runtime block size in the tile
+//   loop: chosen at run time, R cost that launch up to 7 %, PERF.md) at
+//   twice the instantiations. R = 4 is left out: 512 threads at the 255
+//   registers a thread that the int8 and fp8 kernels at Dh 128 take cannot
+//   launch (65,536 registers an SM), and a launch bound of 512 would cap
+//   them at 128 registers and spill.
 // - 64-key tiles at absolute positions: tile i holds positions [64 i,
 //   64 i + 64), those below lens[s] read in place from the pages, those at
 //   or above it from the chunk's own k/v (the one tile that straddles
@@ -42,7 +53,8 @@
 //   handed to PV in registers. The q fragments are read from the resident
 //   q tile by ldmatrix at each tile (registers go to the prefetch below).
 // - Context tiles come d-major from the pools and need dequantizing, so
-//   they pass through registers: each warp takes 16 keys of the tile, a
+//   they pass through registers: each warp takes 16 keys of the tile (8
+//   when a block holds two row tiles, 8 warps), a
 //   lane loads 8 consecutive keys at one head dim (16 bytes of bf16, 8 of
 //   int8/fp8) when the run lies in one page and below lens[s], key by key
 //   otherwise, dequantizes them with the keys' scales (one lane a key,
@@ -55,7 +67,13 @@
 //   assembly), and a position at or past lens[s] is never read from a page.
 //   Any page size; runs of 8 keys take the vector load when page % 8 == 0
 //   and the pools are aligned for it.
-// Head dims 8, 16, 32, 64 and 128, one instantiation each per pool family:
+// - A test-only control (plant >= 0; every launch of the port passes -1):
+//   the block of slot 0 and kv head 0 that holds row `plant` walks key
+//   tiles that start 32 positions earlier, so its rows sum the same terms
+//   in other groups. It is not neutral, and the bitwise check of the row
+//   tile candidates must see it (chip_smoke.py).
+// Head dims 8, 16, 32, 64 and 128, one instantiation each per pool family
+// and row-tile count:
 // the pools keep their (N, Hkv, Dh, page) layout, nothing is padded in
 // memory (Dh 8 is zero-padded to the mma's K of 16 in shared memory).
 // Next steps: a split of the context across blocks and a two-pass softmax
@@ -158,10 +176,16 @@ __device__ __forceinline__ void load_run(uint32_t* r, const typename Elem<MODE>:
 template <int D>
 constexpr int kRuns = 2 * ((D + 31) / 32);
 
-// the query tile, then two stages of a k tile and a v tile
+// row tiles a block can hold (blockDim.x = kThreads x row tiles)
+constexpr int kMaxRowTiles = 2;
+
+// row_tiles query tiles, then two stages of a k tile and a v tile
 template <int D>
-constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * 5 * Dims<D>::kElems;
-static_assert(kSmemBytes<128> <= 227 * 1024, "shared memory over the per-block limit");
+constexpr size_t smem_bytes(int row_tiles) {
+  return sizeof(__nv_bfloat16) * (row_tiles + 4) * Dims<D>::kElems;
+}
+static_assert(smem_bytes<128>(kMaxRowTiles) <= 227 * 1024,
+              "shared memory over the per-block limit");
 
 // Whether a context tile is whole (every row a context key) or straddles
 // lens[s]: a compile-time flag, so whole tiles carry no row test.
@@ -173,16 +197,18 @@ struct Whole {
 // Rows [row_from, kTile) of a tile whose row r is chunk row r0 + r of the
 // (T, D) chunk, by cp.async (rows below row_from hold context keys and are
 // left alone; chunk rows at or past T and head dims at or past D read as
-// zeros). kK / 8 consecutive threads copy one row, as load_tile_async.
+// zeros). kK / 8 consecutive threads copy one row, as load_tile_async;
+// `tid` (0 .. kThreads - 1) is this thread's place among the kThreads that
+// copy the tile.
 template <int D>
 __device__ __forceinline__ void load_overlay_async(__nv_bfloat16* dst,
                                                    const __nv_bfloat16* __restrict__ src,
-                                                   int r0, int T, int row_from) {
+                                                   int r0, int T, int row_from, unsigned tid) {
   using G = Dims<D>;
   constexpr int kChunks = G::kK / 8;
 #pragma unroll
   for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
-    const unsigned idx = threadIdx.x + i * kThreads;
+    const unsigned idx = tid + i * kThreads;
     const int row = static_cast<int>(idx / kChunks);
     const int col = static_cast<int>(idx % kChunks) * 8;
     if (row < row_from) continue;
@@ -192,15 +218,17 @@ __device__ __forceinline__ void load_overlay_async(__nv_bfloat16* dst,
   }
 }
 
-template <int MODE, int D>
-__global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
+// One block an SM is all the launch bound asks for: given only 256 threads,
+// ptxas held the two-tile kernels to 128 registers and spilled.
+template <int MODE, int D, int R>
+__global__ void __launch_bounds__(kThreads * R, 1) paged_chunk_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const void* __restrict__ k_pool,
     const void* __restrict__ v_pool, const void* __restrict__ k_scale,
     const void* __restrict__ v_scale, const int32_t* __restrict__ table,
     const int32_t* __restrict__ lens, __nv_bfloat16* __restrict__ out, int H,
     int Hkv, int W, int page, int N, int P, int live_pages, int ctx_len,
-    int window, float sqrt_dh, int vec) {
+    int window, float sqrt_dh, int vec, int plant) {
   using Dm = Dims<D>;
   using T = typename Elem<MODE>::T;
   constexpr int kHalf = kRuns<D> / 2;
@@ -208,16 +236,28 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   const int kvh = blockIdx.y;
   const int G = H / Hkv;
   const int GW = G * W;
-  const int r0 = blockIdx.z * kTile;
+  const int r0 = blockIdx.z * kTile * R;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int w0 = (tid >> 5) * 16;  // this warp's rows, and its keys when staging
+  const int w0 = (tid >> 5) * 16;  // this warp's rows
+  // the 8-key runs of a context tile this warp stages (16 keys with one
+  // row tile a block, 8 with two), from key kw0 of the tile
+  constexpr int k_groups = 2 / R;
+  const int kw0 = (tid >> 5) * 8 * k_groups;
+  const unsigned wg_tid = tid % kThreads;  // place in this warp's group of 4
+  const int wg = R == 1 ? 0 : tid / kThreads;
+  // tiles hold positions [64 i - shift, 64 i + 64 - shift): shift is 0 but
+  // in the test-only control's block
+  const int shift =
+      plant >= 0 && s == 0 && kvh == 0 && plant / (kTile * R) == static_cast<int>(blockIdx.z)
+          ? 32
+          : 0;
   const T* kp = static_cast<const T*>(k_pool);
   const T* vp = static_cast<const T*>(v_pool);
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // (row, d)
-  __nv_bfloat16* k_s = q_s + Dm::kElems;                         // [2] (key, d)
+  __nv_bfloat16* k_s = q_s + R * Dm::kElems;                     // [2] (key, d)
   __nv_bfloat16* v_s = k_s + 2 * Dm::kElems;                     // [2] (key, d)
 
   // q and out (S, H, W, D): this kv head's G*W rows are contiguous
@@ -226,12 +266,13 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   if (D < 16) {
     // head dims past D of the staged k/v tiles stay zero: the context path
     // writes only d < D (cp.async zero-fills the q and overlay tiles')
-    for (int i = tid; i < 4 * kTile * (Dm::kK - D); i += kThreads) {
+    for (int i = tid; i < 4 * kTile * (Dm::kK - D); i += blockDim.x) {
       const int r = i / (Dm::kK - D);
       k_s[r * Dm::kLd + D + i % (Dm::kK - D)] = __float2bfloat16_rn(0.f);
     }
   }
-  load_tile_async<D>(q_s, q + qo_base, r0, GW);
+  // each group of 4 warps its own 64 query rows
+  load_tile_async<D>(q_s + wg * Dm::kElems, q + qo_base, r0 + wg * kTile, GW, wg_tid);
 
   const int len = max(lens[s], 0);
   // the positions of this thread's two fragment rows (g, g + 8); -1 past the end
@@ -242,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     qpos[h] = gr < GW ? len + gr % W : -1;
   }
   // the block's smallest and largest chunk row
-  const int r_last = min(r0 + kTile, GW) - 1;
+  const int r_last = min(r0 + kTile * R, GW) - 1;
   int jmin = r0 % W, jmax = r_last % W;
   if (r0 / W != r_last / W) {
     jmin = 0;
@@ -254,12 +295,15 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   // live keys: [lo, hi) from the pages, [len, len + w_valid) from the chunk;
   // tiles from the one holding lo to the one holding the last position
   // some row of the block can see
-  const int t_first = lo / kTile;
+  const int t_first = (lo + shift) / kTile;
   const int last_pos = min(len + jmax, max(hi, len + w_valid) - 1);
-  const int n_tiles = last_pos >= t_first * kTile ? last_pos / kTile - t_first + 1 : 0;
+  const int n_tiles =
+      last_pos >= t_first * kTile - shift ? (last_pos + shift) / kTile - t_first + 1 : 0;
 
-  // tile t's first position, and how many of its rows are context keys
-  auto base_of = [&](int t) { return (t_first + t) * kTile; };
+  // tile t's first position (negative only in the control's first tile:
+  // such keys are never read and always masked), and how many of its rows
+  // are context keys
+  auto base_of = [&](int t) { return (t_first + t) * kTile - shift; };
   auto ctx_rows = [&](int base) { return min(max(len - base, 0), kTile); };
   // the first tile at or after t that holds a live key some row can see
   auto next_live = [&](int t) {
@@ -275,7 +319,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   };
 
   // the next context tile's values, in registers between its loads and its
-  // store into shared memory: k and v runs, and the scale of key w0 + lane
+  // store into shared memory: k and v runs, and the scale of key kw0 + lane
   // (lanes 0-15 k's, 16-31 v's)
   constexpr int kW = kRunWords<MODE>;
   uint32_t rk[kRuns<D>][kW], rv[kRuns<D>][kW];
@@ -283,9 +327,12 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   auto fetch_ctx = [&](int base) {
 #pragma unroll
     for (int gg = 0; gg < 2; ++gg) {
-      const int p0 = base + w0 + 8 * gg;  // the run's first position
+      if (gg >= k_groups) continue;        // warp-uniform
+      const int p0 = base + kw0 + 8 * gg;  // the run's first position
       const int col = p0 / page;
-      const bool whole = vec && p0 + 7 < hi && col < live_pages;
+      // unsigned: a run at negative positions (the control's) is not read
+      const bool whole = vec && static_cast<unsigned>(p0 + 7) < static_cast<unsigned>(hi) &&
+                         col < live_pages;
       const size_t pg = whole ? static_cast<size_t>(min(max(table[static_cast<size_t>(s) * P + col], 0), N - 1))
                               : 0;
 #pragma unroll
@@ -304,7 +351,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
           for (int j = 0; j < 8; ++j) {
             const int p = p0 + j;
             const int pc = p / page;
-            if (p < hi && pc < live_pages) {
+            if (static_cast<unsigned>(p) < static_cast<unsigned>(hi) && pc < live_pages) {
               const size_t src = min(max(table[static_cast<size_t>(s) * P + pc], 0), N - 1);
               const size_t e = ((src * Hkv + kvh) * D + d) * page + (p - pc * page);
               run_set<MODE>(rk[c], j, kp[e]);
@@ -315,10 +362,10 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
       }
     }
     if (MODE != kBf16) {
-      const int p = base + w0 + (lane & 15);
+      const int p = base + kw0 + (lane & 15);
       const int pc = p / page;
       rsc = 1.f;
-      if (p < hi && pc < live_pages) {
+      if (static_cast<unsigned>(p) < static_cast<unsigned>(hi) && pc < live_pages) {
         const size_t src = min(max(table[static_cast<size_t>(s) * P + pc], 0), N - 1);
         rsc = load_scale<MODE>(lane < 16 ? k_scale : v_scale,
                                (src * Hkv + kvh) * page + (p - pc * page));
@@ -335,10 +382,11 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
     for (int gg = 0; gg < 2; ++gg)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (!decltype(whole)::kValue && w0 + 8 * gg + j >= n_rows) continue;  // warp-uniform
+        if (gg >= k_groups) continue;                                          // warp-uniform
+        if (!decltype(whole)::kValue && kw0 + 8 * gg + j >= n_rows) continue;  // warp-uniform
         const float sk = MODE == kBf16 ? 1.f : __shfl_sync(0xffffffffu, rsc, 8 * gg + j);
         const float sv = MODE == kBf16 ? 1.f : __shfl_sync(0xffffffffu, rsc, 16 + 8 * gg + j);
-        const int row = (w0 + 8 * gg + j) * Dm::kLd;
+        const int row = (kw0 + 8 * gg + j) * Dm::kLd;
 #pragma unroll
         for (int m = 0; m < kHalf; ++m) {
           const int d = lane + 32 * m;
@@ -349,14 +397,19 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
       }
   };
   // tile t's loads: its context rows into registers, its overlay rows by
-  // cp.async into stage st (chunk rows at or past w_valid zero-filled)
+  // cp.async into stage st (chunk rows at or past w_valid zero-filled; k by
+  // the first group of 4 warps, v by the last)
   auto start_loads = [&](int t, int st) {
     const int base = base_of(t);
     const int c = ctx_rows(base);
     if (c > 0) fetch_ctx(base);
     if (c < kTile) {
-      load_overlay_async<D>(k_s + st * Dm::kElems, kc + c_base, base - len, w_valid, c);
-      load_overlay_async<D>(v_s + st * Dm::kElems, vc + c_base, base - len, w_valid, c);
+      if (wg == 0) {
+        load_overlay_async<D>(k_s + st * Dm::kElems, kc + c_base, base - len, w_valid, c, wg_tid);
+      }
+      if (wg == R - 1) {
+        load_overlay_async<D>(v_s + st * Dm::kElems, vc + c_base, base - len, w_valid, c, wg_tid);
+      }
     }
     cp_async_commit();
   };
@@ -394,9 +447,9 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int pos = base + frag_col(n, e);
-        // a page key below hi, or a chunk key in [len, len + w_valid)
-        const bool key =
-            pos < hi || static_cast<unsigned>(pos - len) < static_cast<unsigned>(w_valid);
+        // a page key in [0, hi), or a chunk key in [len, len + w_valid)
+        const bool key = static_cast<unsigned>(pos) < static_cast<unsigned>(hi) ||
+                         static_cast<unsigned>(pos - len) < static_cast<unsigned>(w_valid);
         const int qp = qpos[e >> 1];
         const bool ok = qp >= 0 && key && pos <= qp && (window <= 0 || pos > qp - window);
         sc[n][e] = ok ? round_bf16(sc[n][e]) / sqrt_dh : kNegInf;
@@ -415,47 +468,74 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   store_acc<D>(out + qo_base, acc, r0 + w0, GW);
 }
 
-template <int DH>
-auto kernel_for(int mode) -> decltype(&paged_chunk_kernel<kBf16, DH>) {
+template <int DH, int R>
+auto kernel_for(int mode) -> decltype(&paged_chunk_kernel<kBf16, DH, R>) {
   switch (mode) {
-    case kBf16: return paged_chunk_kernel<kBf16, DH>;
-    case kInt8: return paged_chunk_kernel<kInt8, DH>;
-    case kFp8: return paged_chunk_kernel<kFp8, DH>;
+    case kBf16: return paged_chunk_kernel<kBf16, DH, R>;
+    case kInt8: return paged_chunk_kernel<kInt8, DH, R>;
+    case kFp8: return paged_chunk_kernel<kFp8, DH, R>;
     default: return nullptr;
   }
 }
 
-template <int DH>
+template <int DH, int R>
 int launch(int mode, const void* q, const void* kc, const void* vc, const void* k_pool,
            const void* v_pool, const void* k_scale, const void* v_scale, const void* table,
            const void* lens, void* out, int S, int H, int Hkv, int W, int page, int N,
-           int P, int live_pages, int ctx_len, int window, float sqrt_dh,
+           int P, int live_pages, int ctx_len, int window, float sqrt_dh, int plant,
            cudaStream_t stream) {
-  const auto kernel = kernel_for<DH>(mode);
+  const auto kernel = kernel_for<DH, R>(mode);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes<DH>));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes<DH>(R)));
   if (err != cudaSuccess) return static_cast<int>(err);
   // runs of 8 keys load as one vector when they stay inside a page and the
   // pools are aligned for it (16 bytes bf16, 8 int8/fp8)
   const uintptr_t align = mode == kBf16 ? 16 : 8;
   const int vec = page % 8 == 0 && reinterpret_cast<uintptr_t>(k_pool) % align == 0 &&
                   reinterpret_cast<uintptr_t>(v_pool) % align == 0;
-  const dim3 grid(S, Hkv, (H / Hkv * W + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, kSmemBytes<DH>, stream>>>(
+  const int rows = kTile * R;
+  const dim3 grid(S, Hkv, (H / Hkv * W + rows - 1) / rows);
+  kernel<<<grid, kThreads * R, smem_bytes<DH>(R), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), k_pool, v_pool, k_scale, v_scale,
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
       static_cast<__nv_bfloat16*>(out), H, Hkv, W, page, N, P, live_pages, ctx_len,
-      window, sqrt_dh, vec);
+      window, sqrt_dh, vec, plant);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int DH, int R>
 int resources(int mode, int* out) {
-  const auto kernel = kernel_for<DH>(mode);
+  const auto kernel = kernel_for<DH, R>(mode);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return kernel_resources(kernel, kSmemBytes<DH>, out);
+  return kernel_resources(kernel, smem_bytes<DH>(R), out, kThreads * R);
+}
+
+// one instantiation set per row-tile count
+template <int DH>
+int launch_rows(int row_tiles, int mode, const void* q, const void* kc, const void* vc,
+                const void* k_pool, const void* v_pool, const void* k_scale,
+                const void* v_scale, const void* table, const void* lens, void* out, int S,
+                int H, int Hkv, int W, int page, int N, int P, int live_pages, int ctx_len,
+                int window, float sqrt_dh, int plant, cudaStream_t stream) {
+#define PAGED_CHUNK_ARGS mode, q, kc, vc, k_pool, v_pool, k_scale, v_scale, table, lens, out, \
+    S, H, Hkv, W, page, N, P, live_pages, ctx_len, window, sqrt_dh, plant, stream
+  switch (row_tiles) {
+    case 1: return launch<DH, 1>(PAGED_CHUNK_ARGS);
+    case 2: return launch<DH, 2>(PAGED_CHUNK_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PAGED_CHUNK_ARGS
+}
+
+template <int DH>
+int resources_rows(int row_tiles, int mode, int* out) {
+  switch (row_tiles) {
+    case 1: return resources<DH, 1>(mode, out);
+    case 2: return resources<DH, 2>(mode, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -464,43 +544,47 @@ extern "C" {
 
 // mode: 0 bf16 pools, 1 int8 pools with f32 scales, 2 fp8 e4m3 pools with
 // uint8 E8M0 scales. q, kc, vc and out bf16, contiguous, 16-byte aligned.
-// Dh is 8, 16, 32, 64 or 128. window <= 0 means none.
+// Dh is 8, 16, 32, 64 or 128. window <= 0 means none. row_tiles (1 or 2):
+// 64-row query tiles a block; every value gives the same bits. plant: -1,
+// or the test-only control's row (see the notes at the top).
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
 int paged_chunk_launch(const void* q, const void* kc, const void* vc,
                        const void* k_pool, const void* v_pool, const void* k_scale,
                        const void* v_scale, const void* table, const void* lens,
                        void* out, int S, int H, int Hkv, int W, int Dh, int page,
                        int N, int P, int live_pages, int ctx_len, int window,
-                       int mode, float sqrt_dh, void* stream) {
+                       int mode, int row_tiles, int plant, float sqrt_dh, void* stream) {
   if (Hkv < 1 || H % Hkv || page < 1 || N < 1 || P < 1 ||
-      live_pages < 0 || live_pages > P || ctx_len < P * page) {
+      live_pages < 0 || live_pages > P || ctx_len < P * page || row_tiles < 1 ||
+      row_tiles > kMaxRowTiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (S == 0 || W == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
-#define PAGED_CHUNK_ARGS mode, q, kc, vc, k_pool, v_pool, k_scale, v_scale, table, lens, out, \
-    S, H, Hkv, W, page, N, P, live_pages, ctx_len, window, sqrt_dh, st
+#define PAGED_CHUNK_ARGS row_tiles, mode, q, kc, vc, k_pool, v_pool, k_scale, v_scale, table, \
+    lens, out, S, H, Hkv, W, page, N, P, live_pages, ctx_len, window, sqrt_dh, plant, st
   switch (Dh) {
-    case 8: return launch<8>(PAGED_CHUNK_ARGS);
-    case 16: return launch<16>(PAGED_CHUNK_ARGS);
-    case 32: return launch<32>(PAGED_CHUNK_ARGS);
-    case 64: return launch<64>(PAGED_CHUNK_ARGS);
-    case 128: return launch<128>(PAGED_CHUNK_ARGS);
+    case 8: return launch_rows<8>(PAGED_CHUNK_ARGS);
+    case 16: return launch_rows<16>(PAGED_CHUNK_ARGS);
+    case 32: return launch_rows<32>(PAGED_CHUNK_ARGS);
+    case 64: return launch_rows<64>(PAGED_CHUNK_ARGS);
+    case 128: return launch_rows<128>(PAGED_CHUNK_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PAGED_CHUNK_ARGS
 }
 
-// What the kernel of pool mode `mode` takes on this card at head dim Dh:
-// out[0] registers a thread, out[1] local (spilled) bytes a thread, out[2]
-// dynamic shared memory a block, out[3] resident blocks an SM.
-int paged_chunk_resources(int mode, int Dh, int* out) {
+// What the kernel of pool mode `mode` takes on this card at head dim Dh,
+// launched with `row_tiles` row tiles a block: out[0] registers a thread,
+// out[1] local (spilled) bytes a thread, out[2] dynamic shared memory a
+// block, out[3] resident blocks an SM.
+int paged_chunk_resources(int mode, int Dh, int row_tiles, int* out) {
   switch (Dh) {
-    case 8: return resources<8>(mode, out);
-    case 16: return resources<16>(mode, out);
-    case 32: return resources<32>(mode, out);
-    case 64: return resources<64>(mode, out);
-    case 128: return resources<128>(mode, out);
+    case 8: return resources_rows<8>(row_tiles, mode, out);
+    case 16: return resources_rows<16>(row_tiles, mode, out);
+    case 32: return resources_rows<32>(row_tiles, mode, out);
+    case 64: return resources_rows<64>(row_tiles, mode, out);
+    case 128: return resources_rows<128>(row_tiles, mode, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

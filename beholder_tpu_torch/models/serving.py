@@ -48,8 +48,9 @@ request shapes (``seen_request_shapes``); and the pool ops of a decode group
 (:mod:`beholder_tpu_torch.cluster.group`), whose layers hold one pool per
 member, each a contiguous slice of the kv heads on its member's device:
 every op here writes, imports and exports such a layer member by member
-(:func:`_slice_chunk_heads`), and the wire format stays full-head. Not
-ported yet: the autotune table.
+(:func:`_slice_chunk_heads`), and the wire format stays full-head; and the
+chunk kernel's autotune table (``autotune_table=``,
+:mod:`beholder_tpu_torch.ops.autotune`).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ from beholder_tpu_torch.control.admission import Preempted
 from beholder_tpu_torch.device import resolve_device, to_device
 from beholder_tpu_torch.metrics import get_or_create
 from beholder_tpu_torch.obs.roofline import model_flops_per_token
-from beholder_tpu_torch.ops import NUM_STATUSES
+from beholder_tpu_torch.ops import NUM_STATUSES, autotune
 from beholder_tpu_torch.ops.paged_attention import (
     ChunkPagedInfo,
     GroupSpec,
@@ -1267,7 +1268,11 @@ class ContinuousBatcher:
     the rest (:func:`paged_admit_with_prefix`), through the paged chunk
     kernel when ``fused_verify`` is set. ``fused_wave`` admits each
     :meth:`run_waves` wave through the chunk kernel instead of the dense
-    prefill. Served forecasts are the same either way.
+    prefill. Served forecasts are the same either way. ``autotune_table``
+    (``instance.serving.autotune.table``) points the chunk kernel's launch
+    configs at that table (:func:`beholder_tpu_torch.ops.autotune.configure`):
+    process-global, as the table belongs to the card it was measured on;
+    every config gives the same bits.
 
     ``spec`` (a :class:`beholder_tpu_torch.spec.SpecConfig`) turns on
     :meth:`run_spec`, draft-then-verify decoding over the same pool;
@@ -1293,7 +1298,9 @@ class ContinuousBatcher:
       one event a phase (claim, admit, draft, tick or wave, verify,
       readback, rollback, retire) and instants for prefix lookups, stalls,
       request claims and retirements, spec outcomes and deadline expiries;
-      dispatch rounds carry kernel-attribution tags.
+      dispatch rounds carry kernel-attribution tags. It also takes the
+      autotune table's ``autotune.table_bad`` report (process-global:
+      :func:`beholder_tpu_torch.ops.autotune.set_recorder`).
 
     All of them read host clocks and host bookkeeping only: they add no
     synchronising call. On the card a round's time is its dispatch time.
@@ -1329,6 +1336,7 @@ class ContinuousBatcher:
         flight_recorder=None,
         fused_verify: bool = False,
         fused_wave: bool = False,
+        autotune_table: str | None = None,
         device=None,
     ):
         if spec is not None and not isinstance(spec, SpecConfig):
@@ -1370,6 +1378,12 @@ class ContinuousBatcher:
             )
         self.intake = intake
         self.flight_recorder = flight_recorder
+        if flight_recorder is not None:
+            autotune.set_recorder(flight_recorder)
+        if autotune_table is not None:
+            # before the first chunk launch resolves a config; None leaves
+            # the current resolution as it is
+            autotune.configure(autotune_table)
         self.prefix_cache = prefix_cache
         #: prefix-hit admissions and spec verify rounds attend the pools in
         #: place through the paged chunk kernel instead of a dense context

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import autotune
 from .attention import attend
 from .flash_attention import check_head_dim
 from .quant import pool_scales_f32
@@ -500,7 +501,7 @@ def _chunk_kernel_lib() -> ctypes.CDLL:
         lib = csrc.load("paged_chunk")
         lib.paged_chunk_launch.argtypes = (
             [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 12
+            + [ctypes.c_int] * 14
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.paged_chunk_launch.restype = ctypes.c_int
@@ -509,9 +510,12 @@ def _chunk_kernel_lib() -> ctypes.CDLL:
 
 
 def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len,
-                  live_pages, window, k_scale, v_scale):
+                  live_pages, window, k_scale, v_scale, row_tiles=1, plant=-1):
     """Check what the chunk kernel takes, allocate the output, launch on
-    the current stream, raise on a launch error."""
+    the current stream, raise on a launch error. ``row_tiles``: 64-row
+    query tiles a block (1 or 2; the same bits either way). ``plant``: -1,
+    or the row of the kernel's test-only control (its notes), which
+    changes the bits of that row's block."""
     slots, h, w, dh = q.shape
     n, hkv, _, page = k_pool.shape
     dev = q.device
@@ -531,7 +535,7 @@ def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len
         v_scale.data_ptr() if v_scale is not None else None,
         page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
         slots, h, hkv, w, dh, page, n, page_table.shape[1], live_pages, ctx_len,
-        0 if window is None else window, mode,
+        0 if window is None else window, mode, row_tiles, plant,
         # the plain version divides by this f32 value: the kernel divides
         # by the same bits
         torch.sqrt(torch.tensor(float(dh))).item(),
@@ -557,6 +561,7 @@ def paged_chunk_attention(
     window: int | None = None,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    config: dict | None = None,
     group: int = 1,
 ) -> torch.Tensor:
     """Chunk attention against the paged pools, in place.
@@ -572,11 +577,15 @@ def paged_chunk_attention(
     - ``ctx_len``: attention width (default ``P * page``; prefix-hit
       admission passes ``P * page + W``);
     - ``live_pages``: bound on the table columns read (default all);
+    - ``config``: an explicit ``{"row_tiles_per_block": n}``; by default
+      the shape's entry in the autotune table (:mod:`.autotune`) or its
+      defaults. Every config gives the same bits: it moves time only. The
+      plain version takes none;
     - ``group``: the call is one of ``group`` members of a group-parallel
-      forward (:class:`GroupSpec`), on its own slice of the kv heads. In
-      the reference it only picks autotuned block sizes; here the launch
-      is the same for any head count (its grid is slot x kv head x row
-      tile), so a member's heads get the bits of the full-head launch.
+      forward (:class:`GroupSpec`), on its own slice of the kv heads. It
+      picks the table's ``<dtype>:g<group>`` family; the launch is the
+      same for any head count (its grid is slot x kv head x row tiles), so
+      a member's heads get the bits of the full-head launch.
 
     Returns (S, H, W, Dh) bf16. CUDA tensors go to the kernel (each launch
     adds one to ``paged_chunk_attention.launches``); CPU tensors to
@@ -607,11 +616,18 @@ def paged_chunk_attention(
         raise ValueError(f"live_pages {live_pages} must be in [0, {max_pages}]")
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
+    key = autotune.shape_key(
+        "paged_chunk", slots=slots, width=w, max_pages=max_pages, page=page,
+        kv_heads=hkv, head_dim=dh,
+        dtype=pool_dtype_family(k_pool, quantized=k_scale is not None), group=group,
+    )
+    row_tiles = autotune.normalize(autotune.resolve_config(key, explicit=config), h // hkv * w)
+    autotune.note_used(key, {"row_tiles_per_block": row_tiles})
     if q.is_cuda:
         return _chunk_launch(
             q, k_chunk, v_chunk, k_pool, v_pool, page_table.to(torch.int32),
             lens.to(torch.int32), int(ctx_len), int(live_pages), window,
-            k_scale, v_scale,
+            k_scale, v_scale, row_tiles=row_tiles,
         )
     return paged_chunk_reference(
         q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens,

@@ -240,6 +240,10 @@ class BeholderService:
         if self.flight_plane is not None and self.flight_recorder is not None:
             self.flight_plane.bind(self.flight_recorder)
 
+        #: library knobs for whatever embeds a batcher beside the service (the
+        #: service builds none): ``ContinuousBatcher(fused_verify=
+        #: service.fused_verify, autotune_table=service.autotune_table)``;
+        #: None keeps the committed table (ops/autotune_paged.json)
         self.fused_verify = bool(config.get("instance.serving.fused_verify", False))
         self.autotune_table = config.get("instance.serving.autotune.table", None)
         cache_dtype = str(config.get("instance.serving.cache_dtype", "bf16"))

@@ -47,7 +47,21 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    member bitwise the matching heads of the full-head launch (decode at
    the headline and long shapes with the full-head split, the chunk
    kernel at the wave shape), a member at its own split printed as the
-   control, a member pool given as a view refused;
+   control, a member pool given as a view refused; then the chunk kernel's
+   autotune table (``autotune_phase``): every row-tile count the kernel
+   takes bitwise the default launch (and within the chunk tolerance of the
+   plain version) at the chunk shapes above over bf16, int8 and fp8,
+   window off and 200, a group member's launch (``:g2``) and each shape
+   the headline batcher launches; a planted non-neutral launch (one
+   block's key tiles shifted) must differ, in that block only; the search
+   (CUDA-graph slope timing) writes ``chiprun_out/autotune_paged.json``,
+   which must validate, each candidate's ms, registers, spills and blocks
+   an SM printed beside the card line; the headline batcher with that
+   table and with every served key at its largest candidate (fused waves,
+   a fused spec replay) serves bitwise the streams without a table, its
+   chunk launches counted and ``kernel.autotuned`` in a valid artifact; a
+   corrupt table gives one warning and one ``autotune.table_bad``
+   instant, the defaults and the same streams;
 4. serving: ``TelemetrySequenceModel(dim=512, heads=8, kv_heads=2,
    layers=4)`` with random bf16 weights from a numpy seed, over bf16, int8
    and fp8 pools, served through ``ContinuousBatcher.run_waves`` and
@@ -209,7 +223,13 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    predicted, none of the chunk kernel, its artifact valid with the card in
    its provenance) and the runtime entry (``parallel.initialize``: a no-op
    without a coordinator, then a one-process NCCL group whose ``all_reduce``
-   is exact; ``make_hybrid_mesh`` on this card);
+   is exact; ``make_hybrid_mesh`` on this card); then the ratio-only perf
+   gate (``gate_path``, ``beholder_tpu_torch.tools.perf_gate``): every
+   artifact this run wrote passes against itself; the control artifact
+   with the retention block joined fails against a copy with its victim
+   ratio doubled and its retention overhead past the band on exactly those
+   two metrics, with ``perf_explain``'s explanation; a metric removed from
+   one side is skipped; the CLI exits 0 and 1 on the two;
 8. output: a ``kernels`` JSON line (the three block-pair sites of the flash
    kernels as rows of their own), then the ``ok`` line last.
 
@@ -310,8 +330,8 @@ def kernel_resources() -> dict:
     of 4 (headline, head dim 64) and of 16 (head dim 128); aggregation for
     int32 and f32 progress on each path): registers and local (spilled) bytes
     a thread, dynamic shared memory a block, resident blocks an SM
-    (cudaFuncGetAttributes and the occupancy calculator). Fails on any
-    local memory."""
+    (cudaFuncGetAttributes and the occupancy calculator; the chunk kernel
+    at one and two row tiles a block). Fails on any local memory."""
     import ctypes
 
     from beholder_tpu_torch.ops import flash_attention as fa
@@ -322,15 +342,17 @@ def kernel_resources() -> dict:
     decode = pa._kernel_lib()
     fwd.flash_fwd_resources.argtypes = [ctypes.c_int, ctypes.c_void_p]
     bwd.flash_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    chunk.paged_chunk_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    chunk.paged_chunk_resources.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     queries = [(f"flash_fwd_kernel<{dh}>", fwd.flash_fwd_resources, (dh,))
                for dh in fa.KERNEL_HEAD_DIMS["flash forward"]]
     queries += [(f"{kernel}<{dh}>", bwd.flash_bwd_resources, (which, dh))
                 for dh in fa.KERNEL_HEAD_DIMS["flash backward"]
                 for which, kernel in enumerate(("flash_dq_kernel", "flash_dkv_kernel"))]
-    queries += [(f"paged_chunk_kernel<{family}, {dh}>", chunk.paged_chunk_resources, (mode, dh))
+    queries += [(f"paged_chunk_kernel<{family}, {dh}> x{rows}", chunk.paged_chunk_resources,
+                 (mode, dh, rows))
                 for dh in fa.KERNEL_HEAD_DIMS["paged chunk"]
-                for mode, family in enumerate(("bf16", "int8", "fp8"))]
+                for mode, family in enumerate(("bf16", "int8", "fp8"))
+                for rows in (1, 2)]
     queries += [(f"paged_decode_kernel<{family}, G={h // hkv}, Dh={dh}>",
                  decode.paged_decode_resources, (mode, h, hkv, dh))
                 for h, hkv, dh in ((8, 2, 64), (16, 1, 128))
@@ -527,18 +549,9 @@ def kernel_phase(torch, flush) -> list[dict]:
     return cases
 
 
-def chunk_kernel_phase(torch, flush) -> list[dict]:
-    """The paged chunk kernel against its plain version at the main path's
-    shapes (and a long-context one), for every pool family, window off and
-    200."""
-    from beholder_tpu_torch.ops.paged_attention import (
-        paged_chunk_attention,
-        paged_chunk_reference,
-    )
-    from beholder_tpu_torch.ops.quant import pool_quantize, pool_scales_f32
-
-    dev = torch.device("cuda")
-    F = torch.nn.functional
+def chunk_shapes() -> dict:
+    """The paged chunk kernel's shapes: the main path's and a long-context
+    one, and edge shapes off the main path."""
     shapes = {
         # a fused wave: 8 requests of 256 tokens, an empty paged context,
         # ctx_len = t_max as the fused admission passes it
@@ -565,34 +578,81 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
     for dh in (8, 16, 32, 128):
         for name in ("wave", "warm"):
             shapes[f"{name}-d{dh}"] = dict(shapes[name], H=4, Hkv=4, Dh=dh)
+    return shapes
+
+
+def chunk_inputs(torch, c: dict) -> dict:
+    """One chunk shape's inputs on the card, from a numpy seed: bf16 q and
+    chunk k/v, f32 pool values (``k_f``, ``v_f``), the page table and the
+    lengths, and the shape's sizes."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    H, Hkv, Dh = c.get("H", 8), c.get("Hkv", 2), c.get("Dh", 64)
+    S, W, page, N, P = (c[k] for k in ("S", "W", "page", "N", "P"))
+
+    def normal(*shape_):
+        return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev)
+
+    lens_np = np.asarray(c["lens"], np.int32)
+    return dict(
+        H=H, Hkv=Hkv, Dh=Dh, S=S, W=W, page=page, N=N, P=P,
+        ctx_len=c.get("ctx_len", P * page + W), live_pages=c.get("live_pages", P),
+        lens_np=lens_np,
+        q=normal(S, H, W, Dh).bfloat16(), kc=normal(S, Hkv, W, Dh).bfloat16(),
+        vc=normal(S, Hkv, W, Dh).bfloat16(),
+        k_f=normal(N, Hkv, Dh, page), v_f=normal(N, Hkv, Dh, page),
+        table=torch.from_numpy(
+            rng.permutation(N)[: S * P].reshape(S, P).astype(np.int32)).to(dev),
+        lens=torch.from_numpy(lens_np).to(dev),
+    )
+
+
+def chunk_pools(torch, t: dict, family: str):
+    """The shape's pools in one family: (k pool, v pool, k scales, v scales,
+    bytes a value, bytes a scale)."""
+    from beholder_tpu_torch.ops.quant import pool_quantize
+
+    if family == "bf16":
+        return t["k_f"].bfloat16(), t["v_f"].bfloat16(), None, None, 2, 0
+    dt = torch.int8 if family == "int8" else torch.float8_e4m3fn
+    kp, ks = pool_quantize(t["k_f"], axis=-2, values_dtype=dt)
+    vp, vs = pool_quantize(t["v_f"], axis=-2, values_dtype=dt)
+    return kp, vp, ks, vs, 1, ks.element_size()
+
+
+def chunk_reading(torch, out_k, out_p) -> tuple[float, float, float]:
+    """A chunk kernel output against its plain version: (max abs error, max
+    excess over CHUNK_RTOL |plain|, that excess in units of its row's
+    RMS), the last held to CHUNK_ATOL_RMS."""
+    plain = out_p.float()
+    diff = (out_k.float() - plain).abs()
+    excess = diff - CHUNK_RTOL * plain.abs()
+    row_rms = plain.square().mean(-1, keepdim=True).sqrt()
+    return (float(diff.max()), float(excess.max()),
+            float((excess / row_rms.clamp_min(1e-30)).max()))
+
+
+def chunk_kernel_phase(torch, flush) -> list[dict]:
+    """The paged chunk kernel against its plain version at the main path's
+    shapes (and a long-context one), for every pool family, window off and
+    200."""
+    from beholder_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention,
+        paged_chunk_reference,
+    )
+    from beholder_tpu_torch.ops.quant import pool_scales_f32
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
     cases = []
-    for shape, c in shapes.items():
-        rng = np.random.default_rng(11)
-        H, Hkv, Dh = c.get("H", 8), c.get("Hkv", 2), c.get("Dh", 64)
-        S, W, page, N, P = (c[k] for k in ("S", "W", "page", "N", "P"))
-        ctx_len = c.get("ctx_len", P * page + W)
-        live_pages = c.get("live_pages", P)
-        lens_np = np.asarray(c["lens"], np.int32)
-
-        def normal(*shape_):
-            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev)
-
-        q = normal(S, H, W, Dh).bfloat16()
-        kc = normal(S, Hkv, W, Dh).bfloat16()
-        vc = normal(S, Hkv, W, Dh).bfloat16()
-        k_f, v_f = normal(N, Hkv, Dh, page), normal(N, Hkv, Dh, page)
-        table = torch.from_numpy(
-            rng.permutation(N)[: S * P].reshape(S, P).astype(np.int32)).to(dev)
-        lens = torch.from_numpy(lens_np).to(dev)
+    for shape, c in chunk_shapes().items():
+        t = chunk_inputs(torch, c)
+        H, Hkv, Dh, S, W, page, N, P = (t[k] for k in ("H", "Hkv", "Dh", "S", "W", "page",
+                                                         "N", "P"))
+        ctx_len, live_pages, lens_np = t["ctx_len"], t["live_pages"], t["lens_np"]
+        q, kc, vc, table, lens = (t[k] for k in ("q", "kc", "vc", "table", "lens"))
         for family in ("bf16", "int8", "fp8"):
-            if family == "bf16":
-                kp, vp, ks, vs = k_f.bfloat16(), v_f.bfloat16(), None, None
-                elem, scale_elem = 2, 0
-            else:
-                dt = torch.int8 if family == "int8" else torch.float8_e4m3fn
-                kp, ks = pool_quantize(k_f, axis=-2, values_dtype=dt)
-                vp, vs = pool_quantize(v_f, axis=-2, values_dtype=dt)
-                elem, scale_elem = 1, ks.element_size()
+            kp, vp, ks, vs, elem, scale_elem = chunk_pools(torch, t, family)
             for window in (None, 200):
                 args = (q, kc, vc, kp, vp, table, lens)
                 kw = dict(ctx_len=ctx_len, live_pages=live_pages, window=window,
@@ -603,12 +663,7 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
                 where = f"chunk {shape}/{family}/window={window}"
                 check(bool(torch.isfinite(out_k.float()).all()), f"{where}: non-finite")
                 plain = out_p.float()
-                diff = (out_k.float() - plain).abs()
-                err = float(diff.max())
-                excess = diff - CHUNK_RTOL * plain.abs()
-                row_rms = plain.square().mean(-1, keepdim=True).sqrt()
-                # the excess over the rtol term in units of its row's RMS
-                reading = float((excess / row_rms.clamp_min(1e-30)).max())
+                err, max_excess, reading = chunk_reading(torch, out_k, out_p)
                 check(reading <= CHUNK_ATOL_RMS,
                       f"{where}: max abs err {err}, excess over {CHUNK_RTOL}|plain| "
                       f"{reading} x row RMS > {CHUNK_ATOL_RMS}")
@@ -664,7 +719,7 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
                 t_ops = flops / BF16_FLOPS * 1e3
                 case = dict(
                     shape=shape, H=H, Hkv=Hkv, Dh=Dh, pool=family, window=window,
-                    max_abs_err=err, max_excess=float(excess.max()),
+                    max_abs_err=err, max_excess=max_excess,
                     excess_per_row_rms=reading,
                     plain_rms=float(plain.square().mean().sqrt()),
                     tolerance=dict(rtol=CHUNK_RTOL, atol_row_rms=CHUNK_ATOL_RMS),
@@ -3426,6 +3481,337 @@ def head_slice_phase(torch) -> list[dict]:
     return cases
 
 
+#: the autotune leg's shapes (chunk_shapes' names): the fused wave, the warm
+#: prefix admit, spec verify, the two 4 x 64 edge shapes, long context and
+#: head dim 128; each over every pool family, window off and 200
+AUTOTUNE_SHAPES = ("wave", "warm", "verify", "edge", "page100", "long", "wave-d128",
+                   "warm-d128")
+#: the planted control's row: in the fourth 64-row tile of slot 0, kv head 0
+AUTOTUNE_PLANT_ROW = 200
+#: launches in one link of the search's timed chain (one CUDA graph replay)
+AUTOTUNE_GRAPH_CALLS = 20
+POOL_MODES = {"bf16": 0, "int8": 1, "fp8": 2}
+
+
+def bitwise_equal(torch, a, b) -> bool:
+    """Every bit of two bf16 tensors equal (-0 and +0 differ)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+class capture_chunk_calls:
+    """Keeps, for each autotune key the model's chunk attention launches,
+    a copy of its first call's inputs (``models.sequence`` resolves
+    ``paged_chunk_attention`` at each call)."""
+
+    def __enter__(self):
+        from beholder_tpu_torch.models import sequence
+
+        self.mod, self.real, self.calls = sequence, sequence.paged_chunk_attention, {}
+
+        def spy(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, **kw):
+            key = autotune_key(k_pool, q, page_table, kw.get("k_scale"), kw.get("group", 1))
+            if key not in self.calls:
+                args = tuple(t.clone() for t in (q, k_chunk, v_chunk, k_pool, v_pool,
+                                                 page_table, lens))
+                self.calls[key] = (args, {k: v.clone() if hasattr(v, "clone") else v
+                                          for k, v in kw.items()})
+            return self.real(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, **kw)
+
+        sequence.paged_chunk_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.paged_chunk_attention = self.real
+
+
+def autotune_key(k_pool, q, page_table, k_scale, group: int) -> str:
+    from beholder_tpu_torch.ops import autotune
+    from beholder_tpu_torch.ops.paged_attention import pool_dtype_family
+
+    slots, _, w, dh = q.shape
+    _, hkv, _, page = k_pool.shape
+    return autotune.shape_key(
+        "paged_chunk", slots=slots, width=w, max_pages=page_table.shape[1], page=page,
+        kv_heads=hkv, head_dim=dh,
+        dtype=pool_dtype_family(k_pool, quantized=k_scale is not None), group=group)
+
+
+def autotune_phase(torch, card: str) -> dict:
+    """The chunk kernel's autotune table on the card
+    (``beholder_tpu_torch.ops.autotune``). For the phase-3 shapes
+    (``AUTOTUNE_SHAPES``) over bf16, int8 and fp8 with window off and 200, a
+    group member's wave launch (``:g2``), and every key the headline
+    batcher launches serving fused waves and a fused spec replay: each
+    row-tile count the kernel takes, bitwise the default launch and within
+    the chunk tolerance of the plain version; a planted non-neutral launch
+    (the kernel's control: one block's key tiles start 32 positions early)
+    must differ, in that block only. ``search`` times each key's candidates
+    (window off) into ``chiprun_out/autotune_paged.json``, which must
+    validate. Then the batcher serves with that table, and with a table of
+    every served key at its largest candidate: streams bitwise those
+    without a table, chunk launches counted, ``kernel.autotuned`` recorded
+    in a valid artifact; and with a corrupt table: one warning, one
+    ``autotune.table_bad`` instant, the defaults, the same streams."""
+    import ctypes
+
+    from beholder_tpu_torch import artifact
+    from beholder_tpu_torch.log import get_logger
+    from beholder_tpu_torch.models import TelemetrySequenceModel
+    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
+    from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
+    from beholder_tpu_torch.obs import FlightRecorder
+    from beholder_tpu_torch.ops import autotune
+    from beholder_tpu_torch.ops import paged_attention as pa
+    from beholder_tpu_torch.spec import SpecConfig
+    from beholder_tpu_torch.spec.drafter import NullDrafter
+
+    t_phase = time.perf_counter()
+    lib = pa._chunk_kernel_lib()
+    lib.paged_chunk_resources.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def resources(family, dh, rows):
+        vals = (ctypes.c_int * 4)()
+        err = lib.paged_chunk_resources(POOL_MODES[family], dh, rows, vals)
+        check(err == 0, f"autotune: resource query failed, CUDA error {err}")
+        return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), vals))
+
+    # no table while the defaults' streams are made
+    absent = (OUT / "autotune_absent.json").resolve()
+    absent.unlink(missing_ok=True)
+    autotune.configure(str(absent))
+
+    # -- the served keys: the headline batcher, fused waves and a fused replay
+    model = TelemetrySequenceModel(dim=512, heads=8, kv_heads=2, layers=4)
+    load_flax_params(model, init_params(model, seed=0, bf16_matrices=True))
+    rng = np.random.default_rng(0)
+    wave_reqs = make_requests(rng, Request, [256] * 8, [128] * 8)
+    run_reqs = make_requests(rng, Request, [256] * 12, RUN_HORIZONS)
+
+    def serve(table=None, recorder=None):
+        """run_waves (fused) and run_spec (fused verify, the replay of spec
+        off's stream): (waves, replay, chunk launches)."""
+        kw = dict(fused_wave=True, fused_verify=True, autotune_table=table,
+                  flight_recorder=recorder)
+        waves, _, _, chunk_w = counted(torch, lambda: ContinuousBatcher(
+            model, **SERVE, **kw).run_waves(wave_reqs))
+        replay, _, _, chunk_s = counted(torch, lambda: ContinuousBatcher(
+            model, **SERVE, **kw, spec=SpecConfig(
+                max_draft=SPEC_MAX_DRAFT, drafter=replay_drafter(run_reqs, off),
+                adaptive=False)).run_spec(run_reqs))
+        return waves, replay, chunk_w + chunk_s
+
+    off = ContinuousBatcher(model, **SERVE, fused_verify=True, spec=SpecConfig(
+        max_draft=SPEC_MAX_DRAFT, drafter=NullDrafter())).run_spec(run_reqs)
+    with capture_chunk_calls() as cap:
+        want_waves, want_replay, want_chunk = serve()
+    served = cap.calls
+    check(want_chunk > 0, "autotune: the served runs launched no chunk kernel")
+
+    # -- the cases: phase 3's shapes, a group member, the served calls
+    cases = []  # (where, key, args, kw, rows, family, Dh, timed)
+    for shape in AUTOTUNE_SHAPES:
+        t = chunk_inputs(torch, chunk_shapes()[shape])
+        for family in ("bf16", "int8", "fp8"):
+            kp, vp, ks, vs, _, _ = chunk_pools(torch, t, family)
+            args = (t["q"], t["kc"], t["vc"], kp, vp, t["table"], t["lens"])
+            key = autotune_key(kp, t["q"], t["table"], ks, 1)
+            for window in (None, 200):
+                kw = dict(ctx_len=t["ctx_len"], live_pages=t["live_pages"], window=window,
+                          k_scale=ks, v_scale=vs)
+                cases.append((f"{shape}/{family}/window={window}", key, args, kw,
+                              t["H"] // t["Hkv"] * t["W"], family, t["Dh"], window is None))
+            if shape == "wave" and family == "bf16":
+                # member 0 of a group of 2: kv head 0 and its 4 query heads
+                m_args = (t["q"][:, :4].contiguous(), t["kc"][:, :1].contiguous(),
+                          t["vc"][:, :1].contiguous(), kp[:, :1].contiguous(),
+                          vp[:, :1].contiguous(), t["table"], t["lens"])
+                m_kw = dict(ctx_len=t["ctx_len"], live_pages=t["live_pages"], window=None,
+                            group=GROUP_SIZE)
+                cases.append(("wave-member/bf16/window=None",
+                              autotune_key(m_args[3], m_args[0], t["table"], None, GROUP_SIZE),
+                              m_args, m_kw, 4 * t["W"], "bf16", t["Dh"], True))
+                plant_case = (args, dict(ctx_len=t["ctx_len"], live_pages=t["live_pages"],
+                                         window=None, k_scale=ks, v_scale=vs), t["W"])
+    for key, (args, kw) in served.items():
+        q, kp = args[0], args[3]
+        family = pa.pool_dtype_family(kp, quantized=kw.get("k_scale") is not None)
+        cases.append((f"served {key}", key, args, kw, q.shape[1] // kp.shape[1] * q.shape[2],
+                      family, q.shape[3], True))
+
+    def plain_kw(args, kw):
+        """``kw`` with the wrapper's defaults filled in and no group."""
+        max_pages, page = args[5].shape[1], args[3].shape[3]
+        out = {k: v for k, v in kw.items() if k != "group"}
+        out["ctx_len"] = int(kw.get("ctx_len") or max_pages * page)
+        live = kw.get("live_pages")
+        out["live_pages"] = max_pages if live is None else int(live)
+        return out
+
+    def launch(args, kw, rows):
+        """One launch at ``rows`` row tiles a block, unclamped."""
+        q, kc, vc, kp, vp, table, lens = args
+        k = plain_kw(args, kw)
+        return pa._chunk_launch(q, kc, vc, kp, vp, table.to(torch.int32),
+                                lens.to(torch.int32), k["ctx_len"], k["live_pages"],
+                                k.get("window"), k.get("k_scale"), k.get("v_scale"),
+                                row_tiles=rows)
+
+    checked = []
+    for where, key, args, kw, rows, family, dh, _ in cases:
+        default = pa.paged_chunk_attention(*args, **kw, config=dict(autotune.DEFAULTS))
+        plain = pa.paged_chunk_reference(*args, **plain_kw(args, kw))
+        torch.cuda.synchronize()
+        readings = []
+        for r in range(1, autotune.MAX_ROW_TILES + 1):
+            out = launch(args, kw, r)
+            torch.cuda.synchronize()
+            check(bitwise_equal(torch, out, default),
+                  f"autotune {where}: {r} row tiles a block differ from the default launch "
+                  f"in {int((out.view(torch.int16) != default.view(torch.int16)).sum())} "
+                  "elements")
+            err, _, reading = chunk_reading(torch, out, plain)
+            check(reading <= CHUNK_ATOL_RMS,
+                  f"autotune {where}: {r} row tiles: excess/row_rms {reading} > "
+                  f"{CHUNK_ATOL_RMS} (max abs err {err})")
+            readings.append(reading)
+        candidates = autotune.candidate_configs(rows)
+        checked.append(dict(case=where, key=key, rows=rows, candidates=len(candidates),
+                            excess_per_row_rms=max(readings)))
+        print(f"autotune bits {where:40s} rows={rows} row_tiles 1..{autotune.MAX_ROW_TILES} "
+              f"bitwise the default launch; candidates={len(candidates)} "
+              f"excess/row_rms<={max(readings):.3e} (tol {CHUNK_ATOL_RMS})", flush=True)
+
+    # -- the planted control: it must differ, in its block only
+    args, kw, W = plant_case
+    default = pa.paged_chunk_attention(*args, **kw, config=dict(autotune.DEFAULTS))
+    q, kc, vc, kp, vp, table, lens = args
+    planted = pa._chunk_launch(q, kc, vc, kp, vp, table, lens, kw["ctx_len"], kw["live_pages"],
+                               None, None, None, row_tiles=1, plant=AUTOTUNE_PLANT_ROW)
+    torch.cuda.synchronize()
+    differ = planted.view(torch.int16) != default.view(torch.int16)
+    block = slice(AUTOTUNE_PLANT_ROW // 64 * 64, AUTOTUNE_PLANT_ROW // 64 * 64 + 64)
+    inside = differ[0, 0, block]  # slot 0, query head 0 (kv head 0), the block's chunk rows
+    check(bool(differ.any()), "autotune control: the planted launch is bitwise the default: "
+          "the bitwise check cannot see a difference")
+    check(int(differ.sum()) == int(inside.sum()),
+          f"autotune control: {int(differ.sum()) - int(inside.sum())} differing elements "
+          "outside the planted block")
+    _, _, plant_reading = chunk_reading(torch, planted, pa.paged_chunk_reference(*args, **kw))
+    print(f"autotune control: a launch whose block of row {AUTOTUNE_PLANT_ROW} starts its key "
+          f"tiles 32 positions early differs from the default in {int(differ.sum())} elements "
+          f"of {int(inside.numel())} in that block, none outside; its excess/row_rms against "
+          f"the plain version {plant_reading:.3e} (tol {CHUNK_ATOL_RMS}): the bitwise check "
+          "sees what the tolerance passes", flush=True)
+
+    # -- the search, one key once (window off), the served inputs first; each
+    # candidate's chain link is a CUDA graph of AUTOTUNE_GRAPH_CALLS launches
+    # (inputs warm in L2), so the slope reads device time, not launch rate
+    entries, searched = {}, {}
+    for where, key, args, kw, rows, family, dh, timed_case in sorted(
+            cases, key=lambda c: not c[0].startswith("served")):
+        if not timed_case or key in entries:
+            continue
+
+        def build_fn(config, args=args, kw=kw):
+            pa.paged_chunk_attention(*args, **kw, config=config)  # warm, outside the capture
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(AUTOTUNE_GRAPH_CALLS):
+                    pa.paged_chunk_attention(*args, **kw, config=config)
+            return lambda prev: graph.replay()
+
+        entry = autotune.autotune_entry(key, build_fn, autotune.candidate_configs(rows),
+                                        k1=2, k2=8, rounds=5, calls=AUTOTUNE_GRAPH_CALLS)
+        entry["card"] = card
+        entry["resources"] = {
+            label: resources(family, dh, int(label.split("=")[1]))
+            for label in entry["candidates"]}
+        entries[key] = entry
+        searched[key] = where
+        for label, sec in entry["candidates"].items():
+            res = entry["resources"][label]
+            print(f"autotune search {key} {label}: ms={sec * 1e3:.5f} "
+                  f"registers={res['registers']} local_bytes={res['local_bytes']} "
+                  f"blocks_per_sm={res['blocks_per_sm']}"
+                  + (" winner" if label == autotune._label(entry["config"]) else "")
+                  + f" ({where}); {card}", flush=True)
+    table_path = autotune.save_table(entries, str((OUT / "autotune_paged.json").resolve()))
+    autotune.validate_table(json.loads(Path(table_path).read_text()))
+    print(f"autotune table: {len(entries)} keys, {table_path} valid", flush=True)
+
+    # -- serving with the table, then with every served key at its largest
+    rows_of = {c[1]: c[4] for c in cases}
+    forced = {key: dict(entries[key], config=autotune.candidate_configs(rows_of[key])[-1])
+              for key in served}
+    forced_path = autotune.save_table(forced, str((OUT / "autotune_forced.json").resolve()))
+    report = {}
+    for name, path in (("table", table_path), ("forced", forced_path)):
+        rec = artifact.ArtifactRecorder(f"chip_smoke_autotune_{name}")
+        waves, replay, chunk = serve(table=path)
+        for label, got, want in (("run_waves", waves, want_waves),
+                                 ("run_spec replay", replay, want_replay)):
+            check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+                  f"autotune {name}: {label} streams differ from those without a table")
+        check(chunk == want_chunk,
+              f"autotune {name}: {chunk} chunk launches, {want_chunk} without a table")
+        art_path = rec.write(str((OUT / "artifacts" / f"chip_smoke_autotune_{name}.json")
+                                 .resolve()))
+        obj = artifact.validate_file(art_path)
+        used = obj["kernel"]["autotuned"]
+        table_now = autotune.load_table(path)
+        for key in served:
+            want_rows = autotune.normalize(table_now[key]["config"], rows_of[key])
+            check(used.get(key) == {"row_tiles_per_block": want_rows},
+                  f"autotune {name}: kernel.autotuned[{key}] = {used.get(key)}, the table "
+                  f"gives {want_rows} row tiles")
+        changed = sum(used[k]["row_tiles_per_block"] != 1 for k in served)
+        report[name] = dict(chunk_launches=chunk, keys=len(used), non_default=changed,
+                            artifact=art_path)
+        print(f"autotune serve {name}: run_waves and run_spec replay streams bitwise those "
+              f"without a table; chunk_launches={chunk}; kernel.autotuned {len(used)} keys, "
+              f"{changed} of {len(served)} served keys off the default; {art_path} valid",
+              flush=True)
+
+    # -- a corrupt table: loud once, the defaults, the same streams
+    corrupt = (OUT / f"autotune_corrupt_{os.getpid()}.json").resolve()
+    corrupt.write_text('{"schema": "beholder-autotune-table"')  # truncated
+    log = get_logger("ops.autotune")
+    caught = _Summaries()
+    log.addHandler(caught)
+    try:
+        fr = FlightRecorder(ring_size=1 << 16)
+        mark = autotune.launch_mark()
+        waves, replay, chunk = serve(table=str(corrupt), recorder=fr)
+        ContinuousBatcher(model, **SERVE, fused_wave=True, autotune_table=str(corrupt),
+                          flight_recorder=fr).run_waves(wave_reqs[:1])
+    finally:
+        log.removeHandler(caught)
+        autotune.set_recorder(None)
+        autotune.configure(None)
+    bad = [e for e in fr.events() if e["name"] == "autotune.table_bad"]
+    check(len(caught.warnings) == 1,
+          f"autotune corrupt: {len(caught.warnings)} warnings, want 1: {caught.warnings}")
+    check(len(bad) == 1 and bad[0]["args"]["path"] == str(corrupt),
+          f"autotune corrupt: {len(bad)} autotune.table_bad instants, want 1")
+    check(all(np.array_equal(g, w) for g, w in zip(waves, want_waves))
+          and all(np.array_equal(g, w) for g, w in zip(replay, want_replay)),
+          "autotune corrupt: streams differ from those without a table")
+    check(chunk == want_chunk, f"autotune corrupt: {chunk} chunk launches, {want_chunk} want")
+    defaults = autotune.used_configs(since=mark)
+    check(all(v == autotune.DEFAULTS for v in defaults.values()),
+          f"autotune corrupt: launches off the defaults: {defaults}")
+    corrupt.unlink()
+    seconds = time.perf_counter() - t_phase
+    print(f"autotune corrupt: 1 warning ({caught.warnings[0][:90]}...), 1 autotune.table_bad "
+          f"instant, {len(defaults)} keys at the defaults, streams bitwise, "
+          f"chunk_launches={chunk}; autotune phase {seconds:.2f} s", flush=True)
+    return dict(checked=checked, table=table_path, entries=entries, searched=searched,
+                serve=report, control=dict(differ=int(differ.sum()), block=int(inside.numel()),
+                                          excess_per_row_rms=plant_reading),
+                corrupt=dict(warnings=caught.warnings, instants=len(bad)), seconds=seconds)
+
+
 def fabric_path(torch, model, layers, card) -> dict:
     """The cluster memory fabric (``beholder_tpu_torch.cluster.fabric``) on
     the headline model at ``CLUSTER``'s geometry, round-robin 2 shards with
@@ -3802,6 +4188,29 @@ def profile_spec(torch, b, reqs) -> dict:
     return out
 
 
+def _takes_row_tiles(parent: Path) -> bool:
+    """Whether a checkout's chunk kernel takes the row-tile count."""
+    src = (parent / "beholder_tpu_torch" / "csrc" / "paged_chunk.cu").read_text()
+    return "int row_tiles, int plant" in src
+
+
+def parent_abi(lib):
+    """A chunk kernel library without the row-tile count and the control in
+    its C interface, behind this checkout's: the two arguments are dropped
+    (it has one launch configuration)."""
+    import ctypes
+
+    old = lib.paged_chunk_launch
+    old.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_float,
+                                                                      ctypes.c_void_p]
+    old.restype = ctypes.c_int
+
+    def paged_chunk_launch(*args):
+        return old(*args[:22], *args[24:])
+
+    return type("ParentChunkLib", (), {"paged_chunk_launch": staticmethod(paged_chunk_launch)})
+
+
 def chunk_ab(torch, flush, parent: Path) -> dict:
     """``--chunk-parent``: the chunk kernel built from ``parent``'s source
     (A) against this checkout's (B) in one process. Every case of
@@ -3827,7 +4236,9 @@ def chunk_ab(torch, flush, parent: Path) -> dict:
         capture_output=True, text=True,
     )
     check(out.returncode == 0, f"chunk A/B: nvcc failed on {parent}:\n{out.stdout}{out.stderr}")
-    libs = {"A": ctypes.CDLL(str(lib.resolve())), "B": csrc.load("paged_chunk")}
+    parent_lib = ctypes.CDLL(str(lib.resolve()))
+    libs = {"A": parent_lib if _takes_row_tiles(parent) else parent_abi(parent_lib),
+            "B": csrc.load("paged_chunk")}
 
     def use(side):
         csrc._loaded["paged_chunk"] = libs[side]
@@ -5094,6 +5505,87 @@ def tooling_path(torch, card: str, profile_order: bool = False) -> dict:
     if profile_order:
         out["order"] = profile_wave_order(torch)
     return out
+
+
+def gate_path(since: float) -> dict:
+    """The ratio-only perf gate (``beholder_tpu_torch.tools.perf_gate``) on
+    the artifacts this run wrote: each against itself passes; the control
+    artifact with the retention block joined in as a baseline, against a
+    copy with ``control_victim_ttft_ratio`` doubled and
+    ``retention_overhead_ratio`` past its band, fails on exactly those two
+    with an explanation from the port's ``perf_explain``; a metric removed
+    from one side is skipped, not failed; the CLI exits 0 on the
+    self-compare and 1 on the planted copy."""
+    import copy
+
+    from beholder_tpu_torch import artifact
+    from beholder_tpu_torch.tools import perf_explain, perf_gate
+
+    t0 = time.perf_counter()
+    art_dir = (OUT / "artifacts").resolve()
+    paths = sorted(p for p in art_dir.glob("*.json") if p.stat().st_mtime >= since)
+    check(len(paths) >= 4, f"gate: {len(paths)} artifacts written by this run: {paths}")
+    selves = {}
+    for path in paths:
+        obj = artifact.validate_file(str(path))
+        verdict = perf_gate.run_gate(obj, obj)
+        check(verdict["verdict"] == "pass" and not verdict["failed"],
+              f"gate: {path.name} against itself fails on {verdict['failed']}")
+        selves[path.name] = dict(checks=len(verdict["checks"]), skipped=len(verdict["skipped"]))
+        print(f"gate self {path.name}: pass, {len(verdict['checks'])} checks, "
+              f"{len(verdict['skipped'])} skipped", flush=True)
+
+    base = artifact.validate_file(str(art_dir / "chip_smoke_control.json"))
+    base["retention"] = artifact.validate_file(
+        str(art_dir / "chip_smoke_retention.json"))["retention"]
+    check(base["control"]["victim_ttft_ratio"] > 0 and base["retention"]["overhead_ratio"] > 0,
+          "gate: the baseline lacks a control or retention ratio")
+    planted = copy.deepcopy(base)
+    planted["control"]["victim_ttft_ratio"] *= 2
+    planted["retention"]["overhead_ratio"] *= \
+        (1 + perf_gate.NOISE_BANDS["retention_overhead_ratio"]) * 1.25
+    gate_dir = (OUT / "gate").resolve()
+    gate_dir.mkdir(parents=True, exist_ok=True)
+    files = {}
+    for name, obj in (("base", base), ("planted", planted)):
+        files[name] = gate_dir / f"{name}.json"
+        files[name].write_text(json.dumps(obj, indent=1, sort_keys=True) + "\n")
+        artifact.validate_file(str(files[name]))
+    planted_names = ["control_victim_ttft_ratio", "retention_overhead_ratio"]
+    verdict = perf_gate.run_gate(base, planted)
+    check(verdict["verdict"] == "fail" and sorted(verdict["failed"]) == planted_names,
+          f"gate: the planted copy fails on {verdict['failed']}, want {planted_names}")
+    check(verdict.get("explanation", {}).get("schema") == perf_explain.SCHEMA,
+          f"gate: the failed verdict has no explanation: {verdict.get('explanation_error')}")
+    removed = copy.deepcopy(base)
+    del removed["retention"]["overhead_ratio"]
+    partial = perf_gate.run_gate(base, removed)
+    check(partial["verdict"] == "pass"
+          and {"metric": "retention_overhead_ratio", "reason": "missing in current"}
+          in partial["skipped"],
+          f"gate: a removed metric is not skipped: {partial['failed']} {partial['skipped']}")
+    cli = {}
+    for name, want_rc in (("base", 0), ("planted", 1)):
+        run = subprocess.run(
+            [sys.executable, "-m", "beholder_tpu_torch.tools.perf_gate",
+             "--baseline", str(files["base"]), "--current", str(files[name])],
+            capture_output=True, text=True, timeout=300)
+        check(run.returncode == want_rc,
+              f"gate CLI on {name}: exit {run.returncode}, want {want_rc}: {run.stderr[-2000:]}")
+        out = json.loads(run.stdout)
+        check(sorted(out["failed"]) == ([] if want_rc == 0 else planted_names),
+              f"gate CLI on {name}: failed {out['failed']}")
+        cli[name] = run.returncode
+    seconds = time.perf_counter() - t0
+    print(f"gate planted: fails on exactly {planted_names} "
+          f"(victim {base['control']['victim_ttft_ratio']:.4f} -> "
+          f"{planted['control']['victim_ttft_ratio']:.4f}, retention "
+          f"{base['retention']['overhead_ratio']:.4f} -> "
+          f"{planted['retention']['overhead_ratio']:.4f}), explanation "
+          f"'{verdict['explanation'].get('verdict')}'; a removed metric skipped; CLI exit "
+          f"{cli['base']} on the self-compare, {cli['planted']} on the planted copy; gate "
+          f"phase {seconds:.2f} s", flush=True)
+    return dict(self_compares=selves, failed=verdict["failed"], cli=cli, seconds=seconds)
 
 
 def profile_wave_order(torch, rounds: int = 4, k2: int = 6) -> dict:
@@ -6715,6 +7207,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    t_start = time.time()
     card = card_line()
     print(card, flush=True)
     # the batched ingest path builds its frame scanner with the host C++
@@ -6747,8 +7240,9 @@ def main() -> None:
     t0 = time.perf_counter()
     slice_cases = head_slice_phase(torch)
     print(f"head slice phase {time.perf_counter() - t0:.2f} s of wall time", flush=True)
+    autotuned = autotune_phase(torch, card)
     record = {"card": card, "build": builds, "kernel_cases": cases,
-              "head_slice_cases": slice_cases,
+              "head_slice_cases": slice_cases, "autotune": autotuned,
               "chunk_kernel_cases": chunk_cases, "flash_kernel_cases": flash_cases,
               "offset_kernel_cases": offset_cases, "flash_d128_cases": d128_cases}
     serving = main_path(torch, profile=args.profile)
@@ -6780,6 +7274,7 @@ def main() -> None:
     training["pipeline"] = pipeline_path(torch)
     record["sharded_serving"] = sharded_serving_path(torch)
     record["tooling"] = tooling_path(torch, card, profile_order=args.profile)
+    record["gate"] = gate_path(t_start)
 
     head = next(c for c in cases
                 if c["shape"] == "headline" and c["pool"] == "bf16" and c["window"] is None)

@@ -27,8 +27,8 @@ it; the port's members are ``devices=["cpu", "cpu"]`` (clusters:
   port's group and single batcher agree bit for bit;
 - page, transfer, fabric and failover counters: exactly the reference's.
 
-``test_autotune_group_family_keys`` has no counterpart: the port has no
-autotune table (ROADMAP A.1)."""
+``test_autotune_group_family_keys`` has its counterpart in
+``tests/test_torch_autotune.py``, beside the port's autotune table."""
 
 import jax
 import jax.numpy as jnp

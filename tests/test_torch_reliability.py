@@ -9,6 +9,7 @@ their headers, the exposition and the log records — must be equal. One
 wire test drops the broker's connections mid-stream and drives an Emby
 outage through both services."""
 
+import contextlib
 import logging
 import random
 import re
@@ -153,7 +154,8 @@ TRANSPORT_CASES = {
     "4xx_not_retried": ([404, 200], {}, {}, 2),
     "breaker_opens_and_fast_fails": (
         [ConnectionError("x")] * 12, {"min_calls": 3, "window": 4}, {}, 4),
-    "deadline_caps_attempt_timeout": ([TimeoutError("slow")] * 2, {}, {"deadline_s": 0.2}, 1),
+    # the deadline runs on the scripted clock: no wall time reaches what is compared
+    "deadline_caps_attempt_timeout": ([TimeoutError("slow")] * 2, {}, {"scope_s": 0.2}, 1),
     "half_open_slot_not_leaked": ([ConnectionError("x")] * 3,
                                   {"min_calls": 3, "window": 3, "reset_timeout_s": 1.0,
                                    "half_open_successes": 1}, {"expire": True}, 3),
@@ -161,7 +163,7 @@ TRANSPORT_CASES = {
 
 
 def _transport_run(impl, case):
-    replies, breaker_kw, kw, calls = TRANSPORT_CASES[case]
+    replies, breaker_kw, kw, calls = TRANSPORT_CASES[case] if isinstance(case, str) else case
     replies = list(replies)
     clock = _Clock()
     registry = impl.metrics.Registry()
@@ -181,6 +183,15 @@ def _transport_run(impl, case):
         inner, breaker=breaker, retry=retry, default_deadline_s=kw.get("deadline_s"),
         logger=log)
     outcomes = []
+    scope = (impl.rel.deadline_scope(impl.rel.Deadline.after(kw["scope_s"], clock=clock))
+             if "scope_s" in kw else contextlib.nullcontext())
+    with scope:
+        _transport_calls(impl, transport, breaker, clock, kw, calls, outcomes)
+    return dict(outcomes=outcomes, seen=inner.seen, sleeps=sleeps, state=breaker.state,
+                exposition=registry.render(), logs=logs.records)
+
+
+def _transport_calls(impl, transport, breaker, clock, kw, calls, outcomes):
     for i in range(calls):
         if kw.get("expire") and i == calls - 1:
             # an expired deadline must raise before taking a half-open slot
@@ -199,8 +210,6 @@ def _transport_run(impl, case):
             outcomes.append(("status", resp.status, resp.body))
         except Exception as err:  # noqa: BLE001 - the outcome is compared
             outcomes.append((type(err).__name__, str(err)))
-    return dict(outcomes=outcomes, seen=inner.seen, sleeps=sleeps, state=breaker.state,
-                exposition=registry.render(), logs=logs.records)
 
 
 @pytest.mark.parametrize("case", list(TRANSPORT_CASES))
@@ -220,6 +229,19 @@ def test_resilient_transport_matches_the_reference(case):
         # breaker still has its probe slot, and the next call closes it
         assert ("slots", 0, "open") in got["outcomes"] and ("after", 200) in got["outcomes"]
         assert got["state"] == "closed"
+
+
+def test_resilient_transport_default_deadline_caps_each_attempt():
+    """``default_deadline_s`` builds its deadline on the wall clock, so the
+    capped timeouts of two runs may differ by the time each took: each run
+    is held to the cap on its own, and the runs to the same attempts and
+    outcomes."""
+    case = ([TimeoutError("slow")] * 2, {}, {"deadline_s": 0.2}, 1)
+    runs = [_transport_run(impl, case) for impl in (REF, PORT)]
+    for run in runs:
+        assert run["seen"] and all(t <= 0.2 for *_, t in run["seen"])
+    assert len(runs[1]["seen"]) == len(runs[0]["seen"])
+    assert runs[1]["outcomes"] == runs[0]["outcomes"]
 
 
 # -- ReliableConsumer over the in-memory broker --------------------------------
