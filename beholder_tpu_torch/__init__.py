@@ -31,7 +31,11 @@ reference's module layout and names so a reader finds each counterpart:
 - :mod:`beholder_tpu_torch.parallel` — the named-axis ``Mesh`` (``dp``,
   ``tp``, ``sp``, ``ep``, ``pp``; one card may repeat), megatron tensor
   parallelism with sequence sharding, ZeRO-2/3, the GPipe and 1F1B
-  pipelines, and ``initialize`` (a ``torch.distributed`` group);
+  pipelines, and ``initialize`` (a ``torch.distributed`` group) with
+  ``make_hybrid_mesh``, a mesh over every process of the group on which
+  the sharded steps and ZeRO train (dp across processes);
+- :mod:`beholder_tpu_torch.dryrun` — ``entry()`` and ``dryrun_multichip``,
+  the counterparts of the reference's ``__graft_entry__.py``;
 - :mod:`beholder_tpu_torch.ops.moe` — Switch, GShard and expert-choice
   MoE; :mod:`beholder_tpu_torch.ops.attention` also holds Ulysses;
 - :mod:`beholder_tpu_torch.models.sequence` — ``TelemetrySequenceModel``
@@ -82,8 +86,9 @@ reference's module layout and names so a reader finds each counterpart:
 
 The chunk kernel's autotune table is :mod:`beholder_tpu_torch.ops.autotune`
 and the ratio-only perf gate :mod:`beholder_tpu_torch.tools.perf_gate`.
-Not ported yet (``ROADMAP.md``): a mesh over several processes (C.22) and
-the port's bench (A.6).
+Not ported yet (``ROADMAP.md``): collectives across processes inside a
+forward (MoE, the pipelines, sharded serving, ring and Ulysses attention
+refuse a mesh over processes: C.29) and the port's bench (A.6).
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

@@ -51,9 +51,10 @@ class ProgressAnomalyModel(nn.Module):
         return self.out_proj(x)[..., 0]
 
     def members_forward(self, params: list[dict], xs: list, mesh) -> list:
-        """The forward on every member of a ``("dp", "tp")`` mesh in
-        lockstep: ``params[i]`` holds member ``i``'s slices by ``state_dict``
-        name, ``xs[i]`` its dp row of windows. ``in_proj`` is
+        """The forward on every member of a ``("dp", "tp")`` mesh that this
+        process holds (``mesh.local``), in lockstep: ``params[i]`` holds
+        local member ``i``'s slices by ``state_dict`` name, ``xs[i]`` its dp
+        row of windows. ``in_proj`` is
         column-parallel, ``mid_proj`` row-parallel: each member's partial
         product is summed over tp (megatron's *g*), then the bias is added
         once; ``out_proj`` runs on every member."""
@@ -70,7 +71,8 @@ class ProgressAnomalyModel(nn.Module):
 
     def members_loss(self, params: list[dict], windows: torch.Tensor, targets: torch.Tensor,
                      mesh) -> list:
-        """Each member's mean squared error over its dp row of ``windows``."""
+        """Each local member's mean squared error over its dp row of the
+        whole ``windows``."""
         preds = self.members_forward(params, batch_slices(mesh, windows), mesh)
         return [torch.mean((p - t) ** 2) for p, t in zip(preds, batch_slices(mesh, targets))]
 

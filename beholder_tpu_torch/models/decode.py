@@ -27,6 +27,7 @@ import torch
 
 from beholder_tpu_torch.ops import NUM_STATUSES
 
+from beholder_tpu_torch.parallel.collectives import refuse_across_processes
 from beholder_tpu_torch.parallel.mesh import Mesh
 from beholder_tpu_torch.parallel.sharding import batch_slices, shard_tensors
 
@@ -183,6 +184,7 @@ class _Serving:
     batch slice, tp=1), and the members holding the batch slices in order."""
 
     def __init__(self, model, mesh, axis: str, params_shardings: dict | None):
+        refuse_across_processes(mesh, "sharded serving")
         head_axis = _serving_head_axis(mesh, params_shardings, axis)
         cache_shardings(model, mesh, axis, head_axis)
         self.model, self.mesh, self.axis = model, mesh, axis

@@ -86,6 +86,7 @@ from beholder_tpu_torch.parallel.collectives import (
     all_gather,
     along,
     reduce_scatter,
+    refuse_across_processes,
     tp_all_reduce,
     tp_replicate,
 )
@@ -485,8 +486,9 @@ class Block(nn.Module):
 
     def members_forward(self, params: list[dict], xs: list, mesh, prefix: str,
                         terms: list[dict], cache=None, return_kv: bool = False):
-        """The block on every member of ``mesh`` in lockstep: ``params[i]``
-        holds member ``i``'s slices under their ``state_dict`` names
+        """The block on every member of ``mesh`` this process holds
+        (``mesh.local``), in lockstep: ``params[i]`` holds local member
+        ``i``'s slices under their ``state_dict`` names
         (``prefix`` + ``"q_proj.weight"``, ...), ``xs[i]`` its (B/dp, T',
         D) rows (T' = T/sp, or T/(sp*tp) with ``seq_shard``); ``terms[i]``
         receives its MoE terms. Returns each member's output rows.
@@ -575,6 +577,7 @@ class Block(nn.Module):
         if mesh.shape.get("sp", 1) == 1:
             attend_fn = full_attention if self.attention == "full" else flash_attention
             return [attend_fn(q, k, v, **kw) for q, k, v in zip(qs, ks, vs)]
+        refuse_across_processes(mesh, f"{self.attention} attention over sp")
         if self.attention == "ring":
             fn = ring_attention_members
         elif self.attention == "ulysses":
@@ -699,24 +702,25 @@ class TelemetrySequenceModel(nn.Module):
             raise ValueError("an ep axis needs ffn='moe'")
 
     def _member_pieces(self, mesh) -> list[int]:
-        """Each member's piece of the sequence, of ``sp`` pieces (``sp *
-        tp`` under ``seq_shard``: member (t, s) holds piece ``s * tp +
-        t``)."""
+        """Each local member's piece of the sequence, of ``sp`` pieces
+        (``sp * tp`` under ``seq_shard``: member (t, s) holds piece ``s * tp
+        + t``)."""
         tp = mesh.shape.get("tp", 1) if self.seq_shard else 1
         axes = mesh.axis_names
         out = []
-        for c in mesh.coords():
+        for c in mesh.local_coords():
             s = c[axes.index("sp")] if "sp" in axes else 0
             t = c[axes.index("tp")] if "tp" in axes and self.seq_shard else 0
             out.append(s * tp + t)
         return out
 
     def members_forward(self, params: list[dict], feats: list, mesh) -> tuple[list, list]:
-        """The forward on every member of ``mesh`` in lockstep (see
-        :meth:`Block.members_forward`): ``params[i]`` member ``i``'s slices by
-        ``state_dict`` name, ``feats[i]`` its (B/dp, T', FEATURES) piece of
-        the batch (:meth:`_member_pieces`). Returns each member's (B/dp, T')
-        predictions and its terms (``{"block_{i}": {...}}``)."""
+        """The forward on every member of ``mesh`` this process holds, in
+        lockstep (see :meth:`Block.members_forward`): ``params[i]`` local
+        member ``i``'s slices by ``state_dict`` name, ``feats[i]`` its (B/dp,
+        T', FEATURES) piece of the batch (:meth:`_member_pieces`). Returns
+        each member's (B/dp, T') predictions and its terms
+        (``{"block_{i}": {...}}``)."""
         self._check_mesh(mesh)
         xs = [_linear_f32(f, p["embed.weight"], p["embed.bias"]) for p, f in zip(params, feats)]
         terms = [{} for _ in xs]
@@ -735,7 +739,7 @@ class TelemetrySequenceModel(nn.Module):
 
     def members_loss(self, params: list[dict], feats: torch.Tensor, targets: torch.Tensor,
                      mesh) -> list:
-        """Each member's share of :func:`seq_loss` on the whole ``feats`` /
+        """Each local member's share of :func:`seq_loss` on the whole ``feats`` /
         ``targets``: its piece's masked squared error over its dp row's
         ``B/dp * (T-1)`` targets, plus the MoE router terms (whole-row
         values on every ep member)."""

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from beholder_tpu_torch.parallel.collectives import all_to_all, shifted
+from beholder_tpu_torch.parallel.collectives import all_to_all, refuse_across_processes, shifted
 
 from .flash_attention import (
     check_backward_head_dim,
@@ -391,6 +391,7 @@ def ring_attention(
     every pair on the flash kernels, ``"einsum"`` the plain block path; on
     the card at a head dim only the forward kernel takes (128), a flash
     call whose inputs require a gradient raises before it launches."""
+    refuse_across_processes(mesh, "ring attention")
     mesh = _sp_mesh(mesh)
     p_size = mesh.shape["sp"]
     t = q.shape[-2]
@@ -451,6 +452,7 @@ def ulysses_attention(
     ``causal``. The output is whole, on q's device."""
     if axis != "sp":
         raise ValueError(f"Ulysses runs over the 'sp' axis, got {axis!r}")
+    refuse_across_processes(mesh, "Ulysses attention")
     p_size = mesh.shape[axis]
     b, h, t, d = q.shape
     hkv = k.shape[1]

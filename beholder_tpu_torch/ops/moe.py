@@ -45,6 +45,7 @@ from beholder_tpu_torch.parallel.collectives import (
     along,
     gather_from_members,
     member_sum,
+    refuse_across_processes,
     scatter_to_members,
     tp_all_reduce,
 )
@@ -190,6 +191,7 @@ class SwitchFFN(nn.Module):
         also keeps its ``groups`` (G', S, D) and their ``dispatch``
         one-hots, detached, for checks."""
         self._check()
+        refuse_across_processes(mesh, "MoE expert parallelism")
         if set(mesh.axis_names) - {"dp", "ep"}:
             raise ValueError(f"the MoE layer shards over dp and ep only, got {mesh.axis_names}")
         ep = mesh.shape.get("ep", 1)

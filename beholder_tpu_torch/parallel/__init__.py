@@ -1,14 +1,18 @@
-"""The port's parallel stack, single-controller: a mesh with named axes
-(``dp``, ``tp``, ``sp``, ``ep``), the sharding rules over ``state_dict``
-names, explicit differentiable collectives over member tensors, and the
-sharded training steps built on them (dp x tp for the anomaly MLP; dp x tp x
-sp megatron with ring or Ulysses attention and ``seq_shard`` for the
-transformer; dp x ep for its MoE; ZeRO-2/3), pipeline parallelism over a
-``pp`` axis (GPipe, 1F1B, dp x pp, tp inside the stages), and the serving
-cluster's worker placement; and the multi-process runtime's entry
-(:func:`initialize`, a ``torch.distributed`` process group) with the hybrid
-``(dp, tp)`` mesh (:func:`make_hybrid_mesh`), whose mesh still spans one
-process (``parallel/distributed.py``)."""
+"""The port's parallel stack: a mesh with named axes (``dp``, ``tp``,
+``sp``, ``ep``), the sharding rules over ``state_dict`` names, explicit
+differentiable collectives over member tensors, and the sharded training
+steps built on them (dp x tp for the anomaly MLP; dp x tp x sp megatron with
+ring or Ulysses attention and ``seq_shard`` for the transformer; dp x ep for
+its MoE; ZeRO-2/3), pipeline parallelism over a ``pp`` axis (GPipe, 1F1B,
+dp x pp, tp inside the stages), and the serving cluster's worker placement;
+and the multi-process runtime's entry (:func:`initialize`, a
+``torch.distributed`` process group) with the hybrid ``(dp, tp)`` mesh
+(:func:`make_hybrid_mesh`), which spans every process of the group: ``dp``
+across processes, ``tp`` inside each. One process drives every member it
+holds; on a mesh over processes the sharded steps and ZeRO sum over ``dp``
+by a gather and a fold in member order (:func:`process_gather`), bitwise the
+one-process mesh, and MoE, the pipelines, sharded serving and ring or
+Ulysses attention refuse it (``parallel/distributed.py``)."""
 
 from .collectives import (
     all_gather,
@@ -16,13 +20,14 @@ from .collectives import (
     all_to_all,
     along,
     gather_from_members,
+    process_gather,
     reduce_scatter,
     ring_shift,
     scatter_to_members,
     tp_all_reduce,
     tp_replicate,
 )
-from .distributed import initialize, make_hybrid_mesh
+from .distributed import initialize, make_hybrid_mesh, process_count, process_index
 from .mesh import (
     Mesh,
     ShardedState,
@@ -73,6 +78,9 @@ __all__ = [
     "place_seq_state",
     "place_state",
     "place_zero_state",
+    "process_count",
+    "process_gather",
+    "process_index",
     "reduce_scatter",
     "ring_shift",
     "scatter_to_members",

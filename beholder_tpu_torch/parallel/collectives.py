@@ -1,9 +1,9 @@
 """Collectives over a list of member tensors: the port's counterpart of the
 ``shard_map`` collectives and of what GSPMD inserts in the reference.
 
-The port is single-controller: one process holds every member's tensor and
-a collective is a function from the members' inputs to the members' outputs,
-each output on its member's device (the input's device). Sums run in member
+One process holds every member's tensor of a group and a collective is a
+function from the members' inputs to the members' outputs, each output on
+its member's device (the input's device). Sums run in member
 order 0..N-1 on member 0's device, so every member gets the same bits, and
 a move between two members on one device copies nothing. Each op is a
 ``torch.autograd.Function`` whose backward is the adjoint of its forward:
@@ -29,7 +29,12 @@ forward and own chunk backward.
 
 :func:`along` applies any of them along one named axis of a
 :class:`~beholder_tpu_torch.parallel.mesh.Mesh`, over members listed in the
-mesh's row-major order.
+mesh's row-major order. On a mesh over processes only the groups that stay
+inside this process run there; a group that crosses processes inside a
+forward is refused (:func:`refuse_across_processes`). The sharded steps
+sum across processes outside autograd instead, with
+:func:`process_gather`: every member's tensors on every process, then the
+same member-order fold on each.
 """
 
 from __future__ import annotations
@@ -37,7 +42,15 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.autograd import Function
+
+#: the queue item of every collective over processes inside a forward
+ACROSS_PROCESSES_ITEM = "ROADMAP C.29"
+
+#: bytes each tensor's slot in a gathered buffer is padded to, so every
+#: slot starts aligned for any dtype
+_ALIGN = 16
 
 
 def member_sum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -235,17 +248,89 @@ def gather_from_members(xs: Sequence[torch.Tensor], dim: int) -> list[torch.Tens
     return list(_GatherFromMembers.apply(dim, *xs))
 
 
+def refuse_across_processes(mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` when ``mesh`` spans processes: ``what``
+    needs a collective over processes that is not ported."""
+    if getattr(mesh, "crosses_processes", False):
+        raise NotImplementedError(
+            f"{what} on a mesh over {len(set(mesh.owners))} processes: its collectives "
+            f"across processes are not ported ({ACROSS_PROCESSES_ITEM})"
+        )
+
+
 def along(mesh, axis: str, op: Callable, xs: Sequence, **kw) -> list:
     """``op`` over each group of members that differ only in their ``axis``
-    coordinate: ``xs`` lists one tensor a member in ``mesh``'s row-major
+    coordinate: ``xs`` lists one tensor a member this process holds
+    (``mesh.local``, every member of a one-process mesh) in row-major
     order, and so does the result. An axis the mesh lacks, or of size 1,
-    leaves ``xs`` as they are."""
-    if len(xs) != mesh.size:
-        raise ValueError(f"{len(xs)} tensors for a mesh of {mesh.size} members")
+    leaves ``xs`` as they are. A group split between processes raises."""
+    if len(xs) != len(mesh.local):
+        raise ValueError(f"{len(xs)} tensors for the {len(mesh.local)} members of this process")
     if mesh.shape.get(axis, 1) == 1:
         return list(xs)
     out = [None] * len(xs)
     for group in mesh.groups(axis):
-        for i, y in zip(group, op([xs[i] for i in group], **kw)):
-            out[i] = y
+        slots = [mesh.slot(i) for i in group]
+        if all(j is None for j in slots):
+            continue
+        if None in slots:
+            raise NotImplementedError(
+                f"a collective along {axis!r} over members of more than one process is not "
+                f"ported ({ACROSS_PROCESSES_ITEM})"
+            )
+        for j, y in zip(slots, op([xs[j] for j in slots], **kw)):
+            out[j] = y
     return out
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def process_gather(mesh, local: Sequence[Sequence[torch.Tensor]]) -> list:
+    """Every member's tensors, on every process of ``mesh``'s group:
+    ``local[j]`` lists the tensors of this process's ``j``-th member (each
+    member the same shapes and dtypes, as a leaf's slices are); the result
+    lists one such list a mesh member, in member order, this process's own
+    as given and the others' received, on the device of ``local[0][0]``.
+    One ``all_gather`` of the members' bytes packed into one buffer: CUDA
+    tensors as they are in a ``nccl`` group, through host memory in a
+    ``gloo`` one (``dist.get_backend()``). The bytes arrive unchanged, so
+    a fold over the result is the same on every process."""
+    counts = {o: mesh.owners.count(o) for o in set(mesh.owners)}
+    if (sorted(counts) != list(range(dist.get_world_size())) or len(set(counts.values())) != 1
+            or len(local) != len(mesh.local)):
+        raise ValueError(f"members per process {counts}: an all_gather needs an equal share "
+                         f"on each of the group's {dist.get_world_size()} processes")
+    like = list(local[0])
+    dev = like[0].device
+    pieces = []
+    for member in local:
+        if [(t.shape, t.dtype) for t in member] != [(t.shape, t.dtype) for t in like]:
+            raise ValueError("every member must give tensors of the same shapes and dtypes")
+        for t in member:
+            b = _as_bytes(t)
+            pieces.append(b)
+            if b.numel() % _ALIGN:
+                pieces.append(b.new_zeros(_ALIGN - b.numel() % _ALIGN))
+    buf = torch.cat(pieces)
+    backend = dist.get_backend()
+    if backend == "gloo":
+        buf = buf.cpu()
+    elif backend != "nccl":
+        raise ValueError(f"process_gather runs over nccl or gloo, not {backend!r}")
+    out = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, buf)
+    result: list = [None] * mesh.size
+    for rank, got in enumerate(out):
+        got, at = got.to(dev), 0
+        for i in (i for i, o in enumerate(mesh.owners) if o == rank):
+            member = []
+            for t in like:
+                n = t.numel() * t.element_size()
+                member.append(got[at:at + n].view(t.dtype).reshape(t.shape))
+                at += -(-n // _ALIGN) * _ALIGN
+            result[i] = member
+    for j, i in enumerate(mesh.local):
+        result[i] = list(local[j])
+    return result

@@ -6,14 +6,18 @@ port's counterpart of the reference's ``parallel/distributed.py``.
    workstation and a cluster);
 2. :func:`make_hybrid_mesh` builds the ``("dp", "tp")`` mesh whose ``tp``
    axis holds neighbouring devices (one host's NVLink domain) and whose
-   ``dp`` axis spans the rest.
+   ``dp`` axis spans the rest: over every process's devices when a group of
+   more than one process was joined, ``dp`` across processes and ``tp``
+   inside each, as the reference's hybrid ICI/DCN mesh;
+3. the training steps run on that mesh as on one process's: each process
+   drives the members it holds (:attr:`Mesh.local`), and the sums over
+   ``dp`` gather across processes in member order, so the model code does
+   not change.
 
-The port's :class:`~beholder_tpu_torch.parallel.mesh.Mesh` is
-single-controller: one process holds every member and drives each in turn.
-The reference's mesh over every process's devices has no counterpart yet,
-so :func:`make_hybrid_mesh` refuses a process group of more than one
-process (``NotImplementedError``) instead of building a mesh that spans
-only this process's cards.
+A mesh over processes takes the sharded steps and ZeRO. MoE, the
+pipelines, sharded serving and ring or Ulysses attention need collectives
+across processes inside a forward, which are not ported; each raises
+``NotImplementedError`` on such a mesh.
 """
 
 from __future__ import annotations
@@ -79,23 +83,51 @@ def process_count() -> int:
     return 1
 
 
+def process_index() -> int:
+    """This process's rank in the group, 0 when none was joined (the
+    counterpart of ``jax.process_index()``)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def make_hybrid_mesh(ici_tp: int = 2, axis_names=("dp", "tp"), devices=None) -> Mesh:
-    """A 2-D mesh of shape ``(n // ici_tp, ici_tp)`` over ``devices``
-    (every visible CUDA device when None, raising when there is none), so
-    ``tp`` holds neighbouring devices and ``dp`` spans the rest. A single
-    process gets a plain mesh with the same axis names, as in the
-    reference, so calling code never branches."""
+    """A 2-D mesh of shape ``(n // ici_tp, ici_tp)`` over ``devices`` (this
+    process's: every visible CUDA device when None, raising when there is
+    none), so ``tp`` holds neighbouring devices and ``dp`` spans the rest. A
+    single process gets a plain mesh with the same axis names, as in the
+    reference, so calling code never branches.
+
+    In a group of P processes ``n`` counts every process's devices (the
+    processes gather their lists first): each must bring ``n / P`` of them,
+    divisible by ``ici_tp``, and process ``p`` holds dp rows ``[p * R, (p +
+    1) * R)`` with ``R = n / P / ici_tp``, as the reference's
+    ``dcn_mesh_shape=(P, 1)`` lays them out. A one-axis ``("dp",)`` mesh over
+    processes, ZeRO's, is ``make_hybrid_mesh(1).take(tp=0)``."""
     devices = _visible_devices(devices)
-    n = len(devices)
+    procs = process_count()
+    if procs == 1:
+        n = len(devices)
+        if ici_tp > n or n % ici_tp:
+            raise ValueError(f"ici_tp={ici_tp} does not divide device count {n}")
+        return Mesh([devices[r * ici_tp:(r + 1) * ici_tp] for r in range(n // ici_tp)],
+                    tuple(axis_names))
+    lists = [None] * procs
+    dist.all_gather_object(lists, [str(d) for d in devices])
+    n = sum(len(ds) for ds in lists)
     if ici_tp > n or n % ici_tp:
         raise ValueError(f"ici_tp={ici_tp} does not divide device count {n}")
-    procs = process_count()
-    if procs > 1:
-        raise NotImplementedError(
-            f"make_hybrid_mesh over {procs} processes: the port's Mesh is "
-            "single-controller and spans one process's devices; a mesh over "
-            "every process's devices is not ported"
+    # one slice a process, as the reference assumes: each process's share
+    # of dp must be a whole number of tp groups
+    per_slice = n // procs
+    if any(len(ds) != per_slice for ds in lists) or per_slice % ici_tp:
+        raise ValueError(
+            f"{n} devices over {procs} processes with ici_tp={ici_tp}: "
+            "need devices evenly split per process and divisible by "
+            "ici_tp; for multi-host-per-slice topologies build the "
+            "hybrid mesh explicitly with mesh_utils"
         )
-    return Mesh([devices[r * ici_tp:(r + 1) * ici_tp] for r in range(n // ici_tp)],
-                tuple(axis_names))
+    rows = [ds[r * ici_tp:(r + 1) * ici_tp] for ds in lists for r in range(per_slice // ici_tp)]
+    owners = [p for p in range(procs) for _ in range(per_slice)]
+    return Mesh(rows, tuple(axis_names), owners=owners, rank=dist.get_rank())
 

@@ -1,8 +1,7 @@
 """A device mesh with named axes, and the sharded training steps that run
 over it: the port's counterpart of the reference's ``parallel/mesh.py``.
 
-The port is single-controller, as JAX's is: one process holds every
-member's shard and drives each member in turn; a tensor moves to a
+One process drives the members it holds, each in turn; a tensor moves to a
 member's device with :meth:`Mesh.to` (a peer copy between two devices,
 nothing on the same one), and every collective is an explicit,
 differentiable op with a fixed member order
@@ -10,6 +9,18 @@ differentiable op with a fixed member order
 ``make_mesh(8, devices=["cuda:0"] * 8)`` runs a (4, 2) mesh on one card
 (the counterpart of the virtual CPU devices the reference's tests use);
 such a mesh moves no bytes between devices.
+
+A mesh may span processes (:func:`~.distributed.make_hybrid_mesh`, the
+counterpart of JAX's multi-controller mesh): ``owners`` names each
+member's process, and this process holds :attr:`Mesh.local`. The member
+order, :meth:`Mesh.coords`, :meth:`Mesh.groups` and :attr:`Mesh.shape`
+stay global; every list of member tensors lists the local members only, in
+member order. The sharded steps and ZeRO run on such a mesh when it
+crosses processes along ``dp`` alone: each process runs its members'
+forward and backward, and a sum over a group that crosses processes
+gathers every member's tensor from every process and folds them in member
+order (:func:`~.collectives.process_gather`), the same adds on every
+process, so the result is bitwise the one-process mesh's.
 
 Axes are named from ``dp`` (data), ``tp`` (megatron tensor), ``sp``
 (sequence: ring or Ulysses attention), ``ep`` (experts) and ``pp``
@@ -40,7 +51,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .collectives import member_sum
+from .collectives import member_sum, process_gather
 from .sharding import (
     expert_spec,
     mlp_spec,
@@ -55,10 +66,14 @@ class Mesh:
     """Devices on a grid with named axes. ``devices`` is an N-d nested list
     (or array) of devices, ``axis_names`` one name a dim; ``Mesh(devices)``
     of a flat list is one ``sp`` axis. ``shape[name]`` is an axis' size and
-    ``devices`` the flat tuple in row-major order: member ``i`` of every
-    list of member tensors sits on ``devices[i]`` at ``coords()[i]``."""
+    ``devices`` the flat tuple in row-major order: member ``i`` sits on
+    ``devices[i]`` at ``coords()[i]``. ``owners`` (row-major, one process
+    rank a member; every member this process's when None) and ``rank``
+    (this process's) place a mesh over processes: this process holds
+    :attr:`local`, and a list of member tensors lists those members, in
+    order."""
 
-    def __init__(self, devices, axis_names=("sp",)):
+    def __init__(self, devices, axis_names=("sp",), owners=None, rank: int = 0):
         grid = np.empty(np.shape(np.array(devices, dtype=object)), dtype=object)
         for idx in np.ndindex(grid.shape):
             d = devices
@@ -77,9 +92,36 @@ class Mesh:
         self.shape = dict(zip(axis_names, grid.shape))
         self.devices = tuple(grid.reshape(-1))
         self.size = grid.size
+        self.rank = rank
+        self.owners = tuple(int(o) for o in np.reshape(
+            np.array(owners if owners is not None else [rank] * grid.size, dtype=object), -1))
+        if len(self.owners) != self.size:
+            raise ValueError(f"{len(self.owners)} owners for a mesh of {self.size} members")
+        #: the flat indices of the members this process holds, in order
+        self.local = tuple(i for i, o in enumerate(self.owners) if o == rank)
+        self._slot = {i: j for j, i in enumerate(self.local)}
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
+
+    @property
+    def crosses_processes(self) -> bool:
+        """Whether members of this mesh live in more than one process."""
+        return len(set(self.owners)) > 1
+
+    def slot(self, i: int) -> int | None:
+        """Member ``i``'s position in this process's member lists (None
+        when another process holds it)."""
+        return self._slot.get(i)
+
+    def local_coords(self) -> list[tuple]:
+        """The coordinates of this process's members, in member order."""
+        coords = self.coords()
+        return [coords[i] for i in self.local]
+
+    @property
+    def local_devices(self) -> tuple:
+        return tuple(self.devices[i] for i in self.local)
 
     def to(self, x: torch.Tensor, i: int) -> torch.Tensor:
         """``x`` on member ``i``'s device (the same tensor when it is there
@@ -109,8 +151,9 @@ class Mesh:
         """The mesh over the remaining axes at the ``fixed`` coordinates."""
         index = tuple(fixed.get(a, slice(None)) for a in self.axis_names)
         names = tuple(a for a in self.axis_names if a not in fixed)
+        owners = np.array(self.owners, dtype=object).reshape(self.grid.shape)[index]
         return Mesh(self.grid[index].tolist() if names else [self.grid[index]],
-                    names or ("sp",))
+                    names or ("sp",), owners=np.reshape(owners, -1).tolist(), rank=self.rank)
 
     def axis_mesh(self, axis: str, at: dict | None = None) -> "Mesh":
         """The one-axis mesh along ``axis``, the other axes at ``at``
@@ -244,47 +287,83 @@ def _place(state, mesh: Mesh, specs: dict) -> ShardedState:
     return ShardedState(state.model, mesh, specs, members, optimizer, state.step)
 
 
+def every_member(mesh: Mesh, local: list[dict]) -> list[dict]:
+    """One dict of tensors a mesh member, from one dict a member this
+    process holds: ``local`` itself on a one-process mesh, else every
+    member's, gathered from every process (:func:`process_gather`)."""
+    if not mesh.crosses_processes:
+        return local
+    names = list(local[0])
+    return [dict(zip(names, got))
+            for got in process_gather(mesh, [[m[n] for n in names] for m in local])]
+
+
 def gather_state(sstate: ShardedState, device=None):
     """The whole training state back from the members: parameters (written
     into ``sstate.model``, on ``device`` or the model's own) and a fresh Adam
-    holding the whole moments. A bitwise copy of the members' slices."""
+    holding the whole moments. A bitwise copy of the members' slices; on a
+    mesh over processes every process gets the whole state."""
     from beholder_tpu_torch.models.train import TrainState, adam
 
     model, mesh, specs = sstate.model, sstate.mesh, sstate.specs
     device = device or next(model.parameters()).device
-    full = unshard_tensors([{n: t.detach() for n, t in m.items()} for m in sstate.members],
-                           specs, mesh, device)
+    first = sstate.members[0]
+    moments = bool(sstate.optimizer.state.get(next(iter(first.values()))))
+    local = []
+    for m in sstate.members:
+        d = {("p", n): t.detach() for n, t in m.items()}
+        if moments:
+            for n, t in m.items():
+                st = sstate.optimizer.state[t]
+                d["a", n], d["q", n] = st["exp_avg"], st["exp_avg_sq"]
+        local.append(d)
+    every = every_member(mesh, local)
+
+    def whole(kind):
+        return unshard_tensors([{n: m[kind, n] for n in specs} for m in every], specs, mesh,
+                               device)
+
+    full = whole("p")
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.data = full[name].clone()
     optimizer = adam(model.parameters(), sstate.optimizer.param_groups[0]["lr"])
-    first = sstate.members[0]
-    if sstate.optimizer.state.get(next(iter(first.values()))):
-        st = [{n: sstate.optimizer.state[t] for n, t in m.items()} for m in sstate.members]
-        avg = unshard_tensors([{n: s["exp_avg"] for n, s in m.items()} for m in st],
-                              specs, mesh, device)
-        sq = unshard_tensors([{n: s["exp_avg_sq"] for n, s in m.items()} for m in st],
-                             specs, mesh, device)
+    if moments:
+        avg, sq = whole("a"), whole("q")
         for name, p in model.named_parameters():
-            optimizer.state[p] = {"step": st[0][name]["step"].clone(),
+            optimizer.state[p] = {"step": sstate.optimizer.state[first[name]]["step"].clone(),
                                   "exp_avg": avg[name].clone(), "exp_avg_sq": sq[name].clone()}
     return TrainState(model, optimizer, sstate.step)
+
+
+def _grad(x: torch.Tensor) -> torch.Tensor:
+    return x.grad if x.grad is not None else torch.zeros_like(x)
 
 
 def _reduce_grads(mesh: Mesh, members: list[dict], axes_of: Callable[[str], tuple]) -> None:
     """Sum each leaf's gradient over the members that differ only along
     ``axes_of(name)``, in member order, and give every one of them the sum
-    (the same bits on each). A missing gradient counts as zeros."""
+    (the same bits on each). A missing gradient counts as zeros. On a mesh
+    over processes every member's gradients come from every process first,
+    and each process folds every group its members are in."""
+    plan = {}
     for name in members[0]:
         axes = [a for a in axes_of(name) if mesh.shape.get(a, 1) > 1]
-        if not axes:
-            continue
-        for group in mesh.groups(*axes):
-            leaves = [members[i][name] for i in group]
-            grads = [x.grad if x.grad is not None else torch.zeros_like(x) for x in leaves]
-            total = member_sum(grads)
-            for leaf in leaves:
-                leaf.grad = total.to(leaf.device, copy=True)
+        if axes:
+            plan[name] = mesh.groups(*axes)
+    if not plan:
+        return
+    every = every_member(mesh, [{n: _grad(m[n]) for n in plan} for m in members])
+    for name, groups in plan.items():
+        for group in groups:
+            slots = [mesh.slot(i) for i in group]
+            if all(j is None for j in slots):
+                continue
+            total = member_sum([every[i][name] for i in group])
+            for j in slots:
+                if j is not None:
+                    leaf = members[j][name]
+                    leaf.grad = total.to(leaf.device, copy=True)
 
 
 def _representatives(mesh: Mesh, replicated: tuple) -> list[int]:
@@ -293,19 +372,28 @@ def _representatives(mesh: Mesh, replicated: tuple) -> list[int]:
     return [i for i, c in enumerate(mesh.coords()) if all(c[k] == 0 for k in idx)]
 
 
+def member_losses(mesh: Mesh, losses: list, members: list[int]) -> list:
+    """The detached losses of the mesh members ``members`` (flat indices), on
+    the first local loss's device, from every process on a mesh over
+    processes."""
+    every = every_member(mesh, [{"loss": x.detach()} for x in losses])
+    dev = losses[0].device
+    return [every[i]["loss"].to(dev) for i in members]
+
+
 def _step(sstate: ShardedState, losses: list, replicated: tuple,
           axes_of: Callable[[str], tuple]) -> tuple[ShardedState, torch.Tensor]:
-    """Back-propagate every member's loss (each weighted 1/dp, so the dp sum
-    of the gradients is their mean), reduce the gradients, take one Adam
-    step. The loss returned is the mean over dp of the representatives'."""
+    """Back-propagate every local member's loss (each weighted 1/dp, so the
+    dp sum of the gradients is their mean), reduce the gradients, take one
+    Adam step. The loss returned is the mean over dp of the
+    representatives'."""
     mesh = sstate.mesh
     dp = mesh.shape.get("dp", 1)
-    dev = losses[0].device
     total = member_sum([loss / dp for loss in losses])
     total.backward()
     _reduce_grads(mesh, sstate.members, axes_of)
     sstate.optimizer.step()
-    loss = member_sum([losses[i].detach().to(dev) for i in _representatives(mesh, replicated)]) / dp
+    loss = member_sum(member_losses(mesh, losses, _representatives(mesh, replicated))) / dp
     return sstate._replace(step=sstate.step + 1), loss
 
 

@@ -2,10 +2,11 @@
 the reference's ``parallel/pipeline.py`` (the GPipe forward, the 1F1B
 training step, dp x pp, and tensor parallelism inside the stages).
 
-Single-controller, like the rest of the stack (:mod:`.mesh`): one process
-runs every stage on its member's device, an activation or a cotangent hops
-to the neighbouring stage with :meth:`~.mesh.Mesh.to`, and every sum over
-members runs in member order (:func:`~.collectives.member_sum`).
+One process runs every stage on its member's device, an activation or a
+cotangent hops to the neighbouring stage with :meth:`~.mesh.Mesh.to`, and
+every sum over members runs in member order
+(:func:`~.collectives.member_sum`). A mesh over processes is refused: its
+hops would cross processes inside the schedule.
 
 - Per-stage parameters are stacked along a new leading stage dim
   (:func:`stack_stage_params`, a dict of ``(S, ...)`` tensors) and placed one
@@ -37,7 +38,7 @@ from typing import Callable
 
 import torch
 
-from .collectives import member_sum
+from .collectives import member_sum, refuse_across_processes
 from .sharding import Spec, shard_tensors, stage_spec, unshard_tensors
 
 
@@ -118,6 +119,7 @@ def pipeline_forward(stage_fn: Callable, stacked_params: dict, x: torch.Tensor, 
     on ``x``'s device: the S stages applied in sequence. Differentiable: the
     gradients flow back through the hops to each stage's slice of
     ``stacked_params``."""
+    refuse_across_processes(mesh, "a pipeline (GPipe)")
     s = _stage_count(stacked_params, mesh, axis)
     m = x.shape[0]
     devices = [mesh.device_at({axis: i}) for i in range(s)]
@@ -181,6 +183,7 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
     outputs; it runs megatron's pair, :func:`~.collectives.tp_replicate`
     before a column-parallel product and :func:`~.collectives.tp_all_reduce`
     after a row-parallel one, and the gradients come back tp-split."""
+    refuse_across_processes(mesh, "a pipeline (1F1B)")
     s = mesh.shape[axis]
     m = x.shape[0]
     if y.shape[0] != m:

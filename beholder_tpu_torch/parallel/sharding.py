@@ -140,19 +140,22 @@ def _slice(tensor: torch.Tensor, spec: Spec, mesh, coords: tuple) -> torch.Tenso
 
 
 def shard_tensors(tensors: dict, specs: dict, mesh) -> list[dict]:
-    """One dict a mesh member (row-major order): each tensor's slice under
-    its spec, a contiguous copy of its own on the member's device."""
+    """One dict a member this process holds (``mesh.local``, row-major
+    order): each tensor's slice under its spec, a contiguous copy of its own
+    on the member's device."""
     return [
         {name: _slice(t, specs[name], mesh, c).to(dev, copy=True).contiguous()
          for name, t in tensors.items()}
-        for c, dev in zip(mesh.coords(), mesh.devices)
+        for c, dev in zip(mesh.local_coords(), mesh.local_devices)
     ]
 
 
 def _unshard(members: list[dict], name: str, spec: Spec, mesh, device) -> torch.Tensor:
-    """The whole tensor ``name`` on ``device`` from the members' slices:
-    concatenated along each split dim, taken at coordinate 0 of every axis
-    it is replicated over. A bitwise copy."""
+    """The whole tensor ``name`` on ``device`` from every mesh member's
+    slices (one dict a member, all of them: on a mesh over processes, what
+    :func:`~.collectives.process_gather` returns): concatenated along each
+    split dim, taken at coordinate 0 of every axis it is replicated over. A
+    bitwise copy."""
     coords = mesh.coords()
 
     def build(fixed: dict, dims: list) -> torch.Tensor:
@@ -172,12 +175,14 @@ def unshard_tensors(members: list[dict], specs: dict, mesh, device) -> dict:
 
 
 def batch_slices(mesh, x: torch.Tensor, axis: str = "dp") -> list:
-    """Each member's slice of the batch (dim 0) by its ``axis`` coordinate
-    (the whole batch on a mesh without that axis), on its device."""
+    """The slice of the whole batch ``x`` (dim 0) of each member this
+    process holds, by its global ``axis`` coordinate (the whole batch on a
+    mesh without that axis), on its device. Every process of a mesh over
+    processes passes the same whole batch."""
     n = mesh.shape.get(axis, 1)
     if x.shape[0] % n:
         raise ValueError(f"batch {x.shape[0]} does not split {n} ways over {axis}")
     k = mesh.axis_names.index(axis) if axis in mesh.axis_names else None
     chunks = x.chunk(n, dim=0)
     return [chunks[c[k] if k is not None else 0].to(dev)
-            for c, dev in zip(mesh.coords(), mesh.devices)]
+            for c, dev in zip(mesh.local_coords(), mesh.local_devices)]

@@ -22,6 +22,13 @@ same ``("dp",)`` mesh: an all-reduce in member order), so a ZeRO step gives
 the plain dp step's parameters and moments bit for bit. It composes with
 ``remat=True`` and ``attention="flash"``: the forward is the model's own
 lockstep forward (``members_loss``).
+
+The gathers and sums run outside autograd on every mesh member's tensors
+(:func:`~beholder_tpu_torch.parallel.mesh.every_member`): on a ``("dp",)``
+mesh over processes (``make_hybrid_mesh(1).take(tp=0)``) each process
+holds and updates its own members' slices, gets every member's from every
+process and runs the same adds, so the step stays bitwise the one-process
+one.
 """
 
 from __future__ import annotations
@@ -30,8 +37,8 @@ from typing import NamedTuple
 
 import torch
 
-from .collectives import all_gather, all_reduce, member_sum, reduce_scatter
-from .mesh import Mesh, _adam_state, _set_moments
+from .collectives import member_sum
+from .mesh import Mesh, _adam_state, _grad, _set_moments, every_member, member_losses
 from .sharding import shard_tensors, zero_leaf_spec
 
 class ZeroState(NamedTuple):
@@ -90,11 +97,44 @@ def _split_dim(spec: tuple) -> int | None:
     return next((d for d, a in enumerate(spec) if a is not None), None)
 
 
-def _gathered(zstate: ZeroState, name: str) -> list:
-    """Every member's whole ``name``: the owned slices all-gathered."""
-    dim = _split_dim(zstate.specs[name])
-    leaves = [m[name].detach() for m in zstate.members]
-    return leaves if dim is None else all_gather(leaves, dim)
+def _gathered(zstate: ZeroState) -> dict:
+    """Each local member's whole parameters, ``{name: [one a member]}``: the
+    owned slices of every mesh member (from every process on a mesh over
+    processes) concatenated in member order, a copy a member; a replicated
+    leaf as it is."""
+    every = every_member(zstate.mesh, [{n: m[n].detach() for n in zstate.specs}
+                                       for m in zstate.members])
+    out = {}
+    for name, spec in zstate.specs.items():
+        leaves = [m[name].detach() for m in zstate.members]
+        dim = _split_dim(spec)
+        if dim is None:
+            out[name] = leaves
+            continue
+        whole = torch.cat([e[name] for e in every], dim=dim)
+        out[name] = [whole.to(x.device, copy=True) for x in leaves]
+    return out
+
+
+def _reduced(zstate: ZeroState, params: list) -> list:
+    """Each local member's owned gradient of every leaf: its slice of the
+    member-order sum of every mesh member's gradient (the whole sum where
+    the leaf is replicated): the plain dp step's all-reduce, cut."""
+    mesh, specs = zstate.mesh, zstate.specs
+    grads = [{n: _grad(p[n]) for n in specs} for p in params]
+    every = every_member(mesh, grads)
+    out = [{} for _ in params]
+    for name, spec in specs.items():
+        dim = _split_dim(spec)
+        if dim is None:
+            total = member_sum([e[name] for e in every])
+            owned = [total.to(g[name].device, copy=True) for g in grads]
+        else:
+            owned = [member_sum([e[name].chunk(mesh.size, dim=dim)[i] for e in every])
+                     .to(g[name].device).contiguous() for i, g in zip(mesh.local, grads)]
+        for o, g in zip(out, owned):
+            o[name] = g
+    return out
 
 
 def zero_train_step(zstate: ZeroState, feats: torch.Tensor,
@@ -107,9 +147,9 @@ def zero_train_step(zstate: ZeroState, feats: torch.Tensor,
     zstate.optimizer.zero_grad(set_to_none=True)
     with torch.no_grad():
         if zstate.replicas is None:
-            gathered = {n: _gathered(zstate, n) for n in zstate.specs}
+            gathered = _gathered(zstate)
             params = [{n: gathered[n][j].requires_grad_(True) for n in zstate.specs}
-                      for j in range(dp)]
+                      for j in range(len(mesh.local))]
         else:
             params = zstate.replicas
             for member in params:
@@ -118,19 +158,14 @@ def zero_train_step(zstate: ZeroState, feats: torch.Tensor,
     losses = model.members_loss(params, feats, targets, mesh)
     member_sum([loss / dp for loss in losses]).backward()
     with torch.no_grad():
-        for name, spec in zstate.specs.items():
-            grads = [p[name].grad if p[name].grad is not None else torch.zeros_like(p[name])
-                     for p in params]
-            dim = _split_dim(spec)
-            owned = reduce_scatter(grads, dim) if dim is not None else all_reduce(grads)
-            for member, g in zip(zstate.members, owned):
+        for member, owned in zip(zstate.members, _reduced(zstate, params)):
+            for name, g in owned.items():
                 member[name].grad = g
     zstate.optimizer.step()
     if zstate.replicas is not None:
         with torch.no_grad():
-            for name in zstate.specs:
-                for replica, whole in zip(zstate.replicas, _gathered(zstate, name)):
+            for name, wholes in _gathered(zstate).items():
+                for replica, whole in zip(zstate.replicas, wholes):
                     replica[name].copy_(whole)
-    dev = losses[0].device
-    loss = member_sum([x.detach().to(dev) for x in losses]) / dp
+    loss = member_sum(member_losses(mesh, losses, list(range(dp)))) / dp
     return zstate._replace(step=zstate.step + 1), loss

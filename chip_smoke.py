@@ -203,7 +203,21 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    the unsharded routing of its tokens. Each cell 3 steps, each against the
    unsharded step from the same state on the same inputs within the
    reference's band, losses falling at every step, dp replicas bitwise,
-   shard shapes, flash launches exact; step ms each way; then pipeline
+   shard shapes, flash launches exact; step ms each way; then the mesh
+   over processes (``multiprocess_path``): two child processes of this
+   script on this card (``--mp-child``), each a rank of a gloo group on a
+   free local port that loads the kernels phase 2 built, without
+   rebuilding them, and holds its half of the global mesh of the MLP (4,
+   2), the headline model (flash) on (2, 2) with ``seq_shard`` off and on,
+   ZeRO-2 and ZeRO-3 + remat on dp = 4 (``make_hybrid_mesh``: dp across
+   the processes, tp inside each); each cell's losses and the per-leaf
+   digest of its gathered params and Adam moments bitwise the other
+   child's and the one-process cell's above, each child's flash launches
+   exactly its members' share, a planted control (rank 1 given rank 0's dp
+   rows) failing that gate, a child that fails or outlives MP_LIMIT_S
+   failing the run (both killed); step ms per child beside the one-process
+   step; then a probe of two NCCL ranks on the one card (its error
+   recorded); then pipeline
    parallelism (``pipeline_path``): the same model's four blocks as the
    stages of the 1F1B step on pp = 4 (M = 4), (dp, pp) = (2, 2) and (dp,
    pp, tp) = (2, 2, 2) (two megatron blocks a stage, M = 2), and of the
@@ -212,13 +226,14 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    the residual ring's peak, two planted faults failing the gradient gate,
    step ms each way); then dp/tp-sharded dense serving
    (``sharded_serving_path``): the headline model, 8 streams of 256 steps,
-   horizon 128, on dp = 4, (dp, tp) = (4, 2) with megatron params and dp =
+   horizon 64, on dp = 4, (dp, tp) = (4, 2) with megatron params and dp =
    4 with flash attention (cache shard shapes, a teacher-forced rollout in
    the reference's band, eta and reached equal to the unsharded
    ``forecast_eta``, no synchronising call, prefill flash launches); then
    the measurement tooling (``tooling_path``): the serving profile
    (``beholder_tpu_torch.tools.profile_serving.main()`` at the reference's
-   defaults, the headline model at full width: five slope-timed numbers,
+   defaults but a 32-step horizon, the headline model at full width: five
+   slope-timed numbers,
    four latency probes, the paged decode kernel's launches exactly as
    predicted, none of the chunk kernel, its artifact valid with the card in
    its provenance) and the runtime entry (``parallel.initialize``: a no-op
@@ -231,7 +246,8 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    two metrics, with ``perf_explain``'s explanation; a metric removed from
    one side is skipped; the CLI exits 0 and 1 on the two;
 8. output: a ``kernels`` JSON line (the three block-pair sites of the flash
-   kernels as rows of their own), then the ``ok`` line last.
+   kernels as rows of their own; the flash rows' launches include both
+   children's of the multi-process leg), then the ``ok`` line last.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``
 and of one fused n-gram ``run_spec`` (a round's host time, readback wait,
@@ -272,6 +288,10 @@ BF16_FLOPS = 989e12
 QUEUED, CONVERTING, DEPLOYED, ERRORED = 0, 2, 4, 5
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's boost clock
 TIMED_RUNS = 3
+#: timed runs of each int8 and fp8 serving path in phase 4 (bf16 keeps
+#: TIMED_RUNS): cut from 3 to keep the script inside its time limit on a
+#: slow host
+QUANT_TIMED_RUNS = 1
 #: the intake phase's armed/bare overhead: bare and armed calls in this
 #: many pairs, the order alternating
 OVERHEAD_PAIRS = 10
@@ -1403,6 +1423,11 @@ def counted(torch, fn):
     return result, syncs, decode, chunk
 
 
+def family_runs(family: str) -> int:
+    """Timed runs of a phase-4 serving path over ``family``'s pools."""
+    return TIMED_RUNS if family == "bf16" else QUANT_TIMED_RUNS
+
+
 def timed(torch, fn, runs: int = TIMED_RUNS) -> list[float]:
     """Host seconds of ``runs`` calls, each ended by a synchronise."""
     out = []
@@ -1516,7 +1541,7 @@ def main_path(torch, profile: bool = False) -> dict:
                 run_streams = results
             vs_dense = (float(np.abs(got - dense_waves).max())
                         if mode == "fused_waves" else None)
-            runs = timed(torch, serve)
+            runs = timed(torch, serve, runs=family_runs(family))
             seconds = statistics.median(runs)
             tokens = sum(r.horizon for r in reqs)
             report[where] = dict(
@@ -1530,7 +1555,7 @@ def main_path(torch, profile: bool = False) -> dict:
                 f"serve {family:4s} {mode:11s} requests={len(reqs)} tokens={tokens} "
                 f"seconds={seconds:.4f} tokens/s={tokens / seconds:.1f} "
                 f"(range {tokens / max(runs):.1f}-{tokens / min(runs):.1f} "
-                f"over {TIMED_RUNS} runs) ticks={ticks} waves={waves} "
+                f"over {len(runs)} runs) ticks={ticks} waves={waves} "
                 f"kernel_launches={launches} chunk_launches={chunk} sync_calls={syncs} "
                 f"first2_max_err={worst:.3e} (band rtol {band[0]}, atol {band[1]})"
                 + ("" if vs_dense is None else f" max_diff_vs_dense_waves={vs_dense:.3e}")
@@ -1760,7 +1785,7 @@ def prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, family, re
     check(int(b.state.page_ref.sum()) == 0, f"{label}/prefix: references left")
     # timed passes: each fresh batcher serves a cold pass, then a warm one
     cold_s, warm_s = [], []
-    for _ in range(TIMED_RUNS):
+    for _ in range(family_runs(family)):
         fresh = make()
         cold_s += timed(torch, lambda: fresh.run(reqs), runs=1)
         warm_s += timed(torch, lambda: fresh.run(reqs), runs=1)
@@ -1774,7 +1799,7 @@ def prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, family, re
         print(
             f"serve {label:4s} prefix_{pass_:5s} requests={len(reqs)} tokens={tokens} "
             f"seconds={seconds:.4f} tokens/s={tokens / seconds:.1f} "
-            f"(range {tokens / max(runs):.1f}-{tokens / min(runs):.1f} over {TIMED_RUNS} "
+            f"(range {tokens / max(runs):.1f}-{tokens / min(runs):.1f} over {len(runs)} "
             f"runs) ticks={r['ticks']} warm_admits={r['warm_admits']} "
             f"admission_rounds={r['rounds']} kernel_launches={r['launches']} "
             f"chunk_launches={r['chunk_launches']} sync_calls={r['syncs']} "
@@ -4707,6 +4732,41 @@ def leaf_errors(torch, got: dict, want: dict) -> dict:
             for n, w in want.items()}
 
 
+def state_digest(torch, state) -> dict:
+    """Per leaf of a whole training state, the sha256 of its parameter's and
+    Adam moments' bytes (read back to the host)."""
+    import hashlib
+
+    out = {}
+    for name, p in state.model.named_parameters():
+        st = state.optimizer.state[p]
+        h = hashlib.sha256()
+        for t in (p.detach(), st["exp_avg"], st["exp_avg_sq"]):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        out[name] = h.hexdigest()
+    return out
+
+
+def mlp_windows(torch):
+    """The MLP cells' data: 256 windows of one job (numpy seed 3), on the
+    card."""
+    from beholder_tpu_torch.models import anomaly
+
+    rng = np.random.default_rng(3)
+    progress = torch.from_numpy(np.cumsum(1.0 + rng.normal(0, 0.05, 256 + anomaly.WINDOW + 1)))
+    return anomaly.make_windows(progress.to(CARD), torch.full(
+        (progress.shape[0],), CONVERTING, device=CARD))
+
+
+def parallel_seq_state(**kw):
+    """A maker of the transformer cells' state: the training model (and
+    ``kw``) from seed 0, Adam at PARALLEL_LR."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel, init_seq_state
+
+    return lambda: init_seq_state(0, TelemetrySequenceModel(**{**TRAIN_MODEL, **kw}),
+                                  learning_rate=PARALLEL_LR)
+
+
 def sharded_grads(sstate) -> dict:
     """The whole gradients a sharded (or ZeRO) step applied: each member's
     reduced gradient put back together like its leaf."""
@@ -4717,7 +4777,7 @@ def sharded_grads(sstate) -> dict:
 
 
 def parallel_cell(torch, fa, name, band, make_state, place, step, plain_step, data,
-                  launches=None, extra=None) -> dict:
+                  launches=None, extra=None, digest: bool = False) -> dict:
     """One sharded cell: PARALLEL_STEPS steps of ``step`` on ``place(make_state())``
     (flash launches counted), each beside one ``plain_step`` of the unsharded
     state gathered from the members just before it (the same parameters and
@@ -4729,7 +4789,9 @@ def parallel_cell(torch, fa, name, band, make_state, place, step, plain_step, da
     scale, so only these see a wrong gradient sum); the sharded losses
     falling, dp replicas bitwise, and the launches (fwd, dq, dk/dv) and
     offset-mode launches ``launches`` when given. ``extra(sstate)`` adds
-    checks of its own."""
+    checks of its own. ``digest`` records the per-leaf hash of the whole
+    state after the last step (``state_digest``), which the multi-process
+    leg is held to."""
     from beholder_tpu_torch.parallel import gather_state
 
     sstate = place(make_state())
@@ -4757,6 +4819,7 @@ def parallel_cell(torch, fa, name, band, make_state, place, step, plain_step, da
                                             for n, p in plain.model.named_parameters()},
                                     want_avg))
         del want_grads, want_avg
+    final_digest = state_digest(torch, plain) if digest else None
     del plain
     got, want = torch.stack(got).cpu().numpy(), torch.stack(want).cpu().numpy()
     ms = [s.elapsed_time(e) for s, e in events]
@@ -4789,6 +4852,8 @@ def parallel_cell(torch, fa, name, band, make_state, place, step, plain_step, da
                step_ms=ms, step_ms_median=statistics.median(ms),
                unsharded_step_ms=plain_ms, unsharded_step_ms_median=statistics.median(plain_ms),
                launches=counts, offset_launches=offsets)
+    if final_digest is not None:
+        out["digest"] = final_digest
     if extra is not None:
         out.update(extra(sstate))
     print(f"parallel {name}: losses {np.array2string(got, precision=6)} unsharded "
@@ -4846,9 +4911,7 @@ def parallel_path(torch) -> dict:
     gradients and Adam first moments in PARALLEL_GRAD_BAND), losses falling,
     dp replicas bitwise, member shard shapes, flash launches counted
     exactly."""
-    from beholder_tpu_torch.models import (
-        TelemetrySequenceModel, anomaly, init_seq_state, seq_train_step,
-    )
+    from beholder_tpu_torch.models import anomaly, seq_train_step
     from beholder_tpu_torch.ops import flash_attention as fa
     from beholder_tpu_torch.parallel import (
         gather_state, place_seq_state, place_state, place_zero_state, sharded_seq_train_step,
@@ -4861,10 +4924,7 @@ def parallel_path(torch) -> dict:
     report = {}
 
     # 1. the anomaly MLP, (dp, tp) = (4, 2), 256 windows of one job
-    rng = np.random.default_rng(3)
-    progress = torch.from_numpy(np.cumsum(1.0 + rng.normal(0, 0.05, 256 + anomaly.WINDOW + 1)))
-    windows, wtargets = anomaly.make_windows(progress.to(CARD), torch.full(
-        (progress.shape[0],), CONVERTING, device=CARD))
+    windows, wtargets = mlp_windows(torch)
     mlp_mesh = card_mesh((4, 2), ("dp", "tp"))
 
     def mlp_shapes(sstate):
@@ -4875,11 +4935,8 @@ def parallel_path(torch) -> dict:
     report["mlp"] = parallel_cell(
         torch, fa, "mlp dp=4 tp=2", PARALLEL_BANDS["mlp"], lambda: anomaly.init_train_state(0),
         lambda s: place_state(s, mlp_mesh), sharded_train_step, anomaly.train_step,
-        (windows, wtargets), extra=mlp_shapes)
-
-    def seq_state(**kw):
-        return lambda: init_seq_state(0, TelemetrySequenceModel(**{**TRAIN_MODEL, **kw}),
-                                      learning_rate=PARALLEL_LR)
+        (windows, wtargets), extra=mlp_shapes, digest=True)
+    seq_state = parallel_seq_state
 
     def q_shard(tp):
         def extra(sstate):
@@ -4898,7 +4955,7 @@ def parallel_path(torch) -> dict:
         report[name] = parallel_cell(
             torch, fa, name, PARALLEL_BANDS["tp"], seq_state(seq_shard=shard),
             lambda s: place_seq_state(s, mesh), sharded_seq_train_step, seq_train_step,
-            (feats, targets), launches=(per_step, (0, 0, 0)), extra=q_shard(2))
+            (feats, targets), launches=(per_step, (0, 0, 0)), extra=q_shard(2), digest=True)
         sstate = place_seq_state(seq_state(seq_shard=shard)(), mesh)
         saved[shard] = saved_bytes_per_member(torch, sstate, feats, targets)
         del sstate
@@ -4954,7 +5011,8 @@ def parallel_path(torch) -> dict:
         report[name] = parallel_cell(
             torch, fa, name, PARALLEL_BANDS["zero"], seq_state(**kw),
             lambda s, st=stage: place_zero_state(s, dp_mesh, shard_params=st == 3),
-            zero_train_step, seq_train_step, (feats, targets), launches=want, extra=zero_extra)
+            zero_train_step, seq_train_step, (feats, targets), launches=want, extra=zero_extra,
+            digest=True)
         del plain_dp
 
     # 5. MoE, (dp, ep) = (2, 2), 4 experts: top-1, top-2, expert choice. The
@@ -4994,6 +5052,268 @@ def parallel_path(torch) -> dict:
     report["wall_s"] = time.perf_counter() - t_start
     print(f"parallel path: flash launches (fwd, dq, dkv) {tuple(totals)}, offset "
           f"{tuple(offsets)}; wall {report['wall_s']:.2f} s", flush=True)
+    return report
+
+
+#: the multi-process leg (multiprocess_path): MP_WORLD child processes of
+#: this script on this card, each a rank of a gloo group on a free local
+#: port; every cell the parallel_path cell of the same name's global mesh,
+#: cut MP_WORLD ways along dp: leg cell -> (parallel_path's cell, kind,
+#: members a process, ici_tp)
+MP_WORLD = 2
+MP_CELLS = {
+    "mlp dp=4 tp=2": ("mlp", "mlp", 4, 2),
+    "tp dp=2 tp=2 seq_shard=off": ("tp dp=2 tp=2 seq_shard=off", "seq", 2, 2),
+    "tp dp=2 tp=2 seq_shard=on": ("tp dp=2 tp=2 seq_shard=on", "seq", 2, 2),
+    "zero-2 dp=4": ("zero-2 dp=4", "zero2", 2, 1),
+    "zero-3 dp=4 remat": ("zero-3 dp=4 remat", "zero3", 2, 1),
+}
+#: the planted control's cell: rank 1 passes the batch rolled by half, so it
+#: trains rank 0's dp rows
+MP_PLANT = "mlp dp=4 tp=2"
+#: seconds both children may take, start to exit (about 60 expected)
+MP_LIMIT_S = 420
+#: seconds the gloo rendezvous and each collective may take in a child
+MP_TIMEOUT_S = 300
+#: seconds the two-rank NCCL probe on one card may take before it is killed
+NCCL_PROBE_S = 90
+
+
+def mp_cell_state(torch, name: str, mesh):
+    """The leg cell's state placed on ``mesh``, its step and its data: the
+    parallel_path cell's own seeds and inputs."""
+    from beholder_tpu_torch.models import anomaly
+    from beholder_tpu_torch.parallel import (
+        place_seq_state, place_state, place_zero_state, sharded_seq_train_step,
+        sharded_train_step, zero_train_step,
+    )
+
+    kind = MP_CELLS[name][1]
+    if kind == "mlp":
+        return (place_state(anomaly.init_train_state(0), mesh), sharded_train_step,
+                mlp_windows(torch))
+    data = train_streams(torch, 0, TRAIN_B, TRAIN_T)
+    if kind == "seq":
+        make = parallel_seq_state(seq_shard=name.endswith("seq_shard=on"))
+        return place_seq_state(make(), mesh), sharded_seq_train_step, data
+    make = parallel_seq_state(**({"remat": True} if kind == "zero3" else {}))
+    return (place_zero_state(make(), mesh, shard_params=kind == "zero3"), zero_train_step,
+            data)
+
+
+def mp_run_cell(torch, fa, name: str, rank: int, plant: bool = False) -> dict:
+    """PARALLEL_STEPS steps of a leg cell on its mesh over the group: the
+    losses, the flash launches this process made, its step ms (CUDA events)
+    and the digest of the gathered whole state."""
+    from beholder_tpu_torch.parallel import gather_state, make_hybrid_mesh
+
+    _, kind, per, tp = MP_CELLS[name]
+    mesh = make_hybrid_mesh(tp, devices=[CARD] * per)
+    if kind.startswith("zero"):
+        mesh = mesh.take(tp=0)
+    check(mesh.crosses_processes and len(mesh.local) == per
+          and mesh.local == tuple(range(rank * per, (rank + 1) * per)),
+          f"multiprocess {name}: rank {rank} holds members {mesh.local} of {mesh.shape}")
+    state, step, data = mp_cell_state(torch, name, mesh)
+    if plant and rank == 1:
+        rows = torch.arange(data[0].shape[0], device=CARD).roll(data[0].shape[0] // 2)
+        data = tuple(d[rows] for d in data)
+    losses, events, counts, offsets = [], [], (0, 0, 0), (0, 0, 0)
+    for _ in range(PARALLEL_STEPS):
+        (state, loss, ev), c, o = counted_flash(
+            torch, fa, lambda: timed_step(torch, step, state, *data))
+        counts = tuple(a + b for a, b in zip(counts, c))
+        offsets = tuple(a + b for a, b in zip(offsets, o))
+        losses.append(loss)
+        events.append(ev)
+    torch.cuda.synchronize()
+    digest = state_digest(torch, gather_state(state))
+    del state
+    torch.cuda.empty_cache()
+    return dict(losses=torch.stack(losses).cpu().numpy().tolist(), digest=digest,
+                launches=counts, offset_launches=offsets,
+                step_ms=[a.elapsed_time(b) for a, b in events])
+
+
+def mp_child(rank: int, port: int, out: Path) -> None:
+    """A rank of the multi-process leg: the kernels phase 2 built loaded, not
+    rebuilt; a gloo group; every MP_CELLS cell, then the planted control;
+    the results as JSON to ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from beholder_tpu_torch import csrc
+    from beholder_tpu_torch.ops import flash_attention as fa
+
+    t_start = time.perf_counter()
+    check(torch.cuda.is_available(), f"multiprocess rank {rank}: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernels = ("flash_fwd", "flash_bwd")
+    built = {k: csrc._target(k)[1].exists() for k in kernels}
+    check(all(built.values()), f"multiprocess rank {rank}: kernels not built yet {built}")
+    csrc.build(*kernels)
+    rebuilt = [k for k in kernels if csrc.build_log[k]["seconds"] or csrc.build_log[k]["ptxas"]]
+    check(not rebuilt, f"multiprocess rank {rank}: rebuilt {rebuilt}")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=MP_WORLD,
+                            rank=rank, timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    try:
+        backend = dist.get_backend()
+        cells = {name: mp_run_cell(torch, fa, name, rank) for name in MP_CELLS}
+        planted = mp_run_cell(torch, fa, MP_PLANT, rank, plant=True)
+    finally:
+        dist.destroy_process_group()
+    out.write_text(json.dumps(dict(rank=rank, backend=backend, cells=cells, planted=planted,
+                                   rebuilt=rebuilt, wall_s=time.perf_counter() - t_start)))
+
+
+def nccl_probe_child(rank: int, port: int, out: Path) -> None:
+    """Two NCCL ranks on one card: whether the group forms and an
+    ``all_reduce`` runs, or what it raises (written to ``out``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    result = {}
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=MP_WORLD, rank=rank,
+                                timeout=datetime.timedelta(seconds=NCCL_PROBE_S // 2))
+        x = torch.full((1024,), float(rank + 1), device=CARD)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        result = dict(ok=True, sum=float(x[0]))
+    except Exception as err:  # noqa: BLE001 - the probe records what NCCL says
+        result = dict(ok=False, error=f"{type(err).__name__}: {err}"[:2000])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out.write_text(json.dumps(result))
+
+
+def spawn_children(mode: str, out_dir: Path, limit_s: float) -> tuple[list, float, bool]:
+    """MP_WORLD processes of this script in ``mode`` on a free local port,
+    each logging to ``out_dir/<mode>-rank<r>.log`` and writing
+    ``<mode>-rank<r>.json``; waited for up to ``limit_s`` together, every one
+    killed past it. Returns (exit codes, wall seconds, whether it timed
+    out)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    try:
+        for r in range(MP_WORLD):
+            log = open(out_dir / f"{mode}-rank{r}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), f"--{mode}", str(r), str(port),
+                 str(out_dir / f"{mode}-rank{r}.json")], stdout=log, stderr=subprocess.STDOUT))
+        timed_out = False
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.1, limit_s - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    return [p.returncode for p in procs], time.perf_counter() - t0, timed_out
+
+
+def multiprocess_path(torch, parallel: dict, card: str) -> dict:
+    """The mesh over processes (``make_hybrid_mesh`` in a process group) at
+    full width: MP_WORLD children of this script on this card, a gloo group
+    (two NCCL ranks cannot share one card), each holding its share of the
+    global mesh of parallel_path's MLP, ``seq_shard`` off and on, ZeRO-2 and
+    ZeRO-3 + remat cells (MP_CELLS) and loading the kernels phase 2 built.
+    Gates: both children exit 0 within MP_LIMIT_S (else both are killed);
+    every cell's losses and per-leaf digest of the gathered params and Adam
+    moments bitwise each other's and parallel_path's one-process run; each
+    child's flash launches exactly its members' share; no kernel rebuilt; the
+    planted control (rank 1 given rank 0's dp rows) failing that gate. Then
+    a probe of two NCCL ranks on one card (recorded, not gated). Prints each
+    cell's step ms per child beside the one-process step."""
+    t_start = time.perf_counter()
+    out_dir = OUT / "multiprocess"
+    rcs, wall, timed_out = spawn_children("mp-child", out_dir, MP_LIMIT_S)
+    for r, rc in enumerate(rcs):
+        tail = (out_dir / f"mp-child-rank{r}.log").read_text()[-3000:]
+        if rc != 0 or timed_out:
+            print(f"multiprocess rank {r} log (exit {rc}):\n{tail}", flush=True)
+    check(not timed_out, f"multiprocess: the children did not finish in {MP_LIMIT_S} s; killed")
+    check(all(rc == 0 for rc in rcs), f"multiprocess: children exited {rcs}")
+    ranks = [json.loads((out_dir / f"mp-child-rank{r}.json").read_text())
+             for r in range(MP_WORLD)]
+
+    def gate(got: dict, key: str) -> bool:
+        want = parallel[key]
+        return got["losses"] == want["losses"] and got["digest"] == want["digest"]
+
+    report, totals = {}, [0, 0, 0]
+    for name, (key, _, per, _) in MP_CELLS.items():
+        want = parallel[key]
+        share = tuple(c // MP_WORLD for c in want["launches"])
+        check(all(c % MP_WORLD == 0 for c in want["launches"]),
+              f"multiprocess {name}: one-process launches {want['launches']} do not split")
+        for r, got in enumerate(x["cells"][name] for x in ranks):
+            bad = [n for n, h in want["digest"].items() if got["digest"].get(n) != h]
+            check(gate(got, key), f"multiprocess {name}: rank {r} not bitwise the one-process "
+                  f"cell: losses {got['losses']} vs {want['losses']}, leaves differing {bad}")
+            check(tuple(got["launches"]) == share and tuple(got["offset_launches"]) == (0, 0, 0),
+                  f"multiprocess {name}: rank {r} flash launches {got['launches']} offset "
+                  f"{got['offset_launches']}, its share {share}")
+            totals = [a + b for a, b in zip(totals, got["launches"])]
+        ms = [statistics.median(x["cells"][name]["step_ms"]) for x in ranks]
+        report[name] = dict(losses=want["losses"], launches_per_rank=share,
+                            step_ms=[x["cells"][name]["step_ms"] for x in ranks],
+                            step_ms_median=ms,
+                            one_process_step_ms_median=want["step_ms_median"])
+        print(f"multiprocess {name}: {MP_WORLD} processes x {per} members bitwise each other "
+              f"and the one-process mesh (losses {want['losses']}, {len(want['digest'])} "
+              f"leaves); flash launches a rank {share}; step ms median "
+              + " / ".join(f"rank {r} {m:.2f}" for r, m in enumerate(ms))
+              + f", one process {want['step_ms_median']:.2f}; {card}", flush=True)
+    planted = [x["planted"] for x in ranks]
+    check(planted[0]["losses"] == planted[1]["losses"]
+          and planted[0]["digest"] == planted[1]["digest"],
+          "multiprocess control: the ranks disagree with each other")
+    check(not gate(planted[0], MP_CELLS[MP_PLANT][0]),
+          "multiprocess control: wrong dp rows passed the bitwise gate")
+    differ = sum(h != parallel[MP_CELLS[MP_PLANT][0]]["digest"][n]
+                 for n, h in planted[0]["digest"].items())
+    print(f"multiprocess control: rank 1 on rank 0's dp rows fails the gate (losses "
+          f"{planted[0]['losses']} vs {parallel[MP_CELLS[MP_PLANT][0]]['losses']}; {differ} of "
+          f"{len(planted[0]['digest'])} leaves differ)", flush=True)
+    check(all(not x["rebuilt"] and x["backend"] == "gloo" for x in ranks),
+          f"multiprocess: rebuilt {[x['rebuilt'] for x in ranks]}, "
+          f"backends {[x['backend'] for x in ranks]}")
+    report.update(children_wall_s=wall, child_wall_s=[x["wall_s"] for x in ranks],
+                  control=dict(losses=planted[0]["losses"], leaves_differing=differ),
+                  launches=dict(zip(("fwd", "dq", "dkv"), totals)))
+    rcs, probe_wall, probe_timed_out = spawn_children("nccl-probe", out_dir, NCCL_PROBE_S)
+    probe = dict(exit_codes=rcs, timed_out=probe_timed_out, wall_s=probe_wall)
+    for r in range(MP_WORLD):
+        path = out_dir / f"nccl-probe-rank{r}.json"
+        probe[f"rank{r}"] = json.loads(path.read_text()) if path.exists() else None
+    report["nccl_two_ranks_one_card"] = probe
+    print(f"multiprocess nccl probe (2 ranks on one card): {json.dumps(probe)[:1500]}",
+          flush=True)
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"multiprocess path: children {wall:.2f} s (ranks "
+          + ", ".join(f"{x['wall_s']:.2f}" for x in ranks)
+          + f" s); wall {report['wall_s']:.2f} s", flush=True)
     return report
 
 
@@ -5206,7 +5526,9 @@ def pipeline_path(torch) -> dict:
 #: the sharded serving cells (sharded_serving_path): the headline model and
 #: streams
 SHARD_MODEL = dict(dim=512, heads=8, kv_heads=2, layers=4)
-SHARD_STREAMS, SHARD_OBSERVED, SHARD_HORIZON, SHARD_SPLIT = 8, 256, 128, 192
+#: (the forecast horizon was 128 until the multi-process leg came: cut to
+#: keep the script inside its time limit on a slow host)
+SHARD_STREAMS, SHARD_OBSERVED, SHARD_HORIZON, SHARD_SPLIT = 8, 256, 64, 192
 #: a sharded rollout against the unsharded one: the reference's band,
 #: tests/test_decode.py:207-212 (rtol, atol)
 SHARD_BAND = (2e-2, 5e-3)
@@ -5215,7 +5537,7 @@ SHARD_BAND = (2e-2, 5e-3)
 def sharded_serving_path(torch) -> dict:
     """dp/tp-sharded dense serving (``models.decode``'s ``sharded_*``) at the
     headline's full width, every member on this one card: the headline
-    model's bf16 weights, 8 streams of 256 observed steps, horizon 128.
+    model's bf16 weights, 8 streams of 256 observed steps, horizon 64.
     Cells: dp = 4; (dp, tp) = (4, 2) with megatron params (one kv head a
     member); dp = 4 with ``attention="flash"`` (the prefill launches the
     flash forward once a layer and member). Each: every member's cache shard
@@ -5354,6 +5676,9 @@ def sharded_serving_path(torch) -> dict:
 #: which left the service, flight and retention legs too little room; the
 #: model's width and shapes stay the reference's
 PROFILE_N1, PROFILE_N2 = 2, 3
+#: the profile's sizes over the reference's defaults: a 32-step horizon
+#: (128 there), cut to keep the script inside its time limit on a slow host
+PROFILE_SIZES = dict(horizon=32)
 PROFILE_CALLS = 2 + 2 * PROFILE_N1 + 2 * PROFILE_N2
 PROFILE_KEYS = ("serve_wave_program_ms", "wave_scan_program_ms", "us_per_tick",
                 "run_waves_host_path_ms", "dense_rollout_program_ms")
@@ -5375,8 +5700,8 @@ def profile_decode_launches(cfg: dict) -> int:
 def tooling_path(torch, card: str, profile_order: bool = False) -> dict:
     """The measurement tooling and the runtime entry on the card. The
     serving profile (``python -m beholder_tpu_torch.tools.profile_serving``,
-    run in-process through its ``main()`` at the reference's defaults, the
-    headline model at full width) with its artifact under
+    run in-process through its ``main()`` at the reference's defaults but
+    PROFILE_SIZES, the headline model at full width) with its artifact under
     ``chiprun_out/artifacts``: five finite positive numbers, ``us_per_tick``
     its formula, four finite positive probes, the decode kernel's launches
     exactly :func:`profile_decode_launches`, no chunk launch, and the
@@ -5396,7 +5721,7 @@ def tooling_path(torch, card: str, profile_order: bool = False) -> dict:
     from beholder_tpu_torch.tools import profile_serving as ps
 
     t_start = time.perf_counter()
-    cfg = ps.DEFAULTS
+    cfg = {**ps.DEFAULTS, **PROFILE_SIZES}
     want_launches = profile_decode_launches(cfg)
     out_dir = (OUT / "artifacts").resolve()
     before = os.environ.get("BENCH_ARTIFACT_DIR")
@@ -5405,7 +5730,7 @@ def tooling_path(torch, card: str, profile_order: bool = False) -> dict:
     paged_decode_attention.launches = 0
     paged_chunk_attention.launches = 0
     try:
-        path = ps.main(n2=PROFILE_N2)
+        path = ps.main(n2=PROFILE_N2, **PROFILE_SIZES)
     except Exception as err:  # noqa: BLE001 - the gate names it
         fail(f"tooling: profile_serving.main raised {err!r}")
     finally:
@@ -7191,7 +7516,14 @@ def main() -> None:
                         help="also profile one bf16 run_waves and one fused run_spec")
     parser.add_argument("--chunk-parent", type=Path, default=None,
                         help="a checkout whose chunk kernel to time against this one's")
+    # the multi-process leg's child modes: RANK PORT OUT
+    parser.add_argument("--mp-child", nargs=3, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--nccl-probe", nargs=3, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    for mode, fn in ((args.mp_child, mp_child), (args.nccl_probe, nccl_probe_child)):
+        if mode is not None:
+            fn(int(mode[0]), int(mode[1]), Path(mode[2]))
+            return
     try:
         import torch
     except ImportError:
@@ -7271,6 +7603,7 @@ def main() -> None:
     # after every profiled gate: with this phase before it, the aggregation
     # gate's profiler read 4 kernel rows for 5 calls (ROADMAP.md C.10)
     training["parallel"] = parallel_path(torch)
+    training["multiprocess"] = multiprocess_path(torch, training["parallel"], card)
     training["pipeline"] = pipeline_path(torch)
     record["sharded_serving"] = sharded_serving_path(torch)
     record["tooling"] = tooling_path(torch, card, profile_order=args.profile)
@@ -7311,6 +7644,7 @@ def main() -> None:
     # the sharded training, pipeline and sharded serving paths' flash
     # launches (the ring cell's pairs in offset mode) join the training run's
     parallel_launches = {k: training["parallel"]["launches"][k]
+                         + training["multiprocess"]["launches"][k]
                          + training["pipeline"]["launches"][k]
                          + record["sharded_serving"]["launches"][k] for k in ("fwd", "dq", "dkv")}
     parallel_offsets = training["parallel"]["offset_launches"]

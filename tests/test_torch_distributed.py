@@ -4,7 +4,8 @@ against the reference's ``beholder_tpu/parallel/distributed.py``.
 The reference runs over the 8 virtual CPU devices of ``tests/conftest.py``;
 the port's mesh over ``devices=["cpu"] * 8``. Shapes, axis names and error
 messages are compared exactly. The process group tests run one ``gloo``
-process on a free local port and tear it down.
+process on a free local port and tear it down; the mesh over two processes
+is held against the reference in ``tests/test_torch_multiprocess.py``.
 """
 
 import socket
@@ -65,17 +66,6 @@ def test_hybrid_mesh_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_hybrid_mesh(ici_tp=1)
-
-
-def test_hybrid_mesh_over_processes_is_not_ported(monkeypatch):
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    assert distributed.process_count() == 2
-    with pytest.raises(NotImplementedError, match="single-controller"):
-        make_hybrid_mesh(ici_tp=2, devices=CPUS)
-    # the divisibility check still comes first, as in the reference
-    with pytest.raises(ValueError, match="does not divide"):
-        make_hybrid_mesh(ici_tp=3, devices=CPUS)
 
 
 def test_explicit_process_id_zero_beats_a_stale_rank(monkeypatch, captured):
