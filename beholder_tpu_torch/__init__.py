@@ -86,9 +86,9 @@ reference's module layout and names so a reader finds each counterpart:
 
 The chunk kernel's autotune table is :mod:`beholder_tpu_torch.ops.autotune`
 and the ratio-only perf gate :mod:`beholder_tpu_torch.tools.perf_gate`.
-Not ported yet (``ROADMAP.md``): collectives across processes inside a
-forward (MoE, the pipelines, sharded serving, ring and Ulysses attention
-refuse a mesh over processes: C.29) and the port's bench (A.6).
+Every parallel path also runs on a mesh over processes, its collectives
+crossing them bitwise (:mod:`beholder_tpu_torch.parallel.collectives`). Not
+ported yet (``ROADMAP.md``): the port's bench (A.6).
 
 The package imports ``torch`` and numpy only: never ``jax`` and never a
 module of ``beholder_tpu``. Entry points run on the card unless the caller

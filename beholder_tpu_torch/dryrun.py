@@ -14,9 +14,11 @@ repeated round-robin up to ``n`` (one card may hold every member), or on
 ``devices`` when given (``["cpu"] * 8`` runs the plain PyTorch path).
 Parameters and data come from numpy seeds. In a process group of more than
 one process (:func:`~beholder_tpu_torch.parallel.initialize`) ``n`` counts
-every process's members, each process bringing ``n / P`` of them, and only
-the cells whose mesh may span processes run there (dp x tp MLP, dp x tp
-transformer, ZeRO-3); the others are skipped and named.
+every process's members, each process bringing ``n / P`` of them: every
+mesh cell runs on a mesh over the processes (process ``p`` holding the
+``p``-th block of ``n / P`` members in row-major order), and the two
+single-batcher cells (paged serving, the what-if fork) run whole in each
+process.
 
 Run ``python -m beholder_tpu_torch.dryrun [N]`` for the dryrun on the card
 (``--cpu`` on the CPU); the entry's forward runs first.
@@ -33,8 +35,9 @@ import torch
 CELLS = ("dp×tp", "tp", "ring", "ulysses", "pipeline", "dp×pp pipeline", "dp×pp×tp pipeline",
          "zero3", "moe", "expert-choice moe", "dp×tp×sp", "sharded serving", "paged serving",
          "what-if fork")
-#: the cells whose mesh may span processes
-ACROSS_PROCESSES = ("dp×tp", "tp", "zero3")
+#: the cells whose mesh spans the processes of a group; the others run one
+#: batcher whole in each process
+ACROSS_PROCESSES = tuple(c for c in CELLS if c not in ("paged serving", "what-if fork"))
 
 
 def entry(device=None):
@@ -86,11 +89,22 @@ class _Run:
             raise ValueError(f"{n} members do not split over {self.procs} processes")
         self.members = serving_shard_devices(n // self.procs, devices=devices)
         self.dev = self.members[0]
+        self.every = [str(d) for d in self.members]
+        if self.procs > 1:
+            import torch.distributed as dist
+
+            lists = [None] * self.procs
+            dist.all_gather_object(lists, self.every)
+            self.every = [d for ds in lists for d in ds]
 
     def mesh(self, shape, names):
-        from beholder_tpu_torch.parallel import Mesh
+        """The mesh of ``shape`` over every process's members, process ``p``
+        holding the ``p``-th block of them in row-major order."""
+        from beholder_tpu_torch.parallel import Mesh, process_index
 
-        return Mesh(np.array(self.members, dtype=object).reshape(shape).tolist(), names)
+        per = self.n // self.procs
+        return Mesh(np.array(self.every, dtype=object).reshape(shape).tolist(), names,
+                    owners=[i // per for i in range(self.n)], rank=process_index())
 
     def dp_tp_mesh(self, tp: int):
         """The ("dp", "tp") mesh over every process's members."""
@@ -435,18 +449,14 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     against the dense rollout. Returns ``{cell: (value, unsharded value)}``
     (the losses; for the serving cells the mean forecast each way). Raises
     ``AssertionError`` at the first cell out of its band. In a process group
-    the cells that need collectives across processes inside a forward are
-    skipped, and printed as skipped."""
+    every mesh cell runs on a mesh over the processes, and the
+    single-batcher cells whole in each process."""
     run = _Run(n_devices, devices)
     out = {}
     if run.procs > 1:
-        skipped = [c for c in CELLS if c not in ACROSS_PROCESSES]
-        print(f"dryrun_multichip: {run.procs} processes; skipped (no collective across "
-              f"processes inside a forward): {', '.join(skipped)}")
-        out["dp×tp"] = _mlp(run)
-        out["tp"] = _tp(run)
-        out["zero3"] = _zero3(run)
-        return out
+        whole = [c for c in CELLS if c not in ACROSS_PROCESSES]
+        print(f"dryrun_multichip: {run.procs} processes; whole in each process: "
+              f"{', '.join(whole)}")
     out["dp×tp"] = _mlp(run)
     out["tp"] = _tp(run)
     out["ring"], out["ulysses"] = _sequence_parallel(run)

@@ -9,8 +9,10 @@ one forward and generation is one cached step per token. The caches are
 updated in place: a :class:`DecodeCache` handed to :func:`decode_step` is
 consumed.
 
-Sharded serving runs over a :class:`~beholder_tpu_torch.parallel.Mesh`
-(single-controller: one process drives every member on its device). The
+Sharded serving runs over a :class:`~beholder_tpu_torch.parallel.Mesh`:
+one process drives every member it holds on its device, and on a mesh over
+processes each process serves its own members' rows and the predictions
+are gathered from every process, so each returns the whole batch. The
 streams split over ``dp``, each member holding its B/dp rows' cache; under
 megatron parameters on a ``(dp, tp)`` mesh (:func:`serving_params` with
 ``seq_state_shardings``' specs) each member also holds only its ``Hkv/tp``
@@ -27,7 +29,7 @@ import torch
 
 from beholder_tpu_torch.ops import NUM_STATUSES
 
-from beholder_tpu_torch.parallel.collectives import refuse_across_processes
+from beholder_tpu_torch.parallel.collectives import exchange
 from beholder_tpu_torch.parallel.mesh import Mesh
 from beholder_tpu_torch.parallel.sharding import batch_slices, shard_tensors
 
@@ -184,16 +186,26 @@ class _Serving:
     batch slice, tp=1), and the members holding the batch slices in order."""
 
     def __init__(self, model, mesh, axis: str, params_shardings: dict | None):
-        refuse_across_processes(mesh, "sharded serving")
         head_axis = _serving_head_axis(mesh, params_shardings, axis)
         cache_shardings(model, mesh, axis, head_axis)
         self.model, self.mesh, self.axis = model, mesh, axis
-        self.compute = mesh if head_axis else Mesh(list(mesh.devices), ("dp",))
+        self.compute = mesh if head_axis else Mesh(list(mesh.devices), ("dp",),
+                                                   owners=mesh.owners, rank=mesh.rank)
         self.rows = mesh.groups(axis)[0]
 
     def gather(self, parts: list) -> torch.Tensor:
-        dev = self.mesh.devices[self.rows[0]]
-        return torch.cat([parts[i].to(dev) for i in self.rows])
+        """The batch slices' rows in order, from the members that hold them
+        (on a mesh over processes, from every process: the bytes
+        unchanged), on the first local member's device."""
+        mesh = self.mesh
+        dev = mesh.local_devices[0]
+        if not mesh.crosses_processes:
+            return torch.cat([parts[i].to(dev) for i in self.rows])
+        like = parts[0]
+        got = exchange([(i, mesh.owners[i], tuple(like.shape), like.dtype) for i in self.rows],
+                       {i: parts[mesh.slot(i)] for i in self.rows if mesh.slot(i) is not None},
+                       dev)
+        return torch.cat([got[i].to(dev) for i in self.rows])
 
     def _forward(self, params, feats: list, cache=None):
         xs = [_linear_f32(f, p["embed.weight"], p["embed.bias"]) for p, f in zip(params, feats)]
@@ -222,7 +234,7 @@ class _Serving:
                     shard[:, :, :t] = k
                     shards.append(shard)
                 out.append(shards)
-        index = torch.full((), t, dtype=torch.int64, device=self.mesh.devices[0])
+        index = torch.full((), t, dtype=torch.int64, device=self.mesh.local_devices[0])
         return [p[:, -1] for p in preds], DecodeCache(tuple(keys), tuple(values), index)
 
     @torch.no_grad()

@@ -86,9 +86,9 @@ from beholder_tpu_torch.parallel.collectives import (
     all_gather,
     along,
     reduce_scatter,
-    refuse_across_processes,
     tp_all_reduce,
     tp_replicate,
+    unzip,
 )
 from beholder_tpu_torch.parallel.mesh import group_mesh
 from beholder_tpu_torch.parallel.sharding import batch_slices
@@ -577,7 +577,6 @@ class Block(nn.Module):
         if mesh.shape.get("sp", 1) == 1:
             attend_fn = full_attention if self.attention == "full" else flash_attention
             return [attend_fn(q, k, v, **kw) for q, k, v in zip(qs, ks, vs)]
-        refuse_across_processes(mesh, f"{self.attention} attention over sp")
         if self.attention == "ring":
             fn = ring_attention_members
         elif self.attention == "ulysses":
@@ -586,9 +585,7 @@ class Block(nn.Module):
             raise ValueError(
                 f"an sp axis needs attention='ring' or 'ulysses', got {self.attention!r}"
             )
-        out = along(mesh, "sp", lambda qkv: fn(*map(list, zip(*qkv)), **kw),
-                    list(zip(qs, ks, vs)))
-        return out
+        return along(mesh, "sp", lambda qkv: fn(*unzip(qkv), **kw), list(zip(qs, ks, vs)))
 
 
 class TelemetrySequenceModel(nn.Module):

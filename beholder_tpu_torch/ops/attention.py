@@ -9,7 +9,11 @@ each member's sequence slice of all heads for the whole sequence of a slice
 of the heads, the flash kernels run on those, and one all-to-all trades
 back). Each has a member-list form (:func:`ring_attention_members`,
 :func:`ulysses_attention_members`) that the sharded training step runs
-inside each (dp, tp) member.
+inside each (dp, tp) member. On a mesh over processes a member list is
+this process's share of the ``sp`` group (a
+:class:`~beholder_tpu_torch.parallel.collectives.Members`): each process
+runs its own shards' kernels, and the k/v blocks (and, backward, their
+partial gradients) hop between processes byte for byte.
 
 :func:`attend` is the one dense op sequence of the port: ``full_attention``
 (prefill), the dense-cache branch of ``models.sequence.Block`` and the plain
@@ -22,7 +26,18 @@ from __future__ import annotations
 
 import torch
 
-from beholder_tpu_torch.parallel.collectives import all_to_all, refuse_across_processes, shifted
+from torch.autograd import Function
+
+from beholder_tpu_torch.parallel.collectives import (
+    Members,
+    all_to_all,
+    exchange,
+    gather_every,
+    group_size,
+    like,
+    positions,
+    shifted,
+)
 
 from .flash_attention import (
     check_backward_head_dim,
@@ -174,14 +189,18 @@ def _ring_steps(p_size: int, block: int, causal: bool, window) -> int:
 def _rotate(blocks: list) -> list:
     """One ring hop: shard ``j`` receives shard ``j - 1``'s block on its
     device (the reference's ppermute ``j -> j + 1``; :func:`ring_shift`'s
-    forward, copying nothing between shards on one device)."""
+    forward, copying nothing between shards on one device; a ring split
+    between processes gets the blocks of its other shards from their
+    processes)."""
     return shifted(blocks, 1, copy=False)
 
 
 def _ring_local_fwd(qs, ks, vs, *, block, causal, window=None, backend="flash"):
     """The ring forward over every shard, step-major: each rotation's pair
     for every shard, then the rotation. ``qs``/``ks``/``vs`` hold shard
-    ``j``, each on its member's device. Returns the shards' (o, lse).
+    ``j``, each on its member's device (this process's shards, a
+    :class:`Members`, of a ring split between processes). Returns the
+    shards' (o, lse).
 
     ``backend="flash"`` runs each pair on the flash forward kernel
     (:func:`~beholder_tpu_torch.ops.flash_attention.flash_block_attend`):
@@ -192,11 +211,11 @@ def _ring_local_fwd(qs, ks, vs, *, block, causal, window=None, backend="flash"):
     pair (o = 0, lse = -1e30) scales to exactly 0 against the diagonal's
     finite running max. ``backend="einsum"`` runs the plain
     :func:`_block_attend` path."""
-    p_size = len(qs)
+    p_size, pos = group_size(qs), positions(qs)
     n_steps = _ring_steps(p_size, block, causal, window)
-    kc, vc = list(ks), list(vs)
+    kc, vc = like(ks, ks), like(vs, vs)
     states = []
-    for j in range(p_size):
+    for j in range(len(qs)):
         if backend == "flash":
             states.append(None)
         else:
@@ -207,16 +226,16 @@ def _ring_local_fwd(qs, ks, vs, *, block, causal, window=None, backend="flash"):
                 torch.zeros(qg.shape, device=qg.device),
             ))
     for step in range(n_steps):
-        for j in range(p_size):
-            kv_offset = ((j - step) % p_size) * block
+        for j, at in enumerate(pos):
+            kv_offset = ((at - step) % p_size) * block
             if backend == "flash":
-                offs = dict(q_offset=j * block, kv_offset=kv_offset) if causal and step else {}
+                offs = dict(q_offset=at * block, kv_offset=kv_offset) if causal and step else {}
                 ob, lb = flash_block_attend(qs[j], kc[j], vc[j], causal=causal, window=window,
                                             **offs)
                 blk = (lb, torch.ones_like(lb), ob.float())
                 states[j] = blk if step == 0 else _combine(states[j], blk)
             else:
-                blk = _block_attend(qs[j], kc[j], vc[j], j * block, kv_offset, causal, window)
+                blk = _block_attend(qs[j], kc[j], vc[j], at * block, kv_offset, causal, window)
                 states[j] = _combine(states[j], blk)
         if step < n_steps - 1:
             kc, vc = _rotate(kc), _rotate(vc)
@@ -240,12 +259,12 @@ def _ring_local_bwd(qs, ks, vs, os_, lses, dos, *, block, causal, window=None,
     (:func:`~beholder_tpu_torch.ops.flash_attention.flash_block_backward`)
     from the saved GLOBAL lse, with ``delta = rowsum(do * o)`` computed once
     per shard; ``backend="einsum"`` runs the reference's plain path."""
-    p_size = len(qs)
+    p_size, pos = group_size(qs), positions(qs)
     n_steps = _ring_steps(p_size, block, causal, window)
     devices = [q.device for q in qs]
-    kc, vc = list(ks), list(vs)
-    dkc = [torch.zeros(k.shape, device=k.device) for k in ks]
-    dvc = [torch.zeros(v.shape, device=v.device) for v in vs]
+    kc, vc = like(ks, ks), like(vs, vs)
+    dkc = like(ks, [torch.zeros(k.shape, device=k.device) for k in ks])
+    dvc = like(vs, [torch.zeros(v.shape, device=v.device) for v in vs])
     if backend == "flash":
         deltas = [flash_delta(o, do) for o, do in zip(os_, dos)]
         dq = [torch.zeros(q.shape, device=q.device) for q in qs]
@@ -258,10 +277,10 @@ def _ring_local_bwd(qs, ks, vs, os_, lses, dos, *, block, causal, window=None,
         lsegs = [lse.reshape(qg.shape[:-1]) for lse, qg in zip(lses, qgs)]
         dq = [torch.zeros(qg.shape, device=qg.device) for qg in qgs]
     for step in range(n_steps):
-        for j in range(p_size):
-            kv_offset = ((j - step) % p_size) * block
+        for j, at in enumerate(pos):
+            kv_offset = ((at - step) % p_size) * block
             if backend == "flash":
-                offs = dict(q_offset=j * block, kv_offset=kv_offset) if causal and step else {}
+                offs = dict(q_offset=at * block, kv_offset=kv_offset) if causal and step else {}
                 dq_s, dk_s, dv_s = flash_block_backward(
                     qs[j], kc[j], vc[j], os_[j], lses[j], dos[j], causal=causal,
                     window=window, delta=deltas[j], **offs,
@@ -273,7 +292,7 @@ def _ring_local_bwd(qs, ks, vs, os_, lses, dos, *, block, causal, window=None,
             qg, dog = qgs[j], dogs[j]
             s = torch.matmul(qg, kc[j].unsqueeze(-3).transpose(-1, -2)).float() * scale
             if causal:
-                live = _causal_live(qg.shape[-2], kc[j].shape[-2], j * block, kv_offset,
+                live = _causal_live(qg.shape[-2], kc[j].shape[-2], at * block, kv_offset,
                                     window, qg.device)
                 s = torch.where(live, s, _NEG_INF)
             p = torch.exp(s - lsegs[j][..., None])    # transient (T/P, T/P) block
@@ -288,17 +307,93 @@ def _ring_local_bwd(qs, ks, vs, os_, lses, dos, *, block, causal, window=None,
     # the partials have hopped n_steps - 1 times: shard j holds block
     # j - (n_steps - 1); send each home in one jump
     home = n_steps - 1
-    dk = [dkc[(b + home) % p_size].to(devices[b]).to(ks[b].dtype) for b in range(p_size)]
-    dv = [dvc[(b + home) % p_size].to(devices[b]).to(vs[b].dtype) for b in range(p_size)]
+    if isinstance(qs, Members) and home:
+        every = gather_every(qs.group, list(zip(dkc, dvc)))
+        dkc, dvc = [e[0] for e in every], [e[1] for e in every]
+        src = {j: (at + home) % p_size for j, at in enumerate(pos)}
+    else:
+        src = {j: (j + home) % p_size for j in range(len(qs))}
+    dk = [dkc[src[j]].to(devices[j]).to(ks[j].dtype) for j in range(len(qs))]
+    dv = [dvc[src[j]].to(devices[j]).to(vs[j].dtype) for j in range(len(qs))]
     dq = [g.reshape(q.shape).to(q.dtype) for g, q in zip(dq, qs)]
     return dq, dk, dv
 
 
 def _shards(mesh, x: torch.Tensor, dim: int) -> list:
     """``x`` cut along ``dim`` into the mesh's P blocks, block ``j`` on
-    device ``j``, each contiguous once here rather than at every pair."""
-    return [mesh.to(c.contiguous(), j)
-            for j, c in enumerate(x.chunk(mesh.shape["sp"], dim=dim))]
+    device ``j``, each contiguous once here rather than at every pair: the
+    blocks of the members this process holds."""
+    chunks = x.chunk(mesh.shape["sp"], dim=dim)
+    return [mesh.to(chunks[j].contiguous(), j) for j in mesh.local]
+
+
+class _ScatterWhole(Function):
+    """Whole tensors that every process of a mesh holds, cut along ``dim``
+    into the one-axis ``mesh``'s P blocks: forward returns the chain token
+    and, tensor by tensor, the blocks of this process's members on their
+    devices; backward gathers every block's cotangent from its owner (every
+    process takes part) and concatenates them, the one-process cut's own
+    backward."""
+
+    @staticmethod
+    def forward(ctx, mesh, dim, token, *xs):
+        ctx.mesh, ctx.dim = mesh, dim
+        ctx.like = [(tuple(c.shape), x.dtype, x.device) for x in xs
+                    for c in x.chunk(mesh.shape["sp"], dim=dim)[:1]]
+        return (token.new_empty(0), *(b for x in xs for b in _shards(mesh, x, dim)))
+
+    @staticmethod
+    def backward(ctx, g_token, *gs):
+        mesh, n = ctx.mesh, len(ctx.mesh.local)
+        mine = {(f, j): g for f in range(len(ctx.like))
+                for j, g in zip(mesh.local, gs[f * n:(f + 1) * n])}
+        items = [((f, j), mesh.owners[j], shape, dtype)
+                 for f, (shape, dtype, _) in enumerate(ctx.like) for j in range(mesh.size)]
+        got = exchange(items, mine, ctx.like[0][2])
+        return (None, None, torch.zeros_like(g_token),
+                *(torch.cat([got[f, j].to(device) for j in range(mesh.size)], dim=ctx.dim)
+                  for f, (_, _, device) in enumerate(ctx.like)))
+
+
+class _GatherWhole(Function):
+    """The one-axis ``mesh``'s output blocks concatenated along ``dim``, on
+    every process (every process takes part): this process's members'
+    blocks as given, the others' from their owners. Backward keeps each
+    member's own block of the cotangent, the loss over the whole being
+    replicated."""
+
+    @staticmethod
+    def forward(ctx, mesh, dim, shape, dtype, device, token, *mine):
+        ctx.mesh, ctx.dim = mesh, dim
+        got = exchange([(j, mesh.owners[j], shape, dtype) for j in range(mesh.size)],
+                       dict(zip(mesh.local, mine)), device)
+        return torch.cat([got[j].to(device) for j in range(mesh.size)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        blocks = g.chunk(ctx.mesh.size, dim=ctx.dim)
+        return (None, None, None, None, None, g.new_zeros(0),
+                *(blocks[j] for j in ctx.mesh.local))
+
+
+def _across_processes(mesh, attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dim: int):
+    """``attend(qs, ks, vs)`` over the one-axis ``mesh``'s blocks of whole
+    tensors every process holds, whose members span processes: each process
+    cuts out its members' blocks, runs ``attend`` on them (a plain list when
+    it holds the whole group, a :class:`Members` of its share otherwise,
+    nothing when it holds none), and gets the whole output back."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    token = torch.zeros(0, device=q.device, requires_grad=grad)
+    token, *blocks = _ScatterWhole.apply(mesh, dim, token, q, k, v)
+    n = len(mesh.local)
+    outs = []
+    if n:
+        lists = [blocks[f * n:(f + 1) * n] for f in range(3)]
+        if n < mesh.size:
+            lists = [Members(b, mesh.layout("sp", 0)) for b in lists]
+        outs = attend(*lists)
+    shape = tuple(q.chunk(mesh.size, dim=dim)[0].shape)
+    return _GatherWhole.apply(mesh, dim, shape, q.dtype, q.device, token, *outs)
 
 
 def _sp_mesh(mesh, at: dict | None = None):
@@ -314,29 +409,37 @@ class RingShards(torch.autograd.Function):
     forward saves only each shard's q, k, v, o and per-row logsumexp; the
     backward re-rotates k/v around the ring and recomputes each pair's
     probabilities from that lse, so no (T/P, T/P) block outlives its step.
-    Inputs are the P q shards, then the P k and the P v shards."""
+    Inputs are the q shards, then the k and the v shards: every shard of
+    the ring (``group`` None), or this process's shards of a ring split
+    between processes (``group`` its layout), whose rotations then cross
+    processes forward and backward."""
 
     @staticmethod
-    def forward(ctx, p, causal, window, backend, *qkv):
-        qs, ks, vs = qkv[:p], qkv[p:2 * p], qkv[2 * p:]
+    def forward(ctx, group, causal, window, backend, *qkv):
+        p = len(qkv) // 3
+        qs, ks, vs = (_listed(qkv[f * p:(f + 1) * p], group) for f in range(3))
         block = qs[0].shape[-2]
         outs, lses = _ring_local_fwd(qs, ks, vs, block=block, causal=causal, window=window,
                                      backend=backend)
         ctx.save_for_backward(*qkv, *outs, *lses)
-        ctx.p, ctx.causal, ctx.window, ctx.backend = p, causal, window, backend
+        ctx.group, ctx.causal, ctx.window, ctx.backend = group, causal, window, backend
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *dos):
-        p = ctx.p
+        p, group = len(dos), ctx.group
         saved = ctx.saved_tensors
-        qs, ks, vs = saved[:p], saved[p:2 * p], saved[2 * p:3 * p]
+        qs, ks, vs = (_listed(saved[f * p:(f + 1) * p], group) for f in range(3))
         outs, lses = saved[3 * p:4 * p], saved[4 * p:]
         dq, dk, dv = _ring_local_bwd(
             qs, ks, vs, outs, lses, [d.contiguous() for d in dos], block=qs[0].shape[-2],
             causal=ctx.causal, window=ctx.window, backend=ctx.backend,
         )
         return (None, None, None, None, *dq, *dk, *dv)
+
+
+def _listed(xs, group) -> list:
+    return list(xs) if group is None else Members(xs, group)
 
 
 def _check_window(causal: bool, window) -> None:
@@ -351,8 +454,9 @@ def ring_attention_members(qs: list, ks: list, vs: list, causal: bool = False,
                            window: int | None = None, backend: str = "flash") -> list:
     """Ring attention over P members' shards: ``qs[j]`` (..., T/P, d) holds
     rows ``j*T/P ..`` on member ``j``'s device, ``ks``/``vs`` likewise
-    (GQA: fewer heads on dim -3). Returns each member's output shard, on
-    its device; differentiable through :class:`RingShards`."""
+    (GQA: fewer heads on dim -3); a :class:`Members` holds this process's
+    shards of a ring split between processes. Returns each member's output
+    shard, on its device; differentiable through :class:`RingShards`."""
     _check_window(causal, window)
     q = qs[0]
     if q.ndim >= 3 and ks[0].shape[-3] != q.shape[-3] and q.shape[-3] % ks[0].shape[-3]:
@@ -364,8 +468,9 @@ def ring_attention_members(qs: list, ks: list, vs: list, causal: bool = False,
         raise ValueError(f"backend must be 'flash' or 'einsum', got {backend!r}")
     if backend == "flash":
         check_backward_head_dim(q, ks[0], vs[0])
+    group = qs.group if isinstance(qs, Members) else None
     qs, ks, vs = ([x.contiguous() for x in xs] for xs in (qs, ks, vs))
-    return list(RingShards.apply(len(qs), causal, window, backend, *qs, *ks, *vs))
+    return _listed(RingShards.apply(group, causal, window, backend, *qs, *ks, *vs), group)
 
 
 def ring_attention(
@@ -390,17 +495,21 @@ def ring_attention(
     rotations (:func:`_ring_steps`). ``backend="flash"`` (the default) runs
     every pair on the flash kernels, ``"einsum"`` the plain block path; on
     the card at a head dim only the forward kernel takes (128), a flash
-    call whose inputs require a gradient raises before it launches."""
-    refuse_across_processes(mesh, "ring attention")
+    call whose inputs require a gradient raises before it launches. On a
+    mesh over processes every process passes the whole tensors and gets
+    the whole output (and q, k and v their whole gradients); each runs the
+    pairs of its own members."""
+    across = mesh.crosses_processes
     mesh = _sp_mesh(mesh)
     p_size = mesh.shape["sp"]
     t = q.shape[-2]
     if t % p_size:
         raise ValueError(f"sequence length {t} not divisible by sp={p_size}")
-    outs = ring_attention_members(
-        *(_shards(mesh, x, -2) for x in (q, k, v)), causal=causal, window=window,
-        backend=backend,
-    )
+    kw = dict(causal=causal, window=window, backend=backend)
+    if across:
+        return _across_processes(
+            mesh, lambda qs, ks, vs: ring_attention_members(qs, ks, vs, **kw), q, k, v, -2)
+    outs = ring_attention_members(*(_shards(mesh, x, -2) for x in (q, k, v)), **kw)
     return torch.cat([o.to(q.device) for o in outs], dim=-2)
 
 
@@ -411,23 +520,25 @@ def ulysses_attention_members(qs: list, ks: list, vs: list, causal: bool = False
     whole sequence of ``H'/P`` heads, :func:`flash_attention` (or
     ``full_attention`` for ``backend="full"``) runs on them, an all-to-all
     trades back. kv heads that do not split P ways are broadcast to the q
-    heads first (whole GQA groups, so each q head keeps its kv head)."""
+    heads first (whole GQA groups, so each q head keeps its kv head). A
+    :class:`Members` holds this process's shards of a group split between
+    processes; its exchanges cross them."""
 
     from .flash_attention import flash_attention
 
     _check_window(causal, window)
-    p = len(qs)
+    p = group_size(qs)
     h, hkv = qs[0].shape[-3], ks[0].shape[-3]
     if h % hkv:
         raise ValueError(f"GQA q heads must be a multiple of kv heads; got {h} vs {hkv}")
     if h % p:
         raise ValueError(f"per-device heads {h} not divisible by sp={p}")
     if hkv % p:
-        ks = [k.repeat_interleave(h // hkv, dim=-3) for k in ks]
-        vs = [v.repeat_interleave(h // hkv, dim=-3) for v in vs]
+        ks = like(ks, [k.repeat_interleave(h // hkv, dim=-3) for k in ks])
+        vs = like(vs, [v.repeat_interleave(h // hkv, dim=-3) for v in vs])
     attend = flash_attention if backend == "flash" else full_attention
     qh, kh, vh = (all_to_all(xs, split_dim=-3, concat_dim=-2) for xs in (qs, ks, vs))
-    att = [attend(q, k, v, causal=causal, window=window) for q, k, v in zip(qh, kh, vh)]
+    att = like(qh, [attend(q, k, v, causal=causal, window=window) for q, k, v in zip(qh, kh, vh)])
     return all_to_all(att, split_dim=-2, concat_dim=-3)
 
 
@@ -449,10 +560,11 @@ def ulysses_attention(
     do not split over tp they are broadcast to H first; otherwise the
     exchange stays at kv-head width when ``(Hkv / tp) % P == 0`` and
     broadcasts the groups inside each member when not. ``window`` requires
-    ``causal``. The output is whole, on q's device."""
+    ``causal``. The output is whole, on q's device; on a mesh over
+    processes every process passes the whole tensors and gets the whole
+    output, each running its own members' exchanges and kernels."""
     if axis != "sp":
         raise ValueError(f"Ulysses runs over the 'sp' axis, got {axis!r}")
-    refuse_across_processes(mesh, "Ulysses attention")
     p_size = mesh.shape[axis]
     b, h, t, d = q.shape
     hkv = k.shape[1]
@@ -472,15 +584,20 @@ def ulysses_attention(
     if backend not in ("flash", "full"):
         raise ValueError(f"backend must be 'flash' or 'full', got {backend!r}")
     kv_local = hkv // tp
+    kw = dict(causal=causal, window=window, backend=backend)
     outs = []
     for i in range(tp):
         sub = _sp_mesh(mesh, {"tp": i})
         heads = slice(i * h_local, (i + 1) * h_local)
         kv_heads = slice(i * kv_local, (i + 1) * kv_local)
+        qi, ki, vi = q[:, heads], k[:, kv_heads], v[:, kv_heads]
+        if mesh.crosses_processes:
+            outs.append(_across_processes(
+                sub, lambda qs, ks, vs: ulysses_attention_members(qs, ks, vs, **kw), qi, ki, vi,
+                -2))
+            continue
         shards = ulysses_attention_members(
-            _shards(sub, q[:, heads], -2), _shards(sub, k[:, kv_heads], -2),
-            _shards(sub, v[:, kv_heads], -2), causal=causal, window=window, backend=backend,
-        )
+            _shards(sub, qi, -2), _shards(sub, ki, -2), _shards(sub, vi, -2), **kw)
         outs.append(torch.cat([o.to(q.device) for o in shards], dim=-2))
     return torch.cat(outs, dim=1)
 

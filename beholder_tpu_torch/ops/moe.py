@@ -28,7 +28,12 @@ along E over ``ep`` (:func:`expert_spec`) and the groups over the mesh's
 token shards (dp x ep): each member routes its own groups, the dispatched
 tokens go to the members that hold their experts by an all-to-all (split E,
 concatenate groups), the expert outputs come back by the reverse exchange,
-and the combined groups are all-gathered again.
+and the combined groups are all-gathered again. On a mesh over processes
+each process routes and runs the experts of its own members; the
+exchanges along ``ep`` and the sums along ``dp`` cross processes where
+their groups do (:func:`~beholder_tpu_torch.parallel.collectives.along`),
+and the counts summed over every member come from every process, folded in
+member order.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from beholder_tpu_torch.parallel.collectives import (
     along,
     gather_from_members,
     member_sum,
-    refuse_across_processes,
+    process_gather,
     scatter_to_members,
     tp_all_reduce,
 )
@@ -191,7 +196,6 @@ class SwitchFFN(nn.Module):
         also keeps its ``groups`` (G', S, D) and their ``dispatch``
         one-hots, detached, for checks."""
         self._check()
-        refuse_across_processes(mesh, "MoE expert parallelism")
         if set(mesh.axis_names) - {"dp", "ep"}:
             raise ValueError(f"the MoE layer shards over dp and ep only, got {mesh.axis_names}")
         ep = mesh.shape.get("ep", 1)
@@ -235,13 +239,14 @@ class SwitchFFN(nn.Module):
         parts = [r.parts for r in routes]
         z = along(mesh, "ep", tp_all_reduce, [p["z2"] for p in parts])
         z = [v * (dp / n) for v in z]                 # the row's share, n / dp rows
-        count = {k: member_sum([p[k].detach() for p in parts])
-                 for k in ("assigned", "picked") if k in parts[0]}
+        counted = [k for k in ("assigned", "picked", "frac_tokens") if k in parts[0]]
+        every = _every_member(mesh, [[p[k].detach() for k in counted] for p in parts])
+        count = {k: member_sum([m[c] for m in every]) for c, k in enumerate(counted)}
         fracs = None
         if "frac_probs" in parts[0]:
             fp = along(mesh, "dp", all_reduce,
                        along(mesh, "ep", tp_all_reduce, [p["frac_probs"] for p in parts]))
-            ft = member_sum([p["frac_tokens"] for p in parts])
+            ft = count["frac_tokens"]
             fracs = [(ft.to(f.device) / n, f / n) for f in fp]
         for m, out in enumerate(terms):
             out["router_z_loss"] = z[m]
@@ -253,6 +258,16 @@ class SwitchFFN(nn.Module):
                 out["drop_fraction"] = 1.0 - count["assigned"].to(dev) / (n * self.router_topk)
             if "picked" in count:
                 out["unrouted_fraction"] = 1.0 - count["picked"].to(dev) / n
+
+
+def _every_member(mesh, local: list) -> list:
+    """Every mesh member's list of tensors, in member order: ``local`` (one
+    list a member this process holds) as it is on a one-process mesh, else
+    gathered from every process
+    (:func:`~beholder_tpu_torch.parallel.collectives.process_gather`)."""
+    if not mesh.crosses_processes:
+        return local
+    return process_gather(mesh, local)
 
 
 class _Route:

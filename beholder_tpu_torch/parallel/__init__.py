@@ -9,10 +9,11 @@ and the multi-process runtime's entry (:func:`initialize`, a
 ``torch.distributed`` process group) with the hybrid ``(dp, tp)`` mesh
 (:func:`make_hybrid_mesh`), which spans every process of the group: ``dp``
 across processes, ``tp`` inside each. One process drives every member it
-holds; on a mesh over processes the sharded steps and ZeRO sum over ``dp``
-by a gather and a fold in member order (:func:`process_gather`), bitwise the
-one-process mesh, and MoE, the pipelines, sharded serving and ring or
-Ulysses attention refuse it (``parallel/distributed.py``)."""
+holds; on a mesh over processes every path runs (the sharded steps, ZeRO,
+MoE, the pipelines, sharded serving, ring and Ulysses attention), each
+process computing its own members, the collectives of a group split
+between processes moving bytes and folding sums in member order
+(:func:`along`, :func:`process_gather`), bitwise the one-process mesh."""
 
 from .collectives import (
     all_gather,

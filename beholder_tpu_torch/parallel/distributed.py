@@ -14,10 +14,15 @@ port's counterpart of the reference's ``parallel/distributed.py``.
    ``dp`` gather across processes in member order, so the model code does
    not change.
 
-A mesh over processes takes the sharded steps and ZeRO. MoE, the
-pipelines, sharded serving and ring or Ulysses attention need collectives
-across processes inside a forward, which are not ported; each raises
-``NotImplementedError`` on such a mesh.
+Every path runs on a mesh over processes: the sharded steps and ZeRO, MoE
+expert parallelism, GPipe and 1F1B, dp-sharded serving, and ring and
+Ulysses attention. Each process computes its own members only; the
+collectives of a group split between processes move bytes through the
+process group and repeat the one-process member-order sums
+(:mod:`~beholder_tpu_torch.parallel.collectives`), so the results are
+bitwise the one-process mesh's. Any mesh over processes is a ``Mesh`` given
+``owners`` (one rank a member, row-major) and this process's ``rank``;
+:func:`make_hybrid_mesh` lays out two axes with the first across processes.
 """
 
 from __future__ import annotations

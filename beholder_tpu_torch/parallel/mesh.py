@@ -10,17 +10,22 @@ differentiable op with a fixed member order
 (the counterpart of the virtual CPU devices the reference's tests use);
 such a mesh moves no bytes between devices.
 
-A mesh may span processes (:func:`~.distributed.make_hybrid_mesh`, the
-counterpart of JAX's multi-controller mesh): ``owners`` names each
-member's process, and this process holds :attr:`Mesh.local`. The member
-order, :meth:`Mesh.coords`, :meth:`Mesh.groups` and :attr:`Mesh.shape`
-stay global; every list of member tensors lists the local members only, in
-member order. The sharded steps and ZeRO run on such a mesh when it
-crosses processes along ``dp`` alone: each process runs its members'
-forward and backward, and a sum over a group that crosses processes
-gathers every member's tensor from every process and folds them in member
-order (:func:`~.collectives.process_gather`), the same adds on every
-process, so the result is bitwise the one-process mesh's.
+A mesh may span processes (:func:`~.distributed.make_hybrid_mesh`, or a
+``Mesh`` given ``owners``: the counterpart of JAX's multi-controller
+mesh): ``owners`` names each member's process, and this process holds
+:attr:`Mesh.local`. The member order, :meth:`Mesh.coords`,
+:meth:`Mesh.groups` and :attr:`Mesh.shape` stay global; every list of
+member tensors lists the local members only, in member order. Each process
+runs its own members' forward, backward and kernels. A group along an axis
+that is split between processes has a layout (:meth:`Mesh.layout`: its
+member ids, their owners, the process group of those owners, made once
+per mesh), and the collectives run across processes on it
+(:func:`~.collectives.along`), so every path runs on such a mesh with no
+change to the model code. The sharded steps sum gradients over groups that
+cross processes by gathering every member's tensor from every process and
+folding them in member order (:func:`~.collectives.process_gather`), the
+same adds on every process, so the result is bitwise the one-process
+mesh's.
 
 Axes are named from ``dp`` (data), ``tp`` (megatron tensor), ``sp``
 (sequence: ring or Ulysses attention), ``ep`` (experts) and ``pp``
@@ -51,7 +56,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .collectives import member_sum, process_gather
+from .collectives import Group, member_sum, process_gather
 from .sharding import (
     expert_spec,
     mlp_spec,
@@ -100,6 +105,7 @@ class Mesh:
         #: the flat indices of the members this process holds, in order
         self.local = tuple(i for i, o in enumerate(self.owners) if o == rank)
         self._slot = {i: j for j, i in enumerate(self.local)}
+        self._layouts = self._group_layouts() if self.crosses_processes else {}
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -108,6 +114,36 @@ class Mesh:
     def crosses_processes(self) -> bool:
         """Whether members of this mesh live in more than one process."""
         return len(set(self.owners)) > 1
+
+    def _group_layouts(self) -> dict:
+        """``{axis: [a Group or None, one a group of mesh.groups(axis)]}``:
+        the layout of every group split between processes. The process
+        group of a group's owners is made here, once per set of owners, by
+        every process alike (``dist.new_group`` needs them all), and is
+        None when the owners are every process of the default group."""
+        owners = {}
+        for axis in self.axis_names:
+            for group in self.groups(axis):
+                ranks = tuple(sorted({self.owners[i] for i in group}))
+                if len(ranks) > 1:
+                    owners[axis, tuple(group)] = ranks
+        pgs = {ranks: _process_group(ranks) for ranks in sorted(set(owners.values()))}
+        out = {}
+        for axis in self.axis_names:
+            out[axis] = []
+            for group in self.groups(axis):
+                ranks = owners.get((axis, tuple(group)))
+                out[axis].append(None if ranks is None else Group(
+                    group, [self.owners[i] for i in group], self.rank, pgs[ranks]))
+        return out
+
+    def layout(self, axis: str, index: int) -> Group:
+        """The layout of ``groups(axis)[index]``, a group split between
+        processes."""
+        found = self._layouts.get(axis, [None] * (index + 1))[index]
+        if found is None:
+            raise ValueError(f"group {index} along {axis!r} of {self} lies inside one process")
+        return found
 
     def slot(self, i: int) -> int | None:
         """Member ``i``'s position in this process's member lists (None
@@ -161,6 +197,34 @@ class Mesh:
         (dp, tp) member."""
         at = at or {}
         return self.take(**{a: at.get(a, 0) for a in self.axis_names if a != axis})
+
+
+#: the process group of each set of ranks smaller than the default group,
+#: made once in this process (in the same order in every process)
+_PROCESS_GROUPS: dict = {}
+
+
+def _process_group(ranks: tuple):
+    """The process group of ``ranks``: None (the default group) when they
+    are every process or no group was joined, else one made once by every
+    process (``dist.new_group`` with the default group's timeout)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or ranks == tuple(range(dist.get_world_size())):
+        return None
+    if ranks not in _PROCESS_GROUPS:
+        _PROCESS_GROUPS[ranks] = dist.new_group(list(ranks), timeout=_default_timeout())
+    return _PROCESS_GROUPS[ranks]
+
+
+def _default_timeout():
+    """The default group's timeout, so a sub-group's waits are bounded
+    alike."""
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+
+    device = torch.device("cuda" if dist.get_backend() == "nccl" else "cpu")
+    return c10d._get_default_group()._get_backend(device).options._timeout
 
 
 def _visible_devices(devices) -> list:

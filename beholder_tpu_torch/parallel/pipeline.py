@@ -2,11 +2,16 @@
 the reference's ``parallel/pipeline.py`` (the GPipe forward, the 1F1B
 training step, dp x pp, and tensor parallelism inside the stages).
 
-One process runs every stage on its member's device, an activation or a
-cotangent hops to the neighbouring stage with :meth:`~.mesh.Mesh.to`, and
-every sum over members runs in member order
-(:func:`~.collectives.member_sum`). A mesh over processes is refused: its
-hops would cross processes inside the schedule.
+One process runs every stage it holds on its member's device, an
+activation or a cotangent hops to the neighbouring stage with
+:meth:`~.mesh.Mesh.to`, and every sum over members runs in member order
+(:func:`~.collectives.member_sum`). On a mesh over processes each process
+runs the units of the stages it holds (a stage's tp group lies inside one
+process), and at the end of a tick the hops whose two stages lie in
+different processes go in one exchange (:func:`~.collectives.exchange`,
+the bytes unchanged) that every process takes part in; the losses and the
+gradient sums over ``dp`` gather every member's values and fold them in
+member order, so each process gets the one-process mesh's bits.
 
 - Per-stage parameters are stacked along a new leading stage dim
   (:func:`stack_stage_params`, a dict of ``(S, ...)`` tensors) and placed one
@@ -37,8 +42,11 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+from torch.autograd import Function
 
-from .collectives import member_sum, refuse_across_processes
+from .collectives import exchange, member_sum
+from .mesh import every_member
 from .sharding import Spec, shard_tensors, stage_spec, unshard_tensors
 
 
@@ -82,9 +90,11 @@ def stage_shardings(stacked: dict, mesh, axis: str = "pp", specs: dict | None = 
 
 def stack_stage_grads(grads: list, mesh, specs: dict, device=None) -> dict:
     """The whole ``(S, ...)`` gradients from :func:`pipeline_train_step`'s
-    per-member ones (cut under ``specs``), on ``device`` (member 0's when
-    None): a bitwise copy, for comparison."""
-    return unshard_tensors(grads, specs, mesh, device or mesh.devices[0])
+    per-member ones (cut under ``specs``), on ``device`` (this process's
+    first member's when None): a bitwise copy, for comparison. On a mesh
+    over processes every member's come from every process."""
+    return unshard_tensors(every_member(mesh, grads), specs, mesh,
+                           device or mesh.local_devices[0])
 
 
 def split_microbatches(x: torch.Tensor, num_microbatches: int) -> torch.Tensor:
@@ -108,6 +118,140 @@ def bubble_fraction(num_stages: int, num_microbatches: int) -> float:
     return (2 * (s - 1)) / (m + 2 * (s - 1)) if s > 1 else 0.0
 
 
+def _stage_member(mesh, axis: str, i: int) -> int:
+    """The member that runs stage ``i`` of a GPipe: coordinate ``i`` along
+    ``axis``, 0 along the others."""
+    return mesh.coords().index(tuple(i if a == axis else 0 for a in mesh.axis_names))
+
+
+def _sum_pieces(gs: list) -> torch.Tensor:
+    """The whole gradient of a tensor whose pieces along dim 0 were each
+    used once, from the pieces' cotangents: stacked, with autograd's own sum
+    of the zero-padded pieces (each element gets ``+ 0.0``, which turns
+    ``-0.0`` into ``+0.0``) when there is more than one."""
+    whole = torch.stack(gs)
+    return whole + 0.0 if len(gs) > 1 else whole
+
+
+class _Pieces(Function):
+    """The pieces along dim 0 of whole tensors that every process holds:
+    ``plan`` lists ``(tensor, piece, owner, device)`` for every piece.
+    Forward returns the chain token and a copy of each piece this process
+    owns, on its device; backward gathers every piece's cotangent from its
+    owner (every process takes part) and gives each whole tensor its
+    gradient (:func:`_sum_pieces`)."""
+
+    @staticmethod
+    def forward(ctx, plan, token, *whole):
+        ctx.plan, ctx.like = plan, [(t.shape, t.dtype, t.device) for t in whole]
+        me = dist.get_rank()
+        return (token.new_empty(0), *(whole[n][k].to(dev, copy=True)
+                                      for n, k, owner, dev in plan if owner == me))
+
+    @staticmethod
+    def backward(ctx, g_token, *gs):
+        me = dist.get_rank()
+        keys = [(n, k) for n, k, owner, _ in ctx.plan if owner == me]
+        items = [((n, k), owner, tuple(ctx.like[n][0][1:]), ctx.like[n][1])
+                 for n, k, owner, _ in ctx.plan]
+        got = exchange(items, dict(zip(keys, gs)), ctx.like[0][2])
+        return (None, torch.zeros_like(g_token),
+                *(_sum_pieces([got[n, k].to(device) for k in range(shape[0])])
+                  for n, (shape, _, device) in enumerate(ctx.like)))
+
+
+class _Hops(Function):
+    """One tick's hops between processes: ``plan`` lists ``(key, source,
+    destination, shape, dtype)``. Forward sends the tensors this process is
+    the source of and returns the chain token and those it is the
+    destination of, in plan order; backward sends their cotangents back to
+    the sources. Every process takes part in both."""
+
+    @staticmethod
+    def forward(ctx, plan, device, token, *mine):
+        me = dist.get_rank()
+        ctx.plan, ctx.device = plan, device
+        got = exchange([(k, src, shape, dtype) for k, src, _, shape, dtype in plan],
+                       dict(zip([k for k, src, *_ in plan if src == me], mine)), device)
+        return (token.new_empty(0), *(got[k] for k, _, dst, *_ in plan if dst == me))
+
+    @staticmethod
+    def backward(ctx, g_token, *gs):
+        me = dist.get_rank()
+        got = exchange([(k, dst, shape, dtype) for k, _, dst, shape, dtype in ctx.plan],
+                       dict(zip([k for k, _, dst, *_ in ctx.plan if dst == me], gs)),
+                       ctx.device)
+        return (None, None, torch.zeros_like(g_token),
+                *(got[k] for k, src, *_ in ctx.plan if src == me))
+
+
+class _Outputs(Function):
+    """The last stage's M outputs, stacked, on every process: forward
+    gathers them from ``owner``, the last stage's process (every process
+    takes part); backward keeps the owner's own cotangent, the loss over
+    them being replicated."""
+
+    @staticmethod
+    def forward(ctx, owner, shape, dtype, device, token, *mine):
+        ctx.owner, ctx.m = owner, shape[0]
+        got = exchange([(j, owner, tuple(shape[1:]), dtype) for j in range(shape[0])],
+                       dict(enumerate(mine)), device)
+        return torch.stack([got[j] for j in range(shape[0])])
+
+    @staticmethod
+    def backward(ctx, g):
+        mine = tuple(g[j] for j in range(ctx.m)) if dist.get_rank() == ctx.owner else ()
+        return (None, None, None, None, g.new_zeros(0), *mine)
+
+
+def _pipeline_forward_across(stage_fn: Callable, stacked_params: dict, x: torch.Tensor, mesh,
+                             axis: str, s: int) -> tuple[torch.Tensor, int]:
+    """:func:`pipeline_forward` on a mesh over processes: each process runs
+    the units of the stages it holds; a token threads every collective of
+    the call in program order, so autograd reaches each one's backward on
+    every process, in the same (reverse) order."""
+    m, me = x.shape[0], mesh.rank
+    ids = [_stage_member(mesh, axis, i) for i in range(s)]
+    owners = [mesh.owners[k] for k in ids]
+    devices = [mesh.devices[k] for k in ids]
+    names = list(stacked_params)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [x, *stacked_params.values()])
+    token = torch.zeros(0, device=x.device, requires_grad=grad)
+    plan = [(n, i, owners[i], devices[i]) for n in range(len(names)) for i in range(s)]
+    token, *mine = _Pieces.apply(plan, token, *stacked_params.values())
+    params, mine = {}, iter(mine)
+    for n, i, owner, _ in plan:
+        if owner == me:
+            params.setdefault(i, {})[names[n]] = next(mine)
+    home = mesh.local_devices[0] if mesh.local else x.device
+    outs, inbox, units = {}, {}, 0
+    for t in range(m + s - 1):
+        nxt, sends, live = {}, {}, [i for i in range(s) if 0 <= t - i < m]
+        for i in live:
+            if owners[i] != me:
+                continue
+            j = t - i
+            y = stage_fn(params[i], x[j].to(devices[i]) if i == 0 else inbox[i])
+            units += 1
+            if i == s - 1:
+                outs[j] = y
+            elif owners[i + 1] == me:
+                nxt[i + 1] = y.to(devices[i + 1])
+            else:
+                sends[i + 1] = y
+        hops = [(i + 1, owners[i], owners[i + 1], tuple(x.shape[1:]), x.dtype)
+                for i in live if i < s - 1 and owners[i] != owners[i + 1]]
+        if hops:
+            token, *got = _Hops.apply(hops, home, token,
+                                      *(sends[k] for k, src, *_ in hops if src == me))
+            for (k, *_), y in zip([h for h in hops if h[2] == me], got):
+                nxt[k] = y.to(devices[k])
+        inbox = nxt
+    mine = [outs[j].to(x.device) for j in range(m)] if owners[-1] == me else []
+    return _Outputs.apply(owners[-1], tuple(x.shape), x.dtype, x.device, token, *mine), units
+
+
 def pipeline_forward(stage_fn: Callable, stacked_params: dict, x: torch.Tensor, mesh,
                      axis: str = "pp", stats: dict | None = None) -> torch.Tensor:
     """Microbatches through S = ``mesh.shape[axis]`` stages, GPipe's
@@ -118,10 +262,20 @@ def pipeline_forward(stage_fn: Callable, stacked_params: dict, x: torch.Tensor, 
     over ``M + S - 1`` ticks. Returns the last stage's (M, Bm, ...) outputs
     on ``x``'s device: the S stages applied in sequence. Differentiable: the
     gradients flow back through the hops to each stage's slice of
-    ``stacked_params``."""
-    refuse_across_processes(mesh, "a pipeline (GPipe)")
+    ``stacked_params``.
+
+    On a mesh over processes stage ``i`` runs on the process holding its
+    member (coordinate ``i`` along ``axis``, 0 along the others); every
+    process returns the whole outputs, and ``stacked_params`` gets its whole
+    gradient on every process, bitwise the one-process mesh's. ``x`` gets
+    its gradient on the process of stage 0."""
     s = _stage_count(stacked_params, mesh, axis)
     m = x.shape[0]
+    if mesh.crosses_processes:
+        out, units = _pipeline_forward_across(stage_fn, stacked_params, x, mesh, axis, s)
+        if stats is not None:
+            stats.update(ticks=m + s - 1, forward_units=units)
+        return out
     devices = [mesh.device_at({axis: i}) for i in range(s)]
     params = [{n: t[i].to(dev) for n, t in stacked_params.items()}
               for i, dev in enumerate(devices)]
@@ -164,11 +318,15 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
     ``loss_fn(out_mb, y_mb)`` is a scalar, applied on the last stage, whose
     cotangent seeds the backward in the same tick. Returns ``(loss, grads)``:
     the mean of ``loss_fn`` over the microbatches (a 0-d tensor on the last
-    stage's device), and one dict a mesh member of its gradients, each cut like
-    its parameter (leading dim 1) and lying on the member's device, as
-    :func:`stage_shardings` places them; :func:`stack_stage_grads` puts them
-    together. The gradients equal the sequential S stages' under autograd
-    with the same mean-over-microbatches loss.
+    stage's device), and one dict a mesh member this process holds of its
+    gradients, each cut like its parameter (leading dim 1) and lying on the
+    member's device, as :func:`stage_shardings` places them;
+    :func:`stack_stage_grads` puts them together. The gradients equal the
+    sequential S stages' under autograd with the same mean-over-microbatches
+    loss. On a mesh over processes each process runs its own cells (a
+    stage's tp group lies inside one process) and returns the loss (on its
+    first member's device) and its members' gradients, bitwise the
+    one-process mesh's.
 
     ``dp_axis`` (a second axis): each dp replica pipelines its own slice of
     every microbatch (dim 1), and the losses and gradients are summed over
@@ -183,7 +341,6 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
     outputs; it runs megatron's pair, :func:`~.collectives.tp_replicate`
     before a column-parallel product and :func:`~.collectives.tp_all_reduce`
     after a row-parallel one, and the gradients come back tp-split."""
-    refuse_across_processes(mesh, "a pipeline (1F1B)")
     s = mesh.shape[axis]
     m = x.shape[0]
     if y.shape[0] != m:
@@ -205,12 +362,23 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
     tp = "tp" in mesh.axis_names
     specs = param_specs if param_specs is not None else stage_specs(stacked_params, axis)
     members = stage_shardings(stacked_params, mesh, axis, specs)
-    # each member's stage leaves (leading dim stripped): plain for the
-    # forward units, leaves with gradients on for the backward units' recompute
-    plain = [{n: t[0] for n, t in p.items()} for p in members]
-    leaves = [{n: t.detach().requires_grad_() for n, t in p.items()} for p in plain]
-    gacc = [{n: torch.zeros_like(t, dtype=torch.float32) for n, t in p.items()} for p in plain]
+    # each local member's stage leaves (leading dim stripped), by member id:
+    # plain for the forward units, leaves with gradients on for the backward
+    # units' recompute
+    plain = {k: {n: t[0] for n, t in p.items()} for k, p in zip(mesh.local, members)}
+    leaves = {k: {n: t.detach().requires_grad_() for n, t in p.items()} for k, p in plain.items()}
+    gacc = {k: {n: torch.zeros_like(t, dtype=torch.float32) for n, t in p.items()}
+            for k, p in plain.items()}
     cells = _cells(mesh, axis, dp_axis)
+    owner = {}
+    for c, group in cells.items():
+        held = {mesh.owners[k] for k in group}
+        if len(held) > 1:
+            raise ValueError(f"stage {c[1]} of dp replica {c[0]} is split between processes "
+                             f"{sorted(held)}: a stage's tp group must lie inside one process")
+        owner[c] = held.pop()
+    me = mesh.rank
+    home = mesh.local_devices[0] if mesh.local else x.device
     n_ticks = m + 2 * (s - 1)
     r = min(2 * (s - 1) + 1, m)              # residual ring slots actually reachable
 
@@ -220,14 +388,32 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
     def rows(arr, j, d, group):
         return [arr[j].chunk(dp)[d].to(mesh.devices[k]) for k in group]
 
+    def hops(t: int) -> list:
+        """This tick's hops between two cells of different processes, in
+        cell order: ``((kind, dest cell, member), source, dest, shape,
+        dtype)``; a stage's input, output and input cotangent all take
+        ``x``'s row shape and dtype."""
+        out = []
+        for (d, i), group in cells.items():
+            shape = tuple(x[0].chunk(dp)[d].shape)
+            if 0 <= t - i < m and i < s - 1 and owner[d, i] != owner[d, i + 1]:
+                out += [(("f", (d, i + 1), k), owner[d, i], owner[d, i + 1], shape, x.dtype)
+                        for k in range(len(group))]
+            if 0 <= t - 2 * (s - 1) + i < m and i > 0 and owner[d, i] != owner[d, i - 1]:
+                out += [(("b", (d, i - 1), k), owner[d, i], owner[d, i - 1], shape, x.dtype)
+                        for k in range(len(group))]
+        return out
+
     ring = {c: {} for c in cells}
     lacc = [0.0] * dp
     fwd_in, bwd_in = {}, {}
     f_units = b_units = peak = 0
     with torch.enable_grad():
         for t in range(n_ticks):
-            f_next, b_next = {}, {}
+            f_next, b_next, sends = {}, {}, {}
             for (d, i), group in cells.items():
+                if owner[d, i] != me:
+                    continue
                 seed = None
                 jf = t - i
                 if 0 <= jf < m:
@@ -246,9 +432,11 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
                             seed.append(torch.autograd.grad(loss, o)[0])
                             if k == 0:
                                 lacc[d] = lacc[d] + loss.detach().float()
-                    else:
+                    elif owner[d, i + 1] == me:
                         nxt = cells[(d, i + 1)]
                         f_next[(d, i + 1)] = [o.to(mesh.devices[k]) for o, k in zip(out, nxt)]
+                    else:
+                        sends.update({("f", (d, i + 1), k): o.detach() for k, o in enumerate(out)})
                 jb = t - 2 * (s - 1) + i
                 if 0 <= jb < m:
                     x_res = [v.detach().requires_grad_() for v in ring[(d, i)].pop(jb % r)]
@@ -263,20 +451,43 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
                             gacc[k][n] += grads[pos].float()
                             pos += 1
                     b_units += 1
-                    if i > 0:
+                    if i > 0 and owner[d, i - 1] == me:
                         prev = cells[(d, i - 1)]
                         b_next[(d, i - 1)] = [g.to(mesh.devices[k])
                                               for g, k in zip(grads[pos:], prev)]
+                    elif i > 0:
+                        sends.update({("b", (d, i - 1), k): g for k, g in enumerate(grads[pos:])})
+            plan = hops(t) if mesh.crosses_processes else []
+            if plan:
+                got = exchange([(key, src, shape, dtype) for key, src, _, shape, dtype in plan],
+                               sends, home)
+                for (kind, c, k), _, dst, *_ in plan:
+                    if dst == me:
+                        into = f_next if kind == "f" else b_next
+                        into.setdefault(c, [None] * len(cells[c]))[k] = \
+                            got[kind, c, k].to(mesh.devices[cells[c][k]])
             fwd_in, bwd_in = f_next, b_next
+    if mesh.crosses_processes:
+        mine = {d: lacc[d] for d in range(dp) if owner[d, s - 1] == me}
+        got = exchange([(d, owner[d, s - 1], (), torch.float32) for d in range(dp)], mine, home)
+        lacc = [got[d] for d in range(dp)]
     loss = member_sum(lacc) / (m * dp)
-    out_grads = [{} for _ in range(mesh.size)]
     # each member with its dp replicas (alone without dp_axis)
-    for group in mesh.groups(dp_axis):
-        for n in gacc[group[0]]:
-            total = member_sum([gacc[k][n] for k in group]) / (m * dp)
-            for k in group:
+    groups = mesh.groups(dp_axis)
+    every = gacc
+    if any(len({mesh.owners[k] for k in group}) > 1 for group in groups):
+        every = dict(enumerate(every_member(mesh, [gacc[k] for k in mesh.local])))
+    out_grads = {}
+    for group in groups:
+        local = [k for k in group if mesh.slot(k) is not None]
+        if not local:
+            continue
+        for n in gacc[local[0]]:
+            total = member_sum([every[k][n] for k in group]) / (m * dp)
+            for k in local:
                 dev, dtype = mesh.devices[k], plain[k][n].dtype
-                out_grads[k][n] = total.to(dev, dtype, copy=True)[None]
+                out_grads.setdefault(k, {})[n] = total.to(dev, dtype, copy=True)[None]
+    out_grads = [out_grads[k] for k in mesh.local]
     if stats is not None:
         stats.update(ticks=n_ticks, forward_units=f_units, backward_units=b_units,
                      residual_peak=peak)

@@ -192,8 +192,8 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    e's expected ones, launches == flushes in this process (a-g but c),
    messages/s (host wall, end to end);
 7. sharded training (``parallel_path``, ``beholder_tpu_torch.parallel``,
-   every mesh member on this card; last, with the two phases after it,
-   after every profiled gate): the
+   every mesh member on this card; last, with the phases after it, after
+   every profiled gate): the
    anomaly MLP on (dp, tp) = (4, 2); the headline model (flash) on (2, 2)
    with ``seq_shard`` off and on (bytes saved for the backward per member
    each way), on (dp, tp, sp) = (2, 2, 2) with Ulysses and with ring
@@ -203,21 +203,7 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    the unsharded routing of its tokens. Each cell 3 steps, each against the
    unsharded step from the same state on the same inputs within the
    reference's band, losses falling at every step, dp replicas bitwise,
-   shard shapes, flash launches exact; step ms each way; then the mesh
-   over processes (``multiprocess_path``): two child processes of this
-   script on this card (``--mp-child``), each a rank of a gloo group on a
-   free local port that loads the kernels phase 2 built, without
-   rebuilding them, and holds its half of the global mesh of the MLP (4,
-   2), the headline model (flash) on (2, 2) with ``seq_shard`` off and on,
-   ZeRO-2 and ZeRO-3 + remat on dp = 4 (``make_hybrid_mesh``: dp across
-   the processes, tp inside each); each cell's losses and the per-leaf
-   digest of its gathered params and Adam moments bitwise the other
-   child's and the one-process cell's above, each child's flash launches
-   exactly its members' share, a planted control (rank 1 given rank 0's dp
-   rows) failing that gate, a child that fails or outlives MP_LIMIT_S
-   failing the run (both killed); step ms per child beside the one-process
-   step; then a probe of two NCCL ranks on the one card (its error
-   recorded); then pipeline
+   shard shapes, flash launches exact; step ms each way; then pipeline
    parallelism (``pipeline_path``): the same model's four blocks as the
    stages of the 1F1B step on pp = 4 (M = 4), (dp, pp) = (2, 2) and (dp,
    pp, tp) = (2, 2, 2) (two megatron blocks a stage, M = 2), and of the
@@ -230,6 +216,26 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    4 with flash attention (cache shard shapes, a teacher-forced rollout in
    the reference's band, eta and reached equal to the unsharded
    ``forecast_eta``, no synchronising call, prefill flash launches); then
+   the mesh over processes (``multiprocess_path``): two child processes of
+   this script on this card (``--mp-child``), each a rank of a gloo group
+   on a free local port that loads the kernels phase 2 built, without
+   rebuilding them, and holds its half of the global mesh of the MLP (4,
+   2), the headline model (flash) on (2, 2) with ``seq_shard`` off and on,
+   ZeRO-2 and ZeRO-3 + remat on dp = 4 (``make_hybrid_mesh``: dp across
+   the processes, tp inside each), and of the cells whose collectives
+   cross processes inside a forward: MoE top-2 on (dp, ep) = (2, 2) cut
+   along dp and along ep, 1F1B and GPipe on pp = 4 (stages 0-1 and 2-3),
+   dp-sharded flash serving of the 8 streams on dp = 4 (horizon 64), ring
+   and Ulysses on (dp, tp, sp) = (2, 2, 2) cut along sp; each cell's
+   losses and digests (per-leaf params and Adam moments, the pipelines'
+   gradients, serving's fed-back deltas) bitwise the other child's and the
+   one-process cell's above, each child's flash launches (and the ring's
+   offset-mode ones) exactly its members' share, two planted controls
+   (rank 1 given rank 0's dp rows; rank 1 keeping the k block it sent in
+   its first ring hop) failing that gate, a child that fails or outlives
+   MP_LIMIT_S failing the run (both killed); step ms (serving: ms a
+   rollout) per child beside the one-process figure; then a probe of two
+   NCCL ranks on the one card (its error recorded); then
    the measurement tooling (``tooling_path``): the serving profile
    (``beholder_tpu_torch.tools.profile_serving.main()`` at the reference's
    defaults but a 32-step horizon, the headline model at full width: five
@@ -4732,6 +4738,19 @@ def leaf_errors(torch, got: dict, want: dict) -> dict:
             for n, w in want.items()}
 
 
+def tensors_digest(torch, tensors) -> str:
+    """The sha256 of the tensors' shapes, dtypes and bytes, in order (read
+    back to the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(str((tuple(t.shape), t.dtype)).encode())
+        t = t.detach().cpu().reshape(-1).clone(memory_format=torch.contiguous_format)
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def state_digest(torch, state) -> dict:
     """Per leaf of a whole training state, the sha256 of its parameter's and
     Adam moments' bytes (read back to the host)."""
@@ -4981,7 +5000,7 @@ def parallel_path(torch) -> dict:
             torch, fa, name, PARALLEL_BANDS[key],
             seq_state(attention=attention, mesh=mesh3, seq_shard=True),
             lambda s: place_seq_state(s, mesh3), sharded_seq_train_step, seq_train_step,
-            (feats, targets), launches=want, extra=q_shard(2))
+            (feats, targets), launches=want, extra=q_shard(2), digest=True)
 
     # 4. ZeRO-2 (flash) and ZeRO-3 (flash + remat) on dp = 4, bitwise plain dp
     dp_mesh = card_mesh((4,), ("dp",))
@@ -5035,7 +5054,7 @@ def parallel_path(torch) -> dict:
         report[name] = parallel_cell(
             torch, fa, name, PARALLEL_BANDS[key], make, lambda s: place_seq_state(s, ep_mesh),
             sharded_seq_train_step, seq_train_step, (feats, targets), launches=moe_launch,
-            extra=moe_extra)
+            extra=moe_extra, digest=kw.get("moe_topk") == 2)
         m = report[name]["metrics"]
         print(f"parallel {name}: dispatch bitwise the unsharded routing "
               f"({report[name]['dispatch_entries']} one-hot entries); "
@@ -5071,8 +5090,26 @@ MP_CELLS = {
 #: the planted control's cell: rank 1 passes the batch rolled by half, so it
 #: trains rank 0's dp rows
 MP_PLANT = "mlp dp=4 tp=2"
-#: seconds both children may take, start to exit (about 60 expected)
-MP_LIMIT_S = 420
+#: the collectives across processes inside a forward, at full width: leg
+#: cell -> (the phase and cell of the one-process run it is held to, kind,
+#: each member's process in row-major order; None: make_hybrid_mesh(2),
+#: dp across the processes)
+MP_FORWARD_CELLS = {
+    "moe dp=2 ep=2 top2 along dp": ("parallel", "moe dp=2 ep=2 top2", "moe", None),
+    "moe dp=2 ep=2 top2 along ep": ("parallel", "moe dp=2 ep=2 top2", "moe", (0, 1, 0, 1)),
+    "1f1b pp=4 M=4": ("pipeline", "pp=4 M=4", "1f1b", (0, 0, 1, 1)),
+    "gpipe pp=4 M=4": ("pipeline", "gpipe pp=4 M=4", "gpipe", (0, 0, 1, 1)),
+    "serving dp=4 flash": ("sharded_serving", "dp=4 flash", "serving", (0, 0, 1, 1)),
+    "ring dp=2 tp=2 sp=2 along sp": ("parallel", "ring dp=2 tp=2 sp=2 seq_shard=on", "ring",
+                                     (0, 1) * 4),
+    "ulysses dp=2 tp=2 sp=2 along sp": ("parallel", "ulysses dp=2 tp=2 sp=2 seq_shard=on",
+                                        "ulysses", (0, 1) * 4),
+}
+#: the second planted control's cell: rank 1 keeps the k block it sent in
+#: its first ring hop between processes where it should take the received
+MP_PLANT_RING = "ring dp=2 tp=2 sp=2 along sp"
+#: seconds both children may take, start to exit (about 150 expected)
+MP_LIMIT_S = 480
 #: seconds the gloo rendezvous and each collective may take in a child
 MP_TIMEOUT_S = 300
 #: seconds the two-rank NCCL probe on one card may take before it is killed
@@ -5135,6 +5172,132 @@ def mp_run_cell(torch, fa, name: str, rank: int, plant: bool = False) -> dict:
                 step_ms=[a.elapsed_time(b) for a, b in events])
 
 
+class PlantedHop:
+    """Within it, rank 1 keeps, in its first ring hop between processes,
+    the k block it sent where it should take the one it received (the hop
+    still runs, so the other rank does not wait)."""
+
+    def __init__(self, rank: int):
+        from beholder_tpu_torch.ops import attention
+
+        self.attention, self.rank, self.real = attention, rank, attention._rotate
+
+    def __enter__(self):
+        from beholder_tpu_torch.parallel.collectives import Members
+
+        done = []
+
+        def rotate(blocks):
+            out = self.real(blocks)
+            if self.rank == 1 and not done and isinstance(blocks, Members):
+                done.append(True)
+                return Members(list(blocks), blocks.group)
+            return out
+
+        self.attention._rotate = rotate
+        return self
+
+    def __exit__(self, *exc):
+        self.attention._rotate = self.real
+
+
+def mp_forward_cell(torch, fa, name: str, rank: int) -> dict:
+    """A leg cell of MP_FORWARD_CELLS on its mesh over the group, from the
+    one-process phase's seeds and inputs: the losses (serving: none), the
+    digest the one-process phase records (a training cell's per-leaf
+    state digest; the pipelines' losses and gradients; serving's fed-back
+    deltas), this process's flash launches (all and offset-mode) and its
+    step ms (serving: ms a rollout)."""
+    from beholder_tpu_torch.models import pipeline_stages
+    from beholder_tpu_torch.parallel import (
+        Mesh, gather_state, make_hybrid_mesh, pipeline_forward, pipeline_train_step,
+        place_seq_state, sharded_seq_train_step, split_microbatches, stack_stage_grads,
+        stack_stage_params, stage_specs,
+    )
+
+    _, _, kind, owners = MP_FORWARD_CELLS[name]
+    shape, names = {"moe": ((2, 2), ("dp", "ep")), "1f1b": ((4,), ("pp",)),
+                    "gpipe": ((4,), ("pp",)), "serving": ((4,), ("dp",)),
+                    "ring": ((2, 2, 2), ("dp", "tp", "sp")),
+                    "ulysses": ((2, 2, 2), ("dp", "tp", "sp"))}[kind]
+    if owners is None:
+        mesh = make_hybrid_mesh(shape[1], names, devices=[CARD] * (int(np.prod(shape)) // 2))
+    else:
+        mesh = Mesh(np.full(shape, CARD, dtype=object).tolist(), names, owners=owners,
+                    rank=rank)
+    check(mesh.crosses_processes and len(mesh.local) == mesh.size // MP_WORLD,
+          f"multiprocess {name}: rank {rank} holds members {mesh.local} of {mesh.shape}")
+    events, losses = [], []
+    if kind in ("moe", "ring", "ulysses"):
+        kw = (dict(ffn="moe", num_experts=4, moe_topk=2) if kind == "moe"
+              else dict(attention=kind, seq_shard=True))
+        state = place_seq_state(parallel_seq_state(mesh=mesh, **kw)(), mesh)
+        data = train_streams(torch, 0, TRAIN_B, TRAIN_T)
+
+        def run():
+            nonlocal state
+            for _ in range(PARALLEL_STEPS):
+                state, loss, ev = timed_step(torch, sharded_seq_train_step, state, *data)
+                losses.append(loss)
+                events.append(ev)
+
+        _, counts, offsets = counted_flash(torch, fa, run)
+        digest = state_digest(torch, gather_state(state))
+        del state
+    elif kind in ("1f1b", "gpipe"):
+        model, h, targets, loss_fn = pipe_setup(torch)
+        stage_fn, stage_params = pipeline_stages(model, 4)
+        stacked = stack_stage_params(stage_params)
+        specs = stage_specs(stacked)
+        x, y = split_microbatches(h, 4), split_microbatches(targets, 4)
+        grads = {}
+
+        def run():
+            nonlocal grads
+            for _ in range(PIPE_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                if kind == "1f1b":
+                    loss, grads = pipeline_train_step(stage_fn, loss_fn, stacked, x, y, mesh,
+                                                      param_specs=specs)
+                else:
+                    loss, grads = gpipe_step(torch, pipeline_forward, stage_fn, stacked, x, y,
+                                             mesh, loss_fn)
+                end.record()
+                losses.append(loss)
+                events.append((start, end))
+
+        _, counts, offsets = counted_flash(torch, fa, run)
+        if kind == "1f1b":
+            grads = stack_stage_grads(grads, mesh, specs)
+        digest = tensors_digest(torch, [torch.stack(losses), *(grads[n] for n in sorted(grads))])
+        del grads, model, h
+    else:
+        from beholder_tpu_torch.models import (
+            serving_params, sharded_decode_step, sharded_prefill,
+        )
+
+        models, _, _, feats, status_oh = serving_setup(torch, ("flash",))
+        model = models["flash"]
+        params = serving_params(model, mesh)
+        pre = sharded_prefill(model, mesh, SHARD_OBSERVED + SHARD_HORIZON)
+        step = sharded_decode_step(model, mesh)
+        (deltas, ms), counts, offsets = counted_flash(
+            torch, fa, lambda: fed_back(torch, pre, step, params, feats, status_oh,
+                                        SHARD_HORIZON))
+        digest = tensors_digest(torch, [deltas])
+        del params, models
+        torch.cuda.empty_cache()
+        return dict(losses=[], digest=digest, launches=counts, offset_launches=offsets,
+                    ms=[ms])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(losses=torch.stack(losses).cpu().numpy().tolist(), digest=digest,
+                launches=counts, offset_launches=offsets,
+                ms=[a.elapsed_time(b) for a, b in events])
+
+
 def mp_child(rank: int, port: int, out: Path) -> None:
     """A rank of the multi-process leg: the kernels phase 2 built loaded, not
     rebuilt; a gloo group; every MP_CELLS cell, then the planted control;
@@ -5164,9 +5327,17 @@ def mp_child(rank: int, port: int, out: Path) -> None:
         backend = dist.get_backend()
         cells = {name: mp_run_cell(torch, fa, name, rank) for name in MP_CELLS}
         planted = mp_run_cell(torch, fa, MP_PLANT, rank, plant=True)
+        forward = {}
+        for name in MP_FORWARD_CELLS:
+            t0 = time.perf_counter()
+            forward[name] = mp_forward_cell(torch, fa, name, rank)
+            forward[name]["wall_s"] = time.perf_counter() - t0
+        with PlantedHop(rank):
+            planted_ring = mp_forward_cell(torch, fa, MP_PLANT_RING, rank)
     finally:
         dist.destroy_process_group()
     out.write_text(json.dumps(dict(rank=rank, backend=backend, cells=cells, planted=planted,
+                                   forward=forward, planted_ring=planted_ring,
                                    rebuilt=rebuilt, wall_s=time.perf_counter() - t_start)))
 
 
@@ -5232,19 +5403,30 @@ def spawn_children(mode: str, out_dir: Path, limit_s: float) -> tuple[list, floa
     return [p.returncode for p in procs], time.perf_counter() - t0, timed_out
 
 
-def multiprocess_path(torch, parallel: dict, card: str) -> dict:
-    """The mesh over processes (``make_hybrid_mesh`` in a process group) at
-    full width: MP_WORLD children of this script on this card, a gloo group
-    (two NCCL ranks cannot share one card), each holding its share of the
+def multiprocess_path(torch, phases: dict, card: str) -> dict:
+    """The mesh over processes (``make_hybrid_mesh``, or a ``Mesh`` with
+    ``owners``, in a process group) at full width: MP_WORLD children of
+    this script on this card, a gloo group (two NCCL ranks cannot share one
+    card), loading the kernels phase 2 built. Each holds its share of the
     global mesh of parallel_path's MLP, ``seq_shard`` off and on, ZeRO-2 and
-    ZeRO-3 + remat cells (MP_CELLS) and loading the kernels phase 2 built.
-    Gates: both children exit 0 within MP_LIMIT_S (else both are killed);
-    every cell's losses and per-leaf digest of the gathered params and Adam
-    moments bitwise each other's and parallel_path's one-process run; each
-    child's flash launches exactly its members' share; no kernel rebuilt; the
-    planted control (rank 1 given rank 0's dp rows) failing that gate. Then
-    a probe of two NCCL ranks on one card (recorded, not gated). Prints each
-    cell's step ms per child beside the one-process step."""
+    ZeRO-3 + remat cells (MP_CELLS, dp across the processes), and of the
+    cells whose collectives cross processes inside a forward
+    (MP_FORWARD_CELLS): MoE top-2 on (dp, ep) = (2, 2) cut along dp and
+    along ep, 1F1B and GPipe on pp = 4 (stages 0-1 and 2-3), dp-sharded
+    flash serving on dp = 4 (horizon SHARD_HORIZON), ring and Ulysses on
+    (dp, tp, sp) = (2, 2, 2) cut along sp. ``phases`` holds the one-process
+    runs (``parallel``, ``pipeline``, ``sharded_serving``). Gates: both
+    children exit 0 within MP_LIMIT_S (else both are killed); every cell's
+    losses and digests (per-leaf params and Adam moments; the pipelines'
+    losses and gradients; serving's fed-back deltas) bitwise each other's
+    and the one-process run's; each child's flash launches, all and in the
+    ring's offset mode, exactly its members' share; no kernel rebuilt; the
+    two planted controls (rank 1 given rank 0's dp rows; rank 1 keeping
+    the k block it sent in its first ring hop between processes)
+    failing that gate. Then a probe of two NCCL ranks on one card
+    (recorded, not gated). Prints each cell's step ms (serving: ms a
+    rollout) per child beside the one-process figure."""
+    parallel = phases["parallel"]
     t_start = time.perf_counter()
     out_dir = OUT / "multiprocess"
     rcs, wall, timed_out = spawn_children("mp-child", out_dir, MP_LIMIT_S)
@@ -5261,7 +5443,7 @@ def multiprocess_path(torch, parallel: dict, card: str) -> dict:
         want = parallel[key]
         return got["losses"] == want["losses"] and got["digest"] == want["digest"]
 
-    report, totals = {}, [0, 0, 0]
+    report, totals, offsets = {}, [0, 0, 0], [0, 0, 0]
     for name, (key, _, per, _) in MP_CELLS.items():
         want = parallel[key]
         share = tuple(c // MP_WORLD for c in want["launches"])
@@ -5275,6 +5457,7 @@ def multiprocess_path(torch, parallel: dict, card: str) -> dict:
                   f"multiprocess {name}: rank {r} flash launches {got['launches']} offset "
                   f"{got['offset_launches']}, its share {share}")
             totals = [a + b for a, b in zip(totals, got["launches"])]
+            offsets = [a + b for a, b in zip(offsets, got["offset_launches"])]
         ms = [statistics.median(x["cells"][name]["step_ms"]) for x in ranks]
         report[name] = dict(losses=want["losses"], launches_per_rank=share,
                             step_ms=[x["cells"][name]["step_ms"] for x in ranks],
@@ -5296,12 +5479,64 @@ def multiprocess_path(torch, parallel: dict, card: str) -> dict:
     print(f"multiprocess control: rank 1 on rank 0's dp rows fails the gate (losses "
           f"{planted[0]['losses']} vs {parallel[MP_CELLS[MP_PLANT][0]]['losses']}; {differ} of "
           f"{len(planted[0]['digest'])} leaves differ)", flush=True)
+    for name, (phase, key, kind, _) in MP_FORWARD_CELLS.items():
+        want = phases[phase][key]
+        want_launches = tuple(want["launches"])
+        want_offsets = tuple(want.get("offset_launches", (0, 0, 0)))
+        check(all(c % MP_WORLD == 0 for c in want_launches + want_offsets),
+              f"multiprocess {name}: one-process launches {want_launches} offset "
+              f"{want_offsets} do not split")
+        share = tuple(c // MP_WORLD for c in want_launches)
+        off_share = tuple(c // MP_WORLD for c in want_offsets)
+        for r, got in enumerate(x["forward"][name] for x in ranks):
+            digest_ok = (got["digest"] == want["forecast_digest"] if kind == "serving"
+                         else got["digest"] == want["digest"])
+            losses_ok = kind == "serving" or got["losses"] == want["losses"]
+            bad = ([n for n, h in want["digest"].items() if got["digest"].get(n) != h]
+                   if isinstance(want.get("digest"), dict) else [])
+            check(digest_ok and losses_ok,
+                  f"multiprocess {name}: rank {r} not bitwise the one-process {phase} cell "
+                  f"{key}: losses {got['losses']} vs {want.get('losses')}, leaves differing "
+                  f"{bad}")
+            check(tuple(got["launches"]) == share and tuple(got["offset_launches"]) == off_share,
+                  f"multiprocess {name}: rank {r} flash launches {got['launches']} offset "
+                  f"{got['offset_launches']}, its share {share} offset {off_share}")
+            totals = [a + b for a, b in zip(totals, got["launches"])]
+            offsets = [a + b for a, b in zip(offsets, got["offset_launches"])]
+        ms = [statistics.median(x["forward"][name]["ms"]) for x in ranks]
+        one = (want["rollout_ms"] if kind == "serving" else want["step_ms_median"])
+        what = "ms a rollout" if kind == "serving" else "step ms median"
+        report[name] = dict(losses=want.get("losses"), launches_per_rank=share,
+                            offset_launches_per_rank=off_share,
+                            ms=[x["forward"][name]["ms"] for x in ranks], ms_median=ms,
+                            one_process_ms=one,
+                            wall_s=[x["forward"][name]["wall_s"] for x in ranks])
+        print(f"multiprocess {name}: {MP_WORLD} processes bitwise each other and the "
+              f"one-process {phase} cell {key!r}; flash launches a rank {share} offset "
+              f"{off_share}; {what} " + " / ".join(f"rank {r} {m:.2f}" for r, m in enumerate(ms))
+              + f", one process {one:.2f}; {card}", flush=True)
+    ring_planted = [x["planted_ring"] for x in ranks]
+    _, ring_key, _, _ = MP_FORWARD_CELLS[MP_PLANT_RING]
+    ring_want = parallel[ring_key]
+    check(ring_planted[0]["losses"] == ring_planted[1]["losses"]
+          and ring_planted[0]["digest"] == ring_planted[1]["digest"],
+          "multiprocess ring control: the ranks disagree with each other")
+    check(ring_planted[0]["losses"] != ring_want["losses"]
+          and ring_planted[0]["digest"] != ring_want["digest"],
+          "multiprocess ring control: a wrong k hop passed the bitwise gate")
+    ring_differ = sum(h != ring_want["digest"][n] for n, h in ring_planted[0]["digest"].items())
+    print(f"multiprocess ring control: rank 1 keeping its sent k block in the first hop "
+          f"fails the gate (losses {ring_planted[0]['losses']} vs {ring_want['losses']}; "
+          f"{ring_differ} of {len(ring_planted[0]['digest'])} leaves differ)", flush=True)
     check(all(not x["rebuilt"] and x["backend"] == "gloo" for x in ranks),
           f"multiprocess: rebuilt {[x['rebuilt'] for x in ranks]}, "
           f"backends {[x['backend'] for x in ranks]}")
     report.update(children_wall_s=wall, child_wall_s=[x["wall_s"] for x in ranks],
                   control=dict(losses=planted[0]["losses"], leaves_differing=differ),
-                  launches=dict(zip(("fwd", "dq", "dkv"), totals)))
+                  ring_control=dict(losses=ring_planted[0]["losses"],
+                                    leaves_differing=ring_differ),
+                  launches=dict(zip(("fwd", "dq", "dkv"), totals)),
+                  offset_launches=dict(zip(("fwd", "dq", "dkv"), offsets)))
     rcs, probe_wall, probe_timed_out = spawn_children("nccl-probe", out_dir, NCCL_PROBE_S)
     probe = dict(exit_codes=rcs, timed_out=probe_timed_out, wall_s=probe_wall)
     for r in range(MP_WORLD):
@@ -5344,6 +5579,34 @@ def pipe_grad_readings(torch, got: dict, want: dict) -> dict:
                 ok=dry[dry_leaf] <= PIPE_GRAD_ABS and rel[rel_leaf] <= PARALLEL_GRAD_BAND)
 
 
+def pipe_setup(torch):
+    """The pipeline cells' model (the training model, seed 0, frozen), the
+    stage inputs (its ``embed`` of ``train_streams``' features), the
+    targets and the loss (its ``ln`` + ``head`` + MSE)."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel, init_seq_state
+
+    model = init_seq_state(0, TelemetrySequenceModel(**TRAIN_MODEL)).model
+    model.requires_grad_(False)
+    feats, targets = train_streams(torch, 0, TRAIN_B, TRAIN_T)
+    with torch.no_grad():
+        h = model.embed(feats)
+
+    def loss_fn(out, y):
+        pred = model.head(model.ln(out))[..., 0]
+        return ((pred - y) ** 2)[:, :-1].mean()
+
+    return model, h, targets, loss_fn
+
+
+def gpipe_step(torch, pipeline_forward, stage_fn, stacked, x, y, mesh, loss_fn):
+    """GPipe under autograd: the mean microbatch loss of the stages'
+    outputs and its gradients by stacked leaf."""
+    leaves = {n: t.clone().requires_grad_() for n, t in stacked.items()}
+    out = pipeline_forward(stage_fn, leaves, x, mesh)
+    loss = torch.stack([loss_fn(out[j], y[j]) for j in range(x.shape[0])]).mean()
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
 def pipeline_path(torch) -> dict:
     """Pipeline parallelism (``beholder_tpu_torch.parallel.pipeline``) at the
     training cell's full width, every stage member on this one card: the
@@ -5360,7 +5623,7 @@ def pipeline_path(torch) -> dict:
     microbatch's gradient dropped, the gradients not divided by M) failing
     the gradient gate; step ms each way (CUDA events, median of
     PIPE_STEPS)."""
-    from beholder_tpu_torch.models import TelemetrySequenceModel, init_seq_state, pipeline_stages
+    from beholder_tpu_torch.models import pipeline_stages
     from beholder_tpu_torch.ops import flash_attention as fa
     from beholder_tpu_torch.parallel import (
         pipeline_forward, pipeline_train_step, split_microbatches, stack_stage_grads,
@@ -5369,15 +5632,7 @@ def pipeline_path(torch) -> dict:
     from beholder_tpu_torch.parallel.sharding import seq_spec
 
     t_start = time.perf_counter()
-    model = init_seq_state(0, TelemetrySequenceModel(**TRAIN_MODEL)).model
-    model.requires_grad_(False)
-    feats, targets = train_streams(torch, 0, TRAIN_B, TRAIN_T)
-    with torch.no_grad():
-        h = model.embed(feats)
-
-    def loss_fn(out, y):
-        pred = model.head(model.ln(out))[..., 0]
-        return ((pred - y) ** 2)[:, :-1].mean()
+    model, h, targets, loss_fn = pipe_setup(torch)
 
     def timed(fn):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -5427,6 +5682,7 @@ def pipeline_path(torch) -> dict:
             events.append(ev)
             got.append(loss)
         grads = stack_stage_grads(grads, mesh, specs)
+        digest = tensors_digest(torch, [torch.stack(got), *(grads[n] for n in sorted(grads))])
         losses = torch.stack(got).cpu().numpy()
         want = float(ref_loss)
         worst = max(abs(float(v) - want) / max(1.0, abs(want)) for v in losses)
@@ -5446,7 +5702,7 @@ def pipeline_path(torch) -> dict:
               f"{stats['ticks']}")
         ms = [a.elapsed_time(b) for a, b in events]
         ref_ms = [a.elapsed_time(b) for a, b in ref_events]
-        cell = dict(losses=losses.tolist(), sequential_loss=want, worst=worst,
+        cell = dict(losses=losses.tolist(), sequential_loss=want, worst=worst, digest=digest,
                     launches=counts, predicted_launches=want_counts, stats=dict(stats),
                     step_ms=ms, step_ms_median=statistics.median(ms), sequential_ms=ref_ms,
                     sequential_ms_median=statistics.median(ref_ms), **readings)
@@ -5486,10 +5742,7 @@ def pipeline_path(torch) -> dict:
     x, y = split_microbatches(h, 4), split_microbatches(targets, 4)
 
     def gpipe():
-        leaves = {n: t.clone().requires_grad_() for n, t in stacked.items()}
-        out = pipeline_forward(stage_fn, leaves, x, mesh)
-        loss = torch.stack([loss_fn(out[j], y[j]) for j in range(4)]).mean()
-        return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        return gpipe_step(torch, pipeline_forward, stage_fn, stacked, x, y, mesh, loss_fn)
 
     got, events, counts = [], [], (0, 0, 0)
     for _ in range(PIPE_STEPS):
@@ -5498,6 +5751,7 @@ def pipeline_path(torch) -> dict:
         got.append(loss)
         events.append(ev)
     ref_loss, ref_grads = sequential(stage_fn, stacked)
+    digest = tensors_digest(torch, [torch.stack(got), *(grads[n] for n in sorted(grads))])
     losses = torch.stack(got).cpu().numpy()
     want = float(ref_loss)
     worst = max(abs(float(v) - want) / max(1.0, abs(want)) for v in losses)
@@ -5509,7 +5763,7 @@ def pipeline_path(torch) -> dict:
           f"{want_counts}")
     ms = [a.elapsed_time(b) for a, b in events]
     report["gpipe pp=4 M=4"] = dict(losses=losses.tolist(), sequential_loss=want, worst=worst,
-                                    launches=counts, predicted_launches=want_counts, step_ms=ms,
+                                    digest=digest, launches=counts, predicted_launches=want_counts, step_ms=ms,
                                     step_ms_median=statistics.median(ms), **readings)
     print(f"pipeline gpipe pp=4 M=4: loss {losses[0]:.6f} sequential {want:.6f} worst "
           f"{worst:.3e}; grads dryrun {readings['dry_worst']:.3e} rel {readings['rel_worst']:.3e} "
@@ -5534,6 +5788,44 @@ SHARD_STREAMS, SHARD_OBSERVED, SHARD_HORIZON, SHARD_SPLIT = 8, 256, 64, 192
 SHARD_BAND = (2e-2, 5e-3)
 
 
+def fed_back(torch, pre, step, params, feats, status_oh, horizon: int):
+    """A forecast rollout through the public sharded steps: the prefill's
+    prediction fed back ``horizon`` times with the last status. Returns the
+    (B, horizon) deltas and the rollout's ms (CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    deltas = []
+    delta, cache = pre(params, feats)
+    for _ in range(horizon):
+        deltas.append(delta)
+        delta, cache = step(params, cache, torch.cat([delta[:, None], status_oh], -1))
+    deltas = torch.stack(deltas, 1)
+    end.record()
+    torch.cuda.synchronize()
+    return deltas, start.elapsed_time(end)
+
+
+def serving_setup(torch, attentions):
+    """The sharded serving cells' models (the headline's bf16 weights, one
+    model an attention of ``attentions``) and streams: progress, statuses,
+    the features and the last status's one-hot."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel, stream_features
+    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
+    from beholder_tpu_torch.models.sequence import one_hot
+    from beholder_tpu_torch.ops import NUM_STATUSES
+
+    tree = init_params(TelemetrySequenceModel(**SHARD_MODEL), seed=0, bf16_matrices=True)
+    models = {a: load_flax_params(TelemetrySequenceModel(**SHARD_MODEL, attention=a), tree)
+              for a in attentions}
+    rng = np.random.default_rng(5)
+    b, t_obs = SHARD_STREAMS, SHARD_OBSERVED
+    progress = torch.from_numpy(np.cumsum(1.0 + rng.normal(0, 0.05, (b, t_obs + 1)), axis=-1)
+                                .astype(np.float32)).to(CARD)
+    statuses = torch.full((b, t_obs + 1), CONVERTING, device=CARD)
+    feats, _ = stream_features(progress, statuses)
+    return models, progress, statuses, feats, one_hot(statuses[:, -1], NUM_STATUSES)
+
+
 def sharded_serving_path(torch) -> dict:
     """dp/tp-sharded dense serving (``models.decode``'s ``sharded_*``) at the
     headline's full width, every member on this one card: the headline
@@ -5548,30 +5840,16 @@ def sharded_serving_path(torch) -> dict:
     counted (the same rollout fed back through ``sharded_prefill`` /
     ``sharded_decode_step``); no synchronising call in the rollout."""
     from beholder_tpu_torch.models import (
-        TelemetrySequenceModel, decode_step, forecast_deltas, forecast_eta, prefill,
-        serving_params, sharded_decode_step, sharded_forecast_eta, sharded_prefill,
-        stream_features,
+        decode_step, forecast_deltas, forecast_eta, prefill, serving_params,
+        sharded_decode_step, sharded_forecast_eta, sharded_prefill,
     )
-    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
-    from beholder_tpu_torch.models.sequence import one_hot
-    from beholder_tpu_torch.ops import NUM_STATUSES
     from beholder_tpu_torch.ops import flash_attention as fa
     from beholder_tpu_torch.parallel import seq_state_shardings
 
     t_start = time.perf_counter()
     dims = SHARD_MODEL
-    tree = init_params(TelemetrySequenceModel(**dims), seed=0, bf16_matrices=True)
-    models = {}
-    for attention in ("full", "flash"):
-        models[attention] = load_flax_params(TelemetrySequenceModel(**dims, attention=attention),
-                                             tree)
-    rng = np.random.default_rng(5)
+    models, progress, statuses, feats, status_oh = serving_setup(torch, ("full", "flash"))
     b, t_obs, horizon, split = SHARD_STREAMS, SHARD_OBSERVED, SHARD_HORIZON, SHARD_SPLIT
-    progress = torch.from_numpy(np.cumsum(1.0 + rng.normal(0, 0.05, (b, t_obs + 1)), axis=-1)
-                                .astype(np.float32)).to(CARD)
-    statuses = torch.full((b, t_obs + 1), CONVERTING, device=CARD)
-    feats, _ = stream_features(progress, statuses)
-    status_oh = one_hot(statuses[:, -1], NUM_STATUSES)
     dh = dims["dim"] // dims["heads"]
     hkv = dims["kv_heads"]
     report = {}
@@ -5638,20 +5916,16 @@ def sharded_serving_path(torch) -> dict:
               f"expected {want_counts}")
 
         # the forecast's own deltas through the public sharded steps: bits
-        deltas = []
-        delta, cache = pre(params, feats)
-        for _ in range(horizon):
-            deltas.append(delta)
-            delta, cache = step(params, cache, torch.cat([delta[:, None], status_oh], -1))
-        deltas = torch.stack(deltas, 1)
+        (deltas, rollout_ms), _, _ = counted_flash(
+            torch, fa, lambda: fed_back(torch, pre, step, params, feats, status_oh, horizon))
         differ = int((deltas != want_d).sum())
         tf_differ = int((got_tf != want_tf).sum())
-        del cache
         report[name] = dict(
             cache_shard=want_shard, teacher_forced_max_abs=float((got_tf - want_tf).abs().max()),
             teacher_forced_bits_differ=tf_differ, teacher_forced_total=got_tf.numel(),
             band_excess=excess, target=target, eta=eta.tolist(), reached=reached.tolist(),
             forecast_bits_differ=differ, forecast_total=deltas.numel(),
+            forecast_digest=tensors_digest(torch, [deltas]), rollout_ms=rollout_ms,
             forecast_max_abs=float((deltas - want_d).abs().max()),
             syncs=dict(teacher_forced=syncs_tf, forecast_eta=syncs_eta), launches=counts)
         print(f"sharded serving {name}: cache shard {want_shard} x {mesh.size}; teacher-forced "
@@ -6483,8 +6757,11 @@ def sink_path(torch) -> dict:
 SERVICE_MEDIA = 64
 #: messages a leg; (a) ran 131,072 until the flight, retention and (g) legs
 #: came (12.8 s of a 898.0 s script on a slow host, NVIDIA H100 80GB HBM3,
-#: 700 W), 32,768 since, to keep the script inside its time limit
-SERVICE_MESSAGES = {"a": 32768, "b": 16384, "d": 32768, "e": 16384, "f": 16384, "g": 4096,
+#: 700 W), 32,768 since, to keep the script inside its time limit; (f0) and
+#: (f1) ran 16,384 each until the multi-process leg took the collectives
+#: inside a forward (23.8 s of them in a 846.8 s script on a slow host,
+#: same card and limit), 8,192 since, for the same reason
+SERVICE_MESSAGES = {"a": 32768, "b": 16384, "d": 32768, "e": 16384, "f": 8192, "g": 4096,
                     "c": 20000}
 SERVICE_EXIT_S = 60
 SERVICE_DRAIN_S = 300
@@ -7603,9 +7880,11 @@ def main() -> None:
     # after every profiled gate: with this phase before it, the aggregation
     # gate's profiler read 4 kernel rows for 5 calls (ROADMAP.md C.10)
     training["parallel"] = parallel_path(torch)
-    training["multiprocess"] = multiprocess_path(torch, training["parallel"], card)
     training["pipeline"] = pipeline_path(torch)
     record["sharded_serving"] = sharded_serving_path(torch)
+    training["multiprocess"] = multiprocess_path(
+        torch, dict(parallel=training["parallel"], pipeline=training["pipeline"],
+                    sharded_serving=record["sharded_serving"]), card)
     record["tooling"] = tooling_path(torch, card, profile_order=args.profile)
     record["gate"] = gate_path(t_start)
 
@@ -7647,7 +7926,9 @@ def main() -> None:
                          + training["multiprocess"]["launches"][k]
                          + training["pipeline"]["launches"][k]
                          + record["sharded_serving"]["launches"][k] for k in ("fwd", "dq", "dkv")}
-    parallel_offsets = training["parallel"]["offset_launches"]
+    parallel_offsets = {k: training["parallel"]["offset_launches"][k]
+                        + training["multiprocess"]["offset_launches"][k]
+                        for k in ("fwd", "dq", "dkv")}
     for key, name, replaces, source in (
         ("fwd", "flash_forward", "beholder_tpu/ops/flash_attention.py:227", "flash_fwd.cu"),
         ("dq", "flash_backward_dq", "beholder_tpu/ops/flash_attention.py:558", "flash_bwd.cu"),
