@@ -1,7 +1,7 @@
 """Build helper for the port's CUDA kernels.
 
-Each ``<name>.cu`` beside this file (with the ``*.cuh`` headers it
-includes) is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
+Each ``<name>.cu`` beside this file (with the ``*.cuh`` headers and any
+source it includes) is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes``. The build happens at first
 use, into ``_build/`` beside this file (listed in ``.gitignore``), keyed by
 a hash of the sources and the flags, so a checkout
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -53,9 +54,11 @@ def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(f"no kernel source {src}")
-    # the shared headers count too: a kernel that includes one is rebuilt
-    # when it changes
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    # the shared headers and the sources it includes count too: a kernel
+    # is rebuilt when one of them changes
+    deps = {*CSRC.glob("*.cuh"),
+            *(CSRC / n for n in re.findall(r'#include "([^"]+\.cu)"', src.read_text()))}
+    headers = b"".join(h.read_bytes() for h in sorted(deps))
     digest = hashlib.sha256(
         src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]

@@ -72,10 +72,21 @@
 //   tiles that start 32 positions earlier, so its rows sum the same terms
 //   in other groups. It is not neutral, and the bitwise check of the row
 //   tile candidates must see it (chip_smoke.py).
-// Head dims 8, 16, 32, 64 and 128, one instantiation each per pool family
-// and row-tile count:
-// the pools keep their (N, Hkv, Dh, page) layout, nothing is padded in
-// memory (Dh 8 is zero-padded to the mma's K of 16 in shared memory).
+// Head dims 1 to 128: one instantiation each per pool family and row-tile
+// count at the widths 8, 16, 32, 64 and 128 (the wrapper picks the width:
+// the next one up), in two libraries built from this file. This one
+// (PAGED_CHUNK_PADDED 0) takes head dims equal to their width, every stride
+// a compile-time constant. paged_chunk_padded.cu (PAGED_CHUNK_PADDED 1)
+// takes a head dim dh below its width at run time. The pools keep their
+// (N, Hkv, dh, page) layout and nothing is padded in memory: the kernel
+// reads pages, q and the chunk at dh, zero-fills its shared tiles past it
+// (and Dh 8 to the mma's K of 16), and stores only columns below dh. Rows
+// of q, the chunk and out whose dh is not a multiple of 8 are not 16-byte
+// aligned: they load value by value instead of by cp.async, and store by
+// bf16 pairs (even dh) or values (odd dh). The pages' runs lie along the
+// token axis, so their vector loads do not depend on dh. The padded build
+// is a library of its own so that the run-time dh costs the exact widths
+// nothing and the two builds run side by side.
 // Next steps: a split of the context across blocks and a two-pass softmax
 // (ROADMAP B.2.b).
 //
@@ -95,7 +106,14 @@
 
 #include "flash_mma.cuh"
 
+#ifndef PAGED_CHUNK_PADDED
+#define PAGED_CHUNK_PADDED 0
+#endif
+
 namespace {
+
+// whether this build takes a head dim below its width (module notes)
+constexpr bool kPadded = PAGED_CHUNK_PADDED;
 
 using namespace flash;
 
@@ -199,7 +217,7 @@ struct Whole {
 // left alone; chunk rows at or past T and head dims at or past D read as
 // zeros). kK / 8 consecutive threads copy one row, as load_tile_async;
 // `tid` (0 .. kThreads - 1) is this thread's place among the kThreads that
-// copy the tile.
+// copy the tile. The exact build's overlay load.
 template <int D>
 __device__ __forceinline__ void load_overlay_async(__nv_bfloat16* dst,
                                                    const __nv_bfloat16* __restrict__ src,
@@ -218,6 +236,71 @@ __device__ __forceinline__ void load_overlay_async(__nv_bfloat16* dst,
   }
 }
 
+// The padded build's load of rows [row_from, kTile) of a tile whose row r
+// is row r0 + r of a (T, dh) bf16 matrix (the chunk's q rows, or its own k/v), dh <= D: by cp.async,
+// 16 bytes a copy, where rows start on 16 bytes (dh a multiple of 8; the
+// wrapper checks the tensors' alignment), else value by value (rows of an
+// odd dh, say 9, are not 16-byte aligned). Rows below row_from hold context
+// keys and are left alone; rows at or past T and head dims at or past dh
+// read as zeros. In the vector path kK / 8 consecutive threads copy one
+// row, as load_tile_async; `tid` (0 .. kThreads - 1) is this thread's place
+// among the kThreads that copy the tile.
+template <int D>
+__device__ __forceinline__ void load_rows_dh(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* __restrict__ src, int r0,
+                                             int T, int dh, int row_from, unsigned tid) {
+  using G = Dims<D>;
+  if (dh % 8 == 0) {
+    constexpr int kChunks = G::kK / 8;
+#pragma unroll
+    for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+      const unsigned idx = tid + i * kThreads;
+      const int row = static_cast<int>(idx / kChunks);
+      const int col = static_cast<int>(idx % kChunks) * 8;
+      if (row < row_from) continue;
+      const bool valid = r0 + row < T && col < dh;
+      cp_async16(dst + row * G::kLd + col,
+                 src + (valid ? static_cast<size_t>(r0 + row) * dh + col : 0), valid);
+    }
+  } else {
+    for (unsigned idx = tid; idx < kTile * G::kK; idx += kThreads) {
+      const int row = static_cast<int>(idx / G::kK);
+      const int col = static_cast<int>(idx % G::kK);
+      if (row < row_from) continue;
+      dst[row * G::kLd + col] = r0 + row < T && col < dh
+                                    ? src[static_cast<size_t>(r0 + row) * dh + col]
+                                    : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// The padded build's store: a warp's head-dim-wide accumulator, rows
+// row0 + 0..15 (those < T), columns < dh, to a (T, dh) bf16 matrix: a bf16 pair a store where dh is
+// even (the pair then starts on 4 bytes), one value a store where it is odd.
+template <int D>
+__device__ __forceinline__ void store_acc_dh(__nv_bfloat16* __restrict__ dst,
+                                             const float (&c)[Dims<D>::kN][4], int row0, int T,
+                                             int dh) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + (lane >> 2) + 8 * h;
+    if (row >= T) continue;
+    __nv_bfloat16* out = dst + static_cast<size_t>(row) * dh;
+#pragma unroll
+    for (int n = 0; n < Dims<D>::kN; ++n) {
+      const int col = n * 8 + 2 * (lane & 3);
+      if (col >= dh) continue;
+      if (dh % 2 == 0) {
+        *reinterpret_cast<uint32_t*>(out + col) = pack_bf16(c[n][2 * h], c[n][2 * h + 1]);
+      } else {
+        out[col] = __float2bfloat16_rn(c[n][2 * h]);
+        if (col + 1 < dh) out[col + 1] = __float2bfloat16_rn(c[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
 // One block an SM is all the launch bound asks for: given only 256 threads,
 // ptxas held the two-tile kernels to 128 registers and spilled.
 template <int MODE, int D, int R>
@@ -227,9 +310,11 @@ __global__ void __launch_bounds__(kThreads * R, 1) paged_chunk_kernel(
     const void* __restrict__ v_pool, const void* __restrict__ k_scale,
     const void* __restrict__ v_scale, const int32_t* __restrict__ table,
     const int32_t* __restrict__ lens, __nv_bfloat16* __restrict__ out, int H,
-    int Hkv, int W, int page, int N, int P, int live_pages, int ctx_len,
+    int Hkv, int W, int dh_arg, int page, int N, int P, int live_pages, int ctx_len,
     int window, float sqrt_dh, int vec, int plant) {
   using Dm = Dims<D>;
+  // the true head dim: a compile-time constant in the exact build
+  const int dh = kPadded ? dh_arg : D;
   using T = typename Elem<MODE>::T;
   constexpr int kHalf = kRuns<D> / 2;
   const int s = blockIdx.x;
@@ -260,19 +345,23 @@ __global__ void __launch_bounds__(kThreads * R, 1) paged_chunk_kernel(
   __nv_bfloat16* k_s = q_s + R * Dm::kElems;                     // [2] (key, d)
   __nv_bfloat16* v_s = k_s + 2 * Dm::kElems;                     // [2] (key, d)
 
-  // q and out (S, H, W, D): this kv head's G*W rows are contiguous
-  const size_t qo_base = (static_cast<size_t>(s) * H + static_cast<size_t>(kvh) * G) * W * D;
-  const size_t c_base = (static_cast<size_t>(s) * Hkv + kvh) * W * D;  // chunk k/v
-  if (D < 16) {
-    // head dims past D of the staged k/v tiles stay zero: the context path
-    // writes only d < D (cp.async zero-fills the q and overlay tiles')
-    for (int i = tid; i < 4 * kTile * (Dm::kK - D); i += blockDim.x) {
-      const int r = i / (Dm::kK - D);
-      k_s[r * Dm::kLd + D + i % (Dm::kK - D)] = __float2bfloat16_rn(0.f);
+  // q and out (S, H, W, dh): this kv head's G*W rows are contiguous
+  const size_t qo_base = (static_cast<size_t>(s) * H + static_cast<size_t>(kvh) * G) * W * dh;
+  const size_t c_base = (static_cast<size_t>(s) * Hkv + kvh) * W * dh;  // chunk k/v
+  if (dh < Dm::kK) {
+    // head dims past dh of the staged k/v tiles stay zero: the context path
+    // writes only d < dh (the q and overlay loads zero-fill theirs)
+    const int pad = Dm::kK - dh;
+    for (int i = tid; i < 4 * kTile * pad; i += blockDim.x) {
+      k_s[(i / pad) * Dm::kLd + dh + i % pad] = __float2bfloat16_rn(0.f);
     }
   }
   // each group of 4 warps its own 64 query rows
-  load_tile_async<D>(q_s + wg * Dm::kElems, q + qo_base, r0 + wg * kTile, GW, wg_tid);
+  if constexpr (kPadded) {
+    load_rows_dh<D>(q_s + wg * Dm::kElems, q + qo_base, r0 + wg * kTile, GW, dh, 0, wg_tid);
+  } else {
+    load_tile_async<D>(q_s + wg * Dm::kElems, q + qo_base, r0 + wg * kTile, GW, wg_tid);
+  }
 
   const int len = max(lens[s], 0);
   // the positions of this thread's two fragment rows (g, g + 8); -1 past the end
@@ -341,9 +430,9 @@ __global__ void __launch_bounds__(kThreads * R, 1) paged_chunk_kernel(
         const int d = lane + 32 * m;
 #pragma unroll
         for (int w = 0; w < kW; ++w) rk[c][w] = rv[c][w] = 0u;
-        if (d >= D) continue;
+        if (d >= dh) continue;
         if (whole) {
-          const size_t e = ((pg * Hkv + kvh) * D + d) * page + (p0 - col * page);
+          const size_t e = ((pg * Hkv + kvh) * dh + d) * page + (p0 - col * page);
           load_run<MODE>(rk[c], kp + e);
           load_run<MODE>(rv[c], vp + e);
         } else {
@@ -353,7 +442,7 @@ __global__ void __launch_bounds__(kThreads * R, 1) paged_chunk_kernel(
             const int pc = p / page;
             if (static_cast<unsigned>(p) < static_cast<unsigned>(hi) && pc < live_pages) {
               const size_t src = min(max(table[static_cast<size_t>(s) * P + pc], 0), N - 1);
-              const size_t e = ((src * Hkv + kvh) * D + d) * page + (p - pc * page);
+              const size_t e = ((src * Hkv + kvh) * dh + d) * page + (p - pc * page);
               run_set<MODE>(rk[c], j, kp[e]);
               run_set<MODE>(rv[c], j, vp[e]);
             }
@@ -390,7 +479,7 @@ __global__ void __launch_bounds__(kThreads * R, 1) paged_chunk_kernel(
 #pragma unroll
         for (int m = 0; m < kHalf; ++m) {
           const int d = lane + 32 * m;
-          if (d >= D) continue;
+          if (d >= dh) continue;
           kt[row + d] = dequant<MODE>(run_elem<MODE>(rk[gg * kHalf + m], j), sk);
           vt[row + d] = dequant<MODE>(run_elem<MODE>(rv[gg * kHalf + m], j), sv);
         }
@@ -405,10 +494,22 @@ __global__ void __launch_bounds__(kThreads * R, 1) paged_chunk_kernel(
     if (c > 0) fetch_ctx(base);
     if (c < kTile) {
       if (wg == 0) {
-        load_overlay_async<D>(k_s + st * Dm::kElems, kc + c_base, base - len, w_valid, c, wg_tid);
+        if constexpr (kPadded) {
+          load_rows_dh<D>(k_s + st * Dm::kElems, kc + c_base, base - len, w_valid, dh, c,
+                          wg_tid);
+        } else {
+          load_overlay_async<D>(k_s + st * Dm::kElems, kc + c_base, base - len, w_valid, c,
+                                wg_tid);
+        }
       }
       if (wg == R - 1) {
-        load_overlay_async<D>(v_s + st * Dm::kElems, vc + c_base, base - len, w_valid, c, wg_tid);
+        if constexpr (kPadded) {
+          load_rows_dh<D>(v_s + st * Dm::kElems, vc + c_base, base - len, w_valid, dh, c,
+                          wg_tid);
+        } else {
+          load_overlay_async<D>(v_s + st * Dm::kElems, vc + c_base, base - len, w_valid, c,
+                                wg_tid);
+        }
       }
     }
     cp_async_commit();
@@ -465,7 +566,11 @@ __global__ void __launch_bounds__(kThreads * R, 1) paged_chunk_kernel(
 
   normalize(acc, 0, l0);
   normalize(acc, 1, l1);
-  store_acc<D>(out + qo_base, acc, r0 + w0, GW);
+  if constexpr (kPadded) {
+    store_acc_dh<D>(out + qo_base, acc, r0 + w0, GW, dh);
+  } else {
+    store_acc<D>(out + qo_base, acc, r0 + w0, GW);
+  }
 }
 
 template <int DH, int R>
@@ -481,8 +586,8 @@ auto kernel_for(int mode) -> decltype(&paged_chunk_kernel<kBf16, DH, R>) {
 template <int DH, int R>
 int launch(int mode, const void* q, const void* kc, const void* vc, const void* k_pool,
            const void* v_pool, const void* k_scale, const void* v_scale, const void* table,
-           const void* lens, void* out, int S, int H, int Hkv, int W, int page, int N,
-           int P, int live_pages, int ctx_len, int window, float sqrt_dh, int plant,
+           const void* lens, void* out, int S, int H, int Hkv, int W, int dh, int page,
+           int N, int P, int live_pages, int ctx_len, int window, float sqrt_dh, int plant,
            cudaStream_t stream) {
   const auto kernel = kernel_for<DH, R>(mode);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -500,7 +605,7 @@ int launch(int mode, const void* q, const void* kc, const void* vc, const void* 
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
       static_cast<const __nv_bfloat16*>(vc), k_pool, v_pool, k_scale, v_scale,
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lens),
-      static_cast<__nv_bfloat16*>(out), H, Hkv, W, page, N, P, live_pages, ctx_len,
+      static_cast<__nv_bfloat16*>(out), H, Hkv, W, dh, page, N, P, live_pages, ctx_len,
       window, sqrt_dh, vec, plant);
   return static_cast<int>(cudaGetLastError());
 }
@@ -517,10 +622,10 @@ template <int DH>
 int launch_rows(int row_tiles, int mode, const void* q, const void* kc, const void* vc,
                 const void* k_pool, const void* v_pool, const void* k_scale,
                 const void* v_scale, const void* table, const void* lens, void* out, int S,
-                int H, int Hkv, int W, int page, int N, int P, int live_pages, int ctx_len,
-                int window, float sqrt_dh, int plant, cudaStream_t stream) {
+                int H, int Hkv, int W, int dh, int page, int N, int P, int live_pages,
+                int ctx_len, int window, float sqrt_dh, int plant, cudaStream_t stream) {
 #define PAGED_CHUNK_ARGS mode, q, kc, vc, k_pool, v_pool, k_scale, v_scale, table, lens, out, \
-    S, H, Hkv, W, page, N, P, live_pages, ctx_len, window, sqrt_dh, plant, stream
+    S, H, Hkv, W, dh, page, N, P, live_pages, ctx_len, window, sqrt_dh, plant, stream
   switch (row_tiles) {
     case 1: return launch<DH, 1>(PAGED_CHUNK_ARGS);
     case 2: return launch<DH, 2>(PAGED_CHUNK_ARGS);
@@ -544,17 +649,21 @@ extern "C" {
 
 // mode: 0 bf16 pools, 1 int8 pools with f32 scales, 2 fp8 e4m3 pools with
 // uint8 E8M0 scales. q, kc, vc and out bf16, contiguous, 16-byte aligned.
-// Dh is 8, 16, 32, 64 or 128. window <= 0 means none. row_tiles (1 or 2):
+// Dh is the true head dim: the pools, q, the chunk and out are all Dh
+// wide. width (8, 16, 32, 64 or 128) is the instantiation the launch runs:
+// Dh itself in this build, at least Dh in the padded one (the module
+// notes). window <= 0 means none. row_tiles (1 or 2):
 // 64-row query tiles a block; every value gives the same bits. plant: -1,
 // or the test-only control's row (see the notes at the top).
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
 int paged_chunk_launch(const void* q, const void* kc, const void* vc,
                        const void* k_pool, const void* v_pool, const void* k_scale,
                        const void* v_scale, const void* table, const void* lens,
-                       void* out, int S, int H, int Hkv, int W, int Dh, int page,
-                       int N, int P, int live_pages, int ctx_len, int window,
+                       void* out, int S, int H, int Hkv, int W, int Dh, int width,
+                       int page, int N, int P, int live_pages, int ctx_len, int window,
                        int mode, int row_tiles, int plant, float sqrt_dh, void* stream) {
-  if (Hkv < 1 || H % Hkv || page < 1 || N < 1 || P < 1 ||
+  if (Dh < 1 || Dh > width || (!kPadded && Dh != width) || Hkv < 1 || H % Hkv ||
+      page < 1 || N < 1 || P < 1 ||
       live_pages < 0 || live_pages > P || ctx_len < P * page || row_tiles < 1 ||
       row_tiles > kMaxRowTiles) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -562,8 +671,8 @@ int paged_chunk_launch(const void* q, const void* kc, const void* vc,
   if (S == 0 || W == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
 #define PAGED_CHUNK_ARGS row_tiles, mode, q, kc, vc, k_pool, v_pool, k_scale, v_scale, table, \
-    lens, out, S, H, Hkv, W, page, N, P, live_pages, ctx_len, window, sqrt_dh, plant, st
-  switch (Dh) {
+    lens, out, S, H, Hkv, W, Dh, page, N, P, live_pages, ctx_len, window, sqrt_dh, plant, st
+  switch (width) {
     case 8: return launch_rows<8>(PAGED_CHUNK_ARGS);
     case 16: return launch_rows<16>(PAGED_CHUNK_ARGS);
     case 32: return launch_rows<32>(PAGED_CHUNK_ARGS);
@@ -574,12 +683,12 @@ int paged_chunk_launch(const void* q, const void* kc, const void* vc,
 #undef PAGED_CHUNK_ARGS
 }
 
-// What the kernel of pool mode `mode` takes on this card at head dim Dh,
-// launched with `row_tiles` row tiles a block: out[0] registers a thread,
-// out[1] local (spilled) bytes a thread, out[2] dynamic shared memory a
-// block, out[3] resident blocks an SM.
-int paged_chunk_resources(int mode, int Dh, int row_tiles, int* out) {
-  switch (Dh) {
+// What the kernel of pool mode `mode` takes on this card at the width
+// (8, 16, 32, 64 or 128), launched with `row_tiles` row tiles a block:
+// out[0] registers a thread, out[1] local (spilled) bytes a thread, out[2]
+// dynamic shared memory a block, out[3] resident blocks an SM.
+int paged_chunk_resources(int mode, int width, int row_tiles, int* out) {
+  switch (width) {
     case 8: return resources_rows<8>(row_tiles, mode, out);
     case 16: return resources_rows<16>(row_tiles, mode, out);
     case 32: return resources_rows<32>(row_tiles, mode, out);

@@ -9,8 +9,9 @@
 //
 // What bounds it: the bytes of the live K/V pages (plus their scales). Per
 // (slot, kv head) the work is 4 * G * Dh flops for every 2 * Dh values read,
-// G <= 16 flops a byte on bf16 pools against the ~295 at which the tensor
-// cores rather than the memory would set the limit. So it is a memory-bound
+// G flops a byte on bf16 pools (64 at most at the shapes served here)
+// against the ~295 at which the tensor cores rather than the memory would
+// set the limit. So it is a memory-bound
 // gather, and no tensor cores: with mma.sync and the G query heads as the M
 // rows, three quarters of every product would be padding at G = 4, and no
 // byte would be saved. At the serving shapes the live bytes are a few MB or
@@ -63,6 +64,16 @@
 //   memory), not of bandwidth: with one block an SM at the headline shape,
 //   each scheduler runs two warps. Heads are held in registers in two
 //   instantiations, G <= 4 and G <= 16.
+// - More than 16 query heads a kv head (an MQA model of 32 heads over one
+//   kv head): the group's G heads go in hsplit equal chunks of at most 16
+//   (head_split: the fewest chunks that divide G), a chunk a block along the
+//   grid's kv-head axis, which runs Hkv * hsplit virtual kv heads. Each
+//   chunk's blocks read their kv head's pages (the group reads them hsplit
+//   times, from L2 after the first), and each chunk has its own split
+//   partials and ticket, so a chunk's heads get the bits of a launch over
+//   that chunk alone. A chunk's q and out rows are contiguous, as a group's
+//   are. Registers cap the heads a block holds; 64 heads in one block would
+//   hold 64 scores, maxima and sums a thread.
 // What is left for later: the fixed chain before the first chunk's math
 // (len and the run's first table entry, then the chunk: two dependent
 // loads) and the combine's ticket and reads, which are most of a one-chunk
@@ -97,7 +108,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;                 // tokens a chunk at most
 constexpr int kWarpTokens = kTile / kWarps;  // 8 tokens a warp
 constexpr int kStages = 3;
-constexpr int kMaxG = 16;                 // query heads per kv head
+constexpr int kMaxG = 16;                 // query heads a block holds
 constexpr int kMaxSplits = 64;
 constexpr float kNegInf = -1e30f;
 
@@ -184,6 +195,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // The query heads an instantiation holds in registers, KG >= G: 4 or 16.
 __host__ __device__ constexpr int heads_held(int G) { return G <= 4 ? 4 : kMaxG; }
 
+// The chunks a group of G query heads (any G >= 1) goes in: the fewest
+// that divide G into chunks of at most kMaxG heads (1 up to 16 heads; 2 at
+// 32; 4 at 64; G chunks of one head when G is a prime over 16).
+__host__ __device__ constexpr int head_split(int G) {
+  int n = (G + kMaxG - 1) / kMaxG;
+  while (G % n) ++n;
+  return n;
+}
+
 // Shared memory of one block, offsets in floats, each 16-byte aligned: q
 // (Dh, KG) f32, head-minor and zero past G, so a lane reads a head dim's
 // KG values in KG / 4 16-byte loads; the warps' accumulators (8, G, Dh);
@@ -221,16 +241,21 @@ __global__ void __launch_bounds__(kThreads, KG == 4 ? 2 : 1) paged_decode_kernel
     const void* __restrict__ v_scale, const int32_t* __restrict__ table,
     const int32_t* __restrict__ lens, __nv_bfloat16* __restrict__ out,
     float* __restrict__ ws, int* __restrict__ counters, int H, int Hkv, int Dh, int page,
-    int N, int P, int window, int span, float scale) {
+    int N, int P, int window, int span, int hsplit, float scale) {
   using T = typename Elem<MODE>::T;
   constexpr int kEsz = sizeof(T);
   constexpr int kVec = 16 / kEsz;  // elements a 16-byte copy
   constexpr int kRow = kRowBytes<MODE>;
   const int s = blockIdx.x;
+  // the grid's kv-head axis runs the Hkv * hsplit chunks of the groups:
+  // chunk kvh holds query heads [kvh * G, (kvh + 1) * G) of kv head
+  // kvh / hsplit
   const int kvh = blockIdx.y;
+  const int pool_kvh = kvh / hsplit;
+  const int Hv = Hkv * hsplit;
   const int split = blockIdx.z;
   const int splits = gridDim.z;
-  const int G = H / Hkv;
+  const int G = H / Hv;
   const int GD = G * Dh;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -290,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, KG == 4 ? 2 : 1) paged_decode_kernel
   auto issue = [&](int p, size_t pid, int st) {
     const int n = chunk_end(p) - p;
     const int off = p % page;
-    const size_t head = pid * Hkv + kvh;
+    const size_t head = pid * Hkv + pool_kvh;
     const size_t base = head * Dh * page + off;
     const size_t sbase = head * page + off;
     unsigned char* ks = stages + st * stage_bytes;
@@ -532,7 +557,7 @@ __global__ void __launch_bounds__(kThreads, KG == 4 ? 2 : 1) paged_decode_kernel
   const size_t part = static_cast<size_t>(GD) + 2 * G;  // floats of one partial
   float* my_part =
       splits == 1 ? nullptr
-                  : ws + ((static_cast<size_t>(s) * Hkv + kvh) * splits + split) * part;
+                  : ws + ((static_cast<size_t>(s) * Hv + kvh) * splits + split) * part;
   for (int o = tid; o < GD; o += kThreads) {
     const int g = o / Dh;
     float acc = 0.f;
@@ -550,7 +575,7 @@ __global__ void __launch_bounds__(kThreads, KG == 4 ? 2 : 1) paged_decode_kernel
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* counter = counters + static_cast<size_t>(s) * Hkv + kvh;
+    int* counter = counters + static_cast<size_t>(s) * Hv + kvh;
     const int ticket = atomicAdd(counter, 1);
     const bool last = ticket == splits - 1;
     if (last) *counter = 0;  // every split has drawn: ready for the next launch
@@ -559,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, KG == 4 ? 2 : 1) paged_decode_kernel
   __syncthreads();
   if (!*flag_s) return;
   __threadfence();
-  const float* parts = ws + (static_cast<size_t>(s) * Hkv + kvh) * splits * part;
+  const float* parts = ws + (static_cast<size_t>(s) * Hv + kvh) * splits * part;
   if (tid < G) {
     float m = kNegInf;
 #pragma unroll 8
@@ -586,7 +611,7 @@ __global__ void __launch_bounds__(kThreads, KG == 4 ? 2 : 1) paged_decode_kernel
 struct Args {
   const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *table, *lens;
   void *out, *ws, *counters;
-  int S, H, Hkv, Dh, page, N, P, window, splits, span;
+  int S, H, Hkv, Dh, page, N, P, window, splits, span, hsplit;
   float scale;
   cudaStream_t stream;
 };
@@ -597,21 +622,21 @@ cudaError_t launch_g(const Args& a, size_t smem) {
       paged_decode_kernel<MODE, KG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.S, a.Hkv, a.splits);
+  const dim3 grid(a.S, a.Hkv * a.hsplit, a.splits);
   paged_decode_kernel<MODE, KG><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), a.k_pool, a.v_pool, a.k_scale, a.v_scale,
       static_cast<const int32_t*>(a.table), static_cast<const int32_t*>(a.lens),
       static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.ws),
       static_cast<int*>(a.counters), a.H, a.Hkv, a.Dh, a.page, a.N, a.P, a.window, a.span,
-      a.scale);
+      a.hsplit, a.scale);
   return cudaGetLastError();
 }
 
-// the instantiation that holds G heads: 4 or 16 of them in registers
+// the instantiation that holds a chunk's heads: 4 or 16 of them in registers
 template <int MODE>
 cudaError_t launch(const Args& a, size_t smem) {
-  return heads_held(a.H / a.Hkv) == 4 ? launch_g<MODE, 4>(a, smem)
-                                       : launch_g<MODE, kMaxG>(a, smem);
+  return heads_held(a.H / (a.Hkv * a.hsplit)) == 4 ? launch_g<MODE, 4>(a, smem)
+                                                   : launch_g<MODE, kMaxG>(a, smem);
 }
 
 template <int MODE, int KG>
@@ -647,11 +672,12 @@ int resources(int G, size_t smem, int* out) {
 extern "C" {
 
 // Shared memory one block needs for pools of `mode` (0 bf16, 1 int8, 2
-// fp8), in bytes (0 when the heads are refused: at most 16 query heads per
-// kv head).
+// fp8), in bytes: a block holds one chunk of its group's heads (0 for a
+// refused shape).
 size_t paged_decode_smem_bytes(int H, int Hkv, int Dh, int mode) {
-  if (Hkv < 1 || H % Hkv || H / Hkv > kMaxG || Dh < 1) return 0;
-  const Layout lay{H / Hkv, Dh};
+  if (Hkv < 1 || H < Hkv || H % Hkv || Dh < 1) return 0;
+  const int G = H / Hkv;
+  const Layout lay{G / head_split(G), Dh};
   switch (mode) {
     case kBf16: return lay.bytes<kBf16>();
     case kInt8: return lay.bytes<kInt8>();
@@ -660,12 +686,21 @@ size_t paged_decode_smem_bytes(int H, int Hkv, int Dh, int mode) {
   }
 }
 
+// The chunks a kv head's H / Hkv query heads run in, a block each
+// (head_split; 1 for a group of at most 16), or 0 for a refused shape.
+int paged_decode_head_chunks(int H, int Hkv) {
+  if (Hkv < 1 || H < Hkv || H % Hkv) return 0;
+  return head_split(H / Hkv);
+}
+
 // mode: 0 bf16 pools, 1 int8 pools with f32 scales, 2 fp8 e4m3 pools with
 // uint8 E8M0 scales. window <= 0 means none. The grid is (S, Hkv, splits);
 // split j reads the table positions [j * span, (j + 1) * span), span a
-// multiple of 64 with splits * span >= P * page. With splits > 1, ws holds
-// S * Hkv * splits * G * (Dh + 2) f32 and counters S * Hkv int32 zeros (left
-// zero by the launch); with one split both may be null. Returns
+// multiple of 64 with splits * span >= P * page; a group of more than 16
+// query heads runs in head_split(G) chunks along the kv-head axis. With
+// splits > 1, ws holds S * Hkv * splits * G * (Dh + 2) f32 and counters
+// S * Hkv * head_split(G) int32 zeros (left zero by the launch); with one
+// split both may be null. Returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
 int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
                         const void* k_scale, const void* v_scale, const void* table,
@@ -676,13 +711,14 @@ int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
   if (smem == 0 || smem > 227 * 1024 || page < 1 || N < 1 || P < 1 || splits < 1 ||
       splits > kMaxSplits || splits > 65535 || span < kTile || span % kTile ||
       static_cast<long long>(splits) * span < static_cast<long long>(P) * page ||
-      static_cast<long long>(splits) * span > (1LL << 30) || Hkv > 65535 ||
+      static_cast<long long>(splits) * span > (1LL << 30) ||
+      Hkv * head_split(H / Hkv) > 65535 ||
       (splits > 1 && (ws == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (S == 0) return 0;
   const Args a{q, k_pool, v_pool, k_scale, v_scale, table, lens, out, ws, counters, S, H,
-               Hkv, Dh, page, N, P, window, splits, span, scale,
+               Hkv, Dh, page, N, P, window, splits, span, head_split(H / Hkv), scale,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   switch (mode) {
@@ -695,16 +731,17 @@ int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
 }
 
 // What the kernel for pools of `mode` takes on this card at H query heads
-// over Hkv kv heads of width Dh (the instantiation for G = H / Hkv): out[0] registers a thread, out[1] local
+// over Hkv kv heads of width Dh (the instantiation for a chunk of G = H /
+// Hkv heads): out[0] registers a thread, out[1] local
 // (spilled) bytes a thread, out[2] dynamic shared memory a block, out[3]
 // resident blocks an SM. Returns a CUDA error code, 0 on success.
 int paged_decode_resources(int mode, int H, int Hkv, int Dh, int* out) {
   const size_t smem = paged_decode_smem_bytes(H, Hkv, Dh, mode);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case kBf16: return resources<kBf16>(H / Hkv, smem, out);
-    case kInt8: return resources<kInt8>(H / Hkv, smem, out);
-    case kFp8: return resources<kFp8>(H / Hkv, smem, out);
+    case kBf16: return resources<kBf16>(H / Hkv / head_split(H / Hkv), smem, out);
+    case kInt8: return resources<kInt8>(H / Hkv / head_split(H / Hkv), smem, out);
+    case kFp8: return resources<kFp8>(H / Hkv / head_split(H / Hkv), smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -226,7 +226,7 @@ def _pipelines(run: _Run) -> dict:
     from beholder_tpu_torch.parallel import (
         pipeline_train_step, stack_stage_grads, stack_stage_params, stage_specs,
     )
-    from beholder_tpu_torch.parallel.collectives import tp_all_reduce, tp_replicate
+    from beholder_tpu_torch.parallel.collectives import like, tp_all_reduce, tp_replicate
 
     n, out = run.n, {}
     dim, seq = 16, 8
@@ -284,7 +284,7 @@ def _pipelines(run: _Run) -> dict:
 
         def stage3(ps, zs):
             hs = [gelu(z @ p["w1"]) for p, z in zip(ps, tp_replicate(zs))]
-            parts = tp_all_reduce([h @ p["w2"] for p, h in zip(ps, hs)])
+            parts = tp_all_reduce(like(zs, [h @ p["w2"] for p, h in zip(ps, hs)]))
             return [z + s for z, s in zip(zs, parts)]
 
         def whole3(p, z):

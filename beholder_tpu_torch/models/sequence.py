@@ -90,7 +90,7 @@ from beholder_tpu_torch.parallel.collectives import (
     tp_replicate,
     unzip,
 )
-from beholder_tpu_torch.parallel.mesh import group_mesh
+from beholder_tpu_torch.parallel.mesh import members_mesh
 from beholder_tpu_torch.parallel.sharding import batch_slices
 
 from .train import TrainState, apply_gradients, init_state
@@ -840,8 +840,11 @@ def pipeline_stages(model: TelemetrySequenceModel, n_stages: int) -> tuple:
     ``stage_fn(params, x)``, the stage's blocks in order on a (Bm, T, D)
     residual stream through ``torch.func.functional_call``. Over a tp group
     (tensor parallelism inside the stages) ``params`` and ``x`` are the
-    group's member lists, cut megatron's way, and each block runs
-    :meth:`Block.members_forward` on them."""
+    group's member lists, cut megatron's way (``x`` a
+    :class:`~beholder_tpu_torch.parallel.collectives.Members` where the
+    group is split between processes: its collectives then cross them,
+    :func:`~beholder_tpu_torch.parallel.mesh.members_mesh`), and each block
+    runs :meth:`Block.members_forward` on them."""
     if n_stages < 1 or model.layers % n_stages:
         raise ValueError(f"{model.layers} layers do not split into {n_stages} stages")
     per = model.layers // n_stages
@@ -853,7 +856,7 @@ def pipeline_stages(model: TelemetrySequenceModel, n_stages: int) -> tuple:
 
     def stage_fn(params, x):
         if isinstance(x, list):
-            mesh = group_mesh([member.device for member in x])
+            mesh = members_mesh(x)
             for k, block in enumerate(stage):
                 x = block.members_forward(params, x, mesh, f"{k}.", [{} for _ in x])
             return x

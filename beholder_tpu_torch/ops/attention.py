@@ -494,8 +494,9 @@ def ring_attention(
     rotate at kv-head width. ``window`` (requires ``causal``) bounds the
     rotations (:func:`_ring_steps`). ``backend="flash"`` (the default) runs
     every pair on the flash kernels, ``"einsum"`` the plain block path; on
-    the card at a head dim only the forward kernel takes (128), a flash
-    call whose inputs require a gradient raises before it launches. On a
+    the card a flash call the backward kernels would refuse (a head dim
+    over 128, a dtype other than bf16 and f32) whose inputs require a
+    gradient raises before it launches. On a
     mesh over processes every process passes the whole tensors and gets
     the whole output (and q, k and v their whole gradients); each runs the
     pairs of its own members."""

@@ -30,12 +30,19 @@ as in ``launches``. :func:`flash_block_attend` and
 top of them, the local step of ring attention
 (:mod:`beholder_tpu_torch.ops.attention`).
 
-On a CUDA tensor each wrapper launches its kernel (bf16, a head dim of
-the kernel's set in :data:`KERNEL_HEAD_DIMS`: 8, 16, 32, 64 and 128 for
-the forward and the backward) or raises; it never falls back. A
+On a CUDA tensor each wrapper launches its kernel or raises; it never
+falls back. bf16 inputs go to ``csrc/flash_fwd.cu`` / ``flash_bwd.cu``,
+f32 inputs to ``csrc/flash_f32.cu`` (f32 products with f32 sums, the
+reference's mix for f32), at any head dim from 1 to 128: the kernels are
+instantiated at the widths of :data:`KERNEL_HEAD_DIMS`, and a call runs
+the next width up (:func:`kernel_width`) on a zero-padded copy of q, k, v
+and do, with the true head dim's scale, and slices the results (the
+reference pads too; the kernels keep their width's compile-time strides
+and 16-byte row copies, and the copies' cost is measured beside the
+kernel's in ``chip_smoke.py``, ``alone_ms``). A
 differentiable :func:`flash_attention` or ring attention call on the card
-at a head dim the backward does not take raises before the forward
-launches (:func:`check_backward_head_dim`). On a CPU tensor each wrapper runs the
+that the backward kernels would refuse raises before the forward launches
+(:func:`check_backward_head_dim`). On a CPU tensor each wrapper runs the
 plain version.
 The plain versions compute the same function densely (the (T, T) scores
 exist there) with the reference's dtype mix:
@@ -48,9 +55,9 @@ exist there) with the reference's dtype mix:
 - masking uses -1e30, and p is zeroed where the score is masked, so a row
   with no live key gives ``o = 0`` and ``lse = -1e30``.
 
-What bounds the three kernels is operations: at the training shape the
+What bounds the kernels is operations: at the training shape the
 forward's two products are 68.7 GFLOP against ~42 MB of inputs and
-outputs. So all three run every product on the tensor cores
+outputs. So the three bf16 kernels run every product on the tensor cores
 (``mma.sync``, bf16 operands, f32 sums, operands by ``ldmatrix`` from
 double-buffered bf16 tiles), and p and ds pass from one product to the
 next in registers, rounded to bf16 where the plain versions round them:
@@ -63,7 +70,11 @@ kernel runs the softmax online over 64-key tiles, the plain forward over
 the whole row: their bf16 weights round differently. The kernels use no
 atomics: two launches on the same inputs give the same bits. dk/dv are
 summed over the group in f32 and rounded once (the reference rounds
-per-q-head partials to k's dtype and sums those).
+per-q-head partials to k's dtype and sums those). The f32 kernels run
+every product as f32 FMA from shared-memory tiles (TF32 on the tensor
+cores would miss the reference's f32 bands), with the same tiles, masks,
+order of work and bitwise repeats (the note at the top of
+``csrc/flash_f32.cu``).
 """
 
 from __future__ import annotations
@@ -72,36 +83,41 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 _NEG_INF = -1e30
-#: the head dims each CUDA kernel is instantiated for. The reference's
-#: models use 8 (its tests' ``dim=32, heads=4``), 16, 32 (its default
-#: ``dim=128, heads=4``) and 64 (the served ``dim=512, heads=8``); its
-#: ``bench_ring_block`` runs the forward at 128 and its
-#: ``bench_flash_attention`` the forward and the backward.
-KERNEL_HEAD_DIMS = {
-    "flash forward": (8, 16, 32, 64, 128),
-    "flash backward": (8, 16, 32, 64, 128),
-    "paged chunk": (8, 16, 32, 64, 128),
-}
+#: the head dims each CUDA kernel (the flash forward, the flash backward,
+#: the paged chunk kernel; bf16 and f32 alike) is instantiated for. A call
+#: at any head dim from 1 to :data:`MAX_HEAD_DIM` runs the instantiation
+#: of the next of them up (:func:`kernel_width`): the flash wrappers
+#: zero-pad a copy of q, k, v and do to that width and slice the results,
+#: the chunk kernel reads its pages at the true width and zero-fills its
+#: shared tiles past it. The scale is always the true head dim's.
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+#: the input dtypes of the flash kernels: bf16 (csrc/flash_fwd.cu,
+#: flash_bwd.cu, on the tensor cores) and f32 (csrc/flash_f32.cu, f32 FMA)
+FLASH_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def check_head_dim(kernel: str, dh: int) -> None:
-    """Raise unless ``kernel`` (a key of :data:`KERNEL_HEAD_DIMS`) is
-    instantiated for head dim ``dh``; the message names its set."""
-    dims = KERNEL_HEAD_DIMS[kernel]
-    if dh not in dims:
-        raise ValueError(f"the {kernel} kernel takes head_dim in {dims}, got {dh}")
+def kernel_width(dh: int, kernel: str = "flash") -> int:
+    """The instantiated head dim a call at head dim ``dh`` runs at: the
+    smallest of :data:`KERNEL_HEAD_DIMS` at or above it. Raises for a head
+    dim outside 1 to :data:`MAX_HEAD_DIM`, naming ``kernel``."""
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"the {kernel} kernel takes head_dim 1 to {MAX_HEAD_DIM}, got {dh}")
+    return next(w for w in KERNEL_HEAD_DIMS if w >= dh)
 
 
 def check_backward_head_dim(q: torch.Tensor, *others: torch.Tensor) -> None:
     """Before a forward that autograd will differentiate (gradients on and
     some input requiring one): on a CUDA tensor, raise unless the backward
-    kernels take q's head dim, so a call the forward kernel alone could run
-    fails before it launches rather than in the backward."""
+    kernels take q's head dim and dtype, so a call fails before the forward
+    launches rather than in the backward."""
     if (_on_card(q) and torch.is_grad_enabled()
             and any(x.requires_grad for x in (q, *others))):
-        check_head_dim("flash backward", q.shape[-1])
+        kernel_width(q.shape[-1], "flash backward")
+        _check_dtype("flash backward", q.dtype)
 
 
 def _live(t: int, causal: bool, window: int | None, segment_ids, bhkv: int,
@@ -130,12 +146,18 @@ def _grouped(x: torch.Tensor, bhkv: int) -> torch.Tensor:
     return x.float().reshape(bhkv, -1, *x.shape[1:])
 
 
-def _probabilities(q, k, lse, causal, window, segment_ids, offsets=None):
+def _scale(d: int, scale: float | None) -> float:
+    """``1/sqrt(d)``, or the scale given (a head dim padded to a kernel's
+    width keeps its own head dim's)."""
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
+def _probabilities(q, k, lse, causal, window, segment_ids, offsets=None, scale=None):
     """The backward's p = exp(s - lse) from the saved logsumexp, with s the
-    unscaled-q score times ``1/sqrt(d)`` in f32, masked to -1e30 and p
+    unscaled-q score times the scale in f32, masked to -1e30 and p
     zeroed there: (BHkv, G, T, T) f32."""
     bhkv, t, d = k.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     s = torch.matmul(_grouped(q, bhkv), k.float()[:, None].transpose(-1, -2)) * scale
     live = _live(t, causal, window, segment_ids, bhkv, q.device, offsets)
     if live is not None:
@@ -145,13 +167,13 @@ def _probabilities(q, k, lse, causal, window, segment_ids, offsets=None):
 
 
 def flash_forward_reference(q, k, v, *, causal=False, window=None, segment_ids=None,
-                            offsets=None):
+                            offsets=None, scale=None):
     """The plain PyTorch version of the forward kernel: ``(o, lse)`` for
     ``(BH, T, d)`` q and ``(BHkv, T, d)`` k/v; o in q's dtype, lse f32
-    ``(BH, T)``."""
+    ``(BH, T)``. ``scale`` (default ``1/sqrt(d)``) multiplies q."""
     bh, t, d = q.shape
     bhkv = k.shape[0]
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     qs = (q.float() * scale).to(q.dtype)
     s = torch.matmul(_grouped(qs, bhkv), k.float()[:, None].transpose(-1, -2))
     live = _live(t, causal, window, segment_ids, bhkv, q.device, offsets)
@@ -169,25 +191,25 @@ def flash_forward_reference(q, k, v, *, causal=False, window=None, segment_ids=N
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, *, causal=False, window=None,
-                       segment_ids=None, offsets=None):
+                       segment_ids=None, offsets=None, scale=None):
     """The plain PyTorch version of the dq kernel: ``dq`` in q's dtype."""
     bhkv, t, d = k.shape
-    p = _probabilities(q, k, lse, causal, window, segment_ids, offsets)
+    p = _probabilities(q, k, lse, causal, window, segment_ids, offsets, scale)
     dp = torch.matmul(_grouped(do, bhkv), v.float()[:, None].transpose(-1, -2))
-    ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * (1.0 / math.sqrt(d))
+    ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * _scale(d, scale)
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()[:, None])
     return dq.to(q.dtype).reshape(q.shape)
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, *, causal=False, window=None,
-                        segment_ids=None, offsets=None):
+                        segment_ids=None, offsets=None, scale=None):
     """The plain PyTorch version of the dk/dv kernel: ``(dk, dv)`` at
     kv-head shape in k's and v's dtypes, each summed over the GQA group in
     f32."""
     bhkv, t, d = k.shape
-    p = _probabilities(q, k, lse, causal, window, segment_ids, offsets)
+    p = _probabilities(q, k, lse, causal, window, segment_ids, offsets, scale)
     dp = torch.matmul(_grouped(do, bhkv), v.float()[:, None].transpose(-1, -2))
-    ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * (1.0 / math.sqrt(d))
+    ds = p * (dp - delta.reshape(bhkv, -1, t, 1)) * _scale(d, scale)
 
     def group_sum(w, x):
         # sum over the group's query heads and rows: (BHkv, T, G*T) @ (BHkv, G*T, d)
@@ -217,53 +239,90 @@ def flash_backward_reference(q, k, v, o, lse, do, *, causal=False, window=None,
 # -- the kernels --------------------------------------------------------------
 
 _libs: dict[str, ctypes.CDLL] = {}
+#: per input dtype, the (library, C entry) of the forward, dq and dk/dv
+_ENTRIES = {
+    torch.bfloat16: (("flash_fwd", "flash_fwd_launch"), ("flash_bwd", "flash_dq_launch"),
+                     ("flash_bwd", "flash_dkv_launch")),
+    torch.float32: (("flash_f32", "flash_f32_fwd_launch"), ("flash_f32", "flash_f32_dq_launch"),
+                    ("flash_f32", "flash_f32_dkv_launch")),
+}
+#: the pointer arguments of the forward, dq and dk/dv entries
+_POINTERS = (6, 8, 9)
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
-    """``flash_fwd`` or ``flash_bwd``, built at first use."""
+    """``flash_fwd``, ``flash_bwd`` or ``flash_f32``, built at first use."""
     if name not in _libs:
         from beholder_tpu_torch import csrc
 
         lib = csrc.load(name)
         tail = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-        if name == "flash_fwd":
-            lib.flash_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + tail
-            lib.flash_fwd_launch.restype = ctypes.c_int
-        else:
-            lib.flash_dq_launch.argtypes = [ctypes.c_void_p] * 8 + tail
-            lib.flash_dq_launch.restype = ctypes.c_int
-            lib.flash_dkv_launch.argtypes = [ctypes.c_void_p] * 9 + tail
-            lib.flash_dkv_launch.restype = ctypes.c_int
+        for entries in _ENTRIES.values():
+            for (lib_name, entry), n in zip(entries, _POINTERS):
+                if lib_name == name:
+                    fn = getattr(lib, entry)
+                    fn.argtypes = [ctypes.c_void_p] * n + tail
+                    fn.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
 
 
-def _check_kernel_inputs(kernel: str, bf16: dict, f32: dict, segment_ids) -> None:
-    """What the kernels take: bf16 q/k/v/do of a head dim in the kernel's
-    set of :data:`KERNEL_HEAD_DIMS` (the forward's, or the backward's for dq
-    and dk/dv), f32 lse and delta, int32 segment ids, all contiguous on one
-    device, 16-byte aligned."""
-    dev = bf16["q"].device
-    tensors = {**bf16, **f32}
+def _entry(which: int, dtype: torch.dtype):
+    """The C entry of kernel ``which`` (0 forward, 1 dq, 2 dk/dv) for
+    inputs of ``dtype``."""
+    lib, entry = _ENTRIES[dtype][which]
+    return getattr(_kernel_lib(lib), entry)
+
+
+def _check_dtype(kernel: str, dtype: torch.dtype) -> None:
+    if dtype not in FLASH_DTYPES:
+        raise TypeError(f"the {kernel} kernel takes bf16 or f32 inputs, got {dtype}")
+
+
+def _check_kernel_inputs(kernel: str, same: dict, f32: dict, segment_ids) -> int:
+    """What the kernels take: q/k/v/do of one dtype of :data:`FLASH_DTYPES`
+    and a head dim from 1 to :data:`MAX_HEAD_DIM`, f32 lse and delta, int32
+    segment ids, all contiguous on one device. Returns the width the call
+    runs at (:func:`kernel_width`)."""
+    q = same["q"]
+    dev = q.device
+    tensors = {**same, **f32}
     if segment_ids is not None:
         if segment_ids.dtype != torch.int32:
             raise TypeError(f"the {kernel} kernel takes int32 segment ids")
         tensors["segment_ids"] = segment_ids
-    for name, t in bf16.items():
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the {kernel} kernel takes bf16 {name}, got {t.dtype}")
+    _check_dtype(kernel, q.dtype)
+    for name, t in same.items():
+        if t.dtype != q.dtype:
+            raise TypeError(f"the {kernel} kernel takes {name} in q's dtype {q.dtype}, "
+                            f"got {t.dtype}")
     for name, t in f32.items():
         if t.dtype != torch.float32:
             raise TypeError(f"the {kernel} kernel takes f32 {name}, got {t.dtype}")
-    check_head_dim(kernel if kernel == "flash forward" else "flash backward",
-                   bf16["q"].shape[-1])
+    width = kernel_width(q.shape[-1],
+                         kernel if kernel == "flash forward" else "flash backward")
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"all inputs must be on {dev}; {name} is on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"the {kernel} kernel takes contiguous tensors ({name})")
-        if t.data_ptr() % 16:
+        if name not in same and t.data_ptr() % 16:
             raise ValueError(f"the {kernel} kernel takes 16-byte aligned tensors ({name})")
+    return width
+
+
+def _padded(width: int, *xs: torch.Tensor) -> list:
+    """Each tensor with its last dim zero-padded to ``width`` (a copy; the
+    tensor itself at its width), each 16-byte aligned."""
+    out = [x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1])) for x in xs]
+    for x in out:
+        if x.data_ptr() % 16:
+            raise ValueError("the flash kernels take 16-byte aligned tensors")
+    return out
+
+
+def _unpadded(x: torch.Tensor, dh: int) -> torch.Tensor:
+    return x if x.shape[-1] == dh else x[..., :dh].contiguous()
 
 
 def _on_card(q: torch.Tensor) -> bool:
@@ -277,16 +336,17 @@ def _on_card(q: torch.Tensor) -> bool:
     return q.is_cuda
 
 
-def _common_args(q, k, segment_ids, causal, window, offsets):
-    """The launch's trailing scalars: BH, BHkv, T, Dh, H, causal, window,
-    q_offset, kv_offset, scale (the f32 value the plain versions multiply
-    by), stream."""
-    bh, t, d = q.shape
+def _common_args(q, k, segment_ids, causal, window, offsets, dh):
+    """The launch's trailing scalars: BH, BHkv, T, the width (the padded
+    q's head dim), H, causal, window, q_offset, kv_offset, scale (the f32
+    value the plain versions multiply by, ``1/sqrt(dh)`` of the true head
+    dim ``dh``), stream."""
+    bh, t, width = q.shape
     heads = bh // segment_ids.shape[0] if segment_ids is not None else bh
     qoff, kvoff = offsets or (0, 0)
     return (
-        bh, k.shape[0], t, d, heads, int(causal), 0 if window is None else int(window),
-        int(qoff), int(kvoff), 1.0 / math.sqrt(d),
+        bh, k.shape[0], t, width, heads, int(causal), 0 if window is None else int(window),
+        int(qoff), int(kvoff), 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
 
@@ -324,93 +384,104 @@ def _check_flat(q, k, v, segment_ids, window, causal, offsets=None) -> None:
             raise TypeError(f"offsets must be two Python ints (q, kv), got {offsets!r}")
 
 
-def _count(wrapper, offsets) -> None:
+def _count(wrapper, offsets, dtype, padded: bool) -> None:
     wrapper.launches += 1
-    if offsets is not None:
-        wrapper.offset_launches += 1
+    wrapper.offset_launches += offsets is not None
+    wrapper.f32_launches += dtype == torch.float32
+    wrapper.padded_launches += padded
 
 
 def flash_forward(q, k, v, *, causal=False, window=None, segment_ids=None, offsets=None):
     """``(o, lse)`` of flattened ``(BH, T, d)`` q over ``(BHkv, T, d)`` k/v;
     ``offsets=(q_offset, kv_offset)`` runs the ring block-pair mode. CUDA
-    tensors launch ``csrc/flash_fwd.cu`` (each launch adds one to
-    ``flash_forward.launches``, and in offset mode to
-    ``flash_forward.offset_launches``); CPU tensors run
-    :func:`flash_forward_reference`."""
+    tensors launch ``csrc/flash_fwd.cu`` (bf16) or the forward of
+    ``csrc/flash_f32.cu`` (f32) at :func:`kernel_width` of d (each launch
+    adds one to ``flash_forward.launches``, and to ``.offset_launches``,
+    ``.f32_launches`` and ``.padded_launches`` where it is one of those);
+    CPU tensors run :func:`flash_forward_reference`."""
     _check_flat(q, k, v, segment_ids, window, causal, offsets)
     if not _on_card(q):
         return flash_forward_reference(
             q, k, v, causal=causal, window=window, segment_ids=segment_ids,
             offsets=offsets,
         )
-    _check_kernel_inputs("flash forward", {"q": q, "k": k, "v": v}, {}, segment_ids)
-    o = torch.empty_like(q)
+    dh = q.shape[-1]
+    width = _check_kernel_inputs("flash forward", {"q": q, "k": k, "v": v}, {}, segment_ids)
+    qp, kp, vp = _padded(width, q, k, v)
+    o = torch.empty_like(qp)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    err = _kernel_lib("flash_fwd").flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    err = _entry(0, q.dtype)(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         segment_ids.data_ptr() if segment_ids is not None else None,
         o.data_ptr(), lse.data_ptr(),
-        *_common_args(q, k, segment_ids, causal, window, offsets),
+        *_common_args(qp, kp, segment_ids, causal, window, offsets, dh),
     )
     _raise_on(err, "flash forward")
-    _count(flash_forward, offsets)
-    return o, lse
+    _count(flash_forward, offsets, q.dtype, width != dh)
+    return _unpadded(o, dh), lse
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal=False, window=None,
                       segment_ids=None, offsets=None):
     """``dq`` from the saved ``lse`` and ``delta = rowsum(do * o)``;
     ``offsets`` as in :func:`flash_forward`. CUDA tensors launch the dq
-    kernel of ``csrc/flash_bwd.cu`` (counted in
-    ``flash_backward_dq.launches`` and ``.offset_launches``); CPU tensors
-    run :func:`flash_dq_reference`."""
+    kernel of ``csrc/flash_bwd.cu`` (bf16) or ``csrc/flash_f32.cu`` (f32),
+    counted as :func:`flash_forward` counts; CPU tensors run
+    :func:`flash_dq_reference`."""
     _check_flat(q, k, v, segment_ids, window, causal, offsets)
     kw = dict(causal=causal, window=window, segment_ids=segment_ids, offsets=offsets)
     if not _on_card(q):
         return flash_dq_reference(q, k, v, do, lse, delta, **kw)
-    _check_kernel_inputs("flash dq", {"q": q, "k": k, "v": v, "do": do},
-                         {"lse": lse, "delta": delta}, segment_ids)
-    dq = torch.empty_like(q)
-    err = _kernel_lib("flash_bwd").flash_dq_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+    dh = q.shape[-1]
+    width = _check_kernel_inputs("flash dq", {"q": q, "k": k, "v": v, "do": do},
+                                 {"lse": lse, "delta": delta}, segment_ids)
+    qp, kp, vp, dop = _padded(width, q, k, v, do)
+    dq = torch.empty_like(qp)
+    err = _entry(1, q.dtype)(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), segment_ids.data_ptr() if segment_ids is not None else None,
-        dq.data_ptr(), *_common_args(q, k, segment_ids, causal, window, offsets),
+        dq.data_ptr(), *_common_args(qp, kp, segment_ids, causal, window, offsets, dh),
     )
     _raise_on(err, "flash dq")
-    _count(flash_backward_dq, offsets)
-    return dq
+    _count(flash_backward_dq, offsets, q.dtype, width != dh)
+    return _unpadded(dq, dh)
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
                        segment_ids=None, offsets=None):
     """``(dk, dv)`` at kv-head shape, each summed over the GQA group;
     ``offsets`` as in :func:`flash_forward`. CUDA tensors launch the dk/dv
-    kernel of ``csrc/flash_bwd.cu`` (counted in
-    ``flash_backward_dkv.launches`` and ``.offset_launches``); CPU tensors
-    run :func:`flash_dkv_reference`."""
+    kernel of ``csrc/flash_bwd.cu`` (bf16) or ``csrc/flash_f32.cu`` (f32),
+    counted as :func:`flash_forward` counts; CPU tensors run
+    :func:`flash_dkv_reference`."""
     _check_flat(q, k, v, segment_ids, window, causal, offsets)
     kw = dict(causal=causal, window=window, segment_ids=segment_ids, offsets=offsets)
     if not _on_card(q):
         return flash_dkv_reference(q, k, v, do, lse, delta, **kw)
-    _check_kernel_inputs("flash dk/dv", {"q": q, "k": k, "v": v, "do": do},
-                         {"lse": lse, "delta": delta}, segment_ids)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _kernel_lib("flash_bwd").flash_dkv_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+    dh = q.shape[-1]
+    width = _check_kernel_inputs("flash dk/dv", {"q": q, "k": k, "v": v, "do": do},
+                                 {"lse": lse, "delta": delta}, segment_ids)
+    qp, kp, vp, dop = _padded(width, q, k, v, do)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    err = _entry(2, q.dtype)(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), segment_ids.data_ptr() if segment_ids is not None else None,
         dk.data_ptr(), dv.data_ptr(),
-        *_common_args(q, k, segment_ids, causal, window, offsets),
+        *_common_args(qp, kp, segment_ids, causal, window, offsets, dh),
     )
     _raise_on(err, "flash dk/dv")
-    _count(flash_backward_dkv, offsets)
-    return dk, dv
+    _count(flash_backward_dkv, offsets, q.dtype, width != dh)
+    return _unpadded(dk, dh), _unpadded(dv, dh)
 
 
-#: kernel launches since each count was last set to 0, all of them and
-#: those in the ring block-pair (offset) mode
+#: kernel launches since each count was last set to 0: all of them, those
+#: in the ring block-pair (offset) mode, those on f32 inputs (the
+#: csrc/flash_f32.cu kernels) and those at a head dim padded to its width
 for _wrapper in (flash_forward, flash_backward_dq, flash_backward_dkv):
     _wrapper.launches = 0
     _wrapper.offset_launches = 0
+    _wrapper.f32_launches = 0
+    _wrapper.padded_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -452,9 +523,10 @@ def flash_attention(
     multiple of kv heads, every other dim equal); ``window`` (requires
     ``causal``, ``>= 1``) keeps the previous ``window`` positions of each
     row; ``segment_ids`` (batch-shaped ``q.shape[:-3] + (T,)``, integers)
-    masks attention across segments. Differentiable in q, k and v; on the
-    card at a head dim only the forward kernel takes (128), a call whose
-    inputs require a gradient raises before it launches."""
+    masks attention across segments. Differentiable in q, k and v. On the
+    card bf16 and f32 at head dims 1 to 128 run the kernels; a call the
+    backward kernels would refuse raises before the forward launches when
+    its inputs require a gradient."""
     shape = q.shape
     t, d = shape[-2], shape[-1]
     if k.shape != q.shape:

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from . import autotune
 from .attention import attend
-from .flash_attention import check_head_dim
+from .flash_attention import kernel_width
 from .quant import pool_scales_f32
 
 _NEG_INF = -1e30
@@ -246,6 +246,8 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.paged_decode_smem_bytes.restype = ctypes.c_size_t
         lib.paged_decode_resources.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.paged_decode_resources.restype = ctypes.c_int
+        lib.paged_decode_head_chunks.argtypes = [ctypes.c_int] * 2
+        lib.paged_decode_head_chunks.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -308,9 +310,7 @@ def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale,
     lib = _kernel_lib()
     smem = lib.paged_decode_smem_bytes(h, hkv, dh, mode)
     if smem == 0:
-        raise ValueError(
-            f"the kernel takes at most 16 query heads per kv head, got {h // hkv}"
-        )
+        raise ValueError(f"the kernel refuses {h} query heads over {hkv} kv heads of {dh}")
     if smem > 227 * 1024:
         raise ValueError(
             f"head_dim {dh} with {h // hkv} query heads per kv head needs {smem} bytes "
@@ -324,7 +324,8 @@ def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale,
     if split.splits > 1:
         ws = torch.empty(slots * hkv * split.splits * (h // hkv) * (dh + 2),
                          dtype=torch.float32, device=dev)
-        counters = _split_counters(dev, slots * hkv, stream)
+        # one ticket a (slot, head chunk): at most one a query head
+        counters = _split_counters(dev, slots * h, stream)
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if k_scale is not None else None,
@@ -339,6 +340,7 @@ def _launch(q, k_pool, v_pool, page_table, lens, window, k_scale, v_scale,
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {err}")
     paged_decode_attention.launches += 1
+    paged_decode_attention.chunked_launches += lib.paged_decode_head_chunks(h, hkv) > 1
     return out
 
 
@@ -395,9 +397,12 @@ def paged_decode_attention(
       head count would split the walk differently, merge the partials in
       another order and change the bits.
 
-    Returns (S, H, Dh) in q's dtype. CUDA tensors go to the kernel (each
-    launch adds one to ``paged_decode_attention.launches``); CPU tensors
-    to :func:`paged_decode_reference`."""
+    Any group of ``H / Hkv`` query heads a kv head: over 16 the kernel
+    runs it in equal chunks, a block each. Returns (S, H, Dh) in q's
+    dtype. CUDA tensors go to the kernel (each launch adds one to
+    ``paged_decode_attention.launches``, and to ``.chunked_launches``
+    where the group ran in chunks); CPU tensors to
+    :func:`paged_decode_reference`."""
     if q.ndim != 3:
         raise ValueError(f"q must be (slots, heads, head_dim), got {tuple(q.shape)}")
     if group < 1:
@@ -418,8 +423,11 @@ def paged_decode_attention(
     )
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and those of them
+#: whose group of query heads ran in chunks (the kernel's
+#: paged_decode_head_chunks: more than 16 query heads a kv head)
 paged_decode_attention.launches = 0
+paged_decode_attention.chunked_launches = 0
 
 
 # -- paged chunk attention (prefix-hit and fused-wave admission) -------------
@@ -490,23 +498,24 @@ def paged_chunk_reference(
     return attend(q, k_all, v_all, live[:, None, None])
 
 
-_chunk_lib = None
+#: the chunk kernel's libraries: ``paged_chunk`` for head dims equal to
+#: their width, ``paged_chunk_padded`` for those below it (csrc/paged_chunk.cu)
+_chunk_libs: dict[str, ctypes.CDLL] = {}
 
 
-def _chunk_kernel_lib() -> ctypes.CDLL:
-    global _chunk_lib
-    if _chunk_lib is None:
+def _chunk_kernel_lib(name: str = "paged_chunk") -> ctypes.CDLL:
+    if name not in _chunk_libs:
         from beholder_tpu_torch import csrc
 
-        lib = csrc.load("paged_chunk")
+        lib = csrc.load(name)
         lib.paged_chunk_launch.argtypes = (
             [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 14
+            + [ctypes.c_int] * 15
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.paged_chunk_launch.restype = ctypes.c_int
-        _chunk_lib = lib
-    return _chunk_lib
+        _chunk_libs[name] = lib
+    return _chunk_libs[name]
 
 
 def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len,
@@ -519,14 +528,14 @@ def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len
     slots, h, w, dh = q.shape
     n, hkv, _, page = k_pool.shape
     dev = q.device
-    check_head_dim("paged chunk", dh)
+    width = kernel_width(dh, "paged chunk")
     chunk = {"q": q, "k_chunk": k_chunk, "v_chunk": v_chunk}
     mode = _kernel_mode(chunk, k_pool, v_pool, page_table, lens, k_scale, v_scale,
                         "paged chunk")
     for name, t in chunk.items():
         if t.data_ptr() % 16:
             raise ValueError(f"the paged chunk kernel takes 16-byte aligned tensors ({name})")
-    lib = _chunk_kernel_lib()
+    lib = _chunk_kernel_lib("paged_chunk" if width == dh else "paged_chunk_padded")
     out = torch.empty_like(q)
     err = lib.paged_chunk_launch(
         q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
@@ -534,7 +543,7 @@ def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len
         k_scale.data_ptr() if k_scale is not None else None,
         v_scale.data_ptr() if v_scale is not None else None,
         page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        slots, h, hkv, w, dh, page, n, page_table.shape[1], live_pages, ctx_len,
+        slots, h, hkv, w, dh, width, page, n, page_table.shape[1], live_pages, ctx_len,
         0 if window is None else window, mode, row_tiles, plant,
         # the plain version divides by this f32 value: the kernel divides
         # by the same bits
@@ -544,6 +553,7 @@ def _chunk_launch(q, k_chunk, v_chunk, k_pool, v_pool, page_table, lens, ctx_len
     if err != 0:
         raise RuntimeError(f"paged_chunk kernel launch failed: CUDA error {err}")
     paged_chunk_attention.launches += 1
+    paged_chunk_attention.padded_launches += width != dh
     return out
 
 
@@ -587,9 +597,11 @@ def paged_chunk_attention(
       same for any head count (its grid is slot x kv head x row tiles), so
       a member's heads get the bits of the full-head launch.
 
-    Returns (S, H, W, Dh) bf16. CUDA tensors go to the kernel (each launch
-    adds one to ``paged_chunk_attention.launches``); CPU tensors to
-    :func:`paged_chunk_reference`."""
+    Returns (S, H, W, Dh) bf16, at any head dim from 1 to 128 (the kernel
+    reads the pools at their own width). CUDA tensors go to the kernel
+    (each launch adds one to ``paged_chunk_attention.launches``, and to
+    ``.padded_launches`` at a head dim below its instantiated width); CPU
+    tensors to :func:`paged_chunk_reference`."""
     if q.ndim != 4:
         raise ValueError(
             f"q must be (slots, heads, width, head_dim), got {tuple(q.shape)}"
@@ -636,5 +648,7 @@ def paged_chunk_attention(
     )
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and those of them at a
+#: head dim below its instantiated width (the kernel zero-fills past it)
 paged_chunk_attention.launches = 0
+paged_chunk_attention.padded_launches = 0

@@ -56,7 +56,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .collectives import Group, member_sum, process_gather
+from .collectives import Group, Members, member_sum, process_gather
 from .sharding import (
     expert_spec,
     mlp_spec,
@@ -262,6 +262,24 @@ def group_mesh(devices, axis: str = "tp") -> Mesh:
     if not devices:
         raise ValueError("group_mesh needs at least one device")
     return Mesh([list(devices)], ("dp", axis))
+
+
+def members_mesh(xs, axis: str = "tp") -> Mesh:
+    """The one-group mesh :func:`group_mesh` of a member list: each member
+    on its tensor's device. A :class:`~.collectives.Members` (this
+    process's share of a group split between processes, as the pipelines
+    hand a stage) gives a mesh over the group's processes, its owners the
+    group's and this process holding its share, so the collectives of
+    :func:`~.collectives.along` over it cross them; the group's process
+    group was made with the mesh the group came from, and is found again
+    here without a collective. A member another process holds sits on a
+    local member's device in this mesh, which nothing reads."""
+    if not isinstance(xs, Members):
+        return group_mesh([x.device for x in xs], axis)
+    g = xs.group
+    devices = [xs[g.local.index(p)].device if p in g.local else xs[0].device
+               for p in range(g.size)]
+    return Mesh([devices], ("dp", axis), owners=list(g.owners), rank=g.rank)
 
 
 def serving_shard_devices(n_workers: int, group_size: int = 1, devices=None) -> list:

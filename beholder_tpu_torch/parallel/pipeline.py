@@ -6,12 +6,15 @@ One process runs every stage it holds on its member's device, an
 activation or a cotangent hops to the neighbouring stage with
 :meth:`~.mesh.Mesh.to`, and every sum over members runs in member order
 (:func:`~.collectives.member_sum`). On a mesh over processes each process
-runs the units of the stages it holds (a stage's tp group lies inside one
-process), and at the end of a tick the hops whose two stages lie in
-different processes go in one exchange (:func:`~.collectives.exchange`,
-the bytes unchanged) that every process takes part in; the losses and the
-gradient sums over ``dp`` gather every member's values and fold them in
-member order, so each process gets the one-process mesh's bits.
+runs the units of the stage members it holds; a stage whose tp group is
+split between processes runs its tp collectives across them (the
+``Members`` forms of :mod:`~.collectives`, over the group's layout), every
+process meeting the cells in one order. At the end of a tick the hops
+whose two members lie in different processes go in one exchange
+(:func:`~.collectives.exchange`, the bytes unchanged) that every process
+takes part in; the losses and the gradient sums over ``dp`` gather every
+member's values and fold them in member order, so each process gets the
+one-process mesh's bits.
 
 - Per-stage parameters are stacked along a new leading stage dim
   (:func:`stack_stage_params`, a dict of ``(S, ...)`` tensors) and placed one
@@ -45,7 +48,7 @@ import torch
 import torch.distributed as dist
 from torch.autograd import Function
 
-from .collectives import exchange, member_sum
+from .collectives import Members, exchange, member_sum
 from .mesh import every_member
 from .sharding import Spec, shard_tensors, stage_spec, unshard_tensors
 
@@ -323,10 +326,10 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
     member's device, as :func:`stage_shardings` places them;
     :func:`stack_stage_grads` puts them together. The gradients equal the
     sequential S stages' under autograd with the same mean-over-microbatches
-    loss. On a mesh over processes each process runs its own cells (a
-    stage's tp group lies inside one process) and returns the loss (on its
-    first member's device) and its members' gradients, bitwise the
-    one-process mesh's.
+    loss. On a mesh over processes each process runs the members it holds
+    of each cell (a stage's tp group may be split between processes) and
+    returns the loss (on its first member's device) and its members'
+    gradients, bitwise the one-process mesh's.
 
     ``dp_axis`` (a second axis): each dp replica pipelines its own slice of
     every microbatch (dim 1), and the losses and gradients are summed over
@@ -340,7 +343,12 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
     (each input a copy of the whole activation), and returns the members'
     outputs; it runs megatron's pair, :func:`~.collectives.tp_replicate`
     before a column-parallel product and :func:`~.collectives.tp_all_reduce`
-    after a row-parallel one, and the gradients come back tp-split."""
+    after a row-parallel one, and the gradients come back tp-split. Where
+    the stage's tp group is split between processes, ``xs`` is a
+    :class:`~.collectives.Members` of this process's members (their inputs,
+    ``params`` theirs), and each list the stage hands a collective keeps
+    that kind (:func:`~.collectives.like`), so the collective runs across
+    the group."""
     s = mesh.shape[axis]
     m = x.shape[0]
     if y.shape[0] != m:
@@ -370,39 +378,58 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
     gacc = {k: {n: torch.zeros_like(t, dtype=torch.float32) for n, t in p.items()}
             for k, p in plain.items()}
     cells = _cells(mesh, axis, dp_axis)
-    owner = {}
-    for c, group in cells.items():
-        held = {mesh.owners[k] for k in group}
-        if len(held) > 1:
-            raise ValueError(f"stage {c[1]} of dp replica {c[0]} is split between processes "
-                             f"{sorted(held)}: a stage's tp group must lie inside one process")
-        owner[c] = held.pop()
+    # each cell's members this process holds, by position in the cell's tp
+    # group; a group split between processes runs its collectives on the
+    # group's layout (a Members of this process's share)
+    held = {c: [p for p, k in enumerate(group) if mesh.slot(k) is not None]
+            for c, group in cells.items()}
+    tp_index = {tuple(g): n for n, g in enumerate(mesh.groups("tp"))} if tp else {}
+    layouts = {c: mesh.layout("tp", tp_index[tuple(group)]) for c, group in cells.items()
+               if held[c] and len(held[c]) < len(group)}
     me = mesh.rank
     home = mesh.local_devices[0] if mesh.local else x.device
     n_ticks = m + 2 * (s - 1)
     r = min(2 * (s - 1) + 1, m)              # residual ring slots actually reachable
 
-    def run(ps, xs):
-        return list(stage_fn(ps, xs)) if tp else [stage_fn(ps[0], xs[0])]
+    def owner_of(c, p: int) -> int:
+        return mesh.owners[cells[c][p]]
 
-    def rows(arr, j, d, group):
-        return [arr[j].chunk(dp)[d].to(mesh.devices[k]) for k in group]
+    def members(c, xs: list) -> list:
+        return Members(xs, layouts[c]) if c in layouts else xs
+
+    def run(c, ps, xs):
+        return list(stage_fn(ps, members(c, xs))) if tp else [stage_fn(ps[0], xs[0])]
+
+    def rows(arr, j, d, c):
+        return [arr[j].chunk(dp)[d].to(mesh.devices[cells[c][p]]) for p in held[c]]
 
     def hops(t: int) -> list:
-        """This tick's hops between two cells of different processes, in
-        cell order: ``((kind, dest cell, member), source, dest, shape,
-        dtype)``; a stage's input, output and input cotangent all take
-        ``x``'s row shape and dtype."""
+        """This tick's hops between two members of neighbouring stages in
+        different processes, in cell and position order: ``((kind, dest
+        cell, position), source, dest, shape, dtype)``; a stage's input,
+        output and input cotangent all take ``x``'s row shape and dtype."""
         out = []
         for (d, i), group in cells.items():
             shape = tuple(x[0].chunk(dp)[d].shape)
-            if 0 <= t - i < m and i < s - 1 and owner[d, i] != owner[d, i + 1]:
-                out += [(("f", (d, i + 1), k), owner[d, i], owner[d, i + 1], shape, x.dtype)
-                        for k in range(len(group))]
-            if 0 <= t - 2 * (s - 1) + i < m and i > 0 and owner[d, i] != owner[d, i - 1]:
-                out += [(("b", (d, i - 1), k), owner[d, i], owner[d, i - 1], shape, x.dtype)
-                        for k in range(len(group))]
+            for p in range(len(group)):
+                src = owner_of((d, i), p)
+                if 0 <= t - i < m and i < s - 1 and src != owner_of((d, i + 1), p):
+                    out.append((("f", (d, i + 1), p), src, owner_of((d, i + 1), p), shape,
+                                x.dtype))
+                if 0 <= t - 2 * (s - 1) + i < m and i > 0 and src != owner_of((d, i - 1), p):
+                    out.append((("b", (d, i - 1), p), src, owner_of((d, i - 1), p), shape,
+                                x.dtype))
         return out
+
+    def hand_on(kind: str, c, p: int, y, into: dict, sends: dict) -> None:
+        """Member ``p``'s output (or input cotangent) ``y`` to position ``p``
+        of cell ``c``: in place when this process holds it, else queued for
+        the tick's exchange."""
+        k = cells[c][p]
+        if mesh.slot(k) is not None:
+            into.setdefault(c, {})[p] = y.to(mesh.devices[k])
+        else:
+            sends[kind, c, p] = y.detach()
 
     ring = {c: {} for c in cells}
     lacc = [0.0] * dp
@@ -412,64 +439,64 @@ def pipeline_train_step(stage_fn: Callable, loss_fn: Callable, stacked_params: d
         for t in range(n_ticks):
             f_next, b_next, sends = {}, {}, {}
             for (d, i), group in cells.items():
-                if owner[d, i] != me:
+                c = (d, i)
+                if not held[c]:
                     continue
+                local = [group[p] for p in held[c]]
                 seed = None
                 jf = t - i
                 if 0 <= jf < m:
-                    x_in = rows(x, jf, d, group) if i == 0 else fwd_in.pop((d, i))
-                    out = run([plain[k] for k in group], x_in)
-                    ring[(d, i)][jf % r] = x_in
-                    peak = max(peak, len(ring[(d, i)]))
+                    x_in = rows(x, jf, d, c) if i == 0 else \
+                        [fwd_in[c][p] for p in held[c]]
+                    out = run(c, [plain[k] for k in local], x_in)
+                    ring[c][jf % r] = x_in
+                    peak = max(peak, len(ring[c]))
                     f_units += 1
                     if i == s - 1:
                         # the last stage seeds its backward unit (the same
                         # microbatch, this tick) from the loss
                         seed = []
-                        for k, (o, y_k) in enumerate(zip(out, rows(y, jf, d, group))):
+                        for p, o, y_k in zip(held[c], out, rows(y, jf, d, c)):
                             o = o.detach().requires_grad_()
                             loss = loss_fn(o, y_k)
                             seed.append(torch.autograd.grad(loss, o)[0])
-                            if k == 0:
+                            if p == 0:
                                 lacc[d] = lacc[d] + loss.detach().float()
-                    elif owner[d, i + 1] == me:
-                        nxt = cells[(d, i + 1)]
-                        f_next[(d, i + 1)] = [o.to(mesh.devices[k]) for o, k in zip(out, nxt)]
                     else:
-                        sends.update({("f", (d, i + 1), k): o.detach() for k, o in enumerate(out)})
+                        for p, o in zip(held[c], out):
+                            hand_on("f", (d, i + 1), p, o, f_next, sends)
                 jb = t - 2 * (s - 1) + i
                 if 0 <= jb < m:
-                    x_res = [v.detach().requires_grad_() for v in ring[(d, i)].pop(jb % r)]
-                    cot = seed if i == s - 1 else bwd_in.pop((d, i))
-                    ps = [leaves[k] for k in group]
-                    flat = [leaf for p in ps for leaf in p.values()]
-                    grads = torch.autograd.grad(run(ps, x_res), flat + x_res, cot,
+                    x_res = [v.detach().requires_grad_() for v in ring[c].pop(jb % r)]
+                    cot = seed if i == s - 1 else [bwd_in[c][p] for p in held[c]]
+                    ps = [leaves[k] for k in local]
+                    flat = [leaf for q in ps for leaf in q.values()]
+                    grads = torch.autograd.grad(run(c, ps, x_res), flat + x_res, cot,
                                                 allow_unused=True, materialize_grads=True)
                     pos = 0
-                    for k in group:
+                    for k in local:
                         for n in gacc[k]:
                             gacc[k][n] += grads[pos].float()
                             pos += 1
                     b_units += 1
-                    if i > 0 and owner[d, i - 1] == me:
-                        prev = cells[(d, i - 1)]
-                        b_next[(d, i - 1)] = [g.to(mesh.devices[k])
-                                              for g, k in zip(grads[pos:], prev)]
-                    elif i > 0:
-                        sends.update({("b", (d, i - 1), k): g for k, g in enumerate(grads[pos:])})
+                    if i > 0:
+                        for p, g in zip(held[c], grads[pos:]):
+                            hand_on("b", (d, i - 1), p, g, b_next, sends)
             plan = hops(t) if mesh.crosses_processes else []
             if plan:
                 got = exchange([(key, src, shape, dtype) for key, src, _, shape, dtype in plan],
                                sends, home)
-                for (kind, c, k), _, dst, *_ in plan:
+                for (kind, c, p), _, dst, *_ in plan:
                     if dst == me:
                         into = f_next if kind == "f" else b_next
-                        into.setdefault(c, [None] * len(cells[c]))[k] = \
-                            got[kind, c, k].to(mesh.devices[cells[c][k]])
+                        into.setdefault(c, {})[p] = got[kind, c, p].to(
+                            mesh.devices[cells[c][p]])
             fwd_in, bwd_in = f_next, b_next
     if mesh.crosses_processes:
-        mine = {d: lacc[d] for d in range(dp) if owner[d, s - 1] == me}
-        got = exchange([(d, owner[d, s - 1], (), torch.float32) for d in range(dp)], mine, home)
+        # each replica's loss from the process of its last stage's first member
+        first = [owner_of((d, s - 1), 0) for d in range(dp)]
+        mine = {d: lacc[d] for d in range(dp) if first[d] == me}
+        got = exchange([(d, first[d], (), torch.float32) for d in range(dp)], mine, home)
         lacc = [got[d] for d in range(dp)]
     loss = member_sum(lacc) / (m * dp)
     # each member with its dp replicas (alone without dp_axis)

@@ -40,9 +40,21 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    ``bench_ring_block`` shard (B=1, H=8, Hkv=2, T=2048) its off-axis
    (8192, 4096) and diagonal pairs, with the same checks and controls; then
    the forward at head dim 128 on that shard: a causal block, the off-axis
-   pair, the diagonal and a dead pair, and the guard: a differentiable
-   ``flash_attention`` call at head dim 96 raises before any launch, and
-   at 128 launches the forward, dq and dk/dv once each; then both paged
+   pair, the diagonal and a dead pair, and the head dims past the widths:
+   a differentiable ``flash_attention`` call at head dim 96 launches the
+   forward, dq and dk/dv once each at width 128 within its plain versions'
+   limits, at 160 it raises before any launch; the inputs this slice
+   widened: the f32 flash kernels (``csrc/flash_f32.cu``) at the training
+   shape and a small GQA shape in every mode (causal, window, non-causal,
+   segment ids; in offset mode the off-axis, dead, diagonal and straddling
+   pairs), within the reference's f32 bands (forward rtol 1e-4, atol
+   1e-5; gradients rtol 1e-3, atol 1e-4), timed at the training shape;
+   the flash kernels at head dims 4, 9, 24 and 96 in bf16 (the bf16
+   limits) and f32 (the f32 bands), 96 also timed at the training shape;
+   the chunk kernel at head dims 9, 24 and 96 (one and two row tiles
+   bitwise there); the decode kernel with groups of 32 and 64 query heads
+   a kv head (chunks of 16 a block) and an MQA group of 32 at head dim 4,
+   the group of 32 timed; then both paged
    kernels on a decode group member's head slice (``group=2``): each
    member bitwise the matching heads of the full-head launch (decode at
    the headline and long shapes with the full-head split, the chunk
@@ -86,7 +98,7 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    ids on every recorded event, a default ``RooflineAttributor()``
    measuring in the background (synchronising calls those of the bare
    path), and the armed ``run_pending`` -> ``run`` beside a bare ``run``
-   in tokens/s, ten alternating pairs; then the SLO tracker and the control
+   in tokens/s, OVERHEAD_PAIRS alternating pairs; then the SLO tracker and the control
    plane (``control_path``): a tenant-skew replay (12 flood requests ahead
    of 2 victim ones) served FIFO and tenant-fair in three interleaved
    passes each (claim order: DRR claims both victims in the first round,
@@ -216,6 +228,14 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    4 with flash attention (cache shard shapes, a teacher-forced rollout in
    the reference's band, eta and reached equal to the unsharded
    ``forecast_eta``, no synchronising call, prefill flash launches); then
+   the inputs this slice widened through the entry points a user calls
+   (``inputs_path``, every count set to 0 before it and read after it):
+   ``python -m beholder_tpu_torch.dryrun 8``'s two calls on the card (all
+   14 cells in the reference's bands, the Ulysses cell's head dim 4 on the
+   flash kernels), ``flash_attention`` and ``ring_attention`` on f32 inputs
+   forward and backward against the plain versions, and an MQA model (32
+   query heads over one kv head of width 4) served through fused waves and
+   a prefix cache; each variant launched at least once; then
    the mesh over processes (``multiprocess_path``): two child processes of
    this script on this card (``--mp-child``), each a rank of a gloo group
    on a free local port that loads the kernels phase 2 built, without
@@ -225,6 +245,8 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    the processes, tp inside each), and of the cells whose collectives
    cross processes inside a forward: MoE top-2 on (dp, ep) = (2, 2) cut
    along dp and along ep, 1F1B and GPipe on pp = 4 (stages 0-1 and 2-3),
+   1F1B on (pp, tp) = (2, 2) with each stage's tp pair split between the
+   two ranks (its one-process cell in the pipeline phase),
    dp-sharded flash serving of the 8 streams on dp = 4 (horizon 64), ring
    and Ulysses on (dp, tp, sp) = (2, 2, 2) cut along sp; each cell's
    losses and digests (per-leaf params and Adam moments, the pipelines'
@@ -253,7 +275,11 @@ use) and nothing of JAX. Phases, in order; any failure exits non-zero:
    one side is skipped; the CLI exits 0 and 1 on the two;
 8. output: a ``kernels`` JSON line (the three block-pair sites of the flash
    kernels as rows of their own; the flash rows' launches include both
-   children's of the multi-process leg), then the ``ok`` line last.
+   children's of the multi-process leg; the variants this slice added as
+   rows of their own, their launches from the inputs leg: the f32 flash
+   kernels, the bf16 flash kernels at head dim 96, the chunk kernel at head
+   dim 96 and the decode kernel at a group of 32), then the ``ok`` line
+   last.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one bf16 ``run_waves``
 and of one fused n-gram ``run_spec`` (a round's host time, readback wait,
@@ -287,9 +313,12 @@ from pathlib import Path
 
 import numpy as np
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 flop/s
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 flop/s on
+#: the tensor cores, and f32 flop/s outside them (the f32 flash kernels'
+#: FMA units)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 #: TelemetryStatusEntry values (QUEUED 0, UPLOADING 3)
 QUEUED, CONVERTING, DEPLOYED, ERRORED = 0, 2, 4, 5
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's boost clock
@@ -298,9 +327,11 @@ TIMED_RUNS = 3
 #: TIMED_RUNS): cut from 3 to keep the script inside its time limit on a
 #: slow host
 QUANT_TIMED_RUNS = 1
-#: the intake phase's armed/bare overhead: bare and armed calls in this
-#: many pairs, the order alternating
-OVERHEAD_PAIRS = 10
+#: the intake phase's armed/bare overhead (reported, not gated): bare and
+#: armed calls in this many pairs, the order alternating; 10 until the
+#: widened kernel inputs came, cut to keep the script inside its time
+#: limit on a slow host (a pair about 3 s there)
+OVERHEAD_PAIRS = 6
 #: kernel vs plain version: both round the output to bf16, sum in f32 in
 #: different orders, and group the online softmax by 128-token tiles (the
 #: kernel) vs whole pages (the plain version); on bf16 pools a last-bit
@@ -322,6 +353,17 @@ KERNEL_TOL = 1e-2
 #: showed at any shape: 0.0128 of its row's RMS, long shape, bf16, no
 #: window (NVIDIA H100 80GB HBM3, 700 W; PERF.md). At the long shape that
 #: is ~1.1e-3 absolute, against rows of RMS ~0.028.
+#: Below the smallest width (head dim 4: rows of 4 values) a row's RMS is
+#: not the size its rounding moves it by: its 4 weighted sums can all
+#: cancel to near 0 while their terms stay O(1). The plain version itself
+#: reads 0.054 (wave, Dh 4) and 0.171 (MQA_MODEL's wave) against the exact
+#: f64 answer by the row-RMS reading, and the kernel's rounding, emulated on
+#: the CPU, reads 0.0780 against the plain version, the card's reading to
+#: every printed digit. There the rms is that of the row's terms, the plain
+#: version on |v| (sum over keys of p |v|), which the same rounding moves
+#: by 0.003-0.005; the same limit holds, and a planted fault (the plain
+#: version at the width's scale) must read above 3x it (0.39-0.73 on the
+#: CPU, every pool family and window of the four shapes).
 CHUNK_RTOL = 2**-7
 CHUNK_ATOL_RMS = 0.04
 #: first two forecast steps vs the dense oracle, per pool type: the bands of
@@ -349,11 +391,12 @@ def card_line() -> str:
 
 
 def kernel_resources() -> dict:
-    """What the flash forward, the two flash backward kernels, the paged
-    chunk kernel, the paged decode kernel and the aggregation kernel take
-    on this card at every instantiation (each head dim of the kernel's set;
-    the paged kernels per pool family too, the decode kernel's at a group
-    of 4 (headline, head dim 64) and of 16 (head dim 128); aggregation for
+    """What the flash forward, the two flash backward kernels, the three f32
+    flash kernels, the paged chunk kernel, the paged decode kernel and the
+    aggregation kernel take on this card at every instantiation (each
+    width of KERNEL_HEAD_DIMS; the paged kernels per pool family too, the
+    decode kernel's at a group of 4 (headline, head dim 64), of 16 (head
+    dim 128) and of 32 and 64 (chunks of 16 heads a block); aggregation for
     int32 and f32 progress on each path): registers and local (spilled) bytes
     a thread, dynamic shared memory a block, resident blocks an SM
     (cudaFuncGetAttributes and the occupancy calculator; the chunk kernel
@@ -363,25 +406,36 @@ def kernel_resources() -> dict:
     from beholder_tpu_torch.ops import flash_attention as fa
     from beholder_tpu_torch.ops import paged_attention as pa
 
-    fwd, bwd, chunk = fa._kernel_lib("flash_fwd"), fa._kernel_lib("flash_bwd"), \
-        pa._chunk_kernel_lib()
+    fwd, bwd, f32 = fa._kernel_lib("flash_fwd"), fa._kernel_lib("flash_bwd"), \
+        fa._kernel_lib("flash_f32")
+    chunks = {name: pa._chunk_kernel_lib(name) for name in ("paged_chunk", "paged_chunk_padded")}
     decode = pa._kernel_lib()
     fwd.flash_fwd_resources.argtypes = [ctypes.c_int, ctypes.c_void_p]
     bwd.flash_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    chunk.paged_chunk_resources.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    f32.flash_f32_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for chunk in chunks.values():
+        chunk.paged_chunk_resources.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     queries = [(f"flash_fwd_kernel<{dh}>", fwd.flash_fwd_resources, (dh,))
-               for dh in fa.KERNEL_HEAD_DIMS["flash forward"]]
+               for dh in fa.KERNEL_HEAD_DIMS]
     queries += [(f"{kernel}<{dh}>", bwd.flash_bwd_resources, (which, dh))
-                for dh in fa.KERNEL_HEAD_DIMS["flash backward"]
+                for dh in fa.KERNEL_HEAD_DIMS
                 for which, kernel in enumerate(("flash_dq_kernel", "flash_dkv_kernel"))]
-    queries += [(f"paged_chunk_kernel<{family}, {dh}> x{rows}", chunk.paged_chunk_resources,
+    queries += [(f"{kernel}<{dh}>", f32.flash_f32_resources, (which, dh))
+                for dh in fa.KERNEL_HEAD_DIMS
+                for which, kernel in enumerate(("flash_f32_fwd_kernel", "flash_f32_dq_kernel",
+                                                "flash_f32_dkv_kernel"))]
+    # the chunk kernel's exact and padded builds (csrc/paged_chunk.cu)
+    queries += [(f"{lib_name}_kernel<{family}, {dh}> x{rows}", chunk.paged_chunk_resources,
                  (mode, dh, rows))
-                for dh in fa.KERNEL_HEAD_DIMS["paged chunk"]
+                for lib_name, chunk in chunks.items()
+                for dh in fa.KERNEL_HEAD_DIMS
                 for mode, family in enumerate(("bf16", "int8", "fp8"))
                 for rows in (1, 2)]
+    # a group of 4, of 16, and of 32 and 64 heads (chunks of 16 a block)
     queries += [(f"paged_decode_kernel<{family}, G={h // hkv}, Dh={dh}>",
                  decode.paged_decode_resources, (mode, h, hkv, dh))
-                for h, hkv, dh in ((8, 2, 64), (16, 1, 128))
+                for h, hkv, dh in ((8, 2, 64), (16, 1, 128), (64, 2, 64), (64, 1, 128),
+                                   (32, 1, 4))
                 for mode, family in enumerate(("bf16", "int8", "fp8"))]
     from beholder_tpu_torch.ops import fused_aggregate
 
@@ -453,8 +507,18 @@ DECODE_SHAPES = {
     # 100-token pages: chunks off 16-byte boundaries, the element-load path
     "page100": dict(S=8, H=8, Hkv=2, Dh=64, page=100, N=40, P=5,
                     lens=[0, 99, 100, 250, 377, 420, 499, -1], window=150),
+    # groups over 16 query heads, run in chunks of 16 a block: 32 a kv head
+    # at the headline's geometry (two kv heads, so a decode group member
+    # holds a whole group of 32), 64 over one kv head at head dim 128, and
+    # an MQA model's 32 heads of width 4 (dim 128 over 32 heads)
+    "g32": dict(S=8, H=64, Hkv=2, Dh=64, page=128, N=32, P=4,
+                lens=[255, 275, 300, 320, 340, 360, 383, -1], window=200),
+    "g64": dict(S=4, H=64, Hkv=1, Dh=128, page=128, N=16, P=4,
+                lens=[100, 300, 511, -1], window=200),
+    "g32-d4": dict(S=8, H=32, Hkv=1, Dh=4, page=128, N=32, P=4,
+                   lens=[0, 63, 64, 200, 300, 511, 400, -1], window=100),
 }
-DECODE_TIMED = ("headline", "long")
+DECODE_TIMED = ("headline", "long", "g32", "g32-d4")
 
 
 def kernel_phase(torch, flush) -> list[dict]:
@@ -575,6 +639,16 @@ def kernel_phase(torch, flush) -> list[dict]:
     return cases
 
 
+#: the chunk shapes timed at every pool family and window (the kernel
+#: table's rows); the others are checked only, and head dim 96 is timed at
+#: the wave shape, bf16, no window (cut from every shape to keep the
+#: script inside its time limit on a slow host)
+CHUNK_TIMED = ("wave", "long", "verify")
+#: shapes timed for bf16 pools without a window only: the kernels line's
+#: padded row (head dim 96) and MQA_MODEL's fused wave (head dim 4)
+CHUNK_TIMED_BF16 = ("wave-d96", "wave-mqa")
+
+
 def chunk_shapes() -> dict:
     """The paged chunk kernel's shapes: the main path's and a long-context
     one, and edge shapes off the main path."""
@@ -600,10 +674,17 @@ def chunk_shapes() -> dict:
         "page100": dict(S=4, W=64, page=100, N=32, P=4, lens=[0, 150, 301, 390]),
     }
     # the wave and warm shapes at the head dims of the reference's models
-    # (dim 32 / 64 / 128 over 4 heads) and at the served dim 512 over 4 heads
-    for dh in (8, 16, 32, 128):
+    # (dim 32 / 64 / 128 over 4 heads) and at the served dim 512 over 4 heads,
+    # and at head dims below their width (4, 9, 24, 96: the padded build
+    # reads the pools at that width and zero-fills its tiles; 9's rows load
+    # value by value, 4's by pairs)
+    for dh in (4, 8, 9, 16, 24, 32, 96, 128):
         for name in ("wave", "warm"):
             shapes[f"{name}-d{dh}"] = dict(shapes[name], H=4, Hkv=4, Dh=dh)
+    # MQA_MODEL's admissions (inputs_path): 32 query heads over one kv head
+    # of head dim 4, a group of 32 in the block's rows
+    for name in ("wave", "warm"):
+        shapes[f"{name}-mqa"] = dict(shapes[name], H=32, Hkv=1, Dh=4)
     return shapes
 
 
@@ -646,23 +727,31 @@ def chunk_pools(torch, t: dict, family: str):
     return kp, vp, ks, vs, 1, ks.element_size()
 
 
-def chunk_reading(torch, out_k, out_p) -> tuple[float, float, float]:
+def chunk_reading(torch, out_k, out_p, terms=None) -> tuple[float, float, float]:
     """A chunk kernel output against its plain version: (max abs error, max
     excess over CHUNK_RTOL |plain|, that excess in units of its row's
-    RMS), the last held to CHUNK_ATOL_RMS."""
+    RMS), the last held to CHUNK_ATOL_RMS. ``terms``: the plain version on
+    |v|, whose rows' RMS is the unit instead (head dims below the smallest
+    width; the notes at CHUNK_RTOL)."""
     plain = out_p.float()
     diff = (out_k.float() - plain).abs()
     excess = diff - CHUNK_RTOL * plain.abs()
-    row_rms = plain.square().mean(-1, keepdim=True).sqrt()
+    unit = plain if terms is None else terms.float()
+    row_rms = unit.square().mean(-1, keepdim=True).sqrt()
     return (float(diff.max()), float(excess.max()),
             float((excess / row_rms.clamp_min(1e-30)).max()))
 
 
-def chunk_kernel_phase(torch, flush) -> list[dict]:
+def chunk_kernel_phase(torch, flush, shapes=None, timed=CHUNK_TIMED) -> list[dict]:
     """The paged chunk kernel against its plain version at the main path's
     shapes (and a long-context one), for every pool family, window off and
-    200."""
+    200; at a head dim below its width, one and two row tiles a block give
+    the same bits (the autotune knob stays neutral there too). ``shapes``:
+    the names of :func:`chunk_shapes` to run (default all); ``timed``: those
+    timed for every pool and window (CHUNK_TIMED_BF16 are timed once)."""
+    from beholder_tpu_torch.ops import flash_attention as fa
     from beholder_tpu_torch.ops.paged_attention import (
+        _chunk_launch,
         paged_chunk_attention,
         paged_chunk_reference,
     )
@@ -672,6 +761,8 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
     F = torch.nn.functional
     cases = []
     for shape, c in chunk_shapes().items():
+        if shapes is not None and shape not in shapes:
+            continue
         t = chunk_inputs(torch, c)
         H, Hkv, Dh, S, W, page, N, P = (t[k] for k in ("H", "Hkv", "Dh", "S", "W", "page",
                                                          "N", "P"))
@@ -689,10 +780,30 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
                 where = f"chunk {shape}/{family}/window={window}"
                 check(bool(torch.isfinite(out_k.float()).all()), f"{where}: non-finite")
                 plain = out_p.float()
-                err, max_excess, reading = chunk_reading(torch, out_k, out_p)
+                terms = control = None
+                if Dh < fa.KERNEL_HEAD_DIMS[0]:
+                    # int8/fp8 pools are symmetric: |values| dequantize to |v|
+                    # (fp8 has no abs kernel: its sign bit is cleared)
+                    vp_abs = ((vp.view(torch.uint8) & 0x7F).view(vp.dtype)
+                              if vp.dtype == torch.float8_e4m3fn else vp.abs())
+                    terms = paged_chunk_reference(q, kc, vc.abs(), kp, vp_abs, table, lens, **kw)
+                    width_q = (q.float() * math.sqrt(Dh / fa.kernel_width(Dh))).bfloat16()
+                    control = chunk_reading(
+                        torch, paged_chunk_reference(width_q, *args[1:], **kw), out_p, terms)[2]
+                    check(control > 3 * CHUNK_ATOL_RMS,
+                          f"{where}: the plain version at the width's scale reads {control} "
+                          f"x the terms' RMS, not above 3 x {CHUNK_ATOL_RMS}")
+                err, max_excess, reading = chunk_reading(torch, out_k, out_p, terms)
                 check(reading <= CHUNK_ATOL_RMS,
                       f"{where}: max abs err {err}, excess over {CHUNK_RTOL}|plain| "
-                      f"{reading} x row RMS > {CHUNK_ATOL_RMS}")
+                      f"{reading} x row RMS{'' if terms is None else ' of the terms'} > "
+                      f"{CHUNK_ATOL_RMS}")
+                if Dh not in fa.KERNEL_HEAD_DIMS:
+                    launch = (q, kc, vc, kp, vp, table, lens, ctx_len, live_pages, window, ks,
+                              vs)
+                    one, two = (_chunk_launch(*launch, row_tiles=r) for r in (1, 2))
+                    check(torch.equal(one, two) and torch.equal(one, out_k),
+                          f"{where}: one and two row tiles a block differ at head dim {Dh}")
                 # library yardstick: SDPA on the pre-assembled dense context
                 # (committed pages dequantized, the chunk overlaid, heads
                 # expanded) with the per-row causal mask; assembly excluded
@@ -708,19 +819,22 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
                         g[s_, :, n : n + W] = chunk[s_]
                     return g[:, :, :ctx_len].repeat_interleave(H // Hkv, dim=1)
 
-                kd, vd = dense(kp, ks, kc), dense(vp, vs, vc)
-                pos = torch.arange(ctx_len, device=dev)
-                pos_w = lens[:, None].long() + torch.arange(W, device=dev)
-                mask = pos[None, None, :] <= pos_w[:, :, None]
-                if window is not None:
-                    mask = mask & (pos[None, None, :] > pos_w[:, :, None] - window)
-                mask = mask[:, None]
-                ms = time_ms(torch, lambda: paged_chunk_attention(*args, **kw), flush)
-                plain_ms = time_ms(torch, lambda: paged_chunk_reference(*args, **kw), flush)
-                lib_ms = time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask),
-                    flush,
-                )
+                ms = plain_ms = lib_ms = None
+                if shape in timed or (shape in CHUNK_TIMED_BF16 and (family, window) == (
+                        "bf16", None)):
+                    kd, vd = dense(kp, ks, kc), dense(vp, vs, vc)
+                    pos = torch.arange(ctx_len, device=dev)
+                    pos_w = lens[:, None].long() + torch.arange(W, device=dev)
+                    mask = pos[None, None, :] <= pos_w[:, :, None]
+                    if window is not None:
+                        mask = mask & (pos[None, None, :] > pos_w[:, :, None] - window)
+                    mask = mask[:, None]
+                    ms = time_ms(torch, lambda: paged_chunk_attention(*args, **kw), flush)
+                    plain_ms = time_ms(torch, lambda: paged_chunk_reference(*args, **kw), flush)
+                    lib_ms = time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask),
+                        flush,
+                    )
                 # the bound counts what this data needs: each row j sees
                 # positions max(0, lens+j-window+1)..lens+j; the context
                 # read is the committed positions some row can see
@@ -746,7 +860,8 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
                 case = dict(
                     shape=shape, H=H, Hkv=Hkv, Dh=Dh, pool=family, window=window,
                     max_abs_err=err, max_excess=max_excess,
-                    excess_per_row_rms=reading,
+                    excess_per_row_rms=reading, row_unit="plain" if terms is None else "terms",
+                    width_scale_control=control,
                     plain_rms=float(plain.square().mean().sqrt()),
                     tolerance=dict(rtol=CHUNK_RTOL, atol_row_rms=CHUNK_ATOL_RMS),
                     ms=ms, plain_ms=plain_ms,
@@ -759,9 +874,12 @@ def chunk_kernel_phase(torch, flush) -> list[dict]:
                     f"kernel paged_chunk {shape:8s} {family:4s} window={window!s:5s} "
                     f"err={err:.3e} excess={case['max_excess']:.3e} "
                     f"excess/row_rms={reading:.3e} (tol {CHUNK_RTOL:.5f}|plain| + "
-                    f"{CHUNK_ATOL_RMS} row_rms) plain_rms={case['plain_rms']:.3e} "
-                    f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                    f"bound_ms={case['bound_ms']:.5f} ({case['bound_by']}) "
+                    f"{CHUNK_ATOL_RMS} row_rms{'' if terms is None else ' of the terms'}) "
+                    + ("" if control is None else f"width-scale control {control:.3e} ")
+                    + f"plain_rms={case['plain_rms']:.3e} "
+                    + ("" if ms is None else f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                       f"library_ms={lib_ms:.4f} ")
+                    + f"bound_ms={case['bound_ms']:.5f} ({case['bound_by']}) "
                     f"bytes={nbytes} flops={flops}",
                     flush=True,
                 )
@@ -799,28 +917,67 @@ FLASH_GRAD_SHARE = 0.03
 #: the training shape of the flash kernels: B streams of T events, 8 heads
 #: over 2 kv heads, head dim 64 (dim 512 / 8 heads)
 FLASH_SHAPE = dict(B=4, H=8, Hkv=2, T=4096, Dh=64)
+#: Each case is checked; only the cases a row of PERF.md's kernel table
+#: reads are timed (``timed=False`` elsewhere: cut from every case to keep
+#: the script inside its time limit on a slow host)
 FLASH_CASES = {
     "train": dict(causal=True),
-    "window512": dict(causal=True, window=512),
-    "noncausal": dict(causal=False),
-    "segments": dict(causal=True, segments=4),
-    "t4000": dict(causal=True, T=4000),
+    "window512": dict(causal=True, window=512, timed=False),
+    "noncausal": dict(causal=False, timed=False),
+    "segments": dict(causal=True, segments=4, timed=False),
+    "t4000": dict(causal=True, T=4000, timed=False),
     # edges of the backward's tiling: a GQA group of 8 over one partial
     # tile, and a group of 1 with segment ids over a 2-row last tile
-    "mqa-t200": dict(causal=True, B=1, H=8, Hkv=1, T=200),
-    "g1-seg-t130": dict(causal=True, B=2, H=2, Hkv=2, T=130, segments=3),
+    "mqa-t200": dict(causal=True, B=1, H=8, Hkv=1, T=200, timed=False),
+    "g1-seg-t130": dict(causal=True, B=2, H=2, Hkv=2, T=130, segments=3, timed=False),
     # the head dims of the reference's models (C.7): its tests' dim=32 and
     # dim=64 over 4 heads, and its default dim=128 over 4 heads
-    "d8": dict(causal=True, H=4, Hkv=4, T=2048, Dh=8),
-    "d16": dict(causal=True, H=4, Hkv=2, T=2048, Dh=16),
-    "d32": dict(causal=True, H=4, Hkv=4, T=4096, Dh=32),
+    "d8": dict(causal=True, H=4, Hkv=4, T=2048, Dh=8, timed=False),
+    "d16": dict(causal=True, H=4, Hkv=2, T=2048, Dh=16, timed=False),
+    "d32": dict(causal=True, H=4, Hkv=4, T=4096, Dh=32, timed=False),
     # head dim 128 at the reference's bench_flash_attention shape
     # (bench.py:838: B=4, H=8, T=4096, forward and backward, causal and not)
     "d128-causal": dict(causal=True, H=8, Hkv=8, Dh=128),
     "d128-noncausal": dict(causal=False, H=8, Hkv=8, Dh=128),
+    # f32 inputs (csrc/flash_f32.cu), held to the reference's f32 bands
+    # (FLASH_F32_BANDS): the training shape in every mode (timed causal), and
+    # a small GQA shape (a group of 4 over a partial tile) in every mode
+    "f32-train": dict(causal=True, dtype="f32"),
+    "f32-window512": dict(causal=True, window=512, dtype="f32", timed=False),
+    "f32-noncausal": dict(causal=False, dtype="f32", timed=False),
+    "f32-segments": dict(causal=True, segments=4, dtype="f32", timed=False),
+    "f32-gqa-t200": dict(causal=True, B=1, H=8, Hkv=2, T=200, dtype="f32", timed=False),
+    "f32-gqa-t200-window64": dict(causal=True, window=64, B=1, H=8, Hkv=2, T=200,
+                                  dtype="f32", timed=False),
+    "f32-gqa-t200-noncausal": dict(causal=False, B=1, H=8, Hkv=2, T=200, dtype="f32",
+                                   timed=False),
+    "f32-gqa-t200-segments": dict(causal=True, segments=3, B=1, H=8, Hkv=2, T=200,
+                                  dtype="f32", timed=False),
+    # head dims below their width, run there on zero-padded copies with the
+    # true head dim's scale: 4 (the dryrun's Ulysses cell), 9 (the
+    # reference's unaligned test), 24, and 96 (timed at the training shape;
+    # its bound counts the work of head dim 96), bf16 at the bf16 limits and
+    # f32 in the f32 bands
+    **{f"{p}d{dh}": dict(causal=True, T=1024, Dh=dh, timed=False,
+                         **({"dtype": "f32"} if p else {}))
+       for p in ("", "f32-") for dh in (4, 9, 24, 96)},
+    "d96-train": dict(causal=True, Dh=96),
 }
 #: the cases whose faulty plain versions must fail the limits
 FLASH_CONTROL_CASES = ("train", "d128-causal", "d128-noncausal")
+#: the f32 kernels against their plain versions: the reference's own f32
+#: bands (tests/test_flash_attention.py:33 and :54), (rtol, atol) per output,
+#: o and lse the forward's, dq, dk and dv the gradients'. Each reads
+#: max |kernel - plain| / (atol + rtol |plain|), which must stay <= 1.
+FLASH_F32_BANDS = {"o": (1e-4, 1e-5), "lse": (1e-4, 1e-5), "dq": (1e-3, 1e-4),
+                   "dk": (1e-3, 1e-4), "dv": (1e-3, 1e-4)}
+
+
+def band_reading(got, want, band) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 inside the band."""
+    rtol, atol = band
+    want = want.float()
+    return float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
 
 
 def flash_pairs(T: int, causal: bool, window, seg, offsets=(0, 0)) -> int:
@@ -965,11 +1122,14 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
     """The three flash kernels against their plain versions at the training
     shape, causal, with a window, non-causal, with segment ids and at an
     unaligned T, at the two edge shapes, at head dims 8, 16 and 32, and at
-    head dim 128 on the reference's bench_flash_attention shape; the
-    backward's bits equal over two launches; at the training shape and at
-    head dim 128 faulty plain versions fail their limits
-    (backward_controls); times of each kernel, its plain version and SDPA
-    (forward, and its backward for dq and dk/dv), beside the bound."""
+    head dim 128 on the reference's bench_flash_attention shape; the f32
+    kernels (FLASH_F32_BANDS) at the training shape and a small GQA shape
+    in every mode; both dtypes at head dims 4, 9, 24 and 96 (padded to
+    their width); the backward's bits equal over two launches; at the
+    training shape and at head dim 128 faulty plain versions fail their
+    limits (backward_controls); for the timed cases, times of each
+    kernel, its plain version and SDPA (forward, and its backward for dq
+    and dk/dv), beside the bound."""
     from beholder_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -978,10 +1138,12 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
         shape = {**FLASH_SHAPE, **{k: v for k, v in c.items() if k in FLASH_SHAPE}}
         B, H, Hkv, T, Dh = (shape[k] for k in ("B", "H", "Hkv", "T", "Dh"))
         causal, window = c["causal"], c.get("window")
+        f32 = c.get("dtype") == "f32"
+        dt = torch.float32 if f32 else torch.bfloat16
         rng = np.random.default_rng(13)
 
         def normal(*shape_):
-            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev).bfloat16()
+            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev).to(dt)
 
         q, k, v, do = normal(B * H, T, Dh), normal(B * Hkv, T, Dh), normal(B * Hkv, T, Dh), \
             normal(B * H, T, Dh)
@@ -1010,22 +1172,35 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
         for t_name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), repeat):
             check(torch.equal(a, b), f"{where}: a repeat launch changed {t_name}")
         del repeat
-        grads = {g: grad_readings(got, want)
-                 for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), (dq_p, dk_p, dv_p))}
-        readings = {"o": row_reading(o, o_p), **{g: r for g, (r, _) in grads.items()}}
-        shares = {g: sh for g, (_, sh) in grads.items()}
         lse_err = float((lse - lse_p).abs().max())
         errs = {"o": float((o.float() - o_p.float()).abs().max()),
                 "dq": float((dq.float() - dq_p.float()).abs().max()),
                 "dk": float((dk.float() - dk_p.float()).abs().max()),
                 "dv": float((dv.float() - dv_p.float()).abs().max()), "lse": lse_err}
-        for out_name, reading in readings.items():
-            check(reading <= FLASH_TOL_RMS[out_name],
-                  f"{where}: {out_name} reading {reading} x row RMS > {FLASH_TOL_RMS[out_name]}")
-        for g, share in shares.items():
-            check(share <= FLASH_GRAD_SHARE,
-                  f"{where}: {g} differs from the plain bits in a share {share} > {FLASH_GRAD_SHARE}")
-        check(lse_err <= FLASH_LSE_ATOL, f"{where}: lse err {lse_err} > {FLASH_LSE_ATOL}")
+        if f32:
+            readings = {n: band_reading(got, want, FLASH_F32_BANDS[n])
+                        for n, got, want in (("o", o, o_p), ("lse", lse, lse_p),
+                                             ("dq", dq, dq_p), ("dk", dk, dk_p),
+                                             ("dv", dv, dv_p))}
+            shares = {}
+            for out_name, reading in readings.items():
+                check(reading <= 1.0, f"{where}: {out_name} off the f32 band "
+                      f"{FLASH_F32_BANDS[out_name]} by {reading} x (atol + rtol |plain|)")
+        else:
+            grads = {g: grad_readings(got, want)
+                     for g, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                             (dq_p, dk_p, dv_p))}
+            readings = {"o": row_reading(o, o_p), **{g: r for g, (r, _) in grads.items()}}
+            shares = {g: sh for g, (_, sh) in grads.items()}
+            for out_name, reading in readings.items():
+                check(reading <= FLASH_TOL_RMS[out_name],
+                      f"{where}: {out_name} reading {reading} x row RMS > "
+                      f"{FLASH_TOL_RMS[out_name]}")
+            for g, share in shares.items():
+                check(share <= FLASH_GRAD_SHARE,
+                      f"{where}: {g} differs from the plain bits in a share {share} > "
+                      f"{FLASH_GRAD_SHARE}")
+            check(lse_err <= FLASH_LSE_ATOL, f"{where}: lse err {lse_err} > {FLASH_LSE_ATOL}")
         controls = None
         if name in FLASH_CONTROL_CASES:
             controls = run_controls(torch, fa, where, (q, k, v), o_p, bwd, (dq_p, dk_p, dv_p),
@@ -1042,26 +1217,35 @@ def flash_kernel_phase(torch, flush) -> list[dict]:
             if seg is not None:
                 mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
         pairs = flash_pairs(T, causal, window, seg_np)
-        case = dict(case=name, B=B, H=H, Hkv=Hkv, T=T, Dh=Dh, causal=causal, window=window,
+        case = dict(case=name, dtype="f32" if f32 else "bf16", B=B, H=H, Hkv=Hkv, T=T, Dh=Dh,
+                    width=fa.kernel_width(Dh), causal=causal, window=window,
                     segments=c.get("segments"), pairs_per_head=pairs, readings=readings,
                     grad_shares=shares, lse_err=lse_err, max_abs_err=errs,
                     controls=controls,
-                    tolerance=dict(row_rms=FLASH_TOL_RMS, grad_share=FLASH_GRAD_SHARE,
-                                   lse_atol=FLASH_LSE_ATOL))
-        case.update(flash_times(torch, fa, flush, B, (q, k, v, do), bwd, kw, mask, pairs,
-                                0 if seg is None else B * T * 4))
+                    tolerance=dict(f32_bands=FLASH_F32_BANDS) if f32 else dict(
+                        row_rms=FLASH_TOL_RMS, grad_share=FLASH_GRAD_SHARE,
+                        lse_atol=FLASH_LSE_ATOL))
+        if c.get("timed", True):
+            case.update(flash_times(torch, fa, flush, B, (q, k, v, do), bwd, kw, mask, pairs,
+                                    0 if seg is None else B * T * 4))
         cases.append(case)
-        print(
-            f"kernel flash {name:9s} T={T} readings(x row RMS) o={readings['o']:.3e} "
-            f"dq={readings['dq']:.3e} dk={readings['dk']:.3e} dv={readings['dv']:.3e} "
-            f"(limits {FLASH_TOL_RMS}) shares dq={shares['dq']:.3e} dk={shares['dk']:.3e} "
-            f"dv={shares['dv']:.3e} (limit {FLASH_GRAD_SHARE}) "
-            f"lse_err={lse_err:.3e} (limit {FLASH_LSE_ATOL})"
-            + ("" if controls is None else " controls(reading,share) "
-               + " ".join(f"{n}={r:.3e},{sh}" for n, (r, sh) in controls.items())),
-            flush=True,
-        )
-        print_times(case)
+        if f32:
+            line = (f"kernel flash {name:9s} f32 T={T} Dh={Dh} (width {case['width']}) "
+                    "readings(x (atol + rtol |plain|), limit 1) "
+                    + " ".join(f"{n}={r:.3e}" for n, r in readings.items())
+                    + f" bands {FLASH_F32_BANDS}")
+        else:
+            line = (f"kernel flash {name:9s} T={T} Dh={Dh} (width {case['width']}) "
+                    f"readings(x row RMS) o={readings['o']:.3e} "
+                    f"dq={readings['dq']:.3e} dk={readings['dk']:.3e} dv={readings['dv']:.3e} "
+                    f"(limits {FLASH_TOL_RMS}) shares dq={shares['dq']:.3e} "
+                    f"dk={shares['dk']:.3e} dv={shares['dv']:.3e} (limit {FLASH_GRAD_SHARE}) "
+                    f"lse_err={lse_err:.3e} (limit {FLASH_LSE_ATOL})")
+        print(line + ("" if controls is None else " controls(reading,share) "
+                      + " ".join(f"{n}={r:.3e},{sh}" for n, (r, sh) in controls.items())),
+              flush=True)
+        if c.get("timed", True):
+            print_times(case)
     return cases
 
 
@@ -1071,7 +1255,10 @@ def flash_times(torch, fa, flush, B, qkvdo, bwd, kw, mask, pairs, segb=0) -> dic
     its backward for dq and dk/dv), with the boolean ``mask`` or, when None,
     ``is_causal``; beside each the bound of the work this data needs:
     ``pairs`` (query, key) pairs a head, each input read once and each
-    output written once (``segb`` bytes of segment ids)."""
+    output written once (``segb`` bytes of segment ids). At a head dim
+    below its width, ``alone_ms``: the same kernel launches on copies
+    padded once beforehand, so without the wrapper's pad and slice copies
+    (its scale is the width's, which changes no work)."""
     q, k, v, do = qkvdo
     q4, k4, v4, do4 = (t.reshape(B, -1, *t.shape[1:]) for t in (q, k, v, do))
 
@@ -1100,8 +1287,20 @@ def flash_times(torch, fa, flush, B, qkvdo, bwd, kw, mask, pairs, segb=0) -> dic
                 time_ms(torch, sdpa_bwd, flush)),
     }
     BH, T, Dh = q.shape
-    qb, kb = q.numel() * 2, k.numel() * 2   # bf16 bytes
+    alone = dict.fromkeys(times)
+    width = fa.kernel_width(Dh)
+    if width != Dh:
+        pad = [torch.nn.functional.pad(t, (0, width - Dh)) for t in qkvdo]
+        pbwd = (*pad, *bwd[4:])
+        alone = {
+            "fwd": time_ms(torch, lambda: fa.flash_forward(*pad[:3], **kw), flush),
+            "dq": time_ms(torch, lambda: fa.flash_backward_dq(*pbwd, **kw), flush),
+            "dkv": time_ms(torch, lambda: fa.flash_backward_dkv(*pbwd, **kw), flush),
+        }
+    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rowb = BH * T * 4                        # one f32 per query row (lse, delta)
+    # the f32 kernels run on the f32 units, the bf16 ones on the tensor cores
+    peak = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
     work = {  # (bytes: each input read once, each output written once; flops)
         "fwd": (qb + 2 * kb + qb + rowb + segb, 4 * BH * Dh * pairs),
         "dq": (qb + 2 * kb + qb + 2 * rowb + qb + segb, 6 * BH * Dh * pairs),
@@ -1110,9 +1309,9 @@ def flash_times(torch, fa, flush, B, qkvdo, bwd, kw, mask, pairs, segb=0) -> dic
     out = {}
     for kern, (ms, plain_ms, lib_ms) in times.items():
         nbytes, flops = work[kern]
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-        out[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
-                         flops=flops, bound_ms=max(t_bytes, t_ops),
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, alone_ms=alone[kern],
+                         bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else "operations")
     return out
 
@@ -1120,7 +1319,8 @@ def flash_times(torch, fa, flush, B, qkvdo, bwd, kw, mask, pairs, segb=0) -> dic
 def print_times(case: dict) -> None:
     for kern in ("fwd", "dq", "dkv"):
         r = case[kern]
-        print(f"  {kern:3s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        alone = "" if r.get("alone_ms") is None else f"alone_ms={r['alone_ms']:.4f} "
+        print(f"  {kern:3s} ms={r['ms']:.4f} {alone}plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']}) flops={r['flops']} bytes={r['bytes']}", flush=True)
 
@@ -1131,21 +1331,27 @@ RING_P = 4
 OFFSET_SHAPE = dict(B=4, H=8, Hkv=2, T=1024, Dh=64)
 #: block pairs of that ring in the kernels' offset mode: (q_offset,
 #: kv_offset) on global positions; key tile ``lo`` and row tile ``row_lo``
-#: of the negative controls (each must hold live pairs)
+#: of the negative controls (each must hold live pairs). Timed: the
+#: off-axis pairs, which the kernel table reads (as FLASH_CASES)
 OFFSET_CASES = {
     # shard 2 against shard 1's block: every pair live
     "offaxis": dict(offsets=(2048, 1024)),
     # shard 1 against shard 2's wrapped block: no pair live
-    "dead": dict(offsets=(1024, 2048)),
+    "dead": dict(offsets=(1024, 2048), timed=False),
     # the diagonal through offset mode (q_offset == kv_offset)
-    "diagonal": dict(offsets=(2048, 2048)),
+    "diagonal": dict(offsets=(2048, 2048), timed=False),
     # a 512 window from shard 1 reaching back into shard 0's block: rows
     # 0-510 of the shard see keys 513-1023 of the block, the rest none
-    "window512": dict(offsets=(1024, 0), window=512, row_lo=0),
+    "window512": dict(offsets=(1024, 0), window=512, row_lo=0, timed=False),
     # head dim 128 on bench_ring_block's shard (FWD128_SHAPE, below): its
     # mid-ring rotation, every pair live, and its diagonal rotation
     "d128-offaxis": dict(offsets=(8192, 4096), shape="d128"),
-    "d128-diagonal": dict(offsets=(4096, 4096), shape="d128"),
+    "d128-diagonal": dict(offsets=(4096, 4096), shape="d128", timed=False),
+    # the f32 kernels in every offset mode, in the f32 bands (timed off-axis)
+    "f32-offaxis": dict(offsets=(2048, 1024), dtype="f32"),
+    "f32-dead": dict(offsets=(1024, 2048), dtype="f32", timed=False),
+    "f32-diagonal": dict(offsets=(2048, 2048), dtype="f32", timed=False),
+    "f32-window512": dict(offsets=(1024, 0), window=512, dtype="f32", timed=False),
 }
 
 
@@ -1169,10 +1375,12 @@ def offset_kernel_phase(torch, flush) -> list[dict]:
         shape = FWD128_SHAPE if c.get("shape") == "d128" else OFFSET_SHAPE
         B, H, Hkv, T, Dh = (shape[k] for k in ("B", "H", "Hkv", "T", "Dh"))
         offsets, window = c["offsets"], c.get("window")
+        f32 = c.get("dtype") == "f32"
+        dt = torch.float32 if f32 else torch.bfloat16
         rng = np.random.default_rng(19)
 
         def normal(*shape_):
-            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev).bfloat16()
+            return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev).to(dt)
 
         q, k, v, do = normal(B * H, T, Dh), normal(B * Hkv, T, Dh), normal(B * Hkv, T, Dh), \
             normal(B * H, T, Dh)
@@ -1203,10 +1411,20 @@ def offset_kernel_phase(torch, flush) -> list[dict]:
                 "dq": float((dq.float() - dq_p.float()).abs().max()),
                 "dk": float((dk.float() - dk_p.float()).abs().max()),
                 "dv": float((dv.float() - dv_p.float()).abs().max())}
-        check(errs["lse"] <= FLASH_LSE_ATOL, f"{where}: lse err {errs['lse']} > {FLASH_LSE_ATOL}")
+        if not f32:
+            check(errs["lse"] <= FLASH_LSE_ATOL,
+                  f"{where}: lse err {errs['lse']} > {FLASH_LSE_ATOL}")
         readings, shares, controls = {}, {}, None
         pairs = flash_pairs(T, True, window, None, offsets)
-        if pairs == 0:
+        if pairs and f32:
+            readings = {n: band_reading(got, want, FLASH_F32_BANDS[n])
+                        for n, got, want in (("o", o, o_p), ("lse", lse, lse_p),
+                                             ("dq", dq, dq_p), ("dk", dk, dk_p),
+                                             ("dv", dv, dv_p))}
+            for out_name, reading in readings.items():
+                check(reading <= 1.0, f"{where}: {out_name} off the f32 band "
+                      f"{FLASH_F32_BANDS[out_name]} by {reading} x (atol + rtol |plain|)")
+        elif pairs == 0:
             # a dead pair: exact zeros and the mask value, as the plain version
             for t_name, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv), ("o plain", o_p)):
                 check(not bool(t.any()), f"{where}: {t_name} not all zeros")
@@ -1232,25 +1450,31 @@ def offset_kernel_phase(torch, flush) -> list[dict]:
         mask = rows >= cols
         if window is not None:
             mask = mask & (rows - cols < window)
-        case = dict(case=name, B=B, H=H, Hkv=Hkv, T=T, Dh=Dh, offsets=list(offsets),
-                    window=window, pairs_per_head=pairs, readings=readings, grad_shares=shares,
-                    max_abs_err=errs, controls=controls,
-                    tolerance=dict(row_rms=FLASH_TOL_RMS, grad_share=FLASH_GRAD_SHARE,
-                                   lse_atol=FLASH_LSE_ATOL))
-        case.update(flash_times(torch, fa, flush, B, (q, k, v, do), bwd, kw, mask[None, None],
-                                pairs))
+        case = dict(case=name, dtype="f32" if f32 else "bf16", B=B, H=H, Hkv=Hkv, T=T, Dh=Dh,
+                    offsets=list(offsets), window=window, pairs_per_head=pairs,
+                    readings=readings, grad_shares=shares, max_abs_err=errs, controls=controls,
+                    tolerance=dict(f32_bands=FLASH_F32_BANDS) if f32 else dict(
+                        row_rms=FLASH_TOL_RMS, grad_share=FLASH_GRAD_SHARE,
+                        lse_atol=FLASH_LSE_ATOL))
+        if c.get("timed", True):
+            case.update(flash_times(torch, fa, flush, B, (q, k, v, do), bwd, kw,
+                                    mask[None, None], pairs))
         cases.append(case)
+        limits = (f"f32 bands {FLASH_F32_BANDS}, limit 1" if f32 else
+                  f"limits {FLASH_TOL_RMS} "
+                  + " ".join(f"share_{g}={sh:.3e}" for g, sh in shares.items())
+                  + f" (limit {FLASH_GRAD_SHARE})")
         print(
             f"kernel flash offset {name:9s} offsets={offsets} window={window} pairs/head={pairs} "
-            + (" ".join(f"{g}={r:.3e}" for g, r in readings.items()) + f" (limits {FLASH_TOL_RMS}) "
-               + " ".join(f"share_{g}={sh:.3e}" for g, sh in shares.items())
-               + f" (limit {FLASH_GRAD_SHARE})" if readings else "all zeros, lse -1e30")
-            + f" lse_err={errs['lse']:.3e} (limit {FLASH_LSE_ATOL})"
+            + (" ".join(f"{g}={r:.3e}" for g, r in readings.items()) + f" ({limits})"
+               if readings else "all zeros, lse -1e30")
+            + f" lse_err={errs['lse']:.3e}"
             + ("" if controls is None else " controls(reading,share) "
                + " ".join(f"{n}={r:.3e},{sh}" for n, (r, sh) in controls.items())),
             flush=True,
         )
-        print_times(case)
+        if c.get("timed", True):
+            print_times(case)
     return cases
 
 
@@ -1272,10 +1496,11 @@ def forward_d128_phase(torch, flush) -> list[dict]:
     forward without one key tile failing them (live cases), exact zeros
     and -1e30 (dead case), times of the kernel, its plain version and SDPA
     (a boolean mask on the global positions in offset mode) beside the
-    bound. Then the head-dim guard on the card: ``flash_attention`` at 96,
-    outside the backward's head dims, on inputs that require a gradient
-    raises, naming them, before any launch; at 128 the same call launches
-    the forward, and its backward dq and dk/dv once each."""
+    bound. Then the head dims past the instantiated ones on the card: a
+    differentiable ``flash_attention`` at head dim 96 launches the forward
+    and, in its backward, dq and dk/dv once each, all at width 128, within
+    the flash limits of its plain versions at 96; at 160 a call raises,
+    naming 128, before any launch."""
     from beholder_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -1347,30 +1572,67 @@ def forward_d128_phase(torch, flush) -> list[dict]:
               f"library_ms={lib_ms:.4f} bound_ms={case['bound_ms']:.5f} ({case['bound_by']})",
               flush=True)
 
-    # the guard: a differentiable call at a head dim outside the backward's
-    # set (96) raises before any launch; at 128 it runs forward and backward
+    # the guard: a differentiable call at head dim 96 runs the kernels at
+    # width 128, one launch each; at 160, past the widths, it raises
+    # before any launch
+    guard = dict(flash_counts=flash_counts, padded=flash_padded_counts)
+    before = {k: f(fa) for k, f in guard.items()}
+    rng96 = np.random.default_rng(31)
+
+    def normal96(*shape_):
+        return torch.from_numpy(rng96.normal(0, 1, shape_).astype(np.float32)).to(dev).bfloat16()
+
+    q96, k96, v96, do96 = normal96(B, H, T, 96), normal96(B, Hkv, T, 96), \
+        normal96(B, Hkv, T, 96), normal96(B, H, T, 96)
+    leaves = [t.clone().requires_grad_() for t in (q96, k96, v96)]
+    o96 = fa.flash_attention(*leaves, causal=True)
+    o96.backward(do96)
+    torch.cuda.synchronize()
+    after = {k: f(fa) for k, f in guard.items()}
+    for k in guard:
+        check(after[k] == tuple(b_ + 1 for b_ in before[k]),
+              f"flash d96: a differentiable call counted {k} {after[k]} from {before[k]}, "
+              "not one forward, one dq and one dk/dv")
+    # its plain versions at head dim 96 on the same inputs: the forward from
+    # q, k, v; the backward from the kernel forward's own o and lse
+    q3, k3, v3, do3 = (t.reshape(-1, T, 96) for t in (q96, k96, v96, do96))
+    o_p96, _ = fa.flash_forward_reference(q3, k3, v3, causal=True)
+    o_k96, lse_k96 = fa.flash_forward(q3, k3, v3, causal=True)
+    bwd96 = (q3, k3, v3, do3, lse_k96, fa.flash_delta(o_k96, do3))
+    want96 = (fa.flash_dq_reference(*bwd96, causal=True),
+              *fa.flash_dkv_reference(*bwd96, causal=True))
+    reading96 = row_reading(o96.detach().reshape(-1, T, 96), o_p96)
+    check(reading96 <= FLASH_TOL_RMS["o"],
+          f"flash d96: o reading {reading96} x row RMS > {FLASH_TOL_RMS['o']}")
+    grads96 = {}
+    for g, leaf, want in zip(("dq", "dk", "dv"), leaves, want96):
+        reading, share = grad_readings(leaf.grad.reshape(want.shape), want)
+        grads96[g] = (reading, share)
+        check(reading <= FLASH_TOL_RMS[g] and share <= FLASH_GRAD_SHARE,
+              f"flash d96: {g} reading {reading} (limit {FLASH_TOL_RMS[g]}), share {share} "
+              f"(limit {FLASH_GRAD_SHARE})")
     before = flash_counts(fa)
-    leaf96 = torch.zeros(B, H, T, 96, dtype=torch.bfloat16, device=dev, requires_grad=True)
-    kv96 = torch.zeros(B, Hkv, T, 96, dtype=torch.bfloat16, device=dev)
-    try:
-        fa.flash_attention(leaf96, kv96, kv96, causal=True)
-    except ValueError as e:
-        message = str(e)
-    else:
-        fail("flash d96: a differentiable flash_attention call did not raise")
+    leaf160 = torch.zeros(B, H, T, 160, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    kv160 = torch.zeros(B, Hkv, T, 160, dtype=torch.bfloat16, device=dev)
+    messages = []
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad):
+            try:
+                fa.flash_attention(leaf160, kv160, kv160, causal=True)
+            except ValueError as e:
+                messages.append(str(e))
+            else:
+                fail(f"flash d160: a flash_attention call (gradients {grad}) did not raise")
     torch.cuda.synchronize()
-    want = str(fa.KERNEL_HEAD_DIMS["flash backward"])
-    check(want in message, f"flash d96: the refusal does not name {want}: {message}")
-    check(flash_counts(fa) == before, "flash d96: a kernel launched before the refusal")
-    leaf = q4.detach().clone().requires_grad_()
-    fa.flash_attention(leaf, k4, v4, causal=True).backward(torch.ones_like(q4))
-    torch.cuda.synchronize()
-    check(flash_counts(fa) == tuple(b + 1 for b in before),
-          f"flash d128: a differentiable call launched {flash_counts(fa)} from {before}, "
-          "not one forward, one dq and one dk/dv")
-    check(bool(torch.isfinite(leaf.grad).all()), "flash d128: dq not finite")
-    print(f"flash guard: at head dim 96 with gradients raises before any launch ({message}); "
-          f"at 128 one forward, one dq and one dk/dv launch", flush=True)
+    check(all(str(fa.MAX_HEAD_DIM) in m for m in messages),
+          f"flash d160: a refusal does not name {fa.MAX_HEAD_DIM}: {messages}")
+    check(flash_counts(fa) == before, "flash d160: a kernel launched before the refusal")
+    print(f"flash guard: a differentiable call at head dim 96 launched one forward, one dq "
+          f"and one dk/dv at width 128: o reading {reading96:.3e}, "
+          + " ".join(f"{g}={r:.3e},{sh:.3e}" for g, (r, sh) in grads96.items())
+          + f"; at 160 it raises before any launch ({messages[0]})", flush=True)
+    cases.append(dict(case="guard-d96", reading_o=reading96, grads=grads96,
+                      refusal_d160=messages))
     return cases
 
 
@@ -2192,7 +2454,7 @@ def intake_path(torch, model, layers, run_reqs, want_run, prefix_reqs, want_pref
        measuring in the background inside the counted window: the syncs,
        launches and streams of a bare ``run``;
     6. tokens/s of ``run_pending`` -> ``run`` armed beside a bare ``run``,
-       ten alternating pairs, and the Python function calls one call of
+       OVERHEAD_PAIRS alternating pairs, and the Python function calls one call of
        each side makes (reported, not gated)."""
     from beholder_tpu_torch.cache import PrefixCache
     from beholder_tpu_torch.metrics import Registry
@@ -3401,8 +3663,10 @@ def head_slice_phase(torch) -> list[dict]:
     slice (``group=2``: 1 kv head and 4 q heads a member, each member's pool
     a contiguous tensor of its own), every pool family, window off and on:
     each member's output bitwise the matching heads of the full-head
-    launch. The decode kernel at the headline and long shapes (the member
-    launches with the full-head split), the chunk kernel at the wave shape.
+    launch. The decode kernel at the headline and long shapes and at the
+    g32 shape (a member's 32 query heads over its kv head, run in two
+    chunks of 16), the member launching with the full-head split; the
+    chunk kernel at the wave shape.
     Control: at the long shape a member launched with its own head count's
     split (``decode_splits`` over 1 kv head) is printed beside it, to show
     what the gate guards. A member's pool given as a view of the full pool
@@ -3430,7 +3694,7 @@ def head_slice_phase(torch) -> list[dict]:
         vp, vs = pool_quantize(v_f, axis=-2, values_dtype=dt)
         return kp, vp, ks, vs
 
-    for shape in ("headline", "long"):
+    for shape in ("headline", "long", "g32"):
         c = DECODE_SHAPES[shape]
         S, H, Hkv, Dh, page, N, P = (c[k] for k in ("S", "H", "Hkv", "Dh", "page", "N", "P"))
         for family in ("bf16", "int8", "fp8"):
@@ -4219,33 +4483,39 @@ def profile_spec(torch, b, reqs) -> dict:
     return out
 
 
-def _takes_row_tiles(parent: Path) -> bool:
-    """Whether a checkout's chunk kernel takes the row-tile count."""
+def _takes_width(parent: Path) -> bool:
+    """Whether a checkout's chunk kernel takes the instantiated width
+    beside the head dim."""
     src = (parent / "beholder_tpu_torch" / "csrc" / "paged_chunk.cu").read_text()
-    return "int row_tiles, int plant" in src
+    return "int Dh, int width" in src
 
 
 def parent_abi(lib):
-    """A chunk kernel library without the row-tile count and the control in
-    its C interface, behind this checkout's: the two arguments are dropped
-    (it has one launch configuration)."""
+    """A chunk kernel library whose C interface lacks the width (it runs
+    head dims equal to a width only), behind this checkout's: the argument
+    is dropped."""
     import ctypes
 
     old = lib.paged_chunk_launch
-    old.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_float,
+    old.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_float,
                                                                       ctypes.c_void_p]
     old.restype = ctypes.c_int
 
     def paged_chunk_launch(*args):
-        return old(*args[:22], *args[24:])
+        return old(*args[:15], *args[16:])
 
     return type("ParentChunkLib", (), {"paged_chunk_launch": staticmethod(paged_chunk_launch)})
 
 
+#: the chunk shapes of the A/B (all timed): the main path's, head dim 64
+CHUNK_AB_SHAPES = ("wave", "warm", "long", "verify")
+
+
 def chunk_ab(torch, flush, parent: Path) -> dict:
     """``--chunk-parent``: the chunk kernel built from ``parent``'s source
-    (A) against this checkout's (B) in one process. Every case of
-    ``chunk_kernel_phase`` in turns A B B A (each must pass its checks), then
+    (A) against this checkout's (B) in one process. The cases of
+    ``chunk_kernel_phase`` at CHUNK_AB_SHAPES in turns A B B A (each must
+    pass its checks), then
     the fused verify with each: spec off and the replay of its stream on
     the headline model over ``run``'s requests, the tokens that differ and
     the drafts accepted. Returns the times per case and side and the
@@ -4268,18 +4538,22 @@ def chunk_ab(torch, flush, parent: Path) -> dict:
     )
     check(out.returncode == 0, f"chunk A/B: nvcc failed on {parent}:\n{out.stdout}{out.stderr}")
     parent_lib = ctypes.CDLL(str(lib.resolve()))
-    libs = {"A": parent_lib if _takes_row_tiles(parent) else parent_abi(parent_lib),
-            "B": csrc.load("paged_chunk")}
+    libs = {"B": pa._chunk_kernel_lib("paged_chunk")}
+    if _takes_width(parent):
+        parent_lib.paged_chunk_launch.argtypes = libs["B"].paged_chunk_launch.argtypes
+        parent_lib.paged_chunk_launch.restype = ctypes.c_int
+        libs["A"] = parent_lib
+    else:
+        libs["A"] = parent_abi(parent_lib)
 
     def use(side):
-        csrc._loaded["paged_chunk"] = libs[side]
-        pa._chunk_lib = None
+        pa._chunk_libs["paged_chunk"] = libs[side]
 
     times: dict = {}
     for side in "ABBA":
         use(side)
         print(f"chunk A/B: side {side}", flush=True)
-        for c in chunk_kernel_phase(torch, flush):
+        for c in chunk_kernel_phase(torch, flush, CHUNK_AB_SHAPES, CHUNK_AB_SHAPES):
             key = f"{c['shape']}/{c['pool']}/window={c['window']}"
             times.setdefault(key, {"A": [], "B": []})[side].append(c["ms"])
     for key, t in times.items():
@@ -4340,6 +4614,18 @@ FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 
 def flash_counts(fa) -> tuple[int, int, int]:
     return fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches
+
+
+def flash_padded_counts(fa) -> tuple[int, int, int]:
+    """The flash kernels' launches at a head dim padded to its width."""
+    return (fa.flash_forward.padded_launches, fa.flash_backward_dq.padded_launches,
+            fa.flash_backward_dkv.padded_launches)
+
+
+def flash_f32_counts(fa) -> tuple[int, int, int]:
+    """The f32 flash kernels' launches (csrc/flash_f32.cu)."""
+    return (fa.flash_forward.f32_launches, fa.flash_backward_dq.f32_launches,
+            fa.flash_backward_dkv.f32_launches)
 
 
 def flash_offset_counts(fa) -> tuple[int, int, int]:
@@ -5098,6 +5384,9 @@ MP_FORWARD_CELLS = {
     "moe dp=2 ep=2 top2 along dp": ("parallel", "moe dp=2 ep=2 top2", "moe", None),
     "moe dp=2 ep=2 top2 along ep": ("parallel", "moe dp=2 ep=2 top2", "moe", (0, 1, 0, 1)),
     "1f1b pp=4 M=4": ("pipeline", "pp=4 M=4", "1f1b", (0, 0, 1, 1)),
+    # each stage's tp pair split between the two processes: (pp, tp)
+    # members (0, 0) and (1, 0) on rank 0, (0, 1) and (1, 1) on rank 1
+    "1f1b pp=2 tp=2 along tp": ("pipeline", "pp=2 tp=2 M=2", "1f1b-tp", (0, 1, 0, 1)),
     "gpipe pp=4 M=4": ("pipeline", "gpipe pp=4 M=4", "gpipe", (0, 0, 1, 1)),
     "serving dp=4 flash": ("sharded_serving", "dp=4 flash", "serving", (0, 0, 1, 1)),
     "ring dp=2 tp=2 sp=2 along sp": ("parallel", "ring dp=2 tp=2 sp=2 seq_shard=on", "ring",
@@ -5217,6 +5506,7 @@ def mp_forward_cell(torch, fa, name: str, rank: int) -> dict:
 
     _, _, kind, owners = MP_FORWARD_CELLS[name]
     shape, names = {"moe": ((2, 2), ("dp", "ep")), "1f1b": ((4,), ("pp",)),
+                    "1f1b-tp": ((2, 2), ("pp", "tp")),
                     "gpipe": ((4,), ("pp",)), "serving": ((4,), ("dp",)),
                     "ring": ((2, 2, 2), ("dp", "tp", "sp")),
                     "ulysses": ((2, 2, 2), ("dp", "tp", "sp"))}[kind]
@@ -5244,12 +5534,15 @@ def mp_forward_cell(torch, fa, name: str, rank: int) -> dict:
         _, counts, offsets = counted_flash(torch, fa, run)
         digest = state_digest(torch, gather_state(state))
         del state
-    elif kind in ("1f1b", "gpipe"):
+    elif kind in ("1f1b", "1f1b-tp", "gpipe"):
+        from beholder_tpu_torch.parallel.sharding import seq_spec
+
         model, h, targets, loss_fn = pipe_setup(torch)
-        stage_fn, stage_params = pipeline_stages(model, 4)
+        n_stages = shape[names.index("pp")]
+        stage_fn, stage_params = pipeline_stages(model, n_stages)
         stacked = stack_stage_params(stage_params)
-        specs = stage_specs(stacked)
-        x, y = split_microbatches(h, 4), split_microbatches(targets, 4)
+        specs = stage_specs(stacked, rule=seq_spec if kind == "1f1b-tp" else None)
+        x, y = split_microbatches(h, n_stages), split_microbatches(targets, n_stages)
         grads = {}
 
         def run():
@@ -5258,7 +5551,7 @@ def mp_forward_cell(torch, fa, name: str, rank: int) -> dict:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                if kind == "1f1b":
+                if kind != "gpipe":
                     loss, grads = pipeline_train_step(stage_fn, loss_fn, stacked, x, y, mesh,
                                                       param_specs=specs)
                 else:
@@ -5269,7 +5562,7 @@ def mp_forward_cell(torch, fa, name: str, rank: int) -> dict:
                 events.append((start, end))
 
         _, counts, offsets = counted_flash(torch, fa, run)
-        if kind == "1f1b":
+        if kind != "gpipe":
             grads = stack_stage_grads(grads, mesh, specs)
         digest = tensors_digest(torch, [torch.stack(losses), *(grads[n] for n in sorted(grads))])
         del grads, model, h
@@ -5412,7 +5705,8 @@ def multiprocess_path(torch, phases: dict, card: str) -> dict:
     ZeRO-3 + remat cells (MP_CELLS, dp across the processes), and of the
     cells whose collectives cross processes inside a forward
     (MP_FORWARD_CELLS): MoE top-2 on (dp, ep) = (2, 2) cut along dp and
-    along ep, 1F1B and GPipe on pp = 4 (stages 0-1 and 2-3), dp-sharded
+    along ep, 1F1B and GPipe on pp = 4 (stages 0-1 and 2-3), 1F1B on (pp,
+    tp) = (2, 2) with each stage's tp pair split between the ranks, dp-sharded
     flash serving on dp = 4 (horizon SHARD_HORIZON), ring and Ulysses on
     (dp, tp, sp) = (2, 2, 2) cut along sp. ``phases`` holds the one-process
     runs (``parallel``, ``pipeline``, ``sharded_serving``). Gates: both
@@ -5552,6 +5846,171 @@ def multiprocess_path(torch, phases: dict, card: str) -> dict:
     return report
 
 
+#: the widened-inputs leg (inputs_path): an MQA model, 32 query heads over
+#: one kv head of width 4 (dim 128 over 32 heads), served at SERVE's sizes;
+#: the f32 flash calls at the training shape, the ring over RING_P shards
+MQA_MODEL = dict(dim=128, heads=32, kv_heads=1, layers=2)
+#: ring attention on f32 inputs against the plain forward and backward: the
+#: bands of tests/test_torch_ring.py (forward rtol 2e-4, atol 2e-5;
+#: gradients rtol 1e-3, atol 1e-4)
+RING_F32_BANDS = {"o": (2e-4, 2e-5), "dq": (1e-3, 1e-4), "dk": (1e-3, 1e-4),
+                  "dv": (1e-3, 1e-4)}
+
+
+def variant_counts(fa, pa) -> dict:
+    """Every kernel variant's launch count: the f32 flash kernels, the bf16
+    and f32 flash kernels at a padded head dim, the decode kernel with its
+    group in chunks, the chunk kernel at a padded head dim."""
+    return dict(f32=flash_f32_counts(fa), padded=flash_padded_counts(fa),
+                decode_chunked=pa.paged_decode_attention.chunked_launches,
+                chunk_padded=pa.paged_chunk_attention.padded_launches)
+
+
+def zero_counts(fa, pa) -> None:
+    for w in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv):
+        w.launches = w.offset_launches = w.f32_launches = w.padded_launches = 0
+    pa.paged_decode_attention.launches = pa.paged_decode_attention.chunked_launches = 0
+    pa.paged_chunk_attention.launches = pa.paged_chunk_attention.padded_launches = 0
+
+
+def inputs_path(torch) -> dict:
+    """This slice's main path: the inputs the reference's kernels take that
+    the port's kernels refused on the card before, through the entry points
+    a user calls, every kernel count set to 0 just before the leg and read
+    just after it. (1) The dryrun as ``python -m beholder_tpu_torch.dryrun
+    8`` runs it (``entry()``, then ``dryrun_multichip(8)`` with every member
+    on this card): every cell inside the reference's band (the dryrun
+    raises otherwise), and its Ulysses cell (8 heads of width 4) on the
+    flash kernels at width 8, its padded forward, dq and dk/dv launches
+    counted over the dryrun. (2) ``flash_attention`` on f32 inputs at the
+    training shape, and ``ring_attention`` on f32 inputs over RING_P members
+    of this card, forward and backward, against the plain versions in the
+    f32 bands (FLASH_F32_BANDS; the ring RING_F32_BANDS). (3) MQA_MODEL
+    served through ``run_waves`` with fused waves (the decode kernel's
+    group of 32 in two chunks, the chunk kernel at head dim 4) and a prefix
+    cache's cold and warm ``run``: launches, pages home, the first forecast
+    steps against the dense oracle. Fails if any variant was launched no
+    time."""
+    from beholder_tpu_torch import dryrun
+    from beholder_tpu_torch.cache import PrefixCache
+    from beholder_tpu_torch.models import TelemetrySequenceModel
+    from beholder_tpu_torch.models.bridge import init_params, load_flax_params
+    from beholder_tpu_torch.models.serving import ContinuousBatcher, Request
+    from beholder_tpu_torch.ops import flash_attention as fa
+    from beholder_tpu_torch.ops import paged_attention as pa
+    from beholder_tpu_torch.ops.attention import ring_attention
+    from beholder_tpu_torch.parallel import Mesh
+
+    t_start = time.perf_counter()
+    report = {}
+    torch.cuda.synchronize()
+    zero_counts(fa, pa)
+
+    # (1) the dryrun on the card
+    t0 = time.perf_counter()
+    fn, example = dryrun.entry()
+    shape = tuple(fn(*example).shape)
+    padded0 = flash_padded_counts(fa)
+    try:
+        cells = dryrun.dryrun_multichip(8)
+    except AssertionError as err:
+        fail(f"dryrun on the card: a cell out of the reference's band: {err}")
+    torch.cuda.synchronize()
+    padded = tuple(b - a for a, b in zip(padded0, flash_padded_counts(fa)))
+    check(list(cells) == list(dryrun.CELLS), f"dryrun on the card: cells {list(cells)}")
+    check(all(n > 0 for n in padded),
+          f"dryrun on the card: the Ulysses cell (head dim 4) launched the flash kernels "
+          f"(forward, dq, dk/dv) {padded} times at a padded head dim")
+    report["dryrun"] = dict(entry_shape=shape, cells={c: list(v) for c, v in cells.items()},
+                            ulysses_padded_launches=padded,
+                            wall_s=time.perf_counter() - t0)
+    print(f"inputs dryrun: entry {shape}; dryrun_multichip(8) on {CARD}: all "
+          f"{len(cells)} cells in band; the Ulysses cell's flash launches at head dim 4 "
+          f"(width 8) fwd/dq/dkv {padded}; {report['dryrun']['wall_s']:.2f} s", flush=True)
+
+    # (2) f32 flash attention and ring attention through their entry points
+    dev = torch.device("cuda")
+    B, H, Hkv, T, Dh = (FLASH_SHAPE[k] for k in ("B", "H", "Hkv", "T", "Dh"))
+    rng = np.random.default_rng(37)
+
+    def normal(*shape_):
+        return torch.from_numpy(rng.normal(0, 1, shape_).astype(np.float32)).to(dev)
+
+    q, k, v, do = normal(B, H, T, Dh), normal(B, Hkv, T, Dh), normal(B, Hkv, T, Dh), \
+        normal(B, H, T, Dh)
+    q3, k3, v3, do3 = (t.reshape(-1, T, Dh) for t in (q, k, v, do))
+    o_p, lse_p = fa.flash_forward_reference(q3, k3, v3, causal=True)
+    bwd = (q3, k3, v3, do3, lse_p, fa.flash_delta(o_p, do3))
+    want = dict(o=o_p, dq=fa.flash_dq_reference(*bwd, causal=True),
+                **dict(zip(("dk", "dv"), fa.flash_dkv_reference(*bwd, causal=True))))
+    del bwd
+    f32_readings = {}
+    for entry, bands in (("flash_attention", FLASH_F32_BANDS), ("ring_attention",
+                                                                 RING_F32_BANDS)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if entry == "flash_attention":
+            out = fa.flash_attention(*leaves, causal=True)
+        else:
+            out = ring_attention(*leaves, Mesh([CARD] * RING_P), causal=True)
+        out.backward(do)
+        torch.cuda.synchronize()
+        got = dict(o=out.detach(), **{g: leaf.grad for g, leaf in zip(("dq", "dk", "dv"),
+                                                                         leaves)})
+        readings = {n: band_reading(got[n].reshape(want[n].shape), want[n], bands[n])
+                    for n in want}
+        for n, r in readings.items():
+            check(r <= 1.0, f"inputs f32 {entry}: {n} off the band {bands[n]} by {r}")
+        f32_readings[entry] = readings
+        print(f"inputs f32 {entry} B={B} H={H} Hkv={Hkv} T={T} Dh={Dh}: readings "
+              f"(x (atol + rtol |plain|), limit 1) "
+              + " ".join(f"{n}={r:.3e}" for n, r in readings.items()) + f" bands {bands}",
+              flush=True)
+        del out, leaves, got
+    del want, o_p, lse_p
+    torch.cuda.empty_cache()
+    report["f32"] = f32_readings
+
+    # (3) the MQA model served: decode groups of 32, chunk kernel at head dim 4
+    model = TelemetrySequenceModel(**MQA_MODEL)
+    load_flax_params(model, init_params(model, seed=3, bf16_matrices=True))
+    layers = MQA_MODEL["layers"]
+    rng = np.random.default_rng(3)
+    wave_reqs = make_requests(rng, Request, [256] * 8, [64] * 8)
+    band = FORECAST_BAND["bf16"]
+    b = ContinuousBatcher(model, **SERVE, cache_dtype="bf16", fused_wave=True)
+    ticks0 = b.ticks
+    results = b.run_waves(wave_reqs, device_results=True)
+    ticks = b.ticks - ticks0
+    check(int(b.state.free_top) == b.num_pages, "inputs mqa/fused_waves: pages not home")
+    worst = check_served(torch, "inputs mqa/fused_waves", b, wave_reqs, results,
+                         [oracle_steps(torch, model, r) for r in wave_reqs], band)
+    prefix_reqs = prefix_requests(rng, Request)
+    prefix = prefix_path(torch, ContinuousBatcher, PrefixCache, model, layers, "bf16",
+                         prefix_reqs, [oracle_steps(torch, model, r) for r in prefix_reqs],
+                         band, label="mqa/bf16")
+    report["mqa"] = dict(model=MQA_MODEL, ticks=ticks, first_steps_max_err=worst,
+                         prefix=prefix)
+    print(f"inputs serve mqa/fused_waves model={MQA_MODEL} requests={len(wave_reqs)} "
+          f"ticks={ticks} first2_max_err={worst:.3e} (band rtol {band[0]}, atol {band[1]}) "
+          "pages_home=yes", flush=True)
+
+    torch.cuda.synchronize()
+    counts = variant_counts(fa, pa)
+    counts.update(flash=flash_counts(fa), offset=flash_offset_counts(fa),
+                  decode=pa.paged_decode_attention.launches,
+                  chunk=pa.paged_chunk_attention.launches)
+    for key in ("f32", "padded"):
+        check(all(n > 0 for n in counts[key]),
+              f"inputs path: the {key} flash kernels (fwd, dq, dk/dv) launched {counts[key]}")
+    check(counts["decode_chunked"] > 0 and counts["chunk_padded"] > 0,
+          f"inputs path: decode launches in chunks {counts['decode_chunked']}, chunk "
+          f"launches at a padded head dim {counts['chunk_padded']}")
+    report.update(launches=counts, wall_s=time.perf_counter() - t_start)
+    print(f"inputs path: launches {json.dumps(counts)}; wall {report['wall_s']:.2f} s",
+          flush=True)
+    return report
+
+
 #: the pipeline cells (pipeline_path): PIPE_STEPS steps each, every one
 #: against the sequential application of the same blocks on the same data
 PIPE_STEPS = 3
@@ -5613,9 +6072,10 @@ def pipeline_path(torch) -> dict:
     flash model's four blocks as the stages, the stage inputs its ``embed``
     of ``train_streams``' features and the loss its ``ln`` + ``head`` + MSE,
     both held fixed. Cells: the 1F1B step on pp = 4 (a block a stage, M =
-    4), on (dp, pp) = (2, 2) (two blocks a stage, M = 2) and on (dp, pp, tp)
-    = (2, 2, 2) (two megatron blocks a stage), and the GPipe forward on pp =
-    4 under autograd. Each against the sequential application of the same
+    4), on (dp, pp) = (2, 2) (two blocks a stage, M = 2), on (dp, pp, tp)
+    = (2, 2, 2) and on (pp, tp) = (2, 2) (two megatron blocks a stage; the
+    second the multi-process leg's split-tp cell on one process), and the
+    GPipe forward on pp = 4 under autograd. Each against the sequential application of the same
     blocks on the same data: the loss and every gradient leaf in the
     dryrun's bands and within PARALLEL_GRAD_BAND leaf by leaf; the flash
     launches exactly the live units' (PERF.md); the 1F1B ring's peak
@@ -5656,6 +6116,8 @@ def pipeline_path(torch) -> dict:
         ("pp=4 M=4", (4,), ("pp",), None, 4, None),
         ("dp=2 pp=2 M=2", (2, 2), ("dp", "pp"), "dp", 2, None),
         ("dp=2 pp=2 tp=2 M=2", (2, 2, 2), ("dp", "pp", "tp"), "dp", 2, seq_spec),
+        # the one-process cell of the multi-process leg's split-tp 1F1B
+        ("pp=2 tp=2 M=2", (2, 2), ("pp", "tp"), None, 2, seq_spec),
     )
     for name, shape, names, dp_axis, m, rule in cells:
         s = shape[names.index("pp")]
@@ -6760,8 +7222,10 @@ SERVICE_MEDIA = 64
 #: 700 W), 32,768 since, to keep the script inside its time limit; (f0) and
 #: (f1) ran 16,384 each until the multi-process leg took the collectives
 #: inside a forward (23.8 s of them in a 846.8 s script on a slow host,
-#: same card and limit), 8,192 since, for the same reason
-SERVICE_MESSAGES = {"a": 32768, "b": 16384, "d": 32768, "e": 16384, "f": 8192, "g": 4096,
+#: same card and limit), 8,192 since, for the same reason; (b) ran 16,384
+#: until the widened kernel inputs came (21.3 s of a 964.5 s script on a
+#: slow host, same card and limit), 8,192 since
+SERVICE_MESSAGES = {"a": 32768, "b": 8192, "d": 32768, "e": 16384, "f": 8192, "g": 4096,
                     "c": 20000}
 SERVICE_EXIT_S = 60
 SERVICE_DRAIN_S = 300
@@ -7832,7 +8296,8 @@ def main() -> None:
           f"allow_tf32=False allow_bf16_reduced_precision_reduction=False", flush=True)
 
     t0 = time.perf_counter()
-    csrc.build("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd", "aggregate")
+    csrc.build("paged_decode", "paged_chunk", "paged_chunk_padded", "flash_fwd", "flash_bwd",
+               "flash_f32", "aggregate")
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     builds = {}
     for name, log in csrc.build_log.items():
@@ -7882,6 +8347,7 @@ def main() -> None:
     training["parallel"] = parallel_path(torch)
     training["pipeline"] = pipeline_path(torch)
     record["sharded_serving"] = sharded_serving_path(torch)
+    record["inputs"] = inputs_path(torch)
     training["multiprocess"] = multiprocess_path(
         torch, dict(parallel=training["parallel"], pipeline=training["pipeline"],
                     sharded_serving=record["sharded_serving"]), card)
@@ -7942,7 +8408,9 @@ def main() -> None:
             "replaces": replaces,
             "launches": training["train"]["launches"][key] + parallel_launches[key]
             - parallel_offsets[key],
-            "max_abs_err": max(c["max_abs_err"][o] for c in flash_cases for o in outs),
+            "max_abs_err": max(c["max_abs_err"][o] for c in flash_cases
+                               if c["dtype"] == "bf16" and c["Dh"] == c["width"]
+                               for o in outs),
             "ms": train_case[key]["ms"],
             "plain_ms": train_case[key]["plain_ms"],
             "bound_ms": train_case[key]["bound_ms"],
@@ -7964,12 +8432,76 @@ def main() -> None:
             "source": f"beholder_tpu_torch/csrc/{source}",
             "replaces": f"beholder_tpu/ops/flash_attention.py:{site}",
             "launches": training["ring_train"]["offset_launches"][key] + parallel_offsets[key],
-            "max_abs_err": max(c["max_abs_err"][o] for c in offset_cases for o in outs),
+            "max_abs_err": max(c["max_abs_err"][o] for c in offset_cases
+                               if c["dtype"] == "bf16" for o in outs),
             "ms": offaxis[key]["ms"],
             "plain_ms": offaxis[key]["plain_ms"],
             "bound_ms": offaxis[key]["bound_ms"],
             "bound_by": offaxis[key]["bound_by"],
             "library_ms": offaxis[key]["library_ms"],
+        })
+    # the variants the kernels gained for every input the reference takes,
+    # each with its launches from the inputs leg's run: the f32 kernels
+    # (timed at the training shape), the bf16 flash kernels at a head dim
+    # padded to its width (launched at head dim 4 by the dryrun's Ulysses
+    # cell; timed at head dim 96 padded to 128 at the training shape, the
+    # bound that of head dim 96), the chunk kernel's padded build (launched
+    # and timed at MQA_MODEL's head dim 4, its fused wave) and the decode
+    # kernel with a group of 32 (two chunks of 16; launched and timed at
+    # MQA_MODEL's head dim 4)
+    inputs = record["inputs"]["launches"]
+    f32_case = next(c for c in flash_cases if c["case"] == "f32-train")
+    d96_case = next(c for c in flash_cases if c["case"] == "d96-train")
+    for i, (key, name, replaces) in enumerate((
+        ("fwd", "flash_forward", "beholder_tpu/ops/flash_attention.py:227"),
+        ("dq", "flash_backward_dq", "beholder_tpu/ops/flash_attention.py:558"),
+        ("dkv", "flash_backward_dkv", "beholder_tpu/ops/flash_attention.py:635"),
+    )):
+        outs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+        for suffix, source, case, launches, picked in (
+            ("f32", "flash_f32.cu", f32_case, inputs["f32"][i],
+             [c for c in flash_cases + offset_cases if c["dtype"] == "f32"]),
+            ("padded", "flash_fwd.cu" if key == "fwd" else "flash_bwd.cu", d96_case,
+             inputs["padded"][i],
+             [c for c in flash_cases if c["dtype"] == "bf16" and c["Dh"] != c["width"]]),
+        ):
+            kernels.append({
+                "name": f"{name}_{suffix}",
+                "route": "cuda",
+                "source": f"beholder_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max(c["max_abs_err"][o] for c in picked for o in outs),
+                "ms": case[key]["ms"],
+                "plain_ms": case[key]["plain_ms"],
+                "bound_ms": case[key]["bound_ms"],
+                "bound_by": case[key]["bound_by"],
+                "library_ms": case[key]["library_ms"],
+            })
+    chunk_mqa = next(c for c in chunk_cases
+                     if c["shape"] == "wave-mqa" and c["pool"] == "bf16" and c["window"] is None)
+    g32 = next(c for c in cases
+               if c["shape"] == "g32-d4" and c["pool"] == "bf16" and c["window"] is None)
+    for name, source, replaces, launches, case, picked in (
+        ("paged_chunk_attention_padded", "paged_chunk_padded.cu",
+         "beholder_tpu/ops/paged_attention.py:567", inputs["chunk_padded"], chunk_mqa,
+         [c for c in chunk_cases if c["Dh"] in (4, 9, 24, 96)]),
+        ("paged_decode_attention_g32", "paged_decode.cu",
+         "beholder_tpu/ops/paged_attention.py:154", inputs["decode_chunked"], g32,
+         [c for c in cases if c["H"] // c["Hkv"] > 16]),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"beholder_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in picked),
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
         })
     flush_case = next(c for c in agg_cases if c["case"] == "flush")
     kernels.append({

@@ -410,3 +410,42 @@ def test_fused_wave_admit_matches_jax(pair):
     for name in STATE_FIELDS:
         np.testing.assert_array_equal(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
                                       err_msg=name)
+
+
+@pytest.mark.parametrize("dh", [4, 9, 64, 96, 128])
+def test_chunk_card_path_picks_the_exact_or_the_padded_build(dh, monkeypatch):
+    """The chunk kernel's launch, reachable without a card (the library a
+    stand-in that records each call): a head dim equal to its width runs
+    the exact build (``paged_chunk``), one below it the padded build
+    (``paged_chunk_padded``). Both get the true head dim, the width of
+    ``kernel_width`` and the square root of the true head dim; only the
+    padded launch counts in ``padded_launches``."""
+    from types import SimpleNamespace
+
+    from beholder_tpu_torch.ops.flash_attention import kernel_width
+
+    calls = []
+
+    def lib(name):
+        def launch(*args):
+            # ..., S, H, Hkv, W, Dh, width, page, ...; sqrt_dh, stream last
+            calls.append((name, args[14], args[15], args[-2]))
+            return 0
+        return SimpleNamespace(paged_chunk_launch=launch)
+
+    monkeypatch.setattr(tpa, "_chunk_kernel_lib", lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    q = torch.zeros(2, 4, 8, dh, dtype=torch.bfloat16)
+    chunk = torch.zeros(2, 2, 8, dh, dtype=torch.bfloat16)
+    pool = torch.zeros(6, 2, dh, 16, dtype=torch.bfloat16)
+    table = torch.zeros(2, 3, dtype=torch.int32)
+    lens = torch.tensor([0, 20], dtype=torch.int32)
+    counts = (tpa.paged_chunk_attention.launches, tpa.paged_chunk_attention.padded_launches)
+    out = tpa._chunk_launch(q, chunk, chunk, pool, pool, table, lens, 48, 3, None, None, None)
+    width = kernel_width(dh)
+    assert out.shape == q.shape
+    assert calls == [("paged_chunk" if width == dh else "paged_chunk_padded", dh, width,
+                      torch.sqrt(torch.tensor(float(dh))).item())]
+    assert (tpa.paged_chunk_attention.launches - counts[0],
+            tpa.paged_chunk_attention.padded_launches - counts[1]) == (1, int(width != dh))

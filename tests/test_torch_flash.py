@@ -47,6 +47,14 @@ CASES = {
     # window over a partial last tile
     "causal-gqa4-d128": dict(b=1, h=4, hkv=1, t=256, d=128, causal=True),
     "window64-gqa-d128": dict(b=1, h=4, hkv=2, t=200, d=128, causal=True, window=64),
+    # head dims the kernels run padded to their next width: the reference's
+    # own unaligned case (tests/test_flash_attention.py:39, h=3, t=77, d=9),
+    # its GQA 16:8 at d=8 (:136), and 4 (the dryrun's Ulysses cell), 24 and 96
+    "causal-t77-d9": dict(b=1, h=3, hkv=3, t=77, d=9, causal=True),
+    "causal-gqa16x8-d8": dict(b=1, h=16, hkv=8, t=128, d=8, causal=True),
+    "causal-gqa-d4": dict(b=2, h=4, hkv=2, t=100, d=4, causal=True),
+    "window50-gqa-d24": dict(b=1, h=4, hkv=2, t=130, d=24, causal=True, window=50),
+    "noncausal-gqa-d96": dict(b=1, h=4, hkv=2, t=96, d=96, causal=False),
 }
 BANDS = {"f32": ((1e-4, 1e-5), (1e-3, 1e-4)), "bf16": ((2**-6, 2**-6), (2**-6, 2**-6))}
 
@@ -249,78 +257,101 @@ class _PastTheCheck(Exception):
     """Raised by a stub standing after the head-dim check."""
 
 
-@pytest.mark.parametrize("dh", [4, 8, 12, 16, 24, 32, 48, 64, 96, 128])
+@pytest.mark.parametrize("dh", [1, 4, 8, 9, 24, 64, 96, 128, 129, 160])
 def test_kernel_head_dim_check_takes_the_instantiated_dims(dh, monkeypatch):
-    """The CUDA path's head-dim checks (run before any launch, so reachable
-    without a card), one set per kernel: the flash forward, the flash
-    backward kernels (dq, dk/dv) and the paged chunk kernel take head dims
-    8, 16, 32, 64 and 128; each raises for any other head dim with a
-    message that names its own set."""
+    """The CUDA path's checks (run before any launch, so reachable without
+    a card): every head dim from 1 to 128 maps to its width, the next of
+    the instantiated (8, 16, 32, 64, 128), and passes the checks of the
+    flash forward, the flash backward kernels (dq, dk/dv) and the paged
+    chunk kernel; 129 and 160 raise, naming 128. The flash checks take bf16
+    and f32 and refuse f16."""
     from beholder_tpu_torch.ops import paged_attention as pa
 
     def past(*_, **__):
         raise _PastTheCheck
 
     monkeypatch.setattr(pa, "_kernel_mode", past)
-    assert fa.KERNEL_HEAD_DIMS == {
-        "flash forward": (8, 16, 32, 64, 128),
-        "flash backward": (8, 16, 32, 64, 128),
-        "paged chunk": (8, 16, 32, 64, 128),
-    }
-    q = torch.zeros(4, 8, dh, dtype=torch.bfloat16)
-    k = torch.zeros(2, 8, dh, dtype=torch.bfloat16)
-    f32 = {"lse": torch.zeros(4, 8), "delta": torch.zeros(4, 8)}
-    pool = torch.zeros(3, 2, dh, 16, dtype=torch.bfloat16)
-    checks = [
-        ("flash forward",
-         lambda: fa._check_kernel_inputs("flash forward", {"q": q, "k": k, "v": k}, {}, None)),
-        ("flash backward",
-         lambda: fa._check_kernel_inputs("flash dq", {"q": q, "k": k, "v": k, "do": q}, f32,
-                                         None)),
-        ("flash backward",
-         lambda: fa._check_kernel_inputs("flash dk/dv", {"q": q, "k": k, "v": k, "do": q}, f32,
-                                         None)),
-        ("paged chunk",
-         lambda: pa._chunk_launch(q[None], k[None], k[None], pool, pool, None, None, 32, 2,
-                                  None, None, None)),
-    ]
-    for kernel, check in checks:
-        dims = fa.KERNEL_HEAD_DIMS[kernel]
-        if dh in dims:
-            try:
+    assert fa.KERNEL_HEAD_DIMS == (8, 16, 32, 64, 128) and fa.MAX_HEAD_DIM == 128
+
+    def checks(dtype):
+        q = torch.zeros(4, 8, dh, dtype=dtype)
+        k = torch.zeros(2, 8, dh, dtype=dtype)
+        f32 = {"lse": torch.zeros(4, 8), "delta": torch.zeros(4, 8)}
+        pool = torch.zeros(3, 2, dh, 16, dtype=torch.bfloat16)
+        return [
+            lambda: fa._check_kernel_inputs("flash forward", {"q": q, "k": k, "v": k}, {}, None),
+            lambda: fa._check_kernel_inputs("flash dq", {"q": q, "k": k, "v": k, "do": q}, f32,
+                                            None),
+            lambda: fa._check_kernel_inputs("flash dk/dv", {"q": q, "k": k, "v": k, "do": q},
+                                            f32, None),
+            lambda: pa._chunk_launch(q.bfloat16()[None], k.bfloat16()[None], k.bfloat16()[None],
+                                     pool, pool, None, None, 32, 2, None, None, None),
+        ]
+
+    if dh > 128:
+        with pytest.raises(ValueError, match="head_dim 1 to 128"):
+            fa.kernel_width(dh)
+        for check in checks(torch.bfloat16) + checks(torch.float32)[:3]:
+            with pytest.raises(ValueError, match=rf"takes head_dim 1 to 128, got {dh}"):
                 check()
-            except _PastTheCheck:
-                pass
-        else:
-            with pytest.raises(ValueError, match=rf"the {kernel} kernel takes head_dim in "
-                               + re.escape(str(dims))):
-                check()
+        return
+    width = fa.kernel_width(dh)
+    assert width == min(w for w in (8, 16, 32, 64, 128) if w >= dh)
+    for dtype in (torch.bfloat16, torch.float32):
+        flash, chunk = checks(dtype)[:3], checks(dtype)[3]
+        for check in flash:
+            assert check() == width
+        with pytest.raises(_PastTheCheck):
+            chunk()
+    for check in checks(torch.float16)[:3]:
+        with pytest.raises(TypeError, match="takes bf16 or f32 inputs, got torch.float16"):
+            check()
 
 
-@pytest.mark.parametrize("dh", [64, 96, 128])
+class _StandIns:
+    """The flash kernel libraries' stand-ins: each C entry records (entry,
+    width, scale) and returns 0 (launched), leaving its outputs as
+    allocated."""
+
+    ENTRIES = ("flash_fwd_launch", "flash_dq_launch", "flash_dkv_launch",
+               "flash_f32_fwd_launch", "flash_f32_dq_launch", "flash_f32_dkv_launch")
+
+    def __init__(self):
+        self.calls = []
+
+    def lib(self, name):
+        def entry(fn):
+            def call(*args):
+                # the trailing scalars: ..., Dh (the width), H, causal, window,
+                # q_offset, kv_offset, scale, stream
+                self.calls.append((fn, args[-8], args[-2]))
+                return 0
+            return call
+        return type("Lib", (), {fn: staticmethod(entry(fn)) for fn in self.ENTRIES})()
+
+
+@pytest.mark.parametrize("dh", [64, 96, 160])
 @pytest.mark.parametrize("entry", ["flash_attention", "ring_attention"])
 def test_card_path_refuses_a_backward_at_head_dim_96_before_the_forward(entry, dh,
                                                                         monkeypatch):
-    """On the card a differentiable call at head dim 96, outside the
-    backward kernels' set, raises before the forward launches, naming the
-    backward's head dims; without gradients the forward's own check refuses
-    it, naming the forward's. At head dims 64 and 128, in both sets, both
-    calls reach the forward kernel. The card path is taken here on CPU
-    tensors (``_on_card`` patched); the kernel library stands in by raising
-    once the checks are passed."""
+    """On the card a differentiable call at head dim 96 runs the kernels
+    at width 128 with the scale of 96, bf16 and f32 alike: one forward (the
+    ring: one a block pair), then, in the backward, the dq and dk/dv
+    kernels, every launch at width 128 and ``scale = 1/sqrt(96)``. At 64
+    every launch runs at 64. At 160 the call raises before any launch,
+    naming 128, with and without gradients. The card path is taken here on
+    CPU tensors (``_on_card`` patched); the kernel libraries are stand-ins
+    that record each launch's width and scale."""
+    from types import SimpleNamespace
+
     from beholder_tpu_torch.ops.attention import ring_attention
     from beholder_tpu_torch.parallel import Mesh
 
-    reached = []
-
-    def kernel_lib(name):
-        reached.append(name)
-        raise _PastTheCheck
-
+    stand = _StandIns()
     monkeypatch.setattr(fa, "_on_card", lambda q: True)
-    monkeypatch.setattr(fa, "_kernel_lib", kernel_lib)
-    q = torch.zeros(1, 4, 128, dh, dtype=torch.bfloat16)
-    k = torch.zeros(1, 2, 128, dh, dtype=torch.bfloat16)
+    monkeypatch.setattr(fa, "_kernel_lib", stand.lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
     if entry == "flash_attention":
         def call(*x):
             return flash_attention(*x, causal=True)
@@ -328,21 +359,71 @@ def test_card_path_refuses_a_backward_at_head_dim_96_before_the_forward(entry, d
         def call(*x):
             return ring_attention(*x, Mesh(["cpu"] * 4), causal=True)
 
-    leaf = q.clone().requires_grad_()
-    if dh == 96:
-        with pytest.raises(ValueError, match=r"flash backward kernel takes head_dim in "
-                           r"\(8, 16, 32, 64, 128\), got 96"):
-            call(leaf, k, k)
-        assert reached == []
-        with torch.no_grad(), pytest.raises(ValueError, match=r"flash forward kernel takes "
-                                            r"head_dim in \(8, 16, 32, 64, 128\), got 96"):
-            call(leaf, k, k)
-        assert reached == []
-        return
-    with pytest.raises(_PastTheCheck):
-        call(leaf, k, k)
-    assert reached == ["flash_fwd"]
-    reached.clear()
-    with torch.no_grad(), pytest.raises(_PastTheCheck):
-        call(leaf, k, k)
-    assert reached == ["flash_fwd"]
+    for dtype in (torch.bfloat16, torch.float32):
+        stand.calls.clear()
+        q = torch.zeros(1, 4, 128, dh, dtype=dtype)
+        k = torch.zeros(1, 2, 128, dh, dtype=dtype)
+        leaf = q.clone().requires_grad_()
+        if dh == 160:
+            with pytest.raises(ValueError, match=r"takes head_dim 1 to 128, got 160"):
+                call(leaf, k, k)
+            with torch.no_grad(), pytest.raises(ValueError,
+                                                match=r"takes head_dim 1 to 128, got 160"):
+                call(leaf, k, k)
+            assert stand.calls == []
+            continue
+        out = call(leaf, k, k)
+        assert out.shape == q.shape and out.dtype == dtype
+        prefix = "flash_f32_" if dtype == torch.float32 else "flash_"
+        fwd = [c for c in stand.calls if c[0] == prefix + "fwd_launch"]
+        assert fwd and len(fwd) == len(stand.calls), stand.calls
+        out.float().sum().backward()
+        assert leaf.grad.shape == q.shape
+        kinds = {c[0] for c in stand.calls}
+        assert kinds == {prefix + n for n in ("fwd_launch", "dq_launch", "dkv_launch")}, kinds
+        if entry == "flash_attention":
+            assert [c[0] for c in stand.calls] == [prefix + n for n in
+                                                   ("fwd_launch", "dq_launch", "dkv_launch")]
+        want = torch.tensor(1.0 / np.sqrt(dh), dtype=torch.float32).item()
+        for fn, width, scale in stand.calls:
+            assert width == (128 if dh == 96 else 64), (fn, width)
+            assert torch.tensor(scale, dtype=torch.float32).item() == want, (fn, scale)
+
+
+@pytest.mark.parametrize("dh", [4, 9, 24, 96])
+def test_padding_to_the_width_with_the_true_scale_is_the_plain_version(dh):
+    """What the card path does at a head dim below its width: q, k, v and do
+    zero-padded to the width, the kernels' function there with the scale of
+    the true head dim, the results sliced back, equals the plain version at
+    the true head dim within the f32 band (forward rtol 1e-4, atol 1e-5;
+    gradients rtol 1e-3, atol 1e-4), o, lse, dq, dk and dv. A planted scale
+    taken from the width must fail the band."""
+    rng = np.random.default_rng(dh)
+    width = fa.kernel_width(dh)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    q, do = normal(4, 70, dh), normal(4, 70, dh)
+    k, v = normal(2, 70, dh), normal(2, 70, dh)
+    kw = dict(causal=True, window=None, segment_ids=None)
+    o, lse = fa.flash_forward_reference(q, k, v, **kw)
+    delta = fa.flash_delta(o, do)
+    want = (o, lse, fa.flash_dq_reference(q, k, v, do, lse, delta, **kw),
+            *fa.flash_dkv_reference(q, k, v, do, lse, delta, **kw))
+
+    def padded_run(scale):
+        qp, kp, vp, dop = (torch.nn.functional.pad(x, (0, width - dh)) for x in (q, k, v, do))
+        op, lsep = fa.flash_forward_reference(qp, kp, vp, scale=scale, **kw)
+        deltap = fa.flash_delta(op, dop)
+        dq = fa.flash_dq_reference(qp, kp, vp, dop, lsep, deltap, scale=scale, **kw)
+        dk, dv = fa.flash_dkv_reference(qp, kp, vp, dop, lsep, deltap, scale=scale, **kw)
+        return op[..., :dh], lsep, dq[..., :dh], dk[..., :dh], dv[..., :dh]
+
+    bands = [(1e-4, 1e-5)] * 2 + [(1e-3, 1e-4)] * 3
+    got = padded_run(1.0 / np.sqrt(dh))
+    for name, g, w, (rtol, atol) in zip(("o", "lse", "dq", "dk", "dv"), got, want, bands):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, msg=name)
+    planted = padded_run(1.0 / np.sqrt(width))
+    assert not torch.allclose(planted[0], want[0], rtol=1e-4, atol=1e-5)
+    assert not torch.allclose(planted[2], want[2], rtol=1e-3, atol=1e-4)

@@ -13,13 +13,16 @@ a forward, each cell on its mesh cut between them: the MoE model (dim 16,
 4 experts; top-1, top-2 and expert choice) on (dp, ep) = (2, 2) cut along
 dp and along ep; GPipe on pp = 2 and (dp, pp) = (2, 2) and 1F1B on pp = 2,
 (dp, pp) = (2, 2) and (dp, pp, tp) = (2, 2, 2) with megatron stages, cut
-along pp; dp-sharded serving (prefill, decode, forecast eta) on dp = 2 and
+along pp, and on (pp, tp) = (2, 2) cut along tp, each stage's tp pair split
+between the processes (megatron stages, and the model's flash blocks as
+the stages); dp-sharded serving (prefill, decode, forecast eta) on dp = 2 and
 (dp, tp) = (2, 2) cut along dp; ring and Ulysses attention alone on sp = 2
 (flash and the plain backends) and inside ``sharded_seq_train_step`` on
 (dp, tp, sp) = (2, 1, 2) cut along sp; ``along`` over a group of 4 split
 2 / 2 for every collective, forward and backward. Four processes, one
 member each, run the ring step on (dp, sp) = (2, 2), whose sp and dp groups
-each cross two of them (sub-groups). ``dryrun_multichip(8)`` runs every
+each cross two of them (sub-groups), and 1F1B on (pp, tp) = (2, 2), whose
+tp pairs and stage hops each cross two. ``dryrun_multichip(8)`` runs every
 mesh cell over the two processes. The parent waits with a limit of its own
 (:data:`WAIT_S`), so a hang fails these tests and does not hold the suite.
 Tolerances, with their reasons:
@@ -244,16 +247,22 @@ def test_forward_cells_are_bitwise_the_one_process_mesh(ranks, one_process_forwa
 
 
 def test_four_processes_run_the_ring_over_sub_groups(four_ranks):
-    """The ring step on (dp, sp) = (2, 2), one member a process: every sp
-    and dp group crosses two of the four processes, so its collectives run
-    over a process group of those two; bitwise the one-process mesh."""
+    """One member a process: the ring step on (dp, sp) = (2, 2), whose sp
+    and dp groups each cross two of the four processes, and 1F1B on (pp,
+    tp) = (2, 2), whose stages' tp pairs each cross two and whose hops
+    between stages all cross; their collectives run over a process group
+    of those two. Each bitwise the one-process mesh."""
     for name in cells.FOUR_CELLS:
         want = cells.run_forward_cell(name, cells.forward_mesh(name))
         for r in range(4):
-            assert _same(four_ranks[r][name], want), (r, name)
+            assert _forward_same(four_ranks[r][name], want), (r, name)
         mesh = cells.forward_mesh(name, 4, 0)
-        assert mesh.layout("sp", 0).owners == (0, 1)
-        assert mesh.layout("dp", 0).owners == (0, 2)
+        if cells.cell_spec(name)[0] == "sp-step":
+            assert mesh.layout("sp", 0).owners == (0, 1)
+            assert mesh.layout("dp", 0).owners == (0, 2)
+        else:
+            assert mesh.layout("tp", 0).owners == (0, 1)
+            assert mesh.layout("pp", 0).owners == (0, 2)
 
 
 @pytest.mark.parametrize("op", list(cells.ALONG_OPS))
@@ -271,6 +280,51 @@ def test_along_over_a_split_group_is_bitwise_one_process(ranks, op):
             assert torch.equal(grad.view(torch.uint8), w_grad.view(torch.uint8)), (op, i)
             seen.add(i)
     assert seen == set(range(4))
+
+
+@pytest.mark.parametrize("name", list(cells.BLOCK_CELLS))
+def test_block_stages_with_a_split_tp_group_are_bitwise_one_process(ranks, name):
+    """The model's flash blocks as 1F1B stages on (pp, tp) = (2, 2), each
+    stage's tp pair split between the two processes (its megatron blocks'
+    collectives cross them): the loss and every stacked gradient bitwise
+    the other process's and the one-process mesh's."""
+    shape, names, _ = cells.BLOCK_CELLS[name]
+    want = cells.run_block_cell(name, cells.cut_mesh(shape, names, "tp"))
+    for r in range(WORLD):
+        assert ranks[r]["blocks"][name]["digest"] == want["digest"], (r, name)
+
+
+@pytest.mark.parametrize("name", list(cells.BLOCK_CELLS))
+def test_block_stages_with_a_split_tp_group_match_the_sequential_blocks(ranks, name):
+    """The same cell against the model's blocks applied in sequence to each
+    microbatch under autograd (the mean loss over the microbatches), in the
+    dryrun's bf16 bands that ``tests/test_torch_pipeline.py`` holds the
+    block stages to (``__graft_entry__.py:271-286``): the loss within rel
+    1e-3, every gradient within 5e-2 x max(1, max |g|). The blocks' products
+    round to bf16 (``Dense(dtype=bf16)``), and a tp member's product over
+    its half of the hidden units rounds apart from the whole one's."""
+    from beholder_tpu_torch.models import pipeline_stages
+
+    model, h, y, loss_fn = cells.block_inputs()
+    stage_fn, params = pipeline_stages(model, 2)
+    leaves = [{n: t.clone().requires_grad_() for n, t in p.items()} for p in params]
+    losses = []
+    for j in range(h.shape[0]):
+        z = h[j]
+        for p in leaves:
+            z = stage_fn(p, z)
+        losses.append(loss_fn(z, y[j]))
+    loss = torch.stack(losses).mean()
+    flat = [t for p in leaves for t in p.values()]
+    grads = dict(zip([(i, n) for i, p in enumerate(leaves) for n in p],
+                     torch.autograd.grad(loss, flat)))
+    got = ranks[0]["blocks"][name]
+    ref = float(loss.detach())
+    assert abs(float(got["out"][0]) - ref) <= 1e-3 * max(1.0, abs(ref))
+    for n, g in zip(got["names"], got["out"][1:]):
+        want = torch.stack([grads[i, n] for i in range(len(leaves))])
+        err = float((g.float() - want.float()).abs().max())
+        assert err <= 5e-2 * max(1.0, float(want.abs().max())), (n, err)
 
 
 def test_planted_ring_hop_fails_the_bitwise_gate(ranks, one_process_forward):
@@ -527,6 +581,18 @@ def test_forward_cells_within_the_reference_bands(ranks, forward_reference, name
     for i, ((rtol, atol), w) in enumerate(zip(FORWARD_BANDS[kind], want)):
         np.testing.assert_allclose(got["out"][i].float().numpy(), w, rtol=rtol, atol=atol,
                                    err_msg=f"{name} result {i}")
+
+
+def test_four_process_1f1b_within_the_reference_bands(four_ranks, forward_reference):
+    """The four-process 1F1B cell (each stage's tp pair split between two
+    processes) against the reference's ``pipeline_train_step`` on a JAX
+    (pp, tp) = (2, 2) mesh, in the 1F1B bands: loss rtol 1e-5, gradients
+    atol 1e-5."""
+    name = "1f1b pp=2 tp=2 four processes"
+    want = forward_reference(name)
+    for i, ((rtol, atol), w) in enumerate(zip(FORWARD_BANDS["1f1b-tp"], want)):
+        np.testing.assert_allclose(four_ranks[0][name]["out"][i].float().numpy(), w,
+                                   rtol=rtol, atol=atol, err_msg=f"{name} result {i}")
 
 
 # -- make_hybrid_mesh over processes ----------------------------------------------

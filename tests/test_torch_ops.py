@@ -113,9 +113,13 @@ def _paged_inputs(seed, family, s=4, h=4, hkv=2, dh=8, page=8, n=12, p=3):
         ("fp8", 5, (4, 2)),
         ("bf16", None, (4, 4)),   # MHA
         ("int8", 7, (4, 1)),      # MQA
+        # MQA groups over 16 query heads, which the kernel runs in chunks
+        ("bf16", None, (32, 1)),
+        ("fp8", 5, (32, 1)),
+        ("int8", None, (64, 1)),
     ],
     ids=["bf16", "bf16-window", "int8", "int8-window", "fp8", "fp8-window",
-         "bf16-mha", "int8-mqa-window"],
+         "bf16-mha", "int8-mqa-window", "bf16-g32", "fp8-g32-window", "int8-g64"],
 )
 def test_paged_decode_plain_matches_jax(family, window, heads):
     h, hkv = heads
@@ -134,6 +138,49 @@ def test_paged_decode_plain_matches_jax(family, window, heads):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
     # the -1 slot reads no page and returns an exact zero row
     assert not got[3].float().abs().max().item()
+
+
+@pytest.mark.parametrize("family", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("window", [None, 9])
+def test_paged_chunk_plain_matches_jax_at_head_dim_24(family, window):
+    """The plain chunk version at head dim 24 (a width the kernel runs at
+    32, its pools read at 24) against the reference's
+    ``paged_chunk_attention``, every pool family, window off and on: one
+    bf16 ULP of the output (``tests/test_torch_chunk.py``'s band: the
+    context and scores are bitwise, XLA's CPU exp and torch's differ in the
+    last f32 bit now and then)."""
+    rng = np.random.default_rng(24)
+    slots, hkv, g, w, dh, page, n, p = 3, 2, 2, 6, 24, 8, 16, 4
+    (qj, qt), (kcj, kct), (vcj, vct) = (
+        _bf16(rng.normal(0, 1, shape).astype(np.float32)) for shape in
+        ((slots, hkv * g, w, dh), (slots, hkv, w, dh), (slots, hkv, w, dh))
+    )
+    (kj, vj, ksj, vsj), (kt, vt, kst, vst) = _pools(rng, family, n, hkv, dh, page)
+    table = rng.permutation(n)[: slots * p].reshape(slots, p).astype(np.int32)
+    lens = np.array([0, 11, p * page - w], np.int32)
+    kw = dict(window=window, ctx_len=p * page + w)
+    want = jpa.paged_chunk_attention(qj, kcj, vcj, kj, vj, jnp.asarray(table), jnp.asarray(lens),
+                                     k_scale=ksj, v_scale=vsj, **kw)
+    got = tpa.paged_chunk_attention(qt, kct, vct, kt, vt, torch.from_numpy(table),
+                                    torch.from_numpy(lens), k_scale=kst, v_scale=vst, **kw)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == tuple(want.shape)
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=2**-7, atol=0)
+    assert (got != want).mean() < 0.02
+
+
+def _pools(rng, family, n, hkv, dh, page):
+    """(jax, torch) k/v pools of ``family`` with their scales (None for bf16)."""
+    k = rng.normal(0, 1, (n, hkv, dh, page)).astype(np.float32)
+    v = rng.normal(0, 1, (n, hkv, dh, page)).astype(np.float32)
+    if family == "bf16":
+        (kj, kt), (vj, vt) = _bf16(k), _bf16(v)
+        return (kj, vj, None, None), (kt, vt, None, None)
+    jfn = jq.quantize_symmetric if family == "int8" else jq.quantize_fp8_block
+    tfn = tq.quantize_symmetric if family == "int8" else tq.quantize_fp8_block
+    (kj, ksj), (vj, vsj) = jfn(jnp.asarray(k), -2), jfn(jnp.asarray(v), -2)
+    (kt, kst), (vt, vst) = tfn(torch.from_numpy(k), -2), tfn(torch.from_numpy(v), -2)
+    return (kj, vj, ksj, vsj), (kt, vt, kst, vst)
 
 
 def test_paged_decode_validates_like_the_reference():

@@ -214,6 +214,25 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         csrc.build("no_such_kernel")
 
 
+def test_kernel_build_key_covers_the_sources_a_kernel_includes(monkeypatch, tmp_path):
+    """A kernel's library is keyed by its source, the shared headers and
+    any source it includes: the chunk kernel's padded build (which
+    includes ``paged_chunk.cu``) is rebuilt when that file changes, and a
+    source that includes neither is not."""
+    for name in ("paged_chunk.cu", "paged_chunk_padded.cu", "flash_mma.cuh"):
+        (tmp_path / name).write_text((csrc.CSRC / name).read_text())
+    (tmp_path / "other.cu").write_text("extern \"C\" int other() { return 0; }\n")
+    monkeypatch.setattr(csrc, "CSRC", tmp_path)
+    names = ("paged_chunk", "paged_chunk_padded", "other")
+    before = {n: csrc._target(n)[1] for n in names}
+    src = tmp_path / "paged_chunk.cu"
+    src.write_text(src.read_text() + "// changed\n")
+    after = {n: csrc._target(n)[1] for n in names}
+    assert after["paged_chunk"] != before["paged_chunk"]
+    assert after["paged_chunk_padded"] != before["paged_chunk_padded"]
+    assert after["other"] == before["other"]
+
+
 def test_flash_wrappers_never_fall_back():
     """The flash wrappers run the plain version only for CPU tensors: a
     tensor elsewhere than the CPU or the card raises, and so does asking

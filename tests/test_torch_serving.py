@@ -160,6 +160,60 @@ def test_batcher_matches_jax_forecast(pair, forecasts, mode):
     assert not bool(b.state.alloc_failed)
 
 
+#: an MQA model: 32 query heads over one kv head of width 4. On the card its
+#: decode ticks run the decode kernel's group in two chunks of 16 heads and
+#: its prefix admissions the chunk kernel at head dim 4 (instantiated at 8)
+MQA_SIZES = dict(dim=128, heads=32, kv_heads=1, layers=2)
+
+
+@pytest.fixture(scope="module")
+def mqa_pair():
+    jm = JaxModel(**MQA_SIZES)
+    init = jm.init(jax.random.PRNGKey(1), jnp.zeros((1, 16, FEATURES)))["params"]
+    params = jax.tree.map(
+        lambda x: x.astype(jnp.bfloat16) if x.ndim >= 2 else x, {"params": init}
+    )
+    tm = TelemetrySequenceModel(**MQA_SIZES, device="cpu")
+    load_flax_params(tm, jax.tree.map(np.asarray, params))
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("mode", ["run", "run_waves"])
+def test_mqa_group_of_32_matches_the_reference(mqa_pair, mode):
+    """The MQA model (``dim=128, heads=32, kv_heads=1``) through ``run`` and
+    ``run_waves`` (the port on one torch thread) against JAX's
+    ``forecast_deltas`` and against the reference's own batcher (``run``)
+    on the same requests, both in the serving band (first two steps rtol
+    3e-2, atol 1.5e-2; the whole forecast rtol 0.25, atol 0.05): at width
+    128 the two frameworks' bf16 CPU products sum in other orders and part
+    by a few 1e-3 after a tick (measured 5e-3); every page comes home."""
+    jm, params, tm = mqa_pair
+    requests = [_request(*r) for r in REQUESTS[:3]]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        b = ContinuousBatcher(tm, num_pages=24, page_size=8, slots=2, max_prefix=32,
+                              max_pages_per_seq=8, device="cpu")
+        got = getattr(b, mode)(requests)
+    finally:
+        torch.set_num_threads(threads)
+    batcher = jsv.ContinuousBatcher(jm, params, num_pages=24, page_size=8, slots=2,
+                                    max_prefix=32, max_pages_per_seq=8)
+    want = batcher.run([jsv.Request(r.progress, r.statuses, r.horizon) for r in requests])
+    for i, (g, w, r) in enumerate(zip(got, want, requests)):
+        oracle = np.asarray(jax_forecast(jm, params, jnp.asarray(r.progress[None]),
+                                         jnp.asarray(r.statuses[None]), r.horizon),
+                            np.float32)[0]
+        assert g.shape == w.shape == oracle.shape
+        np.testing.assert_allclose(g[:2], oracle[:2], rtol=3e-2, atol=1.5e-2,
+                                   err_msg=f"request {i}")
+        np.testing.assert_allclose(g, oracle, rtol=0.25, atol=0.05, err_msg=f"request {i}")
+        np.testing.assert_allclose(g[:2], w[:2], rtol=3e-2, atol=1.5e-2, err_msg=f"request {i}")
+        np.testing.assert_allclose(g, w, rtol=0.25, atol=0.05, err_msg=f"request {i}")
+    assert int(b.state.free_top) == 24
+    assert not bool(b.state.alloc_failed)
+
+
 def test_run_waves_device_results_and_tick_count(pair):
     _, _, tm = pair
     requests = [_request(*r) for r in REQUESTS] + [_request(5, 7, 0)]

@@ -12,8 +12,9 @@ script, one process a rank of a ``gloo`` group::
 Each rank joins the group through the port's ``initialize``, runs every
 cell of :data:`CELLS` on ``make_hybrid_mesh`` over the group, every cell of
 :data:`FORWARD_CELLS` on its mesh cut between the processes as the cell
-says, ``along`` over a split group for each of :data:`ALONG_OPS`, and
-``dryrun_multichip(8)`` over the group, and writes its results
+says, ``along`` over a split group for each of :data:`ALONG_OPS`, the model's
+blocks as 1F1B stages with each stage's tp pair split (:data:`BLOCK_CELLS`),
+and ``dryrun_multichip(8)`` over the group, and writes its results
 (``torch.save``) to ``OUT``. ``--plant`` also runs the two negative
 controls of the bitwise gate: :data:`PLANT_CELL` with rank 1 given the
 wrong dp rows, and :data:`PLANT_RING` with rank 1 keeping the k block it
@@ -167,6 +168,8 @@ FORWARD_CELLS = {
     "1f1b dp=2 pp=2": ("1f1b", (2, 2), ("dp", "pp"), "pp", dict(dp_axis="dp")),
     "1f1b dp=2 pp=2 tp=2": ("1f1b-tp", (2, 2, 2), ("dp", "pp", "tp"), "pp",
                             dict(dp_axis="dp")),
+    # each stage's tp pair split between the two processes
+    "1f1b pp=2 tp=2 along tp": ("1f1b-tp", (2, 2), ("pp", "tp"), "tp", {}),
     "serving dp=2": ("serving", (2,), ("dp",), "dp", {}),
     "serving dp=2 tp=2": ("serving", (2, 2), ("dp", "tp"), "dp", dict(megatron=True)),
     "ring sp=2 flash": ("attend", (2,), ("sp",), "sp", dict(fn="ring", backend="flash")),
@@ -183,7 +186,16 @@ FORWARD_CELLS = {
 FOUR_CELLS = {
     "ring step dp=2 sp=2 four processes": ("sp-step", (2, 2), ("dp", "sp"), "member",
                                            dict(attention="ring")),
+    # one member a process: each stage's tp pair split between two of them,
+    # every hop between stages crossing processes
+    "1f1b pp=2 tp=2 four processes": ("1f1b-tp", (2, 2), ("pp", "tp"), "member", {}),
 }
+#: the model's own blocks as 1F1B stages (``pipeline_stages``) on (pp, tp)
+#: = (2, 2), each stage's tp pair split between the two processes: the
+#: stage runs its megatron blocks over the group's processes
+#: (``mesh.members_mesh``); the flash model, cut along tp
+BLOCK_CELLS = {"1f1b blocks pp=2 tp=2 along tp": ((2, 2), ("pp", "tp"), "tp")}
+BLOCK_MODEL = dict(dim=32, heads=4, kv_heads=2, layers=2, attention="flash")
 #: the second planted control's cell
 PLANT_RING = "ring step dp=2 tp=1 sp=2"
 #: the collectives ``along`` runs over one group of 4 members split 2 / 2
@@ -291,9 +303,13 @@ def t_loss(out, y):
 
 
 def megatron_stage(ps, xs):
+    """Megatron's pair over the stage's tp group: ``xs`` the members'
+    inputs this process holds (a ``Members`` where the group is split
+    between processes, which the lists handed to the collectives keep)."""
     hs = [torch.nn.functional.gelu(a @ p["w1"], approximate="tanh")
           for a, p in zip(collectives.tp_replicate(xs), ps)]
-    parts = collectives.tp_all_reduce([h @ p["w2"] for h, p in zip(hs, ps)])
+    parts = collectives.tp_all_reduce(collectives.like(xs, [h @ p["w2"]
+                                                            for h, p in zip(hs, ps)]))
     return [a + b for a, b in zip(xs, parts)]
 
 
@@ -399,6 +415,42 @@ def run_forward_cell(name: str, mesh) -> dict:
     return dict(out=[t.detach().clone() for t in res], digest=tensors_digest(res))
 
 
+def block_inputs():
+    """The block cell's model (seed 0, frozen), stage inputs (M=2 of 2
+    rows, T=16, dim 32), targets and loss (its ``ln`` + ``head`` + MSE)."""
+    from beholder_tpu_torch.models import TelemetrySequenceModel
+
+    model = init_seq_state(0, TelemetrySequenceModel(**BLOCK_MODEL, device="cpu")).model
+    model.requires_grad_(False)
+    rng = np.random.default_rng(21)
+    h = torch.from_numpy(rng.normal(size=(2, 2, 16, BLOCK_MODEL["dim"])).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(2, 2, 16)).astype(np.float32))
+
+    def loss_fn(out, target):
+        return ((model.head(model.ln(out))[..., 0] - target) ** 2).mean()
+
+    return model, h, y, loss_fn
+
+
+def run_block_cell(name: str, mesh) -> dict:
+    """The block cell on ``mesh``: ``out`` the loss and the whole stacked
+    gradients (sorted by name), ``digest`` their bytes' hash."""
+    from beholder_tpu_torch.models import pipeline_stages
+    from beholder_tpu_torch.parallel import stack_stage_params
+    from beholder_tpu_torch.parallel.sharding import seq_spec
+
+    model, h, y, loss_fn = block_inputs()
+    stage_fn, params = pipeline_stages(model, mesh.shape["pp"])
+    stacked = stack_stage_params(params)
+    specs = stage_specs(stacked, rule=seq_spec)
+    loss, grads = pipeline_train_step(stage_fn, loss_fn, stacked, h, y, mesh,
+                                      param_specs=specs)
+    whole = stack_stage_grads(grads, mesh, specs)
+    res = [loss.detach(), *(whole[n] for n in sorted(whole))]
+    return dict(out=[t.detach().clone() for t in res], names=sorted(whole),
+                digest=tensors_digest(res))
+
+
 def _port_stages(stacked_np: dict) -> dict:
     from beholder_tpu_torch.models.bridge import flax_stage_params
 
@@ -499,6 +551,8 @@ def main(argv: list[str]) -> None:
         for name in FORWARD_CELLS:
             results[name] = run_forward_cell(name, forward_mesh(name, world, rank))
         results["along"] = {op: run_along(op, along_mesh(world, rank)) for op in ALONG_OPS}
+        results["blocks"] = {name: run_block_cell(name, cut_mesh(shape, names, cut, world, rank))
+                             for name, (shape, names, cut) in BLOCK_CELLS.items()}
         results["dryrun"] = dryrun_multichip(8, devices=["cpu"] * (8 // world))
         if "--plant" in argv:
             n = mlp_data()[0].shape[0]
